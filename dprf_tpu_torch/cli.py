@@ -1,0 +1,276 @@
+"""The command-line interface of the port: ``python -m dprf_tpu_torch``.
+
+Subcommands: crack (a local mask job), bench (candidates/s of the mask
+worker), engines, keyspace.  Devices:
+
+- ``cuda`` (the default): the hand-written CUDA kernel on the card;
+- ``torch-cpu``: the same worker on CPU tensors, running the kernel's
+  plain PyTorch version;
+- ``cpu``: the hashlib oracle.
+
+``--device cuda`` without a card is an error, never a quiet move to
+the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional
+
+from dprf_tpu_torch import engine_names, get_engine
+from dprf_tpu_torch.generators.mask import MaskGenerator
+from dprf_tpu_torch.utils.logging import Log
+
+DEVICES = ("cuda", "torch-cpu", "cpu")
+#: default step batch per device: a launch of 2^24 candidates keeps the
+#: card busy for about a millisecond; CPU tensors want far smaller steps
+DEFAULT_BATCH = {"cuda": 1 << 24, "torch-cpu": 1 << 14, "cpu": 1 << 14}
+#: default WorkUnit size, in batches
+UNIT_BATCHES = 16
+
+
+def _add_custom_charsets(c) -> None:
+    for i in range(1, 5):
+        c.add_argument(f"--custom{i}", default=None,
+                       help=f"custom charset ?{i}")
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m dprf_tpu_torch",
+        description="password recovery on an NVIDIA card (PyTorch/CUDA)")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    c = sub.add_parser("crack", help="run a recovery job locally")
+    c.add_argument("attack_arg", help="mask string")
+    c.add_argument("hashfile", help="file of target hashes")
+    c.add_argument("--engine", "-m", required=True,
+                   help="hash algorithm (see `engines`)")
+    c.add_argument("--device", default="cuda", choices=DEVICES,
+                   help="cuda: the CUDA kernel on the card (default); "
+                   "torch-cpu: the kernel's plain version on CPU tensors; "
+                   "cpu: the hashlib oracle")
+    c.add_argument("-a", "--attack", default="mask", choices=["mask"],
+                   help="attack mode (mask)")
+    _add_custom_charsets(c)
+    c.add_argument("--potfile", default="dprf.potfile")
+    c.add_argument("--no-potfile", action="store_true")
+    c.add_argument("--batch", type=int, default=None,
+                   help="candidates per device step (default 2^24 on "
+                   "cuda, 2^14 on the CPU)")
+    c.add_argument("--unit-size", type=int, default=None,
+                   help=f"keyspace indices per WorkUnit (default "
+                   f"{UNIT_BATCHES} batches)")
+    c.add_argument("--hit-cap", type=int, default=64,
+                   help="hit lanes a step reports before the batch goes "
+                   "to the exact oracle rescan")
+    c.add_argument("--skip", type=int, default=0, metavar="N",
+                   help="skip the first N keyspace indices")
+    c.add_argument("--limit", type=int, default=None, metavar="N",
+                   help="restrict the sweep to N indices after --skip")
+    c.add_argument("--quiet", "-q", action="store_true")
+
+    b = sub.add_parser("bench", help="measure the mask worker's "
+                       "candidates/s")
+    b.add_argument("--engine", "-m", default="md5")
+    b.add_argument("--mask", default="?a?a?a?a?a?a?a?a")
+    b.add_argument("--device", default="cuda",
+                   choices=("cuda", "torch-cpu"))
+    b.add_argument("--seconds", type=float, default=5.0)
+    b.add_argument("--quiet", "-q", action="store_true")
+
+    e = sub.add_parser("engines", help="list available engines")
+    e.add_argument("--device", default=None, choices=("cpu", "cuda"))
+    e.add_argument("--quiet", "-q", action="store_true")
+
+    k = sub.add_parser("keyspace", help="print the keyspace size of a mask")
+    k.add_argument("attack_arg", metavar="mask")
+    _add_custom_charsets(k)
+    k.add_argument("--quiet", "-q", action="store_true")
+    return p
+
+
+def _customs(args) -> dict:
+    out = {}
+    for i in range(1, 5):
+        v = getattr(args, f"custom{i}", None)
+        if v is not None:
+            out[i] = v.encode("latin-1")
+    return out
+
+
+def _torch_device(device: str) -> str:
+    """CLI device -> torch device; ``cuda`` needs a card."""
+    import torch
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise ValueError(
+                "--device cuda needs an NVIDIA card and torch finds none "
+                "(torch.cuda.is_available() is False); pass --device "
+                "torch-cpu or --device cpu to run on the CPU")
+        return "cuda"
+    return "cpu"
+
+
+def _make_worker(args, tdev, gen, targets, oracle, batch: int):
+    """The oracle's CpuWorker for tdev None, else the torch engine's
+    mask worker on torch device tdev."""
+    from dprf_tpu_torch.runtime.worker import CpuWorker
+    if tdev is None:
+        return CpuWorker(oracle, gen, targets)
+    dev = get_engine(args.engine, device="cuda", torch_device=tdev)
+    return dev.make_mask_worker(gen, targets, batch=batch,
+                                hit_capacity=args.hit_cap, oracle=oracle)
+
+
+def _make_dispatcher(args, keyspace: int, unit_size: int, log: Log):
+    """--skip/--limit restrict this run's sweep by pre-marking the
+    excluded ranges covered."""
+    from dprf_tpu_torch.runtime.dispatcher import Dispatcher
+    skip = min(args.skip or 0, keyspace)
+    excluded = []
+    if skip:
+        excluded.append((0, skip))
+        log.info("skipping keyspace prefix", skip=skip)
+    if args.limit is not None and skip + args.limit < keyspace:
+        excluded.append((skip + args.limit, keyspace))
+        log.info("limiting sweep", limit=args.limit)
+    if excluded:
+        return Dispatcher.from_completed(keyspace, unit_size, excluded)
+    return Dispatcher(keyspace, unit_size)
+
+
+def cmd_crack(args, log: Log) -> int:
+    from dprf_tpu_torch.runtime.coordinator import Coordinator, JobSpec
+    from dprf_tpu_torch.runtime.potfile import Potfile, encode_plain
+    from dprf_tpu_torch.utils.hashlist import load_hashlist
+
+    device = args.device
+    # resolved first: --device cuda without a card fails before set-up
+    tdev = None if device == "cpu" else _torch_device(device)
+    oracle = get_engine(args.engine, device="cpu")
+    hl = load_hashlist(oracle, args.hashfile)
+    for no, _, err in hl.skipped:
+        log.warn("skipping hashlist line", line=no, error=err)
+    if not hl.targets:
+        log.error("no valid targets in hashlist")
+        return 2
+    log.info("loaded targets", count=len(hl.targets),
+             duplicates=hl.duplicates, engine=oracle.name)
+    gen = MaskGenerator(args.attack_arg, custom=_customs(args) or None)
+    log.info("keyspace", mask=args.attack_arg, size=gen.keyspace)
+    batch = args.batch or DEFAULT_BATCH[device]
+    unit_size = args.unit_size or UNIT_BATCHES * batch
+    dispatcher = _make_dispatcher(args, gen.keyspace, unit_size, log)
+    worker = _make_worker(args, tdev, gen, hl.targets, oracle, batch)
+    log.info("worker", kind=type(worker).__name__, device=device,
+             batch=batch, unit_size=unit_size)
+    potfile = None if args.no_potfile else Potfile(args.potfile)
+
+    def progress(done, total, nfound, rate):
+        log.info("progress", pct=f"{100.0 * done / total:.2f}%",
+                 found=f"{nfound}/{len(hl.targets)}",
+                 rate=f"{rate:,.0f}/s")
+
+    spec = JobSpec(engine=oracle.name, device=device, attack=args.attack,
+                   attack_arg=args.attack_arg, keyspace=gen.keyspace)
+    coord = Coordinator(spec, hl.targets, dispatcher, worker,
+                        potfile=potfile,
+                        progress_cb=None if args.quiet else progress,
+                        # device hits are re-hashed by the oracle before
+                        # the potfile; the CPU worker IS the oracle
+                        oracle=oracle if device != "cpu" else None,
+                        log=log)
+    coord.preload_found()
+    if coord.found:
+        log.info("pre-cracked targets", count=len(coord.found))
+    result = coord.run()
+    for ti, plain in sorted(result.found.items()):
+        print(f"{hl.targets[ti].raw}:{encode_plain(plain)}")
+    log.info("job finished",
+             found=f"{len(result.found)}/{len(hl.targets)}",
+             tested=result.tested, elapsed=f"{result.elapsed:.3f}s",
+             rate=f"{result.rate:,.0f}/s", exhausted=result.exhausted,
+             rejected=result.rejected,
+             batches=getattr(worker, "dispatched", 0))
+    return 0 if result.found else 1
+
+
+def cmd_bench(args, log: Log) -> int:
+    """Sweep the mask's keyspace from index 0 through the worker's step
+    for --seconds against a target no candidate of the mask can hit
+    (the digest of a longer string), and print candidates/s."""
+    import hashlib
+    import json
+    import time
+
+    import torch
+
+    from dprf_tpu_torch.engines.base import Target
+
+    tdev = _torch_device(args.device)
+    gen = MaskGenerator(args.mask)
+    batch = min(DEFAULT_BATCH[args.device], gen.keyspace)
+    oracle = get_engine(args.engine, device="cpu")
+    miss = hashlib.md5(b"\0" * (gen.length + 1)).digest()
+    dev = get_engine(args.engine, device="cuda", torch_device=tdev)
+    worker = dev.make_mask_worker(gen, [Target(miss.hex(), miss)],
+                                  batch=batch, hit_capacity=64,
+                                  oracle=oracle)
+    sync = torch.cuda.synchronize if tdev == "cuda" else (lambda: None)
+    worker.step(gen.digits(0), batch)          # warm-up
+    sync()
+    pos, tested, hits = 0, 0, None
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < args.seconds:
+        n_valid = min(batch, gen.keyspace - pos)
+        count, _, _ = worker.step(gen.digits(pos), n_valid)
+        hits = count if hits is None else hits + count
+        tested += n_valid
+        pos = (pos + n_valid) % gen.keyspace
+    sync()
+    elapsed = time.perf_counter() - t0
+    res = {"engine": args.engine, "device": args.device,
+           "device_name": (torch.cuda.get_device_name(0)
+                           if tdev == "cuda" else "cpu"),
+           "worker": type(worker).__name__, "mask": args.mask,
+           "batch": batch, "candidates": tested, "seconds": elapsed,
+           "rate": tested / elapsed,
+           "hits": 0 if hits is None else int(hits.item())}
+    print(json.dumps(res))
+    return 0
+
+
+def cmd_engines(args, log: Log) -> int:
+    for dev in [args.device] if args.device else ["cpu", "cuda"]:
+        print(f"{dev}: {', '.join(engine_names(dev))}")
+    return 0
+
+
+def cmd_keyspace(args, log: Log) -> int:
+    print(MaskGenerator(args.attack_arg,
+                        custom=_customs(args) or None).keyspace)
+    return 0
+
+
+_COMMANDS = {
+    "crack": cmd_crack,
+    "bench": cmd_bench,
+    "engines": cmd_engines,
+    "keyspace": cmd_keyspace,
+}
+
+
+def main(argv: Optional[list] = None) -> int:
+    args = _build_parser().parse_args(argv)
+    log = Log(quiet=getattr(args, "quiet", False))
+    try:
+        return _COMMANDS[args.command](args, log)
+    except (ValueError, KeyError, OSError) as e:
+        log.error(str(e))
+        return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,89 @@
+"""Torch device engines.
+
+Each engine exposes (a) ``digest_packed``, the digest over packed
+message words on any torch device, used by the fused crack step; (b)
+``hash_batch``, the HashEngine host API, which round-trips bytes through
+the engine's device; and (c) ``make_mask_worker``, the CLI's single
+entry into the device path.
+
+Digest word layouts match the CPU oracles bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from dprf_tpu_torch.engines import register
+from dprf_tpu_torch.engines.base import DeviceHashEngine, HashEngine
+from dprf_tpu_torch.ops.md5 import md5_digest_words
+from dprf_tpu_torch.ops.pack import pack_fixed
+
+
+class TorchEngineBase(DeviceHashEngine, HashEngine):
+    """Packing and host-convenience layer for single-block engines.
+
+    torch_device: where the engine's tensors live -- "cuda" (the
+    default) or "cpu" when the caller asks for it."""
+
+    #: digest words are little-endian (MD4/MD5 family) or big-endian (SHA)
+    little_endian: bool = True
+    max_candidate_len = 55
+
+    def __init__(self, torch_device="cuda"):
+        self.torch_device = torch.device(torch_device)
+
+    def pack(self, cand: torch.Tensor, length: int) -> torch.Tensor:
+        """uint8[B, length] candidates -> int32[B, 16] message words."""
+        return pack_fixed(cand, length, big_endian=not self.little_endian)
+
+    def hash_batch(self, candidates: Sequence[bytes],
+                   params: Optional[dict] = None) -> list[bytes]:
+        out: list = [None] * len(candidates)
+        by_len: dict = {}
+        for i, c in enumerate(candidates):
+            if len(c) > self.max_candidate_len:
+                raise ValueError(f"{self.name}: candidate longer than the "
+                                 f"{self.max_candidate_len}-byte "
+                                 "single-block limit")
+            by_len.setdefault(len(c), []).append(i)
+        dt = "<u4" if self.little_endian else ">u4"
+        for length, idx in by_len.items():
+            buf = np.zeros((len(idx), length), dtype=np.uint8)
+            for row, i in enumerate(idx):
+                buf[row] = np.frombuffer(candidates[i], dtype=np.uint8)
+            cand = torch.as_tensor(buf, device=self.torch_device)
+            digest = self.digest_packed(self.pack(cand, length)).cpu().numpy()
+            words = digest.view(np.uint32).astype(dt)
+            for row, i in enumerate(idx):
+                out[i] = words[row].tobytes()[:self.digest_size]
+        return out
+
+    def make_mask_worker(self, gen, targets, batch: int, hit_capacity: int,
+                         oracle=None):
+        """The mask worker for this engine: the hand-written kernel's
+        worker, which runs the kernel on a card and its plain version on
+        CPU tensors.  A job the kernel does not take is refused, never
+        moved to another path."""
+        from dprf_tpu_torch.ops.cuda_mask import kernel_eligible
+        from dprf_tpu_torch.runtime.worker import CudaMaskWorker
+        if not kernel_eligible(self.name, gen, len(targets)):
+            raise ValueError(
+                f"{self.name}: no mask kernel for this job (it takes md5, "
+                "one target, 1..55 positions); use --device cpu")
+        return CudaMaskWorker(self, gen, targets, batch=batch,
+                              hit_capacity=hit_capacity, oracle=oracle,
+                              device=self.torch_device)
+
+
+@register("md5", device="cuda")
+class TorchMd5Engine(TorchEngineBase):
+    name = "md5"
+    digest_size = 16
+    digest_words = 4
+    little_endian = True
+
+    def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
+        return md5_digest_words(blocks)

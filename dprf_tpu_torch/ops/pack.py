@@ -1,0 +1,44 @@
+"""Candidate packing: uint8 candidate bytes -> Merkle-Damgard message words.
+
+Single block only: candidates up to 55 bytes, which covers the mask
+path of every benchmark config.  Words come out as int32 tensors with
+the bit pattern of the reference's uint32 words.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _pad_const(length: int, big_endian: bool) -> np.ndarray:
+    """Static MD padding for a fixed message length: 0x80 marker + 64-bit
+    bit count (LE for MD4/MD5, BE for SHA-1/SHA-256)."""
+    if length > 55:
+        raise ValueError(
+            f"single-block packing needs length <= 55, got {length}")
+    const = np.zeros(64, dtype=np.uint8)
+    const[length] = 0x80
+    const[56:64] = np.frombuffer(
+        (length * 8).to_bytes(8, "big" if big_endian else "little"),
+        dtype=np.uint8)
+    return const
+
+
+def _words_from_bytes(msg: torch.Tensor, big_endian: bool) -> torch.Tensor:
+    """uint8[B, 64] -> int32[B, 16]."""
+    grouped = msg.reshape(*msg.shape[:-1], 16, 4).to(torch.int32)
+    shifts = (24, 16, 8, 0) if big_endian else (0, 8, 16, 24)
+    words = grouped[..., 0] << shifts[0]
+    for j in range(1, 4):
+        words = words | (grouped[..., j] << shifts[j])
+    return words
+
+
+def pack_fixed(cand: torch.Tensor, length: int,
+               big_endian: bool = False) -> torch.Tensor:
+    """Pack fixed-length candidates uint8[B, length] -> int32[B, 16]."""
+    pad = torch.as_tensor(_pad_const(length, big_endian), device=cand.device)
+    msg = pad.repeat(cand.shape[0], 1)
+    msg[:, :length] = cand
+    return _words_from_bytes(msg, big_endian)

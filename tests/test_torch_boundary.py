@@ -1,0 +1,80 @@
+"""The port's boundaries: it imports neither jax nor anything of
+dprf_tpu; ``--device cuda`` without a card fails; the CUDA kernel's
+wrapper refuses CPU tensors."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from dprf_tpu_torch import cli
+from dprf_tpu_torch.generators.mask import MaskGenerator
+from dprf_tpu_torch.ops import cuda_mask
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["dprf_tpu"] = None
+import dprf_tpu_torch
+names = ["dprf_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(dprf_tpu_torch.__path__,
+                                          "dprf_tpu_torch.")
+    if not m.name.endswith(".__main__")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+bad = sorted(n for n, m in sys.modules.items() if m is not None
+             and n.split(".")[0] in ("jax", "dprf_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_without_jax_or_reference():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr
+    n, bad = proc.stdout.split(" ", 1)
+    assert int(n) >= 20 and bad.strip() == "[]", proc.stdout
+
+
+def test_device_cuda_without_card_fails(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hashfile = tmp_path / "h.txt"
+    hashfile.write_text("5f4dcc3b5aa765d61d8327deb882cf99\n")
+    for argv in (["crack", "?l?l", str(hashfile), "--engine", "md5",
+                  "--no-potfile"],
+                 ["crack", "?l?l", str(hashfile), "--engine", "md5",
+                  "--device", "cuda", "--no-potfile"],
+                 ["bench", "--mask", "?l?l", "--seconds", "0.1"]):
+        assert cli.main(argv) == 2
+        captured = capsys.readouterr()
+        assert "--device cuda needs an NVIDIA card" in captured.err
+        assert captured.out == ""
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    gen = MaskGenerator("?l?l?l")
+    launches = cuda_mask.mask_md5_kernel.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_mask.mask_md5_kernel(gen.charset_lut("cpu"), gen.radices,
+                                  gen.digits(0), 64, [0, 0, 0, 0], 4, 64)
+    assert cuda_mask.mask_md5_kernel.launches == launches
+
+
+def test_kernel_job_checks():
+    gen = MaskGenerator("?l?l?l")
+    lut = gen.charset_lut("cpu")
+    good = (lut, gen.radices, gen.digits(0), 64, [0, 0, 0, 0], 4, 64)
+    cuda_mask.mask_md5(*good)
+    for i, bad in [(0, lut.to(torch.int32)), (1, gen.radices[:2]),
+                   (2, [26, 0, 0]), (3, 65), (4, [0, 0, 0]), (5, -1),
+                   (6, 1 << 31)]:
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            cuda_mask.mask_md5(*args)
