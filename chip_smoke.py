@@ -3,25 +3,41 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It drives the port's main path -- benchmark config 1, an MD5 mask
-attack ``?l?l?l?l?l?l`` on one target, at its full keyspace of
-308,915,776 candidates -- through the CLI a user calls, on the card:
+It drives the port's main paths through the CLI a user calls, on the
+card, and holds every kernel against its plain PyTorch version:
 
-1. the card: name, device count, power limit;
-2. builds the CUDA kernel from the checkout's sources and prints
-   nvcc's register / shared memory / spill lines;
-3. holds the kernel against its plain PyTorch version on the card, with
-   exact equality of the hit count and of the sorted hit lanes, at a
-   batch of 2^24 in five cases (first lane, last valid lane of a partial
-   batch, no hit, ?a^8 from a random base, hit capacity 0), and checks
-   that a worker with hit capacity 0 recovers the hit by its rescan;
-4. cracks md5("zzzzzz") -- the last keyspace index, so the whole
-   keyspace is swept -- with ``crack --device cuda`` and checks the
-   plaintext, the potfile line, the oracle's verdict and that the
-   kernel's launch count equals the batches the worker dispatched;
-5. times the kernel per launch with CUDA events, the plain version for
-   one launch, and the CLI's ``bench`` on ?a^8, beside the bound;
-6. prints the kernels line and, last, the device line.
+1. the card: name, device count, power limit, SM count and clock;
+2. builds the mask kernel (csrc/mask.cu, every core x compare mode)
+   from the checkout's sources and prints nvcc's register / shared
+   memory / spill lines and a SASS census of each instantiation;
+3. holds each instantiation against its plain version on the card at a
+   batch of 2^24, with exact equality of the hit count, the sorted hit
+   lanes and, for the multi-target compare, the table positions and
+   n_maybe: md5 one target in five cases (first lane, last valid lane
+   of a partial batch, no hit, ?a^8 from a random base, hit capacity
+   0); ntlm, sha1, sha256 one target at the first lane, the last valid
+   lane of a partial batch and with no hit; md5, ntlm, sha1, sha256 at 1,000 targets with hits
+   at the first lane, two in one warp and the last valid lane of a
+   partial batch, and with no hit; md5 at the largest shared memory a
+   block takes (55 positions, 8,192 targets), where fewer blocks fit on
+   an SM.  A worker with hit capacity 0 recovers its hit by the oracle
+   rescan;
+4. config 1: cracks md5("zzzzzz") -- the last index of ?l^6, so the
+   whole keyspace is swept -- with ``crack --device cuda``;
+5. config 2 at full width: 1,000 NTLM targets under ?a^7 -- 8 planted
+   in a window of 2^32 candidates (--skip S --limit 2^32) and 992
+   fillers no candidate of the mask can reach -- with ``crack --device
+   cuda``; checks all 8 found, the potfile, the Bloom survivors;
+6. the other instantiations end to end: ntlm with one target, md5 at
+   1,000 targets, sha1 and sha256 with one target and 1,000, each over
+   a 2^28-candidate window of ?a^7 through the CLI.
+
+   Every path of phases 4-6 runs with the launch counts set to 0 just
+   before it and read just after: its own kernel must have launched
+   once per batch the worker dispatched, and no other;
+7. times every instantiation per launch with CUDA events, the plain
+   version for one launch, beside the bound, and the CLI's ``bench``;
+8. prints the kernels line and, last, the device line.
 
 Any failure exits non-zero before the last line.  Without a card it
 exits 1 and prints no result.
@@ -34,6 +50,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -41,12 +58,26 @@ import time
 
 BATCH = 1 << 24
 MASK_CONFIG1 = "?l?l?l?l?l?l"
+MASK_CONFIG2 = "?a?a?a?a?a?a?a"
 MASK_BENCH = "?a?a?a?a?a?a?a?a"
 SEED = 20261016
+#: targets of the multi-target lists (config 2's size)
+N_TARGETS = 1000
+#: config 2's window: 256 batches of 2^24
+CONFIG2_WINDOW = 1 << 32
+#: the other instantiations' windows: 16 batches
+OTHER_WINDOW = 1 << 28
 #: launches between the CUDA events of one kernel timing
 TIMED_LAUNCHES = 50
-#: INT32 lanes per SM on Hopper (the bound's issue rate)
-INT32_LANES_PER_SM = 64
+#: lanes per SM of one pipe on Hopper, INT32 or IMAD (the unit of
+#: ops/opcount.Work.slots)
+LANES_PER_SM = 64
+#: every instantiation: (engine, multi target)
+INSTANCES = [(e, m) for e in ("md5", "ntlm", "sha1", "sha256")
+             for m in (False, True)]
+#: the C++ core of each engine, as in the kernels' mangled names
+CPP_CORE = {"Md5Core": "md5", "Md4Core": "ntlm", "Sha1Core": "sha1",
+            "Sha256Core": "sha256"}
 
 
 def fail(msg: str) -> None:
@@ -59,6 +90,10 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
 def nvidia_smi(fields: str) -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
                           "--format=csv,noheader"],
@@ -67,76 +102,216 @@ def nvidia_smi(fields: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def md5_words(plain: bytes):
-    import numpy as np
-    return np.frombuffer(hashlib.md5(plain).digest(), "<u4").astype(np.uint32)
+def kname(engine: str, multi: bool) -> str:
+    return f"{engine}_mask" + ("_multi" if multi else "")
 
 
-def kernel_vs_plain(cuda_mask, gen, lut, start: int, n_valid: int,
-                    target, hit_capacity: int, want_count: int,
-                    want_lanes, name: str) -> int:
-    """One case on the card: the kernel and the plain version on the
-    same inputs; returns the largest absolute difference (0 = equal)."""
-    import torch
-    args = (lut, gen.radices, gen.digits(start), n_valid,
-            [int(w) for w in target], hit_capacity, BATCH)
-    kc, kl = cuda_mask.mask_md5_kernel(*args)
-    pc, pl = cuda_mask.mask_crack_plain(*args)
-    torch.cuda.synchronize()
-    kc, pc = int(kc.item()), int(pc.item())
-    kl = sorted(int(x) for x in kl.cpu().tolist())
-    pl = sorted(int(x) for x in pl.cpu().tolist())
-    err = max([abs(kc - pc)] + [abs(a - b) for a, b in zip(kl, pl)])
-    print(f"  {name}: kernel count={kc} lanes={[x for x in kl if x >= 0]}"
-          f" | plain count={pc} lanes={[x for x in pl if x >= 0]}",
-          flush=True)
-    check(kc == pc and kl == pl, f"{name}: kernel and plain version differ")
-    check(kc == want_count, f"{name}: count {kc}, expected {want_count}")
-    check([x for x in kl if x >= 0] == sorted(want_lanes),
-          f"{name}: lanes {kl}, expected {sorted(want_lanes)}")
-    return err
+def instance_of(mangled: str) -> str:
+    """The kernel name of a mangled mask_kernel<Core, multi> symbol."""
+    m = re.search(r"mask_kernelI\d+(\w+?Core)Lb([01])E", mangled)
+    return kname(CPP_CORE[m.group(1)], m.group(2) == "1") if m else mangled
 
 
-def time_kernel(cuda_mask, gen, lut, target) -> float:
-    """ms per launch at BATCH lanes, CUDA events over TIMED_LAUNCHES
-    launches after warm-up."""
-    import torch
-    args = (lut, gen.radices, gen.digits(0), BATCH,
-            [int(w) for w in target], 64, BATCH)
-    for _ in range(3):
-        cuda_mask.mask_md5_kernel(*args)
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(TIMED_LAUNCHES):
-        cuda_mask.mask_md5_kernel(*args)
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / TIMED_LAUNCHES
+def digest_words(engine: str, digest: bytes) -> list:
+    from dprf_tpu_torch.ops.compare import digest_rows
+    from dprf_tpu_torch.ops.cuda_mask import device_engine
+    little = device_engine(engine).little_endian
+    return [int(w) for w in digest_rows([digest], little)[0]]
 
 
-def time_plain(cuda_mask, gen, lut, target) -> float:
-    """ms of one plain-version call at BATCH lanes on the card."""
-    import torch
-    args = (lut, gen.radices, gen.digits(0), BATCH,
-            [int(w) for w in target], 64, BATCH)
-    cuda_mask.mask_crack_plain(*args)          # warm-up (allocator)
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    cuda_mask.mask_crack_plain(*args)
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1)
+class Smoke:
+    def __init__(self):
+        import numpy as np
+        import torch
 
+        from dprf_tpu_torch import get_engine
+        from dprf_tpu_torch.ops import bloom, cuda_mask
+        from dprf_tpu_torch.ops.compare import make_target_table
 
-def run_cli(cli, argv):
-    out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = cli.main(argv)
-    return rc, out.getvalue(), err.getvalue()
+        self.np, self.torch = np, torch
+        self.get_engine, self.bloom, self.cm = get_engine, bloom, cuda_mask
+        self.make_target_table = make_target_table
+        self.rng = np.random.default_rng(SEED)
+        #: per instantiation: largest |kernel - plain| over its cases
+        self.err = {kname(e, m): 0 for e, m in INSTANCES}
+        #: per instantiation: launches of the main path that runs it
+        self.path_launches = {}
+
+    # -- targets ---------------------------------------------------------
+
+    def fillers(self, engine: str, n: int) -> list:
+        """Digests of n seeded 8-character strings: no candidate of a
+        mask of other than 8 positions can reach them."""
+        words = [bytes(self.rng.integers(33, 127, 8, dtype=self.np.uint8))
+                 for _ in range(n)]
+        return self.get_engine(engine).hash_batch(words)
+
+    def tables(self, engine: str, digests: list):
+        table = self.make_target_table(
+            digests, self.cm.device_engine(engine).little_endian)
+        rows = self.torch.as_tensor(
+            self.bloom.bloom_tables(table.original_words())
+            .view(self.np.int32), device="cuda")
+        return table, rows, table.tensor("cuda")
+
+    # -- phase 3: kernel vs plain -----------------------------------------
+
+    def single_case(self, engine, gen, lut, start, n_valid, plant, cap,
+                    want_lanes, name):
+        """One single-target case: kernel and plain on the same inputs."""
+        torch = self.torch
+        target = digest_words(engine, self.get_engine(engine).hash_batch(
+            [gen.candidate(plant) if plant is not None
+             else b"\0" * (gen.length + 1)])[0])
+        args = (engine, lut, gen.radices, gen.digits(start), n_valid,
+                target, cap, BATCH)
+        kc, kl = self.cm.mask_kernel(*args)
+        pc, pl = self.cm.mask_plain(*args)
+        torch.cuda.synchronize()
+        kc, pc = int(kc.item()), int(pc.item())
+        kl = sorted(int(x) for x in kl.cpu().tolist())
+        pl = sorted(int(x) for x in pl.cpu().tolist())
+        err = max([abs(kc - pc)] + [abs(a - b) for a, b in zip(kl, pl)])
+        say(f"  {kname(engine, False)} {name}: kernel count={kc} lanes="
+            f"{[x for x in kl if x >= 0]} | plain count={pc} "
+            f"lanes={[x for x in pl if x >= 0]}")
+        check(kc == pc and kl == pl, f"{name}: kernel and plain differ")
+        want_count = 0 if plant is None or not 0 <= plant - start < n_valid \
+            else 1
+        check(kc == want_count, f"{name}: count {kc}, expected {want_count}")
+        check([x for x in kl if x >= 0] == sorted(want_lanes),
+              f"{name}: lanes {kl}, expected {sorted(want_lanes)}")
+        key = kname(engine, False)
+        self.err[key] = max(self.err[key], err)
+
+    def multi_case(self, engine, gen, lut, start, n_valid, plants, name,
+                   n_targets=N_TARGETS):
+        """One multi-target case over n_targets targets: the planted
+        candidates' digests first, then fillers."""
+        oracle = self.get_engine(engine)
+        digests = oracle.hash_batch([gen.candidate(p) for p in plants])
+        digests += self.fillers(engine, n_targets - len(plants))
+        table, rows, words = self.tables(engine, digests)
+        args = (engine, lut, gen.radices, gen.digits(start), n_valid, rows,
+                words, 64, BATCH)
+        k = self.cm.mask_multi_kernel(*args)
+        p = self.cm.mask_multi_plain(*args)
+        self.torch.cuda.synchronize()
+
+        def flat(count, lanes, tpos, n_maybe):
+            pairs = sorted((int(a), int(b)) for a, b in
+                           zip(lanes.tolist(), tpos.tolist()))
+            return int(count.item()), pairs, int(n_maybe.item())
+
+        (kc, kp, km), (pc, pp, pm) = flat(*k), flat(*p)
+        err = max([abs(kc - pc), abs(km - pm)]
+                  + [abs(a - b) for x, y in zip(kp, pp)
+                     for a, b in zip(x, y)])
+        hits = [(l, int(table.order[t])) for l, t in kp if l >= 0]
+        say(f"  {kname(engine, True)} {name}: kernel count={kc} "
+            f"(lane, target)={hits} n_maybe={km} | plain count={pc} "
+            f"n_maybe={pm}")
+        check((kc, kp, km) == (pc, pp, pm),
+              f"{kname(engine, True)} {name}: kernel and plain differ")
+        want = [(p - start, i) for i, p in enumerate(plants)
+                if 0 <= p - start < n_valid]
+        check(hits == want, f"{name}: hits {hits}, expected {want}")
+        check(km >= len(want), f"{name}: n_maybe {km} below the hits")
+        key = kname(engine, True)
+        self.err[key] = max(self.err[key], err)
+
+    # -- phases 4-6: the CLI ----------------------------------------------
+
+    def crack(self, cli, engine, mask, digests, planted, skip=0, limit=None):
+        """crack --device cuda over [skip, skip + limit) with the launch
+        counts set to 0 just before it; checks the found set, the
+        potfile and the launches, and returns (summary, elapsed s)."""
+        from dprf_tpu_torch.generators.mask import MaskGenerator
+        from dprf_tpu_torch.runtime.potfile import encode_plain
+        gen = MaskGenerator(mask)
+        window = (limit if limit is not None else gen.keyspace - skip)
+        unit = cli.UNIT_BATCHES * BATCH
+        want_batches = sum(-(-min(unit, window - u) // BATCH)
+                           for u in range(0, window, unit))
+        oracle = self.get_engine(engine)
+        want = sorted(f"{d.hex()}:{encode_plain(p)}" for d, p in
+                      zip(oracle.hash_batch(planted), planted))
+        multi = len(digests) > 1
+        with tempfile.TemporaryDirectory() as tmp:
+            hashfile = os.path.join(tmp, "hashes.txt")
+            pot = os.path.join(tmp, "job.potfile")
+            with open(hashfile, "w") as fh:
+                fh.write("".join(d.hex() + "\n" for d in digests))
+            argv = ["crack", "--device", "cuda", "--engine", engine, "-a",
+                    "mask", mask, hashfile, "--potfile", pot, "--batch",
+                    str(BATCH)]
+            if skip:
+                argv += ["--skip", str(skip)]
+            if limit is not None:
+                argv += ["--limit", str(limit)]
+            self.cm.reset_launches()
+            t0 = time.perf_counter()
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(argv)
+            elapsed = time.perf_counter() - t0
+            launches = dict(self.cm.launches)
+            with open(pot) as fh:
+                pot_lines = sorted(fh.read().splitlines())
+        out, err = out.getvalue(), err.getvalue()
+        name = kname(engine, multi)
+        check(rc == 0, f"crack {engine} exited {rc}: {err[-2000:]}")
+        check(sorted(out.splitlines()) == want,
+              f"crack {engine} printed {out.splitlines()}, expected {want}")
+        check(pot_lines == want, f"potfile holds {pot_lines}")
+        finished = [ln for ln in err.splitlines() if "job finished" in ln]
+        check(len(finished) == 1 and "rejected=0" in finished[0]
+              and f"found={len(planted)}/{len(digests)}" in finished[0]
+              and f"tested={window}" in finished[0]
+              and f" batches={want_batches}" in finished[0],
+              f"{name}: job summary {finished}, expected "
+              f"{want_batches} batches")
+        check(launches[name] == want_batches and
+              sum(launches.values()) == want_batches,
+              f"{name}: launches {launches} for {want_batches} batches")
+        self.path_launches[name] = launches[name]
+        say(f"  {name}: {finished[0].split('job finished', 1)[1].strip()}")
+        say(f"    wall {elapsed:.3f} s for {window} candidates = "
+            f"{window / elapsed:,.0f} candidates/s (the whole CLI call); "
+            f"{name} launches={launches[name]} batches={want_batches}")
+        return finished[0], elapsed
+
+    # -- phase 7: timing --------------------------------------------------
+
+    def time_launches(self, fn, args) -> float:
+        """ms per launch, CUDA events over TIMED_LAUNCHES launches after
+        warm-up."""
+        torch = self.torch
+        for _ in range(3):
+            fn(*args)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(TIMED_LAUNCHES):
+            fn(*args)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / TIMED_LAUNCHES
+
+    def time_once(self, fn, args) -> float:
+        """ms of one call, after one warm-up call."""
+        torch = self.torch
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn(*args)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1)
 
 
 def main() -> None:
@@ -151,9 +326,12 @@ def main() -> None:
     from dprf_tpu_torch.engines.cpu.engines import Md5Engine
     from dprf_tpu_torch.engines.device.engines import TorchMd5Engine
     from dprf_tpu_torch.generators.mask import MaskGenerator
-    from dprf_tpu_torch.ops import _build, cuda_mask
+    from dprf_tpu_torch.ops import _build, bloom, cuda_mask, opcount
     from dprf_tpu_torch.runtime.worker import CudaMaskWorker
     from dprf_tpu_torch.runtime.workunit import WorkUnit
+
+    smoke = Smoke()
+    rng = smoke.rng
 
     # 1. the card
     name = torch.cuda.get_device_name(0)
@@ -161,57 +339,64 @@ def main() -> None:
     card = nvidia_smi("name,power.limit")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"== card: {name}  devices={count}  torch={torch.__version__} "
-          f"cuda={torch.version.cuda}", flush=True)
-    print(card, flush=True)
-    print(f"  SMs={sms}  max SM clock={clock_mhz:.0f} MHz", flush=True)
+    say(f"== card: {name}  devices={count}  torch={torch.__version__} "
+        f"cuda={torch.version.cuda}")
+    say(card)
+    say(f"  SMs={sms}  max SM clock={clock_mhz:.0f} MHz")
 
     # 2. the kernel build
-    built = _build.build("mask_md5")
+    built = _build.build("mask")
     cuda_mask.load_kernel()
-    print(f"== build: {built.path} ({built.seconds:.1f} s)", flush=True)
+    say(f"== build: {built.path} ({built.seconds:.2f} s of nvcc, all "
+        f"{len(INSTANCES)} instantiations)")
     for line in built.log.splitlines():
-        if "ptxas info" in line or "spill" in line:
-            print("  " + line.strip(), flush=True)
-    census = _build.sass_census("mask_md5")
-    top = ", ".join(f"{op} {n}" for op, n in
-                    list(census["by_opcode"].items())[:12])
-    print(f"  SASS (cuobjdump, static): {census['total']} instructions "
-          f"({top}); from the first K-table load to the atomic (the 64 "
-          f"MD5 steps and the compare): "
-          f"{census['constant_to_atomic_block']}", flush=True)
+        if "Compiling entry function" in line:
+            say(f"  {instance_of(line)}:")
+        elif "ptxas info    : Used" in line or "spill" in line:
+            say("    " + line.strip())
+    census = _build.sass_census("mask")
+    for func, c in sorted(census.items(), key=lambda kv: instance_of(kv[0])):
+        top = ", ".join(f"{op} {n}" for op, n in c["by_opcode"].items())
+        say(f"  SASS {instance_of(func)}: {c['total']} static instructions "
+            f"({top})")
+    for engine, multi in INSTANCES:
+        length = 6 if engine == "md5" and not multi else 7
+        n_sets = bloom.n_sets(N_TARGETS) if multi else 0
+        smem = cuda_mask.shared_bytes(length, n_sets)
+        say(f"  {kname(engine, multi)}: {smem} B shared at {length} "
+            f"positions{' and 1,000 targets' if multi else ''}, "
+            f"{cuda_mask.blocks_per_sm(engine, multi, smem)} resident "
+            f"blocks of {cuda_mask.THREADS} per SM (the grid's wave)")
+    smem = cuda_mask.shared_bytes(55, bloom.n_sets(bloom.MAX_TARGETS))
+    say(f"  md5_mask_multi at its largest, 55 positions and "
+        f"{bloom.MAX_TARGETS} targets: {smem} B shared, "
+        f"{cuda_mask.blocks_per_sm('md5', True, smem)} resident blocks per "
+        "SM")
 
     # 3. kernel vs plain on the card
-    print(f"== kernel vs plain at batch {BATCH} (exact equality)",
-          flush=True)
-    rng = np.random.default_rng(SEED)
+    say(f"== kernel vs plain at batch {BATCH} (exact equality)")
     g6 = MaskGenerator(MASK_CONFIG1)
     lut6 = g6.charset_lut("cuda")
+    g7 = MaskGenerator(MASK_CONFIG2)
+    lut7 = g7.charset_lut("cuda")
     g8 = MaskGenerator(MASK_BENCH)
     lut8 = g8.charset_lut("cuda")
-    errs = []
     s = 5 * BATCH
-    errs.append(kernel_vs_plain(cuda_mask, g6, lut6, s, BATCH,
-                                md5_words(g6.candidate(s)), 64, 1, [0],
-                                "?l^6 hit at lane 0"))
+    smoke.single_case("md5", g6, lut6, s, BATCH, s, 64, [0],
+                      "?l^6 hit at lane 0")
     s = (g6.keyspace // BATCH) * BATCH
     nv = g6.keyspace - s
-    errs.append(kernel_vs_plain(cuda_mask, g6, lut6, s, nv,
-                                md5_words(g6.candidate(g6.keyspace - 1)),
-                                64, 1, [nv - 1],
-                                f"?l^6 hit at last valid lane, n_valid={nv}"))
-    errs.append(kernel_vs_plain(cuda_mask, g6, lut6, 7 * BATCH, BATCH,
-                                md5_words(b"\0" * 7), 64, 0, [],
-                                "?l^6 no hit"))
+    smoke.single_case("md5", g6, lut6, s, nv, g6.keyspace - 1, 64, [nv - 1],
+                      f"?l^6 hit at last valid lane, n_valid={nv}")
+    smoke.single_case("md5", g6, lut6, 7 * BATCH, BATCH, None, 64, [],
+                      "?l^6 no hit")
     s = int(rng.integers(0, g8.keyspace - BATCH))
     lane = int(rng.integers(0, BATCH))
-    errs.append(kernel_vs_plain(cuda_mask, g8, lut8, s, BATCH,
-                                md5_words(g8.candidate(s + lane)), 64, 1,
-                                [lane], f"?a^8 random base {s}"))
+    smoke.single_case("md5", g8, lut8, s, BATCH, s + lane, 64, [lane],
+                      f"?a^8 random base {s}")
     s = 11 * BATCH
-    errs.append(kernel_vs_plain(cuda_mask, g6, lut6, s, BATCH,
-                                md5_words(g6.candidate(s + 12345)), 0, 1,
-                                [], "?l^6 hit_capacity=0"))
+    smoke.single_case("md5", g6, lut6, s, BATCH, s + 12345, 0, [],
+                      "?l^6 hit_capacity=0")
     # the worker's overflow contract: count 1 > capacity 0 -> rescan
     plant = s + 12345
     digest = hashlib.md5(g6.candidate(plant)).digest()
@@ -221,92 +406,164 @@ def main() -> None:
     check([(h.cand_index, h.plaintext) for h in hits]
           == [(plant, g6.candidate(plant))],
           f"hit_capacity=0 worker rescan returned {hits}")
-    print(f"  worker rescan with hit_capacity=0 found {hits[0].plaintext!r}"
-          f" at {plant}", flush=True)
-    max_err = max(errs)
+    say(f"  worker rescan with hit_capacity=0 found {hits[0].plaintext!r}"
+        f" at {plant}")
+    base = int(rng.integers(0, g7.keyspace // BATCH - 2)) * BATCH
+    nv = BATCH - 1000
+    for engine in ("ntlm", "sha1", "sha256"):
+        smoke.single_case(engine, g7, lut7, base, BATCH, base, 64, [0],
+                          "?a^7 hit at lane 0")
+        smoke.single_case(engine, g7, lut7, base + BATCH, nv,
+                          base + BATCH + nv - 1, 64, [nv - 1],
+                          f"?a^7 hit at last valid lane, n_valid={nv}")
+        smoke.single_case(engine, g7, lut7, base, BATCH, None, 64, [],
+                          "?a^7 no hit")
+    for engine in ("md5", "ntlm", "sha1", "sha256"):
+        smoke.multi_case(engine, g7, lut7, base, nv,
+                         [base, base + 64, base + 65, base + nv - 1,
+                          base + nv], "?a^7 hits at lanes 0, 64, 65, "
+                         f"n_valid-1 and n_valid={nv}")
+        smoke.multi_case(engine, g7, lut7, base + BATCH, BATCH, [base],
+                         "?a^7 no hit")
+    # the largest shared memory a block takes: 55 positions, 8 sets
+    g55 = MaskGenerator("?a" * 7 + "?d" * 48)
+    s = int(rng.integers(0, 1 << 62)) * BATCH
+    nv = BATCH - 7
+    smoke.multi_case("md5", g55, g55.charset_lut("cuda"), s, nv,
+                     [s, s + 1, s + nv - 1], f"?a^7?d^48 at "
+                     f"{bloom.MAX_TARGETS} targets, hits at lanes 0, 1 and "
+                     f"n_valid-1={nv - 1}", n_targets=bloom.MAX_TARGETS)
 
-    # 4. end to end: the CLI sweeps the whole ?l^6 keyspace on the card
-    print("== end to end: crack --device cuda -a mask ?l?l?l?l?l?l",
-          flush=True)
+    # 4. config 1: the whole ?l^6 keyspace
+    say("== config 1: crack --device cuda --engine md5 -a mask ?l^6")
     plain = g6.candidate(g6.keyspace - 1)
-    h = hashlib.md5(plain).hexdigest()
-    unit = cli.UNIT_BATCHES * BATCH
-    want_batches = sum(-(-min(unit, g6.keyspace - u) // BATCH)
-                       for u in range(0, g6.keyspace, unit))
-    with tempfile.TemporaryDirectory() as tmp:
-        hashfile = os.path.join(tmp, "hashes.txt")
-        pot = os.path.join(tmp, "e2e.potfile")
-        with open(hashfile, "w") as fh:
-            fh.write(h + "\n")
-        cuda_mask.mask_md5_kernel.launches = 0
-        t0 = time.perf_counter()
-        rc, out, err = run_cli(cli, [
-            "crack", "--device", "cuda", "--engine", "md5", "-a", "mask",
-            MASK_CONFIG1, hashfile, "--potfile", pot,
-            "--batch", str(BATCH)])
-        elapsed = time.perf_counter() - t0
-        launches = cuda_mask.mask_md5_kernel.launches
-        with open(pot) as fh:
-            pot_text = fh.read()
-    sys.stdout.write(out)
-    sys.stdout.write(err)
-    check(rc == 0, f"crack exited {rc}")
-    check(f"{h}:{plain.decode()}" in out.splitlines(),
-          "crack did not print the plaintext")
-    check(pot_text == f"{h}:{plain.decode()}\n",
-          f"potfile holds {pot_text!r}")
-    finished = [ln for ln in err.splitlines() if "job finished" in ln]
-    check(len(finished) == 1 and "rejected=0" in finished[0]
-          and "found=1/1" in finished[0]
-          and f"tested={g6.keyspace}" in finished[0],
-          f"job summary: {finished}")
-    check(f"batches={want_batches}" in finished[0],
-          f"worker dispatched other than {want_batches} batches")
-    check(launches == want_batches,
-          f"kernel launched {launches} times for {want_batches} batches")
-    print(f"  found {plain!r} over {g6.keyspace} candidates in "
-          f"{elapsed:.3f} s = {g6.keyspace / elapsed:,.0f} candidates/s "
-          f"(wall clock of the CLI call, host setup included); "
-          f"kernel launches={launches} batches={want_batches}; "
-          f"card: {card}", flush=True)
+    smoke.crack(cli, "md5", MASK_CONFIG1, [hashlib.md5(plain).digest()],
+                [plain])
 
-    # 5. timing and the CLI bench
-    print("== timing at batch 2^24 (CUDA events)", flush=True)
-    miss = md5_words(b"\0" * 9)
-    ms6 = time_kernel(cuda_mask, g6, lut6, miss)
-    ms8 = time_kernel(cuda_mask, g8, lut8, miss)
-    plain_ms = time_plain(cuda_mask, g6, lut6, miss)
-    rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
-    bound6 = BATCH * cuda_mask.ops_per_candidate(6) / rate * 1e3
-    bound8 = BATCH * cuda_mask.ops_per_candidate(8) / rate * 1e3
-    for mask, ms, bound in ((MASK_CONFIG1, ms6, bound6),
-                            (MASK_BENCH, ms8, bound8)):
-        print(f"  kernel {mask}: {ms:.4f} ms/launch = "
-              f"{BATCH / ms / 1e6:.3f} G candidates/s; bound {bound:.4f} ms"
-              f" ({bound / ms:.1%} of it); card: {card}", flush=True)
-    print(f"  plain version {MASK_CONFIG1}: {plain_ms:.3f} ms for one "
-          f"launch of {BATCH}", flush=True)
-    print(f"  bound: {cuda_mask.ops_per_candidate(6)} int32 ops/candidate "
-          f"(?l^6) / ({sms} SMs x {INT32_LANES_PER_SM} lanes x "
-          f"{clock_mhz:.0f} MHz)", flush=True)
-    rc, out, err = run_cli(cli, ["bench", "--engine", "md5", "--mask",
-                                 MASK_BENCH, "--device", "cuda",
-                                 "--seconds", "2"])
-    sys.stdout.write(out)
-    check(rc == 0, f"bench exited {rc}: {err}")
-    bench = json.loads(out.strip().splitlines()[-1])
-    check(bench["hits"] == 0, "bench found a hit on an unreachable target")
+    # 5. config 2 at full width
+    say("== config 2: crack --device cuda --engine ntlm -a mask ?a^7, "
+        f"{N_TARGETS} targets, a window of {CONFIG2_WINDOW} candidates")
+    skip = int(rng.integers(0, g7.keyspace - CONFIG2_WINDOW))
+    within = sorted({int(x) for x in rng.integers(1, CONFIG2_WINDOW - 1, 5)})
+    b = within[0] // BATCH * BATCH
+    idx = sorted({0, CONFIG2_WINDOW - 1, b + 100, b + 101, *within[1:]})
+    check(len(idx) == 8, f"planted indices collide: {idx}")
+    planted = [g7.candidate(skip + i) for i in idx]
+    ntlm = smoke.get_engine("ntlm")
+    digests = ntlm.hash_batch(planted) + smoke.fillers("ntlm", N_TARGETS - 8)
+    order = rng.permutation(N_TARGETS)
+    digests = [digests[i] for i in order]
+    rows = bloom.bloom_tables(smoke.make_target_table(digests).
+                              original_words())
+    fill = np.unpackbits(rows.view(np.uint8), axis=1).sum(axis=1) / 4096
+    p_false = float(np.prod(fill))
+    say(f"  planted at window offsets {idx} (skip {skip}); Bloom rows "
+        f"{fill.min():.3f}-{fill.max():.3f} full, a non-matching "
+        f"candidate passes with p={p_false:.3e}: predicted "
+        f"{p_false * BATCH:.1f} false maybes per batch of {BATCH}")
+    summary, elapsed = smoke.crack(cli, "ntlm", MASK_CONFIG2, digests,
+                                   planted, skip=skip, limit=CONFIG2_WINDOW)
+    maybes = int(re.search(r"maybes=(\d+)", summary).group(1))
+    batches = smoke.path_launches["ntlm_mask_multi"]
+    rate = re.search(r" rate=([\d,]+)/s", summary).group(1)
+    say(f"  config 2: {elapsed:.3f} s wall, the coordinator's loop "
+        f"{rate} candidates/s; Bloom maybes {maybes} = "
+        f"{maybes / batches:.2f} per batch (predicted "
+        f"{p_false * BATCH + 8 / batches:.2f} with the 8 real hits); "
+        f"card: {card}")
+    say(json.dumps({"config2": {
+        "wall_s": elapsed, "maybes": maybes, "batches": batches,
+        "p_false": p_false, "skip": skip, "window": CONFIG2_WINDOW}}))
 
-    # 6. the kernels line, then the device line
-    print(json.dumps({"kernels": [{
-        "name": "md5_mask", "route": "cuda", "source": cuda_mask.SOURCE,
-        "replaces": cuda_mask.REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": ms6, "plain_ms": plain_ms,
-        "bound_ms": bound6, "bound_by": "operations",
-        "library_ms": None}]}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": name,
-                                             "count": count}}), flush=True)
+    # 6. the other instantiations end to end, each over 16 batches
+    say("== the other instantiations: crack --device cuda over "
+        f"{OTHER_WINDOW} candidates of ?a^7")
+    for engine, multi in INSTANCES:
+        if kname(engine, multi) in smoke.path_launches:
+            continue
+        skip = int(rng.integers(0, g7.keyspace - OTHER_WINDOW))
+        plant = g7.candidate(skip + int(rng.integers(0, OTHER_WINDOW)))
+        digests = smoke.get_engine(engine).hash_batch([plant])
+        if multi:
+            digests += smoke.fillers(engine, N_TARGETS - 1)
+        smoke.crack(cli, engine, MASK_CONFIG2, digests, [plant], skip=skip,
+                    limit=OTHER_WINDOW)
+
+    # 7. timing at batch 2^24
+    say(f"== timing at batch 2^24 (CUDA events, {TIMED_LAUNCHES} launches);"
+        f" card: {card}")
+    rate = sms * LANES_PER_SM * clock_mhz * 1e6
+    timing = {}
+    for engine, multi in INSTANCES:
+        gen, lut = (g6, lut6) if engine == "md5" and not multi \
+            else (g7, lut7)
+        start = int(rng.integers(0, gen.keyspace // BATCH)) * BATCH
+        if multi:
+            table, rows, words = smoke.tables(
+                engine, smoke.fillers(engine, N_TARGETS))
+            args = (engine, lut, gen.radices, gen.digits(start), BATCH,
+                    rows, words, 64, BATCH)
+            fn, plain_fn = cuda_mask.mask_multi_kernel, \
+                cuda_mask.mask_multi_plain
+            n_maybe = int(fn(*args)[3].item())
+            probes = bloom.expected_probes(rows.cpu().numpy()
+                                           .view(np.uint32))
+            work = opcount.ops_per_candidate(engine, gen.length, True, probes,
+                                             n_maybe / BATCH, N_TARGETS)
+        else:
+            miss = digest_words(engine, smoke.get_engine(engine)
+                                .hash_batch([b"\0" * 9])[0])
+            args = (engine, lut, gen.radices, gen.digits(start), BATCH,
+                    miss, 64, BATCH)
+            fn, plain_fn = cuda_mask.mask_kernel, cuda_mask.mask_plain
+            work = opcount.ops_per_candidate(engine, gen.length)
+        ms = smoke.time_launches(fn, args)
+        plain_ms = smoke.time_once(plain_fn, args)
+        bound = BATCH * work.slots / rate * 1e3
+        timing[kname(engine, multi)] = (ms, plain_ms, bound)
+        say(f"  {kname(engine, multi)} {gen.mask}: {ms:.4f} ms/launch = "
+            f"{BATCH / ms / 1e6:.3f} G candidates/s; bound {bound:.4f} ms "
+            f"(per candidate {work.alu:.1f} ALU, {work.add:.1f} IADD3, "
+            f"{work.fma:.1f} IMAD = {work.slots:.1f} slots; kernel at "
+            f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
+    ms8 = smoke.time_launches(cuda_mask.mask_kernel, (
+        "md5", lut8, g8.radices, g8.digits(0), BATCH,
+        digest_words("md5", hashlib.md5(b"\0" * 9).digest()), 64, BATCH))
+    say(f"  md5_mask {MASK_BENCH}: {ms8:.4f} ms/launch = "
+        f"{BATCH / ms8 / 1e6:.3f} G candidates/s")
+    say(f"  bound: slots/candidate x 2^24 / ({sms} SMs x "
+        f"{LANES_PER_SM} lanes x {clock_mhz:.0f} MHz), slots from "
+        "ops/opcount.py")
+    for engine, mask in (("md5", MASK_BENCH), ("ntlm", MASK_CONFIG2)):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(["bench", "--engine", engine, "--mask", mask,
+                           "--device", "cuda", "--seconds", "2"])
+        say(out.getvalue().strip())
+        check(rc == 0, f"bench exited {rc}: {err.getvalue()}")
+        res = json.loads(out.getvalue().strip().splitlines()[-1])
+        check(res["hits"] == 0, "bench found a hit on an unreachable target")
+
+    # 8. the kernels line, then the device line
+    kernels = []
+    for engine, multi in INSTANCES:
+        key = kname(engine, multi)
+        ms, plain_ms, bound = timing[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": cuda_mask.SOURCE,
+            "replaces": cuda_mask.REPLACES,
+            "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations",
+            "library_ms": None})
+    check(all(k["launches"] > 0 for k in kernels),
+          "a kernel was not launched on its path")
+    check(all(k["max_abs_err"] == 0 for k in kernels),
+          "a kernel differs from its plain version")
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                           "count": count}}))
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@ worker), engines, keyspace.  Devices:
 - ``cuda`` (the default): the hand-written CUDA kernel on the card;
 - ``torch-cpu``: the same worker on CPU tensors, running the kernel's
   plain PyTorch version;
-- ``cpu``: the hashlib oracle.
+- ``cpu``: the CPU oracle (hashlib; a pure-Python MD4 for ntlm).
 
 ``--device cuda`` without a card is an error, never a quiet move to
 the CPU.
@@ -50,7 +50,7 @@ def _build_parser() -> argparse.ArgumentParser:
     c.add_argument("--device", default="cuda", choices=DEVICES,
                    help="cuda: the CUDA kernel on the card (default); "
                    "torch-cpu: the kernel's plain version on CPU tensors; "
-                   "cpu: the hashlib oracle")
+                   "cpu: the CPU oracle")
     c.add_argument("-a", "--attack", default="mask", choices=["mask"],
                    help="attack mode (mask)")
     _add_custom_charsets(c)
@@ -193,15 +193,21 @@ def cmd_crack(args, log: Log) -> int:
              tested=result.tested, elapsed=f"{result.elapsed:.3f}s",
              rate=f"{result.rate:,.0f}/s", exhausted=result.exhausted,
              rejected=result.rejected,
-             batches=getattr(worker, "dispatched", 0))
+             batches=getattr(worker, "dispatched", 0),
+             **_maybes(worker))
     return 0 if result.found else 1
+
+
+def _maybes(worker) -> dict:
+    """A multi-target kernel worker's Bloom survivors, for the summary."""
+    n = worker.n_maybe() if hasattr(worker, "n_maybe") else None
+    return {} if n is None else {"maybes": n}
 
 
 def cmd_bench(args, log: Log) -> int:
     """Sweep the mask's keyspace from index 0 through the worker's step
     for --seconds against a target no candidate of the mask can hit
-    (the digest of a longer string), and print candidates/s."""
-    import hashlib
+    (the engine's digest of a longer string), and print candidates/s."""
     import json
     import time
 
@@ -213,7 +219,7 @@ def cmd_bench(args, log: Log) -> int:
     gen = MaskGenerator(args.mask)
     batch = min(DEFAULT_BATCH[args.device], gen.keyspace)
     oracle = get_engine(args.engine, device="cpu")
-    miss = hashlib.md5(b"\0" * (gen.length + 1)).digest()
+    miss = oracle.hash_batch([b"\0" * (gen.length + 1)])[0]
     dev = get_engine(args.engine, device="cuda", torch_device=tdev)
     worker = dev.make_mask_worker(gen, [Target(miss.hex(), miss)],
                                   batch=batch, hit_capacity=64,

@@ -18,8 +18,11 @@ import torch
 
 from dprf_tpu_torch.engines import register
 from dprf_tpu_torch.engines.base import DeviceHashEngine, HashEngine
+from dprf_tpu_torch.ops.md4 import md4_digest_words
 from dprf_tpu_torch.ops.md5 import md5_digest_words
 from dprf_tpu_torch.ops.pack import pack_fixed
+from dprf_tpu_torch.ops.sha1 import sha1_digest_words
+from dprf_tpu_torch.ops.sha256 import sha256_digest_words
 
 
 class TorchEngineBase(DeviceHashEngine, HashEngine):
@@ -30,6 +33,8 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
 
     #: digest words are little-endian (MD4/MD5 family) or big-endian (SHA)
     little_endian: bool = True
+    #: NTLM: the candidate is widened to UTF-16LE before packing
+    widen_utf16: bool = False
     max_candidate_len = 55
 
     def __init__(self, torch_device="cuda"):
@@ -37,7 +42,8 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
 
     def pack(self, cand: torch.Tensor, length: int) -> torch.Tensor:
         """uint8[B, length] candidates -> int32[B, 16] message words."""
-        return pack_fixed(cand, length, big_endian=not self.little_endian)
+        return pack_fixed(cand, length, big_endian=not self.little_endian,
+                          widen=self.widen_utf16)
 
     def hash_batch(self, candidates: Sequence[bytes],
                    params: Optional[dict] = None) -> list[bytes]:
@@ -67,12 +73,16 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
         worker, which runs the kernel on a card and its plain version on
         CPU tensors.  A job the kernel does not take is refused, never
         moved to another path."""
+        from dprf_tpu_torch.ops.bloom import MAX_TARGETS
         from dprf_tpu_torch.ops.cuda_mask import kernel_eligible
         from dprf_tpu_torch.runtime.worker import CudaMaskWorker
         if not kernel_eligible(self.name, gen, len(targets)):
             raise ValueError(
-                f"{self.name}: no mask kernel for this job (it takes md5, "
-                "one target, 1..55 positions); use --device cpu")
+                f"{self.name}: no mask kernel for this job (it takes "
+                f"1..{MAX_TARGETS} targets and masks of "
+                f"1..{self.max_candidate_len} positions, got "
+                f"{len(targets)} targets and {gen.length} positions); "
+                "use --device cpu")
         return CudaMaskWorker(self, gen, targets, batch=batch,
                               hit_capacity=hit_capacity, oracle=oracle,
                               device=self.torch_device)
@@ -87,3 +97,44 @@ class TorchMd5Engine(TorchEngineBase):
 
     def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
         return md5_digest_words(blocks)
+
+
+@register("ntlm", device="cuda")
+class TorchNtlmEngine(TorchEngineBase):
+    """NTLM: MD4 over UTF-16LE.  ``pack`` widens the latin-1 candidate
+    bytes (byte p -> byte 2p), as the kernel's decode does."""
+
+    name = "ntlm"
+    digest_size = 16
+    digest_words = 4
+    little_endian = True
+    widen_utf16 = True
+    # 27 chars -> 54 UTF-16LE bytes: still one MD4 block
+    max_candidate_len = 27
+
+    def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
+        return md4_digest_words(blocks)
+
+
+@register("sha1", device="cuda")
+@register("sha-1", device="cuda")
+class TorchSha1Engine(TorchEngineBase):
+    name = "sha1"
+    digest_size = 20
+    digest_words = 5
+    little_endian = False
+
+    def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
+        return sha1_digest_words(blocks)
+
+
+@register("sha256", device="cuda")
+@register("sha-256", device="cuda")
+class TorchSha256Engine(TorchEngineBase):
+    name = "sha256"
+    digest_size = 32
+    digest_words = 8
+    little_endian = False
+
+    def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
+        return sha256_digest_words(blocks)

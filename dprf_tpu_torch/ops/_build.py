@@ -3,8 +3,8 @@ interface, and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with nvcc for Hopper (``sm_90a``) into
 ``_build/lib<name>-<hash>.so`` at its first use in a process; the hash
-covers the source and the flags, so an edited source never loads a
-stale library.  A build that fails raises with nvcc's output: nothing
+covers the source, every ``csrc/`` file it includes and the flags, so
+an edited source or header never loads a stale library.  A build that fails raises with nvcc's output: nothing
 falls back to another path.
 """
 
@@ -15,6 +15,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -49,6 +50,36 @@ def nvcc_path() -> str:
                        f"{CSRC_DIR} with the CUDA toolkit's nvcc")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_files(src: str) -> list[str]:
+    """``src`` and every file it includes with ``#include "..."``,
+    transitively, resolved against the including file's directory."""
+    seen: list[str] = []
+    todo = [os.path.abspath(src)]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as fh:
+            for inc in _INCLUDE.findall(fh.read()):
+                todo.append(os.path.join(os.path.dirname(path),
+                                         inc.decode()))
+    return seen
+
+
+def source_hash(src: str) -> str:
+    """Hash of the source, its included files and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(src):
+        with open(path, "rb") as fh:
+            h.update(os.path.relpath(path, CSRC_DIR).encode() + b"\0"
+                     + fh.read())
+    return h.hexdigest()[:16]
+
+
 @functools.cache
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless this source and flag set is
@@ -56,9 +87,7 @@ def build(name: str) -> Built:
     import time
 
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+    digest = source_hash(src)
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     log_path = out + ".log"
     if os.path.exists(out) and os.path.exists(log_path):
@@ -83,27 +112,28 @@ def build(name: str) -> Built:
 
 
 def sass_census(name: str) -> dict:
-    """Static instruction count of the built library's SASS by opcode
-    (``cuobjdump -sass``; the opcode without its modifiers), plus the
-    length of the straight-line block from the first load of a
-    ``__constant__`` table entry (``c[0x3]``) to the first global
-    atomic -- for mask_md5, the unrolled MD5 steps and the compare."""
+    """Static SASS instruction count of each kernel in the built
+    library (``cuobjdump -sass``), by function: its total and its ten
+    commonest opcodes (without modifiers)."""
     import collections
-    import re
 
     cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     out = subprocess.run([cuobjdump, "-sass", build(name).path],
                          capture_output=True, text=True, check=True).stdout
     instr = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)")
-    lines = [ln for ln in out.splitlines() if instr.search(ln)]
-    ops = [instr.search(ln).group(1) for ln in lines]
-    start = next((i for i, ln in enumerate(lines) if "c[0x3]" in ln), None)
-    end = next((i for i, ln in enumerate(lines) if "ATOMG" in ln), None)
-    block = (end - start + 1) if start is not None and end is not None \
-        else None
-    return {"total": len(ops),
-            "by_opcode": dict(collections.Counter(ops).most_common()),
-            "constant_to_atomic_block": block}
+    funcs: dict = {}
+    ops: list = []
+    for line in out.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            ops = funcs.setdefault(head.group(1), [])
+            continue
+        m = instr.search(line)
+        if m:
+            ops.append(m.group(1))
+    return {f: {"total": len(o),
+                "by_opcode": dict(collections.Counter(o).most_common(10))}
+            for f, o in funcs.items()}
 
 
 @functools.cache

@@ -1,25 +1,33 @@
-"""The fused mask -> MD5 -> compare kernel: the counterpart of the JAX
-package's ops/pallas_mask.py for the md5 core with one target.
+"""The fused mask -> hash -> compare kernel: the counterpart of the JAX
+package's ops/pallas_mask.py for the md5, ntlm (md4), sha1 and sha256
+cores, with one target or a list of up to MAX_TARGETS.
 
-Per candidate the kernel (csrc/mask_md5.cu) decodes the mixed-radix
-keyspace index into charset bytes, packs one padded block, runs the MD5
-rounds and compares the digest with the target; only hits write
-anything back.  Outputs per launch: ``count int32[1]``, the exact
-number of hits, and ``lanes int32[hit_capacity]``, the batch lanes of
-the first ``hit_capacity`` hits in no fixed order, -1 where unused.
+Per candidate the kernel (csrc/mask.cu) decodes the mixed-radix
+keyspace index into charset bytes, packs one padded block, runs the
+core's rounds and compares; only hits write anything back.
+
+- Single target: outputs ``count int32[1]``, the exact number of hits,
+  and ``lanes int32[hit_capacity]``, the batch lanes of the first
+  ``hit_capacity`` hits in no fixed order, -1 where unused.
+- Multi target: the reference's Bloom prefilter (ops/bloom.py), then an
+  exact verify of each survivor against the sorted target table
+  (ops/compare.make_target_table) on the card.  Outputs ``count``,
+  ``lanes``, ``tpos int32[hit_capacity]`` (each hit's position in the
+  sorted table) and ``n_maybe int32[1]``, the prefilter's survivors.
+
 ``count > hit_capacity`` sends the batch to the worker's exact oracle
 rescan, the reference's contract.
 
-Three functions carry it:
-
-- ``mask_md5_kernel``: the wrapper of the CUDA kernel.  It takes CUDA
-  tensors only, checks them, allocates the outputs, launches on the
-  current stream without synchronising, and counts its launches in
-  ``mask_md5_kernel.launches``;
-- ``mask_crack_plain``: the same function in plain PyTorch;
-- ``mask_md5``: the kernel for CUDA tensors, the plain version for CPU
-  tensors.  ``make_cuda_mask_crack_step`` builds the worker's step on
-  it, so one step serves ``--device cuda`` and ``--device torch-cpu``.
+For each mode three functions carry it: the kernel's wrapper
+(``mask_kernel`` / ``mask_multi_kernel``: CUDA tensors only, launches on
+the current stream without synchronising, counts its launches in
+``launches``), the same function in plain PyTorch (``mask_plain`` /
+``mask_multi_plain``, hit lanes in ascending order), and the dispatcher
+(``mask_crack`` / ``mask_crack_multi``: the kernel for CUDA tensors, the
+plain version for CPU tensors).  ``make_cuda_mask_crack_step`` and
+``make_cuda_multi_crack_step`` build the worker's steps on the
+dispatchers, so one step serves ``--device cuda`` and ``--device
+torch-cpu``.
 """
 
 from __future__ import annotations
@@ -32,30 +40,64 @@ import numpy as np
 import torch
 
 from dprf_tpu_torch.generators.mask import decode_lut
+from dprf_tpu_torch.ops import bloom
 from dprf_tpu_torch.ops import compare as cmp_ops
-from dprf_tpu_torch.ops.md5 import md5_digest_words
-from dprf_tpu_torch.ops.pack import pack_fixed
-from dprf_tpu_torch.ops.pipeline import target_words_from_numpy
 
-#: longest mask a single 64-byte MD5 block holds (DPRF_MAX_LEN in the source)
+#: longest mask the kernel's decode holds (DPRF_MAX_LEN in the source)
 MAX_LENGTH = 55
 #: threads per block (the kernel's __launch_bounds__)
 THREADS = 256
-#: blocks per SM of the grid-stride grid: an SM holds at most 2048
-#: threads, i.e. 8 blocks of 256, so the whole grid is resident at once
-BLOCKS_PER_SM = 8
 
 #: the TPU kernel this one replaces, and this kernel's source
 REPLACES = "dprf_tpu/ops/pallas_mask.py:733"
-SOURCE = "dprf_tpu_torch/csrc/mask_md5.cu"
+SOURCE = "dprf_tpu_torch/csrc/mask.cu"
+
+#: the core id of csrc/mask.cu's C interface, by device engine name.
+#: The engine class holds the rest of a core's facts: packing
+#: (``little_endian``, ``widen_utf16``), ``digest_words``,
+#: ``max_candidate_len`` and the plain ``digest_packed``.
+KERNEL_CORES = {"md5": 0, "ntlm": 1, "sha1": 2, "sha256": 3}
+
+
+@functools.lru_cache(maxsize=None)
+def device_engine(engine_name: str, device="cpu"):
+    """The device engine of ``engine_name`` (an alias such as ``sha-1``
+    included), if the kernel has its core; its tensors on ``device``."""
+    from dprf_tpu_torch.engines import engine_names, get_engine
+    if engine_name.lower() in engine_names("cuda"):
+        eng = get_engine(engine_name, "cuda", torch_device=device)
+        if eng.name in KERNEL_CORES:
+            return eng
+    raise ValueError(f"no mask kernel core for engine {engine_name!r} "
+                     f"(cores: {', '.join(KERNEL_CORES)})")
+
+
+def kernel_name(engine_name: str, multi: bool) -> str:
+    """The instantiation's name: ``<core>_mask`` or ``<core>_mask_multi``."""
+    return f"{engine_name}_mask" + ("_multi" if multi else "")
+
+
+#: launches of each kernel instantiation in this process, by
+#: ``kernel_name`` (tests and chip_smoke.py reset them and read them)
+launches = {kernel_name(n, m): 0 for n in KERNEL_CORES for m in (False, True)}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
 
 
 def kernel_eligible(engine_name: str, gen, n_targets: int) -> bool:
-    """Whether the kernel takes this job: md5, one target, a mask of
-    1..55 positions with 1..256 bytes each."""
-    return (engine_name == "md5" and n_targets == 1
+    """Whether the kernel takes this job: a core engine, 1..MAX_TARGETS
+    targets, a mask of 1..max_candidate_len positions (27 for ntlm, 55
+    for the others) with 1..256 bytes each."""
+    try:
+        eng = device_engine(engine_name)
+    except ValueError:
+        return False
+    return (1 <= n_targets <= bloom.MAX_TARGETS
             and hasattr(gen, "charsets")
-            and 1 <= gen.length <= MAX_LENGTH
+            and 1 <= gen.length <= eng.max_candidate_len
             and all(1 <= len(cs) <= 256 for cs in gen.charsets))
 
 
@@ -67,39 +109,31 @@ def check_batch(batch: int) -> None:
         raise ValueError(f"batch {batch} outside 1..2**31-256")
 
 
-def ops_per_candidate(length: int) -> int:
-    """The least 32-bit integer instructions a candidate of a
-    ``length``-position mask needs, counted from the kernel source in
-    Hopper's instruction forms.  Each of the 64 MD5 steps is one LOP3
-    (any round function), one IADD3 (a + f + K, with a message word
-    that is the same for every candidate of the job folded into K) and
-    one LEA.HI (rotate and add b) = 192.  Only the ceil(length / 4)
-    words holding candidate bytes vary between candidates; each is used
-    in 4 steps and costs one more add there.  The feed-forward folds
-    into the target words, the compare is 4 set-predicates and the
-    decode 4 per position (add, divide, multiply-subtract for the
-    remainder, multiply-add into the message word, each counted as
-    one)."""
-    return 3 * 64 + 4 * -(-length // 4) + 4 + 4 * length
+@functools.lru_cache(maxsize=None)
+def message_block(engine_name: str, length: int) -> tuple:
+    """The job's fixed message words: the block of an all-zero candidate
+    (the padding marker and the bit length), as uint32 ints."""
+    zero = torch.zeros((1, length), dtype=torch.uint8)
+    words = device_engine(engine_name).pack(zero, length).numpy()[0]
+    return tuple(int(w) for w in words.view(np.uint32))
 
 
-def _check_job(lut: torch.Tensor, radices: Sequence[int],
-               base_digits: Sequence[int], n_valid: int,
-               target: Sequence[int], hit_capacity: int, batch: int) -> None:
+def _check_job(eng, lut: torch.Tensor, radices: Sequence[int],
+               base_digits: Sequence[int], n_valid: int, hit_capacity: int,
+               batch: int) -> None:
     if lut.dtype != torch.uint8 or lut.dim() != 2 or lut.shape[1] != 256:
         raise ValueError(f"lut must be uint8[length, 256], got "
                          f"{lut.dtype}{list(lut.shape)}")
     length = lut.shape[0]
-    if not 1 <= length <= MAX_LENGTH:
-        raise ValueError(f"mask length {length} outside 1..{MAX_LENGTH}")
+    if not 1 <= length <= eng.max_candidate_len:
+        raise ValueError(f"{eng.name}: mask length {length} outside "
+                         f"1..{eng.max_candidate_len}")
     if len(radices) != length or len(base_digits) != length:
         raise ValueError("radices and base digits need one entry per "
                          "mask position")
     if not all(1 <= r <= 256 for r in radices) or \
             not all(0 <= d < r for d, r in zip(base_digits, radices)):
         raise ValueError("radices must be 1..256 and base digits below them")
-    if len(target) != 4:
-        raise ValueError("md5 needs 4 target words")
     check_batch(batch)
     if not 0 <= n_valid <= batch:
         raise ValueError(f"n_valid {n_valid} outside 0..{batch}")
@@ -107,114 +141,261 @@ def _check_job(lut: torch.Tensor, radices: Sequence[int],
         raise ValueError("hit_capacity must be >= 0")
 
 
+def _check_target(eng, target: Sequence[int]) -> None:
+    if len(target) != eng.digest_words:
+        raise ValueError(f"{eng.name} needs {eng.digest_words} target "
+                         f"words, got {len(target)}")
+
+
+def _check_tables(eng, bloom_rows: torch.Tensor,
+                  table: torch.Tensor, device) -> None:
+    for name, t in (("bloom rows", bloom_rows), ("target table", table)):
+        if t.dtype != torch.int32 or t.dim() != 2:
+            raise ValueError(f"{name} must be int32 2-D, got "
+                             f"{t.dtype}{list(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, lut on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    n = table.shape[0]
+    if not 1 <= n <= bloom.MAX_TARGETS or table.shape[1] != eng.digest_words:
+        raise ValueError(f"target table must be int32[1..{bloom.MAX_TARGETS},"
+                         f" {eng.digest_words}], got {list(table.shape)}")
+    if list(bloom_rows.shape) != [bloom.n_sets(n) * bloom.K_PROBES, 128]:
+        raise ValueError(f"bloom rows {list(bloom_rows.shape)} do not fit "
+                         f"{n} targets")
+
+
 class _MaskArgs(ctypes.Structure):
-    """``struct MaskArgs`` of csrc/mask_md5.cu."""
+    """``struct MaskArgs`` of csrc/mask.cu."""
     _fields_ = [("length", ctypes.c_int32),
                 ("radix", ctypes.c_int32 * MAX_LENGTH),
-                ("base", ctypes.c_int32 * MAX_LENGTH)]
+                ("base", ctypes.c_int32 * MAX_LENGTH),
+                ("block", ctypes.c_uint32 * 16),
+                ("target", ctypes.c_uint32 * 8)]
+
+
+class _MultiArgs(ctypes.Structure):
+    """``struct MultiArgs`` of csrc/mask.cu."""
+    _fields_ = [("bloom", ctypes.c_void_p), ("table", ctypes.c_void_p),
+                ("n_sets", ctypes.c_int32), ("n_targets", ctypes.c_int32)]
 
 
 @functools.cache
-def _launcher():
-    """The C entry point, built from csrc/mask_md5.cu at first use."""
+def _library():
+    """The C entry points, built from csrc/mask.cu at first use."""
     from dprf_tpu_torch.ops import _build
-    fn = _build.load("mask_md5").dprf_mask_md5_launch
-    ptr, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
-    fn.argtypes = [i32, ptr, ctypes.POINTER(_MaskArgs), u32,
-                   u32, u32, u32, u32, ptr, ptr, i32, i32, i32, ptr]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("mask")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dprf_mask_launch.argtypes = [
+        i32, i32, i32, ptr, ctypes.POINTER(_MaskArgs),
+        ctypes.POINTER(_MultiArgs), ctypes.c_uint32, ptr, ptr, ptr, ptr,
+        i32, i32, i32, ptr]
+    lib.dprf_mask_launch.restype = i32
+    lib.dprf_mask_blocks_per_sm.argtypes = [i32, i32, i32, i32,
+                                            ctypes.POINTER(i32)]
+    lib.dprf_mask_blocks_per_sm.restype = i32
+    return lib
 
 
 def load_kernel() -> None:
-    """Build and load the kernel now, so a build failure surfaces at
+    """Build and load the kernels now, so a build failure surfaces at
     worker construction rather than at the first batch."""
-    _launcher()
+    _library()
 
 
-def mask_md5_kernel(lut: torch.Tensor, radices: Sequence[int],
-                    base_digits: Sequence[int], n_valid: int,
-                    target: Sequence[int], hit_capacity: int, batch: int):
-    """Launch the CUDA kernel over lanes [0, n_valid) of a ``batch``-lane
-    step: lut uint8[L, 256] on the card (``MaskGenerator.charset_lut``),
-    the radices and the base digits of the batch's first candidate as
-    ints, the target as 4 uint32 ints.  Returns (count int32[1],
-    lanes int32[hit_capacity]) on the card, still being computed."""
+def shared_bytes(length: int, n_sets: int = 0) -> int:
+    """Dynamic shared memory of one block: the charset table, then the
+    Bloom rows (at most 14,080 + 32,768 bytes, under the 48 KiB that
+    needs no opt-in)."""
+    return length * 256 + n_sets * bloom.K_PROBES * 128 * 4
+
+
+@functools.cache
+def blocks_per_sm(engine_name: str, multi: bool, smem: int) -> int:
+    """Resident blocks per SM for one instantiation at ``smem`` bytes,
+    from the CUDA occupancy calculator: the Bloom rows of a long list
+    leave room for fewer blocks than the 8 of 256 threads an SM holds."""
+    blocks = ctypes.c_int(0)
+    rc = _library().dprf_mask_blocks_per_sm(
+        KERNEL_CORES[engine_name], int(multi), THREADS, smem,
+        ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}, "
+                           f"{blocks.value} blocks per SM")
+    return blocks.value
+
+
+def grid_size(engine_name: str, multi: bool, n_valid: int, smem: int,
+              device) -> int:
+    """Blocks of the grid-stride grid: one resident wave, or fewer for
+    a short batch."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    resident = sms * blocks_per_sm(engine_name, multi, smem)
+    return max(1, min(-(-n_valid // THREADS), resident))
+
+
+def _launch(eng, multi: bool, lut: torch.Tensor,
+            radices: Sequence[int], base_digits: Sequence[int],
+            n_valid: int, target: Sequence[int], margs: _MultiArgs,
+            n_sets: int, hit_capacity: int):
     if lut.device.type != "cuda":
         raise ValueError(f"the CUDA mask kernel takes CUDA tensors, got "
                          f"a lut on {lut.device}")
     if not lut.is_contiguous():
         raise ValueError("lut must be contiguous")
-    _check_job(lut, radices, base_digits, n_valid, target, hit_capacity,
-               batch)
     device = lut.device
     count = torch.zeros((1,), dtype=torch.int32, device=device)
     lanes = torch.full((hit_capacity,), -1, dtype=torch.int32,
                        device=device)
+    tpos = torch.full((hit_capacity,), -1, dtype=torch.int32,
+                      device=device) if multi else None
+    n_maybe = torch.zeros((1,), dtype=torch.int32, device=device) \
+        if multi else None
     length = lut.shape[0]
+    target = list(target) + [0] * (8 - len(target))
     args = _MaskArgs(length, (ctypes.c_int32 * MAX_LENGTH)(*radices),
-                     (ctypes.c_int32 * MAX_LENGTH)(*base_digits))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    grid = max(1, min(-(-n_valid // THREADS), sms * BLOCKS_PER_SM))
+                     (ctypes.c_int32 * MAX_LENGTH)(*base_digits),
+                     (ctypes.c_uint32 * 16)(*message_block(eng.name, length)),
+                     (ctypes.c_uint32 * 8)(*(int(w) & 0xFFFFFFFF
+                                             for w in target)))
+    smem = shared_bytes(length, n_sets)
+    grid = grid_size(eng.name, multi, n_valid, smem, device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = _launcher()(device.index, lut.data_ptr(), ctypes.byref(args),
-                     n_valid, *(int(w) & 0xFFFFFFFF for w in target),
-                     count.data_ptr(), lanes.data_ptr(), hit_capacity,
-                     grid, THREADS, stream)
+    rc = _library().dprf_mask_launch(
+        KERNEL_CORES[eng.name], int(multi), device.index, lut.data_ptr(),
+        ctypes.byref(args), ctypes.byref(margs), n_valid,
+        count.data_ptr(), lanes.data_ptr(),
+        tpos.data_ptr() if multi else None,
+        n_maybe.data_ptr() if multi else None,
+        hit_capacity, grid, THREADS, stream)
     if rc != 0:
-        raise RuntimeError(f"mask_md5 kernel launch failed: CUDA error {rc}")
-    mask_md5_kernel.launches += 1
+        raise RuntimeError(f"{kernel_name(eng.name, multi)} kernel launch "
+                           f"failed: CUDA error {rc}")
+    launches[kernel_name(eng.name, multi)] += 1
+    return count, lanes, tpos, n_maybe
+
+
+def mask_kernel(engine: str, lut: torch.Tensor, radices: Sequence[int],
+                base_digits: Sequence[int], n_valid: int,
+                target: Sequence[int], hit_capacity: int, batch: int):
+    """Launch the single-target kernel over lanes [0, n_valid) of a
+    ``batch``-lane step: lut uint8[L, 256] on the card
+    (``MaskGenerator.charset_lut``), the radices and the base digits of
+    the batch's first candidate as ints, the target as the core's
+    uint32 digest words.  Returns (count int32[1], lanes
+    int32[hit_capacity]) on the card, still being computed."""
+    eng = device_engine(engine, lut.device)
+    _check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
+    _check_target(eng, target)
+    count, lanes, _, _ = _launch(eng, False, lut, radices, base_digits,
+                                 n_valid, target, _MultiArgs(), 0,
+                                 hit_capacity)
     return count, lanes
 
 
-#: launches of the CUDA kernel in this process (tests and chip_smoke.py
-#: reset it to 0 and read it back)
-mask_md5_kernel.launches = 0
+def mask_multi_kernel(engine: str, lut: torch.Tensor, radices: Sequence[int],
+                      base_digits: Sequence[int], n_valid: int,
+                      bloom_rows: torch.Tensor, table: torch.Tensor,
+                      hit_capacity: int, batch: int):
+    """Launch the multi-target kernel: bloom_rows int32[n_sets * 8, 128]
+    (``bloom.bloom_tables``) and table int32[T, W] (the sorted
+    ``TargetTable``) on the card.  Returns (count int32[1], lanes
+    int32[cap], tpos int32[cap], n_maybe int32[1]), still being
+    computed."""
+    eng = device_engine(engine, lut.device)
+    _check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
+    _check_tables(eng, bloom_rows, table, lut.device)
+    n_sets = bloom_rows.shape[0] // bloom.K_PROBES
+    margs = _MultiArgs(bloom_rows.data_ptr(), table.data_ptr(), n_sets,
+                       table.shape[0])
+    return _launch(eng, True, lut, radices, base_digits, n_valid, [],
+                   margs, n_sets, hit_capacity)
 
 
-def mask_crack_plain(lut: torch.Tensor, radices: Sequence[int],
-                     base_digits: Sequence[int], n_valid: int,
-                     target: Sequence[int], hit_capacity: int, batch: int):
-    """The kernel's function in plain PyTorch on the lut's device; hit
-    lanes come back in ascending order."""
-    _check_job(lut, radices, base_digits, n_valid, target, hit_capacity,
-               batch)
+def _digest_plain(eng, lut, radices, base_digits, batch):
+    cand = decode_lut(lut, radices, base_digits, batch)
+    return eng.digest_packed(eng.pack(cand, lut.shape[0]))
+
+
+def mask_plain(engine: str, lut: torch.Tensor, radices: Sequence[int],
+               base_digits: Sequence[int], n_valid: int,
+               target: Sequence[int], hit_capacity: int, batch: int):
+    """``mask_kernel``'s function in plain PyTorch on the lut's device;
+    hit lanes come back in ascending order."""
+    eng = device_engine(engine, lut.device)
+    _check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
+    _check_target(eng, target)
     device = lut.device
     lane = torch.arange(batch, dtype=torch.int32, device=device)
-    cand = decode_lut(lut, radices, base_digits, batch)
-    digest = md5_digest_words(pack_fixed(cand, lut.shape[0]))
-    want = target_words_from_numpy(np.asarray(target, np.uint32), device)
+    digest = _digest_plain(eng, lut, radices, base_digits, batch)
+    want = cmp_ops.target_words_from_numpy(np.asarray(target, np.uint32),
+                                           device)
     found = cmp_ops.compare_single(digest, want) & (lane < n_valid)
     count, lanes, _ = cmp_ops.compact_hits(found, torch.zeros_like(lane),
                                            hit_capacity)
     return count, lanes
 
 
-def mask_md5(lut: torch.Tensor, radices: Sequence[int],
-             base_digits: Sequence[int], n_valid: int,
-             target: Sequence[int], hit_capacity: int, batch: int):
-    """The kernel on CUDA tensors, its plain version on CPU tensors."""
+def mask_multi_plain(engine: str, lut: torch.Tensor, radices: Sequence[int],
+                     base_digits: Sequence[int], n_valid: int,
+                     bloom_rows: torch.Tensor, table: torch.Tensor,
+                     hit_capacity: int, batch: int):
+    """``mask_multi_kernel``'s function in plain PyTorch on the lut's
+    device: the plain ``bloom_found``, then ``compare_multi`` on the
+    survivors; hit lanes come back in ascending order."""
+    eng = device_engine(engine, lut.device)
+    _check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
+    _check_tables(eng, bloom_rows, table, lut.device)
+    lane = torch.arange(batch, dtype=torch.int32, device=lut.device)
+    digest = _digest_plain(eng, lut, radices, base_digits, batch)
+    maybe = bloom.bloom_found(digest, bloom_rows, lane < n_valid)
+    found, tpos = cmp_ops.compare_multi(digest, table)
+    count, lanes, tpos = cmp_ops.compact_hits(found & maybe, tpos,
+                                              hit_capacity)
+    return count, lanes, tpos, maybe.sum(dtype=torch.int32).reshape(1)
+
+
+def _dispatch(kernel, plain, lut, args):
     if lut.device.type == "cuda":
-        return mask_md5_kernel(lut, radices, base_digits, n_valid, target,
-                               hit_capacity, batch)
+        return kernel(*args)
     if lut.device.type == "cpu":
-        return mask_crack_plain(lut, radices, base_digits, n_valid, target,
-                                hit_capacity, batch)
+        return plain(*args)
     raise ValueError(f"no mask kernel for device {lut.device}")
 
 
-def make_cuda_mask_crack_step(gen, target_words: np.ndarray, batch: int,
-                              hit_capacity: int = 64, device="cuda"):
-    """The worker's step over the kernel: step(base_digits, n_valid) ->
+def mask_crack(engine: str, lut: torch.Tensor, *args):
+    """The single-target kernel on CUDA tensors, its plain version on
+    CPU tensors (arguments as ``mask_kernel``)."""
+    return _dispatch(mask_kernel, mask_plain, lut, (engine, lut, *args))
+
+
+def mask_crack_multi(engine: str, lut: torch.Tensor, *args):
+    """The multi-target kernel on CUDA tensors, its plain version on CPU
+    tensors (arguments as ``mask_multi_kernel``)."""
+    return _dispatch(mask_multi_kernel, mask_multi_plain, lut,
+                     (engine, lut, *args))
+
+
+def _check_step(engine: str, gen, n_targets: int, batch: int) -> None:
+    if not kernel_eligible(engine, gen, n_targets):
+        limit = device_engine(engine).max_candidate_len
+        raise ValueError(
+            f"mask job not eligible for the mask kernel: engine {engine!r}, "
+            f"{n_targets} targets (1..{bloom.MAX_TARGETS}), length "
+            f"{gen.length} (1..{limit})")
+    check_batch(batch)
+
+
+def make_cuda_mask_crack_step(engine: str, gen, target_words: np.ndarray,
+                              batch: int, hit_capacity: int = 64,
+                              device="cuda"):
+    """The worker's single-target step: step(base_digits, n_valid) ->
     (count int32[1], lanes int32[hit_capacity], tpos
     int32[hit_capacity]), with base_digits the host digit list of the
-    batch's first candidate (``gen.digits``) and tpos all 0 (one
-    target).  target_words: uint32[4], the reference's
-    ``target_words``."""
-    if not kernel_eligible("md5", gen, 1):
-        raise ValueError("mask job not eligible for the md5 mask kernel "
-                         f"(length {gen.length}, 1..{MAX_LENGTH} positions)")
-    check_batch(batch)
+    batch's first candidate (``gen.digits``) and tpos all 0.
+    target_words: the core's uint32 digest words."""
+    _check_step(engine, gen, 1, batch)
     device = torch.device(device)
     lut = gen.charset_lut(device)
     radices = gen.radices
@@ -222,8 +403,32 @@ def make_cuda_mask_crack_step(gen, target_words: np.ndarray, batch: int,
     tpos = torch.zeros((hit_capacity,), dtype=torch.int32, device=device)
 
     def step(base_digits: Sequence[int], n_valid: int):
-        count, lanes = mask_md5(lut, radices, base_digits, n_valid, target,
-                                hit_capacity, batch)
+        count, lanes = mask_crack(engine, lut, radices, base_digits, n_valid,
+                                  target, hit_capacity, batch)
         return count, lanes, tpos
+
+    return step
+
+
+def make_cuda_multi_crack_step(engine: str, gen,
+                               table: cmp_ops.TargetTable, batch: int,
+                               hit_capacity: int = 64, device="cuda"):
+    """The worker's multi-target step: step(base_digits, n_valid) ->
+    (count int32[1], lanes int32[cap], tpos int32[cap], n_maybe
+    int32[1]); tpos indexes the sorted table (map it through
+    ``table.order``)."""
+    _check_step(engine, gen, table.num_targets, batch)
+    device = torch.device(device)
+    lut = gen.charset_lut(device)
+    radices = gen.radices
+    # the sets hold the targets in the job's order, as the reference's
+    rows = torch.as_tensor(
+        bloom.bloom_tables(table.original_words()).view(np.int32),
+        device=device)
+    words = table.tensor(device)
+
+    def step(base_digits: Sequence[int], n_valid: int):
+        return mask_crack_multi(engine, lut, radices, base_digits, n_valid,
+                                rows, words, hit_capacity, batch)
 
     return step

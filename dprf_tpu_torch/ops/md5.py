@@ -1,11 +1,6 @@
-"""MD5 compression (RFC 1321) as vectorized int32 torch ops.
-
-torch has no arithmetic on uint32 tensors, so every 32-bit word is
-carried as int32 with the same bit pattern: additions wrap modulo 2^32
-exactly as uint32 ones do, and each right shift is masked back to the
-bits a logical shift keeps.  The sine-derived constants are computed
-here (math.sin), not copied from a listing, and enter the arithmetic as
-Python ints in int32 range (a numpy uint32 -> int32 view).
+"""MD5 compression (RFC 1321) as vectorized int32 torch ops (the word
+conventions of ops/int32.py).  The sine-derived constants are computed
+here (math.sin), not copied from a listing.
 """
 
 from __future__ import annotations
@@ -15,6 +10,8 @@ import math
 import numpy as np
 import torch
 
+from dprf_tpu_torch.ops.int32 import as_i32, rotl
+
 K = np.array([int(abs(math.sin(i + 1)) * (1 << 32)) & 0xFFFFFFFF
               for i in range(64)], dtype=np.uint32)
 SHIFTS = ((7, 12, 17, 22), (5, 9, 14, 20), (4, 11, 16, 23), (6, 10, 15, 21))
@@ -22,12 +19,8 @@ INIT = np.array([0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476],
                 dtype=np.uint32)
 
 #: the same constants as signed Python ints (int32 bit patterns)
-_K_I32 = tuple(int(k) for k in K.view(np.int32))
-_INIT_I32 = tuple(int(w) for w in INIT.view(np.int32))
-
-
-def _rotl(x: torch.Tensor, n: int) -> torch.Tensor:
-    return (x << n) | ((x >> (32 - n)) & ((1 << n) - 1))
+_K_I32 = as_i32(K)
+_INIT_I32 = as_i32(INIT)
 
 
 def md5_rounds(a, b, c, d, m):
@@ -48,7 +41,7 @@ def md5_rounds(a, b, c, d, m):
             f = c ^ (b | ~d)
             g = (7 * i) % 16
         tmp = a + f + _K_I32[i] + m[g]
-        a, d, c, b = d, c, b, b + _rotl(tmp, SHIFTS[rnd][i % 4])
+        a, d, c, b = d, c, b, b + rotl(tmp, SHIFTS[rnd][i % 4])
     return a, b, c, d
 
 

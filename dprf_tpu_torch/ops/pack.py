@@ -1,7 +1,8 @@
 """Candidate packing: uint8 candidate bytes -> Merkle-Damgard message words.
 
-Single block only: candidates up to 55 bytes, which covers the mask
-path of every benchmark config.  Words come out as int32 tensors with
+Single block only: candidates up to 55 bytes (27 characters for NTLM's
+UTF-16LE widening), which covers the mask path of every benchmark
+config.  Words come out as int32 tensors with
 the bit pattern of the reference's uint32 words.
 """
 
@@ -35,10 +36,23 @@ def _words_from_bytes(msg: torch.Tensor, big_endian: bool) -> torch.Tensor:
     return words
 
 
-def pack_fixed(cand: torch.Tensor, length: int,
-               big_endian: bool = False) -> torch.Tensor:
-    """Pack fixed-length candidates uint8[B, length] -> int32[B, 16]."""
+def pack_fixed(cand: torch.Tensor, length: int, big_endian: bool = False,
+               widen: bool = False) -> torch.Tensor:
+    """Pack fixed-length candidates uint8[B, length] -> int32[B, 16];
+    ``widen``: UTF-16LE first (NTLM), a message of 2 * length bytes."""
+    if widen:
+        cand, length = utf16le_widen(cand), 2 * length
     pad = torch.as_tensor(_pad_const(length, big_endian), device=cand.device)
     msg = pad.repeat(cand.shape[0], 1)
     msg[:, :length] = cand
     return _words_from_bytes(msg, big_endian)
+
+
+def utf16le_widen(cand: torch.Tensor) -> torch.Tensor:
+    """uint8[B, L] latin-1 bytes -> uint8[B, 2L] UTF-16LE (NTLM input):
+    byte p goes to byte 2p, every odd byte is 0."""
+    batch, length = cand.shape
+    wide = torch.zeros((batch, length, 2), dtype=torch.uint8,
+                       device=cand.device)
+    wide[:, :, 0] = cand
+    return wide.reshape(batch, 2 * length)

@@ -1,10 +1,10 @@
 """Workers: WorkUnit -> generate candidates -> hash -> report hits.
 
 CudaMaskWorker is the card's path: one hand-written kernel launch per
-batch (ops/cuda_mask.py), queued asynchronously on the current stream
-so the card never drains between batches; a unit's hits are resolved
-after the whole unit is queued, and only hit buffers cross back to the
-host.  On CPU tensors (``--device torch-cpu``) the same worker runs the
+batch (ops/cuda_mask.py), for one target or a list, queued
+asynchronously on the current stream so the card never drains between
+batches; a unit's hits are resolved after the whole unit is queued, and
+only hit buffers cross back to the host.  On CPU tensors (``--device torch-cpu``) the same worker runs the
 kernel's plain PyTorch version.
 
 CpuWorker is the reference path (``--device cpu``): the oracle engine
@@ -17,7 +17,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from dprf_tpu_torch.engines.base import HashEngine, Target
@@ -103,13 +102,17 @@ class MaskWorkerBase:
     ``self.stride`` (keyspace indices per step call).  A step takes
     (base digits of the batch's first candidate as a host list,
     n_valid) and returns (count int32[1], lanes int32[cap], tpos
-    int32[cap]) on the device, still being computed.
+    int32[cap]) on the device, still being computed; a multi-target
+    step adds n_maybe int32[1], its Bloom prefilter's survivors.
     """
 
     def _setup_targets(self, engine, gen, targets: Sequence[Target],
-                       hit_capacity: int,
-                       oracle: Optional[HashEngine]) -> np.ndarray:
-        """Single target: returns its uint32 digest words."""
+                       hit_capacity: int, oracle: Optional[HashEngine]):
+        """One target: returns its uint32 digest words.  A list:
+        returns the sorted ``TargetTable``; hits' table positions map
+        back to the job's target index through its ``order``."""
+        from dprf_tpu_torch.ops.compare import digest_rows, make_target_table
+
         self.engine = engine
         self.gen = gen
         self.targets = list(targets)
@@ -117,13 +120,15 @@ class MaskWorkerBase:
         self.oracle = oracle
         #: batches this worker has dispatched (one step call each)
         self.dispatched = 0
-        if len(self.targets) != 1:
-            raise ValueError(
-                f"the torch mask workers take one target, got "
-                f"{len(self.targets)}; use --device cpu for a list")
-        dt = "<u4" if engine.little_endian else ">u4"
-        return np.frombuffer(self.targets[0].digest,
-                             dtype=dt).astype(np.uint32)
+        #: Bloom survivors summed on the device (multi-target steps)
+        self._maybes = None
+        self.multi = len(self.targets) > 1
+        digests = [t.digest for t in self.targets]
+        if self.multi:
+            self.table = make_target_table(digests, engine.little_endian)
+            self._order = self.table.order
+            return self.table
+        return digest_rows(digests, engine.little_endian)[0]
 
     def submit(self, unit: WorkUnit) -> PendingUnit:
         """Enqueue every batch of the unit and return a PendingUnit.
@@ -136,17 +141,33 @@ class MaskWorkerBase:
             result = self.step(self.gen.digits(bstart), n_valid)
             self.dispatched += 1
             flag = result[0] if flag is None else flag + result[0]
+            if len(result) > 3:
+                self._maybes = result[3] if self._maybes is None \
+                    else self._maybes + result[3]
             queued.append((bstart, result))
         return PendingUnit(self, unit, queued, flag)
 
     def process(self, unit: WorkUnit) -> list[Hit]:
         return self.submit(unit).resolve()
 
-    def _decode_lanes(self, bstart: int, lanes_np) -> list[Hit]:
-        """Hit-buffer lanes -> Hit records (lane -1 = unused slot); the
-        kernel appends hits in no fixed order, so they are sorted."""
-        gidxs = [bstart + int(lane) for lane in sorted(lanes_np) if lane >= 0]
-        return [Hit(0, g, self.gen.candidate(g)) for g in gidxs]
+    def n_maybe(self) -> Optional[int]:
+        """Candidates that passed the Bloom prefilter over every batch
+        so far (a multi-target job), else None.  Reads the device."""
+        return None if self._maybes is None else int(self._maybes.item())
+
+    def _decode_lanes(self, bstart: int, lanes_np, tpos_np) -> list[Hit]:
+        """Hit-buffer lanes -> Hit records (lane -1 = unused slot); a
+        multi-target hit's table position maps to the job's target
+        index through the table's order.  The kernel appends hits in no
+        fixed order, so they are sorted by lane."""
+        hits = []
+        for lane, tp in sorted(zip(lanes_np.tolist(), tpos_np.tolist())):
+            if lane < 0:
+                continue
+            gidx = bstart + lane
+            ti = int(self._order[tp]) if self.multi else 0
+            hits.append(Hit(ti, gidx, self.gen.candidate(gidx)))
+        return hits
 
     def _rescan(self, bstart: int, unit: WorkUnit) -> list[Hit]:
         """Exact host rescan of one overflowed batch (more hits than the
@@ -160,33 +181,38 @@ class MaskWorkerBase:
         return CpuWorker(self.oracle, self.gen, self.targets).process(sub)
 
     def _batch_hits(self, bstart: int, result, unit: WorkUnit) -> list[Hit]:
-        count, lanes, _ = result
+        count, lanes, tpos = result[:3]
         count = int(count.item())
         if count == 0:
             return []
         if count > lanes.shape[0]:
             return self._rescan(bstart, unit)
-        return self._decode_lanes(bstart, lanes.cpu().numpy())
+        return self._decode_lanes(bstart, lanes.cpu().numpy(),
+                                  tpos.cpu().numpy())
 
 
 class CudaMaskWorker(MaskWorkerBase):
-    """Mask worker over the hand-written md5 mask kernel
-    (ops/cuda_mask.py), the counterpart of the reference's
-    PallasMaskWorker: decode, hash, compare and hit append happen in one
-    launch per batch.  On a card the kernel builds at construction, so a
-    build failure raises here and never mid-job; with ``device="cpu"``
-    each batch runs the kernel's plain version instead."""
+    """Mask worker over the hand-written mask kernel (ops/cuda_mask.py),
+    the counterpart of the reference's PallasMaskWorker: decode, hash,
+    compare and hit append happen in one launch per batch.  A list of
+    targets runs the multi-target kernel, which verifies its Bloom
+    survivors on the card, so only real hits come back.  On a card the
+    kernel builds at construction, so a build failure raises here and
+    never mid-job; with ``device="cpu"`` each batch runs the kernel's
+    plain version instead."""
 
     def __init__(self, engine, gen, targets: Sequence[Target],
                  batch: int = 1 << 24, hit_capacity: int = 64,
                  oracle: Optional[HashEngine] = None, device="cuda"):
         from dprf_tpu_torch.ops import cuda_mask
 
-        words = self._setup_targets(engine, gen, targets, hit_capacity,
-                                    oracle)
+        tgt = self._setup_targets(engine, gen, targets, hit_capacity,
+                                  oracle)
         device = torch.device(device)
         if device.type == "cuda":
             cuda_mask.load_kernel()
         self.batch = self.stride = batch
-        self.step = cuda_mask.make_cuda_mask_crack_step(
-            gen, words, batch, hit_capacity, device=device)
+        make = cuda_mask.make_cuda_multi_crack_step if self.multi \
+            else cuda_mask.make_cuda_mask_crack_step
+        self.step = make(engine.name, gen, tgt, batch, hit_capacity,
+                         device=device)

@@ -59,22 +59,52 @@ def test_device_cuda_without_card_fails(tmp_path, capsys, monkeypatch):
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     gen = MaskGenerator("?l?l?l")
-    launches = cuda_mask.mask_md5_kernel.launches
+    launches = dict(cuda_mask.launches)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda_mask.mask_md5_kernel(gen.charset_lut("cpu"), gen.radices,
-                                  gen.digits(0), 64, [0, 0, 0, 0], 4, 64)
-    assert cuda_mask.mask_md5_kernel.launches == launches
+        cuda_mask.mask_kernel("md5", gen.charset_lut("cpu"), gen.radices,
+                              gen.digits(0), 64, [0, 0, 0, 0], 4, 64)
+    words = torch.zeros((1, 4), dtype=torch.int32)
+    rows = torch.zeros((8, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_mask.mask_multi_kernel("ntlm", gen.charset_lut("cpu"),
+                                    gen.radices, gen.digits(0), 64, rows,
+                                    words, 4, 64)
+    assert cuda_mask.launches == launches
 
 
 def test_kernel_job_checks():
     gen = MaskGenerator("?l?l?l")
     lut = gen.charset_lut("cpu")
     good = (lut, gen.radices, gen.digits(0), 64, [0, 0, 0, 0], 4, 64)
-    cuda_mask.mask_md5(*good)
+    cuda_mask.mask_crack("md5", *good)
     for i, bad in [(0, lut.to(torch.int32)), (1, gen.radices[:2]),
                    (2, [26, 0, 0]), (3, 65), (4, [0, 0, 0]), (5, -1),
                    (6, 1 << 31)]:
         args = list(good)
         args[i] = bad
         with pytest.raises(ValueError):
-            cuda_mask.mask_md5(*args)
+            cuda_mask.mask_crack("md5", *args)
+    with pytest.raises(ValueError):
+        cuda_mask.mask_crack("sha512", *good)
+
+
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    """An edit to a header the source includes changes the library's
+    hash, so a stale library is never loaded; an unrelated file does
+    not."""
+    from dprf_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include "sub/a.cuh"\nint k;\n')
+    (tmp_path / "sub").mkdir()
+    (tmp_path / "sub" / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "sub" / "b.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    src = str(tmp_path / "k.cu")
+    assert sorted(os.path.relpath(p, tmp_path)
+                  for p in _build.source_files(src)) == \
+        ["k.cu", "sub/a.cuh", "sub/b.cuh"]
+    before = _build.source_hash(src)
+    (tmp_path / "other.cuh").write_text("// v2\n")
+    assert _build.source_hash(src) == before
+    (tmp_path / "sub" / "b.cuh").write_text("// v2\n")
+    assert _build.source_hash(src) != before

@@ -1,6 +1,7 @@
 """The port on an NVIDIA card: the CUDA mask kernel against its plain
-PyTorch version, the kernel worker and the CLI.  Every test here carries
-the ``cuda`` marker and skips without a card, deciding inside the test.
+PyTorch version for every core and compare mode, the kernel worker and
+the CLI.  Every test here carries the ``cuda`` marker and skips without
+a card, deciding inside the test.
 
 This file imports neither jax nor dprf_tpu, so it also runs where only
 the port is installed: ``python -m pytest --noconftest -m cuda
@@ -14,11 +15,13 @@ import pytest
 import torch
 
 from dprf_tpu_torch import cli
+from dprf_tpu_torch.engines import get_engine
 from dprf_tpu_torch.engines.base import Target
 from dprf_tpu_torch.engines.cpu.engines import Md5Engine
 from dprf_tpu_torch.engines.device.engines import TorchMd5Engine
 from dprf_tpu_torch.generators.mask import MaskGenerator
-from dprf_tpu_torch.ops import cuda_mask
+from dprf_tpu_torch.ops import bloom, cuda_mask
+from dprf_tpu_torch.ops.compare import make_target_table
 from dprf_tpu_torch.runtime.worker import CudaMaskWorker
 from dprf_tpu_torch.runtime.workunit import WorkUnit
 
@@ -31,9 +34,11 @@ def _need_card():
                     "is False)")
 
 
-def _words(plain: bytes) -> list:
-    return [int(w) for w in np.frombuffer(hashlib.md5(plain).digest(),
-                                          "<u4")]
+def _words(engine: str, plain: bytes) -> list:
+    oracle = get_engine(engine)
+    dt = ">u4" if engine.startswith("sha") else "<u4"
+    return [int(w) for w in
+            np.frombuffer(oracle.hash_batch([plain])[0], dt)]
 
 
 def _hit_set(count, lanes):
@@ -42,8 +47,8 @@ def _hit_set(count, lanes):
 
 
 def test_kernel_matches_plain_on_card():
-    """Count and sorted lanes equal at the main path's shapes (?l^6, a
-    batch of 2^24) and for ?a^8 from a random base."""
+    """md5, one target: count and sorted lanes equal at the main path's
+    shapes (?l^6, a batch of 2^24) and for ?a^8 from a random base."""
     _need_card()
     batch = 1 << 24
     rng = np.random.default_rng(5)
@@ -54,14 +59,61 @@ def test_kernel_matches_plain_on_card():
              (g6, batch * 3, batch, batch * 3 + int(rng.integers(0, batch))),
              (g8, s8, batch, s8 + int(rng.integers(0, batch)))]
     for gen, start, n_valid, plant in cases:
-        args = (gen.charset_lut("cuda"), gen.radices, gen.digits(start),
-                n_valid, _words(gen.candidate(plant)), 64, batch)
-        launches = cuda_mask.mask_md5_kernel.launches
-        kc, kl = cuda_mask.mask_md5_kernel(*args)
-        pc, pl = cuda_mask.mask_crack_plain(*args)
+        args = ("md5", gen.charset_lut("cuda"), gen.radices,
+                gen.digits(start), n_valid, _words("md5", gen.candidate(plant)),
+                64, batch)
+        launches = cuda_mask.launches["md5_mask"]
+        kc, kl = cuda_mask.mask_kernel(*args)
+        pc, pl = cuda_mask.mask_plain(*args)
         torch.cuda.synchronize()
-        assert cuda_mask.mask_md5_kernel.launches == launches + 1
+        assert cuda_mask.launches["md5_mask"] == launches + 1
         assert _hit_set(kc, kl) == _hit_set(pc, pl) == (1, [plant - start])
+
+
+@pytest.mark.parametrize("engine", ["md5", "ntlm", "sha1", "sha256"])
+@pytest.mark.parametrize("multi", [False, True])
+def test_every_core_and_mode_matches_plain(engine, multi):
+    """One case per core and compare mode at batch 2^20 on ?a^5: hits
+    at the first lane and two in one warp, a partial batch; the multi
+    mode holds tpos and n_maybe too, over 1,000 targets."""
+    _need_card()
+    batch, gen = 1 << 20, MaskGenerator("?a" * 5)
+    start = 7 * batch
+    plants = [start, start + 100, start + 101]
+    lut = gen.charset_lut("cuda")
+    base = (gen.radices, gen.digits(start), batch - 5)
+    if not multi:
+        args = (engine, lut, *base, _words(engine, gen.candidate(plants[1])),
+                64, batch)
+        kc, kl = cuda_mask.mask_kernel(*args)
+        pc, pl = cuda_mask.mask_plain(*args)
+        torch.cuda.synchronize()
+        assert _hit_set(kc, kl) == _hit_set(pc, pl) == (1, [100])
+        return
+    rng = np.random.default_rng(11)
+    fill = [bytes(rng.integers(33, 127, 8, dtype=np.uint8)) for _ in
+            range(997)]
+    oracle = get_engine(engine)
+    digests = oracle.hash_batch([gen.candidate(p) for p in plants] + fill)
+    table = make_target_table(digests, not engine.startswith("sha"))
+    rows = torch.as_tensor(
+        bloom.bloom_tables(table.original_words()).view(np.int32),
+        device="cuda")
+    words = table.tensor("cuda")
+    args = (engine, lut, *base, rows, words, 64, batch)
+    k = cuda_mask.mask_multi_kernel(*args)
+    p = cuda_mask.mask_multi_plain(*args)
+    torch.cuda.synchronize()
+
+    def pairs(count, lanes, tpos, n_maybe):
+        got = sorted((int(a), int(b)) for a, b in
+                     zip(lanes.tolist(), tpos.tolist()) if a >= 0)
+        return int(count.item()), got, int(n_maybe.item())
+
+    assert pairs(*k) == pairs(*p)
+    count, got, _ = pairs(*k)
+    assert count == 3
+    assert [table.order[t] for _, t in got] == [0, 1, 2]
 
 
 def test_kernel_worker_rescans_overflow_on_card():
@@ -85,7 +137,7 @@ def test_cli_crack_on_card(tmp_path, capsys):
     hashfile = tmp_path / "h.txt"
     hashfile.write_text(digest + "\n")
     pot = tmp_path / "p.pot"
-    launches = cuda_mask.mask_md5_kernel.launches
+    launches = cuda_mask.launches["md5_mask"]
     rc = cli.main(["crack", "?l?l?l?l", str(hashfile), "--engine", "md5",
                    "--potfile", str(pot), "--batch", "65536"])
     captured = capsys.readouterr()
@@ -94,4 +146,4 @@ def test_cli_crack_on_card(tmp_path, capsys):
     assert pot.read_text() == f"{digest}:zzzz\n"
     assert "rejected=0" in captured.err
     # 26^4 = 456,976 candidates in batches of 65,536
-    assert cuda_mask.mask_md5_kernel.launches - launches == 7
+    assert cuda_mask.launches["md5_mask"] - launches == 7

@@ -1,9 +1,11 @@
 """End to end: the port's CLI (``--device torch-cpu`` and ``--device
 cpu``) against the reference CLI (``--device tpu`` on CPU XLA) on the
-same planted ?l?l?l hashlist; the found set and the potfile must be
-equal, byte for byte."""
+same planted ?l?l?l hashlists -- one md5 target, and benchmark config 2
+in miniature (1,000 NTLM targets) -- the found set and the potfile must
+be equal, byte for byte."""
 
 import hashlib
+import random
 
 import pytest
 
@@ -77,8 +79,71 @@ def test_potfile_preload_skips_cracked(tmp_path, capsys):
 
 
 def test_engines_and_keyspace(capsys):
-    assert _run(port_main, ["engines"], capsys) == (0, "cpu: md5\ncuda: md5\n")
+    names = "md5, ntlm, sha-1, sha-256, sha1, sha256"
+    assert _run(port_main, ["engines"], capsys) == \
+        (0, f"cpu: {names}\ncuda: {names}\n")
     assert _run(port_main, ["keyspace", "?l?l?l?l?l?l"], capsys) == \
         (0, "308915776\n")
     assert _run(port_main, ["keyspace", "?1?d", "--custom1", "abc"],
                 capsys) == (0, "30\n")
+
+
+@pytest.fixture(scope="module")
+def ntlm_list(tmp_path_factory):
+    """Config 2 in miniature (tests/test_multi_target.py's list): 60
+    planted ?l?l?l passwords and 940 fillers outside the keyspace, in a
+    shuffled 1,000-hash NTLM list; and the reference CLI's result."""
+    from dprf_tpu_torch.engines import get_engine
+    from dprf_tpu_torch.generators.mask import MaskGenerator
+    rng = random.Random(42)
+    gen = MaskGenerator(MASK)
+    oracle = get_engine("ntlm")
+    planted = [gen.candidate(i)
+               for i in sorted(rng.sample(range(gen.keyspace), 60))]
+    fillers = [f"xx{i:06d}".encode() for i in range(940)]
+    digests = [d.hex() for d in oracle.hash_batch(planted + fillers)]
+    rng.shuffle(digests)
+    tmp = tmp_path_factory.mktemp("ntlm1k")
+    hashfile = tmp / "ntlm1k.txt"
+    hashfile.write_text("\n".join(digests) + "\n")
+    return hashfile, planted
+
+
+def _crack_list(main, hashfile, pot, device, capsys):
+    rc, out = _run(main, ["crack", MASK, str(hashfile), "--engine", "ntlm",
+                          "--device", device, "--potfile", str(pot),
+                          "--batch", "2048", "--unit-size", "8192", "-q"],
+                   capsys)
+    return rc, sorted(out.splitlines()), pot.read_text()
+
+
+@pytest.mark.parametrize("device", ["torch-cpu", "cpu"])
+def test_config2_miniature_matches_reference(tmp_path, capsys, device,
+                                             ntlm_list, ref_results):
+    hashfile, planted = ntlm_list
+    if "ntlm1k" not in ref_results:
+        ref_results["ntlm1k"] = _crack_list(ref_main, hashfile,
+                                            tmp_path / "ref.pot", "tpu",
+                                            capsys)
+    want = ref_results["ntlm1k"]
+    got = _crack_list(port_main, hashfile, tmp_path / "port.pot", device,
+                      capsys)
+    assert got == want
+    assert want[0] == 0 and len(want[1]) == 60
+    assert sorted(ln.split(":", 1)[1].encode() for ln in want[1]) == \
+        sorted(planted)
+
+
+@pytest.mark.parametrize("engine", ["ntlm", "sha1", "sha256"])
+def test_bench_takes_its_miss_target_from_the_engine(capsys, engine):
+    """bench sweeps against the engine's own digest of a string longer
+    than the mask (an md5 digest would not even parse as a sha target),
+    and finds nothing."""
+    import json
+    rc, out = _run(port_main, ["bench", "--engine", engine, "--mask", "?l?l",
+                               "--device", "torch-cpu", "--seconds", "0.05",
+                               "-q"], capsys)
+    assert rc == 0
+    res = json.loads(out.splitlines()[-1])
+    assert (res["engine"], res["hits"]) == (engine, 0)
+    assert res["candidates"] >= 26 * 26

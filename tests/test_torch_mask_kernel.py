@@ -1,4 +1,4 @@
-"""The md5 mask kernel's step (ops/cuda_mask.py) against the reference
+"""The mask kernel's md5 step (ops/cuda_mask.py) against the reference
 Pallas kernel (make_pallas_mask_crack_step in interpret mode, and
 emulate_mask_kernel), on the same job: the step's hit set, exact.
 
@@ -64,7 +64,7 @@ def test_step_hit_sets_match_interpret_kernel(where):
     tw = _words(gen.candidate(plant))
     ref_step = make_pallas_mask_crack_step("md5", ref_gen, tw, batch=TILE,
                                            interpret=True)
-    kern_step = cuda_mask.make_cuda_mask_crack_step(gen, tw, TILE, 64,
+    kern_step = cuda_mask.make_cuda_mask_crack_step("md5", gen, tw, TILE, 64,
                                                     device="cpu")
     for start, n_valid in _batches(plant):
         digits = gen.digits(start)
@@ -85,8 +85,8 @@ def test_step_matches_emulated_kernel():
                                         sub=TILE // 128)
     want = sorted(int(t * TILE + l) for t, (c, l) in
                   enumerate(zip(counts[:, 0], lanes[:, 0])) if c == 1)
-    count, got = cuda_mask.mask_crack_plain(
-        gen.charset_lut(), gen.radices, gen.digits(start), TILE,
+    count, got = cuda_mask.mask_plain(
+        "md5", gen.charset_lut(), gen.radices, gen.digits(start), TILE,
         [int(w) for w in tw], 64, TILE)
     assert (int(count), sorted(got[got >= 0].tolist())) == (len(want), want)
     assert want == [plant - start]
@@ -95,11 +95,12 @@ def test_step_matches_emulated_kernel():
 def test_kernel_eligible():
     gen = MaskGenerator(MASK)
     assert cuda_mask.kernel_eligible("md5", gen, 1)
-    assert not cuda_mask.kernel_eligible("md5", gen, 2)
-    assert not cuda_mask.kernel_eligible("sha1", gen, 1)
+    assert cuda_mask.kernel_eligible("md5", gen, 8192)
+    assert not cuda_mask.kernel_eligible("md5", gen, 8193)
+    assert not cuda_mask.kernel_eligible("sha512", gen, 1)
     assert not cuda_mask.kernel_eligible("md5", MaskGenerator("?d" * 56), 1)
     with pytest.raises(ValueError):
-        cuda_mask.make_cuda_mask_crack_step(MaskGenerator("?d" * 56),
+        cuda_mask.make_cuda_mask_crack_step("md5", MaskGenerator("?d" * 56),
                                             _words(b"x"), TILE)
 
 
@@ -124,7 +125,7 @@ def test_worker_overflow_rescans_exactly(make_worker, hit_cap):
     gen = MaskGenerator(MASK)
     plant = 2 * 1024 + 517
     d = hashlib.md5(gen.candidate(plant)).digest()
-    launches = cuda_mask.mask_md5_kernel.launches
+    launches = dict(cuda_mask.launches)
     w = make_worker(gen, [Target(d.hex(), d)], hit_cap)
     assert isinstance(w, CudaMaskWorker)
     hits = w.process(WorkUnit(0, 0, 4 * 1024))
@@ -132,7 +133,7 @@ def test_worker_overflow_rescans_exactly(make_worker, hit_cap):
         [(0, plant, gen.candidate(plant))]
     assert w.dispatched == 4
     assert w.process(WorkUnit(1, 4 * 1024, 1024)) == []
-    assert cuda_mask.mask_md5_kernel.launches == launches
+    assert cuda_mask.launches == launches
 
 
 def test_worker_overflow_without_oracle_raises():

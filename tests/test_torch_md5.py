@@ -17,7 +17,7 @@ from dprf_tpu.ops.pipeline import target_words as ref_target_words
 from dprf_tpu_torch.engines import get_engine
 from dprf_tpu_torch.ops import md5 as md5_ops
 from dprf_tpu_torch.ops.pack import pack_fixed
-from dprf_tpu_torch.ops.pipeline import target_words, target_words_from_numpy
+from dprf_tpu_torch.ops.compare import digest_rows, target_words_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -55,10 +55,10 @@ def test_constants_match_reference():
 
 
 def test_cuda_source_constant_table():
-    """The kernel's K_MD5 table (hex in csrc/mask_md5.cu) is the one
+    """The kernel's K_MD5 table (hex in csrc/mask.cu) is the one
     ops/md5.py computes from math.sin."""
     with open(os.path.join(REPO, "dprf_tpu_torch", "csrc",
-                           "mask_md5.cu")) as fh:
+                           "mask.cu")) as fh:
         src = fh.read()
     body = re.search(r"K_MD5\[64\]\s*=\s*\{([^}]*)\}", src).group(1)
     table = [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})u", body)]
@@ -79,4 +79,4 @@ def test_target_words_match_reference():
     np.testing.assert_array_equal(
         target_words_from_numpy(ref).numpy().view(np.uint32), ref)
     np.testing.assert_array_equal(
-        target_words(digest).numpy().view(np.uint32), ref)
+        digest_rows([digest])[0], ref)

@@ -1,0 +1,93 @@
+"""The kernel's least-work count (ops/opcount.py), the numerator of the
+bound chip_smoke.py prints: its symbolic cores compute the real hashes,
+fixed message words fold away, and the pipe balance is the closed form
+its docstring states.  Exact equality throughout."""
+
+import struct
+
+import numpy as np
+import pytest
+import torch
+
+from dprf_tpu_torch.engines import get_engine
+from dprf_tpu_torch.ops import cuda_mask, opcount
+from dprf_tpu_torch.ops.opcount import Var, Work
+
+ENGINES = ["md5", "ntlm", "sha1", "sha256"]
+
+
+def _var():
+    return Var("alu", 0, [])
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_symbolic_core_computes_the_hash(engine):
+    """Over fixed words the counted formulas are the core itself."""
+    eng = cuda_mask.device_engine(engine)
+    rng = np.random.default_rng(7)
+    for length in (0, 1, 7, eng.max_candidate_len):
+        cand = rng.integers(32, 127, length, dtype=np.uint8)
+        block = eng.pack(torch.as_tensor(cand).reshape(1, length), length)
+        words = [int(w) for w in block.numpy()[0].view(np.uint32)]
+        state = opcount.state_words(engine, words)
+        init = opcount.CORES[eng.name][1]
+        digest = struct.pack(("<" if eng.little_endian else ">")
+                             + f"{len(state)}I",
+                             *((s + int(i)) & 0xFFFFFFFF
+                               for s, i in zip(state, init)))
+        assert digest == get_engine(engine).hash_batch([cand.tobytes()])[0]
+
+
+def test_fold_rules():
+    v = _var()
+    assert opcount.add(3, 4) == 7
+    assert opcount.add(v, 0) is v                  # a zero term vanishes
+    assert opcount.add(v, 5, 7).n == 1             # constants fold into one
+    assert opcount.add(v, v, v, 1).n == 2          # four terms: two IADD3
+    assert opcount.xor(v, v, v, v).n == 2
+    assert opcount.rotl(0x80000000, 1) == 1
+    assert opcount.logic(opcount._choose, 1, 2, 3) == 2
+
+
+def test_every_word_variable_gives_the_textbook_count():
+    """All 16 words depend on the candidate: only the constant initial
+    state folds.  sha256: 63 full rounds of 10 ALU ops (6 SHF and 4
+    LOP3) and 4 IADD3, round 0 three adds, 48 schedule words of 8 ALU
+    ops and 2 IADD3.  md5: 64 steps of LOP3 + IADD3 + LEA.HI with a
+    second IADD3 for the word, less what the constant state folds in
+    steps 0-3."""
+    words = [_var() for _ in range(16)]
+    assert opcount.tally(opcount.state_words("sha256", words)) == {
+        "alu": 63 * 10 + 48 * 8, "add": 3 + 63 * 4 + 48 * 2, "fma": 0}
+    assert opcount.tally(opcount.state_words("md5", words)) == {
+        "alu": 1 + 63 * 2, "add": 4 + 60 * 2, "fma": 0}
+
+
+def test_fixed_words_and_unread_steps_cost_nothing():
+    # ?a^7: only words 0 and 1 hold candidate bytes.  sha256's schedule
+    # words 16-30 take a fixed word's sigma0 or sigma1 (W16 s1(W14),
+    # W17 both, W18-W30 s0(W3..W15)): 16 sigmas of 4 ALU ops fold away
+    full = opcount.tally(opcount.state_words("sha256",
+                                             [_var() for _ in range(16)]))
+    assert opcount.core_work("sha256", 7, 8)["alu"] == full["alu"] - 16 * 4
+    # a single target reads digest word 0: md5 skips steps 61-63
+    assert opcount.core_work("md5", 6, 1)["alu"] == \
+        opcount.core_work("md5", 6, 4)["alu"] - 6
+
+
+def test_ops_per_candidate_at_the_measured_masks():
+    assert opcount.ops_per_candidate("md5", 6) == Work(128, 73, 12)
+    assert opcount.ops_per_candidate("ntlm", 7) == Work(97, 60, 14)
+    assert opcount.ops_per_candidate("sha1", 7) == Work(410, 162, 14)
+    assert opcount.ops_per_candidate("sha-256", 7) == Work(958, 336, 14)
+    multi = opcount.ops_per_candidate("ntlm", 7, True, probes=1.0)
+    # words 1-2 add md4 steps 45-47, then the feed-forward and a probe
+    assert multi == Work(107, 66, 14)
+
+
+def test_slots_balance_the_adds_between_pipes():
+    assert Work(10, 0, 0).slots == 10
+    assert Work(0, 3, 0).slots == 2            # two on the ALU, one as 2 IMAD
+    assert Work(0, 0, 5).slots == 5
+    assert Work(10, 100, 4).slots == pytest.approx((20 + 4 + 200) / 3)
+    assert Work(100, 10, 0).slots == 100

@@ -73,7 +73,8 @@ def test_hashlist_matches_reference():
 
 def test_registry():
     assert engine_class("md5", "cuda") is TorchMd5Engine
+    assert engine_class("sha-1", "cuda") is engine_class("sha1", "cuda")
     with pytest.raises(KeyError):
-        get_engine("sha1", device="cuda")
+        get_engine("sha512", device="cuda")
     with pytest.raises(KeyError):
         get_engine("md5", device="tpu")
