@@ -7,9 +7,10 @@ It drives the port's main paths through the CLI a user calls, on the
 card, and holds every kernel against its plain PyTorch version:
 
 1. the card: name, device count, power limit, SM count and clock;
-2. builds the mask kernel (csrc/mask.cu, every core x compare mode)
-   from the checkout's sources and prints nvcc's register / shared
-   memory / spill lines and a SASS census of each instantiation;
+2. builds the mask kernel (csrc/mask.cu, every core x compare mode) and
+   the rule kernel (csrc/rules.cu, every core) from the checkout's
+   sources, one nvcc each, both at once, and prints nvcc's register /
+   shared memory / spill lines and a SASS census of each instantiation;
 3. holds each instantiation against its plain version on the card at a
    batch of 2^24, with exact equality of the hit count, the sorted hit
    lanes and, for the multi-target compare, the table positions and
@@ -37,7 +38,23 @@ card, and holds every kernel against its plain PyTorch version:
    once per batch the worker dispatched, and no other;
 7. times every instantiation per launch with CUDA events, the plain
    version for one launch, beside the bound, and the CLI's ``bench``;
-8. prints the kernels line and, last, the device line.
+8. the rule kernel against its plain version, each core at 2^24
+   candidates a launch (2^18 words of the reference bench's synthetic
+   list x best64), with exact equality of the count and the hit lanes:
+   hits at word 0 under rule 0, at the last valid word of a partial
+   window under the 8-op rule, at a window that starts at an odd word,
+   both lanes of the "'7" / "]" pair, and a candidate that rejects
+   (growth past max_len) never hits;
+9. config 3 at full width: the reference bench's 2^20 synthetic 8-letter
+   words x best64 (67,108,864 candidates) with ``crack --device cuda
+   --engine sha256 -a wordlist --rules best64``: an unreachable target
+   (a full sweep) and a target planted at the last word under a
+   four-op rule; then md5, ntlm and sha1 over 2^16 words.  Each path
+   runs with the launch counts set to 0 just before it and read just
+   after;
+10. times each rule instantiation per launch at 2^24, its plain version
+    and its bound;
+11. prints the kernels line and, last, the device line.
 
 Any failure exits non-zero before the last line.  Without a card it
 exits 1 and prints no result.
@@ -78,6 +95,23 @@ INSTANCES = [(e, m) for e in ("md5", "ntlm", "sha1", "sha256")
 #: the C++ core of each engine, as in the kernels' mangled names
 CPP_CORE = {"Md5Core": "md5", "Md4Core": "ntlm", "Sha1Core": "sha1",
             "Sha256Core": "sha256"}
+#: the rule kernel's cores, and config 3's list: the reference bench's
+#: 2^20 synthetic 8-letter words x best64 (its 64 rules)
+RULE_CORES = ("md5", "ntlm", "sha1", "sha256")
+CONFIG3_WORDS = 1 << 20
+#: the list of the other rule cores' CLI runs
+OTHER_WORDS = 1 << 16
+N_RULES = 64
+#: words per rule-kernel launch: 2^24 candidates under 64 rules
+RULE_BATCH = BATCH // N_RULES
+#: best64's rules the checks plant under: the 8-op "+0" x 8, a four-op
+#: rule, "'7" and "]" (one candidate twice), "p2 '7 p1 x58" (grows an
+#: 8-byte word to 24 bytes on the way)
+RULE_8OPS, RULE_4OPS, RULE_TRUNC7, RULE_DEL_LAST, RULE_GROW24 = \
+    56, 63, 46, 52, 62
+#: the card's memory rate, bytes/s (H100 SXM data sheet): the rule
+#: kernel's bytes floor
+HBM_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -106,10 +140,32 @@ def kname(engine: str, multi: bool) -> str:
     return f"{engine}_mask" + ("_multi" if multi else "")
 
 
+def rname(engine: str) -> str:
+    return f"{engine}_rules"
+
+
 def instance_of(mangled: str) -> str:
-    """The kernel name of a mangled mask_kernel<Core, multi> symbol."""
+    """The kernel name of a mangled mask_kernel<Core, multi> or
+    rules_kernel<Core> symbol."""
     m = re.search(r"mask_kernelI\d+(\w+?Core)Lb([01])E", mangled)
-    return kname(CPP_CORE[m.group(1)], m.group(2) == "1") if m else mangled
+    if m:
+        return kname(CPP_CORE[m.group(1)], m.group(2) == "1")
+    m = re.search(r"rules_kernelI\d+(\w+?Core)E", mangled)
+    return rname(CPP_CORE[m.group(1)]) if m else mangled
+
+
+def synthetic_words(n: int, length: int = 8) -> list:
+    """The reference bench's deterministic word list (its LCG): n words
+    of `length` lowercase letters."""
+    import numpy as np
+    xs = np.empty(n, dtype=np.int64)
+    x = 12345
+    for i in range(n):
+        x = (1103515245 * x + 12345) & 0x7FFFFFFF
+        xs[i] = x
+    letters = np.stack([(xs >> (3 * j)) % 26 for j in range(length)], 1)
+    rows = (letters + ord("a")).astype(np.uint8)
+    return [r.tobytes() for r in rows]
 
 
 def digest_words(engine: str, digest: bytes) -> list:
@@ -134,6 +190,7 @@ class Smoke:
         self.rng = np.random.default_rng(SEED)
         #: per instantiation: largest |kernel - plain| over its cases
         self.err = {kname(e, m): 0 for e, m in INSTANCES}
+        self.err.update({rname(e): 0 for e in RULE_CORES})
         #: per instantiation: launches of the main path that runs it
         self.path_launches = {}
 
@@ -282,6 +339,104 @@ class Smoke:
             f"{name} launches={launches[name]} batches={want_batches}")
         return finished[0], elapsed
 
+    # -- phase 8: the rule kernel vs plain ----------------------------------
+
+    def rules_case(self, engine, gen, tables, ws, n_valid, plants, name,
+                   rejected=()):
+        """One rule-kernel case over words [ws, ws + n_valid) x every
+        rule: kernel and plain on the same inputs, with the digest of
+        the candidate at keyspace index plants[0] as target.  Every
+        index of ``plants`` must come back as a hit lane; every word
+        index (a rule's candidate that rejects) of ``rejected`` must
+        not."""
+        from dprf_tpu_torch.ops import cuda_rules
+        plain = gen.candidate(plants[0])
+        target = digest_words(engine,
+                              self.get_engine(engine).hash_batch([plain])[0])
+        args = (engine, *tables, ws, n_valid, target, 64, RULE_BATCH)
+        kc, kl = cuda_rules.rules_kernel(*args)
+        pc, pl = cuda_rules.rules_plain(*args)
+        self.torch.cuda.synchronize()
+        kc, pc = int(kc.item()), int(pc.item())
+        kl = sorted(int(x) for x in kl.cpu().tolist())
+        pl = sorted(int(x) for x in pl.cpu().tolist())
+        err = max([abs(kc - pc)] + [abs(a - b) for a, b in zip(kl, pl)])
+        hits = [x for x in kl if x >= 0]
+        gidx = [(ws + x % RULE_BATCH) * gen.n_rules + x // RULE_BATCH
+                for x in hits]
+        say(f"  {rname(engine)} {name}: kernel count={kc} lanes={hits[:8]}"
+            f" | plain count={pc}; target {plain!r}")
+        check(kc == pc and kl == pl, f"{name}: kernel and plain differ")
+        check(0 < kc <= 64, f"{name}: count {kc}")
+        check(all(p in gidx for p in plants),
+              f"{name}: planted {plants} not all in {gidx}")
+        check(all(gen.candidate(g) == plain for g in gidx),
+              f"{name}: a hit lane decodes to another candidate")
+        check(not any(r in gidx for r in rejected),
+              f"{name}: a rejected candidate hit")
+        self.err[rname(engine)] = max(self.err[rname(engine)], err)
+
+    # -- phase 9: config 3 through the CLI -----------------------------------
+
+    def crack_words(self, cli, engine, words_path, n_words, digest,
+                    planted, max_len=55):
+        """crack --device cuda -a wordlist --rules best64 with the launch
+        counts set to 0 just before it; checks the found set, the
+        summary (tested, rejected=0, batches) and that only the engine's
+        rule kernel launched, once per word window; returns (summary,
+        wall s)."""
+        from dprf_tpu_torch.ops import cuda_mask, cuda_rules
+        from dprf_tpu_torch.runtime.potfile import encode_plain
+        keyspace = n_words * N_RULES
+        unit = cli.UNIT_BATCHES * BATCH // N_RULES * N_RULES
+        want_batches = 0
+        for start in range(0, keyspace, unit):
+            w0, w1 = start // N_RULES, -(-min(start + unit, keyspace)
+                                        // N_RULES)
+            want_batches += -(-(w1 - w0) // RULE_BATCH)
+        want = [] if planted is None else \
+            [f"{digest.hex()}:{encode_plain(planted)}"]
+        with tempfile.TemporaryDirectory() as tmp:
+            hashfile = os.path.join(tmp, "hashes.txt")
+            with open(hashfile, "w") as fh:
+                fh.write(digest.hex() + "\n")
+            argv = ["crack", "--engine", engine, "-a", "wordlist",
+                    words_path, hashfile, "--rules", "best64", "--device",
+                    "cuda", "--potfile", os.path.join(tmp, "job.potfile")]
+            cuda_mask.reset_launches()
+            cuda_rules.reset_launches()
+            t0 = time.perf_counter()
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(argv)
+            elapsed = time.perf_counter() - t0
+            launches = {**cuda_mask.launches, **cuda_rules.launches}
+        out, err = out.getvalue(), err.getvalue()
+        name = rname(engine)
+        check(rc == (0 if want else 1),
+              f"crack -a wordlist {engine} exited {rc}: {err[-2000:]}")
+        check(out.splitlines() == want,
+              f"crack {engine} printed {out.splitlines()}, expected {want}")
+        finished = [ln for ln in err.splitlines() if "job finished" in ln]
+        summary = finished[0] if len(finished) == 1 else ""
+        ok = "rejected=0" in summary and f"found={len(want)}/1" in summary
+        if planted is None:         # a full sweep
+            ok = ok and all(f in summary for f in (
+                f"tested={keyspace}", "exhausted=True",
+                f" batches={want_batches}"))
+        check(ok, f"{name}: job summary {finished}, expected "
+              f"{want_batches} batches")
+        check(launches[name] == sum(launches.values()) > 0
+              and (planted is not None or launches[name] == want_batches),
+              f"{name}: launches {launches}, {want_batches} word windows")
+        self.path_launches.setdefault(name, launches[name])
+        say(f"  {name}: {finished[0].split('job finished', 1)[1].strip()}")
+        say(f"    wall {elapsed:.3f} s for {keyspace} candidates = "
+            f"{keyspace / elapsed:,.0f} candidates/s (the whole CLI call); "
+            f"{name} launches={launches[name]}")
+        return finished[0], elapsed
+
     # -- phase 7: timing --------------------------------------------------
 
     def time_launches(self, fn, args) -> float:
@@ -326,7 +481,9 @@ def main() -> None:
     from dprf_tpu_torch.engines.cpu.engines import Md5Engine
     from dprf_tpu_torch.engines.device.engines import TorchMd5Engine
     from dprf_tpu_torch.generators.mask import MaskGenerator
-    from dprf_tpu_torch.ops import _build, bloom, cuda_mask, opcount
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    from dprf_tpu_torch.ops import _build, bloom, cuda_mask, cuda_rules, opcount
+    from dprf_tpu_torch.rules import load_rules
     from dprf_tpu_torch.runtime.worker import CudaMaskWorker
     from dprf_tpu_torch.runtime.workunit import WorkUnit
 
@@ -344,21 +501,29 @@ def main() -> None:
     say(card)
     say(f"  SMs={sms}  max SM clock={clock_mhz:.0f} MHz")
 
-    # 2. the kernel build
-    built = _build.build("mask")
+    # 2. the kernel builds: one nvcc per source, both at once
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        builds = {src: pool.submit(_build.build, src)
+                  for src in ("mask", "rules")}
+        builds = {src: f.result() for src, f in builds.items()}
     cuda_mask.load_kernel()
-    say(f"== build: {built.path} ({built.seconds:.2f} s of nvcc, all "
-        f"{len(INSTANCES)} instantiations)")
-    for line in built.log.splitlines():
-        if "Compiling entry function" in line:
-            say(f"  {instance_of(line)}:")
-        elif "ptxas info    : Used" in line or "spill" in line:
-            say("    " + line.strip())
-    census = _build.sass_census("mask")
-    for func, c in sorted(census.items(), key=lambda kv: instance_of(kv[0])):
-        top = ", ".join(f"{op} {n}" for op, n in c["by_opcode"].items())
-        say(f"  SASS {instance_of(func)}: {c['total']} static instructions "
-            f"({top})")
+    cuda_rules.load_kernel()
+    say(f"== build: both sources in {time.perf_counter() - t0:.2f} s wall")
+    for src, built in builds.items():
+        say(f"  {built.path}: {built.seconds:.2f} s of nvcc")
+        for line in built.log.splitlines():
+            if "Compiling entry function" in line:
+                say(f"  {instance_of(line)}:")
+            elif "ptxas info    : Used" in line or "spill" in line:
+                say("    " + line.strip())
+        census = _build.sass_census(src)
+        for func, c in sorted(census.items(),
+                              key=lambda kv: instance_of(kv[0])):
+            top = ", ".join(f"{op} {n}" for op, n in c["by_opcode"].items())
+            say(f"  SASS {instance_of(func)}: {c['total']} static "
+                f"instructions ({top})")
     for engine, multi in INSTANCES:
         length = 6 if engine == "md5" and not multi else 7
         n_sets = bloom.n_sets(N_TARGETS) if multi else 0
@@ -372,6 +537,12 @@ def main() -> None:
         f"{bloom.MAX_TARGETS} targets: {smem} B shared, "
         f"{cuda_mask.blocks_per_sm('md5', True, smem)} resident blocks per "
         "SM")
+    for engine in RULE_CORES:
+        max_len = 27 if engine == "ntlm" else 55
+        smem = cuda_rules.shared_bytes(max_len)
+        say(f"  {rname(engine)}: {smem} B shared at max_len {max_len}, "
+            f"{cuda_rules.blocks_per_sm(engine, smem)} resident blocks of "
+            f"{cuda_rules.THREADS} per SM (the grid's wave)")
 
     # 3. kernel vs plain on the card
     say(f"== kernel vs plain at batch {BATCH} (exact equality)")
@@ -492,7 +663,7 @@ def main() -> None:
     # 7. timing at batch 2^24
     say(f"== timing at batch 2^24 (CUDA events, {TIMED_LAUNCHES} launches);"
         f" card: {card}")
-    rate = sms * LANES_PER_SM * clock_mhz * 1e6
+    rate_ops = sms * LANES_PER_SM * clock_mhz * 1e6
     timing = {}
     for engine, multi in INSTANCES:
         gen, lut = (g6, lut6) if engine == "md5" and not multi \
@@ -519,7 +690,7 @@ def main() -> None:
             work = opcount.ops_per_candidate(engine, gen.length)
         ms = smoke.time_launches(fn, args)
         plain_ms = smoke.time_once(plain_fn, args)
-        bound = BATCH * work.slots / rate * 1e3
+        bound = BATCH * work.slots / rate_ops * 1e3
         timing[kname(engine, multi)] = (ms, plain_ms, bound)
         say(f"  {kname(engine, multi)} {gen.mask}: {ms:.4f} ms/launch = "
             f"{BATCH / ms / 1e6:.3f} G candidates/s; bound {bound:.4f} ms "
@@ -545,7 +716,160 @@ def main() -> None:
         res = json.loads(out.getvalue().strip().splitlines()[-1])
         check(res["hits"] == 0, "bench found a hit on an unreachable target")
 
-    # 8. the kernels line, then the device line
+    # 8. the rule kernel vs its plain version at 2^24 candidates a launch
+    say(f"== rule kernel vs plain at {RULE_BATCH} words x {N_RULES} rules "
+        f"= {RULE_BATCH * N_RULES} candidates a launch (exact equality)")
+    t0 = time.perf_counter()
+    words3 = synthetic_words(CONFIG3_WORDS)
+    say(f"  the synthetic list: {len(words3)} words in "
+        f"{time.perf_counter() - t0:.2f} s (the reference bench's LCG)")
+    best64 = load_rules("best64")
+    check(len(best64) == N_RULES, f"best64 has {len(best64)} rules")
+    check(len(best64[RULE_8OPS]) == 8 and len(best64[RULE_4OPS]) == 4,
+          "best64's 8-op / 4-op rules moved")
+    rule_gens, rule_tables = {}, {}
+    for max_len in (27, 55):
+        gen = WordlistRulesGenerator(words3, best64, max_len=max_len)
+        buf, lens = gen.packed_words()
+        rule_gens[max_len] = gen
+        rule_tables[max_len] = (torch.as_tensor(buf, device="cuda"),
+                                torch.as_tensor(lens, device="cuda"),
+                                *cuda_rules.rule_tables(best64, "cuda"))
+    # a list whose rows are 16 bytes wide: "p2 '7 p1 x58" grows its
+    # 8-byte words to 24 bytes on the way, so each such candidate rejects
+    gen16 = WordlistRulesGenerator(words3[:RULE_BATCH], best64, max_len=16)
+    buf16, lens16 = gen16.packed_words()
+    tables16 = (torch.as_tensor(buf16, device="cuda"),
+                torch.as_tensor(lens16, device="cuda"),
+                *cuda_rules.rule_tables(best64, "cuda"))
+    n3 = CONFIG3_WORDS
+    for engine in RULE_CORES:
+        max_len = 27 if engine == "ntlm" else 55
+        gen, tables = rule_gens[max_len], rule_tables[max_len]
+        smoke.rules_case(engine, gen, tables, 0, RULE_BATCH, [0],
+                         "word 0 under rule 0")
+        nv = RULE_BATCH - 777
+        ws = n3 - nv
+        smoke.rules_case(engine, gen, tables, ws, nv,
+                         [gen.index_of(n3 - 1, RULE_8OPS)],
+                         f"the last word under the 8-op rule, window of "
+                         f"{nv} words at {ws}")
+        ws = 12345
+        w = ws + int(rng.integers(0, RULE_BATCH))
+        smoke.rules_case(engine, gen, tables, ws, RULE_BATCH,
+                         [gen.index_of(w, int(rng.integers(0, N_RULES)))],
+                         f"a window at word {ws}")
+        w = ws + int(rng.integers(0, RULE_BATCH))
+        smoke.rules_case(engine, gen, tables, ws, RULE_BATCH,
+                         [gen.index_of(w, RULE_TRUNC7),
+                          gen.index_of(w, RULE_DEL_LAST)],
+                         f"the \"'7\" / \"]\" pair of word {w}")
+        # the target is word w's candidate under the grow rule at
+        # max_len 55; at 16 that candidate rejects, so no lane of the
+        # grow rule may hit
+        w = int(rng.integers(0, RULE_BATCH))
+        plant = rule_gens[55].candidate(rule_gens[55].index_of(w,
+                                                               RULE_GROW24))
+        check(gen16.candidate(gen16.index_of(w, RULE_GROW24)) is None,
+              "the grow rule did not reject at max_len 16")
+        target = digest_words(engine,
+                              smoke.get_engine(engine).hash_batch([plant])[0])
+        args = (engine, *tables16, 0, RULE_BATCH, target, 64, RULE_BATCH)
+        k = cuda_rules.rules_kernel(*args)
+        p = cuda_rules.rules_plain(*args)
+        torch.cuda.synchronize()
+        k = (int(k[0].item()), sorted(k[1].cpu().tolist()))
+        p = (int(p[0].item()), sorted(p[1].cpu().tolist()))
+        check(k == p, f"{rname(engine)} max_len 16: kernel {k}, plain {p}")
+        check(all(x // RULE_BATCH != RULE_GROW24 for x in k[1] if x >= 0),
+              f"{rname(engine)}: a rejected candidate hit")
+        say(f"  {rname(engine)} max_len 16, target {plant!r} whose rule "
+            f"rejects there: kernel count={k[0]} | plain count={p[0]}")
+
+    # 9. config 3 at full width, then the other rule cores
+    say(f"== config 3: crack --device cuda --engine sha256 -a wordlist "
+        f"--rules best64, {CONFIG3_WORDS} words; card: {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path3 = os.path.join(tmp, "words.txt")
+        t0 = time.perf_counter()
+        with open(path3, "wb") as fh:
+            fh.write(b"\n".join(words3) + b"\n")
+        t1 = time.perf_counter()
+        loaded = WordlistRulesGenerator.from_files(path3, "best64")
+        t2 = time.perf_counter()
+        check(loaded.n_words == CONFIG3_WORDS
+              and loaded.keyspace == CONFIG3_WORDS * N_RULES,
+              f"config 3 list: {loaded.n_words} words")
+        t3 = time.perf_counter()
+        dev = torch.as_tensor(loaded.packed_words()[0], device="cuda")
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        del dev
+        say(f"  set-up parts: write the list {t1 - t0:.3f} s, load it "
+            f"(numpy loader) {t2 - t1:.3f} s, upload its table "
+            f"{t4 - t3:.3f} s")
+        miss = hashlib.sha256(b"\0" * 9).digest()
+        summary, wall = smoke.crack_words(cli, "sha256", path3, n3, miss,
+                                          None)
+        rate = re.search(r" rate=([\d,]+)/s", summary).group(1)
+        loop = n3 * N_RULES / int(rate.replace(",", ""))
+        say(f"  config 3 sweep: {wall:.3f} s wall, loop {loop:.3f} s at "
+            f"{rate} candidates/s, set-up {wall - loop:.3f} s; card: {card}")
+        config3 = {"wall_s": wall, "loop_s": loop, "setup_s": wall - loop,
+                   "load_s": t2 - t1, "upload_s": t4 - t3,
+                   "candidates": n3 * N_RULES}
+        plant = rule_gens[55].candidate(rule_gens[55].index_of(n3 - 1,
+                                                               RULE_4OPS))
+        summary, wall_b = smoke.crack_words(
+            cli, "sha256", path3, n3, hashlib.sha256(plant).digest(),
+            plant)
+        config3["planted_wall_s"] = wall_b
+        say(json.dumps({"config3": config3}))
+        for engine in RULE_CORES[:3]:
+            path = os.path.join(tmp, f"words{OTHER_WORDS}.txt")
+            with open(path, "wb") as fh:
+                fh.write(b"\n".join(words3[:OTHER_WORDS]) + b"\n")
+            plant = rule_gens[55].candidate(rule_gens[55].index_of(
+                OTHER_WORDS - 1, RULE_8OPS))
+            smoke.crack_words(
+                cli, engine, path, OTHER_WORDS,
+                smoke.get_engine(engine).hash_batch([plant])[0], plant)
+
+    # 10. the rule kernel's time at 2^24 candidates a launch
+    say(f"== rule kernel timing at {RULE_BATCH} words x {N_RULES} rules "
+        f"(CUDA events, {TIMED_LAUNCHES} launches); card: {card}")
+    lengths = {ml: opcount.rule_lengths(
+        *(a[:OTHER_WORDS] for a in rule_gens[ml].packed_words()), best64,
+        ml) for ml in (27, 55)}
+    for engine in RULE_CORES:
+        max_len = 27 if engine == "ntlm" else 55
+        counts = {n: c * RULE_BATCH // OTHER_WORDS
+                  for n, c in lengths[max_len].items()}
+        miss = digest_words(engine, smoke.get_engine(engine)
+                            .hash_batch([b"\0" * 9])[0])
+        args = (engine, *rule_tables[max_len], 0, RULE_BATCH, miss, 64,
+                RULE_BATCH)
+        ms = smoke.time_launches(cuda_rules.rules_kernel, args)
+        plain_ms = smoke.time_once(cuda_rules.rules_plain, args)
+        work = opcount.rules_ops(engine, counts)
+        ops_ms = work.slots / rate_ops * 1e3
+        bytes_ = RULE_BATCH * (max_len + 4)
+        bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        timing[rname(engine)] = (ms, plain_ms, bound,
+                                 "operations" if ops_ms >= bytes_ms
+                                 else "bytes")
+        n = RULE_BATCH * N_RULES
+        say(f"  {rname(engine)}: {ms:.4f} ms/launch = {n / ms / 1e6:.3f} G "
+            f"candidates/s; bound {bound:.4f} ms (operations "
+            f"{ops_ms:.4f} ms: per candidate {work.alu / n:.1f} ALU, "
+            f"{work.add / n:.1f} IADD3, {work.fma / n:.1f} IMAD = "
+            f"{work.slots / n:.1f} slots over lengths {lengths[max_len]} "
+            f"(x {RULE_BATCH // OTHER_WORDS}); bytes {bytes_ms:.4f} ms: "
+            f"the word table once, {bytes_} B; kernel at {bound / ms:.1%} "
+            f"of it); plain version {plain_ms:.3f} ms")
+
+    # 11. the kernels line, then the device line
     kernels = []
     for engine, multi in INSTANCES:
         key = kname(engine, multi)
@@ -557,6 +881,15 @@ def main() -> None:
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "operations",
             "library_ms": None})
+    for engine in RULE_CORES:
+        key = rname(engine)
+        ms, plain_ms, bound, bound_by = timing[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": cuda_rules.SOURCE,
+            "replaces": cuda_rules.REPLACES,
+            "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its path")
     check(all(k["max_abs_err"] == 0 for k in kernels),

@@ -1,11 +1,12 @@
 """The command-line interface of the port: ``python -m dprf_tpu_torch``.
 
-Subcommands: crack (a local mask job), bench (candidates/s of the mask
-worker), engines, keyspace.  Devices:
+Subcommands: crack (a local mask or wordlist+rules job), bench
+(candidates/s of the mask worker), engines, keyspace.  Devices:
 
-- ``cuda`` (the default): the hand-written CUDA kernel on the card;
-- ``torch-cpu``: the same worker on CPU tensors, running the kernel's
-  plain PyTorch version;
+- ``cuda`` (the default): the hand-written CUDA kernels on the card
+  (the mask kernel, the rule kernel);
+- ``torch-cpu``: the same workers on CPU tensors, running the kernels'
+  plain PyTorch versions;
 - ``cpu``: the CPU oracle (hashlib; a pure-Python MD4 for ntlm).
 
 ``--device cuda`` without a card is an error, never a quiet move to
@@ -22,9 +23,13 @@ from dprf_tpu_torch import engine_names, get_engine
 from dprf_tpu_torch.generators.mask import MaskGenerator
 from dprf_tpu_torch.utils.logging import Log
 
+ATTACKS = ("mask", "wordlist")
+
 DEVICES = ("cuda", "torch-cpu", "cpu")
-#: default step batch per device: a launch of 2^24 candidates keeps the
-#: card busy for about a millisecond; CPU tensors want far smaller steps
+#: default step batch per device, in candidates: a launch of 2^24 keeps
+#: the card busy for about a millisecond; CPU tensors want far smaller
+#: steps.  A wordlist step covers batch // n_rules words (rounded down
+#: to a multiple of 32) under every rule
 DEFAULT_BATCH = {"cuda": 1 << 24, "torch-cpu": 1 << 14, "cpu": 1 << 14}
 #: default WorkUnit size, in batches
 UNIT_BATCHES = 16
@@ -43,7 +48,8 @@ def _build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
 
     c = sub.add_parser("crack", help="run a recovery job locally")
-    c.add_argument("attack_arg", help="mask string")
+    c.add_argument("attack_arg", help="mask string, or the wordlist file "
+                   "(-a wordlist)")
     c.add_argument("hashfile", help="file of target hashes")
     c.add_argument("--engine", "-m", required=True,
                    help="hash algorithm (see `engines`)")
@@ -51,8 +57,11 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="cuda: the CUDA kernel on the card (default); "
                    "torch-cpu: the kernel's plain version on CPU tensors; "
                    "cpu: the CPU oracle")
-    c.add_argument("-a", "--attack", default="mask", choices=["mask"],
-                   help="attack mode (mask)")
+    c.add_argument("-a", "--attack", default="mask", choices=ATTACKS,
+                   help="attack mode: mask, or wordlist (with --rules)")
+    c.add_argument("--rules", default=None,
+                   help="rule set for -a wordlist: a built-in name "
+                   "(best64, dprf64, leetspeak, toggle) or a file")
     _add_custom_charsets(c)
     c.add_argument("--potfile", default="dprf.potfile")
     c.add_argument("--no-potfile", action="store_true")
@@ -84,8 +93,13 @@ def _build_parser() -> argparse.ArgumentParser:
     e.add_argument("--device", default=None, choices=("cpu", "cuda"))
     e.add_argument("--quiet", "-q", action="store_true")
 
-    k = sub.add_parser("keyspace", help="print the keyspace size of a mask")
-    k.add_argument("attack_arg", metavar="mask")
+    k = sub.add_parser("keyspace", help="print the keyspace size of an "
+                       "attack (mask, wordlist+rules)")
+    k.add_argument("attack_arg", metavar="mask_or_wordlist")
+    k.add_argument("-a", "--attack", default="mask", choices=ATTACKS)
+    k.add_argument("--rules", default=None)
+    k.add_argument("--max-len", type=int, default=55,
+                   help="longest word of -a wordlist")
     _add_custom_charsets(k)
     k.add_argument("--quiet", "-q", action="store_true")
     return p
@@ -113,15 +127,50 @@ def _torch_device(device: str) -> str:
     return "cpu"
 
 
+def _wordlist_max_len(engine) -> int:
+    """Longest word of a wordlist job: the engine's single-block limit
+    (55 bytes; 27 characters for ntlm's UTF-16LE), the same on every
+    device, so a job's keyspace does not depend on where it runs."""
+    return engine.max_candidate_len
+
+
+def _build_gen(attack: str, attack_arg: str, args, max_len: int, log: Log):
+    """The job's candidate generator: a mask, or a wordlist file under
+    the --rules set."""
+    if attack == "mask":
+        gen = MaskGenerator(attack_arg, custom=_customs(args) or None)
+        log.info("keyspace", mask=attack_arg, size=gen.keyspace)
+        return gen
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    gen = WordlistRulesGenerator.from_files(attack_arg, args.rules,
+                                            max_len=max_len)
+    if gen.n_skipped_long:
+        log.warn("skipped overlong words", count=gen.n_skipped_long,
+                 max_len=max_len)
+    log.info("keyspace", words=gen.n_words, rules=gen.n_rules,
+             size=gen.keyspace)
+    return gen
+
+
+def _align_unit_size(unit_size: int, attack: str, gen) -> int:
+    """Units of whole words: no candidate is hashed twice at a unit
+    boundary on the device path."""
+    if attack != "wordlist":
+        return unit_size
+    return max(gen.n_rules, (unit_size // gen.n_rules) * gen.n_rules)
+
+
 def _make_worker(args, tdev, gen, targets, oracle, batch: int):
     """The oracle's CpuWorker for tdev None, else the torch engine's
-    mask worker on torch device tdev."""
+    mask or wordlist worker on torch device tdev."""
     from dprf_tpu_torch.runtime.worker import CpuWorker
     if tdev is None:
         return CpuWorker(oracle, gen, targets)
     dev = get_engine(args.engine, device="cuda", torch_device=tdev)
-    return dev.make_mask_worker(gen, targets, batch=batch,
-                                hit_capacity=args.hit_cap, oracle=oracle)
+    make = dev.make_wordlist_worker if args.attack == "wordlist" \
+        else dev.make_mask_worker
+    return make(gen, targets, batch=batch, hit_capacity=args.hit_cap,
+                oracle=oracle)
 
 
 def _make_dispatcher(args, keyspace: int, unit_size: int, log: Log):
@@ -158,10 +207,11 @@ def cmd_crack(args, log: Log) -> int:
         return 2
     log.info("loaded targets", count=len(hl.targets),
              duplicates=hl.duplicates, engine=oracle.name)
-    gen = MaskGenerator(args.attack_arg, custom=_customs(args) or None)
-    log.info("keyspace", mask=args.attack_arg, size=gen.keyspace)
+    gen = _build_gen(args.attack, args.attack_arg, args,
+                     _wordlist_max_len(oracle), log)
     batch = args.batch or DEFAULT_BATCH[device]
-    unit_size = args.unit_size or UNIT_BATCHES * batch
+    unit_size = _align_unit_size(args.unit_size or UNIT_BATCHES * batch,
+                                 args.attack, gen)
     dispatcher = _make_dispatcher(args, gen.keyspace, unit_size, log)
     worker = _make_worker(args, tdev, gen, hl.targets, oracle, batch)
     log.info("worker", kind=type(worker).__name__, device=device,
@@ -255,8 +305,8 @@ def cmd_engines(args, log: Log) -> int:
 
 
 def cmd_keyspace(args, log: Log) -> int:
-    print(MaskGenerator(args.attack_arg,
-                        custom=_customs(args) or None).keyspace)
+    print(_build_gen(args.attack, args.attack_arg, args, args.max_len,
+                     log).keyspace)
     return 0
 
 

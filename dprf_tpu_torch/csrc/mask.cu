@@ -43,6 +43,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cores.cuh"
+
 #define DPRF_MAX_LEN 55
 #define DPRF_K_PROBES 8
 
@@ -64,261 +66,6 @@ struct MultiArgs {
     const uint32_t* table;    // uint32[n_targets][words], sorted
     int32_t n_sets;
     int32_t n_targets;
-};
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int n)
-{
-    return __funnelshift_l(x, x, n);
-}
-
-__device__ __forceinline__ uint32_t rotr(uint32_t x, int n)
-{
-    return __funnelshift_r(x, x, n);
-}
-
-// floor(abs(sin(i + 1)) * 2^32), RFC 1321; ops/md5.K computes the same
-// table from math.sin and a test holds them equal.
-__constant__ uint32_t K_MD5[64] = {
-    0xd76aa478u, 0xe8c7b756u, 0x242070dbu, 0xc1bdceeeu,
-    0xf57c0fafu, 0x4787c62au, 0xa8304613u, 0xfd469501u,
-    0x698098d8u, 0x8b44f7afu, 0xffff5bb1u, 0x895cd7beu,
-    0x6b901122u, 0xfd987193u, 0xa679438eu, 0x49b40821u,
-    0xf61e2562u, 0xc040b340u, 0x265e5a51u, 0xe9b6c7aau,
-    0xd62f105du, 0x02441453u, 0xd8a1e681u, 0xe7d3fbc8u,
-    0x21e1cde6u, 0xc33707d6u, 0xf4d50d87u, 0x455a14edu,
-    0xa9e3e905u, 0xfcefa3f8u, 0x676f02d9u, 0x8d2a4c8au,
-    0xfffa3942u, 0x8771f681u, 0x6d9d6122u, 0xfde5380cu,
-    0xa4beea44u, 0x4bdecfa9u, 0xf6bb4b60u, 0xbebfbc70u,
-    0x289b7ec6u, 0xeaa127fau, 0xd4ef3085u, 0x04881d05u,
-    0xd9d4d039u, 0xe6db99e5u, 0x1fa27cf8u, 0xc4ac5665u,
-    0xf4292244u, 0x432aff97u, 0xab9423a7u, 0xfc93a039u,
-    0x655b59c3u, 0x8f0ccc92u, 0xffeff47du, 0x85845dd1u,
-    0x6fa87e4fu, 0xfe2ce6e0u, 0xa3014314u, 0x4e0811a1u,
-    0xf7537e82u, 0xbd3af235u, 0x2ad7d2bbu, 0xeb86d391u,
-};
-
-// the fractional cube roots of the first 64 primes, FIPS 180-4;
-// ops/sha256.K computes the same table and a test holds them equal.
-__constant__ uint32_t K_SHA256[64] = {
-    0x428a2f98u, 0x71374491u, 0xb5c0fbcfu, 0xe9b5dba5u,
-    0x3956c25bu, 0x59f111f1u, 0x923f82a4u, 0xab1c5ed5u,
-    0xd807aa98u, 0x12835b01u, 0x243185beu, 0x550c7dc3u,
-    0x72be5d74u, 0x80deb1feu, 0x9bdc06a7u, 0xc19bf174u,
-    0xe49b69c1u, 0xefbe4786u, 0x0fc19dc6u, 0x240ca1ccu,
-    0x2de92c6fu, 0x4a7484aau, 0x5cb0a9dcu, 0x76f988dau,
-    0x983e5152u, 0xa831c66du, 0xb00327c8u, 0xbf597fc7u,
-    0xc6e00bf3u, 0xd5a79147u, 0x06ca6351u, 0x14292967u,
-    0x27b70a85u, 0x2e1b2138u, 0x4d2c6dfcu, 0x53380d13u,
-    0x650a7354u, 0x766a0abbu, 0x81c2c92eu, 0x92722c85u,
-    0xa2bfe8a1u, 0xa81a664bu, 0xc24b8b70u, 0xc76c51a3u,
-    0xd192e819u, 0xd6990624u, 0xf40e3585u, 0x106aa070u,
-    0x19a4c116u, 0x1e376c08u, 0x2748774cu, 0x34b0bcb5u,
-    0x391c0cb3u, 0x4ed8aa4au, 0x5b9cca4fu, 0x682e6ff3u,
-    0x748f82eeu, 0x78a5636fu, 0x84c87814u, 0x8cc70208u,
-    0x90befffau, 0xa4506cebu, 0xbef9a3f7u, 0xc67178f2u,
-};
-
-// ---- the cores: byte placement, digest words, rounds -----------------
-//
-// word(q) / shift(q): where candidate byte q goes in the message words.
-// They are called with compile-time q only, so they fold away.
-
-struct Md5Core {
-    static constexpr int kWords = 4;
-    static constexpr int kMaxLen = 55;
-    __host__ __device__ static constexpr int word(int q) { return q >> 2; }
-    __host__ __device__ static constexpr int shift(int q)
-    {
-        return 8 * (q & 3);
-    }
-
-    __device__ __forceinline__ static void digest(uint32_t* m,
-                                                  uint32_t* out)
-    {
-        const int S[4][4] = {{7, 12, 17, 22}, {5, 9, 14, 20},
-                             {4, 11, 16, 23}, {6, 10, 15, 21}};
-        uint32_t a = 0x67452301u, b = 0xefcdab89u, c = 0x98badcfeu,
-                 d = 0x10325476u;
-#pragma unroll
-        for (int i = 0; i < 64; ++i) {
-            uint32_t f;
-            int g;
-            if (i < 16) {
-                f = d ^ (b & (c ^ d));        // (b & c) | (~b & d)
-                g = i;
-            } else if (i < 32) {
-                f = c ^ (d & (b ^ c));        // (d & b) | (~d & c)
-                g = (5 * i + 1) & 15;
-            } else if (i < 48) {
-                f = b ^ c ^ d;
-                g = (3 * i + 5) & 15;
-            } else {
-                f = c ^ (b | ~d);
-                g = (7 * i) & 15;
-            }
-            const uint32_t tmp = a + f + K_MD5[i] + m[g];
-            a = d;
-            d = c;
-            c = b;
-            b = b + rotl(tmp, S[i >> 4][i & 3]);
-        }
-        out[0] = a + 0x67452301u;
-        out[1] = b + 0xefcdab89u;
-        out[2] = c + 0x98badcfeu;
-        out[3] = d + 0x10325476u;
-    }
-};
-
-// NTLM: MD4 over the UTF-16LE candidate, so byte q is message byte 2q.
-struct Md4Core {
-    static constexpr int kWords = 4;
-    static constexpr int kMaxLen = 27;
-    __host__ __device__ static constexpr int word(int q) { return q >> 1; }
-    __host__ __device__ static constexpr int shift(int q)
-    {
-        return 16 * (q & 1);
-    }
-
-    __device__ __forceinline__ static void digest(uint32_t* m,
-                                                  uint32_t* out)
-    {
-        const int R2[16] = {0, 4, 8, 12, 1, 5, 9, 13,
-                            2, 6, 10, 14, 3, 7, 11, 15};
-        const int R3[16] = {0, 8, 4, 12, 2, 10, 6, 14,
-                            1, 9, 5, 13, 3, 11, 7, 15};
-        const int S[3][4] = {{3, 7, 11, 19}, {3, 5, 9, 13},
-                             {3, 9, 11, 15}};
-        uint32_t a = 0x67452301u, b = 0xefcdab89u, c = 0x98badcfeu,
-                 d = 0x10325476u;
-#pragma unroll
-        for (int i = 0; i < 48; ++i) {
-            const int j = i & 15;
-            uint32_t f, k;
-            int g;
-            if (i < 16) {
-                f = d ^ (b & (c ^ d));
-                g = j;
-                k = 0u;
-            } else if (i < 32) {
-                f = (b & c) | (d & (b | c));  // majority
-                g = R2[j];
-                k = 0x5a827999u;
-            } else {
-                f = b ^ c ^ d;
-                g = R3[j];
-                k = 0x6ed9eba1u;
-            }
-            const uint32_t tmp = rotl(a + f + m[g] + k, S[i >> 4][j & 3]);
-            a = d;
-            d = c;
-            c = b;
-            b = tmp;
-        }
-        out[0] = a + 0x67452301u;
-        out[1] = b + 0xefcdab89u;
-        out[2] = c + 0x98badcfeu;
-        out[3] = d + 0x10325476u;
-    }
-};
-
-struct Sha1Core {
-    static constexpr int kWords = 5;
-    static constexpr int kMaxLen = 55;
-    __host__ __device__ static constexpr int word(int q) { return q >> 2; }
-    __host__ __device__ static constexpr int shift(int q)
-    {
-        return 8 * (3 - (q & 3));
-    }
-
-    __device__ __forceinline__ static void digest(uint32_t* w,
-                                                  uint32_t* out)
-    {
-        uint32_t a = 0x67452301u, b = 0xefcdab89u, c = 0x98badcfeu,
-                 d = 0x10325476u, e = 0xc3d2e1f0u;
-#pragma unroll
-        for (int t = 0; t < 80; ++t) {
-            if (t >= 16) {
-                const uint32_t x = w[(t - 3) & 15] ^ w[(t - 8) & 15]
-                                   ^ w[(t - 14) & 15] ^ w[t & 15];
-                w[t & 15] = rotl(x, 1);
-            }
-            uint32_t f, k;
-            if (t < 20) {
-                f = d ^ (b & (c ^ d));
-                k = 0x5a827999u;
-            } else if (t < 40) {
-                f = b ^ c ^ d;
-                k = 0x6ed9eba1u;
-            } else if (t < 60) {
-                f = (b & c) | (d & (b | c));
-                k = 0x8f1bbcdcu;
-            } else {
-                f = b ^ c ^ d;
-                k = 0xca62c1d6u;
-            }
-            const uint32_t tmp = rotl(a, 5) + f + e + k + w[t & 15];
-            e = d;
-            d = c;
-            c = rotl(b, 30);
-            b = a;
-            a = tmp;
-        }
-        out[0] = a + 0x67452301u;
-        out[1] = b + 0xefcdab89u;
-        out[2] = c + 0x98badcfeu;
-        out[3] = d + 0x10325476u;
-        out[4] = e + 0xc3d2e1f0u;
-    }
-};
-
-struct Sha256Core {
-    static constexpr int kWords = 8;
-    static constexpr int kMaxLen = 55;
-    __host__ __device__ static constexpr int word(int q) { return q >> 2; }
-    __host__ __device__ static constexpr int shift(int q)
-    {
-        return 8 * (3 - (q & 3));
-    }
-
-    __device__ __forceinline__ static void digest(uint32_t* w,
-                                                  uint32_t* out)
-    {
-        const uint32_t H[8] = {0x6a09e667u, 0xbb67ae85u, 0x3c6ef372u,
-                               0xa54ff53au, 0x510e527fu, 0x9b05688cu,
-                               0x1f83d9abu, 0x5be0cd19u};
-        uint32_t a = H[0], b = H[1], c = H[2], d = H[3], e = H[4],
-                 f = H[5], g = H[6], h = H[7];
-#pragma unroll
-        for (int t = 0; t < 64; ++t) {
-            if (t >= 16) {
-                const uint32_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
-                const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
-                const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
-                w[t & 15] += s0 + w[(t - 7) & 15] + s1;
-            }
-            const uint32_t t1 = h + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25))
-                                + (g ^ (e & (f ^ g))) + K_SHA256[t]
-                                + w[t & 15];
-            const uint32_t t2 = (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22))
-                                + ((a & b) | (c & (a | b)));
-            h = g;
-            g = f;
-            f = e;
-            e = d + t1;
-            d = c;
-            c = b;
-            b = a;
-            a = t1 + t2;
-        }
-        out[0] = a + H[0];
-        out[1] = b + H[1];
-        out[2] = c + H[2];
-        out[3] = d + H[3];
-        out[4] = e + H[4];
-        out[5] = f + H[5];
-        out[6] = g + H[6];
-        out[7] = h + H[7];
-    }
 };
 
 // ---- the multi-target compare ----------------------------------------

@@ -3,8 +3,8 @@
 Each engine exposes (a) ``digest_packed``, the digest over packed
 message words on any torch device, used by the fused crack step; (b)
 ``hash_batch``, the HashEngine host API, which round-trips bytes through
-the engine's device; and (c) ``make_mask_worker``, the CLI's single
-entry into the device path.
+the engine's device; and (c) ``make_mask_worker`` and
+``make_wordlist_worker``, the CLI's entries into the device path.
 
 Digest word layouts match the CPU oracles bit for bit.
 """
@@ -86,6 +86,26 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
         return CudaMaskWorker(self, gen, targets, batch=batch,
                               hit_capacity=hit_capacity, oracle=oracle,
                               device=self.torch_device)
+
+    def make_wordlist_worker(self, gen, targets, batch: int,
+                             hit_capacity: int, oracle=None):
+        """The wordlist+rules worker for this engine: the rule kernel's
+        worker, which runs the kernel on a card and its plain version
+        on CPU tensors.  A job the kernel does not take is refused,
+        never moved to another path."""
+        from dprf_tpu_torch.ops.cuda_rules import (MAX_STEPS,
+                                                   kernel_rules_eligible)
+        from dprf_tpu_torch.runtime.worker import CudaWordlistWorker
+        if not kernel_rules_eligible(self.name, gen, len(targets)):
+            raise ValueError(
+                f"{self.name}: no rules kernel for this job (it takes one "
+                f"target, words of at most {self.max_candidate_len} bytes "
+                f"and rules of at most {MAX_STEPS} ops without @, E or e; "
+                f"got {len(targets)} targets and max_len {gen.max_len}); "
+                "use --device cpu")
+        return CudaWordlistWorker(self, gen, targets, batch=batch,
+                                  hit_capacity=hit_capacity, oracle=oracle,
+                                  device=self.torch_device)
 
 
 @register("md5", device="cuda")

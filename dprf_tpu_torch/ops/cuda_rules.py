@@ -1,0 +1,345 @@
+"""The fused wordlist+rules kernel: the counterpart of the JAX package's
+ops/pallas_rules.py for the md5, ntlm (md4), sha1 and sha256 cores, one
+target.
+
+Per candidate the kernel (csrc/rules.cu) takes word b of the step's
+word window and rule r, interprets the rule's bytecode (``encode_rules``)
+with the semantics of rules/cpu.py, packs the variable-length message,
+runs the core and compares exactly with the target.  Hit lanes are
+rule-major, lane = r * word_batch + b, as in the reference's step.
+
+Outputs: ``count int32[1]``, the exact number of hits, and ``lanes
+int32[hit_capacity]``, the lanes of the first ``hit_capacity`` hits in
+no fixed order, -1 where unused; ``count > hit_capacity`` sends the word
+window to the worker's exact oracle rescan.
+
+Three functions carry it: the kernel's wrapper ``rules_kernel`` (CUDA
+tensors only, launches on the current stream without synchronising,
+counts its launches in ``launches``), the same function in plain
+PyTorch ``rules_plain`` (rules/device.py per rule, ``pack_varlen``, the
+engine's ``digest_packed``, an exact compare; hit lanes in ascending
+order), and the dispatcher ``rules_crack``: the kernel for CUDA tensors,
+the plain version for CPU tensors.  ``make_cuda_rules_crack_step``
+builds the worker's step on the dispatcher, so one step serves
+``--device cuda`` and ``--device torch-cpu``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from dprf_tpu_torch.ops import compare as cmp_ops
+from dprf_tpu_torch.ops.cuda_mask import KERNEL_CORES, device_engine
+from dprf_tpu_torch.ops.pack import pack_varlen
+from dprf_tpu_torch.rules import device as rules_device
+from dprf_tpu_torch.rules.parser import Op, Opcode
+
+#: interpreter steps per rule (best64's longest rule has 8 ops)
+MAX_STEPS = 8
+#: threads per block (kThreads in the source)
+THREADS = 256
+#: the hit lanes' word stride is a multiple of a warp, so a warp's
+#: threads share one rule
+WARP = 32
+
+#: the TPU kernel this one replaces, and this kernel's source
+REPLACES = "dprf_tpu/ops/pallas_rules.py:442"
+SOURCE = "dprf_tpu_torch/csrc/rules.cu"
+
+#: opcodes the kernel interprets: all but PURGE (a compaction) and
+#: TITLE / TITLE_SEP (a separator scan), as in the reference's kernel;
+#: jobs with them are refused
+SUPPORTED = frozenset(Opcode) - {Opcode.PURGE, Opcode.TITLE,
+                                 Opcode.TITLE_SEP}
+
+
+def kernel_name(engine_name: str) -> str:
+    """The instantiation's name: ``<core>_rules``."""
+    return f"{engine_name}_rules"
+
+
+#: launches of each kernel instantiation in this process, by
+#: ``kernel_name`` (tests and chip_smoke.py reset them and read them)
+launches = {kernel_name(n): 0 for n in KERNEL_CORES}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def rules_supported(rules: Sequence[Sequence[Op]]) -> bool:
+    return all(len(ops) <= MAX_STEPS
+               and all(op.opcode in SUPPORTED for op in ops)
+               for ops in rules)
+
+
+def encode_rules(rules: Sequence[Sequence[Op]],
+                 n_steps: int = None) -> np.ndarray:
+    """Rule set -> bytecode int32[R, n_steps, 3] of (opcode, p1, p2);
+    steps past a rule's ops stay (NOOP, 0, 0).  n_steps defaults to the
+    longest rule."""
+    n_steps = (max((len(ops) for ops in rules), default=1)
+               if n_steps is None else n_steps)
+    bc = np.zeros((len(rules), max(1, n_steps), 3), np.int32)
+    for r, ops in enumerate(rules):
+        for s, op in enumerate(ops):
+            bc[r, s] = (int(op.opcode), op.p1, op.p2)
+    return bc
+
+
+def rule_tables(rules: Sequence[Sequence[Op]], device="cpu"):
+    """The kernel's rule inputs: (bytecode int32[R, MAX_STEPS, 3], n_ops
+    int32[R]) on ``device``."""
+    if not rules_supported(rules):
+        raise ValueError(f"rules need at most {MAX_STEPS} ops each and no "
+                         "PURGE/TITLE/TITLE_SEP op")
+    bc = torch.as_tensor(encode_rules(rules, MAX_STEPS), device=device)
+    n_ops = torch.as_tensor([len(ops) for ops in rules], dtype=torch.int32,
+                            device=device)
+    return bc, n_ops
+
+
+def decode_rules(bytecode: torch.Tensor, n_ops: torch.Tensor) -> list:
+    """``rule_tables``' tensors -> the rules as Op tuples."""
+    bc = bytecode.cpu().numpy()
+    return [tuple(Op(Opcode(int(c)), int(p1), int(p2))
+                  for c, p1, p2 in bc[r, :n])
+            for r, n in enumerate(n_ops.cpu().tolist())]
+
+
+def kernel_rules_eligible(engine_name: str, gen, n_targets: int) -> bool:
+    """Whether the kernel takes this job: a core engine, one target, a
+    wordlist generator whose max_len fits one block (27 for ntlm, 55 for
+    the others), rules of at most MAX_STEPS supported ops."""
+    try:
+        eng = device_engine(engine_name)
+    except ValueError:
+        return False
+    if n_targets != 1 or not (hasattr(gen, "rules")
+                              and hasattr(gen, "packed_words")):
+        return False
+    return (1 <= gen.max_len <= eng.max_candidate_len
+            and rules_supported(gen.rules))
+
+
+def _check_job(eng, words: torch.Tensor, lens: torch.Tensor,
+               bytecode: torch.Tensor, n_ops: torch.Tensor, ws: int,
+               n_valid: int, target: Sequence[int], hit_capacity: int,
+               word_batch: int) -> None:
+    device = words.device
+    if words.dtype != torch.uint8 or words.dim() != 2:
+        raise ValueError(f"words must be uint8[n_words, max_len], got "
+                         f"{words.dtype}{list(words.shape)}")
+    n_words, max_len = words.shape
+    if not 1 <= max_len <= eng.max_candidate_len:
+        raise ValueError(f"{eng.name}: max_len {max_len} outside "
+                         f"1..{eng.max_candidate_len}")
+    if lens.dtype != torch.int32 or list(lens.shape) != [n_words]:
+        raise ValueError(f"lens must be int32[{n_words}], got "
+                         f"{lens.dtype}{list(lens.shape)}")
+    if bytecode.dtype != torch.int32 or bytecode.dim() != 3 or \
+            list(bytecode.shape[1:]) != [MAX_STEPS, 3]:
+        raise ValueError(f"bytecode must be int32[R, {MAX_STEPS}, 3], got "
+                         f"{bytecode.dtype}{list(bytecode.shape)}")
+    n_rules = bytecode.shape[0]
+    if n_ops.dtype != torch.int32 or list(n_ops.shape) != [n_rules]:
+        raise ValueError(f"n_ops must be int32[{n_rules}]")
+    for name, t in (("lens", lens), ("bytecode", bytecode),
+                    ("n_ops", n_ops)):
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, words on {device}")
+    for name, t in (("words", words), ("lens", lens),
+                    ("bytecode", bytecode), ("n_ops", n_ops)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if word_batch < WARP or word_batch % WARP:
+        raise ValueError(f"word_batch {word_batch} must be a positive "
+                         f"multiple of {WARP}")
+    if not 1 <= n_rules * word_batch < 1 << 31:
+        raise ValueError(f"{n_rules} rules x {word_batch} words overflow "
+                         "the int32 hit lanes")
+    if not 0 <= n_valid <= word_batch or not 0 <= ws <= n_words - n_valid:
+        raise ValueError(f"window of {n_valid} words at {ws} outside the "
+                         f"{n_words}-word table or the {word_batch}-word "
+                         "batch")
+    if len(target) != eng.digest_words:
+        raise ValueError(f"{eng.name} needs {eng.digest_words} target "
+                         f"words, got {len(target)}")
+    if hit_capacity < 0:
+        raise ValueError("hit_capacity must be >= 0")
+
+
+class _RulesArgs(ctypes.Structure):
+    """``struct RulesArgs`` of csrc/rules.cu."""
+    _fields_ = [("max_len", ctypes.c_int32), ("n_rules", ctypes.c_int32),
+                ("word_batch", ctypes.c_int32), ("ws", ctypes.c_int32),
+                ("n_valid", ctypes.c_int32),
+                ("target", ctypes.c_uint32 * 8)]
+
+
+@functools.cache
+def _library():
+    """The C entry points, built from csrc/rules.cu at first use."""
+    from dprf_tpu_torch.ops import _build
+    lib = _build.load("rules")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dprf_rules_launch.argtypes = [
+        i32, i32, ptr, ptr, ptr, ptr, ctypes.POINTER(_RulesArgs), ptr, ptr,
+        i32, i32, i32, ptr]
+    lib.dprf_rules_launch.restype = i32
+    lib.dprf_rules_blocks_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.dprf_rules_blocks_per_sm.restype = i32
+    return lib
+
+
+def load_kernel() -> None:
+    """Build and load the kernel now, so a build failure surfaces at
+    worker construction rather than at the first batch."""
+    _library()
+
+
+def shared_bytes(max_len: int) -> int:
+    """Dynamic shared memory of one block: max_len bytes per thread."""
+    return max_len * THREADS
+
+
+@functools.cache
+def blocks_per_sm(engine_name: str, smem: int) -> int:
+    """Resident blocks per SM for one instantiation at ``smem`` bytes,
+    from the CUDA occupancy calculator."""
+    blocks = ctypes.c_int(0)
+    rc = _library().dprf_rules_blocks_per_sm(KERNEL_CORES[engine_name],
+                                             smem, ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}, "
+                           f"{blocks.value} blocks per SM")
+    return blocks.value
+
+
+def grid_size(engine_name: str, lanes: int, smem: int, device) -> int:
+    """Blocks of the grid-stride grid: one resident wave, or fewer for a
+    short launch."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    resident = sms * blocks_per_sm(engine_name, smem)
+    return max(1, min(-(-lanes // THREADS), resident))
+
+
+def rules_kernel(engine: str, words: torch.Tensor, lens: torch.Tensor,
+                 bytecode: torch.Tensor, n_ops: torch.Tensor, ws: int,
+                 n_valid: int, target: Sequence[int], hit_capacity: int,
+                 word_batch: int):
+    """Launch the kernel over words [ws, ws + n_valid) of the table
+    under every rule: words uint8[n_words, max_len] and lens
+    int32[n_words] (``gen.packed_words``), bytecode and n_ops from
+    ``rule_tables``, all on the card; the target as the core's uint32
+    digest words; word_batch, the hit lanes' stride between rules.
+    Returns (count int32[1], lanes int32[hit_capacity]) on the card,
+    still being computed."""
+    if words.device.type != "cuda":
+        raise ValueError(f"the CUDA rules kernel takes CUDA tensors, got "
+                         f"words on {words.device}")
+    eng = device_engine(engine, words.device)
+    _check_job(eng, words, lens, bytecode, n_ops, ws, n_valid, target,
+               hit_capacity, word_batch)
+    device = words.device
+    count = torch.zeros((1,), dtype=torch.int32, device=device)
+    lanes = torch.full((hit_capacity,), -1, dtype=torch.int32,
+                       device=device)
+    n_rules, max_len = bytecode.shape[0], words.shape[1]
+    target = list(target) + [0] * (8 - len(target))
+    args = _RulesArgs(max_len, n_rules, word_batch, ws, n_valid,
+                      (ctypes.c_uint32 * 8)(*(int(w) & 0xFFFFFFFF
+                                              for w in target)))
+    smem = shared_bytes(max_len)
+    grid = grid_size(eng.name, n_rules * (-(-n_valid // WARP) * WARP),
+                     smem, device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _library().dprf_rules_launch(
+        KERNEL_CORES[eng.name], device.index, words.data_ptr(),
+        lens.data_ptr(), bytecode.data_ptr(), n_ops.data_ptr(),
+        ctypes.byref(args), count.data_ptr(), lanes.data_ptr(),
+        hit_capacity, grid, THREADS, stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel_name(eng.name)} kernel launch failed: "
+                           f"CUDA error {rc}")
+    launches[kernel_name(eng.name)] += 1
+    return count, lanes
+
+
+def rules_plain(engine: str, words: torch.Tensor, lens: torch.Tensor,
+                bytecode: torch.Tensor, n_ops: torch.Tensor, ws: int,
+                n_valid: int, target: Sequence[int], hit_capacity: int,
+                word_batch: int):
+    """``rules_kernel``'s function in plain PyTorch on the words'
+    device; hit lanes come back in ascending order."""
+    eng = device_engine(engine, words.device)
+    _check_job(eng, words, lens, bytecode, n_ops, ws, n_valid, target,
+               hit_capacity, word_batch)
+    device, max_len = words.device, words.shape[1]
+    want = cmp_ops.target_words_from_numpy(np.asarray(target, np.uint32),
+                                           device)
+    # the window's words, padded to word_batch with empty words that
+    # the lane mask drops
+    w = torch.zeros((word_batch, max_len), dtype=torch.uint8, device=device)
+    ln = torch.zeros((word_batch,), dtype=torch.int32, device=device)
+    w[:n_valid] = words[ws:ws + n_valid]
+    ln[:n_valid] = lens[ws:ws + n_valid]
+    in_window = torch.arange(word_batch, device=device) < n_valid
+    # every rule over the window, rule-major, then one digest
+    cand, clen, valid = (torch.cat(x) for x in zip(*(
+        rules_device.apply_rule(w, ln, in_window, ops, max_len)
+        for ops in decode_rules(bytecode, n_ops))))
+    digest = eng.digest_packed(pack_varlen(
+        cand, clen, big_endian=not eng.little_endian, widen=eng.widen_utf16))
+    found = cmp_ops.compare_single(digest, want) & valid
+    count, lanes, _ = cmp_ops.compact_hits(found, torch.zeros_like(
+        found, dtype=torch.int32), hit_capacity)
+    return count, lanes
+
+
+def rules_crack(engine: str, words: torch.Tensor, *args):
+    """The kernel on CUDA tensors, its plain version on CPU tensors
+    (arguments as ``rules_kernel``)."""
+    if words.device.type == "cuda":
+        return rules_kernel(engine, words, *args)
+    if words.device.type == "cpu":
+        return rules_plain(engine, words, *args)
+    raise ValueError(f"no rules kernel for device {words.device}")
+
+
+def make_cuda_rules_crack_step(engine: str, gen, target_words: np.ndarray,
+                               word_batch: int, hit_capacity: int = 64,
+                               device="cuda"):
+    """The worker's step: step(ws, n_valid_words) -> (count int32[1],
+    lanes int32[hit_capacity], tpos int32[hit_capacity]) over words
+    [ws, ws + n_valid_words) and every rule, lanes rule-major (lane =
+    r * word_batch + b), tpos all 0.  The packed word table and the rule
+    tables go to ``device`` once, here.  target_words: the core's uint32
+    digest words."""
+    if not kernel_rules_eligible(engine, gen, 1):
+        limit = device_engine(engine).max_candidate_len
+        raise ValueError(
+            f"wordlist job not eligible for the rules kernel: engine "
+            f"{engine!r}, max_len {gen.max_len} (1..{limit}), rules of at "
+            f"most {MAX_STEPS} ops without PURGE/TITLE/TITLE_SEP")
+    device = torch.device(device)
+    buf, lens = gen.packed_words()
+    words = torch.as_tensor(buf, device=device)
+    lens = torch.as_tensor(lens, device=device)
+    bytecode, n_ops = rule_tables(gen.rules, device)
+    target = [int(w) for w in np.asarray(target_words, np.uint32).ravel()]
+    tpos = torch.zeros((hit_capacity,), dtype=torch.int32, device=device)
+
+    def step(ws: int, n_valid: int):
+        count, lanes = rules_crack(engine, words, lens, bytecode, n_ops, ws,
+                                   n_valid, target, hit_capacity, word_batch)
+        return count, lanes, tpos
+
+    step.word_batch = word_batch
+    return step

@@ -1,6 +1,6 @@
-"""The least work one candidate takes in the mask kernel (csrc/mask.cu):
-the operation count behind the bound that chip_smoke.py prints beside
-each kernel's time.
+"""The least work one candidate takes in the mask kernel (csrc/mask.cu)
+and in the rule kernel (csrc/rules.cu): the operation count behind the
+bound that chip_smoke.py prints beside each kernel's time.
 
 Each core runs here once, in Python, over the job's message block with
 symbolic words: a word that holds candidate bytes is a ``Var``, every
@@ -24,20 +24,30 @@ needs digest word 0 (the others only for the rare candidate whose word
 prefilter reads words 0-2.  Each mask position costs its decode: one
 add, two IMAD and one ALU op placing the byte.
 
+A rule-kernel candidate counts the core for its own length (its
+padding and bit length are constants of that length, so they fold as in
+the mask count) and one compare, and nothing for the rule
+interpretation, which keeps the count a lower bound; a rejected
+candidate costs nothing.  ``rules_ops`` sums this over the lengths the
+job's words and rules yield (``rule_lengths``).
+
 Run on fixed words alone, the same code computes the core, so a test
 holds the counted formulas to the real hash.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import operator
 
 import numpy as np
+import torch
 
 from dprf_tpu_torch.ops import md4, md5, sha1, sha256
 from dprf_tpu_torch.ops.cuda_mask import device_engine, message_block
+from dprf_tpu_torch.rules import device as rules_device
 
 M32 = 0xFFFFFFFF
 
@@ -220,6 +230,7 @@ class Work:
                    (2 * self.alu + self.fma + 2 * self.add) / 3)
 
 
+@functools.lru_cache(maxsize=None)
 def core_work(engine_name: str, length: int, words_needed: int) -> dict:
     """The core's instructions per pipe for a ``length``-position mask,
     counting what digest words 0..words_needed-1 depend on."""
@@ -255,3 +266,32 @@ def ops_per_candidate(engine_name: str, length: int, multi: bool = False,
     words = device_engine(engine_name).digest_words
     return Work(alu + 5 * probes + maybes * (4 * search + words),
                 add_ + 3, fma)
+
+
+def rule_lengths(words: np.ndarray, lens: np.ndarray, rules,
+                 max_len: int) -> dict:
+    """{length: candidates} over words (uint8[N, max_len], int32[N]) x
+    rules, rejected candidates left out: rules/device.py, the rule
+    kernel's plain interpreter, on CPU tensors."""
+    w = torch.as_tensor(words)
+    ln = torch.as_tensor(lens)
+    counts = collections.Counter()
+    for ops in rules:
+        _, out, valid = rules_device.apply_rule(
+            w, ln, torch.ones_like(ln, dtype=torch.bool), ops, max_len)
+        counts.update(out[valid].tolist())
+    return dict(sorted(counts.items()))
+
+
+def rules_ops(engine_name: str, length_counts: dict) -> Work:
+    """The least work of the rule kernel's candidates, summed: for each
+    candidate of ``length_counts`` ({length: candidates}, from
+    ``rule_lengths``), the core up to digest word 0 at its length and
+    one compare; nothing for the rule interpretation."""
+    alu = add_ = fma = 0
+    for length, n in length_counts.items():
+        core = core_work(engine_name, length, 1)
+        alu += n * (core["alu"] + 1)
+        add_ += n * core["add"]
+        fma += n * core["fma"]
+    return Work(alu, add_, fma)

@@ -1,9 +1,9 @@
 """Candidate packing: uint8 candidate bytes -> Merkle-Damgard message words.
 
 Single block only: candidates up to 55 bytes (27 characters for NTLM's
-UTF-16LE widening), which covers the mask path of every benchmark
-config.  Words come out as int32 tensors with
-the bit pattern of the reference's uint32 words.
+UTF-16LE widening), which covers the mask and wordlist paths of every
+benchmark config.  Words come out as int32 tensors with the bit
+pattern of the reference's uint32 words.
 """
 
 from __future__ import annotations
@@ -46,6 +46,30 @@ def pack_fixed(cand: torch.Tensor, length: int, big_endian: bool = False,
     msg = pad.repeat(cand.shape[0], 1)
     msg[:, :length] = cand
     return _words_from_bytes(msg, big_endian)
+
+
+def pack_varlen(cand: torch.Tensor, lens: torch.Tensor,
+                big_endian: bool = False, widen: bool = False) -> torch.Tensor:
+    """Pack variable-length candidates uint8[B, L] with int32[B] lengths
+    -> int32[B, 16]: each lane's bytes below its length, 0x80 at its
+    length, its bit length in word 14 (little-endian, md5/md4) or word
+    15 (big-endian, SHA).  ``widen``: UTF-16LE first (NTLM), so byte q
+    goes to message byte 2q and the bit length is 16 per character."""
+    if widen:
+        cand, lens = utf16le_widen(cand), 2 * lens
+    batch, length = cand.shape
+    if length > 55:
+        raise ValueError(
+            f"single-block packing needs length <= 55, got {length}")
+    pos = torch.arange(64, dtype=torch.int32, device=cand.device)[None, :]
+    lc = lens.to(torch.int32)[:, None]
+    msg = torch.zeros((batch, 64), dtype=torch.uint8, device=cand.device)
+    msg[:, :length] = cand
+    msg = torch.where(pos < lc, msg, 0)
+    msg = torch.where(pos == lc, 0x80, msg).to(torch.uint8)
+    words = _words_from_bytes(msg, big_endian)
+    words[:, 15 if big_endian else 14] = lens.to(torch.int32) * 8
+    return words
 
 
 def utf16le_widen(cand: torch.Tensor) -> torch.Tensor:

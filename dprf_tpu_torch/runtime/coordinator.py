@@ -25,8 +25,8 @@ from dprf_tpu_torch.utils.logging import Log
 class JobSpec:
     engine: str
     device: str
-    attack: str                 # "mask"
-    attack_arg: str             # the mask string
+    attack: str                 # "mask" or "wordlist"
+    attack_arg: str             # the mask string or the wordlist path
     keyspace: int
 
 

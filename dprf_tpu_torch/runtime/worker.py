@@ -1,11 +1,13 @@
 """Workers: WorkUnit -> generate candidates -> hash -> report hits.
 
-CudaMaskWorker is the card's path: one hand-written kernel launch per
-batch (ops/cuda_mask.py), for one target or a list, queued
+CudaMaskWorker is the card's mask path: one hand-written kernel launch
+per batch (ops/cuda_mask.py), for one target or a list, queued
 asynchronously on the current stream so the card never drains between
 batches; a unit's hits are resolved after the whole unit is queued, and
-only hit buffers cross back to the host.  On CPU tensors (``--device torch-cpu``) the same worker runs the
-kernel's plain PyTorch version.
+only hit buffers cross back to the host.  CudaWordlistWorker is the
+wordlist+rules path, one rule-kernel launch per word window
+(ops/cuda_rules.py).  On CPU tensors (``--device torch-cpu``) both run
+their kernel's plain PyTorch version.
 
 CpuWorker is the reference path (``--device cpu``): the oracle engine
 over host-materialized candidates.  It also rescans a batch exactly
@@ -56,6 +58,20 @@ class PendingUnit:
         return hits
 
 
+def word_cover_range(unit: WorkUnit, n_rules: int) -> tuple:
+    """Covering word range [w_start, w_end) of a keyspace-index unit
+    (index = word * n_rules + rule; ceil on the end)."""
+    return unit.start // n_rules, -(-unit.end // n_rules)
+
+
+def wordlist_lane_to_gidx(lane: int, ws: int, word_batch: int,
+                          n_rules: int) -> int:
+    """Rule-major step lane (r * word_batch + b) -> global keyspace index
+    for a step whose word window starts at ws."""
+    r, b = divmod(lane, word_batch)
+    return (ws + b) * n_rules + r
+
+
 class CpuWorker:
     """Oracle-engine worker (unsalted engines)."""
 
@@ -73,11 +89,15 @@ class CpuWorker:
         hits: list[Hit] = []
         for start in range(unit.start, unit.end, self.CHUNK):
             n = min(self.CHUNK, unit.end - start)
-            cands = self.gen.candidates(start, n)
-            for j, d in enumerate(self.engine.hash_batch(cands)):
+            # a rule that rejects leaves a hole (None): never hashed
+            pairs = [(start + j, c)
+                     for j, c in enumerate(self.gen.candidates(start, n))
+                     if c is not None]
+            digests = self.engine.hash_batch([c for _, c in pairs])
+            for (gidx, cand), d in zip(pairs, digests):
                 ti = self._digest_map.get(d)
                 if ti is not None:
-                    hits.append(Hit(ti, start + j, cands[j]))
+                    hits.append(Hit(ti, gidx, cand))
         return hits
 
     def submit(self, unit: WorkUnit) -> "_ResolvedUnit":
@@ -216,3 +236,96 @@ class CudaMaskWorker(MaskWorkerBase):
             else cuda_mask.make_cuda_mask_crack_step
         self.step = make(engine.name, gen, tgt, batch, hit_capacity,
                          device=device)
+
+
+class WordlistWorkerBase(MaskWorkerBase):
+    """Wordlist hit decoding and rescan.  Subclasses set
+    ``self.word_batch`` (words per step, the lanes' stride between
+    rules) and queue ``((ws, n_words), result)`` per step."""
+
+    def _collect_word_hits(self, lanes_np, ws: int,
+                           unit: WorkUnit) -> list[Hit]:
+        """Rule-major step lanes -> the unit's Hit records, by keyspace
+        index; a hit outside the unit (a word window covers whole words,
+        a unit need not) is dropped."""
+        R = self.gen.n_rules
+        hits: list[Hit] = []
+        for gidx in sorted(wordlist_lane_to_gidx(int(lane), ws,
+                                                 self.word_batch, R)
+                           for lane in lanes_np if lane >= 0):
+            if unit.start <= gidx < unit.end:
+                hits.append(Hit(0, gidx, self.gen.candidate(gidx)))
+        return hits
+
+    def _rescan_words(self, ws: int, nw: int, unit: WorkUnit) -> list[Hit]:
+        """Exact oracle rescan of one overflowed word window, in
+        keyspace-index coordinates clipped to the unit."""
+        if self.oracle is None:
+            raise RuntimeError(
+                f"hit buffer overflow (> {self.hit_capacity}) and no "
+                "oracle engine to rescan with; raise hit_capacity")
+        R = self.gen.n_rules
+        start = max(unit.start, ws * R)
+        end = min(unit.end, (ws + nw) * R)
+        sub = WorkUnit(-1, start, end - start)
+        return CpuWorker(self.oracle, self.gen, self.targets).process(sub)
+
+    def _batch_hits(self, window, result, unit: WorkUnit) -> list[Hit]:
+        ws, nw = window
+        count, lanes, _ = result
+        count = int(count.item())
+        if count == 0:
+            return []
+        if count > lanes.shape[0]:
+            return self._rescan_words(ws, nw, unit)
+        return self._collect_word_hits(lanes.cpu().numpy(), ws, unit)
+
+
+class CudaWordlistWorker(WordlistWorkerBase):
+    """Wordlist+rules worker over the hand-written rule kernel
+    (ops/cuda_rules.py), the counterpart of the reference's
+    PallasWordlistWorker: one target, rule interpretation, hash and
+    exact compare in one launch per word window.  The packed word table
+    goes to the device once, at construction; a step takes a window
+    (ws, n_valid_words) of at most ``word_batch`` words under every rule.
+    Units need not be rule-aligned: a unit runs over the words it
+    covers and drops the hits outside it.  On a card the kernel builds
+    at construction; with ``device="cpu"`` each step runs the kernel's
+    plain version."""
+
+    def __init__(self, engine, gen, targets: Sequence[Target],
+                 batch: int = 1 << 24, hit_capacity: int = 64,
+                 oracle: Optional[HashEngine] = None, device="cuda"):
+        from dprf_tpu_torch.ops import cuda_rules
+
+        tgt = self._setup_targets(engine, gen, targets, hit_capacity,
+                                  oracle)
+        if self.multi:
+            raise ValueError("the rules kernel takes one target")
+        device = torch.device(device)
+        if device.type == "cuda":
+            cuda_rules.load_kernel()
+        #: words per step: batch candidates over the rules, a multiple
+        #: of a warp so each warp of a launch shares one rule
+        self.word_batch = max(cuda_rules.WARP,
+                              batch // gen.n_rules // cuda_rules.WARP
+                              * cuda_rules.WARP)
+        self.stride = self.word_batch * gen.n_rules
+        self.step = cuda_rules.make_cuda_rules_crack_step(
+            engine.name, gen, tgt, self.word_batch, hit_capacity,
+            device=device)
+
+    def submit(self, unit: WorkUnit) -> PendingUnit:
+        """Enqueue one step per word window of the unit's covering word
+        range; the unit's hit flag is summed on the device."""
+        w_start, w_end = word_cover_range(unit, self.gen.n_rules)
+        w_end = min(w_end, self.gen.n_words)
+        queued = []
+        flag = None
+        for ws in range(w_start, w_end, self.word_batch):
+            nw = min(self.word_batch, w_end - ws)
+            result = self.step(ws, nw)
+            self.dispatched += 1
+            flag = result[0] if flag is None else flag + result[0]
+            queued.append(((ws, nw), result))
+        return PendingUnit(self, unit, queued, flag)

@@ -1,6 +1,6 @@
 """The port's boundaries: it imports neither jax nor anything of
-dprf_tpu; ``--device cuda`` without a card fails; the CUDA kernel's
-wrapper refuses CPU tensors."""
+dprf_tpu; ``--device cuda`` without a card fails; the CUDA kernels'
+wrappers refuse CPU tensors."""
 
 import os
 import subprocess
@@ -11,7 +11,7 @@ import torch
 
 from dprf_tpu_torch import cli
 from dprf_tpu_torch.generators.mask import MaskGenerator
-from dprf_tpu_torch.ops import cuda_mask
+from dprf_tpu_torch.ops import cuda_mask, cuda_rules
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -70,6 +70,33 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                     gen.radices, gen.digits(0), 64, rows,
                                     words, 4, 64)
     assert cuda_mask.launches == launches
+
+
+def test_rules_kernel_refuses_cpu_tensors():
+    from dprf_tpu_torch.rules import load_rules
+    words = torch.zeros((64, 55), dtype=torch.uint8)
+    lens = torch.full((64,), 8, dtype=torch.int32)
+    bytecode, n_ops = cuda_rules.rule_tables(load_rules("best64"))
+    launches = dict(cuda_rules.launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_rules.rules_kernel("sha256", words, lens, bytecode, n_ops, 0,
+                                64, [0] * 8, 4, 64)
+    assert cuda_rules.launches == launches
+    # the dispatcher takes the plain version for them, and checks the job
+    count, lanes = cuda_rules.rules_crack("sha256", words, lens, bytecode,
+                                          n_ops, 0, 64, [0] * 8, 4, 64)
+    assert int(count) == 0 and lanes.tolist() == [-1] * 4
+    for bad in ((1, 64), (0, 65), (0, 96)):        # past the table / batch
+        with pytest.raises(ValueError, match="window"):
+            cuda_rules.rules_crack("sha256", words, lens, bytecode, n_ops,
+                                   *bad, [0] * 8, 4, 96 if bad[1] == 96
+                                   else 64)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cuda_rules.rules_crack("sha256", words, lens, bytecode, n_ops, 0,
+                               8, [0] * 8, 4, 48)
+    with pytest.raises(ValueError, match="max_len"):
+        cuda_rules.rules_crack("ntlm", words, lens, bytecode, n_ops, 0,
+                               8, [0] * 4, 4, 64)
 
 
 def test_kernel_job_checks():

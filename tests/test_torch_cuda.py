@@ -147,3 +147,60 @@ def test_cli_crack_on_card(tmp_path, capsys):
     assert "rejected=0" in captured.err
     # 26^4 = 456,976 candidates in batches of 65,536
     assert cuda_mask.launches["md5_mask"] - launches == 7
+
+
+@pytest.mark.parametrize("engine", ["md5", "ntlm", "sha1", "sha256"])
+def test_rules_kernel_matches_plain(engine):
+    """Each rule-kernel core against its plain version: 2,000 words x
+    best64 in windows of 1,024 words, hits planted at the first word
+    under the first rule, at the last word of a partial window under the
+    8-op rule, and both lanes of the "'7" / "]" pair."""
+    _need_card()
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    from dprf_tpu_torch.ops import cuda_rules
+    from dprf_tpu_torch.rules import load_rules
+    rng = np.random.default_rng(17)
+    words = [bytes(rng.integers(97, 123, int(n), dtype=np.uint8))
+             for n in rng.integers(1, 13, 2000)]
+    words[1500] = b"abcdefgh"
+    max_len = 27 if engine == "ntlm" else 55
+    gen = WordlistRulesGenerator(words, load_rules("best64"), max_len)
+    buf, lens = gen.packed_words()
+    tables = (torch.as_tensor(buf, device="cuda"),
+              torch.as_tensor(lens, device="cuda"),
+              *cuda_rules.rule_tables(gen.rules, "cuda"))
+    B = 1024
+    for ws, nv, plants in ((0, B, [0]),
+                           (1000, 1000, [gen.index_of(1999, 56)]),
+                           (975, B, [gen.index_of(1500, 46),
+                                     gen.index_of(1500, 52)])):
+        plain = gen.candidate(plants[0])
+        args = (engine, *tables, ws, nv, _words(engine, plain), 64, B)
+        launches = cuda_rules.launches[f"{engine}_rules"]
+        kc, kl = cuda_rules.rules_kernel(*args)
+        pc, pl = cuda_rules.rules_plain(*args)
+        torch.cuda.synchronize()
+        assert cuda_rules.launches[f"{engine}_rules"] == launches + 1
+        assert _hit_set(kc, kl) == _hit_set(pc, pl)
+        got = [(ws + x % B) * 64 + x // B for x in _hit_set(kc, kl)[1]]
+        assert all(p in got for p in plants)
+        assert all(gen.candidate(g) == plain for g in got)
+
+
+def test_cli_wordlist_on_card(tmp_path, capsys):
+    _need_card()
+    from dprf_tpu_torch.ops import cuda_rules
+    words = tmp_path / "words.txt"
+    words.write_bytes(b"".join(b"w%05d\n" % i for i in range(5000)))
+    digest = hashlib.sha256(b"04999w").hexdigest()     # "w04999" under "{"
+    hashfile = tmp_path / "h.txt"
+    hashfile.write_text(digest + "\n")
+    launches = cuda_rules.launches["sha256_rules"]
+    rc = cli.main(["crack", "-a", "wordlist", str(words), str(hashfile),
+                   "--engine", "sha256", "--rules", "best64",
+                   "--no-potfile", "--batch", str(1024 * 64)])
+    captured = capsys.readouterr()
+    assert rc == 0 and captured.out.splitlines() == [f"{digest}:04999w"]
+    assert "rejected=0" in captured.err
+    # 5,000 words in windows of 1,024
+    assert cuda_rules.launches["sha256_rules"] - launches == 5

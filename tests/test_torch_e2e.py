@@ -147,3 +147,102 @@ def test_bench_takes_its_miss_target_from_the_engine(capsys, engine):
     res = json.loads(out.splitlines()[-1])
     assert (res["engine"], res["hits"]) == (engine, 0)
     assert res["candidates"] >= 26 * 26
+
+
+@pytest.fixture(scope="module")
+def config3_list(tmp_path_factory):
+    """Config 3 in miniature: a 200-word list of 1-12 lowercase letters,
+    and two candidates of it under best64 to plant: word 5 under a
+    two-op rule, the last word under the last rule."""
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    from dprf_tpu_torch.rules import load_rules
+    rng = random.Random(3)
+    words = [bytes(rng.choice(b"abcdefghijklmnopqrstuvwxyz")
+                   for _ in range(rng.randint(1, 12))) for _ in range(200)]
+    path = tmp_path_factory.mktemp("config3") / "words.txt"
+    path.write_bytes(b"\n".join(words) + b"\n")
+    gen = WordlistRulesGenerator(words, load_rules("best64"))
+    planted = [gen.candidate(gen.index_of(5, 40)),
+               gen.candidate(gen.index_of(199, 63))]
+    return path, planted
+
+
+def _crack_words(main, words, hashfile, pot, device, capsys):
+    rc, out = _run(main, ["crack", "--engine", "sha256", "-a", "wordlist",
+                          str(words), str(hashfile), "--rules", "best64",
+                          "--device", device, "--potfile", str(pot), "-q"],
+                   capsys)
+    return rc, sorted(out.splitlines()), \
+        pot.read_text() if pot.exists() else ""
+
+
+@pytest.mark.parametrize("device", ["torch-cpu", "cpu"])
+@pytest.mark.parametrize("which", [0, 1])
+def test_config3_miniature_matches_reference(tmp_path, capsys, device, which,
+                                             config3_list, ref_results):
+    """crack --engine sha256 -a wordlist --rules best64, one planted
+    target a job (the rule kernel takes one target): the found set and
+    the potfile equal the reference CLI's."""
+    words, planted = config3_list
+    plain = planted[which]
+    hashfile = tmp_path / "h.txt"
+    hashfile.write_text(hashlib.sha256(plain).hexdigest() + "\n")
+    key = ("config3", which)
+    if key not in ref_results:
+        ref_results[key] = _crack_words(ref_main, words, hashfile,
+                                        tmp_path / "ref.pot", "cpu", capsys)
+    want = ref_results[key]
+    got = _crack_words(port_main, words, hashfile, tmp_path / "port.pot",
+                       device, capsys)
+    assert got == want
+    line = f"{hashlib.sha256(plain).hexdigest()}:{plain.decode()}"
+    assert want == (0, [line], line + "\n")
+
+
+def test_config3_target_list(tmp_path, capsys, config3_list):
+    """Two targets: --device cpu finds both, as the reference does; the
+    rule kernel takes one target, so torch-cpu refuses the job and
+    names --device cpu."""
+    words, planted = config3_list
+    hashfile = tmp_path / "h.txt"
+    hashfile.write_text("".join(hashlib.sha256(p).hexdigest() + "\n"
+                                for p in planted))
+    want = _crack_words(ref_main, words, hashfile, tmp_path / "ref.pot",
+                        "cpu", capsys)
+    assert want[0] == 0 and len(want[1]) == 2
+    assert _crack_words(port_main, words, hashfile, tmp_path / "port.pot",
+                        "cpu", capsys) == want
+    rc = port_main(["crack", "--engine", "sha256", "-a", "wordlist",
+                    str(words), str(hashfile), "--rules", "best64",
+                    "--device", "torch-cpu", "--no-potfile", "-q"])
+    err = capsys.readouterr().err
+    assert rc == 2 and "no rules kernel" in err and "--device cpu" in err
+
+
+def test_config3_keyspace_matches_reference(capsys, config3_list):
+    words, _ = config3_list
+    for argv in (["keyspace", str(words), "-a", "wordlist", "--rules",
+                  "best64"],
+                 ["keyspace", str(words), "-a", "wordlist"],
+                 ["keyspace", str(words), "-a", "wordlist", "--rules",
+                  "toggle", "--max-len", "8"]):
+        want = _run(ref_main, argv, capsys)
+        assert _run(port_main, argv, capsys) == want
+    assert want[0] == 0 and int(want[1]) > 0
+    assert _run(port_main, ["keyspace", str(words), "-a", "wordlist",
+                            "--rules", "best64"], capsys) == (0, "12800\n")
+
+
+def test_config3_device_cuda_without_card_fails(tmp_path, capsys,
+                                                monkeypatch, config3_list):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    words, planted = config3_list
+    hashfile = tmp_path / "h.txt"
+    hashfile.write_text(hashlib.sha256(planted[0]).hexdigest() + "\n")
+    rc = port_main(["crack", "--engine", "sha256", "-a", "wordlist",
+                    str(words), str(hashfile), "--rules", "best64",
+                    "--no-potfile"])
+    captured = capsys.readouterr()
+    assert rc == 2 and captured.out == ""
+    assert "--device cuda needs an NVIDIA card" in captured.err

@@ -55,10 +55,10 @@ def test_constants_match_reference():
 
 
 def test_cuda_source_constant_table():
-    """The kernel's K_MD5 table (hex in csrc/mask.cu) is the one
+    """The kernels' K_MD5 table (hex in csrc/cores.cuh) is the one
     ops/md5.py computes from math.sin."""
     with open(os.path.join(REPO, "dprf_tpu_torch", "csrc",
-                           "mask.cu")) as fh:
+                           "cores.cuh")) as fh:
         src = fh.read()
     body = re.search(r"K_MD5\[64\]\s*=\s*\{([^}]*)\}", src).group(1)
     table = [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})u", body)]

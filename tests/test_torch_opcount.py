@@ -91,3 +91,42 @@ def test_slots_balance_the_adds_between_pipes():
     assert Work(0, 0, 5).slots == 5
     assert Work(10, 100, 4).slots == pytest.approx((20 + 4 + 200) / 3)
     assert Work(100, 10, 0).slots == 100
+
+
+def test_rule_kernel_counts_at_fixed_lengths():
+    """A rule-kernel candidate of length n: the core to digest word 0
+    with that length's padding and bit length folded, plus one compare.
+    An 8-byte candidate differs from ?a^8 only in the decode the rule
+    kernel does not count."""
+    assert opcount.rules_ops("md5", {8: 1}) == Work(122, 67, 0)
+    assert opcount.rules_ops("ntlm", {8: 1}) == Work(90, 53, 0)
+    assert opcount.rules_ops("sha1", {8: 1}) == Work(404, 155, 0)
+    assert opcount.rules_ops("sha256", {8: 1}) == Work(951, 330, 0)
+    for engine in ENGINES:
+        mask = opcount.ops_per_candidate(engine, 8)
+        assert opcount.rules_ops(engine, {8: 1}) == \
+            Work(mask.alu - 8, mask.add - 8, mask.fma - 16)
+        # an empty candidate is a constant block: only the compare
+        assert opcount.rules_ops(engine, {0: 1}) == Work(1, 0, 0)
+        assert opcount.rules_ops(engine, {8: 3, 0: 2}) == Work(
+            3 * opcount.rules_ops(engine, {8: 1}).alu + 2,
+            3 * opcount.rules_ops(engine, {8: 1}).add, 0)
+
+
+def test_rule_lengths_and_the_averaged_count():
+    """Lengths over a toy list x rules, rejections left out (at max_len
+    24: "d" of a 20-byte word, "<5" of 8- and 20-byte words, "p3" of
+    both), and the work summed over them."""
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    from dprf_tpu_torch.rules import parse_rule
+    gen = WordlistRulesGenerator(
+        [b"abc", b"password", b"x" * 20],
+        [parse_rule(r) for r in (":", "d", "$1 $2", "<5", "p3")], max_len=24)
+    lengths = opcount.rule_lengths(*gen.packed_words(), gen.rules, 24)
+    assert lengths == {3: 2, 5: 1, 6: 1, 8: 1, 10: 1, 12: 1, 16: 1, 20: 1,
+                       22: 1}
+    assert lengths == {n: sum(1 for i in range(gen.keyspace)
+                              if len(gen.candidate(i) or b"\0" * 99) == n)
+                       for n in lengths}
+    assert opcount.rules_ops("md5", lengths) == Work(1220, 695, 0)
+    assert opcount.rules_ops("sha256", lengths) == Work(9498, 3307, 0)

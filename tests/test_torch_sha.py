@@ -51,7 +51,8 @@ def test_constants_match_reference_and_cuda_source():
     np.testing.assert_array_equal(sha256_ops.K, ref_sha256.K)
     np.testing.assert_array_equal(sha256_ops.INIT, ref_sha256.INIT)
     np.testing.assert_array_equal(sha1_ops.INIT, ref_sha1.INIT)
-    with open(os.path.join(REPO, "dprf_tpu_torch", "csrc", "mask.cu")) as fh:
+    with open(os.path.join(REPO, "dprf_tpu_torch", "csrc",
+                           "cores.cuh")) as fh:
         src = fh.read()
     body = re.search(r"K_SHA256\[64\]\s*=\s*\{([^}]*)\}", src).group(1)
     assert [int(h, 16) for h in re.findall(r"0x([0-9a-f]{8})u", body)] \
