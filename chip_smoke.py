@@ -7,10 +7,12 @@ It drives the port's main paths through the CLI a user calls, on the
 card, and holds every kernel against its plain PyTorch version:
 
 1. the card: name, device count, power limit, SM count and clock;
-2. builds the mask kernel (csrc/mask.cu, every core x compare mode) and
-   the rule kernel (csrc/rules.cu, every core) from the checkout's
-   sources, one nvcc each, both at once, and prints nvcc's register /
-   shared memory / spill lines and a SASS census of each instantiation;
+2. builds the mask kernel (csrc/mask.cu, every core x compare mode), the
+   rule kernel (csrc/rules.cu, every core), the PMKID kernel
+   (csrc/pbkdf2.cu) and the bcrypt kernels (csrc/bcrypt.cu) from the
+   checkout's sources, one nvcc each, all at once, and prints nvcc's
+   register / shared memory / spill lines and a SASS census of each
+   instantiation;
 3. holds each instantiation against its plain version on the card at a
    batch of 2^24, with exact equality of the hit count, the sorted hit
    lanes and, for the multi-target compare, the table positions and
@@ -54,7 +56,36 @@ card, and holds every kernel against its plain PyTorch version:
    after;
 10. times each rule instantiation per launch at 2^24, its plain version
     and its bound;
-11. prints the kernels line and, last, the device line.
+11. the PMKID kernel (csrc/pbkdf2.cu) against its plain version at 16
+    iterations over 2^16 lanes of ?l^8, with exact equality of the hit
+    set (lane, target): a hit at the first lane, at the last valid lane
+    of a partial batch, two targets of one ESSID hit by one lane, two
+    ESSIDs, no hit, and a worker with hit capacity 0 that recovers its
+    hit by the oracle rescan; then at 4096 iterations, three lanes
+    planted with hashlib in a 2^20 window;
+12. config 5 at full width: ``crack --device cuda --engine wpa2-pmkid
+    ?l^8`` at 4096 iterations over a window of CONFIG5_WINDOW
+    candidates (--skip S --limit W; the whole keyspace, 26^8, would
+    take a day), a target planted at the window's last index and one no
+    candidate reaches (the reference bench's line), with the launch
+    counts set to 0 just before it and read just after: only the PMKID
+    kernel, once per batch;
+13. the bcrypt kernels (csrc/bcrypt.cu) against their plain version on
+    one wave of candidates: setup + advance(1) + finish, exact equality
+    of P, S, the digest words and the hits; then the kernels' whole
+    chain at cost 4 and 5 against the pure-Python oracle, the OpenBSD
+    $2a$05 vectors included;
+14. config 4 at full width: ``crack --device cuda --engine bcrypt -a
+    wordlist`` over the reference bench's 4,096 synthetic 8-letter words
+    at cost 12: a target no word reaches (the whole sweep) and one
+    planted at the last word (its line made by the oracle in a
+    background process started in phase 1), the launch counts of
+    setup / advance / finish held to the batches and the chunking; then
+    the mask worker: ``crack --engine bcrypt ?l?l?l`` at cost 4, targets
+    at the first index and at the last valid lane of a partial batch;
+15. times the PMKID kernel and the bcrypt kernels with CUDA events
+    beside their bounds (ops/opcount.py) and their plain versions;
+16. prints the kernels line and, last, the device line.
 
 Any failure exits non-zero before the last line.  Without a card it
 exits 1 and prints no result.
@@ -112,6 +143,25 @@ RULE_8OPS, RULE_4OPS, RULE_TRUNC7, RULE_DEL_LAST, RULE_GROW24 = \
 #: the card's memory rate, bytes/s (H100 SXM data sheet): the rule
 #: kernel's bytes floor
 HBM_BYTES_PER_S = 3.35e12
+#: config 5: the reference bench's PMKID job (dprf_tpu/bench.py:921-923)
+MASK_CONFIG5 = "?l?l?l?l?l?l?l?l"
+ESSID5 = b"benchnet"
+AP5, STA5 = bytes.fromhex("0a1b2c3d4e5f"), bytes.fromhex("a0b1c2d3e4f5")
+#: config 5's window, 32 launches (a depth cut only: at the kernel's ~2 M
+#: candidates/s on an H100, 26^8 candidates take a day)
+CONFIG5_WINDOW = 1 << 24
+#: the PMKID kernel against its plain version: iterations, lanes
+PMKID_CHECK_ITERS = 16
+PMKID_CHECK_BATCH = 1 << 16
+#: config 4: the reference bench's bcrypt job (dprf_tpu/bench.py:926-934)
+CONFIG4_WORDS = 1 << 12
+CONFIG4_COST = 12
+SALT4 = bytes(range(16))
+#: the OpenBSD $2a$05 vectors (tests/test_bcrypt_device.py)
+OPENBSD = [(b"U*U",
+            "$2a$05$CCCCCCCCCCCCCCCCCCCCC.E5YPO9kmyuRGyh0XouQYb4YMJKvyOeW"),
+           (b"U*U*U",
+            "$2a$05$XXXXXXXXXXXXXXXXXXXXXOAcXxm9kjPGEMsLznoKqmqw7tc8WCx4a")]
 
 
 def fail(msg: str) -> None:
@@ -144,9 +194,18 @@ def rname(engine: str) -> str:
     return f"{engine}_rules"
 
 
+#: the single-instantiation kernels, by their function name
+PLAIN_KERNELS = {"pmkid_kernel": "pmkid", "setup_kernel": "bcrypt_setup",
+                 "advance_kernel": "bcrypt_advance",
+                 "finish_kernel": "bcrypt_finish"}
+
+
 def instance_of(mangled: str) -> str:
-    """The kernel name of a mangled mask_kernel<Core, multi> or
-    rules_kernel<Core> symbol."""
+    """The kernel name of a mangled mask_kernel<Core, multi>,
+    rules_kernel<Core> or single kernel's symbol."""
+    for fn, name in PLAIN_KERNELS.items():
+        if re.search(rf"\d{fn}", mangled):
+            return name
     m = re.search(r"mask_kernelI\d+(\w+?Core)Lb([01])E", mangled)
     if m:
         return kname(CPP_CORE[m.group(1)], m.group(2) == "1")
@@ -166,6 +225,31 @@ def synthetic_words(n: int, length: int = 8) -> list:
     letters = np.stack([(xs >> (3 * j)) % 26 for j in range(length)], 1)
     rows = (letters + ord("a")).astype(np.uint8)
     return [r.tobytes() for r in rows]
+
+
+def fake_pmkid_line() -> str:
+    """The reference bench's PMKID target: a PMKID no passphrase is
+    known to give, config 5's ESSID and MACs."""
+    pmkid = bytes((5 * i + 1) % 256 for i in range(16))
+    return f"{pmkid.hex()}*{AP5.hex()}*{STA5.hex()}*{ESSID5.hex()}"
+
+
+def fake_bcrypt_line(cost: int) -> str:
+    """The reference bench's bcrypt target: a digest no word is known to
+    give, salt bytes(range(16))."""
+    from dprf_tpu_torch.engines.cpu.bcrypt import b64_encode
+    digest = bytes((7 * i + 3) % 256 for i in range(23))
+    return (f"$2b${cost:02d}$" + b64_encode(SALT4)[:22]
+            + b64_encode(digest)[:31])
+
+
+def pmkid_line(plain: bytes, essid: bytes, ap: bytes, sta: bytes,
+               iterations: int) -> str:
+    """A hashcat 16800 line for ``plain``, by hashlib."""
+    import hmac
+    pmk = hashlib.pbkdf2_hmac("sha1", plain, essid, iterations, 32)
+    pmkid = hmac.new(pmk, b"PMK Name" + ap + sta, hashlib.sha1).digest()
+    return f"{pmkid[:16].hex()}*{ap.hex()}*{sta.hex()}*{essid.hex()}"
 
 
 def digest_words(engine: str, digest: bytes) -> list:
@@ -191,6 +275,8 @@ class Smoke:
         #: per instantiation: largest |kernel - plain| over its cases
         self.err = {kname(e, m): 0 for e, m in INSTANCES}
         self.err.update({rname(e): 0 for e in RULE_CORES})
+        self.err.update({k: 0 for k in ("pmkid", "bcrypt_setup",
+                                        "bcrypt_advance", "bcrypt_finish")})
         #: per instantiation: launches of the main path that runs it
         self.path_launches = {}
 
@@ -437,28 +523,112 @@ class Smoke:
             f"{name} launches={launches[name]}")
         return finished[0], elapsed
 
+    # -- phase 11: the PMKID kernel vs plain -----------------------------
+
+    def pmkid_targets(self, essid, plants, iterations):
+        """Targets of one ESSID group, each (plaintext, AP, STA) ->
+        Target, their lines made by hashlib."""
+        eng = self.get_engine("wpa2-pmkid")
+        return [eng.parse_target(pmkid_line(p, essid, ap, sta, iterations))
+                for p, ap, sta in plants]
+
+    def pmkid_case(self, gen, lut, start, n_valid, essid, targets, want,
+                   name, iters=PMKID_CHECK_ITERS, batch=PMKID_CHECK_BATCH,
+                   plain=True):
+        """One PMKID case: the kernel (and its plain version) over one
+        ESSID group; ``want`` the (lane, target) hits."""
+        from dprf_tpu_torch.ops import cuda_pbkdf2
+        table = cuda_pbkdf2.target_table(targets, "cuda")
+        args = (lut, gen.radices, gen.digits(start), n_valid, essid, iters,
+                table, 64, batch)
+        k = cuda_pbkdf2.pmkid_kernel(*args)
+        p = cuda_pbkdf2.pmkid_plain(*args) if plain else None
+        self.torch.cuda.synchronize()
+
+        def flat(count, lanes, tidx):
+            return int(count.item()), sorted(
+                (int(a), int(b)) for a, b in zip(lanes.tolist(),
+                                                 tidx.tolist()) if a >= 0)
+
+        kf = flat(*k)
+        msg = f"  pmkid {name}: kernel count={kf[0]} (lane, target)={kf[1]}"
+        if plain:
+            pf = flat(*p)
+            say(f"{msg} | plain count={pf[0]} (lane, target)={pf[1]}")
+            check(kf == pf, f"pmkid {name}: kernel and plain differ")
+            err = max([abs(kf[0] - pf[0])] + [abs(a - b) for x, y in
+                                              zip(kf[1], pf[1])
+                                              for a, b in zip(x, y)])
+            self.err["pmkid"] = max(self.err["pmkid"], err)
+        else:
+            say(f"{msg} | hashlib planted {sorted(want)}")
+        check(kf == (len(want), sorted(want)),
+              f"pmkid {name}: hits {kf}, expected {sorted(want)}")
+
+    def crack_lines(self, cli, engine, argv, lines, want, window, kernels):
+        """crack --device cuda over a file of target lines: argv, the
+        attack's options then its mask or wordlist.  The launch counts
+        of the ``kernels`` modules are set to 0 just before it.  Checks
+        the printed lines and the potfile (``want``), rejected=0 and
+        tested=``window``; returns (summary, wall s, launches)."""
+        with tempfile.TemporaryDirectory() as tmp:
+            hashfile = os.path.join(tmp, "hashes.txt")
+            pot = os.path.join(tmp, "job.potfile")
+            with open(hashfile, "w") as fh:
+                fh.write("".join(ln + "\n" for ln in lines))
+            *opts, attack_arg = argv
+            args = ["crack", "--device", "cuda", "--engine", engine, *opts,
+                    attack_arg, hashfile, "--potfile", pot]
+            for mod in kernels:
+                mod.reset_launches()
+            t0 = time.perf_counter()
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(args)
+            elapsed = time.perf_counter() - t0
+            launches = {k: v for mod in kernels
+                        for k, v in mod.launches.items()}
+            pot_lines = open(pot).read().splitlines() \
+                if os.path.exists(pot) else []
+        out, err = out.getvalue(), err.getvalue()
+        check(rc == (0 if want else 1),
+              f"crack {engine} exited {rc}: {err[-2000:]}")
+        check(sorted(out.splitlines()) == sorted(want),
+              f"crack {engine} printed {out.splitlines()}, expected {want}")
+        check(sorted(pot_lines) == sorted(want), f"potfile {pot_lines}")
+        finished = [ln for ln in err.splitlines() if "job finished" in ln]
+        check(len(finished) == 1 and "rejected=0" in finished[0]
+              and f"found={len(want)}/{len(lines)}" in finished[0]
+              and f"tested={window}" in finished[0],
+              f"{engine}: job summary {finished}")
+        say(f"  {engine}: {finished[0].split('job finished', 1)[1].strip()}")
+        say(f"    wall {elapsed:.3f} s for {window} candidates; launches "
+            f"{launches}")
+        return finished[0], elapsed, launches
+
     # -- phase 7: timing --------------------------------------------------
 
-    def time_launches(self, fn, args) -> float:
-        """ms per launch, CUDA events over TIMED_LAUNCHES launches after
-        warm-up."""
+    def time_launches(self, fn, args, n=TIMED_LAUNCHES, warm=3) -> float:
+        """ms per launch, CUDA events over n launches after warm-up."""
         torch = self.torch
-        for _ in range(3):
+        for _ in range(warm):
             fn(*args)
         torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        for _ in range(TIMED_LAUNCHES):
+        for _ in range(n):
             fn(*args)
         t1.record()
         torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / TIMED_LAUNCHES
+        return t0.elapsed_time(t1) / n
 
-    def time_once(self, fn, args) -> float:
-        """ms of one call, after one warm-up call."""
+    def time_once(self, fn, args, warm=True) -> float:
+        """ms of one call, after one warm-up call (if warm)."""
         torch = self.torch
-        fn(*args)
+        if warm:
+            fn(*args)
         torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
@@ -470,24 +640,51 @@ class Smoke:
 
 
 def main() -> None:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA card: torch.cuda.is_available() is False")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import dprf_tpu_torch  # noqa: F401  (the checkout's port, or fail)
+
+    smoke = Smoke()
+    # config 4's planted target line: the pure-Python oracle takes tens
+    # of seconds at cost 12, so it starts now, in the background
+    words4 = synthetic_words(CONFIG4_WORDS)
+    oracle4 = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys; from dprf_tpu_torch.engines.cpu.bcrypt import "
+         "bcrypt_hash; print(bcrypt_hash(bytes.fromhex(sys.argv[1]), "
+         "bytes(range(16)), int(sys.argv[2])))",
+         words4[-1].hex(), str(CONFIG4_COST)],
+        stdout=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        run(smoke, oracle4, words4)
+    finally:
+        if oracle4.poll() is None:
+            oracle4.kill()
+        oracle4.wait()
+
+
+def run(smoke, oracle4, words4) -> None:
+    import numpy as np
+    import torch
+
     from dprf_tpu_torch import cli
     from dprf_tpu_torch.engines.base import Target
-    from dprf_tpu_torch.engines.cpu.engines import Md5Engine
+    from dprf_tpu_torch.engines.cpu.bcrypt import bcrypt_hash, bcrypt_raw
+    from dprf_tpu_torch.engines.cpu.engines import Md5Engine, Pmkid2Engine
     from dprf_tpu_torch.engines.device.engines import TorchMd5Engine
     from dprf_tpu_torch.generators.mask import MaskGenerator
     from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
-    from dprf_tpu_torch.ops import _build, bloom, cuda_mask, cuda_rules, opcount
+    from dprf_tpu_torch.ops import (_build, blowfish, bloom, cuda_bcrypt,
+                                    cuda_mask, cuda_pbkdf2, cuda_rules,
+                                    opcount)
     from dprf_tpu_torch.rules import load_rules
     from dprf_tpu_torch.runtime.worker import CudaMaskWorker
     from dprf_tpu_torch.runtime.workunit import WorkUnit
 
-    smoke = Smoke()
     rng = smoke.rng
 
     # 1. the card
@@ -501,16 +698,17 @@ def main() -> None:
     say(card)
     say(f"  SMs={sms}  max SM clock={clock_mhz:.0f} MHz")
 
-    # 2. the kernel builds: one nvcc per source, both at once
+    # 2. the kernel builds: one nvcc per source, all at once
     from concurrent.futures import ThreadPoolExecutor
+    sources = ("mask", "rules", "pbkdf2", "bcrypt")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = {src: pool.submit(_build.build, src)
-                  for src in ("mask", "rules")}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = {src: pool.submit(_build.build, src) for src in sources}
         builds = {src: f.result() for src, f in builds.items()}
-    cuda_mask.load_kernel()
-    cuda_rules.load_kernel()
-    say(f"== build: both sources in {time.perf_counter() - t0:.2f} s wall")
+    for mod in (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt):
+        mod.load_kernel()
+    say(f"== build: {len(sources)} sources in "
+        f"{time.perf_counter() - t0:.2f} s wall")
     for src, built in builds.items():
         say(f"  {built.path}: {built.seconds:.2f} s of nvcc")
         for line in built.log.splitlines():
@@ -543,6 +741,17 @@ def main() -> None:
         say(f"  {rname(engine)}: {smem} B shared at max_len {max_len}, "
             f"{cuda_rules.blocks_per_sm(engine, smem)} resident blocks of "
             f"{cuda_rules.THREADS} per SM (the grid's wave)")
+
+    smem = cuda_pbkdf2.shared_bytes(8)
+    say(f"  pmkid: {smem} B shared at 8 positions, "
+        f"{cuda_pbkdf2.blocks_per_sm(smem)} resident blocks of "
+        f"{cuda_pbkdf2.THREADS} per SM (the grid's wave)")
+    for k in cuda_bcrypt.KERNELS:
+        blocks, smem = cuda_bcrypt.occupancy(0, k)
+        say(f"  {k}: {smem} B shared (the opt-in above 48 KB took), "
+            f"{blocks} resident blocks of {cuda_bcrypt.THREADS} per SM")
+    wave = cuda_bcrypt.resident_batch("cuda")
+    say(f"  bcrypt: {wave} candidates a wave ({sms} SMs)")
 
     # 3. kernel vs plain on the card
     say(f"== kernel vs plain at batch {BATCH} (exact equality)")
@@ -869,7 +1078,292 @@ def main() -> None:
             f"the word table once, {bytes_} B; kernel at {bound / ms:.1%} "
             f"of it); plain version {plain_ms:.3f} ms")
 
-    # 11. the kernels line, then the device line
+    # 11. the PMKID kernel vs its plain version
+    say(f"== PMKID kernel vs plain at {PMKID_CHECK_ITERS} iterations over "
+        f"{PMKID_CHECK_BATCH} lanes (exact equality of the hit set)")
+    g5 = MaskGenerator(MASK_CONFIG5)
+    lut5 = g5.charset_lut("cuda")
+    it = PMKID_CHECK_ITERS
+    B5 = PMKID_CHECK_BATCH
+    s5 = int(rng.integers(0, g5.keyspace // B5 - 4)) * B5
+    other = (bytes(rng.integers(0, 256, 6, dtype=np.uint8)),
+             bytes(rng.integers(0, 256, 6, dtype=np.uint8)))
+    smoke.pmkid_case(g5, lut5, s5, B5, ESSID5, smoke.pmkid_targets(
+        ESSID5, [(g5.candidate(s5), AP5, STA5)], it), [(0, 0)],
+        "hit at lane 0")
+    nv = B5 - 1000
+    smoke.pmkid_case(g5, lut5, s5 + B5, nv, ESSID5, smoke.pmkid_targets(
+        ESSID5, [(g5.candidate(s5 + B5 + nv - 1), AP5, STA5),
+                 (g5.candidate(s5 + B5 + nv), *other)], it),
+        [(nv - 1, 0)], f"hit at the last valid lane, n_valid={nv}")
+    lane = int(rng.integers(0, B5))
+    plain = g5.candidate(s5 + lane)
+    smoke.pmkid_case(g5, lut5, s5, B5, ESSID5, smoke.pmkid_targets(
+        ESSID5, [(b"not-in-the-mask", AP5, STA5), (plain, AP5, STA5),
+                 (plain, *other)], it), [(lane, 1), (lane, 2)],
+        "two targets of one ESSID hit by one lane")
+    for essid in (b"benchnet-5g", b"x" * 32):
+        lane = int(rng.integers(0, B5))
+        smoke.pmkid_case(g5, lut5, s5 + 2 * B5, B5, essid,
+                         smoke.pmkid_targets(essid, [(g5.candidate(
+                             s5 + 2 * B5 + lane), *other)], it),
+                         [(lane, 0)], f"ESSID {essid!r}")
+    smoke.pmkid_case(g5, lut5, s5 + 3 * B5, B5, ESSID5, smoke.pmkid_targets(
+        ESSID5, [(g5.candidate(s5), AP5, STA5)], it), [], "no hit")
+    # the worker's overflow contract: count 1 > capacity 0 -> rescan
+    plant = s5 + 4 * B5 + 777
+    target = smoke.pmkid_targets(ESSID5, [(g5.candidate(plant), AP5,
+                                           STA5)], it)
+    iterations = Pmkid2Engine.iterations
+    Pmkid2Engine.iterations = it
+    try:
+        eng = smoke.get_engine("wpa2-pmkid", "cuda")
+        w = eng.make_mask_worker(g5, target, batch=B5, hit_capacity=0,
+                                 oracle=smoke.get_engine("wpa2-pmkid"))
+        hits = w.process(WorkUnit(0, plant - 100, 4096))
+    finally:
+        Pmkid2Engine.iterations = iterations
+    check([(h.target_index, h.cand_index, h.plaintext) for h in hits]
+          == [(0, plant, g5.candidate(plant))],
+          f"pmkid hit_capacity=0 worker rescan returned {hits}")
+    say(f"  pmkid worker rescan with hit_capacity=0 found "
+        f"{hits[0].plaintext!r} at {plant}")
+    # 4096 iterations, 2^20 lanes: three lanes planted by hashlib
+    B20 = 1 << 20
+    s20 = int(rng.integers(0, g5.keyspace // B20 - 1)) * B20
+    lanes = [0, int(rng.integers(1, B20 - 1)), B20 - 1]
+    smoke.pmkid_case(g5, lut5, s20, B20, ESSID5, smoke.pmkid_targets(
+        ESSID5, [(g5.candidate(s20 + x), AP5, bytes([i]) * 6)
+                 for i, x in enumerate(lanes)], 4096),
+        [(x, i) for i, x in enumerate(lanes)],
+        f"4096 iterations, {B20} lanes, lanes {lanes} planted by hashlib",
+        iters=4096, batch=B20, plain=False)
+
+    # 12. config 5 at full width through the CLI
+    say(f"== config 5: crack --device cuda --engine wpa2-pmkid "
+        f"{MASK_CONFIG5} at 4096 iterations, a window of {CONFIG5_WINDOW} "
+        f"candidates; card: {card}")
+    skip = int(rng.integers(0, g5.keyspace - CONFIG5_WINDOW))
+    plain = g5.candidate(skip + CONFIG5_WINDOW - 1)
+    line = pmkid_line(plain, ESSID5, AP5, STA5, 4096)
+    from dprf_tpu_torch.engines.device.pmkid import BATCH as PMKID_BATCH
+    unit = cli.UNIT_BATCHES * PMKID_BATCH
+    want_batches = sum(-(-min(unit, CONFIG5_WINDOW - u) // PMKID_BATCH)
+                       for u in range(0, CONFIG5_WINDOW, unit))
+    summary, wall5, launches = smoke.crack_lines(
+        cli, "wpa2-pmkid", ["--skip", str(skip), "--limit",
+                            str(CONFIG5_WINDOW), MASK_CONFIG5],
+        [fake_pmkid_line(), line], [f"{line}:{plain.decode()}"],
+        CONFIG5_WINDOW, (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt))
+    check(launches["pmkid"] == want_batches == sum(launches.values())
+          and f" batches={want_batches}" in summary,
+          f"config 5: launches {launches}, {want_batches} batches")
+    smoke.path_launches["pmkid"] = launches["pmkid"]
+    rate5 = int(re.search(r" rate=([\d,]+)/s", summary).group(1)
+                .replace(",", ""))
+    say(f"  config 5: {wall5:.3f} s wall, loop {rate5} candidates/s, "
+        f"{want_batches} launches of {PMKID_BATCH}; card: {card}")
+
+    # 13. the bcrypt kernels vs their plain version, then vs the oracle
+    B4 = wave
+    say(f"== bcrypt kernels vs plain on one wave of {B4} candidates "
+        "(exact equality of P, S, digest words and hits)")
+    lens4 = rng.integers(1, 73, B4)
+    cand = np.zeros((B4, 72), np.uint8)
+    for i, n in enumerate(lens4):
+        cand[i, :n] = rng.integers(1, 256, n, dtype=np.uint8)
+    hit, n_valid = 17, B4 - 5
+    for dup in (B4 // 2, n_valid, 40):         # a twin, past n_valid, masked
+        cand[dup], lens4[dup] = cand[hit], lens4[hit]
+    valid = torch.ones(B4, dtype=torch.bool, device="cuda")
+    valid[40] = False
+    key = blowfish.key_words_from_candidates(
+        torch.as_tensor(cand, device="cuda"),
+        torch.as_tensor(lens4.astype(np.int32), device="cuda"))
+    salt = bytes(rng.integers(0, 256, 16, dtype=np.uint8))
+    sw = blowfish.salt_to_words(salt)
+    s18 = blowfish.salt18_words(sw)
+    Pk, Sk = cuda_bcrypt.setup_kernel(key, sw)
+    P1, S1 = Pk.clone(), Sk.clone()
+    cuda_bcrypt.advance_kernel(Pk, Sk, key, s18, 1)
+    _, _, kd = cuda_bcrypt.finish_kernel(Pk, Sk, None, B4, np.zeros(6), 0)
+    tgt = blowfish.digest_to_words(blowfish.words_to_digests(
+        kd[hit:hit + 1].cpu().numpy())[0])
+    kc, kl, kd = cuda_bcrypt.finish_kernel(Pk, Sk, valid, n_valid, tgt, 64)
+    def diff(a, b) -> int:
+        """Largest |a - b| over int32 words read as uint32."""
+        return int(((a.long() & 0xFFFFFFFF) - (b.long() & 0xFFFFFFFF))
+                   .abs().max().item())
+
+    t0 = time.perf_counter()
+    Pp, Sp = cuda_bcrypt.setup_plain(key, sw)
+    smoke.err["bcrypt_setup"] = max(diff(Pp, P1), diff(Sp, S1))
+    Pp, Sp = cuda_bcrypt.advance_plain(Pp, Sp, key, s18, 1)
+    smoke.err["bcrypt_advance"] = max(diff(Pp, Pk), diff(Sp, Sk))
+    pc, pl, pd = cuda_bcrypt.finish_plain(Pp, Sp, valid, n_valid, tgt, 64)
+    kh = (int(kc.item()), sorted(x for x in kl.tolist() if x >= 0))
+    ph = (int(pc.item()), sorted(x for x in pl.tolist() if x >= 0))
+    smoke.err["bcrypt_finish"] = max(
+        [diff(kd, pd), abs(kh[0] - ph[0])]
+        + [abs(a - b) for a, b in zip(kh[1], ph[1])])
+    say(f"  setup + advance(1) + finish: largest |kernel - plain| of P and "
+        f"S {smoke.err['bcrypt_setup']} after setup, "
+        f"{smoke.err['bcrypt_advance']} after advance; digest words and "
+        f"hits {smoke.err['bcrypt_finish']}; kernel hits {kh} | plain hits "
+        f"{ph} (plain chain {time.perf_counter() - t0:.1f} s)")
+    check(smoke.err["bcrypt_setup"] == 0, "bcrypt_setup: kernel != plain")
+    check(smoke.err["bcrypt_advance"] == 0,
+          "bcrypt_advance: kernel != plain")
+    check(smoke.err["bcrypt_finish"] == 0 and kh == (2, [hit, B4 // 2]),
+          f"bcrypt_finish: kernel {kh} != plain {ph} or the planted lanes")
+    beng = smoke.get_engine("bcrypt", "cuda")
+    oracle_b = smoke.get_engine("bcrypt")
+    for password, line in OPENBSD:
+        t = oracle_b.parse_target(line)
+        got = beng.hash_batch([password], params=t.params)[0]
+        check(got == t.digest, f"OpenBSD vector {line}: kernels disagree")
+    for cost in (4, 5):
+        salt = bytes(rng.integers(0, 256, 16, dtype=np.uint8))
+        words = [bytes(rng.integers(32, 127, int(n), dtype=np.uint8))
+                 for n in (0, 1, 8, 71, 72)]
+        got = beng.hash_batch(words, params={"salt": salt, "cost": cost})
+        check(got == [bcrypt_raw(w, salt, cost) for w in words],
+              f"bcrypt cost {cost}: the kernels' chain and the oracle "
+              "differ")
+    say("  the kernels' whole chain equals the oracle at cost 4 and 5 "
+        "(lengths 0, 1, 8, 71, 72) and on the OpenBSD $2a$05 vectors")
+
+    # 14. config 4 at full width through the CLI
+    say(f"== config 4: crack --device cuda --engine bcrypt -a wordlist, "
+        f"{CONFIG4_WORDS} words at cost {CONFIG4_COST}; card: {card}")
+    config4 = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path4 = os.path.join(tmp, "words.txt")
+        with open(path4, "wb") as fh:
+            fh.write(b"\n".join(words4) + b"\n")
+        t0 = time.perf_counter()
+        out4, _ = oracle4.communicate(timeout=600)
+        line4 = out4.strip()
+        check(oracle4.returncode == 0 and line4.startswith("$2b$12$"),
+              f"the oracle's target line: {out4!r}")
+        say(f"  planted line from the oracle ({time.perf_counter() - t0:.1f}"
+            f" s more wait): {line4}")
+        for name4, line, want in (
+                ("sweep", fake_bcrypt_line(CONFIG4_COST), []),
+                ("planted", line4, [f"{line4}:{words4[-1].decode()}"])):
+            summary, wall, launches = smoke.crack_lines(
+                cli, "bcrypt", ["-a", "wordlist", path4], [line], want,
+                CONFIG4_WORDS, (cuda_mask, cuda_rules, cuda_pbkdf2,
+                                cuda_bcrypt))
+            batches = int(re.search(r" batches=(\d+)", summary).group(1))
+            rounds = cuda_bcrypt.advanced_rounds
+            check(batches == -(-CONFIG4_WORDS // wave)
+                  and launches["bcrypt_setup"] == batches
+                  and launches["bcrypt_finish"] == batches
+                  and launches["bcrypt_advance"] >= batches
+                  and rounds == batches << CONFIG4_COST
+                  and launches["pmkid"] == 0
+                  and sum(launches.values()) == 2 * batches
+                  + launches["bcrypt_advance"],
+                  f"config 4 {name4}: launches {launches}, {rounds} rounds "
+                  f"for {batches} batches")
+            config4[name4] = {"wall_s": wall, "launches": launches,
+                              "rounds": rounds}
+            if name4 == "sweep":
+                for k in cuda_bcrypt.KERNELS:
+                    smoke.path_launches[k] = launches[k]
+    # the mask worker: ?l^3 at cost 4, targets at the first index and at
+    # the last (the last valid lane of a partial batch)
+    lines_m = [bcrypt_hash(p, bytes(range(16)), 4) for p in (b"aaa", b"zzz")]
+    _, wall, launches = smoke.crack_lines(
+        cli, "bcrypt", ["?l?l?l"], lines_m,
+        [f"{lines_m[0]}:aaa", f"{lines_m[1]}:zzz"], 26 ** 3,
+        (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt))
+    batches = 2 * -(-26 ** 3 // wave)
+    rounds = cuda_bcrypt.advanced_rounds
+    check(launches["bcrypt_setup"] == launches["bcrypt_finish"] == batches
+          and rounds == batches << 4
+          and sum(launches.values()) == 2 * batches
+          + launches["bcrypt_advance"],
+          f"bcrypt mask: launches {launches}, {rounds} rounds for "
+          f"{batches} batches")
+    config4["mask_cost4"] = {"wall_s": wall, "launches": launches,
+                             "rounds": rounds}
+    say(json.dumps({"config4": config4}))
+
+    # 15. timing of the PMKID and bcrypt kernels
+    say(f"== PMKID and bcrypt kernel timing (CUDA events); card: {card}")
+    from dprf_tpu_torch.ops.cuda_pbkdf2 import target_table
+    t5 = target_table(smoke.pmkid_targets(ESSID5, [(b"-", AP5, STA5)],
+                                          4096), "cuda")
+    args = (lut5, g5.radices, g5.digits(s5), PMKID_BATCH, ESSID5, 4096, t5,
+            64, PMKID_BATCH)
+    ms = smoke.time_launches(cuda_pbkdf2.pmkid_kernel, args, n=3, warm=1)
+    work = opcount.pmkid_ops(g5.length, 4096)
+    comps = sum(opcount.pmkid_compressions(4096).values())
+    bound = PMKID_BATCH * work.slots / rate_ops * 1e3
+    small = (lut5, g5.radices, g5.digits(s5), B5, ESSID5, it, t5, 64, B5)
+    ms16 = smoke.time_launches(cuda_pbkdf2.pmkid_kernel, small, n=5)
+    plain_ms = smoke.time_once(cuda_pbkdf2.pmkid_plain, small)
+    timing["pmkid"] = (ms, plain_ms, bound, "operations")
+    say(f"  pmkid: {ms:.2f} ms per launch of {PMKID_BATCH} at 4096 "
+        f"iterations = {PMKID_BATCH / ms * 1e3:,.0f} candidates/s = "
+        f"{PMKID_BATCH * comps / ms / 1e6:.3f} G SHA-1 compressions/s "
+        f"({comps} a candidate); bound {bound:.2f} ms ({work.slots:,.0f} "
+        f"slots a candidate: {work.alu:,.0f} ALU, {work.add:,.0f} IADD3); "
+        f"kernel at {bound / ms:.1%} of it.  At {it} iterations over {B5} "
+        f"lanes: kernel {ms16:.3f} ms, plain version {plain_ms:.1f} ms")
+    wk = cand.shape[0]
+    P, S = cuda_bcrypt.setup_kernel(key, sw)
+    n_adv = 16
+    ms_set = smoke.time_launches(cuda_bcrypt.setup_kernel, (key, sw), n=5,
+                                 warm=1)
+    ms_adv = smoke.time_launches(cuda_bcrypt.advance_kernel,
+                                 (P, S, key, s18, n_adv), n=3, warm=1)
+    ms_fin = smoke.time_launches(cuda_bcrypt.finish_kernel,
+                                 (P, S, None, wk, tgt, 64), n=5, warm=1)
+    P2, S2 = cuda_bcrypt.setup_plain(key, sw)
+    plain_set = smoke.time_once(cuda_bcrypt.setup_plain, (key, sw),
+                                warm=False)
+    plain_adv = smoke.time_once(cuda_bcrypt.advance_plain,
+                                (P2, S2, key, s18, 1), warm=False)
+    plain_fin = smoke.time_once(cuda_bcrypt.finish_plain,
+                                (P2, S2, None, wk, tgt, 64), warm=False)
+    per_round = ms_adv / n_adv
+    per_cand12 = (ms_set + per_round * (1 << CONFIG4_COST) + ms_fin) / wk
+    tps = wave // sms
+    for k, ms_k, plain_k, rounds, moved in (
+            ("bcrypt_setup", ms_set, plain_set,
+             opcount.bcrypt_rounds(setup=True), 72 * 2 + 4096),
+            ("bcrypt_advance", ms_adv, plain_adv,
+             opcount.bcrypt_rounds(n_adv), 72 * 3 + 4096 * 2),
+            ("bcrypt_finish", ms_fin, plain_fin,
+             opcount.bcrypt_rounds(finish=True), 72 + 4096 + 24)):
+        lim = opcount.bcrypt_bound(wk, rounds, sms, clock_mhz * 1e6, tps)
+        ops_ms = max(lim["shared"], lim["issue"]) * 1e3
+        bytes_ms = wk * moved / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        timing[k] = (ms_k, plain_k, bound,
+                     "operations" if ops_ms >= bytes_ms else "bytes")
+        say(f"  {k}: {ms_k:.3f} ms per launch of {wk} candidates "
+            f"({rounds} Feistel rounds each); bound {bound:.3f} ms (shared "
+            f"reads {lim['shared'] * 1e3:.3f} ms, issue slots "
+            f"{lim['issue'] * 1e3:.3f} ms, bytes {bytes_ms:.4f} ms; kernel "
+            f"at {bound / ms_k:.1%} of it); the dependent-latency limit at "
+            f"{tps} threads an SM: {lim['latency'] * 1e3:.3f} ms; plain "
+            f"version {plain_k:.1f} ms"
+            + (" (one round)" if k == "bcrypt_advance" else ""))
+    say(f"  bcrypt: {per_round:.4f} ms per cost round of a {wk}-candidate "
+        f"wave = {per_round / wk * 1e6:.3f} ns per candidate-round; cost "
+        f"{CONFIG4_COST}: {1e3 / per_cand12:,.1f} candidates/s")
+    say(json.dumps({"slice_e_timing": {
+        "pmkid_ms": ms, "pmkid_batch": PMKID_BATCH, "pmkid_16it_ms": ms16,
+        "pmkid_plain_16it_ms": plain_ms, "bcrypt_wave": wk,
+        "bcrypt_setup_ms": ms_set, "bcrypt_advance16_ms": ms_adv,
+        "bcrypt_finish_ms": ms_fin, "bcrypt_cost12_per_s": 1e3 / per_cand12,
+        "config5_wall_s": wall5, "config5_rate": rate5}}))
+
+    # 16. the kernels line, then the device line
     kernels = []
     for engine, multi in INSTANCES:
         key = kname(engine, multi)
@@ -888,6 +1382,16 @@ def main() -> None:
             "name": key, "route": "cuda", "source": cuda_rules.SOURCE,
             "replaces": cuda_rules.REPLACES,
             "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
+    for key, source, replaces in (
+            ("pmkid", cuda_pbkdf2.SOURCE, cuda_pbkdf2.REPLACES),
+            *((k, cuda_bcrypt.SOURCE, cuda_bcrypt.REPLACES)
+              for k in cuda_bcrypt.KERNELS)):
+        ms, plain_ms, bound, bound_by = timing[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": smoke.path_launches[key],
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
     check(all(k["launches"] > 0 for k in kernels),

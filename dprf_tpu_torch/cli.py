@@ -4,7 +4,8 @@ Subcommands: crack (a local mask or wordlist+rules job), bench
 (candidates/s of the mask worker), engines, keyspace.  Devices:
 
 - ``cuda`` (the default): the hand-written CUDA kernels on the card
-  (the mask kernel, the rule kernel);
+  (the mask kernel, the rule kernel, the PMKID kernel, the bcrypt
+  kernels);
 - ``torch-cpu``: the same workers on CPU tensors, running the kernels'
   plain PyTorch versions;
 - ``cpu``: the CPU oracle (hashlib; a pure-Python MD4 for ntlm).
@@ -70,7 +71,7 @@ def _build_parser() -> argparse.ArgumentParser:
                    "cuda, 2^14 on the CPU)")
     c.add_argument("--unit-size", type=int, default=None,
                    help=f"keyspace indices per WorkUnit (default "
-                   f"{UNIT_BATCHES} batches)")
+                   f"{UNIT_BATCHES} of the worker's steps)")
     c.add_argument("--hit-cap", type=int, default=64,
                    help="hit lanes a step reports before the batch goes "
                    "to the exact oracle rescan")
@@ -152,10 +153,15 @@ def _build_gen(attack: str, attack_arg: str, args, max_len: int, log: Log):
     return gen
 
 
-def _align_unit_size(unit_size: int, attack: str, gen) -> int:
-    """Units of whole words: no candidate is hashed twice at a unit
+def _unit_size(args, worker, gen, batch: int) -> int:
+    """--unit-size, or UNIT_BATCHES of the worker's own step (its
+    ``stride``: an engine that caps its batch, as PMKID and bcrypt do,
+    gets units of its own steps, not of --batch), in units of whole
+    words for a wordlist, so no candidate is hashed twice at a unit
     boundary on the device path."""
-    if attack != "wordlist":
+    unit_size = args.unit_size or \
+        UNIT_BATCHES * getattr(worker, "stride", batch)
+    if args.attack != "wordlist":
         return unit_size
     return max(gen.n_rules, (unit_size // gen.n_rules) * gen.n_rules)
 
@@ -210,12 +216,11 @@ def cmd_crack(args, log: Log) -> int:
     gen = _build_gen(args.attack, args.attack_arg, args,
                      _wordlist_max_len(oracle), log)
     batch = args.batch or DEFAULT_BATCH[device]
-    unit_size = _align_unit_size(args.unit_size or UNIT_BATCHES * batch,
-                                 args.attack, gen)
-    dispatcher = _make_dispatcher(args, gen.keyspace, unit_size, log)
     worker = _make_worker(args, tdev, gen, hl.targets, oracle, batch)
+    unit_size = _unit_size(args, worker, gen, batch)
+    dispatcher = _make_dispatcher(args, gen.keyspace, unit_size, log)
     log.info("worker", kind=type(worker).__name__, device=device,
-             batch=batch, unit_size=unit_size)
+             batch=getattr(worker, "batch", batch), unit_size=unit_size)
     potfile = None if args.no_potfile else Potfile(args.potfile)
 
     def progress(done, total, nfound, rate):
@@ -269,6 +274,9 @@ def cmd_bench(args, log: Log) -> int:
     gen = MaskGenerator(args.mask)
     batch = min(DEFAULT_BATCH[args.device], gen.keyspace)
     oracle = get_engine(args.engine, device="cpu")
+    if oracle.salted:
+        raise ValueError(f"bench measures the unsalted mask engines; "
+                         f"{oracle.name} runs through crack")
     miss = oracle.hash_batch([b"\0" * (gen.length + 1)])[0]
     dev = get_engine(args.engine, device="cuda", torch_device=tdev)
     worker = dev.make_mask_worker(gen, [Target(miss.hex(), miss)],

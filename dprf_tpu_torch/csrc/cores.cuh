@@ -1,6 +1,7 @@
 // cores.cuh -- the hash cores the port's kernels share (csrc/mask.cu,
-// csrc/rules.cu): md5, md4 (ntlm, over UTF-16LE), sha1 and sha256, one
-// 64-byte block each, fully unrolled, with everything in registers.
+// csrc/rules.cu, csrc/pbkdf2.cu): md5, md4 (ntlm, over UTF-16LE), sha1
+// and sha256, one 64-byte block each, fully unrolled, with everything
+// in registers; and sha1_compress, SHA-1 from any chaining state (HMAC).
 //
 // Each core is a struct: kWords digest words; kMaxLen, the longest
 // candidate one block holds; word(q) / shift(q), where candidate byte q
@@ -173,6 +174,50 @@ struct Md4Core {
     }
 };
 
+// SHA-1 compression with an arbitrary chaining state: the 80 rounds
+// over w (overwritten as the rolling schedule) and the feed-forward,
+// out = st + rounds(st, w).  out may alias st.  Inlined with constant
+// st or constant words of w, the constants fold (Sha1Core::digest's IV,
+// the HMAC blocks' padding words of csrc/pbkdf2.cu).
+__device__ __forceinline__ void sha1_compress(const uint32_t* st,
+                                              uint32_t* w, uint32_t* out)
+{
+    uint32_t a = st[0], b = st[1], c = st[2], d = st[3], e = st[4];
+#pragma unroll
+    for (int t = 0; t < 80; ++t) {
+        if (t >= 16) {
+            const uint32_t x = w[(t - 3) & 15] ^ w[(t - 8) & 15]
+                               ^ w[(t - 14) & 15] ^ w[t & 15];
+            w[t & 15] = rotl(x, 1);
+        }
+        uint32_t f, k;
+        if (t < 20) {
+            f = d ^ (b & (c ^ d));
+            k = 0x5a827999u;
+        } else if (t < 40) {
+            f = b ^ c ^ d;
+            k = 0x6ed9eba1u;
+        } else if (t < 60) {
+            f = (b & c) | (d & (b | c));
+            k = 0x8f1bbcdcu;
+        } else {
+            f = b ^ c ^ d;
+            k = 0xca62c1d6u;
+        }
+        const uint32_t tmp = rotl(a, 5) + f + e + k + w[t & 15];
+        e = d;
+        d = c;
+        c = rotl(b, 30);
+        b = a;
+        a = tmp;
+    }
+    out[0] = a + st[0];
+    out[1] = b + st[1];
+    out[2] = c + st[2];
+    out[3] = d + st[3];
+    out[4] = e + st[4];
+}
+
 struct Sha1Core {
     static constexpr int kWords = 5;
     static constexpr int kMaxLen = 55;
@@ -187,41 +232,9 @@ struct Sha1Core {
     __device__ __forceinline__ static void digest(uint32_t* w,
                                                   uint32_t* out)
     {
-        uint32_t a = 0x67452301u, b = 0xefcdab89u, c = 0x98badcfeu,
-                 d = 0x10325476u, e = 0xc3d2e1f0u;
-#pragma unroll
-        for (int t = 0; t < 80; ++t) {
-            if (t >= 16) {
-                const uint32_t x = w[(t - 3) & 15] ^ w[(t - 8) & 15]
-                                   ^ w[(t - 14) & 15] ^ w[t & 15];
-                w[t & 15] = rotl(x, 1);
-            }
-            uint32_t f, k;
-            if (t < 20) {
-                f = d ^ (b & (c ^ d));
-                k = 0x5a827999u;
-            } else if (t < 40) {
-                f = b ^ c ^ d;
-                k = 0x6ed9eba1u;
-            } else if (t < 60) {
-                f = (b & c) | (d & (b | c));
-                k = 0x8f1bbcdcu;
-            } else {
-                f = b ^ c ^ d;
-                k = 0xca62c1d6u;
-            }
-            const uint32_t tmp = rotl(a, 5) + f + e + k + w[t & 15];
-            e = d;
-            d = c;
-            c = rotl(b, 30);
-            b = a;
-            a = tmp;
-        }
-        out[0] = a + 0x67452301u;
-        out[1] = b + 0xefcdab89u;
-        out[2] = c + 0x98badcfeu;
-        out[3] = d + 0x10325476u;
-        out[4] = e + 0xc3d2e1f0u;
+        const uint32_t iv[5] = {0x67452301u, 0xefcdab89u, 0x98badcfeu,
+                                0x10325476u, 0xc3d2e1f0u};
+        sha1_compress(iv, w, out);
     }
 };
 

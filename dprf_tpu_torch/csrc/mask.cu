@@ -33,10 +33,10 @@
 // grid-stride loop, everything in registers.  The rounds are fully
 // unrolled (the SHA schedules as a rolling 16-word window), so message
 // words, constants and shift counts are register or immediate operands.
-// The decode enters an unrolled run of positions through one
-// warp-uniform switch on the mask length, so only the mask's own
-// positions cost instructions; the byte placement of each position is
-// a compile-time constant of the core.  The Bloom probes are tested in
+// The decode (decode.cuh, shared with csrc/pbkdf2.cu) enters an
+// unrolled run of positions through one warp-uniform switch on the mask
+// length, so only the mask's own positions cost instructions; the byte
+// placement of each position is a compile-time constant of the core.  The Bloom probes are tested in
 // order and stop at the first miss (Hopper can branch; the TPU tested
 // all 8), which costs ~1.3 probes per set at config 2's fill.
 
@@ -44,6 +44,7 @@
 #include <cuda_runtime.h>
 
 #include "cores.cuh"
+#include "decode.cuh"
 
 #define DPRF_MAX_LEN 55
 #define DPRF_K_PROBES 8
@@ -122,19 +123,6 @@ __device__ __forceinline__ int find_target(const uint32_t* dg,
 
 // ---- the kernel --------------------------------------------------------
 
-// One mask position q (a compile-time constant): digit = (base + carry)
-// mod radix, carry = (base + carry) div radix, and the charset byte goes
-// to the core's place for byte q.
-#define DPRF_POS(q)                                                       \
-    {                                                                     \
-        const uint32_t s = (uint32_t)args.base[q] + carry;                \
-        const uint32_t r = (uint32_t)args.radix[q];                       \
-        carry = s / r;                                                    \
-        const uint32_t digit = s - carry * r;                             \
-        m[Core::word(q)] |= (uint32_t)s_lut[(q) * 256 + digit]            \
-                            << Core::shift(q);                            \
-    }
-
 template <class Core, bool kMulti>
 __global__ void __launch_bounds__(256)
 mask_kernel(const uint8_t* __restrict__ lut, const MaskArgs args,
@@ -165,37 +153,9 @@ mask_kernel(const uint8_t* __restrict__ lut, const MaskArgs args,
 #pragma unroll
         for (int i = 0; i < 16; ++i) m[i] = args.block[i];
 
-        // decode, last (least significant) position first; the switch
-        // enters the unrolled run at position L - 1
+        // decode, last (least significant) position first (decode.cuh)
         uint32_t carry = gidx;
-        if constexpr (Core::kMaxLen > 27) {
-            switch (L) {
-            case 55: DPRF_POS(54)  case 54: DPRF_POS(53)  case 53: DPRF_POS(52)
-            case 52: DPRF_POS(51)  case 51: DPRF_POS(50)  case 50: DPRF_POS(49)
-            case 49: DPRF_POS(48)  case 48: DPRF_POS(47)  case 47: DPRF_POS(46)
-            case 46: DPRF_POS(45)  case 45: DPRF_POS(44)  case 44: DPRF_POS(43)
-            case 43: DPRF_POS(42)  case 42: DPRF_POS(41)  case 41: DPRF_POS(40)
-            case 40: DPRF_POS(39)  case 39: DPRF_POS(38)  case 38: DPRF_POS(37)
-            case 37: DPRF_POS(36)  case 36: DPRF_POS(35)  case 35: DPRF_POS(34)
-            case 34: DPRF_POS(33)  case 33: DPRF_POS(32)  case 32: DPRF_POS(31)
-            case 31: DPRF_POS(30)  case 30: DPRF_POS(29)  case 29: DPRF_POS(28)
-            case 28: DPRF_POS(27)
-            default: break;
-            }
-        }
-        // positions 26..0 (all of an ntlm mask)
-        switch (L < 27 ? L : 27) {
-        case 27: DPRF_POS(26)  case 26: DPRF_POS(25)  case 25: DPRF_POS(24)
-        case 24: DPRF_POS(23)  case 23: DPRF_POS(22)  case 22: DPRF_POS(21)
-        case 21: DPRF_POS(20)  case 20: DPRF_POS(19)  case 19: DPRF_POS(18)
-        case 18: DPRF_POS(17)  case 17: DPRF_POS(16)  case 16: DPRF_POS(15)
-        case 15: DPRF_POS(14)  case 14: DPRF_POS(13)  case 13: DPRF_POS(12)
-        case 12: DPRF_POS(11)  case 11: DPRF_POS(10)  case 10: DPRF_POS(9)
-        case 9: DPRF_POS(8)    case 8: DPRF_POS(7)    case 7: DPRF_POS(6)
-        case 6: DPRF_POS(5)    case 5: DPRF_POS(4)    case 4: DPRF_POS(3)
-        case 3: DPRF_POS(2)    case 2: DPRF_POS(1)    case 1: DPRF_POS(0)
-        default: break;
-        }
+        DPRF_DECODE(Core, Core::kMaxLen, L);
 
         uint32_t dg[Core::kWords];
         Core::digest(m, dg);

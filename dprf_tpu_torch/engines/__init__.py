@@ -54,7 +54,9 @@ def _ensure_imported(device: str) -> None:
     if device == "cpu":
         import dprf_tpu_torch.engines.cpu.engines  # noqa: F401
     elif device == "cuda":
+        import dprf_tpu_torch.engines.device.bcrypt  # noqa: F401
         import dprf_tpu_torch.engines.device.engines  # noqa: F401
+        import dprf_tpu_torch.engines.device.pmkid  # noqa: F401
     else:
         raise KeyError(f"unknown device {device!r} "
                        f"(expected one of {DEVICES})")

@@ -1,5 +1,6 @@
-"""The least work one candidate takes in the mask kernel (csrc/mask.cu)
-and in the rule kernel (csrc/rules.cu): the operation count behind the
+"""The least work one candidate takes in the mask kernel (csrc/mask.cu),
+the rule kernel (csrc/rules.cu), the PMKID kernel (csrc/pbkdf2.cu) and
+the bcrypt kernels (csrc/bcrypt.cu): the operation count behind the
 bound that chip_smoke.py prints beside each kernel's time.
 
 Each core runs here once, in Python, over the job's message block with
@@ -152,9 +153,9 @@ def _md4(m):
     return [a, b, c, d]
 
 
-def _sha1(m):
+def _sha1(m, state=None):
     w = list(m)
-    a, b, c, d, e = (int(v) for v in sha1.INIT)
+    a, b, c, d, e = (int(v) for v in sha1.INIT) if state is None else state
     for t in range(80):
         if t >= 16:
             w[t % 16] = rotl(xor(w[(t - 3) % 16], w[(t - 8) % 16],
@@ -295,3 +296,88 @@ def rules_ops(engine_name: str, length_counts: dict) -> Work:
         add_ += n * core["add"]
         fma += n * core["fma"]
     return Work(alu, add_, fma)
+
+
+# ---- the PMKID kernel ------------------------------------------------------
+
+def sha1_compress_work(state_var: bool, message) -> dict:
+    """One SHA-1 compression with its feed-forward, by pipe: the
+    chaining state all ``Var`` (state_var) or the IV, over ``message``
+    (16 words, each an int or a ``Var``)."""
+    state = [Var("alu", 0, []) for _ in range(5)] if state_var else None
+    out = _sha1(list(message), state)
+    if state_var:
+        out = [add(o, s) for o, s in zip(out, state)]
+    return tally(out)
+
+
+def pmkid_compressions(iterations: int, n_targets: int = 1) -> dict:
+    """SHA-1 compressions of one candidate, by kind: ``key`` the four
+    HMAC key states (passphrase and PMK, from the IV), ``first`` the two
+    U1 inner blocks (salt || INT(i), a message fixed per job), ``block20``
+    the HMAC compressions over a 20-byte message: U1's outer, 2 x
+    (iterations - 1) per PBKDF2 block, and 2 per target."""
+    return {"key": 4, "first": 2,
+            "block20": 2 * (1 + 2 * (iterations - 1)) + 2 * n_targets}
+
+
+def pmkid_ops(length: int, iterations: int, n_targets: int = 1) -> Work:
+    """The least work of one PMKID candidate: its decode, every
+    compression with every message word variable but the truly constant
+    ones (the 0x80 marker, zeros and bit length of a 20-byte block; the
+    job's fixed first blocks), the 5 xors of T per iteration and block,
+    and 4 compares per target."""
+    v = [Var("alu", 0, []) for _ in range(16)]
+    block20 = v[:5] + [0x80000000] + [0] * 9 + [(64 + 20) * 8]
+    first = [1] * 16                      # fixed per job: folds
+    per = {"key": sha1_compress_work(False, v),
+           "first": sha1_compress_work(True, first),
+           "block20": sha1_compress_work(True, block20)}
+    alu = add_ = fma = 0
+    for kind, n in pmkid_compressions(iterations, n_targets).items():
+        alu += n * per[kind]["alu"]
+        add_ += n * per[kind]["add"]
+        fma += n * per[kind]["fma"]
+    alu += 2 * 5 * (iterations - 1) + 4 * n_targets + length
+    return Work(alu, add_ + length, fma + 2 * length)
+
+
+# ---- the bcrypt kernels ----------------------------------------------------
+
+#: one Feistel round's least instructions: per S-box read a byte
+#: extract and an address (LEA), F's middle xor, and one LOP3 that xors
+#: F and the P word into the other half, on the INT32 pipe; F's two adds
+BCRYPT_ROUND = Work(alu=4 * 2 + 1 + 1, add=2, fma=0)
+#: S-box reads of one round; shared memory serves 32 a clock per SM
+BCRYPT_ROUND_READS = 4
+SHARED_READS_PER_SM_CLOCK = 32
+#: the dependent chain of one round in cycles, for the latency limit:
+#: extract, address, the shared read (~30 cycles, an assumed Hopper
+#: figure, not measured), two adds and two xors at ~4 cycles each
+BCRYPT_ROUND_LATENCY = 6 * 4 + 30
+
+
+def bcrypt_rounds(cost_rounds: int = 0, setup: bool = False,
+                  finish: bool = False) -> int:
+    """Feistel rounds of one candidate: 16 per encryption, 521
+    encryptions per ExpandKey, two ExpandKeys per cost round; setup is
+    one ExpandKey, finish 3 x 64 encryptions."""
+    enc = 2 * 521 * cost_rounds + 521 * setup + 3 * 64 * finish
+    return 16 * enc
+
+
+def bcrypt_bound(batch: int, rounds: int, sms: int, clock_hz: float,
+                 threads_per_sm: int) -> dict:
+    """Three limits on ``batch`` candidates of ``rounds`` Feistel rounds
+    each, in seconds: ``shared``, the S-box reads at 32 per SM per
+    clock; ``issue``, BCRYPT_ROUND's slots (64 lanes a pipe per SM per
+    clock); ``latency``, each candidate's serial chain at
+    BCRYPT_ROUND_LATENCY cycles a round, threads_per_sm chains an SM
+    at once (the shared memory a block takes decides it), waves of
+    sms * threads_per_sm candidates."""
+    shared = batch * rounds * BCRYPT_ROUND_READS / (
+        sms * SHARED_READS_PER_SM_CLOCK * clock_hz)
+    issue = batch * rounds * BCRYPT_ROUND.slots / (sms * 64 * clock_hz)
+    waves = -(-batch // (sms * threads_per_sm))
+    latency = waves * rounds * BCRYPT_ROUND_LATENCY / clock_hz
+    return {"shared": shared, "issue": issue, "latency": latency}

@@ -72,6 +72,19 @@ def pack_varlen(cand: torch.Tensor, lens: torch.Tensor,
     return words
 
 
+def pack_raw(cand: torch.Tensor, big_endian: bool = True) -> torch.Tensor:
+    """uint8[B, L] (L <= 64) -> int32[B, 16]: one full 64-byte block with
+    zero padding and no marker or bit length, the HMAC key-block layout,
+    where a short key is zero-extended to the block size."""
+    if cand.shape[1] > 64:
+        raise ValueError(f"key block packing needs length <= 64, got "
+                         f"{cand.shape[1]}")
+    msg = torch.zeros((cand.shape[0], 64), dtype=torch.uint8,
+                      device=cand.device)
+    msg[:, :cand.shape[1]] = cand
+    return _words_from_bytes(msg, big_endian)
+
+
 def utf16le_widen(cand: torch.Tensor) -> torch.Tensor:
     """uint8[B, L] latin-1 bytes -> uint8[B, 2L] UTF-16LE (NTLM input):
     byte p goes to byte 2p, every odd byte is 0."""

@@ -73,7 +73,8 @@ def wordlist_lane_to_gidx(lane: int, ws: int, word_batch: int,
 
 
 class CpuWorker:
-    """Oracle-engine worker (unsalted engines)."""
+    """Oracle-engine worker; a salted engine (bcrypt, wpa2-pmkid) hashes
+    every candidate once per target, with that target's params."""
 
     #: candidates hashed per oracle call
     CHUNK = 2048
@@ -93,7 +94,14 @@ class CpuWorker:
             pairs = [(start + j, c)
                      for j, c in enumerate(self.gen.candidates(start, n))
                      if c is not None]
-            digests = self.engine.hash_batch([c for _, c in pairs])
+            cands = [c for _, c in pairs]
+            if self.engine.salted:
+                for ti, t in enumerate(self.targets):
+                    digests = self.engine.hash_batch(cands, params=t.params)
+                    hits.extend(Hit(ti, gidx, cand) for (gidx, cand), d
+                                in zip(pairs, digests) if d == t.digest)
+                continue
+            digests = self.engine.hash_batch(cands)
             for (gidx, cand), d in zip(pairs, digests):
                 ti = self._digest_map.get(d)
                 if ti is not None:

@@ -204,3 +204,130 @@ def test_cli_wordlist_on_card(tmp_path, capsys):
     assert "rejected=0" in captured.err
     # 5,000 words in windows of 1,024
     assert cuda_rules.launches["sha256_rules"] - launches == 5
+
+
+def _pmkid_line(plain, essid, ap, sta, iterations):
+    import hmac
+    pmk = hashlib.pbkdf2_hmac("sha1", plain, essid, iterations, 32)
+    pmkid = hmac.new(pmk, b"PMK Name" + ap + sta, hashlib.sha1).digest()
+    return f"{pmkid[:16].hex()}*{ap.hex()}*{sta.hex()}*{essid.hex()}"
+
+
+def test_pmkid_kernel_matches_plain():
+    """16 iterations over 2^14 lanes of ?l^8: hits at lane 0, at the
+    last valid lane of a partial batch, and one lane on two targets."""
+    _need_card()
+    from dprf_tpu_torch.ops import cuda_pbkdf2
+    gen, batch, essid = MaskGenerator("?l" * 8), 1 << 14, b"benchnet"
+    start, nv = 77 * batch, batch - 9
+    ap, sta, other = b"\x0a" * 6, b"\xa0" * 6, b"\x01" * 6
+    eng = get_engine("wpa2-pmkid")
+    spec = [(0, ap, sta), (nv - 1, ap, sta), (500, ap, sta),
+            (500, other, sta), (nv, ap, sta)]
+    targets = [eng.parse_target(_pmkid_line(gen.candidate(start + x),
+                                            essid, a, s, 16))
+               for x, a, s in spec]
+    args = (gen.charset_lut("cuda"), gen.radices, gen.digits(start), nv,
+            essid, 16, cuda_pbkdf2.target_table(targets, "cuda"), 64, batch)
+    launches = cuda_pbkdf2.launches["pmkid"]
+    k = cuda_pbkdf2.pmkid_kernel(*args)
+    p = cuda_pbkdf2.pmkid_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_pbkdf2.launches["pmkid"] == launches + 1
+
+    def pairs(count, lanes, tidx):
+        return int(count.item()), sorted(
+            (a, b) for a, b in zip(lanes.tolist(), tidx.tolist()) if a >= 0)
+
+    assert pairs(*k) == pairs(*p) == (4, [(0, 0), (500, 2), (500, 3),
+                                          (nv - 1, 1)])
+
+
+def test_bcrypt_kernels_match_plain_and_oracle():
+    """setup + advance(1) + finish against the plain version on 64
+    candidates, exact; the kernels' chain against the oracle at cost
+    4."""
+    _need_card()
+    from dprf_tpu_torch.engines.cpu.bcrypt import bcrypt_raw
+    from dprf_tpu_torch.ops import blowfish, cuda_bcrypt
+    rng = np.random.default_rng(3)
+    B = 64
+    cand = torch.as_tensor(rng.integers(1, 256, (B, 72), dtype=np.uint8),
+                           device="cuda")
+    lens = torch.as_tensor(rng.integers(0, 73, B).astype(np.int32),
+                           device="cuda")
+    key = blowfish.key_words_from_candidates(cand, lens)
+    sw = blowfish.salt_to_words(bytes(range(16)))
+    s18 = blowfish.salt18_words(sw)
+    P, S = cuda_bcrypt.setup_kernel(key, sw)
+    Pp, Sp = cuda_bcrypt.setup_plain(key, sw)
+    assert torch.equal(P, Pp) and torch.equal(S, Sp)
+    P, S = cuda_bcrypt.advance_kernel(P, S, key, s18, 1)
+    Pp, Sp = cuda_bcrypt.advance_plain(Pp, Sp, key, s18, 1)
+    assert torch.equal(P, Pp) and torch.equal(S, Sp)
+    _, _, d = cuda_bcrypt.finish_kernel(P, S, None, B, [0] * 6, 0)
+    tgt = blowfish.digest_to_words(blowfish.words_to_digests(
+        d[9:10].cpu().numpy())[0])
+    k = cuda_bcrypt.finish_kernel(P, S, None, B - 1, tgt, 8)
+    p = cuda_bcrypt.finish_plain(Pp, Sp, None, B - 1, tgt, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(k[2], p[2])
+    assert _hit_set(k[0], k[1]) == _hit_set(p[0], p[1]) == (1, [9])
+    eng = get_engine("bcrypt", "cuda")
+    words = [b"", b"hunter2", bytes(range(1, 73))]
+    salt = bytes(rng.integers(0, 256, 16, dtype=np.uint8))
+    assert eng.hash_batch(words, params={"salt": salt, "cost": 4}) == \
+        [bcrypt_raw(w, salt, 4) for w in words]
+
+
+def test_cli_pmkid_and_bcrypt_on_card(tmp_path, capsys, monkeypatch):
+    _need_card()
+    from dprf_tpu_torch.engines.cpu.bcrypt import bcrypt_hash
+    from dprf_tpu_torch.engines.cpu.engines import Pmkid2Engine
+    from dprf_tpu_torch.ops import cuda_bcrypt, cuda_pbkdf2
+    monkeypatch.setattr(Pmkid2Engine, "iterations", 64)
+    line = _pmkid_line(b"zzzz", b"net", b"\x01" * 6, b"\x02" * 6, 64)
+    hashfile = tmp_path / "p.txt"
+    hashfile.write_text(line + "\n")
+    launches = cuda_pbkdf2.launches["pmkid"]
+    rc = cli.main(["crack", "?l?l?l?l", str(hashfile), "--engine",
+                   "wpa2-pmkid", "--no-potfile", "--batch", "65536"])
+    captured = capsys.readouterr()
+    assert rc == 0 and captured.out.splitlines() == [f"{line}:zzzz"]
+    assert "rejected=0" in captured.err
+    assert cuda_pbkdf2.launches["pmkid"] - launches == 7
+    words = tmp_path / "w.txt"
+    words.write_text("alpha\nbeta\ngamma\n")
+    line = bcrypt_hash(b"Gamma", bytes(range(16)), 4)
+    hashfile.write_text(line + "\n")
+    cuda_bcrypt.reset_launches()
+    rc = cli.main(["crack", "-a", "wordlist", str(words), str(hashfile),
+                   "--engine", "bcrypt", "--rules", "toggle",
+                   "--no-potfile"])
+    captured = capsys.readouterr()
+    assert rc == 0 and captured.out.splitlines() == [f"{line}:Gamma"]
+    assert cuda_bcrypt.launches["bcrypt_setup"] == 1
+    assert cuda_bcrypt.advanced_rounds == 16
+
+
+def test_cli_bcrypt_mask_on_card(tmp_path, capsys):
+    """A cost-4 ?l?l?l mask crack: targets at the first index and at the
+    last (the last valid lane of a partial batch), each target swept in
+    its own batches."""
+    _need_card()
+    from dprf_tpu_torch.engines.cpu.bcrypt import bcrypt_hash
+    from dprf_tpu_torch.ops import cuda_bcrypt
+    lines = [bcrypt_hash(p, bytes(range(16)), 4) for p in (b"aaa", b"zzz")]
+    hashfile = tmp_path / "b.txt"
+    hashfile.write_text("".join(ln + "\n" for ln in lines))
+    cuda_bcrypt.reset_launches()
+    rc = cli.main(["crack", "?l?l?l", str(hashfile), "--engine", "bcrypt",
+                   "--no-potfile"])
+    captured = capsys.readouterr()
+    assert rc == 0 and sorted(captured.out.splitlines()) == \
+        sorted([f"{lines[0]}:aaa", f"{lines[1]}:zzz"])
+    assert "rejected=0" in captured.err and "tested=17576" in captured.err
+    batches = 2 * -(-26 ** 3 // cuda_bcrypt.resident_batch("cuda"))
+    assert cuda_bcrypt.launches["bcrypt_setup"] == batches
+    assert cuda_bcrypt.launches["bcrypt_finish"] == batches
+    assert cuda_bcrypt.advanced_rounds == 16 * batches

@@ -79,7 +79,8 @@ def test_potfile_preload_skips_cracked(tmp_path, capsys):
 
 
 def test_engines_and_keyspace(capsys):
-    names = "md5, ntlm, sha-1, sha-256, sha1, sha256"
+    names = ("bcrypt, md5, ntlm, pmkid, sha-1, sha-256, sha1, sha256, "
+             "wpa2-pmkid")
     assert _run(port_main, ["engines"], capsys) == \
         (0, f"cpu: {names}\ncuda: {names}\n")
     assert _run(port_main, ["keyspace", "?l?l?l?l?l?l"], capsys) == \

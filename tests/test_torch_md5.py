@@ -80,3 +80,14 @@ def test_target_words_match_reference():
         target_words_from_numpy(ref).numpy().view(np.uint32), ref)
     np.testing.assert_array_equal(
         digest_rows([digest])[0], ref)
+
+
+@pytest.mark.parametrize("length", [0, 5, 63, 64])
+def test_pack_raw_matches_reference(length):
+    """The HMAC key-block layout: zero padding, no marker, no length."""
+    rng = np.random.default_rng(length)
+    cand = rng.integers(0, 256, (3, length), dtype=np.uint8)
+    from dprf_tpu_torch.ops.pack import pack_raw
+    got = pack_raw(torch.as_tensor(cand))
+    want = ref_pack.pack_raw(jnp.asarray(cand), length, big_endian=True)
+    assert (got.numpy().view(np.uint32) == np.asarray(want)).all()

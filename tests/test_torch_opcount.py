@@ -130,3 +130,39 @@ def test_rule_lengths_and_the_averaged_count():
                        for n in lengths}
     assert opcount.rules_ops("md5", lengths) == Work(1220, 695, 0)
     assert opcount.rules_ops("sha256", lengths) == Work(9498, 3307, 0)
+
+
+def test_sha1_from_any_state_is_the_compression():
+    """Over fixed words and a fixed chaining state the counted SHA-1 is
+    ops/sha1.sha1_compress (HMAC's compressions chain from keyed
+    states)."""
+    from dprf_tpu_torch.ops import sha1
+    rng = np.random.default_rng(11)
+    state = [int(x) for x in rng.integers(0, 2 ** 32, 5, dtype=np.uint64)]
+    words = [int(x) for x in rng.integers(0, 2 ** 32, 16, dtype=np.uint64)]
+    out = [(a + b) & 0xFFFFFFFF
+           for a, b in zip(opcount._sha1(words, state), state)]
+    want = sha1.sha1_compress(
+        torch.as_tensor(np.array(state, np.uint32).view(np.int32)),
+        torch.as_tensor(np.array(words, np.uint32).view(np.int32)))
+    assert out == [int(x) for x in want.numpy().view(np.uint32)]
+
+
+def test_pmkid_and_bcrypt_counts():
+    """PMKID at 4096 iterations: 16,390 compressions (4 key states, 2
+    fixed first blocks, 16,384 of 20-byte messages incl. one target),
+    the 20-byte ones at 416 ALU + 165 IADD3 with the padding folded.
+    bcrypt: 16 rounds x 521 encryptions x 2 ExpandKeys per cost round
+    (+ setup, finish), 10 slots a round."""
+    assert opcount.pmkid_compressions(4096) == {"key": 4, "first": 2,
+                                                "block20": 16384}
+    v = [_var() for _ in range(16)]
+    block20 = v[:5] + [0x80000000] + [0] * 9 + [672]
+    assert opcount.sha1_compress_work(True, block20) == \
+        {"alu": 416, "add": 165, "fma": 0}
+    assert opcount.pmkid_ops(8, 4096) == Work(6858894, 2704330, 16)
+    assert opcount.BCRYPT_ROUND.slots == 10
+    assert opcount.bcrypt_rounds(4096, True, True) == 68299920
+    lim = opcount.bcrypt_bound(32, 16 * 521, 1, 1e9, 32)
+    assert lim["shared"] == 32 * 16 * 521 * 4 / 32 / 1e9
+    assert lim["latency"] == 16 * 521 * opcount.BCRYPT_ROUND_LATENCY / 1e9
