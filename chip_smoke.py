@@ -85,7 +85,37 @@ card, and holds every kernel against its plain PyTorch version:
     at the first index and at the last valid lane of a partial batch;
 15. times the PMKID kernel and the bcrypt kernels with CUDA events
     beside their bounds (ops/opcount.py) and their plain versions;
-16. prints the kernels line and, last, the device line.
+16. builds csrc/ext.cu with the others (its 20 instantiations: the six
+    nested chains and mysql41, one target and multi; md5/sha1/sha256 x
+    $pass.$salt / $salt.$pass) and holds each against its plain version
+    at 2^24: every nested chain at one target (first lane, last valid
+    lane of a partial batch, no hit) and at 1,000 targets (hits at lanes
+    0, 64, 65 and the last valid lane, one just past it; no hit); every
+    salted core with salts of 0, 3, 4, 7 and 32 bytes (first lane, last
+    valid lane, no hit).  The build phase fails on any instantiation
+    with a stack frame (local memory) and prints, beside each earlier
+    mask and rule instantiation, whether its registers and SASS count
+    are those it compiled to before csrc/mask_kernel.cuh took the
+    kernel body out of csrc/mask.cu;
+17. nested at full width: ``crack --device cuda --engine 'md5(md5)'
+    ?a^7`` with 1,000 targets (8 planted, 992 fillers) over a 2^32
+    window, config 2's shape for hashcat 2600; then mysql41 on one
+    target planted at the last index of the whole ?l^6;
+18. salted at full width: ``crack --device cuda --engine md5-ps ?l^6``
+    against 1,000 ``hexdigest:salt`` targets, each with its own
+    alphanumeric salt of 2-32 bytes, eight planted (one at the
+    keyspace's last index), every target swept in full (19,000
+    launches); the host's own time per launch; then sha1-sp, sha256-ps,
+    md5-sp, sha256-sp, postgres, ldap-ssha and oracle11, one target
+    each, over the whole ?l^6;
+19. the other nested instantiations through the CLI over 2^28 windows
+    of ?a^7.  Every path of phases 17-19 runs with the launch counts of
+    every kernel set to 0 just before it and read just after: its own
+    instantiation launched once per batch (per target and batch for a
+    salted core), no other;
+20. times every ext instantiation per launch with CUDA events beside its
+    bound (ops/opcount.nested_ops, salted_ops) and its plain version;
+21. prints the kernels line and, last, the device line.
 
 Any failure exits non-zero before the last line.  Without a card it
 exits 1 and prints no result.
@@ -164,6 +194,35 @@ OPENBSD = [(b"U*U",
             "$2a$05$XXXXXXXXXXXXXXXXXXXXXOAcXxm9kjPGEMsLznoKqmqw7tc8WCx4a")]
 
 
+#: slice D (ops/cuda_ext.py): every instantiation of csrc/ext.cu,
+#: (chain, multi target), in the kernels line's order
+EXT_INSTANCES = [(n, m) for n in ("md5(md5)", "sha1(sha1)", "md5(sha1)",
+                                  "sha1(md5)", "sha256(md5)", "sha256(sha1)",
+                                  "mysql41") for m in (False, True)] + \
+    [(f"{a}-{o}", False) for a in ("md5", "sha1", "sha256")
+     for o in ("ps", "sp")]
+#: the salts of the salted cores' kernel-vs-plain cases, in bytes
+EXT_SALTS = (0, 3, 4, 7, 32)
+#: the salted sweep: md5-ps over ?l^6 against this many targets, each
+#: with its own salt of 2-32 bytes
+N_SALTED = 1000
+#: the salt length of the salted cores' timing launches
+TIMING_SALT = 11
+#: salt characters of the salted lists (Joomla's and osCommerce's
+#: salts are alphanumeric)
+ALNUM = b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
+#: the nvcc registers and SASS instruction count of the mask and rule
+#: instantiations before the kernel body moved to csrc/mask_kernel.cuh
+#: (sm_90a), which must not change them
+CENSUS_BEFORE = {
+    "md5_mask": (25, 2656), "md5_mask_multi": (28, 2408),
+    "ntlm_mask": (25, 1552), "ntlm_mask_multi": (25, 1352),
+    "sha1_mask": (32, 2976), "sha1_mask_multi": (31, 2712),
+    "sha256_mask": (32, 3800), "sha256_mask_multi": (32, 3536),
+    "md5_rules": (32, 3104), "ntlm_rules": (32, 2824),
+    "sha1_rules": (32, 3400), "sha256_rules": (40, 4232)}
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -206,9 +265,20 @@ def instance_of(mangled: str) -> str:
     for fn, name in PLAIN_KERNELS.items():
         if re.search(rf"\d{fn}", mangled):
             return name
-    m = re.search(r"mask_kernelI\d+(\w+?Core)Lb([01])E", mangled)
+    m = re.search(r"mask_kernelI(\w+?)Lb([01])E", mangled)
     if m:
-        return kname(CPP_CORE[m.group(1)], m.group(2) == "1")
+        args, multi = m.group(1), m.group(2) == "1"
+        cores = [CPP_CORE[c] for c in re.findall(
+            r"\d+(Md5Core|Md4Core|Sha1Core|Sha256Core)", args)]
+        if "Mysql41" in args:
+            chain = "mysql41"
+        elif "Nested" in args:          # outer, then inner (or S<n>_: same)
+            chain = f"{cores[0]}({cores[-1]})"
+        elif "SaltPs" in args or "SaltSp" in args:
+            chain = f"{cores[0]}-{'ps' if 'SaltPs' in args else 'sp'}"
+        else:
+            chain = cores[0]
+        return kname(chain, multi)
     m = re.search(r"rules_kernelI\d+(\w+?Core)E", mangled)
     return rname(CPP_CORE[m.group(1)]) if m else mangled
 
@@ -252,11 +322,15 @@ def pmkid_line(plain: bytes, essid: bytes, ap: bytes, sta: bytes,
     return f"{pmkid[:16].hex()}*{ap.hex()}*{sta.hex()}*{essid.hex()}"
 
 
+def little_endian(engine: str) -> bool:
+    """The byte order of an engine's (final) digest words."""
+    from dprf_tpu_torch import get_engine
+    return get_engine(engine, "cuda", torch_device="cpu").little_endian
+
+
 def digest_words(engine: str, digest: bytes) -> list:
     from dprf_tpu_torch.ops.compare import digest_rows
-    from dprf_tpu_torch.ops.cuda_mask import device_engine
-    little = device_engine(engine).little_endian
-    return [int(w) for w in digest_rows([digest], little)[0]]
+    return [int(w) for w in digest_rows([digest], little_endian(engine))[0]]
 
 
 class Smoke:
@@ -277,6 +351,7 @@ class Smoke:
         self.err.update({rname(e): 0 for e in RULE_CORES})
         self.err.update({k: 0 for k in ("pmkid", "bcrypt_setup",
                                         "bcrypt_advance", "bcrypt_finish")})
+        self.err.update({kname(n, m): 0 for n, m in EXT_INSTANCES})
         #: per instantiation: launches of the main path that runs it
         self.path_launches = {}
 
@@ -290,8 +365,7 @@ class Smoke:
         return self.get_engine(engine).hash_batch(words)
 
     def tables(self, engine: str, digests: list):
-        table = self.make_target_table(
-            digests, self.cm.device_engine(engine).little_endian)
+        table = self.make_target_table(digests, little_endian(engine))
         rows = self.torch.as_tensor(
             self.bloom.bloom_tables(table.original_words())
             .view(self.np.int32), device="cuda")
@@ -300,16 +374,20 @@ class Smoke:
     # -- phase 3: kernel vs plain -----------------------------------------
 
     def single_case(self, engine, gen, lut, start, n_valid, plant, cap,
-                    want_lanes, name):
-        """One single-target case: kernel and plain on the same inputs."""
+                    want_lanes, name, fns=None, salt=None):
+        """One single-target case: kernel and plain on the same inputs
+        (``fns``: the pair, the mask kernel's by default; ``salt``: the
+        target's salt, for a salted core)."""
         torch = self.torch
+        kernel, plain = fns or (self.cm.mask_kernel, self.cm.mask_plain)
+        params = None if salt is None else {"salt": salt}
         target = digest_words(engine, self.get_engine(engine).hash_batch(
             [gen.candidate(plant) if plant is not None
-             else b"\0" * (gen.length + 1)])[0])
+             else b"\0" * (gen.length + 1)], params=params)[0])
         args = (engine, lut, gen.radices, gen.digits(start), n_valid,
-                target, cap, BATCH)
-        kc, kl = self.cm.mask_kernel(*args)
-        pc, pl = self.cm.mask_plain(*args)
+                *(() if salt is None else (salt,)), target, cap, BATCH)
+        kc, kl = kernel(*args)
+        pc, pl = plain(*args)
         torch.cuda.synchronize()
         kc, pc = int(kc.item()), int(pc.item())
         kl = sorted(int(x) for x in kl.cpu().tolist())
@@ -328,17 +406,20 @@ class Smoke:
         self.err[key] = max(self.err[key], err)
 
     def multi_case(self, engine, gen, lut, start, n_valid, plants, name,
-                   n_targets=N_TARGETS):
+                   n_targets=N_TARGETS, fns=None):
         """One multi-target case over n_targets targets: the planted
-        candidates' digests first, then fillers."""
+        candidates' digests first, then fillers (``fns``: the kernel and
+        plain pair, the mask kernel's by default)."""
+        kernel, plain = fns or (self.cm.mask_multi_kernel,
+                                self.cm.mask_multi_plain)
         oracle = self.get_engine(engine)
         digests = oracle.hash_batch([gen.candidate(p) for p in plants])
         digests += self.fillers(engine, n_targets - len(plants))
         table, rows, words = self.tables(engine, digests)
         args = (engine, lut, gen.radices, gen.digits(start), n_valid, rows,
                 words, 64, BATCH)
-        k = self.cm.mask_multi_kernel(*args)
-        p = self.cm.mask_multi_plain(*args)
+        k = kernel(*args)
+        p = plain(*args)
         self.torch.cuda.synchronize()
 
         def flat(count, lanes, tpos, n_maybe):
@@ -679,8 +760,8 @@ def run(smoke, oracle4, words4) -> None:
     from dprf_tpu_torch.generators.mask import MaskGenerator
     from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
     from dprf_tpu_torch.ops import (_build, blowfish, bloom, cuda_bcrypt,
-                                    cuda_mask, cuda_pbkdf2, cuda_rules,
-                                    opcount)
+                                    cuda_ext, cuda_mask, cuda_pbkdf2,
+                                    cuda_rules, opcount)
     from dprf_tpu_torch.rules import load_rules
     from dprf_tpu_torch.runtime.worker import CudaMaskWorker
     from dprf_tpu_torch.runtime.workunit import WorkUnit
@@ -688,40 +769,56 @@ def run(smoke, oracle4, words4) -> None:
     rng = smoke.rng
 
     # 1. the card
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = nvidia_smi("name,power.limit")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    say(f"== card: {name}  devices={count}  torch={torch.__version__} "
+    say(f"== card: {kind}  devices={count}  torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
     say(card)
     say(f"  SMs={sms}  max SM clock={clock_mhz:.0f} MHz")
 
     # 2. the kernel builds: one nvcc per source, all at once
     from concurrent.futures import ThreadPoolExecutor
-    sources = ("mask", "rules", "pbkdf2", "bcrypt")
+    sources = ("mask", "rules", "pbkdf2", "bcrypt", "ext")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = {src: pool.submit(_build.build, src) for src in sources}
         builds = {src: f.result() for src, f in builds.items()}
-    for mod in (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt):
+    for mod in (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt, cuda_ext):
         mod.load_kernel()
     say(f"== build: {len(sources)} sources in "
         f"{time.perf_counter() - t0:.2f} s wall")
+    registers = {}
     for src, built in builds.items():
         say(f"  {built.path}: {built.seconds:.2f} s of nvcc")
+        kernel = None
         for line in built.log.splitlines():
             if "Compiling entry function" in line:
-                say(f"  {instance_of(line)}:")
+                kernel = instance_of(line)
+                say(f"  {kernel}:")
             elif "ptxas info    : Used" in line or "spill" in line:
                 say("    " + line.strip())
+                used = re.search(r"Used (\d+) registers", line)
+                if used and kernel:
+                    registers[kernel] = int(used.group(1))
+                frame = re.search(r"(\d+) bytes stack frame", line)
+                check(not frame or frame.group(1) == "0" or kernel not in
+                      {kname(n, m) for n, m in EXT_INSTANCES},
+                      f"{kernel}: {line.strip()} (local memory)")
         census = _build.sass_census(src)
         for func, c in sorted(census.items(),
                               key=lambda kv: instance_of(kv[0])):
             top = ", ".join(f"{op} {n}" for op, n in c["by_opcode"].items())
-            say(f"  SASS {instance_of(func)}: {c['total']} static "
-                f"instructions ({top})")
+            inst = instance_of(func)
+            was = CENSUS_BEFORE.get(inst)
+            same = "" if was is None else (
+                "; registers and census before the shared body: "
+                + ("same" if was == (registers.get(inst), c["total"])
+                   else f"DIFFER, it had {was}"))
+            say(f"  SASS {inst}: {c['total']} static instructions, "
+                f"{registers.get(inst)} registers{same} ({top})")
     for engine, multi in INSTANCES:
         length = 6 if engine == "md5" and not multi else 7
         n_sets = bloom.n_sets(N_TARGETS) if multi else 0
@@ -742,6 +839,14 @@ def run(smoke, oracle4, words4) -> None:
             f"{cuda_rules.blocks_per_sm(engine, smem)} resident blocks of "
             f"{cuda_rules.THREADS} per SM (the grid's wave)")
 
+    for chain, multi in EXT_INSTANCES:
+        length = 6 if "-" in chain else 7
+        n_sets = bloom.n_sets(N_TARGETS) if multi else 0
+        smem = cuda_mask.shared_bytes(length, n_sets)
+        say(f"  {kname(chain, multi)}: {smem} B shared at {length} "
+            f"positions{' and 1,000 targets' if multi else ''}, "
+            f"{cuda_ext.blocks_per_sm(chain, multi, smem)} resident blocks "
+            f"of {cuda_mask.THREADS} per SM (the grid's wave)")
     smem = cuda_pbkdf2.shared_bytes(8)
     say(f"  pmkid: {smem} B shared at 8 positions, "
         f"{cuda_pbkdf2.blocks_per_sm(smem)} resident blocks of "
@@ -1363,7 +1468,9 @@ def run(smoke, oracle4, words4) -> None:
         "bcrypt_finish_ms": ms_fin, "bcrypt_cost12_per_s": 1e3 / per_cand12,
         "config5_wall_s": wall5, "config5_rate": rate5}}))
 
-    # 16. the kernels line, then the device line
+    ext_timing = slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
+
+    # 21. the kernels line, then the device line
     kernels = []
     for engine, multi in INSTANCES:
         key = kname(engine, multi)
@@ -1394,13 +1501,272 @@ def run(smoke, oracle4, words4) -> None:
             "replaces": replaces, "launches": smoke.path_launches[key],
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
+    for chain, multi in EXT_INSTANCES:
+        key = kname(chain, multi)
+        ms, plain_ms, bound = ext_timing[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": cuda_ext.SOURCE,
+            "replaces": cuda_ext.replaces(chain),
+            "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations",
+            "library_ms": None})
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its path")
     check(all(k["max_abs_err"] == 0 for k in kernels),
           "a kernel differs from its plain version")
     say(json.dumps({"kernels": kernels}))
-    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
+
+
+def unit_batches(cli, window: int) -> int:
+    """Batches of 2^24 the CLI's units make of a window."""
+    unit = cli.UNIT_BATCHES * BATCH
+    return sum(-(-min(unit, window - u) // BATCH)
+               for u in range(0, window, unit))
+
+
+def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
+    """Phases 16-20: the nested chains and salted cores of csrc/ext.cu.
+    Returns their timing rows (ms, plain ms, bound ms) by instantiation;
+    their main paths' launches go to smoke.path_launches."""
+    import numpy as np
+    import torch
+
+    from dprf_tpu_torch.ops import (bloom, cuda_bcrypt, cuda_ext, cuda_mask,
+                                    cuda_pbkdf2, cuda_rules, opcount)
+    from dprf_tpu_torch.runtime.potfile import encode_plain
+
+    rng = smoke.rng
+    modules = (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt, cuda_ext)
+
+    def alnum(n: int) -> bytes:
+        return bytes(rng.choice(np.frombuffer(ALNUM, np.uint8), n))
+
+    def path(engine, mask, lines, want, window, key, n_launches, skip=0):
+        """crack --device cuda over a window from ``skip`` with every
+        launch count set to 0 just before it: only ``key`` may launch,
+        ``n_launches`` times (the worker's batches)."""
+        argv = ["--skip", str(skip), "--limit", str(window)] if skip else []
+        summary, wall, launches = smoke.crack_lines(
+            cli, engine, [*argv, mask], lines, want, window, modules)
+        batches = int(re.search(r" batches=(\d+)", summary).group(1))
+        check(launches[key] == n_launches == batches
+              and sum(launches.values()) == n_launches,
+              f"{engine}: launches {launches}, {batches} batches, expected "
+              f"{n_launches} of {key}")
+        smoke.path_launches.setdefault(key, launches[key])
+        return summary, wall
+
+    def loop_rate(summary: str) -> int:
+        return int(re.search(r" rate=([\d,]+)/s", summary).group(1)
+                   .replace(",", ""))
+
+    # 16. the ext kernel vs its plain version
+    say(f"== 16. ext kernel (csrc/ext.cu) vs plain at batch {BATCH} (exact "
+        "equality)")
+    base = int(rng.integers(0, g7.keyspace // BATCH - 2)) * BATCH
+    nv = BATCH - 1000
+    single = (cuda_ext.nested_kernel, cuda_ext.nested_plain)
+    multi = (cuda_ext.nested_multi_kernel, cuda_ext.nested_multi_plain)
+    for name in cuda_ext.NESTED_NAMES:
+        smoke.single_case(name, g7, lut7, base, BATCH, base, 64, [0],
+                          "?a^7 hit at lane 0", single)
+        smoke.single_case(name, g7, lut7, base + BATCH, nv,
+                          base + BATCH + nv - 1, 64, [nv - 1],
+                          f"?a^7 hit at last valid lane, n_valid={nv}",
+                          single)
+        smoke.single_case(name, g7, lut7, base, BATCH, None, 64, [],
+                          "?a^7 no hit", single)
+        smoke.multi_case(name, g7, lut7, base, nv,
+                         [base, base + 64, base + 65, base + nv - 1,
+                          base + nv], "?a^7 hits at lanes 0, 64, 65, "
+                         f"n_valid-1 and n_valid={nv}", fns=multi)
+        smoke.multi_case(name, g7, lut7, base + BATCH, BATCH, [base],
+                         "?a^7 no hit", fns=multi)
+    salted = (cuda_ext.salted_kernel, cuda_ext.salted_plain)
+    last = g6.keyspace // BATCH * BATCH
+    for variant in cuda_ext.SALTED_NAMES:
+        for n in EXT_SALTS:
+            salt = bytes(rng.integers(0, 256, n, dtype=np.uint8))
+            tag = f"?l^6, {n}-byte salt"
+            smoke.single_case(variant, g6, lut6, 3 * BATCH, BATCH,
+                              3 * BATCH, 64, [0], f"{tag}, hit at lane 0",
+                              salted, salt)
+            smoke.single_case(variant, g6, lut6, last, g6.keyspace - last,
+                              g6.keyspace - 1, 64,
+                              [g6.keyspace - last - 1],
+                              f"{tag}, hit at the last valid lane", salted,
+                              salt)
+            smoke.single_case(variant, g6, lut6, 5 * BATCH, BATCH, None, 64,
+                              [], f"{tag}, no hit", salted, salt)
+
+    # 17. nested at full width: config 2's shape for hashcat 2600
+    say(f"== 17. crack --device cuda --engine md5(md5) {MASK_CONFIG2}, "
+        f"{N_TARGETS} targets, a window of {CONFIG2_WINDOW}; card: {card}")
+    skip = int(rng.integers(0, g7.keyspace - CONFIG2_WINDOW))
+    within = sorted({int(x) for x in rng.integers(1, CONFIG2_WINDOW - 1, 5)})
+    b = within[0] // BATCH * BATCH
+    idx = sorted({0, CONFIG2_WINDOW - 1, b + 100, b + 101, *within[1:]})
+    check(len(idx) == 8, f"planted indices collide: {idx}")
+    planted = [g7.candidate(skip + i) for i in idx]
+    oracle = smoke.get_engine("md5(md5)")
+    hits = oracle.hash_batch(planted)
+    digests = hits + smoke.fillers("md5(md5)", N_TARGETS - 8)
+    digests = [digests[i] for i in rng.permutation(N_TARGETS)]
+    summary, wall2600 = path(
+        "md5(md5)", MASK_CONFIG2, [d.hex() for d in digests],
+        [f"{d.hex()}:{encode_plain(p)}" for d, p in zip(hits, planted)],
+        CONFIG2_WINDOW, "md5(md5)_mask_multi",
+        unit_batches(cli, CONFIG2_WINDOW), skip)
+    rate2600 = loop_rate(summary)
+    say(f"  md5(md5) at {N_TARGETS} targets: {wall2600:.3f} s wall, loop "
+        f"{rate2600:,} candidates/s, planted at window offsets {idx}")
+    plain = g6.candidate(g6.keyspace - 1)
+    line = "*" + smoke.get_engine("mysql41").hash_batch([plain])[0].hex() \
+        .upper()
+    path("mysql41", MASK_CONFIG1, [line], [f"{line}:{plain.decode()}"],
+         g6.keyspace, "mysql41_mask", unit_batches(cli, g6.keyspace))
+
+    # 18. salted at full width: 1,000 targets, each its own salt
+    say(f"== 18. crack --device cuda --engine md5-ps {MASK_CONFIG1}, "
+        f"{N_SALTED} targets with salts of 2-32 bytes, every target swept "
+        f"in full; card: {card}")
+    oracle = smoke.get_engine("md5-ps")
+    lens = [32, 2] + [int(x) for x in rng.integers(2, 33, N_SALTED - 2)]
+    salts = [alnum(n) for n in lens]
+    idx = sorted({g6.keyspace - 1, *(int(x) for x in rng.integers(
+        0, g6.keyspace - 1, 7))})
+    check(len(idx) == 8, f"planted indices collide: {idx}")
+    lines, want = [], []
+    for i, salt in enumerate(salts):
+        plain = g6.candidate(idx[i]) if i < 8 else \
+            bytes(rng.integers(33, 127, 8, dtype=np.uint8))
+        d = oracle.hash_batch([plain], params={"salt": salt})[0]
+        lines.append(f"{d.hex()}:{salt.decode()}")
+        if i < 8:
+            want.append(f"{lines[-1]}:{plain.decode()}")
+    per_target = unit_batches(cli, g6.keyspace)
+    n_launch = per_target * N_SALTED
+    summary, wall_s = path("md5-ps", MASK_CONFIG1, lines, want, g6.keyspace,
+                           "md5-ps_mask", n_launch)
+    rate_s = loop_rate(summary)
+    loop_s = g6.keyspace / rate_s
+    # the host's cost of one launch as the worker queues it (the step
+    # and the device add of its hit flag), over launches of 1,024 lanes
+    # the card finishes at once
+    step = cuda_ext.make_salted_crack_step("md5-ps", g6, BATCH, 64, "cuda")
+    words = digest_words("md5-ps", oracle.hash_batch(
+        [b"-"], params={"salt": salts[0]})[0])
+    n_host = 2000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flag = None
+    for _ in range(n_host):
+        count = step(g6.digits(0), 1024, salts[0], words)[0]
+        flag = count if flag is None else flag + count
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / n_host * 1e6
+    say(f"  md5-ps sweep: {wall_s:.3f} s wall, loop {loop_s:.3f} s = "
+        f"{rate_s * N_SALTED:,} hashes/s ({rate_s:,} candidates/s x "
+        f"{N_SALTED} targets), {n_launch} launches = "
+        f"{loop_s / n_launch * 1e3:.4f} ms a launch of the loop; the host's "
+        f"own time per launch {host_us:.1f} us; card: {card}")
+    say(json.dumps({"salted_sweep": {
+        "wall_s": wall_s, "loop_s": loop_s, "hashes_per_s": rate_s * N_SALTED,
+        "launches": n_launch, "host_us_per_launch": host_us,
+        "targets": N_SALTED, "salt_lens": [min(lens), max(lens)]},
+        "nested_1000": {"wall_s": wall2600, "rate": rate2600}}))
+    for engine, salt in (("sha1-sp", alnum(16)), ("sha256-ps", alnum(32)),
+                         ("md5-sp", alnum(2)), ("sha256-sp", alnum(8)),
+                         ("postgres", b"postgres_admin"),
+                         ("ldap-ssha", bytes(rng.integers(
+                             0, 256, 8, dtype=np.uint8))),
+                         ("oracle11", bytes(rng.integers(
+                             0, 256, 10, dtype=np.uint8)))):
+        plain = g6.candidate(g6.keyspace - 1)
+        d = smoke.get_engine(engine).hash_batch([plain],
+                                                params={"salt": salt})[0]
+        if engine == "postgres":
+            line = f"md5{d.hex()}:{salt.decode()}"
+        elif engine == "ldap-ssha":
+            import base64
+            line = "{SSHA}" + base64.b64encode(d + salt).decode()
+        elif engine == "oracle11":
+            line = f"S:{d.hex().upper()}{salt.hex().upper()}"
+        else:
+            line = f"{d.hex()}:{salt.decode()}"
+        variant = f"{smoke.get_engine(engine, 'cuda').algo}-" \
+                  f"{smoke.get_engine(engine, 'cuda').order}"
+        path(engine, MASK_CONFIG1, [line], [f"{line}:{plain.decode()}"],
+             g6.keyspace, f"{variant}_mask", unit_batches(cli, g6.keyspace))
+
+    # 19. the other nested instantiations, each over 16 batches
+    say(f"== 19. the other nested instantiations: crack --device cuda over "
+        f"{OTHER_WINDOW} candidates of {MASK_CONFIG2}")
+    for name, multi_ in EXT_INSTANCES:
+        key = kname(name, multi_)
+        if "-" in name or key in smoke.path_launches:
+            continue
+        skip = int(rng.integers(0, g7.keyspace - OTHER_WINDOW))
+        plain = g7.candidate(skip + int(rng.integers(0, OTHER_WINDOW)))
+        oracle = smoke.get_engine(name)
+        digests = oracle.hash_batch([plain])
+        if multi_:
+            digests += smoke.fillers(name, N_TARGETS - 1)
+        lines = ["*" + d.hex().upper() if name == "mysql41" else d.hex()
+                 for d in digests]
+        path(name, MASK_CONFIG2, lines,
+             [f"{lines[0]}:{encode_plain(plain)}"], OTHER_WINDOW, key,
+             unit_batches(cli, OTHER_WINDOW), skip)
+
+    # 20. timing at batch 2^24
+    say(f"== 20. ext kernel timing at batch 2^24 (CUDA events, "
+        f"{TIMED_LAUNCHES} launches); card: {card}")
+    timing = {}
+    salt = alnum(TIMING_SALT)
+    for name, multi_ in EXT_INSTANCES:
+        key = kname(name, multi_)
+        gen, lut = (g6, lut6) if "-" in name else (g7, lut7)
+        start = int(rng.integers(0, gen.keyspace // BATCH)) * BATCH
+        head = (name, lut, gen.radices, gen.digits(start), BATCH)
+        if "-" in name:
+            miss = digest_words(name, smoke.get_engine(name).hash_batch(
+                [b"\0" * 9], params={"salt": salt})[0])
+            args = (*head, salt, miss, 64, BATCH)
+            fn, plain_fn = cuda_ext.salted_kernel, cuda_ext.salted_plain
+            work = opcount.salted_ops(name, gen.length, salt)
+            what = f"{gen.mask}, a {TIMING_SALT}-byte salt"
+        elif multi_:
+            _, rows, words = smoke.tables(name,
+                                          smoke.fillers(name, N_TARGETS))
+            args = (*head, rows, words, 64, BATCH)
+            fn, plain_fn = cuda_ext.nested_multi_kernel, \
+                cuda_ext.nested_multi_plain
+            n_maybe = int(fn(*args)[3].item())
+            probes = bloom.expected_probes(rows.cpu().numpy()
+                                           .view(np.uint32))
+            work = opcount.nested_ops(name, gen.length, True, probes,
+                                      n_maybe / BATCH, N_TARGETS)
+            what = f"{gen.mask}, {N_TARGETS} targets"
+        else:
+            miss = digest_words(name, smoke.get_engine(name).hash_batch(
+                [b"\0" * 9])[0])
+            args = (*head, miss, 64, BATCH)
+            fn, plain_fn = cuda_ext.nested_kernel, cuda_ext.nested_plain
+            work = opcount.nested_ops(name, gen.length)
+            what = gen.mask
+        ms = smoke.time_launches(fn, args)
+        plain_ms = smoke.time_once(plain_fn, args)
+        bound = BATCH * work.slots / rate_ops * 1e3
+        timing[key] = (ms, plain_ms, bound)
+        say(f"  {key} {what}: {ms:.4f} ms/launch = "
+            f"{BATCH / ms / 1e6:.3f} G candidates/s; bound {bound:.4f} ms "
+            f"(per candidate {work.alu:.1f} ALU, {work.add:.1f} IADD3, "
+            f"{work.fma:.1f} IMAD = {work.slots:.1f} slots; kernel at "
+            f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
+    return timing
 
 
 if __name__ == "__main__":

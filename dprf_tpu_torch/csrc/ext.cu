@@ -1,0 +1,220 @@
+// ext.cu -- the salted and nested fast-hash chains of the mask kernel,
+// for Hopper (sm_90a).
+//
+// Replaces: the two TPU kernels of dprf_tpu/ops/pallas_ext.py:
+//
+// - make_ext_pallas_fn (_build_ext_body, _digest_chain, _hex_byts):
+//   nested outer(hex(inner(p))) for md5(md5), sha1(sha1), md5(sha1),
+//   sha1(md5), sha256(md5), sha256(sha1), and mysql41 (sha1 of the raw
+//   sha1 digest), with one target or the multi-target Bloom compare;
+// - make_salted_pallas_fn: md5, sha1 and sha256 over $pass.$salt ("ps")
+//   and $salt.$pass ("sp"), one target a launch.
+//
+// Every chain is a core type for the mask kernel template of
+// mask_kernel.cuh, so the decode, the single and multi-target compares
+// and the hit append are the mask kernel's own:
+//
+// - Nested<Outer, Inner>: the candidate is placed by the INNER core's
+//   byte order; digest runs the inner core, hex-encodes its digest in
+//   registers (lowercase, in the digest's canonical byte order, one
+//   select per nibble), packs the 32 (md5) or 40 (sha1) hex bytes with
+//   the 0x80 marker and the bit length into the OUTER core's block, and
+//   runs the outer core.  kWords is the outer core's.
+// - Mysql41: sha1, then sha1 over a second block of the five raw inner
+//   words, 0x80000000 and the bit length 160.
+// - SaltPs<Core>: the core itself.  The candidate sits at [0, L) as in
+//   the mask kernel; the host folds the target's salt at [L, L + S), the
+//   marker and the bit length into the fixed message words, so a launch
+//   is the mask kernel with that target's block and digest.
+// - SaltSp<Core>: the candidate starts at byte S, a launch parameter.
+//   It is decoded into a zeroed block at [0, L) (constant positions, as
+//   always), then moved by S bytes -- a funnel shift by 8 (S & 3) bits,
+//   then a warp-uniform switch over S >> 2 whole words, constant
+//   indices in every case -- and ORed into the target's fixed words
+//   (salt at [0, S), marker, bit length).  The message stays in
+//   registers: no runtime index into it, so no local memory.
+//
+// The reference compiles one salted kernel per salt LENGTH and caps a
+// job at 8 lengths; here S is a runtime value, so one instantiation per
+// (core, order) serves every salt of 0..32 bytes.
+//
+// What bounds it: the INT32 issue rate, as for the mask kernel; a nested
+// candidate costs two cores plus the hex map (~6 ALU ops a digest byte),
+// a salted one the core plus (sp) ~2 ops a message word for the move.
+// ops/opcount.py counts the least work of each.
+
+#include "mask_kernel.cuh"
+
+// ---- nested: outer(hex(inner(p))) -----------------------------------------
+
+__device__ __forceinline__ uint32_t hex_char(uint32_t nibble)
+{
+    return nibble + (nibble < 10u ? (uint32_t)'0' : (uint32_t)('a' - 10));
+}
+
+// The inner digest's lowercase hex, placed by Outer's byte order, with
+// its padding: the outer core's whole message block.
+template <class Outer, class Inner>
+__device__ __forceinline__ void hex_block(const uint32_t* d, uint32_t* m)
+{
+    constexpr int kHex = 8 * Inner::kWords;      // 32 or 40 bytes
+#pragma unroll
+    for (int i = 0; i < 16; ++i) m[i] = 0u;
+#pragma unroll
+    for (int k = 0; k < 4 * Inner::kWords; ++k) {
+        // inner digest byte k, in the digest's canonical byte order
+        const uint32_t b = (d[Inner::word(k)] >> Inner::shift(k)) & 0xffu;
+        m[Outer::word(2 * k)] |= hex_char(b >> 4) << Outer::shift(2 * k);
+        m[Outer::word(2 * k + 1)] |= hex_char(b & 15u)
+                                     << Outer::shift(2 * k + 1);
+    }
+    m[Outer::word(kHex)] |= 0x80u << Outer::shift(kHex);
+    m[Outer::kLenWord] = 8u * kHex;
+}
+
+template <class Outer, class Inner>
+struct Nested {
+    static constexpr int kWords = Outer::kWords;
+    static constexpr int kMaxLen = Inner::kMaxLen;
+    __host__ __device__ static constexpr int word(int q)
+    {
+        return Inner::word(q);
+    }
+    __host__ __device__ static constexpr int shift(int q)
+    {
+        return Inner::shift(q);
+    }
+
+    __device__ __forceinline__ static void digest(uint32_t* m, uint32_t* out)
+    {
+        uint32_t d[Inner::kWords];
+        Inner::digest(m, d);
+        uint32_t m2[16];
+        hex_block<Outer, Inner>(d, m2);
+        Outer::digest(m2, out);
+    }
+};
+
+// MySQL 4.1+ PASSWORD(): sha1(sha1(p)) over the raw inner digest.
+struct Mysql41 : Sha1Core {
+    __device__ __forceinline__ static void digest(uint32_t* m, uint32_t* out)
+    {
+        uint32_t d[5];
+        Sha1Core::digest(m, d);
+        uint32_t m2[16] = {d[0], d[1], d[2], d[3], d[4], 0x80000000u,
+                           0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u, 160u};
+        Sha1Core::digest(m2, out);
+    }
+};
+
+// ---- salted: $pass.$salt and $salt.$pass -----------------------------------
+
+// $pass.$salt: the core; the salt is in the target's fixed words.
+template <class Core>
+struct SaltPs : Core {};
+
+// m[j] = t[j - K] (0 below K): the move by K whole words.
+template <int K>
+__device__ __forceinline__ void move_words(const uint32_t* t, uint32_t* m)
+{
+#pragma unroll
+    for (int j = 0; j < 16; ++j) m[j] = j >= K ? t[j - K] : 0u;
+}
+
+// $salt.$pass: the candidate, decoded at [0, L), moves to [S, S + L).
+template <class Core>
+struct SaltSp : Core {
+    static constexpr bool kShifted = true;
+    // byte 0 is a word's low byte (md5) or its high byte (SHA)
+    static constexpr bool kBigEndian = Core::shift(0) != 0;
+
+    __device__ __forceinline__ static void shift_in(uint32_t* m,
+                                                    const uint32_t* fixed,
+                                                    int s)
+    {
+        const uint32_t r = 8u * (uint32_t)(s & 3);
+        uint32_t t[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+            const uint32_t prev = j ? m[j - 1] : 0u;
+            // bytes move toward higher addresses: up in a little-endian
+            // word, down in a big-endian one, carrying from word j - 1
+            t[j] = kBigEndian ? __funnelshift_r(m[j], prev, r)
+                              : __funnelshift_l(prev, m[j], r);
+        }
+        switch (s >> 2) {
+        case 0: move_words<0>(t, m); break;
+        case 1: move_words<1>(t, m); break;
+        case 2: move_words<2>(t, m); break;
+        case 3: move_words<3>(t, m); break;
+        case 4: move_words<4>(t, m); break;
+        case 5: move_words<5>(t, m); break;
+        case 6: move_words<6>(t, m); break;
+        case 7: move_words<7>(t, m); break;
+        default: move_words<8>(t, m); break;
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j) m[j] |= fixed[j];
+    }
+};
+
+// ---- the C interface ---------------------------------------------------
+
+using Md5OfMd5 = Nested<Md5Core, Md5Core>;
+using Sha1OfSha1 = Nested<Sha1Core, Sha1Core>;
+using Md5OfSha1 = Nested<Md5Core, Sha1Core>;
+using Sha1OfMd5 = Nested<Sha1Core, Md5Core>;
+using Sha256OfMd5 = Nested<Sha256Core, Md5Core>;
+using Sha256OfSha1 = Nested<Sha256Core, Sha1Core>;
+
+// variant ids (ops/cuda_ext.VARIANTS): 0-5 the nested combos in
+// NESTED_COMBOS order, 6 mysql41, each single or multi target; 7-12
+// md5-ps, md5-sp, sha1-ps, sha1-sp, sha256-ps, sha256-sp, single only
+#define DPRF_EXT_DISPATCH(CALL)                                           \
+    switch (variant * 2 + (multi_mode ? 1 : 0)) {                         \
+    case 0: return CALL(Md5OfMd5, false);                                 \
+    case 1: return CALL(Md5OfMd5, true);                                  \
+    case 2: return CALL(Sha1OfSha1, false);                               \
+    case 3: return CALL(Sha1OfSha1, true);                                \
+    case 4: return CALL(Md5OfSha1, false);                                \
+    case 5: return CALL(Md5OfSha1, true);                                 \
+    case 6: return CALL(Sha1OfMd5, false);                                \
+    case 7: return CALL(Sha1OfMd5, true);                                 \
+    case 8: return CALL(Sha256OfMd5, false);                              \
+    case 9: return CALL(Sha256OfMd5, true);                               \
+    case 10: return CALL(Sha256OfSha1, false);                            \
+    case 11: return CALL(Sha256OfSha1, true);                             \
+    case 12: return CALL(Mysql41, false);                                 \
+    case 13: return CALL(Mysql41, true);                                  \
+    case 14: return CALL(SaltPs<Md5Core>, false);                         \
+    case 16: return CALL(SaltSp<Md5Core>, false);                         \
+    case 18: return CALL(SaltPs<Sha1Core>, false);                        \
+    case 20: return CALL(SaltSp<Sha1Core>, false);                        \
+    case 22: return CALL(SaltPs<Sha256Core>, false);                      \
+    case 24: return CALL(SaltSp<Sha256Core>, false);                      \
+    default: return (int)cudaErrorInvalidValue;                           \
+    }
+
+// Launch on the caller's stream without synchronising; returns the
+// launch's cudaError_t (0 = launched).  count and n_maybe must hold 0
+// and lanes -1 on entry (the wrapper allocates them so).
+extern "C" int dprf_ext_launch(int variant, int multi_mode, int device,
+                               const uint8_t* lut, const MaskArgs* args,
+                               const MultiArgs* multi, uint32_t n_valid,
+                               int32_t* count, int32_t* lanes,
+                               int32_t* tpos, int32_t* n_maybe,
+                               int32_t cap, int grid, int threads,
+                               void* stream)
+{
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    DPRF_EXT_DISPATCH(DPRF_LAUNCH_ONE)
+}
+
+// Resident blocks of `threads` threads per SM for one instantiation at
+// `smem` bytes of dynamic shared memory (the grid's size).
+extern "C" int dprf_ext_blocks_per_sm(int variant, int multi_mode,
+                                      int threads, int smem, int* blocks)
+{
+    DPRF_EXT_DISPATCH(DPRF_OCCUPANCY_ONE)
+}

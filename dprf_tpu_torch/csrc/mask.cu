@@ -3,207 +3,16 @@
 // Replaces: the TPU kernel of dprf_tpu/ops/pallas_mask.py
 // (make_mask_pallas_fn / _build_kernel_body) for the md5, md4 (ntlm),
 // sha1 and sha256 cores, with one target or with the multi-target Bloom
-// compare, without the window offset.  Per candidate: decode the
-// mixed-radix keyspace index into charset bytes, place them in one
-// padded 64-byte block (little-endian for md5/md4, big-endian for SHA,
-// UTF-16LE widened for ntlm), run the compression rounds and the
-// feed-forward, compare.  The TPU kernel's (8, 128) packed
-// (count << 16) | (hit_lane + 1) output and its one-lane-per-tile rule
-// exist only for Mosaic and are not carried over: every hit appends its
-// lane here.
-//
-// Multi-target compare: the reference's Bloom prefilter, bit for bit
-// (bloom_tables / bloom_found: 8 probes of 12 digest bits per set of
-// 1024 targets), then an exact verify of each survivor on the card.  The
-// reference leaves every maybe to a host oracle hash; at 1,000 targets
-// and a batch of 2^24 that is ~81 false maybes a launch, so here each
-// maybe binary-searches digest word 0 in the sorted target table
-// (ops/compare.make_target_table's layout, in device memory, small
-// enough to stay in L2), walks the run of equal word-0 entries and
-// compares whole digests.  Only real hits are appended, with their
-// table position; n_maybe counts the prefilter's survivors.
-//
-// What bounds it: the INT32 issue rate, not memory.  A candidate reads
-// no device memory (charset table and Bloom rows sit in shared memory;
-// base digits, radices, the fixed message words and the target are
-// kernel parameters) and writes ~0 bytes.  ops/opcount.py counts the
-// least instructions per candidate in Hopper's forms, by pipe.
-//
-// What the design does about it: one thread per candidate in a
-// grid-stride loop, everything in registers.  The rounds are fully
-// unrolled (the SHA schedules as a rolling 16-word window), so message
-// words, constants and shift counts are register or immediate operands.
-// The decode (decode.cuh, shared with csrc/pbkdf2.cu) enters an
-// unrolled run of positions through one warp-uniform switch on the mask
-// length, so only the mask's own positions cost instructions; the byte
-// placement of each position is a compile-time constant of the core.  The Bloom probes are tested in
-// order and stop at the first miss (Hopper can branch; the TPU tested
-// all 8), which costs ~1.3 probes per set at config 2's fill.
+// compare, without the window offset.  The kernel body, its compare
+// and its design notes are in mask_kernel.cuh, shared with csrc/ext.cu
+// (the nested, mysql41 and salted chains); this source instantiates it
+// over the plain cores of cores.cuh: the message is the candidate alone
+// (little-endian for md5/md4, big-endian for SHA, UTF-16LE widened for
+// ntlm).
 
-#include <cstdint>
-#include <cuda_runtime.h>
-
-#include "cores.cuh"
-#include "decode.cuh"
-
-#define DPRF_MAX_LEN 55
-#define DPRF_K_PROBES 8
-
-// Kernel parameters of one job (mirrored by ops/cuda_mask._MaskArgs).
-struct MaskArgs {
-    int32_t length;
-    int32_t radix[DPRF_MAX_LEN];
-    int32_t base[DPRF_MAX_LEN];
-    // the job's fixed message words: the 0x80 marker and the bit length,
-    // zero wherever a candidate byte goes
-    uint32_t block[16];
-    // the single target's digest words (unused by the multi compare)
-    uint32_t target[8];
-};
-
-// The multi-target state (mirrored by ops/cuda_mask._MultiArgs).
-struct MultiArgs {
-    const uint32_t* bloom;    // uint32[n_sets * 8][128], bloom_tables
-    const uint32_t* table;    // uint32[n_targets][words], sorted
-    int32_t n_sets;
-    int32_t n_targets;
-};
-
-// ---- the multi-target compare ----------------------------------------
-
-// The reference's bloom_found for one lane: all 8 probes of any set.
-__device__ __forceinline__ bool bloom_maybe(const uint32_t* dg,
-                                            const uint32_t* s_bloom,
-                                            int n_sets)
-{
-    uint32_t bits[DPRF_K_PROBES];
-#pragma unroll
-    for (int p = 0; p < DPRF_K_PROBES; ++p) {
-        const int j = (12 * p) >> 5, sh = (12 * p) & 31;
-        uint32_t v = dg[j] >> sh;
-        if (sh > 20) v |= dg[j + 1] << (32 - sh);
-        bits[p] = v & 0xfffu;
-    }
-    for (int s = 0; s < n_sets; ++s) {
-        const uint32_t* rows = s_bloom + s * DPRF_K_PROBES * 128;
-        bool pass = true;
-#pragma unroll
-        for (int p = 0; p < DPRF_K_PROBES; ++p) {
-            if (!((rows[p * 128 + (bits[p] >> 5)] >> (bits[p] & 31)) & 1u)) {
-                pass = false;
-                break;
-            }
-        }
-        if (pass) return true;
-    }
-    return false;
-}
-
-// Position of the digest in the sorted table, or -1: the lower bound of
-// word 0, then the run of equal word-0 entries compared in full.
-template <int W>
-__device__ __forceinline__ int find_target(const uint32_t* dg,
-                                           const uint32_t* __restrict__ table,
-                                           int n)
-{
-    int lo = 0, hi = n;
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (table[mid * W] < dg[0]) lo = mid + 1;
-        else hi = mid;
-    }
-    for (int i = lo; i < n && table[i * W] == dg[0]; ++i) {
-        bool eq = true;
-#pragma unroll
-        for (int k = 1; k < W; ++k) eq &= table[i * W + k] == dg[k];
-        if (eq) return i;
-    }
-    return -1;
-}
-
-// ---- the kernel --------------------------------------------------------
-
-template <class Core, bool kMulti>
-__global__ void __launch_bounds__(256)
-mask_kernel(const uint8_t* __restrict__ lut, const MaskArgs args,
-            const MultiArgs multi, uint32_t n_valid,
-            int32_t* __restrict__ count, int32_t* __restrict__ lanes,
-            int32_t* __restrict__ tpos, int32_t* __restrict__ n_maybe,
-            int32_t cap)
-{
-    // per-position 256-byte charset tables, uint8[length][256], then
-    // (multi) the Bloom rows; length * 256 keeps the rows word-aligned
-    extern __shared__ __align__(16) uint8_t smem[];
-    uint8_t* s_lut = smem;
-    const int L = args.length;
-    for (int i = threadIdx.x; i < L * 256; i += blockDim.x)
-        s_lut[i] = lut[i];
-    uint32_t* s_bloom = reinterpret_cast<uint32_t*>(smem + L * 256);
-    if constexpr (kMulti) {
-        const int n = multi.n_sets * DPRF_K_PROBES * 128;
-        for (int i = threadIdx.x; i < n; i += blockDim.x)
-            s_bloom[i] = multi.bloom[i];
-    }
-    __syncthreads();
-
-    const uint32_t stride = gridDim.x * blockDim.x;
-    for (uint32_t gidx = blockIdx.x * blockDim.x + threadIdx.x;
-         gidx < n_valid; gidx += stride) {
-        uint32_t m[16];
-#pragma unroll
-        for (int i = 0; i < 16; ++i) m[i] = args.block[i];
-
-        // decode, last (least significant) position first (decode.cuh)
-        uint32_t carry = gidx;
-        DPRF_DECODE(Core, Core::kMaxLen, L);
-
-        uint32_t dg[Core::kWords];
-        Core::digest(m, dg);
-
-        if constexpr (!kMulti) {
-            bool hit = true;
-#pragma unroll
-            for (int i = 0; i < Core::kWords; ++i)
-                hit &= dg[i] == args.target[i];
-            if (hit) {
-                const int32_t slot = atomicAdd(count, 1);
-                if (slot < cap) lanes[slot] = (int32_t)gidx;
-            }
-        } else if (bloom_maybe(dg, s_bloom, multi.n_sets)) {
-            atomicAdd(n_maybe, 1);
-            const int pos = find_target<Core::kWords>(dg, multi.table,
-                                                      multi.n_targets);
-            if (pos >= 0) {
-                const int32_t slot = atomicAdd(count, 1);
-                if (slot < cap) {
-                    lanes[slot] = (int32_t)gidx;
-                    tpos[slot] = pos;
-                }
-            }
-        }
-    }
-}
+#include "mask_kernel.cuh"
 
 // ---- the C interface ---------------------------------------------------
-
-template <class Core, bool kMulti>
-static int launch(const uint8_t* lut, const MaskArgs* args,
-                  const MultiArgs* multi, uint32_t n_valid, int32_t* count,
-                  int32_t* lanes, int32_t* tpos, int32_t* n_maybe,
-                  int32_t cap, int grid, int threads, size_t smem,
-                  cudaStream_t stream)
-{
-    mask_kernel<Core, kMulti><<<grid, threads, smem, stream>>>(
-        lut, *args, *multi, n_valid, count, lanes, tpos, n_maybe, cap);
-    return (int)cudaGetLastError();
-}
-
-template <class Core, bool kMulti>
-static int occupancy(int threads, size_t smem, int* blocks)
-{
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, mask_kernel<Core, kMulti>, threads, smem);
-}
 
 // core ids: 0 md5, 1 md4 (ntlm), 2 sha1, 3 sha256
 // (ops/cuda_mask.KERNEL_CORES)
@@ -220,14 +29,6 @@ static int occupancy(int threads, size_t smem, int* blocks)
     default: return (int)cudaErrorInvalidValue;                           \
     }
 
-static size_t shared_bytes(const MaskArgs* args, const MultiArgs* multi,
-                           int multi_mode)
-{
-    return (size_t)args->length * 256
-           + (multi_mode ? (size_t)multi->n_sets * DPRF_K_PROBES * 128 * 4
-                         : 0);
-}
-
 // Launch on the caller's stream without synchronising; returns the
 // launch's cudaError_t (0 = launched).  count and n_maybe must hold 0
 // and lanes -1 on entry (the wrapper allocates them so).
@@ -241,13 +42,7 @@ extern "C" int dprf_mask_launch(int core, int multi_mode, int device,
 {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const size_t smem = shared_bytes(args, multi, multi_mode);
-    const cudaStream_t st = (cudaStream_t)stream;
-#define DPRF_LAUNCH(C, M)                                                 \
-    launch<C, M>(lut, args, multi, n_valid, count, lanes, tpos, n_maybe,  \
-                 cap, grid, threads, smem, st)
-    DPRF_DISPATCH(DPRF_LAUNCH)
-#undef DPRF_LAUNCH
+    DPRF_DISPATCH(DPRF_LAUNCH_ONE)
 }
 
 // Resident blocks of `threads` threads per SM for one instantiation at
@@ -255,7 +50,5 @@ extern "C" int dprf_mask_launch(int core, int multi_mode, int device,
 extern "C" int dprf_mask_blocks_per_sm(int core, int multi_mode,
                                        int threads, int smem, int* blocks)
 {
-#define DPRF_OCCUPANCY(C, M) occupancy<C, M>(threads, (size_t)smem, blocks)
-    DPRF_DISPATCH(DPRF_OCCUPANCY)
-#undef DPRF_OCCUPANCY
+    DPRF_DISPATCH(DPRF_OCCUPANCY_ONE)
 }

@@ -56,7 +56,9 @@ def _ensure_imported(device: str) -> None:
     elif device == "cuda":
         import dprf_tpu_torch.engines.device.bcrypt  # noqa: F401
         import dprf_tpu_torch.engines.device.engines  # noqa: F401
+        import dprf_tpu_torch.engines.device.nested  # noqa: F401
         import dprf_tpu_torch.engines.device.pmkid  # noqa: F401
+        import dprf_tpu_torch.engines.device.salted  # noqa: F401
     else:
         raise KeyError(f"unknown device {device!r} "
                        f"(expected one of {DEVICES})")

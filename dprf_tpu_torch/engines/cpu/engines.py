@@ -135,3 +135,279 @@ class Pmkid2Engine(HashEngine):
                                       self.iterations, 32)
             out.append(hmac.new(pmk, message, hashlib.sha1).digest()[:16])
         return out
+
+
+# ---- salted fast hashes: hexdigest:salt, LDAP, Oracle 11g, PostgreSQL ----
+
+#: fixed device salt buffer width; also bounds parseable salt length
+SALT_MAX = 32
+
+_SALT_HEX_RE = None
+
+
+def parse_salted_line(text: str, digest_size: int):
+    """hashcat-convention 'hexdigest:salt' -> (digest, salt bytes);
+    '$HEX[..]' decodes hex salts.  Shared by CPU and device engines."""
+    import re
+    global _SALT_HEX_RE
+    if _SALT_HEX_RE is None:
+        _SALT_HEX_RE = re.compile(r"^\$HEX\[([0-9a-fA-F]*)\]$")
+    digest_hex, sep, salt_text = text.strip().partition(":")
+    if not sep:
+        raise ValueError(f"expected 'digest:salt', got {text!r}")
+    digest = bytes.fromhex(digest_hex)
+    if len(digest) != digest_size:
+        raise ValueError(f"expected {digest_size}-byte digest in {text!r}")
+    m = _SALT_HEX_RE.match(salt_text)
+    salt = bytes.fromhex(m.group(1)) if m else salt_text.encode("latin-1")
+    if len(salt) > SALT_MAX:
+        raise ValueError(f"salt longer than {SALT_MAX} bytes in {text!r}")
+    return digest, salt
+
+
+class _SaltedCpuMixin(HashEngine):
+    """CPU oracle for the salted fast modes: md5/sha1/sha256 over
+    $pass.$salt ('ps', hashcat 10/110/1410) and $salt.$pass ('sp',
+    hashcat 20/120/1420)."""
+
+    salted = True
+    _order: str
+
+    def parse_target(self, text: str) -> Target:
+        digest, salt = parse_salted_line(text, self.digest_size)
+        return Target(raw=text.strip(), digest=digest,
+                      params={"salt": salt})
+
+    def hash_batch(self, candidates: Sequence[bytes],
+                   params: Optional[dict] = None) -> list[bytes]:
+        if not params:
+            raise ValueError(f"{self.name} needs target params (salt)")
+        salt = params["salt"]
+        if self._order == "ps":
+            return [hashlib.new(self._algo, c + salt).digest()
+                    for c in candidates]
+        return [hashlib.new(self._algo, salt + c).digest()
+                for c in candidates]
+
+
+def _register_salted_cpu(algo: str, digest_size: int,
+                         block_limit: int = 55):
+    for order in ("ps", "sp"):
+        name = f"{algo}-{order}"
+        cls = type(f"{algo.title()}{order.title()}Engine",
+                   (_SaltedCpuMixin,),
+                   {"name": name, "digest_size": digest_size,
+                    "_algo": algo, "_order": order,
+                    "__doc__": (f"Salted {algo}: "
+                                + ("$pass.$salt" if order == "ps"
+                                   else "$salt.$pass")
+                                + " ('hexdigest:salt' lines)."),
+                    # leave headroom for any parseable salt in the
+                    # single block
+                    "max_candidate_len": block_limit - SALT_MAX})
+        register(name, device="cpu")(cls)
+
+
+_register_salted_cpu("md5", 16)
+_register_salted_cpu("sha1", 20)
+_register_salted_cpu("sha256", 32)
+
+
+def parse_ldap_line(text: str, scheme: str, digest_size: int):
+    """LDAP userPassword line '{SCHEME}base64(digest + salt)' ->
+    (digest, salt).  The salt is whatever follows the digest in the
+    decoded blob (typically 4-8 bytes; empty for the unsalted {SHA}/
+    {MD5} schemes)."""
+    import base64
+
+    t = text.strip()
+    tag = "{" + scheme + "}"
+    if not t[:len(tag)].upper() == tag:
+        raise ValueError(f"not an LDAP {tag} line: {text!r}")
+    try:
+        blob = base64.b64decode(t[len(tag):], validate=True)
+    except Exception as e:
+        raise ValueError(f"bad base64 in LDAP line {text!r}: {e}")
+    if len(blob) < digest_size:
+        raise ValueError(f"LDAP {tag} blob shorter than the "
+                         f"{digest_size}-byte digest: {text!r}")
+    digest, salt = blob[:digest_size], blob[digest_size:]
+    if len(salt) > SALT_MAX:
+        raise ValueError(f"salt longer than {SALT_MAX} bytes in {text!r}")
+    return digest, salt
+
+
+class _LdapSaltedEngine(_SaltedCpuMixin):
+    """LDAP {SSHA}-style schemes: digest(pass + salt), digest and salt
+    packed together in one base64 blob -- the salted 'ps' computation
+    with LDAP's line format."""
+
+    _order = "ps"
+    _scheme: str
+
+    def parse_target(self, text: str) -> Target:
+        digest, salt = parse_ldap_line(text, self._scheme,
+                                       self.digest_size)
+        return Target(raw=text.strip(), digest=digest,
+                      params={"salt": salt})
+
+
+@register("ldap-ssha")
+@register("ssha")
+class LdapSshaEngine(_LdapSaltedEngine):
+    """LDAP {SSHA} (hashcat 111): sha1($pass.$salt), base64 blob."""
+
+    name = "ldap-ssha"
+    digest_size = 20
+    _algo = "sha1"
+    _scheme = "SSHA"
+    max_candidate_len = 55 - SALT_MAX
+
+
+@register("ldap-smd5")
+class LdapSmd5Engine(_LdapSaltedEngine):
+    """LDAP {SMD5}: md5($pass.$salt), base64 blob."""
+
+    name = "ldap-smd5"
+    digest_size = 16
+    _algo = "md5"
+    _scheme = "SMD5"
+    max_candidate_len = 55 - SALT_MAX
+
+
+@register("oracle11")
+@register("oracle-11g")
+class Oracle11Engine(_SaltedCpuMixin):
+    """Oracle 11g (hashcat 112): sha1($pass.$salt) with a 10-byte
+    salt.  Accepts Oracle's native 'S:<40-hex digest><20-hex salt>'
+    and hashcat's 'hexdigest:salt' lines."""
+
+    name = "oracle11"
+    digest_size = 20
+    _algo = "sha1"
+    _order = "ps"
+    #: the 11g salt is fixed at 10 raw bytes, so candidates get the
+    #: rest of the single block (cf. the generic 55 - SALT_MAX cap)
+    max_candidate_len = 55 - 10
+
+    def parse_target(self, text: str) -> Target:
+        t = text.strip()
+        if t[:2].upper() == "S:" and len(t) == 62:
+            try:
+                digest = bytes.fromhex(t[2:42])
+                salt = bytes.fromhex(t[42:])
+            except ValueError:
+                raise ValueError(f"bad hex in oracle11 line: {text!r}")
+            return Target(raw=t, digest=digest, params={"salt": salt})
+        tgt = super().parse_target(text)
+        salt = tgt.params["salt"]
+        # hashcat -m 112 lines carry the salt HEX-ENCODED (ST_HEX):
+        # a 20-hex-char field is the 10-byte salt, not literal bytes
+        if len(salt) == 20:
+            try:
+                salt = bytes.fromhex(salt.decode("ascii"))
+            except (ValueError, UnicodeDecodeError):
+                pass
+        if len(salt) != 10:
+            raise ValueError(
+                f"oracle11 salts are exactly 10 bytes (20 hex chars); "
+                f"got {len(salt)} in {text!r}")
+        return Target(raw=tgt.raw, digest=tgt.digest,
+                      params={"salt": salt})
+
+
+@register("postgres")
+@register("postgres-md5")
+class PostgresMd5Engine(_SaltedCpuMixin):
+    """PostgreSQL MD5 auth hashes (hashcat 12): stored as
+    ``md5<hex(md5(password || username))>``; target lines are
+    ``md5<hex>:username`` or ``<hex>:username`` (``$HEX[..]`` decodes
+    non-latin-1 usernames, the shared salted-line convention).  The
+    hash itself is the salted-md5 'ps' oracle with the username as
+    the salt."""
+
+    name = "postgres"
+    digest_size = 16
+    _algo = "md5"
+    _order = "ps"
+    max_candidate_len = 55 - SALT_MAX
+
+    def parse_target(self, text: str) -> Target:
+        body = text.strip()
+        if body.startswith("md5"):
+            body = body[3:]
+        digest, salt = parse_salted_line(body, self.digest_size)
+        return Target(raw=text.strip(), digest=digest,
+                      params={"salt": salt,
+                              "user": salt.decode("latin-1")})
+
+
+# ---- nested fast hashes and MySQL 4.1+ ----------------------------------
+
+#: nested double-hash combinations (outer, inner) with their hashcat
+#: modes -- the one list device/nested.py and the oracles share
+NESTED_COMBOS = [
+    ("md5", "md5"),        # 2600
+    ("sha1", "sha1"),      # 4500
+    ("md5", "sha1"),       # 4400
+    ("sha1", "md5"),       # 4700
+    ("sha256", "md5"),     # 20800
+    ("sha256", "sha1"),    # 20700
+]
+NESTED_DIGEST_SIZE = {"md5": 16, "sha1": 20, "sha256": 32}
+
+
+class _NestedCpuMixin(HashEngine):
+    """CPU oracle for nested modes: outer(hex(inner(password)))."""
+
+    _outer: str
+    _inner: str
+
+    def hash_batch(self, candidates: Sequence[bytes],
+                   params: Optional[dict] = None) -> list[bytes]:
+        return [hashlib.new(
+            self._outer,
+            hashlib.new(self._inner, c).hexdigest().encode()).digest()
+            for c in candidates]
+
+
+def _register_nested_cpu():
+    for outer, inner in NESTED_COMBOS:
+        name = f"{outer}({inner})"
+        cls = type(f"{outer.title()}Of{inner.title()}Engine",
+                   (_NestedCpuMixin,),
+                   {"name": name,
+                    "digest_size": NESTED_DIGEST_SIZE[outer],
+                    "__doc__": f"Nested {outer}(hex({inner}(password))).",
+                    "_outer": outer, "_inner": inner})
+        register(name, device="cpu")(cls)
+
+
+_register_nested_cpu()
+
+
+def parse_mysql41(text: str) -> Target:
+    """MySQL 4.1+ hash line: '*' + 40 uppercase hex chars (the '*' is
+    part of the stored format; bare hex is accepted too)."""
+    t = text.strip()
+    hexpart = t[1:] if t.startswith("*") else t
+    digest = bytes.fromhex(hexpart)
+    if len(digest) != 20:
+        raise ValueError(f"mysql41 wants 20 digest bytes, got {text!r}")
+    return Target(raw=t, digest=digest)
+
+
+@register("mysql41")
+class Mysql41Engine(HashEngine):
+    """MySQL 4.1+ PASSWORD() = sha1(sha1(password)), raw inner digest."""
+
+    name = "mysql41"
+    digest_size = 20
+
+    def parse_target(self, text: str) -> Target:
+        return parse_mysql41(text)
+
+    def hash_batch(self, candidates: Sequence[bytes],
+                   params: Optional[dict] = None) -> list[bytes]:
+        return [hashlib.sha1(hashlib.sha1(c).digest()).digest()
+                for c in candidates]

@@ -47,19 +47,24 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
 
     def hash_batch(self, candidates: Sequence[bytes],
                    params: Optional[dict] = None) -> list[bytes]:
-        out: list = [None] * len(candidates)
+        return self._hash_messages(candidates, self.max_candidate_len)
+
+    def _hash_messages(self, messages: Sequence[bytes],
+                       limit: int) -> list[bytes]:
+        """The digests of ``messages`` (each at most ``limit`` bytes) on
+        the engine's device, grouped by length."""
+        out: list = [None] * len(messages)
         by_len: dict = {}
-        for i, c in enumerate(candidates):
-            if len(c) > self.max_candidate_len:
+        for i, c in enumerate(messages):
+            if len(c) > limit:
                 raise ValueError(f"{self.name}: candidate longer than the "
-                                 f"{self.max_candidate_len}-byte "
-                                 "single-block limit")
+                                 f"{limit}-byte single-block limit")
             by_len.setdefault(len(c), []).append(i)
         dt = "<u4" if self.little_endian else ">u4"
         for length, idx in by_len.items():
             buf = np.zeros((len(idx), length), dtype=np.uint8)
             for row, i in enumerate(idx):
-                buf[row] = np.frombuffer(candidates[i], dtype=np.uint8)
+                buf[row] = np.frombuffer(messages[i], dtype=np.uint8)
             cand = torch.as_tensor(buf, device=self.torch_device)
             digest = self.digest_packed(self.pack(cand, length)).cpu().numpy()
             words = digest.view(np.uint32).astype(dt)

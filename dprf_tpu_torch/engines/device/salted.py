@@ -1,0 +1,247 @@
+"""Salted fast-hash engines on the card: md5, sha1 and sha256 over
+$pass.$salt (``-ps``) and $salt.$pass (``-sp``), hashcat modes 10/20,
+110/120, 1410/1420, and the line formats that ride on them: PostgreSQL
+MD5 (12), LDAP {SSHA} (111) and {SMD5}, Oracle 11g (112).
+
+Target lines use the hashcat convention ``hexdigest:salt`` (the salt is
+the literal bytes after the first colon; ``$HEX[..]`` decodes hex
+salts).  Each salt reshapes the digest of every candidate, so the
+worker sweeps the keyspace once per target: one launch of the salted
+kernel (ops/cuda_ext.py, csrc/ext.cu) per (target, batch), the target's
+salt and digest its launch parameters, so one instantiation serves the
+whole hash list.  A job the kernel does not take raises, naming
+``--device cpu``; wordlist jobs are refused the same way.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from dprf_tpu_torch.engines import register
+from dprf_tpu_torch.engines.base import Target
+from dprf_tpu_torch.engines.cpu.engines import (LdapSmd5Engine,
+                                                LdapSshaEngine,
+                                                Oracle11Engine,
+                                                PostgresMd5Engine, SALT_MAX,
+                                                parse_salted_line)
+from dprf_tpu_torch.engines.device.engines import (TorchMd5Engine,
+                                                   TorchSha1Engine,
+                                                   TorchSha256Engine)
+from dprf_tpu_torch.ops import cuda_ext
+from dprf_tpu_torch.ops.compare import digest_rows
+from dprf_tpu_torch.runtime.worker import CpuWorker, Hit
+from dprf_tpu_torch.runtime.workunit import WorkUnit
+
+
+class _PendingSalted:
+    """A unit whose launches are all queued: per target, its batches'
+    results and its hit count summed on the device, and the sum over
+    the targets, so resolving a unit without hits reads one scalar."""
+
+    __slots__ = ("worker", "unit", "batches", "results", "flags")
+
+    def __init__(self, worker, unit, batches, results, flags):
+        self.worker = worker
+        self.unit = unit
+        self.batches = batches
+        self.results = results
+        self.flags = flags
+
+    def resolve(self) -> list[Hit]:
+        if not self.flags:
+            return []
+        flags = torch.cat(self.flags)
+        if int(flags.sum().item()) == 0:
+            return []
+        hits: list[Hit] = []
+        for ti in torch.nonzero(flags).flatten().tolist():
+            for (bstart, _, _), result in zip(self.batches,
+                                              self.results[ti]):
+                hits.extend(self.worker._batch_hits(ti, bstart, result,
+                                                    self.unit))
+        return sorted(hits, key=lambda h: (h.cand_index, h.target_index))
+
+
+class CudaSaltedMaskWorker:
+    """Salted mask worker over the salted kernel, the counterpart of the
+    reference's PallasSaltedMaskWorker and of SaltedMaskWorker's
+    per-target sweep: every batch of a unit once per target, one launch
+    each, queued asynchronously; a hit's ``target_index`` is the
+    target's position in the job, and a batch whose hits overflow the
+    hit buffer is rescanned exactly by the oracle, for that target only.
+    On a card the kernel builds at construction, so a build failure
+    raises here; with ``device="cpu"`` each launch runs the kernel's
+    plain version."""
+
+    def __init__(self, engine, gen, targets: Sequence[Target],
+                 batch: int = 1 << 24, hit_capacity: int = 64,
+                 oracle=None, device="cuda"):
+        self.engine = engine
+        self.gen = gen
+        self.targets = list(targets)
+        self.hit_capacity = hit_capacity
+        self.oracle = oracle
+        self.batch = self.stride = batch
+        #: launches this worker has queued
+        self.dispatched = 0
+        device = torch.device(device)
+        if device.type == "cuda":
+            cuda_ext.load_kernel()
+        self.variant = f"{engine.algo}-{engine.order}"
+        self.step = cuda_ext.make_salted_crack_step(
+            self.variant, gen, batch, hit_capacity, device=device)
+        self._targs = [
+            (t.params["salt"],
+             [int(w) for w in digest_rows([t.digest],
+                                          engine.little_endian)[0]])
+            for t in self.targets]
+
+    def submit(self, unit: WorkUnit) -> _PendingSalted:
+        batches = [(b, min(self.stride, unit.end - b), self.gen.digits(b))
+                   for b in range(unit.start, unit.end, self.stride)]
+        results, flags = [], []
+        for salt, words in self._targs:
+            out, flag = [], None
+            for _, n_valid, digits in batches:
+                result = self.step(digits, n_valid, salt, words)
+                self.dispatched += 1
+                flag = result[0] if flag is None else flag + result[0]
+                out.append(result)
+            results.append(out)
+            if flag is not None:
+                flags.append(flag)
+        return _PendingSalted(self, unit, batches, results, flags)
+
+    def process(self, unit: WorkUnit) -> list[Hit]:
+        return self.submit(unit).resolve()
+
+    def _batch_hits(self, ti: int, bstart: int, result,
+                    unit: WorkUnit) -> list[Hit]:
+        count, lanes, _ = result
+        count = int(count.item())
+        if count == 0:
+            return []
+        if count > lanes.shape[0]:
+            return self._rescan(ti, bstart, unit)
+        return [Hit(ti, bstart + lane, self.gen.candidate(bstart + lane))
+                for lane in sorted(lanes.tolist()) if lane >= 0]
+
+    def _rescan(self, ti: int, bstart: int, unit: WorkUnit) -> list[Hit]:
+        """Exact oracle rescan of one overflowed batch of one target."""
+        if self.oracle is None:
+            raise RuntimeError(
+                f"hit buffer overflow (> {self.hit_capacity}) and no "
+                "oracle engine to rescan with; raise hit_capacity")
+        end = min(bstart + self.stride, unit.end)
+        hits = CpuWorker(self.oracle, self.gen, [self.targets[ti]]).process(
+            WorkUnit(-1, bstart, end - bstart))
+        return [Hit(ti, h.cand_index, h.plaintext) for h in hits]
+
+
+class _SaltedDeviceMixin:
+    """Device engine for one (algo, order): the base engine's digest,
+    the salted kernel's mask worker."""
+
+    salted = True
+    #: the kernel core and order (``cuda_ext.SALTED_NAMES``)
+    algo: str
+    order: str
+    #: leave headroom for any parseable salt in the single block; the
+    #: worker factory checks the job's actual salts
+    max_candidate_len = cuda_ext.BLOCK_LIMIT - SALT_MAX
+    _block_limit = cuda_ext.BLOCK_LIMIT
+
+    def parse_target(self, text: str) -> Target:
+        digest, salt = parse_salted_line(text, self.digest_size)
+        return Target(raw=text.strip(), digest=digest,
+                      params={"salt": salt})
+
+    def hash_batch(self, candidates: Sequence[bytes],
+                   params: Optional[dict] = None) -> list[bytes]:
+        """The salted digests on the engine's device, one target's
+        params (its salt) for every candidate."""
+        if not params:
+            raise ValueError(f"{self.name} needs target params (salt)")
+        salt = params["salt"]
+        msgs = [c + salt if self.order == "ps" else salt + c
+                for c in candidates]
+        return self._hash_messages(msgs, self._block_limit)
+
+    def make_mask_worker(self, gen, targets, batch: int, hit_capacity: int,
+                         oracle=None):
+        """The salted kernel's worker; a job the kernel does not take is
+        refused, never moved to another path."""
+        self._check_lengths(gen.length, targets)
+        lens = [len(t.params["salt"]) for t in targets]
+        if not cuda_ext.salted_eligible(self.algo, self.order, gen, lens):
+            raise ValueError(
+                f"{self.name}: no salted kernel for this job (it takes "
+                f"masks of 1..{cuda_ext.BLOCK_LIMIT} positions with "
+                f"1..256 bytes each and salts of 0..{SALT_MAX} bytes); use "
+                "--device cpu")
+        return CudaSaltedMaskWorker(self, gen, targets, batch=batch,
+                                    hit_capacity=hit_capacity,
+                                    oracle=oracle, device=self.torch_device)
+
+    def make_wordlist_worker(self, gen, targets, batch: int,
+                             hit_capacity: int, oracle=None):
+        raise ValueError(f"{self.name}: the salted kernel takes mask jobs "
+                         "only; use --device cpu for a wordlist")
+
+    def _check_lengths(self, cand_len: int, targets) -> None:
+        worst = cand_len + max(len(t.params["salt"]) for t in targets)
+        if worst > self._block_limit:
+            raise ValueError(
+                f"candidate+salt can reach {worst} bytes, over the "
+                f"{self._block_limit}-byte single-block limit; "
+                "shorten the mask/words or use --device cpu")
+
+
+_BASES = {"md5": TorchMd5Engine, "sha1": TorchSha1Engine,
+          "sha256": TorchSha256Engine}
+
+for _algo, _base in _BASES.items():
+    for _order in cuda_ext.ORDERS:
+        _name = f"{_algo}-{_order}"
+        register(_name, device="cuda")(type(
+            f"Torch{_algo.title()}{_order.title()}Engine",
+            (_SaltedDeviceMixin, _base),
+            {"name": _name, "algo": _algo, "order": _order,
+             "__doc__": (f"Salted {_algo}: "
+                         + ("$pass.$salt" if _order == "ps"
+                            else "$salt.$pass")
+                         + " through the salted kernel.")}))
+
+
+def _register_line_format(names, base, cpu_cls, doc: str, **attrs):
+    """A salted 'ps' engine with another line format: parsing is the
+    CPU oracle's."""
+
+    def parse_target(self, text: str) -> Target:
+        return cpu_cls().parse_target(text)
+
+    cls = type(f"Torch{cpu_cls.__name__}", (_SaltedDeviceMixin, base),
+               {"name": names[0], "algo": base.name, "order": "ps",
+                "__doc__": doc, "parse_target": parse_target, **attrs})
+    for n in names:
+        register(n, device="cuda")(cls)
+    return cls
+
+
+_register_line_format(
+    ("postgres", "postgres-md5"), TorchMd5Engine, PostgresMd5Engine,
+    "PostgreSQL MD5 auth (hashcat 12): md5($pass.$username), "
+    "``md5<hex>:user`` lines.")
+_register_line_format(
+    ("ldap-ssha", "ssha"), TorchSha1Engine, LdapSshaEngine,
+    "LDAP {SSHA} (hashcat 111): sha1($pass.$salt), a base64 blob.")
+_register_line_format(
+    ("ldap-smd5",), TorchMd5Engine, LdapSmd5Engine,
+    "LDAP {SMD5}: md5($pass.$salt), a base64 blob.")
+_register_line_format(
+    ("oracle11", "oracle-11g"), TorchSha1Engine, Oracle11Engine,
+    "Oracle 11g (hashcat 112): sha1($pass.$salt) with a 10-byte salt, "
+    "``S:<40 hex><20 hex>`` lines.",
+    max_candidate_len=cuda_ext.BLOCK_LIMIT - 10)

@@ -118,9 +118,9 @@ def message_block(engine_name: str, length: int) -> tuple:
     return tuple(int(w) for w in words.view(np.uint32))
 
 
-def _check_job(eng, lut: torch.Tensor, radices: Sequence[int],
-               base_digits: Sequence[int], n_valid: int, hit_capacity: int,
-               batch: int) -> None:
+def check_job(eng, lut: torch.Tensor, radices: Sequence[int],
+              base_digits: Sequence[int], n_valid: int, hit_capacity: int,
+              batch: int) -> None:
     if lut.dtype != torch.uint8 or lut.dim() != 2 or lut.shape[1] != 256:
         raise ValueError(f"lut must be uint8[length, 256], got "
                          f"{lut.dtype}{list(lut.shape)}")
@@ -141,14 +141,14 @@ def _check_job(eng, lut: torch.Tensor, radices: Sequence[int],
         raise ValueError("hit_capacity must be >= 0")
 
 
-def _check_target(eng, target: Sequence[int]) -> None:
+def check_target(eng, target: Sequence[int]) -> None:
     if len(target) != eng.digest_words:
         raise ValueError(f"{eng.name} needs {eng.digest_words} target "
                          f"words, got {len(target)}")
 
 
-def _check_tables(eng, bloom_rows: torch.Tensor,
-                  table: torch.Tensor, device) -> None:
+def check_tables(eng, bloom_rows: torch.Tensor,
+                 table: torch.Tensor, device) -> None:
     for name, t in (("bloom rows", bloom_rows), ("target table", table)):
         if t.dtype != torch.int32 or t.dim() != 2:
             raise ValueError(f"{name} must be int32 2-D, got "
@@ -166,17 +166,18 @@ def _check_tables(eng, bloom_rows: torch.Tensor,
                          f"{n} targets")
 
 
-class _MaskArgs(ctypes.Structure):
-    """``struct MaskArgs`` of csrc/mask.cu."""
+class MaskArgs(ctypes.Structure):
+    """``struct MaskArgs`` of csrc/mask_kernel.cuh."""
     _fields_ = [("length", ctypes.c_int32),
                 ("radix", ctypes.c_int32 * MAX_LENGTH),
                 ("base", ctypes.c_int32 * MAX_LENGTH),
                 ("block", ctypes.c_uint32 * 16),
-                ("target", ctypes.c_uint32 * 8)]
+                ("target", ctypes.c_uint32 * 8),
+                ("shift", ctypes.c_int32)]
 
 
-class _MultiArgs(ctypes.Structure):
-    """``struct MultiArgs`` of csrc/mask.cu."""
+class MultiArgs(ctypes.Structure):
+    """``struct MultiArgs`` of csrc/mask_kernel.cuh."""
     _fields_ = [("bloom", ctypes.c_void_p), ("table", ctypes.c_void_p),
                 ("n_sets", ctypes.c_int32), ("n_targets", ctypes.c_int32)]
 
@@ -188,8 +189,8 @@ def _library():
     lib = _build.load("mask")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.dprf_mask_launch.argtypes = [
-        i32, i32, i32, ptr, ctypes.POINTER(_MaskArgs),
-        ctypes.POINTER(_MultiArgs), ctypes.c_uint32, ptr, ptr, ptr, ptr,
+        i32, i32, i32, ptr, ctypes.POINTER(MaskArgs),
+        ctypes.POINTER(MultiArgs), ctypes.c_uint32, ptr, ptr, ptr, ptr,
         i32, i32, i32, ptr]
     lib.dprf_mask_launch.restype = i32
     lib.dprf_mask_blocks_per_sm.argtypes = [i32, i32, i32, i32,
@@ -230,20 +231,40 @@ def grid_size(engine_name: str, multi: bool, n_valid: int, smem: int,
               device) -> int:
     """Blocks of the grid-stride grid: one resident wave, or fewer for
     a short batch."""
+    return wave_grid(blocks_per_sm(engine_name, multi, smem), n_valid,
+                     device)
+
+
+def wave_grid(blocks_per_sm: int, n_valid: int, device) -> int:
+    """One resident wave of ``blocks_per_sm`` blocks on every SM, or
+    fewer blocks for a short batch."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    resident = sms * blocks_per_sm(engine_name, multi, smem)
-    return max(1, min(-(-n_valid // THREADS), resident))
+    return max(1, min(-(-n_valid // THREADS), sms * blocks_per_sm))
 
 
-def _launch(eng, multi: bool, lut: torch.Tensor,
-            radices: Sequence[int], base_digits: Sequence[int],
-            n_valid: int, target: Sequence[int], margs: _MultiArgs,
-            n_sets: int, hit_capacity: int):
+def require_cuda(lut: torch.Tensor) -> None:
+    """The kernels take a contiguous lut on a card, nothing else."""
     if lut.device.type != "cuda":
-        raise ValueError(f"the CUDA mask kernel takes CUDA tensors, got "
+        raise ValueError(f"the CUDA mask kernels take CUDA tensors, got "
                          f"a lut on {lut.device}")
     if not lut.is_contiguous():
         raise ValueError("lut must be contiguous")
+
+
+def launch_template(entry, kid: int, multi: bool, lut: torch.Tensor,
+                    radices: Sequence[int], base_digits: Sequence[int],
+                    n_valid: int, block: Sequence[int],
+                    target: Sequence[int], margs: MultiArgs,
+                    hit_capacity: int, grid: int, shift: int = 0):
+    """Launch one instantiation of the mask kernel template
+    (csrc/mask_kernel.cuh) through a source's C entry ``entry`` (its
+    instantiation id ``kid``): the job's fixed message words ``block``,
+    the single target's words ``target``, the multi-target state
+    ``margs`` and, for a shifted core, the candidate's first byte
+    ``shift``.  Allocates and returns (count, lanes, tpos, n_maybe) on
+    the lut's card (tpos and n_maybe None for one target), still being
+    computed; raises if the launch is refused."""
+    require_cuda(lut)
     device = lut.device
     count = torch.zeros((1,), dtype=torch.int32, device=device)
     lanes = torch.full((hit_capacity,), -1, dtype=torch.int32,
@@ -252,28 +273,39 @@ def _launch(eng, multi: bool, lut: torch.Tensor,
                       device=device) if multi else None
     n_maybe = torch.zeros((1,), dtype=torch.int32, device=device) \
         if multi else None
-    length = lut.shape[0]
     target = list(target) + [0] * (8 - len(target))
-    args = _MaskArgs(length, (ctypes.c_int32 * MAX_LENGTH)(*radices),
-                     (ctypes.c_int32 * MAX_LENGTH)(*base_digits),
-                     (ctypes.c_uint32 * 16)(*message_block(eng.name, length)),
-                     (ctypes.c_uint32 * 8)(*(int(w) & 0xFFFFFFFF
-                                             for w in target)))
-    smem = shared_bytes(length, n_sets)
-    grid = grid_size(eng.name, multi, n_valid, smem, device)
+    args = MaskArgs(lut.shape[0], (ctypes.c_int32 * MAX_LENGTH)(*radices),
+                    (ctypes.c_int32 * MAX_LENGTH)(*base_digits),
+                    (ctypes.c_uint32 * 16)(*block),
+                    (ctypes.c_uint32 * 8)(*(int(w) & 0xFFFFFFFF
+                                            for w in target)),
+                    shift)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = _library().dprf_mask_launch(
-        KERNEL_CORES[eng.name], int(multi), device.index, lut.data_ptr(),
-        ctypes.byref(args), ctypes.byref(margs), n_valid,
-        count.data_ptr(), lanes.data_ptr(),
-        tpos.data_ptr() if multi else None,
-        n_maybe.data_ptr() if multi else None,
-        hit_capacity, grid, THREADS, stream)
+    rc = entry(kid, int(multi), device.index, lut.data_ptr(),
+               ctypes.byref(args), ctypes.byref(margs), n_valid,
+               count.data_ptr(), lanes.data_ptr(),
+               tpos.data_ptr() if multi else None,
+               n_maybe.data_ptr() if multi else None,
+               hit_capacity, grid, THREADS, stream)
     if rc != 0:
-        raise RuntimeError(f"{kernel_name(eng.name, multi)} kernel launch "
-                           f"failed: CUDA error {rc}")
-    launches[kernel_name(eng.name, multi)] += 1
+        raise RuntimeError(f"mask kernel launch failed: CUDA error {rc}")
     return count, lanes, tpos, n_maybe
+
+
+def _launch(eng, multi: bool, lut: torch.Tensor,
+            radices: Sequence[int], base_digits: Sequence[int],
+            n_valid: int, target: Sequence[int], margs: MultiArgs,
+            n_sets: int, hit_capacity: int):
+    require_cuda(lut)
+    grid = grid_size(eng.name, multi, n_valid,
+                     shared_bytes(lut.shape[0], n_sets), lut.device)
+    out = launch_template(_library().dprf_mask_launch,
+                          KERNEL_CORES[eng.name], multi, lut, radices,
+                          base_digits, n_valid,
+                          message_block(eng.name, lut.shape[0]), target,
+                          margs, hit_capacity, grid)
+    launches[kernel_name(eng.name, multi)] += 1
+    return out
 
 
 def mask_kernel(engine: str, lut: torch.Tensor, radices: Sequence[int],
@@ -286,10 +318,10 @@ def mask_kernel(engine: str, lut: torch.Tensor, radices: Sequence[int],
     uint32 digest words.  Returns (count int32[1], lanes
     int32[hit_capacity]) on the card, still being computed."""
     eng = device_engine(engine, lut.device)
-    _check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
-    _check_target(eng, target)
+    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
+    check_target(eng, target)
     count, lanes, _, _ = _launch(eng, False, lut, radices, base_digits,
-                                 n_valid, target, _MultiArgs(), 0,
+                                 n_valid, target, MultiArgs(), 0,
                                  hit_capacity)
     return count, lanes
 
@@ -304,11 +336,11 @@ def mask_multi_kernel(engine: str, lut: torch.Tensor, radices: Sequence[int],
     int32[cap], tpos int32[cap], n_maybe int32[1]), still being
     computed."""
     eng = device_engine(engine, lut.device)
-    _check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
-    _check_tables(eng, bloom_rows, table, lut.device)
+    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
+    check_tables(eng, bloom_rows, table, lut.device)
     n_sets = bloom_rows.shape[0] // bloom.K_PROBES
-    margs = _MultiArgs(bloom_rows.data_ptr(), table.data_ptr(), n_sets,
-                       table.shape[0])
+    margs = MultiArgs(bloom_rows.data_ptr(), table.data_ptr(), n_sets,
+                      table.shape[0])
     return _launch(eng, True, lut, radices, base_digits, n_valid, [],
                    margs, n_sets, hit_capacity)
 
@@ -318,14 +350,14 @@ def _digest_plain(eng, lut, radices, base_digits, batch):
     return eng.digest_packed(eng.pack(cand, lut.shape[0]))
 
 
-def mask_plain(engine: str, lut: torch.Tensor, radices: Sequence[int],
-               base_digits: Sequence[int], n_valid: int,
-               target: Sequence[int], hit_capacity: int, batch: int):
-    """``mask_kernel``'s function in plain PyTorch on the lut's device;
-    hit lanes come back in ascending order."""
-    eng = device_engine(engine, lut.device)
-    _check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
-    _check_target(eng, target)
+def single_plain(eng, lut: torch.Tensor, radices: Sequence[int],
+                 base_digits: Sequence[int], n_valid: int,
+                 target: Sequence[int], hit_capacity: int, batch: int):
+    """The single-target kernel's function in plain PyTorch for the
+    device engine ``eng`` (its ``pack`` and ``digest_packed``), on the
+    lut's device; hit lanes come back in ascending order."""
+    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
+    check_target(eng, target)
     device = lut.device
     lane = torch.arange(batch, dtype=torch.int32, device=device)
     digest = _digest_plain(eng, lut, radices, base_digits, batch)
@@ -337,16 +369,16 @@ def mask_plain(engine: str, lut: torch.Tensor, radices: Sequence[int],
     return count, lanes
 
 
-def mask_multi_plain(engine: str, lut: torch.Tensor, radices: Sequence[int],
-                     base_digits: Sequence[int], n_valid: int,
-                     bloom_rows: torch.Tensor, table: torch.Tensor,
-                     hit_capacity: int, batch: int):
-    """``mask_multi_kernel``'s function in plain PyTorch on the lut's
-    device: the plain ``bloom_found``, then ``compare_multi`` on the
-    survivors; hit lanes come back in ascending order."""
-    eng = device_engine(engine, lut.device)
-    _check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
-    _check_tables(eng, bloom_rows, table, lut.device)
+def multi_plain(eng, lut: torch.Tensor, radices: Sequence[int],
+                base_digits: Sequence[int], n_valid: int,
+                bloom_rows: torch.Tensor, table: torch.Tensor,
+                hit_capacity: int, batch: int):
+    """The multi-target kernel's function in plain PyTorch for the
+    device engine ``eng``: the plain ``bloom_found``, then
+    ``compare_multi`` on the survivors; hit lanes come back in
+    ascending order."""
+    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
+    check_tables(eng, bloom_rows, table, lut.device)
     lane = torch.arange(batch, dtype=torch.int32, device=lut.device)
     digest = _digest_plain(eng, lut, radices, base_digits, batch)
     maybe = bloom.bloom_found(digest, bloom_rows, lane < n_valid)
@@ -356,7 +388,21 @@ def mask_multi_plain(engine: str, lut: torch.Tensor, radices: Sequence[int],
     return count, lanes, tpos, maybe.sum(dtype=torch.int32).reshape(1)
 
 
-def _dispatch(kernel, plain, lut, args):
+def mask_plain(engine: str, lut: torch.Tensor, *args):
+    """``mask_kernel``'s function in plain PyTorch on the lut's device;
+    hit lanes come back in ascending order."""
+    return single_plain(device_engine(engine, lut.device), lut, *args)
+
+
+def mask_multi_plain(engine: str, lut: torch.Tensor, *args):
+    """``mask_multi_kernel``'s function in plain PyTorch on the lut's
+    device (arguments as ``mask_multi_kernel``)."""
+    return multi_plain(device_engine(engine, lut.device), lut, *args)
+
+
+def dispatch(kernel, plain, lut, args):
+    """``kernel(*args)`` for a lut on a card, ``plain(*args)`` for one
+    on the CPU, and nothing else."""
     if lut.device.type == "cuda":
         return kernel(*args)
     if lut.device.type == "cpu":
@@ -367,13 +413,13 @@ def _dispatch(kernel, plain, lut, args):
 def mask_crack(engine: str, lut: torch.Tensor, *args):
     """The single-target kernel on CUDA tensors, its plain version on
     CPU tensors (arguments as ``mask_kernel``)."""
-    return _dispatch(mask_kernel, mask_plain, lut, (engine, lut, *args))
+    return dispatch(mask_kernel, mask_plain, lut, (engine, lut, *args))
 
 
 def mask_crack_multi(engine: str, lut: torch.Tensor, *args):
     """The multi-target kernel on CUDA tensors, its plain version on CPU
     tensors (arguments as ``mask_multi_kernel``)."""
-    return _dispatch(mask_multi_kernel, mask_multi_plain, lut,
+    return dispatch(mask_multi_kernel, mask_multi_plain, lut,
                      (engine, lut, *args))
 
 

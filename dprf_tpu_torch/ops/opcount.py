@@ -48,6 +48,7 @@ import torch
 
 from dprf_tpu_torch.ops import md4, md5, sha1, sha256
 from dprf_tpu_torch.ops.cuda_mask import device_engine, message_block
+from dprf_tpu_torch.ops.pack import pack_fixed
 from dprf_tpu_torch.rules import device as rules_device
 
 M32 = 0xFFFFFFFF
@@ -296,6 +297,99 @@ def rules_ops(engine_name: str, length_counts: dict) -> Work:
         add_ += n * core["add"]
         fma += n * core["fma"]
     return Work(alu, add_, fma)
+
+
+# ---- the nested and salted chains (csrc/ext.cu) ---------------------------
+
+#: the lowercase hex of one 32-bit digest word (4 bytes -> 8 characters,
+#: two outer message words) in its least form, four nibbles a register:
+#: split the low and high nibbles (LOP3; SHF + LOP3), map each nibble
+#: word by n + 0x30303030 + 39 * (((n + 0x06060606) >> 4) & 0x01010101)
+#: (IADD3, SHF, LOP3, IMAD, IADD3), interleave the two character words
+#: into the two message words (2 PRMT)
+HEX_WORD = Work(alu=1 + 2 + 2 * 2 + 2, add=2 * 2, fma=2)
+
+
+def _core_work(core: str, block, var_words, words_needed: int) -> dict:
+    """The instructions of ``core`` over ``block`` (16 uint32 ints) with
+    the words ``var_words`` depending on the candidate, counting what
+    state words 0..words_needed-1 depend on."""
+    block = list(block)
+    for w in var_words:
+        block[w] = Var("alu", 0, [])
+    return tally(state_words(core, block)[:words_needed])
+
+
+def _decode_and_compare(length: int, multi: bool, digest_words: int,
+                        probes: float, maybes: float, n_targets: int,
+                        core: dict) -> Work:
+    """``ops_per_candidate``'s decode and compare around ``core``: each
+    mask position one add, two IMAD and one ALU op; one target a
+    compare, a list the feed-forward of words 0-2, the Bloom probes and
+    the survivors' search."""
+    alu = core["alu"] + length
+    add_ = core["add"] + length
+    fma = core["fma"] + 2 * length
+    if not multi:
+        return Work(alu + 1, add_, fma)
+    search = int(np.ceil(np.log2(n_targets + 1)))
+    return Work(alu + 5 * probes + maybes * (4 * search + digest_words),
+                add_ + 3, fma)
+
+
+def nested_ops(name: str, length: int, multi: bool = False,
+               probes: float = 0.0, maybes: float = 0.0,
+               n_targets: int = 1) -> Work:
+    """The least work of one candidate of a nested chain
+    (``cuda_ext.NESTED_NAMES``) over a ``length``-position mask: the
+    decode; the inner core over the job's block (fixed words folded),
+    every digest word and its feed-forward add; the hex map of every
+    inner digest word (``HEX_WORD``; mysql41 takes the raw words); the
+    outer core over the 8 or 10 hex words (5 for mysql41) with its
+    padding folded, up to the compared words (word 0 for one target,
+    0-2 for the Bloom probes); the compare as ``ops_per_candidate``."""
+    from dprf_tpu_torch.ops import cuda_ext
+    outer, inner = ("sha1", "sha1") if name == "mysql41" \
+        else cuda_ext.NESTED_COMBOS[name]
+    iw = device_engine(inner).digest_words
+    block = cuda_ext.nested_block(name, length)
+    work = _core_work(inner, block, range(-(-length // 4)), iw)
+    work["add"] += iw
+    if name == "mysql41":
+        block2 = [0] * 5 + [0x80000000] + [0] * 9 + [160]
+        var2 = range(5)
+    else:
+        block2 = list(pack_fixed(torch.zeros((1, 8 * iw), dtype=torch.uint8),
+                                 8 * iw, big_endian=not device_engine(
+                                     outer).little_endian)
+                      .numpy()[0].view(np.uint32))
+        var2 = range(2 * iw)
+        work["alu"] += iw * HEX_WORD.alu
+        work["add"] += iw * HEX_WORD.add
+        work["fma"] += iw * HEX_WORD.fma
+    outer_work = _core_work(outer, [int(w) for w in block2], var2,
+                            3 if multi else 1)
+    core = {k: work[k] + outer_work[k] for k in work}
+    return _decode_and_compare(length, multi,
+                               device_engine(outer).digest_words, probes,
+                               maybes, n_targets, core)
+
+
+def salted_ops(variant: str, length: int, salt: bytes) -> Work:
+    """The least work of one candidate of a salted core
+    (``cuda_ext.SALTED_NAMES``) over a ``length``-position mask and one
+    target's ``salt``: the decode, the core up to digest word 0 with the
+    target's salt, padding and bit length folded as constants and the
+    candidate's words -- [0, L) for ``ps``, [S, S + L) for ``sp`` --
+    variable, and one compare.  The kernel's move of an ``sp`` candidate
+    by S bytes is not counted: it is not needed work."""
+    from dprf_tpu_torch.ops import cuda_ext
+    algo, order = cuda_ext.split_salted(variant)
+    first = 0 if order == "ps" else len(salt)
+    block = cuda_ext.salted_block(variant, length, bytes(salt))
+    core = _core_work(algo, block,
+                      range(first // 4, (first + length - 1) // 4 + 1), 1)
+    return _decode_and_compare(length, False, 0, 0.0, 0.0, 1, core)
 
 
 # ---- the PMKID kernel ------------------------------------------------------

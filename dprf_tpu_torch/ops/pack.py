@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 
-def _pad_const(length: int, big_endian: bool) -> np.ndarray:
+def pad_const(length: int, big_endian: bool) -> np.ndarray:
     """Static MD padding for a fixed message length: 0x80 marker + 64-bit
     bit count (LE for MD4/MD5, BE for SHA-1/SHA-256)."""
     if length > 55:
@@ -42,7 +42,7 @@ def pack_fixed(cand: torch.Tensor, length: int, big_endian: bool = False,
     ``widen``: UTF-16LE first (NTLM), a message of 2 * length bytes."""
     if widen:
         cand, length = utf16le_widen(cand), 2 * length
-    pad = torch.as_tensor(_pad_const(length, big_endian), device=cand.device)
+    pad = torch.as_tensor(pad_const(length, big_endian), device=cand.device)
     msg = pad.repeat(cand.shape[0], 1)
     msg[:, :length] = cand
     return _words_from_bytes(msg, big_endian)

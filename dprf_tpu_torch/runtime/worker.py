@@ -227,21 +227,25 @@ class CudaMaskWorker(MaskWorkerBase):
     survivors on the card, so only real hits come back.  On a card the
     kernel builds at construction, so a build failure raises here and
     never mid-job; with ``device="cpu"`` each batch runs the kernel's
-    plain version instead."""
+    plain version instead.  A nested chain or mysql41 (ops/cuda_ext.py)
+    runs its instantiation of the same kernel body, with the same
+    steps' contract, so hit decode, table order and rescan are these."""
 
     def __init__(self, engine, gen, targets: Sequence[Target],
                  batch: int = 1 << 24, hit_capacity: int = 64,
                  oracle: Optional[HashEngine] = None, device="cuda"):
-        from dprf_tpu_torch.ops import cuda_mask
+        from dprf_tpu_torch.ops import cuda_ext, cuda_mask
 
         tgt = self._setup_targets(engine, gen, targets, hit_capacity,
                                   oracle)
+        kernels = cuda_ext if engine.name in cuda_ext.NESTED_NAMES \
+            else cuda_mask
         device = torch.device(device)
         if device.type == "cuda":
-            cuda_mask.load_kernel()
+            kernels.load_kernel()
         self.batch = self.stride = batch
-        make = cuda_mask.make_cuda_multi_crack_step if self.multi \
-            else cuda_mask.make_cuda_mask_crack_step
+        make = kernels.make_cuda_multi_crack_step if self.multi \
+            else kernels.make_cuda_mask_crack_step
         self.step = make(engine.name, gen, tgt, batch, hit_capacity,
                          device=device)
 

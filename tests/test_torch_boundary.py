@@ -29,12 +29,15 @@ for name in names:
 importlib.import_module("chip_smoke")
 bad = sorted(n for n, m in sys.modules.items() if m is not None
              and n.split(".")[0] in ("jax", "dprf_tpu"))
-slice_e = {"dprf_tpu_torch.ops.hmac_sha1", "dprf_tpu_torch.ops.blowfish",
-           "dprf_tpu_torch.ops.cuda_pbkdf2", "dprf_tpu_torch.ops.cuda_bcrypt",
-           "dprf_tpu_torch.engines.cpu.bcrypt",
-           "dprf_tpu_torch.engines.device.pmkid",
-           "dprf_tpu_torch.engines.device.bcrypt"}
-print(len(names), sorted(slice_e - set(names)), bad)
+slices = {"dprf_tpu_torch.ops.hmac_sha1", "dprf_tpu_torch.ops.blowfish",
+          "dprf_tpu_torch.ops.cuda_pbkdf2", "dprf_tpu_torch.ops.cuda_bcrypt",
+          "dprf_tpu_torch.engines.cpu.bcrypt",
+          "dprf_tpu_torch.engines.device.pmkid",
+          "dprf_tpu_torch.engines.device.bcrypt",
+          "dprf_tpu_torch.ops.cuda_ext",
+          "dprf_tpu_torch.engines.device.nested",
+          "dprf_tpu_torch.engines.device.salted"}
+print(len(names), sorted(slices - set(names)), bad)
 """
 
 
@@ -54,6 +57,8 @@ def test_device_cuda_without_card_fails(tmp_path, capsys, monkeypatch):
     pmkid = tmp_path / "pmkid.txt"
     pmkid.write_text("00" * 16 + "*" + "0a" * 6 + "*" + "a0" * 6 + "*"
                      + b"net".hex() + "\n")
+    salted = tmp_path / "salted.txt"
+    salted.write_text("5f4dcc3b5aa765d61d8327deb882cf99:salt\n")
     bcrypt = tmp_path / "bcrypt.txt"
     bcrypt.write_text("$2a$05$CCCCCCCCCCCCCCCCCCCCC.E5YPO9kmyuRGyh0XouQYb4YMJ"
                       "KvyOeW\n")
@@ -64,6 +69,10 @@ def test_device_cuda_without_card_fails(tmp_path, capsys, monkeypatch):
                  ["crack", "?l?l", str(pmkid), "--engine", "wpa2-pmkid",
                   "--no-potfile"],
                  ["crack", "?l?l", str(bcrypt), "--engine", "bcrypt",
+                  "--no-potfile"],
+                 ["crack", "?l?l", str(hashfile), "--engine", "md5(md5)",
+                  "--no-potfile"],
+                 ["crack", "?l?l", str(salted), "--engine", "md5-ps",
                   "--no-potfile"],
                  ["bench", "--mask", "?l?l", "--seconds", "0.1"]):
         assert cli.main(argv) == 2
@@ -147,6 +156,38 @@ def test_slice_e_kernels_refuse_cpu_tensors():
     assert cuda_bcrypt.launches == launches
     with pytest.raises(ValueError, match="int32"):
         cuda_bcrypt.eks_advance(P, S[:1], key, [0] * 18, 1)
+
+
+def test_ext_kernels_refuse_cpu_tensors():
+    """The nested and salted wrappers launch on CUDA tensors only and
+    count no launch otherwise; the dispatchers take the plain version
+    for CPU tensors and check the job (a salt past 32 bytes or past the
+    block, an unknown chain)."""
+    from dprf_tpu_torch.ops import cuda_ext
+    gen = MaskGenerator("?l?l?l")
+    lut = gen.charset_lut("cpu")
+    base = (gen.radices, gen.digits(0), 64)
+    launches = dict(cuda_ext.launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_ext.nested_kernel("md5(md5)", lut, *base, [0] * 4, 4, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_ext.nested_multi_kernel(
+            "mysql41", lut, *base, torch.zeros((8, 128), dtype=torch.int32),
+            torch.zeros((1, 5), dtype=torch.int32), 4, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_ext.salted_kernel("sha1-sp", lut, *base, b"salt", [0] * 5, 4,
+                               64)
+    assert cuda_ext.launches == launches
+    count, lanes = cuda_ext.salted_crack("md5-ps", lut, *base, b"s", [0] * 4,
+                                         4, 64)
+    assert int(count) == 0 and lanes.tolist() == [-1] * 4
+    for salt in (b"x" * 33, b"x" * 53):
+        with pytest.raises(ValueError, match="salt"):
+            cuda_ext.salted_crack("md5-ps", lut, *base, salt, [0] * 4, 4, 64)
+    with pytest.raises(ValueError):
+        cuda_ext.salted_crack("sha512-ps", lut, *base, b"", [0] * 16, 4, 64)
+    with pytest.raises(ValueError):
+        cuda_ext.nested_crack("md5(sha256)", lut, *base, [0] * 4, 4, 64)
 
 
 def test_kernel_job_checks():

@@ -331,3 +331,124 @@ def test_cli_bcrypt_mask_on_card(tmp_path, capsys):
     assert cuda_bcrypt.launches["bcrypt_setup"] == batches
     assert cuda_bcrypt.launches["bcrypt_finish"] == batches
     assert cuda_bcrypt.advanced_rounds == 16 * batches
+
+
+def _ext_hits(result):
+    count, lanes = result[:2]
+    return int(count.item()), sorted(int(x) for x in lanes.cpu().tolist()
+                                     if x >= 0)
+
+
+@pytest.mark.parametrize("name", ["md5(md5)", "sha1(sha1)", "md5(sha1)",
+                                  "sha1(md5)", "sha256(md5)",
+                                  "sha256(sha1)", "mysql41"])
+def test_nested_kernel_matches_plain(name):
+    """Each nested chain on ?a^5 at batch 2^20, one target and 1,000:
+    hits at the first lane, two in one warp and the last valid lane of a
+    partial batch; the multi mode holds tpos and n_maybe too."""
+    _need_card()
+    from dprf_tpu_torch.ops import cuda_ext
+    batch, gen = 1 << 20, MaskGenerator("?a" * 5)
+    start, n_valid = 3 * batch, batch - 7
+    lut = gen.charset_lut("cuda")
+    base = (gen.radices, gen.digits(start), n_valid)
+    oracle = get_engine(name)
+    little = name.startswith("md5")
+    plants = [0, 40, 41, n_valid - 1, n_valid]
+    digests = oracle.hash_batch([gen.candidate(start + p) for p in plants])
+    for p, d in zip(plants, digests):
+        args = (name, lut, *base, [int(w) for w in np.frombuffer(
+            d, "<u4" if little else ">u4")], 64, batch)
+        k = cuda_ext.nested_kernel(*args)
+        assert _ext_hits(k) == _ext_hits(cuda_ext.nested_plain(*args)) == \
+            ((1, [p]) if p < n_valid else (0, []))
+    rng = np.random.default_rng(21)
+    digests += oracle.hash_batch([bytes(rng.integers(33, 127, 8,
+                                                     dtype=np.uint8))
+                                  for _ in range(995)])
+    table = make_target_table(digests, little)
+    rows = torch.as_tensor(
+        bloom.bloom_tables(table.original_words()).view(np.int32),
+        device="cuda")
+    args = (name, lut, *base, rows, table.tensor("cuda"), 64, batch)
+    k = cuda_ext.nested_multi_kernel(*args)
+    p = cuda_ext.nested_multi_plain(*args)
+    torch.cuda.synchronize()
+
+    def pairs(count, lanes, tpos, n_maybe):
+        got = sorted((int(a), int(table.order[b])) for a, b in
+                     zip(lanes.tolist(), tpos.tolist()) if a >= 0)
+        return int(count.item()), got, int(n_maybe.item())
+
+    assert pairs(*k) == pairs(*p)
+    assert pairs(*k)[1] == [(x, i) for i, x in enumerate(plants[:4])]
+
+
+@pytest.mark.parametrize("variant", ["md5-ps", "md5-sp", "sha1-ps",
+                                     "sha1-sp", "sha256-ps", "sha256-sp"])
+def test_salted_kernel_matches_plain(variant):
+    """Each salted core on ?l^5 at batch 2^20: salts of 0, 3, 4, 7 and
+    32 bytes, a hit at the first lane, at the last valid lane of a
+    partial batch, and none."""
+    _need_card()
+    from dprf_tpu_torch.ops import cuda_ext
+    algo, _ = cuda_ext.split_salted(variant)
+    batch, gen = 1 << 20, MaskGenerator("?l" * 5)
+    lut = gen.charset_lut("cuda")
+    oracle = get_engine(variant)
+    rng = np.random.default_rng(23)
+    for n in (0, 3, 4, 7, 32):
+        salt = bytes(rng.integers(0, 256, n, dtype=np.uint8))
+        for start, n_valid, plant in ((0, batch, 0),
+                                      (batch, batch - 9, 2 * batch - 10),
+                                      (batch, batch - 9, 2 * batch - 9)):
+            d = oracle.hash_batch([gen.candidate(plant)],
+                                  params={"salt": salt})[0]
+            args = (variant, lut, gen.radices, gen.digits(start), n_valid,
+                    salt, [int(w) for w in np.frombuffer(
+                        d, "<u4" if algo == "md5" else ">u4")], 64, batch)
+            launches = cuda_ext.launches[f"{variant}_mask"]
+            k = cuda_ext.salted_kernel(*args)
+            p = cuda_ext.salted_plain(*args)
+            torch.cuda.synchronize()
+            assert cuda_ext.launches[f"{variant}_mask"] == launches + 1
+            want = (1, [plant - start]) if plant - start < n_valid \
+                else (0, [])
+            assert _ext_hits(k) == _ext_hits(p) == want, (n, plant)
+
+
+def test_cli_nested_and_salted_on_card(tmp_path, capsys):
+    """crack --device cuda for md5(md5) over a 1,000-target list and
+    for sha1-sp over three salted targets: every plant found, launches
+    once per batch (per target for salted)."""
+    _need_card()
+    from dprf_tpu_torch.ops import cuda_ext
+    gen = MaskGenerator("?l?l?l?l")
+    rng = np.random.default_rng(29)
+    oracle = get_engine("md5(md5)")
+    plants = [b"aaaa", b"zzzz", b"qwer"]
+    digests = oracle.hash_batch(plants + [
+        bytes(rng.integers(33, 127, 8, dtype=np.uint8)) for _ in range(997)])
+    hashfile = tmp_path / "n.txt"
+    hashfile.write_text("".join(d.hex() + "\n" for d in digests))
+    cuda_ext.reset_launches()
+    rc = cli.main(["crack", "?l?l?l?l", str(hashfile), "--engine",
+                   "md5(md5)", "--no-potfile", "--batch", "65536"])
+    captured = capsys.readouterr()
+    assert rc == 0 and len(captured.out.splitlines()) == 3
+    assert "rejected=0" in captured.err
+    assert cuda_ext.launches["md5(md5)_mask_multi"] == 7
+    oracle = get_engine("sha1-sp")
+    lines = []
+    for plain, salt in ((b"aaaa", b""), (b"zzzz", b"x" * 32),
+                        (b"mnop", b"12345")):
+        d = oracle.hash_batch([plain], params={"salt": salt})[0]
+        lines.append(f"{d.hex()}:{salt.decode()}")
+    hashfile.write_text("\n".join(lines) + "\n")
+    cuda_ext.reset_launches()
+    rc = cli.main(["crack", "?l?l?l?l", str(hashfile), "--engine",
+                   "sha1-sp", "--no-potfile", "--batch", "65536"])
+    captured = capsys.readouterr()
+    assert rc == 0 and len(captured.out.splitlines()) == 3
+    assert "rejected=0" in captured.err
+    assert cuda_ext.launches["sha1-sp_mask"] == 3 * 7

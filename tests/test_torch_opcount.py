@@ -166,3 +166,96 @@ def test_pmkid_and_bcrypt_counts():
     lim = opcount.bcrypt_bound(32, 16 * 521, 1, 1e9, 32)
     assert lim["shared"] == 32 * 16 * 521 * 4 / 32 / 1e9
     assert lim["latency"] == 16 * 521 * opcount.BCRYPT_ROUND_LATENCY / 1e9
+
+
+def _digest(engine: str, words: list) -> bytes:
+    """The symbolic core over fixed words, with its feed-forward, as
+    digest bytes."""
+    eng = cuda_mask.device_engine(engine)
+    state = opcount.state_words(engine, words)
+    init = opcount.CORES[eng.name][1]
+    return struct.pack(("<" if eng.little_endian else ">") + f"{len(state)}I",
+                       *((s + int(i)) & 0xFFFFFFFF
+                         for s, i in zip(state, init)))
+
+
+@pytest.mark.parametrize("name", ["md5(md5)", "sha1(sha1)", "md5(sha1)",
+                                  "sha1(md5)", "sha256(md5)",
+                                  "sha256(sha1)"])
+def test_symbolic_nested_chain_computes_the_hash(name):
+    """Over fixed words the counted chain -- the inner core over the
+    job's block (``cuda_ext.nested_block`` with the candidate's bytes),
+    the hex of its digest, the outer core over the hex block -- is the
+    oracle's nested hash."""
+    from dprf_tpu_torch.ops import cuda_ext
+    from dprf_tpu_torch.ops.pack import pack_fixed
+    outer, inner = cuda_ext.NESTED_COMBOS[name]
+    rng = np.random.default_rng(17)
+    for length in (1, 7, 55):
+        cand = rng.integers(32, 127, length, dtype=np.uint8)
+        eng = cuda_mask.device_engine(inner)
+        words = eng.pack(torch.as_tensor(cand).reshape(1, length),
+                         length).numpy()[0].view(np.uint32)
+        block = cuda_ext.nested_block(name, length)
+        # the candidate's words over the job's fixed words
+        assert all((b & w) == b for b, w in zip(block, words))
+        hexd = _digest(inner, [int(w) for w in words]).hex().encode()
+        block2 = pack_fixed(torch.as_tensor(np.frombuffer(hexd, np.uint8)
+                                            .copy()).reshape(1, -1), len(hexd), big_endian=not
+                            cuda_mask.device_engine(outer).little_endian)
+        got = _digest(outer, [int(w) for w in
+                              block2.numpy()[0].view(np.uint32)])
+        assert got == get_engine(name).hash_batch([cand.tobytes()])[0]
+
+
+@pytest.mark.parametrize("variant", ["md5-ps", "md5-sp", "sha1-ps",
+                                     "sha1-sp", "sha256-ps", "sha256-sp"])
+def test_symbolic_salted_core_computes_the_hash(variant):
+    """A target's fixed words (``cuda_ext.salted_block``: its salt,
+    marker and bit length) with the candidate's bytes placed at [0, L)
+    (ps) or [S, S + L) (sp) are the message, and through the symbolic
+    core give the oracle's salted hash; every word the count takes as
+    constant is the message's own."""
+    from dprf_tpu_torch.ops import cuda_ext
+    algo, order = cuda_ext.split_salted(variant)
+    eng = cuda_mask.device_engine(algo)
+    rng = np.random.default_rng(19)
+    for length, n in ((1, 0), (6, 3), (6, 11), (23, 32)):
+        salt = bytes(rng.integers(0, 256, n, dtype=np.uint8))
+        cand = bytes(rng.integers(32, 127, length, dtype=np.uint8))
+        first = 0 if order == "ps" else n
+        full_msg = cand + salt if order == "ps" else salt + cand
+        full = eng.pack(torch.as_tensor(np.frombuffer(full_msg, np.uint8)
+                                        .copy()).reshape(1, -1),
+                        len(full_msg)).numpy()[0].view(np.uint32)
+        block = cuda_ext.salted_block(variant, length, salt)
+        varying = range(first // 4, (first + length - 1) // 4 + 1)
+        # the count's constant words are the message's own
+        assert all(block[w] == full[w] for w in range(16)
+                   if w not in varying)
+        assert all(block[w] | full[w] == full[w] for w in varying)
+        assert _digest(algo, [int(w) for w in full]) == get_engine(
+            variant).hash_batch([cand], params={"salt": salt})[0]
+
+
+def test_nested_and_salted_counts():
+    """The counts chip_smoke.py's bounds use.  A nested candidate: the
+    decode, the inner core with every digest word and its feed-forward,
+    HEX_WORD per inner word (9 ALU, 4 IADD3, 2 IMAD), the outer core up
+    to the compared words.  A salted one: the core with the target's
+    salt folded, the candidate's words variable."""
+    assert opcount.HEX_WORD == Work(9, 4, 2)
+    assert opcount.nested_ops("md5(md5)", 7) == Work(292, 185, 22)
+    assert opcount.nested_ops("sha1(sha1)", 7) == Work(869, 345, 24)
+    assert opcount.nested_ops("sha256(sha1)", 7) == Work(1438, 526, 24)
+    assert opcount.nested_ops("mysql41", 6) == Work(820, 324, 12)
+    # words 0-2 of the outer md5: three more steps, their feed-forward,
+    # one Bloom probe
+    assert opcount.nested_ops("md5(md5)", 7, True, probes=1.0) == \
+        Work(302, 192, 22)
+    # ps at [0, 6) is the unsalted md5 of ?l^6 (salt words are constants)
+    assert opcount.salted_ops("md5-ps", 6, b"x" * 11) == \
+        opcount.ops_per_candidate("md5", 6)
+    assert opcount.salted_ops("md5-sp", 6, b"x" * 11) == Work(124, 73, 12)
+    assert opcount.salted_ops("sha256-sp", 6, b"x" * 11) == \
+        Work(937, 329, 12)
