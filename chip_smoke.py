@@ -115,7 +115,29 @@ card, and holds every kernel against its plain PyTorch version:
     salted core), no other;
 20. times every ext instantiation per launch with CUDA events beside its
     bound (ops/opcount.nested_ops, salted_ops) and its plain version;
-21. prints the kernels line and, last, the device line.
+22. builds the 64-bit cores with the others -- sha512 and sha384 in
+    csrc/mask.cu (4 instantiations), the Keccak kernel csrc/keccak.cu (8:
+    rates 144, 136, 104, 72 x one target / multi; sha3-N and keccak-N
+    share one) -- fails on any of them with a stack frame, and holds each
+    against its plain version at 2^24 (the plain 64-bit versions take
+    ~18 GiB there): one target at the first lane, at the last valid lane
+    of a partial batch, with no hit, with hit capacity 0 and at the
+    longest mask the core takes (111 positions for sha512/384; 143, 135,
+    103, 71 for the Keccak rates); 1,000 targets with hits at lanes 0,
+    64, 65 (two in one warp) and the last valid lane, one just past it,
+    and with no hit; 8,192 targets at the longest mask, where the
+    block's shared memory passes 48 KB and the launch raises its limit;
+23. the slice end to end through ``crack --device cuda``: sha512, sha384,
+    sha3-256 and keccak-256 with one target at the last index of ?l^6
+    (the whole keyspace swept) and with 1,000 targets, 8 planted, over a
+    2^32 window of ?a^7 (config 2's shape); sha3-224/384/512 with one
+    planted target and keccak-224/384/512 with one planted among 1,000,
+    each over a 2^28 window.  Every path runs with every launch count
+    set to 0 just before it and read just after: its own instantiation
+    launched once per batch, no other;
+24. times each new instantiation per launch beside its bound
+    (ops/opcount.ops_per_candidate) and its plain version;
+25. prints the kernels line and, last, the device line.
 
 Any failure exits non-zero before the last line.  Without a card it
 exits 1 and prints no result.
@@ -155,7 +177,8 @@ INSTANCES = [(e, m) for e in ("md5", "ntlm", "sha1", "sha256")
              for m in (False, True)]
 #: the C++ core of each engine, as in the kernels' mangled names
 CPP_CORE = {"Md5Core": "md5", "Md4Core": "ntlm", "Sha1Core": "sha1",
-            "Sha256Core": "sha256"}
+            "Sha256Core": "sha256", "Sha512Core": "sha512",
+            "Sha384Core": "sha384"}
 #: the rule kernel's cores, and config 3's list: the reference bench's
 #: 2^20 synthetic 8-letter words x best64 (its 64 rules)
 RULE_CORES = ("md5", "ntlm", "sha1", "sha256")
@@ -211,16 +234,35 @@ TIMING_SALT = 11
 #: salt characters of the salted lists (Joomla's and osCommerce's
 #: salts are alphanumeric)
 ALNUM = b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
-#: the nvcc registers and SASS instruction count of the mask and rule
-#: instantiations before the kernel body moved to csrc/mask_kernel.cuh
-#: (sm_90a), which must not change them
+#: the nvcc registers and SASS instruction count of the mask, ext and
+#: rule instantiations before the wide cores joined the mask kernel
+#: template (sm_90a, CUDA 12.8), which must not change them
 CENSUS_BEFORE = {
     "md5_mask": (25, 2656), "md5_mask_multi": (28, 2408),
     "ntlm_mask": (25, 1552), "ntlm_mask_multi": (25, 1352),
     "sha1_mask": (32, 2976), "sha1_mask_multi": (31, 2712),
     "sha256_mask": (32, 3800), "sha256_mask_multi": (32, 3536),
     "md5_rules": (32, 3104), "ntlm_rules": (32, 2824),
-    "sha1_rules": (32, 3400), "sha256_rules": (40, 4232)}
+    "sha1_rules": (32, 3400), "sha256_rules": (40, 4232),
+    "md5(md5)_mask": (31, 3072), "md5(md5)_mask_multi": (30, 2840),
+    "md5(sha1)_mask": (32, 3488), "md5(sha1)_mask_multi": (31, 3224),
+    "sha1(md5)_mask": (30, 3440), "sha1(md5)_mask_multi": (32, 3184),
+    "sha1(sha1)_mask": (32, 3792), "sha1(sha1)_mask_multi": (32, 3536),
+    "sha256(md5)_mask": (32, 4232), "sha256(md5)_mask_multi": (32, 3968),
+    "sha256(sha1)_mask": (32, 4592), "sha256(sha1)_mask_multi": (32, 4328),
+    "mysql41_mask": (32, 3544), "mysql41_mask_multi": (32, 3288),
+    "md5-ps_mask": (25, 2656), "md5-sp_mask": (31, 2656),
+    "sha1-ps_mask": (32, 2976), "sha1-sp_mask": (31, 2952),
+    "sha256-ps_mask": (32, 3800), "sha256-sp_mask": (37, 3728)}
+#: slice F1: the 64-bit cores' instantiations, (kernel name, engine the
+#: checks drive it through, multi target), in the kernels line's order;
+#: sha3-N and keccak-N share keccakN's instantiation
+F1_INSTANCES = [(f"{e}_mask" + ("_multi" if m else ""), e, m)
+                for e in ("sha512", "sha384") for m in (False, True)] + \
+    [(f"keccak{b}_mask" + ("_multi" if m else ""), f"sha3-{b}", m)
+     for b in (224, 256, 384, 512) for m in (False, True)]
+#: the Keccak rates by digest bits; the longest mask of each core
+KECCAK_RATE = {224: 144, 256: 136, 384: 104, 512: 72}
 
 
 def fail(msg: str) -> None:
@@ -269,8 +311,12 @@ def instance_of(mangled: str) -> str:
     if m:
         args, multi = m.group(1), m.group(2) == "1"
         cores = [CPP_CORE[c] for c in re.findall(
-            r"\d+(Md5Core|Md4Core|Sha1Core|Sha256Core)", args)]
-        if "Mysql41" in args:
+            r"\d+(Md5Core|Md4Core|Sha1Core|Sha256Core|Sha512Core|Sha384Core)",
+            args)]
+        keccak = re.search(r"KeccakCoreILi(\d+)E", args)
+        if keccak:
+            chain = f"keccak{(200 - int(keccak.group(1))) * 4}"
+        elif "Mysql41" in args:
             chain = "mysql41"
         elif "Nested" in args:          # outer, then inner (or S<n>_: same)
             chain = f"{cores[0]}({cores[-1]})"
@@ -352,6 +398,7 @@ class Smoke:
         self.err.update({k: 0 for k in ("pmkid", "bcrypt_setup",
                                         "bcrypt_advance", "bcrypt_finish")})
         self.err.update({kname(n, m): 0 for n, m in EXT_INSTANCES})
+        self.err.update({k: 0 for k, _, _ in F1_INSTANCES})
         #: per instantiation: launches of the main path that runs it
         self.path_launches = {}
 
@@ -374,10 +421,11 @@ class Smoke:
     # -- phase 3: kernel vs plain -----------------------------------------
 
     def single_case(self, engine, gen, lut, start, n_valid, plant, cap,
-                    want_lanes, name, fns=None, salt=None):
+                    want_lanes, name, fns=None, salt=None, key=None):
         """One single-target case: kernel and plain on the same inputs
         (``fns``: the pair, the mask kernel's by default; ``salt``: the
-        target's salt, for a salted core)."""
+        target's salt, for a salted core; ``key``: the instantiation's
+        name, when it is not the engine's)."""
         torch = self.torch
         kernel, plain = fns or (self.cm.mask_kernel, self.cm.mask_plain)
         params = None if salt is None else {"salt": salt}
@@ -393,7 +441,8 @@ class Smoke:
         kl = sorted(int(x) for x in kl.cpu().tolist())
         pl = sorted(int(x) for x in pl.cpu().tolist())
         err = max([abs(kc - pc)] + [abs(a - b) for a, b in zip(kl, pl)])
-        say(f"  {kname(engine, False)} {name}: kernel count={kc} lanes="
+        key = key or kname(engine, False)
+        say(f"  {key} ({engine}) {name}: kernel count={kc} lanes="
             f"{[x for x in kl if x >= 0]} | plain count={pc} "
             f"lanes={[x for x in pl if x >= 0]}")
         check(kc == pc and kl == pl, f"{name}: kernel and plain differ")
@@ -402,14 +451,14 @@ class Smoke:
         check(kc == want_count, f"{name}: count {kc}, expected {want_count}")
         check([x for x in kl if x >= 0] == sorted(want_lanes),
               f"{name}: lanes {kl}, expected {sorted(want_lanes)}")
-        key = kname(engine, False)
         self.err[key] = max(self.err[key], err)
 
     def multi_case(self, engine, gen, lut, start, n_valid, plants, name,
-                   n_targets=N_TARGETS, fns=None):
+                   n_targets=N_TARGETS, fns=None, key=None):
         """One multi-target case over n_targets targets: the planted
         candidates' digests first, then fillers (``fns``: the kernel and
-        plain pair, the mask kernel's by default)."""
+        plain pair, the mask kernel's by default; ``key``: the
+        instantiation's name, when it is not the engine's)."""
         kernel, plain = fns or (self.cm.mask_multi_kernel,
                                 self.cm.mask_multi_plain)
         oracle = self.get_engine(engine)
@@ -432,16 +481,16 @@ class Smoke:
                   + [abs(a - b) for x, y in zip(kp, pp)
                      for a, b in zip(x, y)])
         hits = [(l, int(table.order[t])) for l, t in kp if l >= 0]
-        say(f"  {kname(engine, True)} {name}: kernel count={kc} "
+        key = key or kname(engine, True)
+        say(f"  {key} ({engine}) {name}: kernel count={kc} "
             f"(lane, target)={hits} n_maybe={km} | plain count={pc} "
             f"n_maybe={pm}")
         check((kc, kp, km) == (pc, pp, pm),
-              f"{kname(engine, True)} {name}: kernel and plain differ")
+              f"{key} {name}: kernel and plain differ")
         want = [(p - start, i) for i, p in enumerate(plants)
                 if 0 <= p - start < n_valid]
         check(hits == want, f"{name}: hits {hits}, expected {want}")
         check(km >= len(want), f"{name}: n_maybe {km} below the hits")
-        key = kname(engine, True)
         self.err[key] = max(self.err[key], err)
 
     # -- phases 4-6: the CLI ----------------------------------------------
@@ -760,8 +809,8 @@ def run(smoke, oracle4, words4) -> None:
     from dprf_tpu_torch.generators.mask import MaskGenerator
     from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
     from dprf_tpu_torch.ops import (_build, blowfish, bloom, cuda_bcrypt,
-                                    cuda_ext, cuda_mask, cuda_pbkdf2,
-                                    cuda_rules, opcount)
+                                    cuda_ext, cuda_keccak, cuda_mask,
+                                    cuda_pbkdf2, cuda_rules, opcount)
     from dprf_tpu_torch.rules import load_rules
     from dprf_tpu_torch.runtime.worker import CudaMaskWorker
     from dprf_tpu_torch.runtime.workunit import WorkUnit
@@ -781,12 +830,13 @@ def run(smoke, oracle4, words4) -> None:
 
     # 2. the kernel builds: one nvcc per source, all at once
     from concurrent.futures import ThreadPoolExecutor
-    sources = ("mask", "rules", "pbkdf2", "bcrypt", "ext")
+    sources = ("mask", "rules", "pbkdf2", "bcrypt", "ext", "keccak")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = {src: pool.submit(_build.build, src) for src in sources}
         builds = {src: f.result() for src, f in builds.items()}
-    for mod in (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt, cuda_ext):
+    for mod in (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt, cuda_ext,
+                cuda_keccak):
         mod.load_kernel()
     say(f"== build: {len(sources)} sources in "
         f"{time.perf_counter() - t0:.2f} s wall")
@@ -805,7 +855,8 @@ def run(smoke, oracle4, words4) -> None:
                     registers[kernel] = int(used.group(1))
                 frame = re.search(r"(\d+) bytes stack frame", line)
                 check(not frame or frame.group(1) == "0" or kernel not in
-                      {kname(n, m) for n, m in EXT_INSTANCES},
+                      {kname(n, m) for n, m in EXT_INSTANCES}
+                      | {k for k, _, _ in F1_INSTANCES},
                       f"{kernel}: {line.strip()} (local memory)")
         census = _build.sass_census(src)
         for func, c in sorted(census.items(),
@@ -814,7 +865,7 @@ def run(smoke, oracle4, words4) -> None:
             inst = instance_of(func)
             was = CENSUS_BEFORE.get(inst)
             same = "" if was is None else (
-                "; registers and census before the shared body: "
+                "; registers and census before the wide cores: "
                 + ("same" if was == (registers.get(inst), c["total"])
                    else f"DIFFER, it had {was}"))
             say(f"  SASS {inst}: {c['total']} static instructions, "
@@ -1469,8 +1520,9 @@ def run(smoke, oracle4, words4) -> None:
         "config5_wall_s": wall5, "config5_rate": rate5}}))
 
     ext_timing = slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
+    f1_timing = slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
 
-    # 21. the kernels line, then the device line
+    # 25. the kernels line, then the device line
     kernels = []
     for engine, multi in INSTANCES:
         key = kname(engine, multi)
@@ -1511,6 +1563,15 @@ def run(smoke, oracle4, words4) -> None:
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "operations",
             "library_ms": None})
+    for key, engine, _ in F1_INSTANCES:
+        ms, plain_ms, bound = f1_timing[key]
+        mod = cuda_keccak if key.startswith("keccak") else cuda_mask
+        kernels.append({
+            "name": key, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES, "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations",
+            "library_ms": None})
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its path")
     check(all(k["max_abs_err"] == 0 for k in kernels),
@@ -1527,6 +1588,36 @@ def unit_batches(cli, window: int) -> int:
                for u in range(0, window, unit))
 
 
+def kernel_modules() -> tuple:
+    """Every kernel wrapper module, whose launch counts a path reads."""
+    from dprf_tpu_torch.ops import (cuda_bcrypt, cuda_ext, cuda_keccak,
+                                    cuda_mask, cuda_pbkdf2, cuda_rules)
+    return (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt, cuda_ext,
+            cuda_keccak)
+
+
+def run_path(smoke, cli, engine, mask, lines, want, window, key, n_launches,
+             skip=0):
+    """crack --device cuda over a window from ``skip`` with every launch
+    count set to 0 just before it: only ``key`` may launch, ``n_launches``
+    times (the worker's batches).  Returns (summary, wall s)."""
+    argv = ["--skip", str(skip), "--limit", str(window)] if skip else []
+    summary, wall, launches = smoke.crack_lines(
+        cli, engine, [*argv, mask], lines, want, window, kernel_modules())
+    batches = int(re.search(r" batches=(\d+)", summary).group(1))
+    check(launches[key] == n_launches == batches
+          and sum(launches.values()) == n_launches,
+          f"{engine}: launches {launches}, {batches} batches, expected "
+          f"{n_launches} of {key}")
+    smoke.path_launches.setdefault(key, launches[key])
+    return summary, wall
+
+
+def loop_rate(summary: str) -> int:
+    return int(re.search(r" rate=([\d,]+)/s", summary).group(1)
+               .replace(",", ""))
+
+
 def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
     """Phases 16-20: the nested chains and salted cores of csrc/ext.cu.
     Returns their timing rows (ms, plain ms, bound ms) by instantiation;
@@ -1534,34 +1625,16 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
     import numpy as np
     import torch
 
-    from dprf_tpu_torch.ops import (bloom, cuda_bcrypt, cuda_ext, cuda_mask,
-                                    cuda_pbkdf2, cuda_rules, opcount)
+    from dprf_tpu_torch.ops import bloom, cuda_ext, opcount
     from dprf_tpu_torch.runtime.potfile import encode_plain
 
     rng = smoke.rng
-    modules = (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt, cuda_ext)
 
     def alnum(n: int) -> bytes:
         return bytes(rng.choice(np.frombuffer(ALNUM, np.uint8), n))
 
-    def path(engine, mask, lines, want, window, key, n_launches, skip=0):
-        """crack --device cuda over a window from ``skip`` with every
-        launch count set to 0 just before it: only ``key`` may launch,
-        ``n_launches`` times (the worker's batches)."""
-        argv = ["--skip", str(skip), "--limit", str(window)] if skip else []
-        summary, wall, launches = smoke.crack_lines(
-            cli, engine, [*argv, mask], lines, want, window, modules)
-        batches = int(re.search(r" batches=(\d+)", summary).group(1))
-        check(launches[key] == n_launches == batches
-              and sum(launches.values()) == n_launches,
-              f"{engine}: launches {launches}, {batches} batches, expected "
-              f"{n_launches} of {key}")
-        smoke.path_launches.setdefault(key, launches[key])
-        return summary, wall
-
-    def loop_rate(summary: str) -> int:
-        return int(re.search(r" rate=([\d,]+)/s", summary).group(1)
-                   .replace(",", ""))
+    def path(*args, **kwargs):
+        return run_path(smoke, cli, *args, **kwargs)
 
     # 16. the ext kernel vs its plain version
     say(f"== 16. ext kernel (csrc/ext.cu) vs plain at batch {BATCH} (exact "
@@ -1766,6 +1839,184 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
             f"(per candidate {work.alu:.1f} ALU, {work.add:.1f} IADD3, "
             f"{work.fma:.1f} IMAD = {work.slots:.1f} slots; kernel at "
             f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
+    return timing
+
+
+
+def f1_key(engine: str, multi: bool) -> str:
+    """The instantiation an engine of slice F1 runs: sha3-N and keccak-N
+    share keccakN's."""
+    from dprf_tpu_torch.ops import cuda_keccak
+    if engine in cuda_keccak.NAMES:
+        return kname(f"keccak{cuda_keccak.bits_of(engine)}", multi)
+    return kname(engine, multi)
+
+
+def slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
+    """Phases 22-24: sha512 and sha384 in csrc/mask.cu and the Keccak
+    kernel of csrc/keccak.cu.  Returns their timing rows (ms, plain ms,
+    bound ms) by instantiation; their main paths' launches go to
+    smoke.path_launches."""
+    import numpy as np
+
+    from dprf_tpu_torch.generators.mask import MaskGenerator
+    from dprf_tpu_torch.ops import bloom, cuda_keccak, cuda_mask, opcount
+    from dprf_tpu_torch.runtime.potfile import encode_plain
+
+    rng = smoke.rng
+
+    def fns(key: str, multi: bool) -> tuple:
+        if key.startswith("keccak"):
+            return (cuda_keccak.keccak_mask_multi_kernel,
+                    cuda_keccak.keccak_mask_multi_plain) if multi else \
+                (cuda_keccak.keccak_mask_kernel, cuda_keccak.keccak_mask_plain)
+        return (cuda_mask.mask_multi_kernel, cuda_mask.mask_multi_plain) \
+            if multi else (cuda_mask.mask_kernel, cuda_mask.mask_plain)
+
+    def longest(engine: str) -> int:
+        return smoke.get_engine(engine, "cuda").max_candidate_len
+
+    def occupancy(key: str, multi: bool, length: int, n_sets: int) -> int:
+        smem = cuda_mask.shared_bytes(length, n_sets)
+        if key.startswith("keccak"):
+            return cuda_keccak.blocks_per_sm(int(key[6:9]), multi, smem)
+        return cuda_mask.blocks_per_sm(key.split("_")[0], multi, smem)
+
+    # 22. the kernels vs their plain versions
+    say(f"== 22. sha512/384 (csrc/mask.cu) and Keccak (csrc/keccak.cu) vs "
+        f"plain at batch {BATCH} (exact equality)")
+    base = int(rng.integers(0, g7.keyspace // BATCH - 2)) * BATCH
+    nv = BATCH - 1000
+    last = g6.keyspace // BATCH * BATCH
+    for key, engine, multi in F1_INSTANCES:
+        # keccak-N for half the cases: the other pad byte, the same
+        # instantiation (sha512 and sha384 have one name)
+        other = engine.replace("sha3-", "keccak-")
+        pair = fns(key, multi)
+        if not multi:
+            say(f"  {key}: {occupancy(key, False, 7, 0)} resident blocks of "
+                f"{cuda_mask.THREADS} per SM at 7 positions")
+            smoke.single_case(engine, g7, lut7, base, BATCH, base, 64, [0],
+                              "?a^7 hit at lane 0", pair, key=key)
+            smoke.single_case(other, g6, lut6, last, g6.keyspace - last,
+                              g6.keyspace - 1, 64, [g6.keyspace - last - 1],
+                              "?l^6 hit at the last valid lane", pair,
+                              key=key)
+            smoke.single_case(engine, g7, lut7, base + BATCH, BATCH, None, 64,
+                              [], "?a^7 no hit", pair, key=key)
+            s = 11 * BATCH
+            smoke.single_case(other, g6, lut6, s, BATCH, s + 12345, 0, [],
+                              "?l^6 hit_capacity=0", pair, key=key)
+            gl = MaskGenerator("?a" * 7 + "?d" * (longest(engine) - 7))
+            s = int(rng.integers(0, 1 << 62)) * BATCH
+            smoke.single_case(engine, gl, gl.charset_lut("cuda"), s,
+                              BATCH - 7, s + BATCH - 8, 64, [BATCH - 8],
+                              f"{gl.length} positions, hit at the last "
+                              "valid lane", pair, key=key)
+            continue
+        smoke.multi_case(other, g7, lut7, base, nv,
+                         [base, base + 64, base + 65, base + nv - 1,
+                          base + nv], "?a^7 hits at lanes 0, 64, 65, "
+                         f"n_valid-1 and n_valid={nv}", fns=pair, key=key)
+        smoke.multi_case(engine, g7, lut7, base + BATCH, BATCH, [base],
+                         "?a^7 no hit", fns=pair, key=key)
+        gl = MaskGenerator("?a" * 7 + "?d" * (longest(engine) - 7))
+        n_sets = bloom.n_sets(bloom.MAX_TARGETS)
+        smem = cuda_mask.shared_bytes(gl.length, n_sets)
+        s = int(rng.integers(0, 1 << 62)) * BATCH
+        nvl = BATCH - 7
+        smoke.multi_case(engine, gl, gl.charset_lut("cuda"), s, nvl,
+                         [s, s + 1, s + nvl - 1],
+                         f"{gl.length} positions at {bloom.MAX_TARGETS} "
+                         f"targets ({smem} B shared, "
+                         f"{occupancy(key, True, gl.length, n_sets)} resident "
+                         f"blocks per SM), hits at lanes 0, 1 and "
+                         f"n_valid-1={nvl - 1}", n_targets=bloom.MAX_TARGETS,
+                         fns=pair, key=key)
+
+    # 23. the slice end to end through the CLI
+    say(f"== 23. crack --device cuda: sha512, sha384, sha3-256, keccak-256 "
+        f"over {MASK_CONFIG1} (one target) and a {CONFIG2_WINDOW} window of "
+        f"{MASK_CONFIG2} ({N_TARGETS} targets); the other Keccak names over "
+        f"{OTHER_WINDOW}; card: {card}")
+    e2e = {}
+    for engine in ("sha512", "sha384", "sha3-256", "keccak-256"):
+        plain = g6.candidate(g6.keyspace - 1)
+        line = smoke.get_engine(engine).hash_batch([plain])[0].hex()
+        summary, wall = run_path(
+            smoke, cli, engine, MASK_CONFIG1, [line],
+            [f"{line}:{plain.decode()}"], g6.keyspace, f1_key(engine, False),
+            unit_batches(cli, g6.keyspace))
+        e2e[f"{engine} ?l^6"] = {"wall_s": wall, "rate": loop_rate(summary)}
+        skip = int(rng.integers(0, g7.keyspace - CONFIG2_WINDOW))
+        within = sorted({int(x) for x in rng.integers(1, CONFIG2_WINDOW - 1,
+                                                      5)})
+        b = within[0] // BATCH * BATCH
+        idx = sorted({0, CONFIG2_WINDOW - 1, b + 100, b + 101, *within[1:]})
+        check(len(idx) == 8, f"planted indices collide: {idx}")
+        planted = [g7.candidate(skip + i) for i in idx]
+        hits = smoke.get_engine(engine).hash_batch(planted)
+        digests = hits + smoke.fillers(engine, N_TARGETS - 8)
+        digests = [digests[i] for i in rng.permutation(N_TARGETS)]
+        summary, wall = run_path(
+            smoke, cli, engine, MASK_CONFIG2, [d.hex() for d in digests],
+            [f"{d.hex()}:{encode_plain(p)}" for d, p in zip(hits, planted)],
+            CONFIG2_WINDOW, f1_key(engine, True),
+            unit_batches(cli, CONFIG2_WINDOW), skip)
+        maybes = int(re.search(r"maybes=(\d+)", summary).group(1))
+        e2e[f"{engine} ?a^7 x {N_TARGETS}"] = {
+            "wall_s": wall, "rate": loop_rate(summary), "maybes": maybes}
+        say(f"  {engine} at {N_TARGETS} targets over {CONFIG2_WINDOW}: "
+            f"{wall:.3f} s wall, loop {loop_rate(summary):,} candidates/s, "
+            f"maybes {maybes}, planted at window offsets {idx}")
+    for engine in ("sha3-224", "sha3-384", "sha3-512", "keccak-224",
+                   "keccak-384", "keccak-512"):
+        multi = engine.startswith("keccak")
+        skip = int(rng.integers(0, g7.keyspace - OTHER_WINDOW))
+        plain = g7.candidate(skip + int(rng.integers(0, OTHER_WINDOW)))
+        digests = smoke.get_engine(engine).hash_batch([plain])
+        if multi:
+            digests += smoke.fillers(engine, N_TARGETS - 1)
+        summary, wall = run_path(
+            smoke, cli, engine, MASK_CONFIG2, [d.hex() for d in digests],
+            [f"{digests[0].hex()}:{encode_plain(plain)}"], OTHER_WINDOW,
+            f1_key(engine, multi), unit_batches(cli, OTHER_WINDOW), skip)
+        e2e[f"{engine} 2^28"] = {"wall_s": wall, "rate": loop_rate(summary)}
+
+    # 24. timing at batch 2^24
+    say(f"== 24. slice F1 timing at batch 2^24 (CUDA events, "
+        f"{TIMED_LAUNCHES} launches); card: {card}")
+    timing = {}
+    for key, engine, multi in F1_INSTANCES:
+        fn, plain_fn = fns(key, multi)
+        start = int(rng.integers(0, g7.keyspace // BATCH)) * BATCH
+        head = (engine, lut7, g7.radices, g7.digits(start), BATCH)
+        if multi:
+            _, rows, words = smoke.tables(engine,
+                                          smoke.fillers(engine, N_TARGETS))
+            args = (*head, rows, words, 64, BATCH)
+            n_maybe = int(fn(*args)[3].item())
+            probes = bloom.expected_probes(rows.cpu().numpy()
+                                           .view(np.uint32))
+            work = opcount.ops_per_candidate(engine, g7.length, True, probes,
+                                             n_maybe / BATCH, N_TARGETS)
+            what = f"{g7.mask}, {N_TARGETS} targets"
+        else:
+            miss = digest_words(engine, smoke.get_engine(engine).hash_batch(
+                [b"\0" * 9])[0])
+            args = (*head, miss, 64, BATCH)
+            work = opcount.ops_per_candidate(engine, g7.length)
+            what = g7.mask
+        ms = smoke.time_launches(fn, args)
+        plain_ms = smoke.time_once(plain_fn, args, warm=False)
+        bound = BATCH * work.slots / rate_ops * 1e3
+        timing[key] = (ms, plain_ms, bound)
+        say(f"  {key} ({engine}) {what}: {ms:.4f} ms/launch = "
+            f"{BATCH / ms / 1e6:.3f} G candidates/s; bound {bound:.4f} ms "
+            f"(per candidate {work.alu:.1f} ALU, {work.add:.1f} IADD3, "
+            f"{work.fma:.1f} IMAD = {work.slots:.1f} slots; kernel at "
+            f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
+    say(json.dumps({"slice_f1": e2e}))
     return timing
 
 

@@ -1,7 +1,8 @@
 // cores.cuh -- the hash cores the port's kernels share (csrc/mask.cu,
 // csrc/rules.cu, csrc/pbkdf2.cu): md5, md4 (ntlm, over UTF-16LE), sha1
 // and sha256, one 64-byte block each, fully unrolled, with everything
-// in registers; and sha1_compress, SHA-1 from any chaining state (HMAC).
+// in registers; sha1_compress, SHA-1 from any chaining state (HMAC);
+// and sha512 / sha384 over one 128-byte block of 64-bit words.
 //
 // Each core is a struct: kWords digest words; kMaxLen, the longest
 // candidate one block holds; word(q) / shift(q), where candidate byte q
@@ -9,7 +10,8 @@
 // fold away); kLenWord and kBitsPerChar, where the message's bit length
 // goes and how many bits a candidate byte adds to it; digest(m, out),
 // the rounds and the feed-forward over the 16 message words (the SHA
-// cores overwrite m as their schedule).
+// cores overwrite m as their schedule).  A core whose message is not
+// the 16 words of a 64-byte block says so in kBlockWords.
 
 #pragma once
 
@@ -287,5 +289,144 @@ struct Sha256Core {
         out[5] = f + H[5];
         out[6] = g + H[6];
         out[7] = h + H[7];
+    }
+};
+
+// ---- 64-bit words: SHA-512 and SHA-384 -----------------------------------
+//
+// Hopper adds 64-bit words in two instructions (IADD3, then IADD3.X on
+// the carry) and funnel-shifts a register pair, so a 64-bit word is a
+// native uint64_t (two registers): a rotate is one SHF per half, a
+// 3-input logic function one LOP3 per half.  The TPU's (hi, lo) uint32
+// emulation of the reference is not needed.
+
+// Rotate right by a compile-time n in 1..63: one funnel shift per half.
+__device__ __forceinline__ uint64_t rotr64(uint64_t x, int n)
+{
+    const uint32_t lo = (uint32_t)x, hi = (uint32_t)(x >> 32);
+    const uint32_t a = n < 32 ? lo : hi, b = n < 32 ? hi : lo;
+    const int s = n & 31;
+    return ((uint64_t)__funnelshift_r(b, a, s) << 32)
+           | __funnelshift_r(a, b, s);
+}
+
+__device__ __forceinline__ uint64_t rotl64(uint64_t x, int n)
+{
+    return rotr64(x, 64 - n);
+}
+
+// the fractional cube roots of the first 80 primes, FIPS 180-4;
+// ops/sha512.K computes the same table and a test holds them equal.
+__constant__ uint64_t K_SHA512[80] = {
+    0x428a2f98d728ae22ull, 0x7137449123ef65cdull, 0xb5c0fbcfec4d3b2full,
+    0xe9b5dba58189dbbcull, 0x3956c25bf348b538ull, 0x59f111f1b605d019ull,
+    0x923f82a4af194f9bull, 0xab1c5ed5da6d8118ull, 0xd807aa98a3030242ull,
+    0x12835b0145706fbeull, 0x243185be4ee4b28cull, 0x550c7dc3d5ffb4e2ull,
+    0x72be5d74f27b896full, 0x80deb1fe3b1696b1ull, 0x9bdc06a725c71235ull,
+    0xc19bf174cf692694ull, 0xe49b69c19ef14ad2ull, 0xefbe4786384f25e3ull,
+    0x0fc19dc68b8cd5b5ull, 0x240ca1cc77ac9c65ull, 0x2de92c6f592b0275ull,
+    0x4a7484aa6ea6e483ull, 0x5cb0a9dcbd41fbd4ull, 0x76f988da831153b5ull,
+    0x983e5152ee66dfabull, 0xa831c66d2db43210ull, 0xb00327c898fb213full,
+    0xbf597fc7beef0ee4ull, 0xc6e00bf33da88fc2ull, 0xd5a79147930aa725ull,
+    0x06ca6351e003826full, 0x142929670a0e6e70ull, 0x27b70a8546d22ffcull,
+    0x2e1b21385c26c926ull, 0x4d2c6dfc5ac42aedull, 0x53380d139d95b3dfull,
+    0x650a73548baf63deull, 0x766a0abb3c77b2a8ull, 0x81c2c92e47edaee6ull,
+    0x92722c851482353bull, 0xa2bfe8a14cf10364ull, 0xa81a664bbc423001ull,
+    0xc24b8b70d0f89791ull, 0xc76c51a30654be30ull, 0xd192e819d6ef5218ull,
+    0xd69906245565a910ull, 0xf40e35855771202aull, 0x106aa07032bbd1b8ull,
+    0x19a4c116b8d2d0c8ull, 0x1e376c085141ab53ull, 0x2748774cdf8eeb99ull,
+    0x34b0bcb5e19b48a8ull, 0x391c0cb3c5c95a63ull, 0x4ed8aa4ae3418acbull,
+    0x5b9cca4f7763e373ull, 0x682e6ff3d6b2b8a3ull, 0x748f82ee5defb2fcull,
+    0x78a5636f43172f60ull, 0x84c87814a1f0ab72ull, 0x8cc702081a6439ecull,
+    0x90befffa23631e28ull, 0xa4506cebde82bde9ull, 0xbef9a3f7b2c67915ull,
+    0xc67178f2e372532bull, 0xca273eceea26619cull, 0xd186b8c721c0c207ull,
+    0xeada7dd6cde0eb1eull, 0xf57d4f7fee6ed178ull, 0x06f067aa72176fbaull,
+    0x0a637dc5a2c898a6ull, 0x113f9804bef90daeull, 0x1b710b35131c471bull,
+    0x28db77f523047d84ull, 0x32caab7b40c72493ull, 0x3c9ebe0a15c9bebcull,
+    0x431d67c49c100d4cull, 0x4cc5d4becb3e42b6ull, 0x597f299cfc657e2aull,
+    0x5fcb6fab3ad6faecull, 0x6c44198c4a475817ull,
+};
+
+// One SHA-512 compression from the initial state H over the 32 message
+// words m (big-endian halves: 64-bit word i is m[2i] << 32 | m[2i+1]),
+// with a rolling 16-word schedule; out gets the first kOutWords 32-bit
+// words of the digest, each 64-bit word high half first.
+template <int kOutWords>
+__device__ __forceinline__ void sha512_block(const uint64_t* H,
+                                             const uint32_t* m,
+                                             uint32_t* out)
+{
+    uint64_t w[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+        w[i] = ((uint64_t)m[2 * i] << 32) | m[2 * i + 1];
+    uint64_t a = H[0], b = H[1], c = H[2], d = H[3], e = H[4], f = H[5],
+             g = H[6], h = H[7];
+#pragma unroll
+    for (int t = 0; t < 80; ++t) {
+        if (t >= 16) {
+            const uint64_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
+            const uint64_t s0 = rotr64(w15, 1) ^ rotr64(w15, 8) ^ (w15 >> 7);
+            const uint64_t s1 = rotr64(w2, 19) ^ rotr64(w2, 61) ^ (w2 >> 6);
+            w[t & 15] += s0 + w[(t - 7) & 15] + s1;
+        }
+        const uint64_t t1 = h + (rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41))
+                            + (g ^ (e & (f ^ g))) + K_SHA512[t] + w[t & 15];
+        const uint64_t t2 = (rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39))
+                            + ((a & b) | (c & (a | b)));
+        h = g;
+        g = f;
+        f = e;
+        e = d + t1;
+        d = c;
+        c = b;
+        b = a;
+        a = t1 + t2;
+    }
+    const uint64_t v[8] = {a + H[0], b + H[1], c + H[2], d + H[3],
+                           e + H[4], f + H[5], g + H[6], h + H[7]};
+#pragma unroll
+    for (int i = 0; i < kOutWords; ++i)
+        out[i] = (i & 1) ? (uint32_t)v[i >> 1] : (uint32_t)(v[i >> 1] >> 32);
+}
+
+// SHA-512: one 128-byte block, candidates of up to 111 bytes.
+struct Sha512Core {
+    static constexpr int kWords = 16;
+    static constexpr int kMaxLen = 111;
+    static constexpr int kBlockWords = 32;
+    static constexpr int kLenWord = 31;
+    static constexpr int kBitsPerChar = 8;
+    __host__ __device__ static constexpr int word(int q) { return q >> 2; }
+    __host__ __device__ static constexpr int shift(int q)
+    {
+        return 8 * (3 - (q & 3));
+    }
+
+    __device__ __forceinline__ static void digest(uint32_t* m,
+                                                  uint32_t* out)
+    {
+        const uint64_t H[8] = {
+            0x6a09e667f3bcc908ull, 0xbb67ae8584caa73bull,
+            0x3c6ef372fe94f82bull, 0xa54ff53a5f1d36f1ull,
+            0x510e527fade682d1ull, 0x9b05688c2b3e6c1full,
+            0x1f83d9abfb41bd6bull, 0x5be0cd19137e2179ull};
+        sha512_block<kWords>(H, m, out);
+    }
+};
+
+// SHA-384: SHA-512 with its own initial state, the first 12 words kept.
+struct Sha384Core : Sha512Core {
+    static constexpr int kWords = 12;
+
+    __device__ __forceinline__ static void digest(uint32_t* m,
+                                                  uint32_t* out)
+    {
+        const uint64_t H[8] = {
+            0xcbbb9d5dc1059ed8ull, 0x629a292a367cd507ull,
+            0x9159015a3070dd17ull, 0x152fecd8f70e5939ull,
+            0x67332667ffc00b31ull, 0x8eb44a8768581511ull,
+            0xdb0c2e0d64f98fa7ull, 0x47b5481dbefa4fa4ull};
+        sha512_block<kWords>(H, m, out);
     }
 };

@@ -15,9 +15,12 @@
 // DPRF_DECODE expects in scope: `args` with int32 radix[] and base[]
 // (the base digits of the launch's first candidate), `s_lut`
 // (uint8[L][256] in shared memory), `carry` (uint32, the lane's offset
-// on entry) and `m` (uint32[16], the message words to OR the bytes
-// into).  kMax, the most positions the kernel takes (<= 63), is a
-// compile-time constant: the runs past it compile away.
+// on entry) and `m` (uint32[], the message words to OR the bytes into).
+// kMax, the most positions the kernel takes (<= 143), is a compile-time
+// constant: the runs past it compile away, and past 63 each position
+// is guarded by it, so a core's message array is never indexed past its
+// own block.  A kernel of at most 63 positions compiles as it did
+// before the wide run existed.
 
 #pragma once
 
@@ -34,11 +37,60 @@
                              << Place::shift(q);                          \
     }
 
+// DPRF_POS for a position that exists only below kMax.
+#define DPRF_POS_UPTO(Place, q, kMax)                                     \
+    if constexpr ((q) < (kMax)) DPRF_POS(Place, q)
+
 // Positions L - 1 .. 0, last first.
 #define DPRF_DECODE(Place, kMax, L)                                       \
     do {                                                                  \
-        if constexpr ((kMax) > 55) {                                      \
+        if constexpr ((kMax) > 63) {                                      \
             switch (L) {                                                  \
+        case 143: DPRF_POS_UPTO(Place, 142, kMax)  case 142: DPRF_POS_UPTO(Place, 141, kMax) \
+        case 141: DPRF_POS_UPTO(Place, 140, kMax)  case 140: DPRF_POS_UPTO(Place, 139, kMax) \
+        case 139: DPRF_POS_UPTO(Place, 138, kMax)  case 138: DPRF_POS_UPTO(Place, 137, kMax) \
+        case 137: DPRF_POS_UPTO(Place, 136, kMax)  case 136: DPRF_POS_UPTO(Place, 135, kMax) \
+        case 135: DPRF_POS_UPTO(Place, 134, kMax)  case 134: DPRF_POS_UPTO(Place, 133, kMax) \
+        case 133: DPRF_POS_UPTO(Place, 132, kMax)  case 132: DPRF_POS_UPTO(Place, 131, kMax) \
+        case 131: DPRF_POS_UPTO(Place, 130, kMax)  case 130: DPRF_POS_UPTO(Place, 129, kMax) \
+        case 129: DPRF_POS_UPTO(Place, 128, kMax)  case 128: DPRF_POS_UPTO(Place, 127, kMax) \
+        case 127: DPRF_POS_UPTO(Place, 126, kMax)  case 126: DPRF_POS_UPTO(Place, 125, kMax) \
+        case 125: DPRF_POS_UPTO(Place, 124, kMax)  case 124: DPRF_POS_UPTO(Place, 123, kMax) \
+        case 123: DPRF_POS_UPTO(Place, 122, kMax)  case 122: DPRF_POS_UPTO(Place, 121, kMax) \
+        case 121: DPRF_POS_UPTO(Place, 120, kMax)  case 120: DPRF_POS_UPTO(Place, 119, kMax) \
+        case 119: DPRF_POS_UPTO(Place, 118, kMax)  case 118: DPRF_POS_UPTO(Place, 117, kMax) \
+        case 117: DPRF_POS_UPTO(Place, 116, kMax)  case 116: DPRF_POS_UPTO(Place, 115, kMax) \
+        case 115: DPRF_POS_UPTO(Place, 114, kMax)  case 114: DPRF_POS_UPTO(Place, 113, kMax) \
+        case 113: DPRF_POS_UPTO(Place, 112, kMax)  case 112: DPRF_POS_UPTO(Place, 111, kMax) \
+        case 111: DPRF_POS_UPTO(Place, 110, kMax)  case 110: DPRF_POS_UPTO(Place, 109, kMax) \
+        case 109: DPRF_POS_UPTO(Place, 108, kMax)  case 108: DPRF_POS_UPTO(Place, 107, kMax) \
+        case 107: DPRF_POS_UPTO(Place, 106, kMax)  case 106: DPRF_POS_UPTO(Place, 105, kMax) \
+        case 105: DPRF_POS_UPTO(Place, 104, kMax)  case 104: DPRF_POS_UPTO(Place, 103, kMax) \
+        case 103: DPRF_POS_UPTO(Place, 102, kMax)  case 102: DPRF_POS_UPTO(Place, 101, kMax) \
+        case 101: DPRF_POS_UPTO(Place, 100, kMax)  case 100: DPRF_POS_UPTO(Place, 99, kMax) \
+        case 99: DPRF_POS_UPTO(Place, 98, kMax)  case 98: DPRF_POS_UPTO(Place, 97, kMax) \
+        case 97: DPRF_POS_UPTO(Place, 96, kMax)  case 96: DPRF_POS_UPTO(Place, 95, kMax) \
+        case 95: DPRF_POS_UPTO(Place, 94, kMax)  case 94: DPRF_POS_UPTO(Place, 93, kMax) \
+        case 93: DPRF_POS_UPTO(Place, 92, kMax)  case 92: DPRF_POS_UPTO(Place, 91, kMax) \
+        case 91: DPRF_POS_UPTO(Place, 90, kMax)  case 90: DPRF_POS_UPTO(Place, 89, kMax) \
+        case 89: DPRF_POS_UPTO(Place, 88, kMax)  case 88: DPRF_POS_UPTO(Place, 87, kMax) \
+        case 87: DPRF_POS_UPTO(Place, 86, kMax)  case 86: DPRF_POS_UPTO(Place, 85, kMax) \
+        case 85: DPRF_POS_UPTO(Place, 84, kMax)  case 84: DPRF_POS_UPTO(Place, 83, kMax) \
+        case 83: DPRF_POS_UPTO(Place, 82, kMax)  case 82: DPRF_POS_UPTO(Place, 81, kMax) \
+        case 81: DPRF_POS_UPTO(Place, 80, kMax)  case 80: DPRF_POS_UPTO(Place, 79, kMax) \
+        case 79: DPRF_POS_UPTO(Place, 78, kMax)  case 78: DPRF_POS_UPTO(Place, 77, kMax) \
+        case 77: DPRF_POS_UPTO(Place, 76, kMax)  case 76: DPRF_POS_UPTO(Place, 75, kMax) \
+        case 75: DPRF_POS_UPTO(Place, 74, kMax)  case 74: DPRF_POS_UPTO(Place, 73, kMax) \
+        case 73: DPRF_POS_UPTO(Place, 72, kMax)  case 72: DPRF_POS_UPTO(Place, 71, kMax) \
+        case 71: DPRF_POS_UPTO(Place, 70, kMax)  case 70: DPRF_POS_UPTO(Place, 69, kMax) \
+        case 69: DPRF_POS_UPTO(Place, 68, kMax)  case 68: DPRF_POS_UPTO(Place, 67, kMax) \
+        case 67: DPRF_POS_UPTO(Place, 66, kMax)  case 66: DPRF_POS_UPTO(Place, 65, kMax) \
+        case 65: DPRF_POS_UPTO(Place, 64, kMax)  case 64: DPRF_POS_UPTO(Place, 63, kMax) \
+            default: break;                                               \
+            }                                                             \
+        }                                                                 \
+        if constexpr ((kMax) > 55) {                                      \
+            switch ((kMax) > 63 && (L) > 63 ? 63 : (L)) {                 \
         case 63: DPRF_POS(Place, 62)  case 62: DPRF_POS(Place, 61)  case 61: DPRF_POS(Place, 60) \
         case 60: DPRF_POS(Place, 59)  case 59: DPRF_POS(Place, 58)  case 58: DPRF_POS(Place, 57) \
         case 57: DPRF_POS(Place, 56)  case 56: DPRF_POS(Place, 55) \

@@ -42,6 +42,18 @@
 // kShifted: its candidate is decoded into a zeroed block at [0, L), and
 // Core::shift_in moves it by the launch's byte shift and ORs in the
 // fixed words.
+//
+// The widths are properties of the core: kMaxLen positions, kWords
+// digest words and kBlockWords message words (16, a 64-byte block,
+// unless the core says otherwise).  A core of more than 16 message
+// words (SHA-512's 128-byte block, a Keccak rate block of up to 144
+// bytes) takes the wide parameter layout, WideMaskArgs: up to 143
+// positions, 36 message words and 16 target words.  Its charset table
+// (143 * 256 bytes) and the Bloom rows of 8,192 targets (32 KB) pass
+// the 48 KB of dynamic shared memory a launch gets without asking, so
+// a wide instantiation raises its limit (the function attribute) before
+// every launch and occupancy query.  The narrow cores keep MaskArgs and
+// compile as they did before the wide layout existed.
 
 #pragma once
 
@@ -53,9 +65,10 @@
 #include "decode.cuh"
 
 #define DPRF_MAX_LEN 55
+#define DPRF_WIDE_MAX_LEN 143
 #define DPRF_K_PROBES 8
 
-// Kernel parameters of one job (mirrored by ops/cuda_mask._MaskArgs).
+// Kernel parameters of one job (mirrored by ops/cuda_mask.MaskArgs).
 struct MaskArgs {
     int32_t length;
     int32_t radix[DPRF_MAX_LEN];
@@ -66,6 +79,16 @@ struct MaskArgs {
     // the single target's digest words (unused by the multi compare)
     uint32_t target[8];
     // the candidate's first byte in the message (a kShifted core's)
+    int32_t shift;
+};
+
+// The same for a wide core (mirrored by ops/cuda_mask.WideMaskArgs).
+struct WideMaskArgs {
+    int32_t length;
+    int32_t radix[DPRF_WIDE_MAX_LEN];
+    int32_t base[DPRF_WIDE_MAX_LEN];
+    uint32_t block[36];
+    uint32_t target[16];
     int32_t shift;
 };
 
@@ -83,6 +106,28 @@ struct ShiftsMessage : std::false_type {};
 template <class C>
 struct ShiftsMessage<C, std::void_t<decltype(C::kShifted)>>
     : std::bool_constant<C::kShifted> {};
+
+// A core's message words: kBlockWords, or the 64-byte block's 16.
+template <class C, class = void>
+struct BlockWords : std::integral_constant<int, 16> {};
+template <class C>
+struct BlockWords<C, std::void_t<decltype(C::kBlockWords)>>
+    : std::integral_constant<int, C::kBlockWords> {};
+
+template <class C>
+constexpr bool kWideCore = BlockWords<C>::value > 16;
+
+// The resident blocks per SM a core asks ptxas to fit (the second
+// argument of __launch_bounds__): kMinBlocks, or 0, no request.
+template <class C, class = void>
+struct MinBlocks : std::integral_constant<int, 0> {};
+template <class C>
+struct MinBlocks<C, std::void_t<decltype(C::kMinBlocks)>>
+    : std::integral_constant<int, C::kMinBlocks> {};
+
+// A core's kernel parameter layout.
+template <class C>
+using ArgsOf = std::conditional_t<kWideCore<C>, WideMaskArgs, MaskArgs>;
 
 // ---- the multi-target compare ----------------------------------------
 
@@ -139,14 +184,15 @@ __device__ __forceinline__ int find_target(const uint32_t* dg,
 // ---- the kernel --------------------------------------------------------
 
 template <class Core, bool kMulti>
-__global__ void __launch_bounds__(256)
-mask_kernel(const uint8_t* __restrict__ lut, const MaskArgs args,
+__global__ void __launch_bounds__(256, MinBlocks<Core>::value)
+mask_kernel(const uint8_t* __restrict__ lut, const ArgsOf<Core> args,
             const MultiArgs multi, uint32_t n_valid,
             int32_t* __restrict__ count, int32_t* __restrict__ lanes,
             int32_t* __restrict__ tpos, int32_t* __restrict__ n_maybe,
             int32_t cap)
 {
     constexpr bool kShifted = ShiftsMessage<Core>::value;
+    constexpr int kBlock = BlockWords<Core>::value;
     // per-position 256-byte charset tables, uint8[length][256], then
     // (multi) the Bloom rows; length * 256 keeps the rows word-aligned
     extern __shared__ __align__(16) uint8_t smem[];
@@ -165,9 +211,9 @@ mask_kernel(const uint8_t* __restrict__ lut, const MaskArgs args,
     const uint32_t stride = gridDim.x * blockDim.x;
     for (uint32_t gidx = blockIdx.x * blockDim.x + threadIdx.x;
          gidx < n_valid; gidx += stride) {
-        uint32_t m[16];
+        uint32_t m[kBlock];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) m[i] = kShifted ? 0u : args.block[i];
+        for (int i = 0; i < kBlock; ++i) m[i] = kShifted ? 0u : args.block[i];
 
         // decode, last (least significant) position first (decode.cuh)
         uint32_t carry = gidx;
@@ -203,40 +249,57 @@ mask_kernel(const uint8_t* __restrict__ lut, const MaskArgs args,
 
 // ---- launching one instantiation ----------------------------------------
 
+// Dynamic shared memory of one block: the charset table, then the Bloom
+// rows.
+static size_t shared_bytes(int length, const MultiArgs* multi,
+                           bool multi_mode)
+{
+    return (size_t)length * 256
+           + (multi_mode ? (size_t)multi->n_sets * DPRF_K_PROBES * 128 * 4
+                         : 0);
+}
+
+// A wide instantiation's dynamic shared memory limit, raised to smem
+// (past the 48 KB default a launch needs it).
 template <class Core, bool kMulti>
-static int launch(const uint8_t* lut, const MaskArgs* args,
+static cudaError_t allow_shared(size_t smem)
+{
+    if constexpr (kWideCore<Core>)
+        return cudaFuncSetAttribute(
+            mask_kernel<Core, kMulti>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    return cudaSuccess;
+}
+
+// args points to the core's layout, ArgsOf<Core>.
+template <class Core, bool kMulti>
+static int launch(const uint8_t* lut, const void* args,
                   const MultiArgs* multi, uint32_t n_valid, int32_t* count,
                   int32_t* lanes, int32_t* tpos, int32_t* n_maybe,
-                  int32_t cap, int grid, int threads, size_t smem,
-                  cudaStream_t stream)
+                  int32_t cap, int grid, int threads, cudaStream_t stream)
 {
+    const ArgsOf<Core>& a = *static_cast<const ArgsOf<Core>*>(args);
+    const size_t smem = shared_bytes(a.length, multi, kMulti);
+    const cudaError_t err = allow_shared<Core, kMulti>(smem);
+    if (err != cudaSuccess) return (int)err;
     mask_kernel<Core, kMulti><<<grid, threads, smem, stream>>>(
-        lut, *args, *multi, n_valid, count, lanes, tpos, n_maybe, cap);
+        lut, a, *multi, n_valid, count, lanes, tpos, n_maybe, cap);
     return (int)cudaGetLastError();
 }
 
 template <class Core, bool kMulti>
 static int occupancy(int threads, size_t smem, int* blocks)
 {
+    const cudaError_t err = allow_shared<Core, kMulti>(smem);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, mask_kernel<Core, kMulti>, threads, smem);
-}
-
-// Dynamic shared memory of one block: the charset table, then the Bloom
-// rows.
-static size_t shared_bytes(const MaskArgs* args, const MultiArgs* multi,
-                           int multi_mode)
-{
-    return (size_t)args->length * 256
-           + (multi_mode ? (size_t)multi->n_sets * DPRF_K_PROBES * 128 * 4
-                         : 0);
 }
 
 // CALL(Core, multi) bodies for the sources' C entries: a launch on the
 // entry's stream, and the occupancy query.
 #define DPRF_LAUNCH_ONE(C, M)                                             \
     launch<C, M>(lut, args, multi, n_valid, count, lanes, tpos, n_maybe,  \
-                 cap, grid, threads, shared_bytes(args, multi, multi_mode), \
-                 (cudaStream_t)stream)
+                 cap, grid, threads, (cudaStream_t)stream)
 
 #define DPRF_OCCUPANCY_ONE(C, M) occupancy<C, M>(threads, (size_t)smem, blocks)

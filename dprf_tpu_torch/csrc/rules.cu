@@ -439,7 +439,7 @@ rules_kernel(const uint8_t* __restrict__ words,
 // ---- the C interface ---------------------------------------------------
 
 // core ids: 0 md5, 1 md4 (ntlm), 2 sha1, 3 sha256
-// (ops/cuda_mask.KERNEL_CORES)
+// (ops/cuda_rules.KERNEL_CORES)
 #define DPRF_DISPATCH(CALL)                                               \
     switch (core) {                                                       \
     case 0: return CALL(Md5Core);                                         \

@@ -59,6 +59,7 @@ def _ensure_imported(device: str) -> None:
         import dprf_tpu_torch.engines.device.nested  # noqa: F401
         import dprf_tpu_torch.engines.device.pmkid  # noqa: F401
         import dprf_tpu_torch.engines.device.salted  # noqa: F401
+        import dprf_tpu_torch.engines.device.sha3  # noqa: F401
     else:
         raise KeyError(f"unknown device {device!r} "
                        f"(expected one of {DEVICES})")

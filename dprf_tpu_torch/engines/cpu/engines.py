@@ -49,6 +49,71 @@ class Sha256Engine(_HashlibEngine):
     _algo = "sha256"
 
 
+@register("sha512")
+@register("sha-512")
+class Sha512Engine(_HashlibEngine):
+    name = "sha512"
+    digest_size = 64
+    max_candidate_len = 111    # single-block limit of the device engine
+    _algo = "sha512"
+
+
+@register("sha384")
+@register("sha-384")
+class Sha384Engine(_HashlibEngine):
+    name = "sha384"
+    digest_size = 48
+    max_candidate_len = 111
+    _algo = "sha384"
+
+
+#: (bits, sponge rate) of the SHA3/Keccak family; rate = 200 - bits/4
+KECCAK_SIZES = [(224, 144), (256, 136), (384, 104), (512, 72)]
+
+
+class _KeccakCpuBase(HashEngine):
+    """The SHA3/Keccak family: bare hex-digest lines.  ``_pad_byte``
+    0x06 (SHA3, hashlib) or 0x01 (the original Keccak, the scalar
+    sponge of ops/keccak.py); ``_rate`` the sponge's rate in bytes."""
+
+    _pad_byte: int
+    _rate: int
+
+    def hash_batch(self, candidates: Sequence[bytes],
+                   params: Optional[dict] = None) -> list[bytes]:
+        if self._pad_byte == 0x06:
+            algo = f"sha3_{8 * self.digest_size}"
+            return [hashlib.new(algo, c).digest() for c in candidates]
+        from dprf_tpu_torch.ops.keccak import keccak_digest
+        return [keccak_digest(c, 0x01, self._rate, self.digest_size)
+                for c in candidates]
+
+
+def _register_keccak_family():
+    """sha3-224/256/384/512 (hashcat 17300/17400/17500/17600; ``sha3``
+    is sha3-256) and keccak-224/256/384/512 (17700/17800/17900/18000;
+    also ``keccak224`` ...).  The 256 variants keep the 55-byte word
+    limit of the other fast hashes, as the reference's do; the others
+    take their rate block less the pad byte."""
+    for bits, rate in KECCAK_SIZES:
+        for kind, pad in (("sha3", 0x06), ("keccak", 0x01)):
+            name = f"{kind}-{bits}"
+            title = "SHA3" if kind == "sha3" else "Original Keccak (0x01 " \
+                "padding)"
+            cls = type(f"{kind.title()}{bits}Engine", (_KeccakCpuBase,),
+                       {"name": name, "digest_size": bits // 8,
+                        "max_candidate_len": 55 if bits == 256 else rate - 1,
+                        "_pad_byte": pad, "_rate": rate,
+                        "__doc__": f"{title}-{bits}: bare hex-digest lines."})
+            aliases = {"sha3-256": ["sha3"], f"keccak-{bits}":
+                       [f"keccak{bits}"]}.get(name, [])
+            for n in (name, *aliases):
+                register(n)(cls)
+
+
+_register_keccak_family()
+
+
 @register("ntlm")
 class NtlmEngine(HashEngine):
     """NTLM: MD4 over the UTF-16LE encoding of the password."""

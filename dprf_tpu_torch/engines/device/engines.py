@@ -20,9 +20,11 @@ from dprf_tpu_torch.engines import register
 from dprf_tpu_torch.engines.base import DeviceHashEngine, HashEngine
 from dprf_tpu_torch.ops.md4 import md4_digest_words
 from dprf_tpu_torch.ops.md5 import md5_digest_words
-from dprf_tpu_torch.ops.pack import pack_fixed
+from dprf_tpu_torch.ops.pack import pack_fixed, pack_fixed_wide
 from dprf_tpu_torch.ops.sha1 import sha1_digest_words
 from dprf_tpu_torch.ops.sha256 import sha256_digest_words
+from dprf_tpu_torch.ops.sha512 import (sha384_digest_words,
+                                       sha512_digest_words)
 
 
 class TorchEngineBase(DeviceHashEngine, HashEngine):
@@ -163,3 +165,34 @@ class TorchSha256Engine(TorchEngineBase):
 
     def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
         return sha256_digest_words(blocks)
+
+
+@register("sha512", device="cuda")
+@register("sha-512", device="cuda")
+class TorchSha512Engine(TorchEngineBase):
+    """SHA-512 over one 128-byte block of 64-bit words (ops/sha512.py):
+    candidates of up to 111 bytes."""
+
+    name = "sha512"
+    digest_size = 64
+    digest_words = 16
+    little_endian = False
+    max_candidate_len = 111
+
+    def pack(self, cand: torch.Tensor, length: int) -> torch.Tensor:
+        """uint8[B, length] candidates -> int32[B, 32] message words."""
+        return pack_fixed_wide(cand, length)
+
+    def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
+        return sha512_digest_words(blocks)
+
+
+@register("sha384", device="cuda")
+@register("sha-384", device="cuda")
+class TorchSha384Engine(TorchSha512Engine):
+    name = "sha384"
+    digest_size = 48
+    digest_words = 12
+
+    def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
+        return sha384_digest_words(blocks)

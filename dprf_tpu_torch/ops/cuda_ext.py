@@ -104,11 +104,6 @@ def split_salted(variant: str) -> tuple:
     return algo, order
 
 
-def _mask_ok(gen, longest: int) -> bool:
-    return (hasattr(gen, "charsets") and 1 <= gen.length <= longest
-            and all(1 <= len(cs) <= 256 for cs in gen.charsets))
-
-
 def nested_eligible(name: str, gen, n_targets: int) -> bool:
     """Whether the nested kernel takes this job: a nested chain or
     mysql41, 1..MAX_TARGETS targets, a mask of 1..55 positions of
@@ -116,7 +111,7 @@ def nested_eligible(name: str, gen, n_targets: int) -> bool:
     TPU, for XLA:CPU's compile time; the card compiles them.)"""
     return (name in NESTED_NAMES
             and 1 <= n_targets <= bloom.MAX_TARGETS
-            and _mask_ok(gen, BLOCK_LIMIT))
+            and cuda_mask.mask_fits(gen, BLOCK_LIMIT))
 
 
 def salted_eligible(algo: str, order: str, gen,
@@ -127,7 +122,7 @@ def salted_eligible(algo: str, order: str, gen,
     mask that fits one block beside the longest salt."""
     return (algo in SALTED_ALGOS and order in ORDERS and bool(salt_lens)
             and all(0 <= n <= SALT_MAX for n in salt_lens)
-            and _mask_ok(gen, BLOCK_LIMIT - max(salt_lens)))
+            and cuda_mask.mask_fits(gen, BLOCK_LIMIT - max(salt_lens)))
 
 
 def variant_words(name: str) -> tuple:
@@ -384,18 +379,8 @@ def make_cuda_mask_crack_step(name: str, gen, target_words: np.ndarray,
     ``cuda_mask.make_cuda_mask_crack_step``: step(base_digits, n_valid)
     -> (count, lanes, tpos all 0)."""
     _check_nested_step(name, gen, 1, batch)
-    device = torch.device(device)
-    lut = gen.charset_lut(device)
-    radices = gen.radices
-    target = [int(w) for w in np.asarray(target_words, np.uint32).ravel()]
-    tpos = torch.zeros((hit_capacity,), dtype=torch.int32, device=device)
-
-    def step(base_digits: Sequence[int], n_valid: int):
-        count, lanes = nested_crack(name, lut, radices, base_digits,
-                                    n_valid, target, hit_capacity, batch)
-        return count, lanes, tpos
-
-    return step
+    return cuda_mask.single_step(nested_crack, name, gen, target_words,
+                                 batch, hit_capacity, device)
 
 
 def make_cuda_multi_crack_step(name: str, gen, table: cmp_ops.TargetTable,
@@ -405,19 +390,8 @@ def make_cuda_multi_crack_step(name: str, gen, table: cmp_ops.TargetTable,
     ``cuda_mask.make_cuda_multi_crack_step``: step(base_digits, n_valid)
     -> (count, lanes, tpos, n_maybe)."""
     _check_nested_step(name, gen, table.num_targets, batch)
-    device = torch.device(device)
-    lut = gen.charset_lut(device)
-    radices = gen.radices
-    rows = torch.as_tensor(
-        bloom.bloom_tables(table.original_words()).view(np.int32),
-        device=device)
-    words = table.tensor(device)
-
-    def step(base_digits: Sequence[int], n_valid: int):
-        return nested_crack_multi(name, lut, radices, base_digits, n_valid,
-                                  rows, words, hit_capacity, batch)
-
-    return step
+    return cuda_mask.multi_step(nested_crack_multi, name, gen, table, batch,
+                                hit_capacity, device)
 
 
 def make_salted_crack_step(variant: str, gen, batch: int,

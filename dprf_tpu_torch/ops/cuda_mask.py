@@ -1,6 +1,7 @@
 """The fused mask -> hash -> compare kernel: the counterpart of the JAX
-package's ops/pallas_mask.py for the md5, ntlm (md4), sha1 and sha256
-cores, with one target or a list of up to MAX_TARGETS.
+package's ops/pallas_mask.py for the md5, ntlm (md4), sha1, sha256,
+sha512 and sha384 cores, with one target or a list of up to
+MAX_TARGETS.
 
 Per candidate the kernel (csrc/mask.cu) decodes the mixed-radix
 keyspace index into charset bytes, packs one padded block, runs the
@@ -43,8 +44,6 @@ from dprf_tpu_torch.generators.mask import decode_lut
 from dprf_tpu_torch.ops import bloom
 from dprf_tpu_torch.ops import compare as cmp_ops
 
-#: longest mask the kernel's decode holds (DPRF_MAX_LEN in the source)
-MAX_LENGTH = 55
 #: threads per block (the kernel's __launch_bounds__)
 THREADS = 256
 
@@ -54,9 +53,10 @@ SOURCE = "dprf_tpu_torch/csrc/mask.cu"
 
 #: the core id of csrc/mask.cu's C interface, by device engine name.
 #: The engine class holds the rest of a core's facts: packing
-#: (``little_endian``, ``widen_utf16``), ``digest_words``,
+#: (``little_endian``, ``widen_utf16``, ``pack``), ``digest_words``,
 #: ``max_candidate_len`` and the plain ``digest_packed``.
-KERNEL_CORES = {"md5": 0, "ntlm": 1, "sha1": 2, "sha256": 3}
+KERNEL_CORES = {"md5": 0, "ntlm": 1, "sha1": 2, "sha256": 3, "sha512": 4,
+                "sha384": 5}
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,15 +89,20 @@ def reset_launches() -> None:
 
 def kernel_eligible(engine_name: str, gen, n_targets: int) -> bool:
     """Whether the kernel takes this job: a core engine, 1..MAX_TARGETS
-    targets, a mask of 1..max_candidate_len positions (27 for ntlm, 55
-    for the others) with 1..256 bytes each."""
+    targets, a mask of 1..max_candidate_len positions, the core's one
+    block less its padding (27 for ntlm, 55 for the other 64-byte
+    cores, 111 for sha512 and sha384), with 1..256 bytes each."""
     try:
         eng = device_engine(engine_name)
     except ValueError:
         return False
     return (1 <= n_targets <= bloom.MAX_TARGETS
-            and hasattr(gen, "charsets")
-            and 1 <= gen.length <= eng.max_candidate_len
+            and mask_fits(gen, eng.max_candidate_len))
+
+
+def mask_fits(gen, longest: int) -> bool:
+    """A mask generator of 1..longest positions of 1..256 bytes each."""
+    return (hasattr(gen, "charsets") and 1 <= gen.length <= longest
             and all(1 <= len(cs) <= 256 for cs in gen.charsets))
 
 
@@ -112,9 +117,12 @@ def check_batch(batch: int) -> None:
 @functools.lru_cache(maxsize=None)
 def message_block(engine_name: str, length: int) -> tuple:
     """The job's fixed message words: the block of an all-zero candidate
-    (the padding marker and the bit length), as uint32 ints."""
+    (the padding marker and the bit length; a Keccak engine's pad bytes),
+    as uint32 ints, from the device engine's ``pack``."""
+    from dprf_tpu_torch.engines import get_engine
+    eng = get_engine(engine_name, "cuda", torch_device="cpu")
     zero = torch.zeros((1, length), dtype=torch.uint8)
-    words = device_engine(engine_name).pack(zero, length).numpy()[0]
+    words = eng.pack(zero, length).numpy()[0]
     return tuple(int(w) for w in words.view(np.uint32))
 
 
@@ -166,14 +174,34 @@ def check_tables(eng, bloom_rows: torch.Tensor,
                          f"{n} targets")
 
 
+def _args_fields(positions: int, block_words: int, target_words: int):
+    return [("length", ctypes.c_int32),
+            ("radix", ctypes.c_int32 * positions),
+            ("base", ctypes.c_int32 * positions),
+            ("block", ctypes.c_uint32 * block_words),
+            ("target", ctypes.c_uint32 * target_words),
+            ("shift", ctypes.c_int32)]
+
+
 class MaskArgs(ctypes.Structure):
-    """``struct MaskArgs`` of csrc/mask_kernel.cuh."""
-    _fields_ = [("length", ctypes.c_int32),
-                ("radix", ctypes.c_int32 * MAX_LENGTH),
-                ("base", ctypes.c_int32 * MAX_LENGTH),
-                ("block", ctypes.c_uint32 * 16),
-                ("target", ctypes.c_uint32 * 8),
-                ("shift", ctypes.c_int32)]
+    """``struct MaskArgs`` of csrc/mask_kernel.cuh: the 64-byte cores.
+    POSITIONS is the longest mask the layout holds; each core's own
+    limit is its engine's ``max_candidate_len``."""
+    POSITIONS, BLOCK_WORDS, TARGET_WORDS = 55, 16, 8
+    _fields_ = _args_fields(POSITIONS, BLOCK_WORDS, TARGET_WORDS)
+
+
+class WideMaskArgs(ctypes.Structure):
+    """``struct WideMaskArgs`` of csrc/mask_kernel.cuh: the cores of more
+    than 16 message words (sha512, sha384, the Keccak rate blocks)."""
+    POSITIONS, BLOCK_WORDS, TARGET_WORDS = 143, 36, 16
+    _fields_ = _args_fields(POSITIONS, BLOCK_WORDS, TARGET_WORDS)
+
+
+def args_layout(block_words: int):
+    """The kernel parameter layout of a core of ``block_words`` message
+    words."""
+    return MaskArgs if block_words <= MaskArgs.BLOCK_WORDS else WideMaskArgs
 
 
 class MultiArgs(ctypes.Structure):
@@ -189,9 +217,8 @@ def _library():
     lib = _build.load("mask")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.dprf_mask_launch.argtypes = [
-        i32, i32, i32, ptr, ctypes.POINTER(MaskArgs),
-        ctypes.POINTER(MultiArgs), ctypes.c_uint32, ptr, ptr, ptr, ptr,
-        i32, i32, i32, ptr]
+        i32, i32, i32, ptr, ptr, ctypes.POINTER(MultiArgs), ctypes.c_uint32,
+        ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.dprf_mask_launch.restype = i32
     lib.dprf_mask_blocks_per_sm.argtypes = [i32, i32, i32, i32,
                                             ctypes.POINTER(i32)]
@@ -207,8 +234,9 @@ def load_kernel() -> None:
 
 def shared_bytes(length: int, n_sets: int = 0) -> int:
     """Dynamic shared memory of one block: the charset table, then the
-    Bloom rows (at most 14,080 + 32,768 bytes, under the 48 KiB that
-    needs no opt-in)."""
+    Bloom rows (at most 14,080 + 32,768 bytes for a 64-byte core, under
+    the 48 KiB that needs no opt-in; up to 36,608 + 32,768 for a wide
+    one, which raises its limit before the launch)."""
     return length * 256 + n_sets * bloom.K_PROBES * 128 * 4
 
 
@@ -273,13 +301,14 @@ def launch_template(entry, kid: int, multi: bool, lut: torch.Tensor,
                       device=device) if multi else None
     n_maybe = torch.zeros((1,), dtype=torch.int32, device=device) \
         if multi else None
-    target = list(target) + [0] * (8 - len(target))
-    args = MaskArgs(lut.shape[0], (ctypes.c_int32 * MAX_LENGTH)(*radices),
-                    (ctypes.c_int32 * MAX_LENGTH)(*base_digits),
-                    (ctypes.c_uint32 * 16)(*block),
-                    (ctypes.c_uint32 * 8)(*(int(w) & 0xFFFFFFFF
-                                            for w in target)),
-                    shift)
+    layout = args_layout(len(block))
+    args = layout(lut.shape[0],
+                  (ctypes.c_int32 * layout.POSITIONS)(*radices),
+                  (ctypes.c_int32 * layout.POSITIONS)(*base_digits),
+                  (ctypes.c_uint32 * layout.BLOCK_WORDS)(*block),
+                  (ctypes.c_uint32 * layout.TARGET_WORDS)(
+                      *(int(w) & 0xFFFFFFFF for w in target)),
+                  shift)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = entry(kid, int(multi), device.index, lut.data_ptr(),
                ctypes.byref(args), ctypes.byref(margs), n_valid,
@@ -429,8 +458,49 @@ def _check_step(engine: str, gen, n_targets: int, batch: int) -> None:
         raise ValueError(
             f"mask job not eligible for the mask kernel: engine {engine!r}, "
             f"{n_targets} targets (1..{bloom.MAX_TARGETS}), length "
-            f"{gen.length} (1..{limit})")
+            f"{gen.length} (1..{limit}); use --device cpu")
     check_batch(batch)
+
+
+def single_step(crack, engine: str, gen, target_words: np.ndarray,
+                batch: int, hit_capacity: int, device):
+    """A single-target step over the dispatcher ``crack`` (arguments as
+    ``mask_crack``): step(base_digits, n_valid) -> (count, lanes, tpos
+    all 0); the lut goes to ``device`` once, here."""
+    device = torch.device(device)
+    lut = gen.charset_lut(device)
+    radices = gen.radices
+    target = [int(w) for w in np.asarray(target_words, np.uint32).ravel()]
+    tpos = torch.zeros((hit_capacity,), dtype=torch.int32, device=device)
+
+    def step(base_digits: Sequence[int], n_valid: int):
+        count, lanes = crack(engine, lut, radices, base_digits, n_valid,
+                             target, hit_capacity, batch)
+        return count, lanes, tpos
+
+    return step
+
+
+def multi_step(crack_multi, engine: str, gen, table: cmp_ops.TargetTable,
+               batch: int, hit_capacity: int, device):
+    """A multi-target step over the dispatcher ``crack_multi``
+    (arguments as ``mask_crack_multi``): step(base_digits, n_valid) ->
+    (count, lanes, tpos, n_maybe); the lut, the Bloom rows and the
+    sorted table go to ``device`` once, here."""
+    device = torch.device(device)
+    lut = gen.charset_lut(device)
+    radices = gen.radices
+    # the sets hold the targets in the job's order, as the reference's
+    rows = torch.as_tensor(
+        bloom.bloom_tables(table.original_words()).view(np.int32),
+        device=device)
+    words = table.tensor(device)
+
+    def step(base_digits: Sequence[int], n_valid: int):
+        return crack_multi(engine, lut, radices, base_digits, n_valid, rows,
+                           words, hit_capacity, batch)
+
+    return step
 
 
 def make_cuda_mask_crack_step(engine: str, gen, target_words: np.ndarray,
@@ -442,18 +512,8 @@ def make_cuda_mask_crack_step(engine: str, gen, target_words: np.ndarray,
     batch's first candidate (``gen.digits``) and tpos all 0.
     target_words: the core's uint32 digest words."""
     _check_step(engine, gen, 1, batch)
-    device = torch.device(device)
-    lut = gen.charset_lut(device)
-    radices = gen.radices
-    target = [int(w) for w in np.asarray(target_words, np.uint32).ravel()]
-    tpos = torch.zeros((hit_capacity,), dtype=torch.int32, device=device)
-
-    def step(base_digits: Sequence[int], n_valid: int):
-        count, lanes = mask_crack(engine, lut, radices, base_digits, n_valid,
-                                  target, hit_capacity, batch)
-        return count, lanes, tpos
-
-    return step
+    return single_step(mask_crack, engine, gen, target_words, batch,
+                       hit_capacity, device)
 
 
 def make_cuda_multi_crack_step(engine: str, gen,
@@ -464,17 +524,5 @@ def make_cuda_multi_crack_step(engine: str, gen,
     int32[1]); tpos indexes the sorted table (map it through
     ``table.order``)."""
     _check_step(engine, gen, table.num_targets, batch)
-    device = torch.device(device)
-    lut = gen.charset_lut(device)
-    radices = gen.radices
-    # the sets hold the targets in the job's order, as the reference's
-    rows = torch.as_tensor(
-        bloom.bloom_tables(table.original_words()).view(np.int32),
-        device=device)
-    words = table.tensor(device)
-
-    def step(base_digits: Sequence[int], n_valid: int):
-        return mask_crack_multi(engine, lut, radices, base_digits, n_valid,
-                                rows, words, hit_capacity, batch)
-
-    return step
+    return multi_step(mask_crack_multi, engine, gen, table, batch,
+                      hit_capacity, device)

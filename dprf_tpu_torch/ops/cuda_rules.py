@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from dprf_tpu_torch.ops import compare as cmp_ops
-from dprf_tpu_torch.ops.cuda_mask import KERNEL_CORES, device_engine
+from dprf_tpu_torch.ops.cuda_mask import device_engine
 from dprf_tpu_torch.ops.pack import pack_varlen
 from dprf_tpu_torch.rules import device as rules_device
 from dprf_tpu_torch.rules.parser import Op, Opcode
@@ -50,6 +50,12 @@ WARP = 32
 #: the TPU kernel this one replaces, and this kernel's source
 REPLACES = "dprf_tpu/ops/pallas_rules.py:442"
 SOURCE = "dprf_tpu_torch/csrc/rules.cu"
+
+#: the core id of csrc/rules.cu's C interface, by device engine name: the
+#: 64-byte cores only.  The mask kernel's wider cores (sha512, sha384)
+#: have no rules instantiation, as the reference's rules kernel has none
+#: it can run, so their wordlist jobs are refused.
+KERNEL_CORES = {"md5": 0, "ntlm": 1, "sha1": 2, "sha256": 3}
 
 #: opcodes the kernel interprets: all but PURGE (a compaction) and
 #: TITLE / TITLE_SEP (a separator scan), as in the reference's kernel;
@@ -113,12 +119,22 @@ def decode_rules(bytecode: torch.Tensor, n_ops: torch.Tensor) -> list:
             for r, n in enumerate(n_ops.cpu().tolist())]
 
 
+def rules_engine(engine_name: str, device="cpu"):
+    """The device engine of ``engine_name`` if the rules kernel has its
+    core; its tensors on ``device``."""
+    eng = device_engine(engine_name, device)
+    if eng.name not in KERNEL_CORES:
+        raise ValueError(f"no rules kernel core for engine {engine_name!r} "
+                         f"(cores: {', '.join(KERNEL_CORES)})")
+    return eng
+
+
 def kernel_rules_eligible(engine_name: str, gen, n_targets: int) -> bool:
     """Whether the kernel takes this job: a core engine, one target, a
     wordlist generator whose max_len fits one block (27 for ntlm, 55 for
     the others), rules of at most MAX_STEPS supported ops."""
     try:
-        eng = device_engine(engine_name)
+        eng = rules_engine(engine_name)
     except ValueError:
         return False
     if n_targets != 1 or not (hasattr(gen, "rules")
@@ -244,7 +260,7 @@ def rules_kernel(engine: str, words: torch.Tensor, lens: torch.Tensor,
     if words.device.type != "cuda":
         raise ValueError(f"the CUDA rules kernel takes CUDA tensors, got "
                          f"words on {words.device}")
-    eng = device_engine(engine, words.device)
+    eng = rules_engine(engine, words.device)
     _check_job(eng, words, lens, bytecode, n_ops, ws, n_valid, target,
                hit_capacity, word_batch)
     device = words.device
@@ -278,7 +294,7 @@ def rules_plain(engine: str, words: torch.Tensor, lens: torch.Tensor,
                 word_batch: int):
     """``rules_kernel``'s function in plain PyTorch on the words'
     device; hit lanes come back in ascending order."""
-    eng = device_engine(engine, words.device)
+    eng = rules_engine(engine, words.device)
     _check_job(eng, words, lens, bytecode, n_ops, ws, n_valid, target,
                hit_capacity, word_batch)
     device, max_len = words.device, words.shape[1]
@@ -323,7 +339,7 @@ def make_cuda_rules_crack_step(engine: str, gen, target_words: np.ndarray,
     tables go to ``device`` once, here.  target_words: the core's uint32
     digest words."""
     if not kernel_rules_eligible(engine, gen, 1):
-        limit = device_engine(engine).max_candidate_len
+        limit = rules_engine(engine).max_candidate_len
         raise ValueError(
             f"wordlist job not eligible for the rules kernel: engine "
             f"{engine!r}, max_len {gen.max_len} (1..{limit}), rules of at "

@@ -1,7 +1,8 @@
-"""The least work one candidate takes in the mask kernel (csrc/mask.cu),
-the rule kernel (csrc/rules.cu), the PMKID kernel (csrc/pbkdf2.cu) and
-the bcrypt kernels (csrc/bcrypt.cu): the operation count behind the
-bound that chip_smoke.py prints beside each kernel's time.
+"""The least work one candidate takes in the mask kernel (csrc/mask.cu,
+csrc/keccak.cu), the rule kernel (csrc/rules.cu), the PMKID kernel
+(csrc/pbkdf2.cu) and the bcrypt kernels (csrc/bcrypt.cu): the operation
+count behind the bound that chip_smoke.py prints beside each kernel's
+time.
 
 Each core runs here once, in Python, over the job's message block with
 symbolic words: a word that holds candidate bytes is a ``Var``, every
@@ -32,6 +33,14 @@ interpretation, which keeps the count a lower bound; a rejected
 candidate costs nothing.  ``rules_ops`` sums this over the lengths the
 job's words and rules yield (``rule_lengths``).
 
+The 64-bit cores (sha512 / sha384, Keccak-f) count on (hi, lo) pairs
+of such words, in Hopper's 32-bit forms: a 64-bit add of up to three
+terms is one IADD3 a half (the high half takes the low half's carry, so
+it depends on it), a rotate one SHF a half (by 32 a swap, free), a
+logic function of up to three inputs one LOP3 a half.  Keccak's
+squeeze byte swap is not counted: the target's words can be swapped
+instead.
+
 Run on fixed words alone, the same code computes the core, so a test
 holds the counted formulas to the real hash.
 """
@@ -46,7 +55,7 @@ import operator
 import numpy as np
 import torch
 
-from dprf_tpu_torch.ops import md4, md5, sha1, sha256
+from dprf_tpu_torch.ops import keccak, md4, md5, sha1, sha256, sha512
 from dprf_tpu_torch.ops.cuda_mask import device_engine, message_block
 from dprf_tpu_torch.ops.pack import pack_fixed
 from dprf_tpu_torch.rules import device as rules_device
@@ -185,17 +194,155 @@ def _sha256(m):
     return [a, b, c, d, e, f, g, h]
 
 
+# ---- 64-bit words: (hi, lo) pairs of 32-bit halves ------------------------
+
+def _is_var(x) -> bool:
+    return isinstance(x, Var)
+
+
+def add64(*terms):
+    """A 64-bit sum of (hi, lo) pairs: IADD3 on the low halves, IADD3.X
+    on the high ones, which then depend on the low sum's carry."""
+    los = [t[1] for t in terms]
+    his = [t[0] for t in terms]
+    if not any(_is_var(x) for x in los + his):
+        v = sum((h << 32) | lo for h, lo in terms)
+        return (v >> 32) & M32, v & M32
+    lo = add(*los)
+    if not _is_var(lo):
+        carry = sum(x for x in los) >> 32
+        return add(*his, carry), lo
+    if any(lo is x for x in los):        # a lone variable term: no carry
+        return add(*his), lo
+    hi = Var("add", lo.n, [*his, lo])
+    return hi, lo
+
+
+def xor64(*terms):
+    return xor(*(t[0] for t in terms)), xor(*(t[1] for t in terms))
+
+
+def logic64(fn, *terms):
+    """One LOP3 a half: ``fn`` of up to three pairs."""
+    return (logic(fn, *(t[0] for t in terms)),
+            logic(fn, *(t[1] for t in terms)))
+
+
+def _funnel(a, b, n: int):
+    """The low 32 bits of (b:a) >> n, one SHF."""
+    if _is_var(a) or _is_var(b):
+        return Var("alu", 1, [a, b])
+    return ((b << 32 | a) >> n) & M32
+
+
+def rotr64(x, n: int):
+    hi, lo = x
+    n %= 64
+    if n >= 32:
+        hi, lo, n = lo, hi, n - 32
+    if n == 0:
+        return hi, lo
+    return _funnel(hi, lo, n), _funnel(lo, hi, n)
+
+
+def rotl64(x, n: int):
+    return rotr64(x, 64 - n % 64)
+
+
+def shr64(x, n: int):
+    """A logical right shift by n < 32: SHF on each half."""
+    hi, lo = x
+    return shr(hi, n), _funnel(lo, hi, n)
+
+
+def _pairs(init) -> list:
+    return [(v >> 32, v & M32) for v in init]
+
+
+def _sha512(m, init=sha512.INIT512):
+    """The 80 SHA-512 rounds over 32 message words (64-bit word i is
+    (m[2i], m[2i+1])), rolling schedule; returns the 16 state words
+    before the feed-forward, high half first."""
+    w = [(m[2 * i], m[2 * i + 1]) for i in range(16)]
+    a, b, c, d, e, f, g, h = _pairs(init)
+    for t in range(80):
+        if t >= 16:
+            w15, w2 = w[(t - 15) % 16], w[(t - 2) % 16]
+            s0 = xor64(rotr64(w15, 1), rotr64(w15, 8), shr64(w15, 7))
+            s1 = xor64(rotr64(w2, 19), rotr64(w2, 61), shr64(w2, 6))
+            w[t % 16] = add64(w[t % 16], s0, w[(t - 7) % 16], s1)
+        t1 = add64(h, xor64(rotr64(e, 14), rotr64(e, 18), rotr64(e, 41)),
+                   logic64(_choose, e, f, g), _pairs([sha512.K[t]])[0],
+                   w[t % 16])
+        a_next = add64(t1, xor64(rotr64(a, 28), rotr64(a, 34),
+                                 rotr64(a, 39)),
+                       logic64(_majority, a, b, c))
+        h, g, f, e, d, c, b, a = g, f, e, add64(d, t1), c, b, a, a_next
+    return [x for pair in (a, b, c, d, e, f, g, h) for x in pair]
+
+
+def _chi(x, y, z):
+    return x ^ (~y & z)
+
+
+def _bswap(x):
+    return int.from_bytes((x & M32).to_bytes(4, "little"), "big")
+
+
+def _keccak(m, rate: int, out_words: int):
+    """Keccak-f[1600] over the absorbed rate block (lane i = m[2i] |
+    m[2i+1] << 32, zero past the rate) and the squeeze: ``out_words``
+    digest words, big-endian (a byte swap, uncounted, of each half)."""
+    zero = (0, 0)
+    a = [(m[2 * i + 1], m[2 * i]) if i < rate // 8 else zero
+         for i in range(25)]
+    for rc in keccak.RC:
+        c = [xor64(*(a[x + 5 * y] for y in range(5))) for x in range(5)]
+        d = [xor64(c[(x - 1) % 5], rotl64(c[(x + 1) % 5], 1))
+             for x in range(5)]
+        b = [None] * 25
+        for i in range(25):
+            b[keccak.PI[i]] = rotl64(xor64(a[i], d[i % 5]), keccak.RHO[i])
+        a = [logic64(_chi, b[i], b[(i + 1) % 5 + 5 * (i // 5)],
+                     b[(i + 2) % 5 + 5 * (i // 5)]) for i in range(25)]
+        a[0] = xor64(a[0], (rc >> 32, rc & M32))
+    out = []
+    for k in range(out_words):
+        half = a[k // 2][1 - k % 2]
+        out.append(half if _is_var(half) else _bswap(half))
+    return out
+
+
 #: each core's rounds (no feed-forward) and its initial state, by
-#: device engine name
+#: device engine name (sha512/384: the eight 64-bit words)
 CORES = {"md5": (_md5, md5.INIT), "ntlm": (_md4, md4.INIT),
-         "sha1": (_sha1, sha1.INIT), "sha256": (_sha256, sha256.INIT)}
+         "sha1": (_sha1, sha1.INIT), "sha256": (_sha256, sha256.INIT),
+         "sha512": (_sha512, sha512.INIT512),
+         "sha384": (functools.partial(_sha512, init=sha512.INIT384),
+                    sha512.INIT384)}
+
+
+def _engine(engine_name: str):
+    """The device engine of a mask-kernel core or a sha3/keccak name."""
+    from dprf_tpu_torch.ops import cuda_keccak
+    if engine_name.lower() in cuda_keccak.NAMES:
+        return cuda_keccak.keccak_engine(engine_name)
+    return device_engine(engine_name)
+
+
+def is_sponge(eng) -> bool:
+    return hasattr(eng, "_rate")
 
 
 def state_words(engine_name: str, words) -> list:
     """The core's state words after its rounds, before the
-    feed-forward: uint32 ints where ``words`` are all ints, else
-    ``Var`` where a word depends on the candidate."""
-    return CORES[device_engine(engine_name).name][0](list(words))
+    feed-forward (a sponge's squeezed digest words): uint32 ints where
+    ``words`` are all ints, else ``Var`` where a word depends on the
+    candidate."""
+    eng = _engine(engine_name)
+    if is_sponge(eng):
+        return _keccak(list(words), eng._rate, eng.digest_words)
+    return CORES[eng.name][0](list(words))
 
 
 def tally(outputs) -> dict:
@@ -236,7 +383,7 @@ class Work:
 def core_work(engine_name: str, length: int, words_needed: int) -> dict:
     """The core's instructions per pipe for a ``length``-position mask,
     counting what digest words 0..words_needed-1 depend on."""
-    eng = device_engine(engine_name)
+    eng = _engine(engine_name)
     block = list(message_block(eng.name, length))
     msg_bytes = length * (2 if eng.widen_utf16 else 1)
     for w in range(-(-msg_bytes // 4)):
@@ -257,7 +404,8 @@ def ops_per_candidate(engine_name: str, length: int, multi: bool = False,
     bits, word offset and mask, shift the row word, test), and for
     each of ``maybes`` survivors per candidate a binary search of
     ceil(log2(n_targets + 1)) steps at 4 each plus a compare per digest
-    word."""
+    word.  A sponge has no feed-forward."""
+    eng = _engine(engine_name)
     core = core_work(engine_name, length, 3 if multi else 1)
     alu = core["alu"] + length
     add_ = core["add"] + length
@@ -265,9 +413,8 @@ def ops_per_candidate(engine_name: str, length: int, multi: bool = False,
     if not multi:
         return Work(alu + 1, add_, fma)
     search = int(np.ceil(np.log2(n_targets + 1)))
-    words = device_engine(engine_name).digest_words
-    return Work(alu + 5 * probes + maybes * (4 * search + words),
-                add_ + 3, fma)
+    return Work(alu + 5 * probes + maybes * (4 * search + eng.digest_words),
+                add_ + (0 if is_sponge(eng) else 3), fma)
 
 
 def rule_lengths(words: np.ndarray, lens: np.ndarray, rules,

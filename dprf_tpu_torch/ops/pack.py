@@ -1,9 +1,10 @@
 """Candidate packing: uint8 candidate bytes -> Merkle-Damgard message words.
 
 Single block only: candidates up to 55 bytes (27 characters for NTLM's
-UTF-16LE widening), which covers the mask and wordlist paths of every
-benchmark config.  Words come out as int32 tensors with the bit
-pattern of the reference's uint32 words.
+UTF-16LE widening) in a 64-byte block, which covers the mask and
+wordlist paths of every benchmark config, and up to 111 bytes in
+SHA-512's 128-byte block (``pack_fixed_wide``).  Words come out as
+int32 tensors with the bit pattern of the reference's uint32 words.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ def pad_const(length: int, big_endian: bool) -> np.ndarray:
 
 
 def _words_from_bytes(msg: torch.Tensor, big_endian: bool) -> torch.Tensor:
-    """uint8[B, 64] -> int32[B, 16]."""
-    grouped = msg.reshape(*msg.shape[:-1], 16, 4).to(torch.int32)
+    """uint8[B, 4n] -> int32[B, n]."""
+    grouped = msg.reshape(*msg.shape[:-1], -1, 4).to(torch.int32)
     shifts = (24, 16, 8, 0) if big_endian else (0, 8, 16, 24)
     words = grouped[..., 0] << shifts[0]
     for j in range(1, 4):
@@ -46,6 +47,23 @@ def pack_fixed(cand: torch.Tensor, length: int, big_endian: bool = False,
     msg = pad.repeat(cand.shape[0], 1)
     msg[:, :length] = cand
     return _words_from_bytes(msg, big_endian)
+
+
+def pack_fixed_wide(cand: torch.Tensor, length: int) -> torch.Tensor:
+    """Fixed-length candidates uint8[B, length] -> one 128-byte SHA-512
+    block as int32[B, 32]: big-endian words, the 0x80 marker at
+    ``length`` and the 128-bit big-endian bit length (of which only the
+    low 64 bits can be nonzero for a single block)."""
+    if length > 111:
+        raise ValueError(
+            f"single-block SHA-512 packing needs length <= 111, got {length}")
+    const = np.zeros(128, dtype=np.uint8)
+    const[length] = 0x80
+    const[120:128] = np.frombuffer((length * 8).to_bytes(8, "big"),
+                                   dtype=np.uint8)
+    msg = torch.as_tensor(const, device=cand.device).repeat(cand.shape[0], 1)
+    msg[:, :length] = cand
+    return _words_from_bytes(msg, True)
 
 
 def pack_varlen(cand: torch.Tensor, lens: torch.Tensor,

@@ -228,17 +228,19 @@ class CudaMaskWorker(MaskWorkerBase):
     kernel builds at construction, so a build failure raises here and
     never mid-job; with ``device="cpu"`` each batch runs the kernel's
     plain version instead.  A nested chain or mysql41 (ops/cuda_ext.py)
-    runs its instantiation of the same kernel body, with the same
-    steps' contract, so hit decode, table order and rescan are these."""
+    and a sha3/keccak sponge (ops/cuda_keccak.py) run their
+    instantiations of the same kernel body, with the same steps'
+    contract, so hit decode, table order and rescan are these."""
 
     def __init__(self, engine, gen, targets: Sequence[Target],
                  batch: int = 1 << 24, hit_capacity: int = 64,
                  oracle: Optional[HashEngine] = None, device="cuda"):
-        from dprf_tpu_torch.ops import cuda_ext, cuda_mask
+        from dprf_tpu_torch.ops import cuda_ext, cuda_keccak, cuda_mask
 
         tgt = self._setup_targets(engine, gen, targets, hit_capacity,
                                   oracle)
         kernels = cuda_ext if engine.name in cuda_ext.NESTED_NAMES \
+            else cuda_keccak if engine.name in cuda_keccak.NAMES \
             else cuda_mask
         device = torch.device(device)
         if device.type == "cuda":

@@ -36,7 +36,11 @@ slices = {"dprf_tpu_torch.ops.hmac_sha1", "dprf_tpu_torch.ops.blowfish",
           "dprf_tpu_torch.engines.device.bcrypt",
           "dprf_tpu_torch.ops.cuda_ext",
           "dprf_tpu_torch.engines.device.nested",
-          "dprf_tpu_torch.engines.device.salted"}
+          "dprf_tpu_torch.engines.device.salted",
+          "dprf_tpu_torch.ops.sha512", "dprf_tpu_torch.ops.keccak",
+          "dprf_tpu_torch.ops.cuda_keccak",
+          "dprf_tpu_torch.engines.device.sha3",
+          "dprf_tpu_torch.tools.bench_word64"}
 print(len(names), sorted(slices - set(names)), bad)
 """
 
@@ -74,6 +78,10 @@ def test_device_cuda_without_card_fails(tmp_path, capsys, monkeypatch):
                   "--no-potfile"],
                  ["crack", "?l?l", str(salted), "--engine", "md5-ps",
                   "--no-potfile"],
+                 ["crack", "?l?l", str(hashfile), "--engine", "sha512",
+                  "--no-potfile"],
+                 ["crack", "?l?l", str(hashfile), "--engine", "keccak-256",
+                  "--no-potfile"],
                  ["bench", "--mask", "?l?l", "--seconds", "0.1"]):
         assert cli.main(argv) == 2
         captured = capsys.readouterr()
@@ -94,6 +102,40 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                     gen.radices, gen.digits(0), 64, rows,
                                     words, 4, 64)
     assert cuda_mask.launches == launches
+
+
+def test_slice_f1_kernels_refuse_cpu_tensors():
+    """The sha512/384 and Keccak wrappers launch on CUDA tensors only
+    and count no launch otherwise; the dispatchers take the plain
+    version for CPU tensors and check the job."""
+    from dprf_tpu_torch.ops import cuda_keccak
+    gen = MaskGenerator("?l?l?l")
+    lut = gen.charset_lut("cpu")
+    launches = (dict(cuda_mask.launches), dict(cuda_keccak.launches))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_mask.mask_kernel("sha512", lut, gen.radices, gen.digits(0), 64,
+                              [0] * 16, 4, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_keccak.keccak_mask_kernel("sha3-224", lut, gen.radices,
+                                       gen.digits(0), 64, [0] * 7, 4, 64)
+    words = torch.zeros((1, 8), dtype=torch.int32)
+    rows = torch.zeros((8, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_keccak.keccak_mask_multi_kernel("keccak256", lut, gen.radices,
+                                             gen.digits(0), 64, rows, words,
+                                             4, 64)
+    assert (cuda_mask.launches, cuda_keccak.launches) == launches
+    count, lanes = cuda_keccak.keccak_crack("sha3", lut, gen.radices,
+                                            gen.digits(0), 64, [0] * 8, 4,
+                                            64)
+    assert int(count) == 0 and lanes.tolist() == [-1] * 4
+    for bad in ([0] * 7, [0] * 9):
+        with pytest.raises(ValueError, match="target words"):
+            cuda_keccak.keccak_crack("sha3-256", lut, gen.radices,
+                                     gen.digits(0), 64, bad, 4, 64)
+    with pytest.raises(ValueError):
+        cuda_keccak.keccak_crack("sha512", lut, gen.radices, gen.digits(0),
+                                 64, [0] * 16, 4, 64)
 
 
 def test_rules_kernel_refuses_cpu_tensors():
@@ -202,6 +244,13 @@ def test_kernel_job_checks():
         args[i] = bad
         with pytest.raises(ValueError):
             cuda_mask.mask_crack("md5", *args)
+    with pytest.raises(ValueError):
+        cuda_mask.mask_crack("md5crypt", *good)
+    # sha512 is a core: its 16-word target runs (the plain version here),
+    # a 4-word one is refused
+    count, lanes = cuda_mask.mask_crack("sha512", *good[:4], [0] * 16,
+                                        *good[5:])
+    assert int(count) == 0 and lanes.tolist() == [-1] * 4
     with pytest.raises(ValueError):
         cuda_mask.mask_crack("sha512", *good)
 

@@ -452,3 +452,93 @@ def test_cli_nested_and_salted_on_card(tmp_path, capsys):
     assert rc == 0 and len(captured.out.splitlines()) == 3
     assert "rejected=0" in captured.err
     assert cuda_ext.launches["sha1-sp_mask"] == 3 * 7
+
+
+#: slice F1's instantiations: (engine driving it, multi target)
+F1_CASES = [(e, m) for e in ("sha512", "sha384", "sha3-224", "keccak-256",
+                             "sha3-384", "keccak512") for m in (False, True)]
+
+
+def _f1_fns(engine: str, multi: bool):
+    from dprf_tpu_torch.ops import cuda_keccak
+    if engine in cuda_keccak.NAMES:
+        return (cuda_keccak.keccak_mask_multi_kernel,
+                cuda_keccak.keccak_mask_multi_plain) if multi else \
+            (cuda_keccak.keccak_mask_kernel, cuda_keccak.keccak_mask_plain)
+    return (cuda_mask.mask_multi_kernel, cuda_mask.mask_multi_plain) \
+        if multi else (cuda_mask.mask_kernel, cuda_mask.mask_plain)
+
+
+@pytest.mark.parametrize("engine,multi", F1_CASES)
+def test_wide_core_kernels_match_plain(engine, multi):
+    """sha512/384 and the Keccak widths at batch 2^20: one target at the
+    first lane and at the last valid lane; a list of 1,000 with two hits
+    in one warp and one at the last valid lane, and 8,192 targets at the
+    longest mask the core takes (past 48 KB of shared memory)."""
+    _need_card()
+    batch = 1 << 20
+    kernel, plain = _f1_fns(engine, multi)
+    eng = get_engine(engine, "cuda")
+    oracle = get_engine(engine)
+    rng = np.random.default_rng(len(engine) + multi)
+    gen = MaskGenerator("?a" * 5)
+    if not multi:
+        for start, n_valid, lane in ((0, batch, 0),
+                                     (batch, batch - 5, batch - 6)):
+            target = [int(w) for w in np.frombuffer(oracle.hash_batch(
+                [gen.candidate(start + lane)])[0], ">u4")]
+            args = (engine, gen.charset_lut("cuda"), gen.radices,
+                    gen.digits(start), n_valid, target, 64, batch)
+            k, p = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            assert _hit_set(*k) == _hit_set(*p) == (1, [lane])
+        return
+    for gen, n_targets in ((gen, 1000), (MaskGenerator(
+            "?a?l" + "?d" * (eng.max_candidate_len - 2)), 8192)):
+        start = int(rng.integers(0, min(1 << 40,
+                                        gen.keyspace // batch - 1))) * batch
+        plants = [0, 40, 41, batch - 9]
+        digests = oracle.hash_batch([gen.candidate(start + p)
+                                     for p in plants])
+        digests += oracle.hash_batch([rng.bytes(9)
+                                      for _ in range(n_targets - 4)])
+        table = make_target_table(digests, False)
+        rows = torch.as_tensor(
+            bloom.bloom_tables(table.original_words()).view(np.int32),
+            device="cuda")
+        args = (engine, gen.charset_lut("cuda"), gen.radices,
+                gen.digits(start), batch - 8, rows, table.tensor("cuda"), 64,
+                batch)
+        k, p = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        got = [sorted(zip(r[1].tolist(), r[2].tolist())) for r in (k, p)]
+        assert got[0] == got[1]
+        assert [int(r[0]) for r in (k, p)] == [4, 4]
+        assert int(k[3]) == int(p[3])
+        assert sorted(table.order[t] for la, t in got[0] if la >= 0) == \
+            [0, 1, 2, 3]
+
+
+def test_cli_sha512_and_keccak_on_card(tmp_path, capsys):
+    """crack --device cuda for sha512 and keccak-256 over ?l^4: every
+    plant found, only the engine's instantiation launched, once per
+    batch."""
+    _need_card()
+    from dprf_tpu_torch.ops import cuda_keccak
+    for engine, key, mod in (("sha512", "sha512_mask_multi", cuda_mask),
+                             ("keccak-256", "keccak256_mask_multi",
+                              cuda_keccak)):
+        oracle = get_engine(engine)
+        digests = oracle.hash_batch([b"aaaa", b"zzzz", b"qwer", b"!!"])
+        hashfile = tmp_path / "h.txt"
+        hashfile.write_text("".join(d.hex() + "\n" for d in digests))
+        cuda_mask.reset_launches()
+        cuda_keccak.reset_launches()
+        rc = cli.main(["crack", "?l?l?l?l", str(hashfile), "--engine",
+                       engine, "--no-potfile", "--batch", "65536"])
+        captured = capsys.readouterr()
+        assert rc == 0 and len(captured.out.splitlines()) == 3
+        assert "rejected=0" in captured.err
+        assert mod.launches[key] == 7
+        assert sum(cuda_mask.launches.values()) + \
+            sum(cuda_keccak.launches.values()) == 7

@@ -97,7 +97,11 @@ def test_kernel_eligible():
     assert cuda_mask.kernel_eligible("md5", gen, 1)
     assert cuda_mask.kernel_eligible("md5", gen, 8192)
     assert not cuda_mask.kernel_eligible("md5", gen, 8193)
-    assert not cuda_mask.kernel_eligible("sha512", gen, 1)
+    assert not cuda_mask.kernel_eligible("md5crypt", gen, 1)
+    assert cuda_mask.kernel_eligible("sha512", gen, 1)
+    assert cuda_mask.kernel_eligible("sha-384", MaskGenerator("?d" * 111), 1)
+    assert not cuda_mask.kernel_eligible("sha512", MaskGenerator("?d" * 112),
+                                         1)
     assert not cuda_mask.kernel_eligible("md5", MaskGenerator("?d" * 56), 1)
     with pytest.raises(ValueError):
         cuda_mask.make_cuda_mask_crack_step("md5", MaskGenerator("?d" * 56),

@@ -259,3 +259,58 @@ def test_nested_and_salted_counts():
     assert opcount.salted_ops("md5-sp", 6, b"x" * 11) == Work(124, 73, 12)
     assert opcount.salted_ops("sha256-sp", 6, b"x" * 11) == \
         Work(937, 329, 12)
+
+
+@pytest.mark.parametrize("engine", ["sha512", "sha384", "sha3-224",
+                                    "keccak-256", "sha3-384", "keccak512"])
+def test_symbolic_wide_core_computes_the_hash(engine):
+    """Over fixed words the 64-bit counts -- sha512 / sha384 on (hi, lo)
+    pairs with the 64-bit feed-forward, Keccak-f over the absorbed rate
+    block and its squeeze -- are the oracle's hash."""
+    eng = get_engine(engine, "cuda", torch_device="cpu")
+    rng = np.random.default_rng(23)
+    for length in (0, 1, 7, eng.max_candidate_len):
+        cand = rng.integers(32, 127, length, dtype=np.uint8)
+        block = eng.pack(torch.as_tensor(cand).reshape(1, length), length)
+        words = [int(w) for w in block.numpy()[0].view(np.uint32)]
+        state = opcount.state_words(engine, words)
+        if opcount.is_sponge(eng):
+            digest = struct.pack(f">{len(state)}I", *state)
+        else:
+            init = opcount.CORES[eng.name][1]
+            digest = b"".join(
+                (((state[2 * i] << 32 | state[2 * i + 1]) + v)
+                 & (1 << 64) - 1).to_bytes(8, "big")
+                for i, v in enumerate(init))[:eng.digest_size]
+        assert digest == get_engine(engine).hash_batch([cand.tobytes()])[0]
+
+
+def test_64_bit_fold_rules():
+    v = _var()
+    assert opcount.add64((1, 0xFFFFFFFF), (0, 1)) == (2, 0)
+    hi, lo = opcount.add64((v, 0), (1, 5))             # fixed low halves
+    assert lo == 5 and hi.n == 1
+    hi, lo = opcount.add64((v, v), (v, v))
+    assert (hi.n, lo.n) == (1, 1) and lo in hi.deps   # IADD3, IADD3.X
+    hi, lo = opcount.add64((3, v), (4, 0))             # a lone low term
+    assert hi == 7 and lo is v
+    assert opcount.rotr64((v, 7), 32) == (7, v)        # a swap is free
+    hi, lo = opcount.rotr64((v, 7), 40)
+    assert (hi.n, lo.n) == (1, 1)
+    assert opcount.rotl64((0x80000000, 0), 1) == (0, 1)
+    assert opcount.xor64((v, 1), (v, 2), (v, 4))[1] == 7
+    assert opcount.shr64((0, 0x100), 8) == (0, 1)
+
+
+def test_wide_counts_at_the_measured_masks():
+    """The counts chip_smoke.py's bounds use for ?a^7: sha512 ~2.5 times
+    sha256's 958 slots; Keccak-f ~4,300 slots, all ALU, the same at
+    every rate (the capacity lanes are zero, the rate's padding fixed)."""
+    assert opcount.ops_per_candidate("sha512", 7) == Work(2428, 851, 14)
+    assert opcount.ops_per_candidate("sha-384", 7) == Work(2428, 851, 14)
+    for name, alu in (("sha3-224", 4284), ("sha3-256", 4285),
+                      ("keccak-384", 4284), ("keccak512", 4284)):
+        assert opcount.ops_per_candidate(name, 7) == Work(alu, 7, 14)
+    # a list: lanes 0-1 for words 0-2, one probe, no feed-forward
+    multi = opcount.ops_per_candidate("sha3-256", 7, True, probes=1.0)
+    assert multi.add == 7 and multi.alu > 4285 + 5

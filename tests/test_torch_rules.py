@@ -173,7 +173,12 @@ def test_kernel_opcodes_match_the_parser():
     ("md5", 1, ["E"], 55, False),            # TITLE
     ("md5", 1, ["es"], 55, False),           # TITLE_SEP
     ("md5", 1, ["$1 $2 $3 $4 $5 $6 $7 $8 $9"], 55, False),   # 9 ops
-    ("sha512", 1, ["$1"], 55, False),        # no such core
+    ("sha512", 1, ["$1"], 55, False),        # no rules core (R1)
+    ("sha384", 1, ["$1"], 55, False),
+    ("sha3-256", 1, ["$1"], 55, False),      # the Keccak family: none
+    ("keccak-256", 1, ["$1"], 55, False),
+    ("keccak224", 1, ["$1"], 55, False),
+    ("md5crypt", 1, ["$1"], 55, False),      # no such engine
 ])
 def test_kernel_rules_eligible(engine, targets, rules, max_len, ok):
     def gens(mod, parse):

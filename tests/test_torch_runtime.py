@@ -75,6 +75,7 @@ def test_registry():
     assert engine_class("md5", "cuda") is TorchMd5Engine
     assert engine_class("sha-1", "cuda") is engine_class("sha1", "cuda")
     with pytest.raises(KeyError):
-        get_engine("sha512", device="cuda")
+        get_engine("md5crypt", device="cuda")
+    assert get_engine("sha-512", device="cuda").name == "sha512"
     with pytest.raises(KeyError):
         get_engine("md5", device="tpu")
