@@ -8,9 +8,11 @@ card, and holds every kernel against its plain PyTorch version:
 
 1. the card: name, device count, power limit, SM count and clock;
 2. builds the mask kernel (csrc/mask.cu, every core x compare mode), the
-   rule kernel (csrc/rules.cu, every core), the PMKID kernel
-   (csrc/pbkdf2.cu) and the bcrypt kernels (csrc/bcrypt.cu) from the
-   checkout's sources, one nvcc each, all at once, and prints nvcc's
+   rule kernel (csrc/rules.cu, every core), the PMKID and KDF kernels
+   (csrc/pbkdf2.cu), the bcrypt kernels (csrc/bcrypt.cu), the ext,
+   Keccak and Kerberos kernels (csrc/ext.cu, csrc/keccak.cu,
+   csrc/krb5.cu) from the checkout's sources, one nvcc each, all at
+   once, and prints nvcc's
    register / shared memory / spill lines and a SASS census of each
    instantiation;
 3. holds each instantiation against its plain version on the card at a
@@ -115,7 +117,7 @@ card, and holds every kernel against its plain PyTorch version:
     salted core), no other;
 20. times every ext instantiation per launch with CUDA events beside its
     bound (ops/opcount.nested_ops, salted_ops) and its plain version;
-22. builds the 64-bit cores with the others -- sha512 and sha384 in
+21. builds the 64-bit cores with the others -- sha512 and sha384 in
     csrc/mask.cu (4 instantiations), the Keccak kernel csrc/keccak.cu (8:
     rates 144, 136, 104, 72 x one target / multi; sha3-N and keccak-N
     share one) -- fails on any of them with a stack frame, and holds each
@@ -127,7 +129,7 @@ card, and holds every kernel against its plain PyTorch version:
     64, 65 (two in one warp) and the last valid lane, one just past it,
     and with no hit; 8,192 targets at the longest mask, where the
     block's shared memory passes 48 KB and the launch raises its limit;
-23. the slice end to end through ``crack --device cuda``: sha512, sha384,
+22. the slice end to end through ``crack --device cuda``: sha512, sha384,
     sha3-256 and keccak-256 with one target at the last index of ?l^6
     (the whole keyspace swept) and with 1,000 targets, 8 planted, over a
     2^32 window of ?a^7 (config 2's shape); sha3-224/384/512 with one
@@ -135,9 +137,40 @@ card, and holds every kernel against its plain PyTorch version:
     each over a 2^28 window.  Every path runs with every launch count
     set to 0 just before it and read just after: its own instantiation
     launched once per batch, no other;
-24. times each new instantiation per launch beside its bound
+23. times each new instantiation per launch beside its bound
     (ops/opcount.ops_per_candidate) and its plain version;
-25. prints the kernels line and, last, the device line.
+24. builds the Kerberos RC4 kernel csrc/krb5.cu with the others, and
+    csrc/pbkdf2.cu with its second entry, the KDF kernel; fails on
+    either with a stack frame, and if pmkid's registers or SASS count
+    moved (``PMKID_BEFORE``); then holds the krb5 kernel against its
+    plain version at 2^24 candidates of ?a^8, exact equality of the
+    count and the sorted lanes: TGS tickets of every DER length form
+    (short, 0x81, 0x82, 0x83) with hits at lane 0, at the last valid
+    lane of a partial batch, at a random lane and with no hit; AS-REP
+    with the 0x79 tag and with the relaxed 0x7A; the longest mask (27
+    positions); hit capacity 0, and a worker with hit capacity 0 that
+    recovers its hit by the oracle rescan;
+25. the KDF kernel against its plain version at the main path's batch
+    (2^19 lanes of ?l^8, the last three invalid) and 16 iterations,
+    every output word equal, at 4 and 8 words and salts of 1, 19 and 51
+    bytes; then three lanes of a 2^20 launch at 4096 iterations against
+    hashlib.pbkdf2_hmac;
+26. the slice end to end through ``crack --device cuda``: a Kerberoast
+    (krb5tgs, 100 tickets of 1,000-1,500 bytes made by the port's
+    oracle, 4 planted, one at the window's last index) and an AS-REP
+    roast (krb5asrep, 10 hashes, 1 planted) over 2^28 windows of ?a^8,
+    the maybes held to what 2^-32 (2^-30) x candidates x tickets
+    predicts; krb5tgs-aes etype 18 (4 tickets, 1 planted at the
+    window's last index) over 2^22 and krb5asrep17 over 2^20 of ?l^8 at
+    4096 iterations; each path with every launch count set to 0 just
+    before it and read just after: its own kernel launched once per
+    ticket and batch, no other; then a krb5pa line under 64 bytes, which
+    must exit 2 naming its line and --device cpu;
+27. times both kernels with CUDA events beside their bounds
+    (ops/opcount.krb5_bound, kdf_ops) and their plain versions (the
+    KDF's on phase 25's input, with the kernel's time there beside it),
+    then one etype-18 step of the main path and its torch verdict alone;
+28. prints the kernels line and, last, the device line.
 
 Any failure exits non-zero before the last line.  Without a card it
 exits 1 and prints no result.
@@ -254,6 +287,22 @@ CENSUS_BEFORE = {
     "md5-ps_mask": (25, 2656), "md5-sp_mask": (31, 2656),
     "sha1-ps_mask": (32, 2976), "sha1-sp_mask": (31, 2952),
     "sha256-ps_mask": (32, 3800), "sha256-sp_mask": (37, 3728)}
+#: slice F2: the Kerberoast's and the AS-REP roast's windows of ?a^8, and
+#: their ticket counts
+KRB5_WINDOW = 1 << 28
+KERBEROAST_TICKETS, ASREP_TICKETS = 100, 10
+#: the AES runs' windows of ?l^8 (etype 18, 4 tickets; etype 17, one)
+AES18_WINDOW, AES17_WINDOW = 1 << 22, 1 << 20
+#: the KDF kernel against its plain version: iterations; then
+#: the deployed count against hashlib over KDF_HASHLIB_LANES
+KDF_CHECK_ITERS = 16
+KDF_ITERS, KDF_HASHLIB_LANES = 4096, 1 << 20
+#: the realm || principal salt of the KDF's timing launches
+KDF_TIMING_SALT = b"CORP.LOCALsvc_sql01"
+#: the nvcc registers and SASS instruction count of pmkid before the KDF
+#: kernel joined csrc/pbkdf2.cu (sm_90a, CUDA 12.8), which must not
+#: change them
+PMKID_BEFORE = (59, 10656)
 #: slice F1: the 64-bit cores' instantiations, (kernel name, engine the
 #: checks drive it through, multi target), in the kernels line's order;
 #: sha3-N and keccak-N share keccakN's instantiation
@@ -298,7 +347,8 @@ def rname(engine: str) -> str:
 #: the single-instantiation kernels, by their function name
 PLAIN_KERNELS = {"pmkid_kernel": "pmkid", "setup_kernel": "bcrypt_setup",
                  "advance_kernel": "bcrypt_advance",
-                 "finish_kernel": "bcrypt_finish"}
+                 "finish_kernel": "bcrypt_finish", "kdf_kernel": "pbkdf2_kdf",
+                 "krb5_kernel": "krb5"}
 
 
 def instance_of(mangled: str) -> str:
@@ -399,6 +449,7 @@ class Smoke:
                                         "bcrypt_advance", "bcrypt_finish")})
         self.err.update({kname(n, m): 0 for n, m in EXT_INSTANCES})
         self.err.update({k: 0 for k, _, _ in F1_INSTANCES})
+        self.err.update({"krb5": 0, "pbkdf2_kdf": 0})
         #: per instantiation: launches of the main path that runs it
         self.path_launches = {}
 
@@ -809,8 +860,9 @@ def run(smoke, oracle4, words4) -> None:
     from dprf_tpu_torch.generators.mask import MaskGenerator
     from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
     from dprf_tpu_torch.ops import (_build, blowfish, bloom, cuda_bcrypt,
-                                    cuda_ext, cuda_keccak, cuda_mask,
-                                    cuda_pbkdf2, cuda_rules, opcount)
+                                    cuda_ext, cuda_keccak, cuda_krb5,
+                                    cuda_mask, cuda_pbkdf2, cuda_rules,
+                                    opcount)
     from dprf_tpu_torch.rules import load_rules
     from dprf_tpu_torch.runtime.worker import CudaMaskWorker
     from dprf_tpu_torch.runtime.workunit import WorkUnit
@@ -830,13 +882,13 @@ def run(smoke, oracle4, words4) -> None:
 
     # 2. the kernel builds: one nvcc per source, all at once
     from concurrent.futures import ThreadPoolExecutor
-    sources = ("mask", "rules", "pbkdf2", "bcrypt", "ext", "keccak")
+    sources = ("mask", "rules", "pbkdf2", "bcrypt", "ext", "keccak", "krb5")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = {src: pool.submit(_build.build, src) for src in sources}
         builds = {src: f.result() for src, f in builds.items()}
     for mod in (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt, cuda_ext,
-                cuda_keccak):
+                cuda_keccak, cuda_krb5):
         mod.load_kernel()
     say(f"== build: {len(sources)} sources in "
         f"{time.perf_counter() - t0:.2f} s wall")
@@ -856,7 +908,8 @@ def run(smoke, oracle4, words4) -> None:
                 frame = re.search(r"(\d+) bytes stack frame", line)
                 check(not frame or frame.group(1) == "0" or kernel not in
                       {kname(n, m) for n, m in EXT_INSTANCES}
-                      | {k for k, _, _ in F1_INSTANCES},
+                      | {k for k, _, _ in F1_INSTANCES}
+                      | {"krb5", "pbkdf2_kdf"},
                       f"{kernel}: {line.strip()} (local memory)")
         census = _build.sass_census(src)
         for func, c in sorted(census.items(),
@@ -868,6 +921,12 @@ def run(smoke, oracle4, words4) -> None:
                 "; registers and census before the wide cores: "
                 + ("same" if was == (registers.get(inst), c["total"])
                    else f"DIFFER, it had {was}"))
+            if inst == "pmkid":
+                same = "; registers and census before the KDF kernel: " + (
+                    "same" if PMKID_BEFORE == (registers.get(inst),
+                                               c["total"])
+                    else f"DIFFER, it had {PMKID_BEFORE}")
+                check(same.endswith("same"), f"pmkid{same}")
             say(f"  SASS {inst}: {c['total']} static instructions, "
                 f"{registers.get(inst)} registers{same} ({top})")
     for engine, multi in INSTANCES:
@@ -899,9 +958,14 @@ def run(smoke, oracle4, words4) -> None:
             f"{cuda_ext.blocks_per_sm(chain, multi, smem)} resident blocks "
             f"of {cuda_mask.THREADS} per SM (the grid's wave)")
     smem = cuda_pbkdf2.shared_bytes(8)
-    say(f"  pmkid: {smem} B shared at 8 positions, "
-        f"{cuda_pbkdf2.blocks_per_sm(smem)} resident blocks of "
-        f"{cuda_pbkdf2.THREADS} per SM (the grid's wave)")
+    for k in (cuda_pbkdf2.KERNEL, cuda_pbkdf2.KDF_KERNEL):
+        say(f"  {k}: {smem} B shared at 8 positions, "
+            f"{cuda_pbkdf2.blocks_per_sm(smem, k)} resident blocks of "
+            f"{cuda_pbkdf2.THREADS} per SM (the grid's wave)")
+    smem = cuda_krb5.shared_bytes(8)
+    say(f"  krb5: {smem} B shared at 8 positions (the RC4 states and the "
+        f"tables; the opt-in above 48 KB), {cuda_krb5.blocks_per_sm(smem)} "
+        f"resident blocks of {cuda_krb5.THREADS} per SM (the grid's wave)")
     for k in cuda_bcrypt.KERNELS:
         blocks, smem = cuda_bcrypt.occupancy(0, k)
         say(f"  {k}: {smem} B shared (the opt-in above 48 KB took), "
@@ -1461,7 +1525,9 @@ def run(smoke, oracle4, words4) -> None:
     small = (lut5, g5.radices, g5.digits(s5), B5, ESSID5, it, t5, 64, B5)
     ms16 = smoke.time_launches(cuda_pbkdf2.pmkid_kernel, small, n=5)
     plain_ms = smoke.time_once(cuda_pbkdf2.pmkid_plain, small)
-    timing["pmkid"] = (ms, plain_ms, bound, "operations")
+    timing["pmkid"] = (ms, plain_ms, bound, "operations", {
+        "plain_input": f"{B5} lanes at {it} iterations (ms: {PMKID_BATCH} "
+                       "at 4096)", "ms_at_plain_input": ms16})
     say(f"  pmkid: {ms:.2f} ms per launch of {PMKID_BATCH} at 4096 "
         f"iterations = {PMKID_BATCH / ms * 1e3:,.0f} candidates/s = "
         f"{PMKID_BATCH * comps / ms / 1e6:.3f} G SHA-1 compressions/s "
@@ -1499,8 +1565,13 @@ def run(smoke, oracle4, words4) -> None:
         ops_ms = max(lim["shared"], lim["issue"]) * 1e3
         bytes_ms = wk * moved / HBM_BYTES_PER_S * 1e3
         bound = max(ops_ms, bytes_ms)
+        limit = "bytes" if bytes_ms > ops_ms else max(
+            ("shared", "issue"), key=lim.get)
         timing[k] = (ms_k, plain_k, bound,
-                     "operations" if ops_ms >= bytes_ms else "bytes")
+                     "operations" if ops_ms >= bytes_ms else "bytes",
+                     {"bound_limit": limit} | ({
+                         "plain_input": f"one round (ms: {n_adv} rounds)"}
+                         if k == "bcrypt_advance" else {}))
         say(f"  {k}: {ms_k:.3f} ms per launch of {wk} candidates "
             f"({rounds} Feistel rounds each); bound {bound:.3f} ms (shared "
             f"reads {lim['shared'] * 1e3:.3f} ms, issue slots "
@@ -1521,8 +1592,9 @@ def run(smoke, oracle4, words4) -> None:
 
     ext_timing = slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
     f1_timing = slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
+    f2_timing = slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms)
 
-    # 25. the kernels line, then the device line
+    # 28. the kernels line, then the device line
     kernels = []
     for engine, multi in INSTANCES:
         key = kname(engine, multi)
@@ -1547,12 +1619,13 @@ def run(smoke, oracle4, words4) -> None:
             ("pmkid", cuda_pbkdf2.SOURCE, cuda_pbkdf2.REPLACES),
             *((k, cuda_bcrypt.SOURCE, cuda_bcrypt.REPLACES)
               for k in cuda_bcrypt.KERNELS)):
-        ms, plain_ms, bound, bound_by = timing[key]
+        ms, plain_ms, bound, bound_by, more = timing[key]
         kernels.append({
             "name": key, "route": "cuda", "source": source,
             "replaces": replaces, "launches": smoke.path_launches[key],
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None})
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            **more})
     for chain, multi in EXT_INSTANCES:
         key = kname(chain, multi)
         ms, plain_ms, bound = ext_timing[key]
@@ -1572,6 +1645,16 @@ def run(smoke, oracle4, words4) -> None:
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "operations",
             "library_ms": None})
+    for key, source, replaces in (
+            ("krb5", cuda_krb5.SOURCE, cuda_krb5.REPLACES),
+            ("pbkdf2_kdf", cuda_pbkdf2.SOURCE, cuda_pbkdf2.KDF_REPLACES)):
+        ms, plain_ms, bound, bound_by, more = f2_timing[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            **more})
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its path")
     check(all(k["max_abs_err"] == 0 for k in kernels),
@@ -1591,9 +1674,10 @@ def unit_batches(cli, window: int) -> int:
 def kernel_modules() -> tuple:
     """Every kernel wrapper module, whose launch counts a path reads."""
     from dprf_tpu_torch.ops import (cuda_bcrypt, cuda_ext, cuda_keccak,
-                                    cuda_mask, cuda_pbkdf2, cuda_rules)
+                                    cuda_krb5, cuda_mask, cuda_pbkdf2,
+                                    cuda_rules)
     return (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt, cuda_ext,
-            cuda_keccak)
+            cuda_keccak, cuda_krb5)
 
 
 def run_path(smoke, cli, engine, mask, lines, want, window, key, n_launches,
@@ -1853,7 +1937,7 @@ def f1_key(engine: str, multi: bool) -> str:
 
 
 def slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
-    """Phases 22-24: sha512 and sha384 in csrc/mask.cu and the Keccak
+    """Phases 21-23: sha512 and sha384 in csrc/mask.cu and the Keccak
     kernel of csrc/keccak.cu.  Returns their timing rows (ms, plain ms,
     bound ms) by instantiation; their main paths' launches go to
     smoke.path_launches."""
@@ -1882,8 +1966,8 @@ def slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
             return cuda_keccak.blocks_per_sm(int(key[6:9]), multi, smem)
         return cuda_mask.blocks_per_sm(key.split("_")[0], multi, smem)
 
-    # 22. the kernels vs their plain versions
-    say(f"== 22. sha512/384 (csrc/mask.cu) and Keccak (csrc/keccak.cu) vs "
+    # 21. the kernels vs their plain versions
+    say(f"== 21. sha512/384 (csrc/mask.cu) and Keccak (csrc/keccak.cu) vs "
         f"plain at batch {BATCH} (exact equality)")
     base = int(rng.integers(0, g7.keyspace // BATCH - 2)) * BATCH
     nv = BATCH - 1000
@@ -1934,8 +2018,8 @@ def slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
                          f"n_valid-1={nvl - 1}", n_targets=bloom.MAX_TARGETS,
                          fns=pair, key=key)
 
-    # 23. the slice end to end through the CLI
-    say(f"== 23. crack --device cuda: sha512, sha384, sha3-256, keccak-256 "
+    # 22. the slice end to end through the CLI
+    say(f"== 22. crack --device cuda: sha512, sha384, sha3-256, keccak-256 "
         f"over {MASK_CONFIG1} (one target) and a {CONFIG2_WINDOW} window of "
         f"{MASK_CONFIG2} ({N_TARGETS} targets); the other Keccak names over "
         f"{OTHER_WINDOW}; card: {card}")
@@ -1983,8 +2067,8 @@ def slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
             f1_key(engine, multi), unit_batches(cli, OTHER_WINDOW), skip)
         e2e[f"{engine} 2^28"] = {"wall_s": wall, "rate": loop_rate(summary)}
 
-    # 24. timing at batch 2^24
-    say(f"== 24. slice F1 timing at batch 2^24 (CUDA events, "
+    # 23. timing at batch 2^24
+    say(f"== 23. slice F1 timing at batch 2^24 (CUDA events, "
         f"{TIMED_LAUNCHES} launches); card: {card}")
     timing = {}
     for key, engine, multi in F1_INSTANCES:
@@ -2017,6 +2101,349 @@ def slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
             f"{work.fma:.1f} IMAD = {work.slots:.1f} slots; kernel at "
             f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
     say(json.dumps({"slice_f1": e2e}))
+    return timing
+
+
+def krb5_line(rng, password: bytes, asrep: bool, body_len: int,
+              tag: int = None) -> str:
+    """A valid etype-23 line by the port's oracle: RFC 4757 run forward
+    over an 8-byte confounder and a DER ticket of ``body_len`` seeded
+    content bytes, as a KDC makes one."""
+    from dprf_tpu_torch.engines.cpu.krb5 import der, encrypt
+    tag = tag if tag is not None else (0x79 if asrep else 0x63)
+    body = bytes(rng.integers(0, 256, body_len, dtype="uint8"))
+    plain = bytes(rng.integers(0, 256, 8, dtype="uint8")) + \
+        der(tag, der(0x30, body))
+    chk, edata = encrypt(password, 8 if asrep else 2, plain)
+    if asrep:
+        return f"$krb5asrep$23$user@CORP.LOCAL:{chk.hex()}${edata.hex()}"
+    return (f"$krb5tgs$23$*svc$CORP.LOCAL$http/web*${chk.hex()}$"
+            f"{edata.hex()}")
+
+
+def aes_line(rng, tag: str, etype: int, usage: int, password: bytes,
+             body_len: int, user: str, realm: str = "CORP.LOCAL") -> str:
+    """A valid AES etype-17/18 line by the port's oracle: RFC 3962 run
+    forward at KDF_ITERS iterations over a 16-byte confounder and a DER
+    blob of ``body_len`` seeded content bytes."""
+    from dprf_tpu_torch.engines.cpu.krb5 import der
+    from dprf_tpu_torch.engines.cpu.krb5aes import encrypt
+    app = {1: 0x30, 2: 0x63, 3: 0x79}[usage]
+    body = bytes(rng.integers(0, 256, body_len, dtype="uint8"))
+    plain = bytes(rng.integers(0, 256, 16, dtype="uint8")) + \
+        der(app, der(0xA0 if usage == 1 else 0x30, body))
+    chk, edata = encrypt(password, (realm + user).encode(),
+                         16 if etype == 17 else 32, usage, plain, KDF_ITERS)
+    return f"${tag}${etype}${user}${realm}${chk.hex()}${edata.hex()}"
+
+
+def slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms) -> dict:
+    """Phases 24-27: the Kerberos RC4 kernel of csrc/krb5.cu and the KDF
+    kernel of csrc/pbkdf2.cu.  Returns their timing rows (ms, plain ms,
+    bound ms, bound_by); their main paths' launches go to
+    smoke.path_launches."""
+    import numpy as np
+    import torch
+
+    from dprf_tpu_torch.engines.device import krb5aes as dev_aes
+    from dprf_tpu_torch.engines.device.krb5 import CudaKrb5MaskWorker
+    from dprf_tpu_torch.generators.mask import MaskGenerator
+    from dprf_tpu_torch.ops import cuda_krb5, cuda_pbkdf2, opcount
+    from dprf_tpu_torch.runtime.potfile import encode_plain
+    from dprf_tpu_torch.runtime.workunit import WorkUnit
+
+    rng = smoke.rng
+    g8 = MaskGenerator(MASK_BENCH)
+    lut8 = g8.charset_lut("cuda")
+    gl8 = MaskGenerator(MASK_CONFIG5)
+    lutl8 = gl8.charset_lut("cuda")
+
+    def ticket(plain, asrep, body, tag=None):
+        """(oracle, Target) of a ticket for ``plain``."""
+        eng = smoke.get_engine("krb5asrep" if asrep else "krb5tgs")
+        return eng, eng.parse_target(krb5_line(rng, plain, asrep, body, tag))
+
+    # 24. the krb5 kernel vs its plain version
+    say(f"== 24. krb5 kernel (csrc/krb5.cu) vs plain at batch {BATCH} "
+        "(exact equality of the count and the sorted lanes)")
+
+    def hits(count, lanes, _=None):
+        return int(count.item()), sorted(x for x in lanes.tolist() if x >= 0)
+
+    def case(gen, lut, start, n_valid, eng_t, cap, planted, name):
+        """The kernel and its plain version on one ticket: equal count
+        and lanes; the planted lanes among them, and any other lane a
+        false maybe of the prefilter (odds 2^-32 a candidate, 2^-30 for
+        AS-REP), which the oracle rejects."""
+        eng, t = eng_t
+        args = (lut, gen.radices, gen.digits(start), n_valid,
+                cuda_krb5.target_kernel_args(t), cap, BATCH)
+        kf = hits(*cuda_krb5.krb5_kernel(*args))
+        pf = hits(*cuda_krb5.krb5_plain(*args))
+        check(kf == pf, f"krb5 {name}: kernel {kf} and plain {pf} differ")
+        err = max([abs(kf[0] - pf[0])] + [abs(a - b) for a, b in
+                                          zip(kf[1], pf[1])])
+        smoke.err["krb5"] = max(smoke.err["krb5"], err)
+        count, lanes = kf
+        maybes = sorted(set(lanes) - set(planted))
+        check(count >= len(planted) and (cap == 0 or (
+            count == len(lanes) and set(planted) <= set(lanes)))
+              and not any(eng.verify(gen.candidate(start + x), t)
+                          for x in maybes),
+              f"krb5 {name}: {kf}, planted {planted}")
+        say(f"  krb5 {name}: kernel {kf} | plain {pf}"
+            + (f"; lanes {maybes} are false maybes the oracle rejects"
+               if maybes else ""))
+
+    base = int(rng.integers(0, g8.keyspace // BATCH - 2)) * BATCH
+    nv = BATCH - 1000
+    lane = int(rng.integers(0, BATCH))
+    for asrep, body, tag, start, n_valid, plant, form in (
+            (False, 1200, None, base, BATCH, 0, "TGS, 0x82 form, lane 0"),
+            (False, 60, None, base + BATCH, nv, nv - 1,
+             f"TGS, short form, the last valid lane, n_valid={nv}"),
+            (False, 180, None, base, BATCH, None, "TGS, 0x81 form, no hit"),
+            (False, 70_000, None, base, BATCH, lane,
+             f"TGS, 0x83 form, lane {lane}"),
+            (True, 1200, None, base + BATCH, BATCH, BATCH // 3,
+             f"AS-REP 0x79, 0x82 form, lane {BATCH // 3}"),
+            (True, 300, 0x7A, base, BATCH, 77,
+             "AS-REP with the relaxed tag 0x7A, lane 77")):
+        plain = g8.candidate(start + plant) if plant is not None else b"-"
+        case(g8, lut8, start, n_valid, ticket(plain, asrep, body, tag), 64,
+             [plant] if plant is not None else [], form)
+    g27 = MaskGenerator("?a" * 7 + "?d" * 20)
+    s27 = int(rng.integers(0, 1 << 62)) * BATCH
+    case(g27, g27.charset_lut("cuda"), s27, BATCH - 5,
+         ticket(g27.candidate(s27 + BATCH - 6), False, 1200), 64,
+         [BATCH - 6], f"the longest mask, 27 positions, lane {BATCH - 6}")
+    plant = base + BATCH // 5
+    case(g8, lut8, base, BATCH, ticket(g8.candidate(plant), False, 60), 0,
+         [plant - base], "hit capacity 0")
+    eng = smoke.get_engine("krb5tgs")
+    dev = smoke.get_engine("krb5tgs", "cuda")
+    t = eng.parse_target(krb5_line(rng, g8.candidate(plant), False, 60))
+    w = CudaKrb5MaskWorker(dev, g8, [t], batch=BATCH, hit_capacity=0,
+                           oracle=eng)
+    hits = w.process(WorkUnit(0, plant - 100, 4096))
+    check([(h.cand_index, h.plaintext) for h in hits]
+          == [(plant, g8.candidate(plant))],
+          f"krb5 hit_capacity=0 worker rescan returned {hits}")
+    say(f"  krb5 worker rescan with hit_capacity=0 found "
+        f"{hits[0].plaintext!r} at {plant}")
+
+    # 25. the KDF kernel vs its plain version at the main path's batch,
+    # then hashlib
+    b19 = dev_aes.BATCH
+    nv19 = b19 - 3
+    say(f"== 25. pbkdf2_kdf (csrc/pbkdf2.cu) vs plain at {KDF_CHECK_ITERS} "
+        f"iterations over {nv19} valid lanes of a batch of {b19}, the main "
+        f"path's (exact equality of every word), then hashlib at "
+        f"{KDF_ITERS}")
+    s19 = int(rng.integers(0, gl8.keyspace // b19)) * b19
+    kdf_plain_ms = {}
+    for n_words in (4, 8):
+        for salt in (b"R", KDF_TIMING_SALT, b"S" * 51):
+            args = (lutl8, gl8.radices, gl8.digits(s19), nv19, salt,
+                    KDF_CHECK_ITERS, n_words, b19)
+            k = cuda_pbkdf2.kdf_kernel(*args)
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            p = cuda_pbkdf2.kdf_plain(*args)
+            t1.record()
+            torch.cuda.synchronize()
+            if salt == KDF_TIMING_SALT:
+                kdf_plain_ms[n_words] = t0.elapsed_time(t1)
+            err = int((k.long() - p.long()).abs().max().item())
+            smoke.err["pbkdf2_kdf"] = max(smoke.err["pbkdf2_kdf"], err)
+            say(f"  pbkdf2_kdf n_words={n_words} salt of {len(salt)} B: "
+                f"{tuple(k.shape)} words, max |kernel - plain| = {err}; "
+                f"plain {t0.elapsed_time(t1):.1f} ms")
+            check(err == 0 and k.shape == (nv19, n_words),
+                  "pbkdf2_kdf: kernel and plain differ")
+    b20 = KDF_HASHLIB_LANES
+    s20 = int(rng.integers(0, gl8.keyspace // b20)) * b20
+    salt = b"CORP.LOCALsvc_backup"
+    lanes = [0, int(rng.integers(1, b20 - 1)), b20 - 1]
+    for n_words in (8, 4):
+        k = cuda_pbkdf2.kdf_kernel(lutl8, gl8.radices, gl8.digits(s20), b20,
+                                   salt, KDF_ITERS, n_words, b20)
+        k = k.cpu().numpy()
+        for x in lanes:
+            want = hashlib.pbkdf2_hmac("sha1", gl8.candidate(s20 + x), salt,
+                                       KDF_ITERS, 4 * n_words)
+            check(k[x].view(np.uint32).astype(">u4").tobytes() == want,
+                  f"pbkdf2_kdf lane {x}: kernel and hashlib differ")
+    say(f"  pbkdf2_kdf at {KDF_ITERS} iterations over {b20} lanes: lanes "
+        f"{lanes} equal hashlib.pbkdf2_hmac at 16 and 32 bytes")
+
+    # 26. the slice end to end through the CLI
+    window = KRB5_WINDOW
+    say(f"== 26. crack --device cuda: the Kerberoast (krb5tgs, "
+        f"{KERBEROAST_TICKETS} tickets of 1,000-1,500 bytes, 4 planted) and "
+        f"AS-REP roast (krb5asrep, {ASREP_TICKETS}, 1 planted) over {window} "
+        f"of {MASK_BENCH}; krb5tgs-aes etype 18 (4 tickets, 1 planted) over "
+        f"{AES18_WINDOW} and krb5asrep17 over {AES17_WINDOW} of "
+        f"{MASK_CONFIG5} at {KDF_ITERS} iterations; card: {card}")
+    e2e = {}
+
+    def roast(engine, n_targets, n_planted, asrep, p_false):
+        skip = int(rng.integers(0, g8.keyspace - window))
+        idx = sorted({window - 1, *(int(x) for x in rng.integers(
+            0, window - 1, n_planted - 1))})
+        check(len(idx) == n_planted, f"planted indices collide: {idx}")
+        planted = [g8.candidate(skip + i) for i in idx]
+        lines = [krb5_line(rng, p, asrep, int(rng.integers(990, 1490)))
+                 for p in planted]
+        lines += [krb5_line(rng, b"no-such-password%d" % i, asrep,
+                            int(rng.integers(990, 1490)))
+                  for i in range(n_targets - n_planted)]
+        order = rng.permutation(n_targets)
+        want = [f"{ln}:{encode_plain(p)}" for ln, p in zip(lines, planted)]
+        summary, wall = run_path(
+            smoke, cli, engine, MASK_BENCH, [lines[i] for i in order], want,
+            window, "krb5", n_targets * unit_batches(cli, window), skip)
+        maybes = int(re.search(r"maybes=(\d+)", summary).group(1))
+        predicted = p_false * window * n_targets
+        check(maybes <= max(20, 4 * predicted),
+              f"{engine}: {maybes} maybes, predicted {predicted:.2f}")
+        e2e[engine] = {"wall_s": wall, "rate": loop_rate(summary),
+                       "maybes": maybes, "maybes_predicted": predicted,
+                       "planted_at": idx, "skip": skip}
+        say(f"  {engine}: {wall:.3f} s wall, {n_targets} tickets x {window} "
+            f"candidates, loop {loop_rate(summary):,} candidates/s "
+            f"(x tickets), maybes {maybes} (predicted {predicted:.2f})")
+
+    roast("krb5tgs", KERBEROAST_TICKETS, 4, False, 2.0 ** -32)
+    roast("krb5asrep", ASREP_TICKETS, 1, True, 2.0 ** -30)
+
+    def aes_run(engine, tag, etype, usage, n_targets, win):
+        skip = int(rng.integers(0, gl8.keyspace - win))
+        plain = gl8.candidate(skip + win - 1)
+        lines = [aes_line(rng, tag, etype, usage, plain,
+                          int(rng.integers(990, 1490)), "svc_sql01")]
+        lines += [aes_line(rng, tag, etype, usage, b"no-such-password%d" % i,
+                           int(rng.integers(990, 1490)), f"svc_app{i}")
+                  for i in range(n_targets - 1)]
+        check(smoke.get_engine(engine).iterations == KDF_ITERS,
+              f"{engine}: {smoke.get_engine(engine).iterations} iterations")
+        batch = dev_aes.BATCH
+        unit = cli.UNIT_BATCHES * batch
+        batches = sum(-(-min(unit, win - u) // batch)
+                      for u in range(0, win, unit))
+        summary, wall = run_path(
+            smoke, cli, engine, MASK_CONFIG5, lines,
+            [f"{lines[0]}:{plain.decode()}"], win, "pbkdf2_kdf",
+            n_targets * batches, skip)
+        e2e[f"{engine} etype {etype}"] = {
+            "wall_s": wall, "rate": loop_rate(summary),
+            "maybes": int(re.search(r"maybes=(\d+)", summary).group(1)),
+            "launches": n_targets * batches}
+        say(f"  {engine} etype {etype}: {wall:.3f} s wall, {n_targets} "
+            f"tickets x {win} candidates, loop {loop_rate(summary):,} "
+            f"candidates/s (x tickets)")
+
+    aes_run("krb5tgs-aes", "krb5tgs", 18, 2, 4, AES18_WINDOW)
+    aes_run("krb5asrep17", "krb5asrep", 17, 3, 1, AES17_WINDOW)
+    # a Pre-Auth timestamp under 64 bytes is refused on the card
+    short = aes_line(rng, "krb5pa", 18, 1, b"x", 20, "user")
+    with tempfile.TemporaryDirectory() as tmp:
+        hashfile = os.path.join(tmp, "pa.txt")
+        with open(hashfile, "w") as fh:
+            fh.write(short + "\n")
+        err = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(["crack", "--device", "cuda", "--engine", "krb5pa",
+                           "?d?d?d", hashfile, "--no-potfile"])
+    check(rc == 2 and "--device cpu" in err.getvalue()
+          and "line 1" in err.getvalue(),
+          f"krb5pa under 64 bytes: exit {rc}, {err.getvalue()[-500:]}")
+    say(f"  krb5pa with a {len(bytes.fromhex(short.rsplit('$', 1)[1]))}-byte"
+        f" edata2 exits {rc}: {err.getvalue().strip().splitlines()[-1]}")
+    say(json.dumps({"slice_f2": e2e}))
+
+    # 27. timing
+    say(f"== 27. slice F2 timing (CUDA events); card: {card}")
+    timing = {}
+    tgt = cuda_krb5.target_kernel_args(ticket(b"\0" * 9, False, 1200)[1])
+    start = int(rng.integers(0, g8.keyspace // BATCH)) * BATCH
+    args = (lut8, g8.radices, g8.digits(start), BATCH, tgt, 64, BATCH)
+    ms = smoke.time_launches(cuda_krb5.krb5_kernel, args)
+    plain_ms = smoke.time_once(cuda_krb5.krb5_plain, args, warm=False)
+    work = opcount.krb5_ops(g8.length)
+    lim = opcount.krb5_bound(BATCH, g8.length, sms, clock_mhz * 1e6)
+    bound = max(lim.values()) * 1e3
+    timing["krb5"] = (ms, plain_ms, bound, "operations",
+                      {"bound_limit": max(lim, key=lim.get)})
+    smem = cuda_krb5.shared_bytes(g8.length)
+    say(f"  krb5 {MASK_BENCH}: {ms:.4f} ms per launch of {BATCH} = "
+        f"{BATCH / ms / 1e6:.3f} G candidates/s; bound {bound:.4f} ms (issue "
+        f"{lim['issue'] * 1e3:.4f} ms at {work.slots:.1f} slots a candidate: "
+        f"{work.alu:.0f} ALU, {work.add:.0f} IADD3, {work.fma:.0f} IMAD; "
+        f"shared {lim['shared'] * 1e3:.4f} ms at "
+        f"{opcount.RC4_SHARED + g8.length} accesses); kernel at "
+        f"{bound / ms:.1%} of it; {smem} B shared, "
+        f"{cuda_krb5.blocks_per_sm(smem)} resident blocks per SM; plain "
+        f"version {plain_ms:.1f} ms")
+    rows = {}
+    for n_words in (8, 4):
+        args = (lutl8, gl8.radices, gl8.digits(s19), b19, KDF_TIMING_SALT,
+                KDF_ITERS, n_words, b19)
+        ms_k = smoke.time_launches(cuda_pbkdf2.kdf_kernel, args, n=3, warm=1)
+        work = opcount.kdf_ops(gl8.length, KDF_ITERS, n_words)
+        bound = b19 * work.slots / rate_ops * 1e3
+        # the kernel on phase 25's input, which the plain version timed
+        small = (lutl8, gl8.radices, gl8.digits(s19), nv19, KDF_TIMING_SALT,
+                 KDF_CHECK_ITERS, n_words, b19)
+        ms16 = smoke.time_launches(cuda_pbkdf2.kdf_kernel, small, n=5)
+        plain16 = kdf_plain_ms[n_words]
+        comps = sum(opcount.kdf_compressions(KDF_ITERS, n_words).values())
+        rows[n_words] = (ms_k, plain16, bound, "operations", {
+            "plain_input": f"{nv19} lanes at {KDF_CHECK_ITERS} iterations "
+                           f"(ms: {b19} at {KDF_ITERS})",
+            "ms_at_plain_input": ms16})
+        say(f"  pbkdf2_kdf n_words={n_words} (etype "
+            f"{18 if n_words == 8 else 17}): {ms_k:.2f} ms per launch of "
+            f"{b19} at {KDF_ITERS} iterations = {b19 / ms_k * 1e3:,.0f} "
+            f"candidates/s = {b19 * comps / ms_k / 1e6:.3f} G SHA-1 "
+            f"compressions/s ({comps} a candidate); bound {bound:.2f} ms "
+            f"({work.slots:,.0f} slots a candidate); kernel at "
+            f"{bound / ms_k:.1%} of it.  At {KDF_CHECK_ITERS} iterations over "
+            f"{nv19} lanes: kernel {ms16:.3f} ms, plain version "
+            f"{plain16:.1f} ms")
+    timing["pbkdf2_kdf"] = rows[8]
+
+    # one etype-18 step of the main path, and its torch verdict alone
+    params = smoke.get_engine("krb5tgs-aes").parse_target(aes_line(
+        rng, "krb5tgs", 18, 2, b"-", 1200, "svc_sql01")).params
+    step = dev_aes.make_kdf_step(gl8, b19, params, 64, KDF_ITERS, "cuda")
+    check_fn = dev_aes.make_krb5aes_check(params)
+    expected = dev_aes.expected_word(params)
+    words = cuda_pbkdf2.kdf_kernel(lutl8, gl8.radices, gl8.digits(s19), b19,
+                                   params["salt"], KDF_ITERS, 8, b19)
+
+    def verdict(w):
+        return check_fn(dev_aes._words_to_bytes_be(w))[:, 0] == expected
+
+    verdict_ms = smoke.time_launches(verdict, (words,), n=5, warm=1)
+    step_ms = smoke.time_launches(step, (gl8.digits(s19), b19), n=3, warm=1)
+    say(f"  etype-18 step of {b19}: {step_ms:.2f} ms; the KDF kernel "
+        f"{rows[8][0]:.2f} ms; the torch verdict alone (two DK derivations, "
+        f"one AES block decrypted, the masked compare) {verdict_ms:.2f} ms "
+        f"= {verdict_ms / step_ms:.1%} of the step; the rest of the step "
+        f"outside the kernel {step_ms - rows[8][0]:.2f} ms")
+    say(json.dumps({"slice_f2_timing": {
+        "krb5_ms": timing["krb5"][0], "krb5_plain_ms": timing["krb5"][1],
+        "krb5_bound_ms": timing["krb5"][2],
+        "kdf18_ms": rows[8][0], "kdf17_ms": rows[4][0],
+        "kdf18_bound_ms": rows[8][2], "kdf17_bound_ms": rows[4][2],
+        "kdf18_plain16_ms": rows[8][1], "kdf17_plain16_ms": rows[4][1],
+        "kdf18_16it_ms": rows[8][4]["ms_at_plain_input"],
+        "kdf17_16it_ms": rows[4][4]["ms_at_plain_input"],
+        "aes18_step_ms": step_ms, "aes18_verdict_ms": verdict_ms}}))
     return timing
 
 

@@ -4,8 +4,8 @@ Subcommands: crack (a local mask or wordlist+rules job), bench
 (candidates/s of the mask worker), engines, keyspace.  Devices:
 
 - ``cuda`` (the default): the hand-written CUDA kernels on the card
-  (the mask kernel, the rule kernel, the PMKID kernel, the bcrypt
-  kernels);
+  (the mask kernel, the rule kernel, the PMKID and KDF kernels, the
+  bcrypt kernels, the Kerberos RC4 kernel);
 - ``torch-cpu``: the same workers on CPU tensors, running the kernels'
   plain PyTorch versions;
 - ``cpu``: the CPU oracle (hashlib; a pure-Python MD4 for ntlm).
@@ -197,6 +197,7 @@ def _make_dispatcher(args, keyspace: int, unit_size: int, log: Log):
 
 
 def cmd_crack(args, log: Log) -> int:
+    from dprf_tpu_torch.engines.base import TargetRefused
     from dprf_tpu_torch.runtime.coordinator import Coordinator, JobSpec
     from dprf_tpu_torch.runtime.potfile import Potfile, encode_plain
     from dprf_tpu_torch.utils.hashlist import load_hashlist
@@ -216,7 +217,11 @@ def cmd_crack(args, log: Log) -> int:
     gen = _build_gen(args.attack, args.attack_arg, args,
                      _wordlist_max_len(oracle), log)
     batch = args.batch or DEFAULT_BATCH[device]
-    worker = _make_worker(args, tdev, gen, hl.targets, oracle, batch)
+    try:
+        worker = _make_worker(args, tdev, gen, hl.targets, oracle, batch)
+    except TargetRefused as e:
+        raise ValueError(f"{args.hashfile} line "
+                         f"{hl.line_numbers[e.target_index]}: {e}") from None
     unit_size = _unit_size(args, worker, gen, batch)
     dispatcher = _make_dispatcher(args, gen.keyspace, unit_size, log)
     log.info("worker", kind=type(worker).__name__, device=device,
@@ -254,7 +259,8 @@ def cmd_crack(args, log: Log) -> int:
 
 
 def _maybes(worker) -> dict:
-    """A multi-target kernel worker's Bloom survivors, for the summary."""
+    """A multi-target kernel worker's Bloom survivors, or a prefilter
+    worker's maybes the oracle rejected (Kerberos), for the summary."""
     n = worker.n_maybe() if hasattr(worker, "n_maybe") else None
     return {} if n is None else {"maybes": n}
 

@@ -1,8 +1,9 @@
 // cores.cuh -- the hash cores the port's kernels share (csrc/mask.cu,
 // csrc/rules.cu, csrc/pbkdf2.cu): md5, md4 (ntlm, over UTF-16LE), sha1
 // and sha256, one 64-byte block each, fully unrolled, with everything
-// in registers; sha1_compress, SHA-1 from any chaining state (HMAC);
-// and sha512 / sha384 over one 128-byte block of 64-bit words.
+// in registers; md5_compress and sha1_compress, MD5 and SHA-1 from any
+// chaining state (HMAC); and sha512 / sha384 over one 128-byte block of
+// 64-bit words.
 //
 // Each core is a struct: kWords digest words; kMaxLen, the longest
 // candidate one block holds; word(q) / shift(q), where candidate byte q
@@ -74,6 +75,46 @@ __constant__ uint32_t K_SHA256[64] = {
 // word(q) / shift(q): where candidate byte q goes in the message words.
 // They are called with compile-time q only, so they fold away.
 
+// MD5 compression with an arbitrary chaining state: the 64 rounds over
+// the 16 message words m and the feed-forward, out = st + rounds(st, m).
+// Inlined with constant st or constant words of m, the constants fold
+// (Md5Core::digest's IV, the HMAC blocks' padding words of csrc/krb5.cu).
+__device__ __forceinline__ void md5_compress(const uint32_t* st,
+                                             const uint32_t* m,
+                                             uint32_t* out)
+{
+    const int S[4][4] = {{7, 12, 17, 22}, {5, 9, 14, 20},
+                         {4, 11, 16, 23}, {6, 10, 15, 21}};
+    uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+        uint32_t f;
+        int g;
+        if (i < 16) {
+            f = d ^ (b & (c ^ d));        // (b & c) | (~b & d)
+            g = i;
+        } else if (i < 32) {
+            f = c ^ (d & (b ^ c));        // (d & b) | (~d & c)
+            g = (5 * i + 1) & 15;
+        } else if (i < 48) {
+            f = b ^ c ^ d;
+            g = (3 * i + 5) & 15;
+        } else {
+            f = c ^ (b | ~d);
+            g = (7 * i) & 15;
+        }
+        const uint32_t tmp = a + f + K_MD5[i] + m[g];
+        a = d;
+        d = c;
+        c = b;
+        b = b + rotl(tmp, S[i >> 4][i & 3]);
+    }
+    out[0] = a + st[0];
+    out[1] = b + st[1];
+    out[2] = c + st[2];
+    out[3] = d + st[3];
+}
+
 struct Md5Core {
     static constexpr int kWords = 4;
     static constexpr int kMaxLen = 55;
@@ -88,37 +129,9 @@ struct Md5Core {
     __device__ __forceinline__ static void digest(uint32_t* m,
                                                   uint32_t* out)
     {
-        const int S[4][4] = {{7, 12, 17, 22}, {5, 9, 14, 20},
-                             {4, 11, 16, 23}, {6, 10, 15, 21}};
-        uint32_t a = 0x67452301u, b = 0xefcdab89u, c = 0x98badcfeu,
-                 d = 0x10325476u;
-#pragma unroll
-        for (int i = 0; i < 64; ++i) {
-            uint32_t f;
-            int g;
-            if (i < 16) {
-                f = d ^ (b & (c ^ d));        // (b & c) | (~b & d)
-                g = i;
-            } else if (i < 32) {
-                f = c ^ (d & (b ^ c));        // (d & b) | (~d & c)
-                g = (5 * i + 1) & 15;
-            } else if (i < 48) {
-                f = b ^ c ^ d;
-                g = (3 * i + 5) & 15;
-            } else {
-                f = c ^ (b | ~d);
-                g = (7 * i) & 15;
-            }
-            const uint32_t tmp = a + f + K_MD5[i] + m[g];
-            a = d;
-            d = c;
-            c = b;
-            b = b + rotl(tmp, S[i >> 4][i & 3]);
-        }
-        out[0] = a + 0x67452301u;
-        out[1] = b + 0xefcdab89u;
-        out[2] = c + 0x98badcfeu;
-        out[3] = d + 0x10325476u;
+        const uint32_t iv[4] = {0x67452301u, 0xefcdab89u, 0x98badcfeu,
+                                0x10325476u};
+        md5_compress(iv, m, out);
     }
 };
 

@@ -1,0 +1,221 @@
+// krb5.cu -- the Kerberos etype-23 (RC4-HMAC) prefilter kernel for
+// Hopper (sm_90a): mask decode -> UTF-16LE -> MD4 (the NT hash) ->
+// HMAC-MD5(NT, msg_type) -> HMAC-MD5(K1, checksum) -> RC4 key schedule
+// under K3 and 12 keystream bytes -> a masked compare of plaintext bytes
+// 8-11 with the ticket's predicted DER header.
+//
+// Replaces: the TPU kernel of dprf_tpu/ops/pallas_krb5.py
+// (make_krb5_pallas_fn, pl.pallas_call at :260; its body _build_body,
+// the RC4 of _rc4_word2, the HMACs of _hmac_md5).  The plaintext of a
+// ticket is an 8-byte random confounder and then the DER-encoded ticket,
+// whose first four bytes -- the [APPLICATION n] tag, the length's form,
+// the SEQUENCE tag -- follow from len(edata2) alone
+// (engines/device/krb5.der_filter_words).  So a candidate survives when
+// (keystream[8:12] ^ edata2[8:12]) & mask == expected: a 32-bit test
+// (30 bits for AS-REP, whose tag byte is matched under 0xFC).  The
+// worker confirms every survivor with the oracle's full RFC 4757 check.
+//
+// One launch serves one target: its msg_type, checksum, edata2[8:12],
+// mask and expectation are kernel parameters, so one build serves both
+// engines and every ticket.  Every hit is appended (lane) with an
+// atomicAdd; count > cap sends that target's batch to the worker's exact
+// oracle rescan.  The TPU kernel's packed (count << 16) | (hit + 1) tile
+// output is Mosaic's and is not carried over.
+//
+// What bounds it: issue slots and shared memory.  Per candidate one MD4
+// block over the widened candidate, eight MD5 compressions (the two key
+// states and the inner and outer hash of each HMAC), and RC4: 256 key
+// schedule steps and 12 output steps, each a dependent chain of a shared
+// load of S[i], an add for j, a shared load of S[j] and two shared
+// stores.  ops/opcount.krb5_ops and krb5_bound count both limits.  It
+// reads no device memory but its charset tables and writes only hits.
+//
+// What the design does about it: one thread per candidate in a
+// grid-stride loop.  The NT hash, K1 and K3 stay in registers, and both
+// HMACs' padding words (the 0x80 marker, zeros, the bit lengths (64 +
+// 4) * 8 and (64 + 16) * 8) are constants, so their terms fold.  Each
+// thread's RC4 state lives in shared memory, 256 bytes a thread, laid
+// out so that byte e of thread t is at byte 4 * ((e >> 2) * kThreads +
+// t) + (e & 3): its 32-bit word sits in bank t mod 32 whatever e is, so
+// a warp's 32 data-dependent accesses never conflict, and byte loads and
+// stores need no read-modify-write.  A 256-thread block takes 64 KB of
+// it, past the 48 KB a launch gets without asking, so the launch raises
+// its limit.  The key schedule is unrolled in full: the key byte K3[i %
+// 16] is an extract at a constant position and S[i]'s address a
+// constant offset, so nothing is indexed in registers and there is no
+// stack frame.  The swap stores S[i] = S[j] before S[j] = S[i], both
+// from values read first, which is right when j == i.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "cores.cuh"
+#include "decode.cuh"
+
+#define DPRF_KRB5_MAX_LEN 27
+
+constexpr int kThreads = 256;
+// bytes of RC4 state a block keeps in shared memory
+constexpr int kRc4Bytes = 256 * kThreads;
+
+// Kernel parameters of one launch (mirrored by ops/cuda_krb5._Args).
+struct Krb5Args {
+    int32_t length;
+    int32_t radix[DPRF_KRB5_MAX_LEN];
+    int32_t base[DPRF_KRB5_MAX_LEN];
+    // the widened candidate's fixed block words: the 0x80 marker and the
+    // bit length (ops/cuda_mask.message_block("ntlm", length))
+    uint32_t block[16];
+    // the target: msg_type, the checksum as little-endian words,
+    // edata2[8:12] little-endian, the mask and the masked expectation
+    uint32_t msg_type;
+    uint32_t checksum[4];
+    uint32_t cipher;
+    uint32_t mask;
+    uint32_t expected;
+};
+
+// HMAC-MD5 under a 16-byte key of a kWords-word message that fits one
+// block after the key block: the key pad is one xor of the zero-padded
+// key, the padding words are constants.
+template <int kWords>
+__device__ __forceinline__ void hmac_md5(const uint32_t* key,
+                                         const uint32_t* msg, uint32_t* out)
+{
+    const uint32_t iv[4] = {0x67452301u, 0xefcdab89u, 0x98badcfeu,
+                            0x10325476u};
+    uint32_t w[16], ist[4], ost[4], inner[4];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) w[i] = (i < 4 ? key[i] : 0u) ^ 0x36363636u;
+    md5_compress(iv, w, ist);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) w[i] = (i < 4 ? key[i] : 0u) ^ 0x5c5c5c5cu;
+    md5_compress(iv, w, ost);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) w[i] = i < kWords ? msg[i] : 0u;
+    w[kWords] = 0x80u;
+    w[14] = (64 + 4 * kWords) * 8;
+    md5_compress(ist, w, inner);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) w[i] = i < 4 ? inner[i] : 0u;
+    w[4] = 0x80u;
+    w[14] = (64 + 16) * 8;
+    md5_compress(ost, w, out);
+}
+
+// Byte e of the calling thread's RC4 state (s: the state's base plus
+// 4 * threadIdx.x).
+#define RC4_AT(s, e) ((s)[(((e) >> 2) * (4 * kThreads)) + ((e) & 3)])
+
+// Keystream bytes [8, 12) under the 16-byte key k (little-endian words),
+// packed little-endian.
+__device__ __forceinline__ uint32_t rc4_word2(uint8_t* s, const uint32_t* k)
+{
+    uint32_t* s32 = reinterpret_cast<uint32_t*>(s);
+#pragma unroll
+    for (int w = 0; w < 64; ++w)
+        s32[w * kThreads] = 0x03020100u + 0x04040404u * (uint32_t)w;
+    uint32_t j = 0u;
+#pragma unroll
+    for (int i = 0; i < 256; ++i) {
+        const uint32_t kb = (k[(i >> 2) & 3] >> (8 * (i & 3))) & 0xffu;
+        const uint32_t si = RC4_AT(s, i);
+        j = (j + si + kb) & 0xffu;
+        const uint32_t sj = RC4_AT(s, j);
+        RC4_AT(s, i) = (uint8_t)sj;
+        RC4_AT(s, j) = (uint8_t)si;
+    }
+    j = 0u;
+    uint32_t word = 0u;
+#pragma unroll
+    for (int t = 0; t < 12; ++t) {
+        const int i = t + 1;
+        const uint32_t si = RC4_AT(s, i);
+        j = (j + si) & 0xffu;
+        const uint32_t sj = RC4_AT(s, j);
+        RC4_AT(s, i) = (uint8_t)sj;
+        RC4_AT(s, j) = (uint8_t)si;
+        if (t >= 8) word |= (uint32_t)RC4_AT(s, (si + sj) & 0xffu)
+                            << (8 * (t - 8));
+    }
+    return word;
+}
+
+__global__ void __launch_bounds__(kThreads)
+krb5_kernel(const uint8_t* __restrict__ lut, const Krb5Args args,
+            uint32_t n_valid, int32_t* __restrict__ count,
+            int32_t* __restrict__ lanes, int32_t cap)
+{
+    // the RC4 states, then the per-position 256-byte charset tables
+    extern __shared__ __align__(16) uint8_t smem[];
+    uint8_t* s_lut = smem + kRc4Bytes;
+    const int L = args.length;
+    for (int i = threadIdx.x; i < L * 256; i += blockDim.x)
+        s_lut[i] = lut[i];
+    __syncthreads();
+    uint8_t* s = smem + 4 * threadIdx.x;
+
+    const uint32_t stride = gridDim.x * blockDim.x;
+    for (uint32_t gidx = blockIdx.x * blockDim.x + threadIdx.x;
+         gidx < n_valid; gidx += stride) {
+        uint32_t m[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) m[i] = args.block[i];
+        uint32_t carry = gidx;
+        DPRF_DECODE(Md4Core, DPRF_KRB5_MAX_LEN, L);
+
+        uint32_t nt[4], k1[4], k3[4];
+        Md4Core::digest(m, nt);
+        hmac_md5<1>(nt, &args.msg_type, k1);
+        hmac_md5<4>(k1, args.checksum, k3);
+        const uint32_t plain = rc4_word2(s, k3) ^ args.cipher;
+        if ((plain & args.mask) == args.expected) {
+            const int32_t slot = atomicAdd(count, 1);
+            if (slot < cap) lanes[slot] = (int32_t)gidx;
+        }
+    }
+}
+
+// ---- the C interface ---------------------------------------------------
+
+static cudaError_t raise_smem_limit(int smem)
+{
+    return cudaFuncSetAttribute(krb5_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+}
+
+// Dynamic shared memory of one block at `length` positions
+// (ops/cuda_krb5.shared_bytes).
+static int shared_bytes(int length) { return kRc4Bytes + 256 * length; }
+
+// Launch on the caller's stream without synchronising; returns the
+// launch's cudaError_t (0 = launched).  count must hold 0 and lanes -1 on
+// entry (the wrapper allocates them so).  `threads` must be kThreads.
+extern "C" int dprf_krb5_launch(int device, const uint8_t* lut,
+                                const Krb5Args* args, uint32_t n_valid,
+                                int32_t* count, int32_t* lanes, int32_t cap,
+                                int grid, int threads, void* stream)
+{
+    if (threads != kThreads) return (int)cudaErrorInvalidValue;
+    if (args->length < 1 || args->length > DPRF_KRB5_MAX_LEN)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const int smem = shared_bytes(args->length);
+    err = raise_smem_limit(smem);
+    if (err != cudaSuccess) return (int)err;
+    krb5_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        lut, *args, n_valid, count, lanes, cap);
+    return (int)cudaGetLastError();
+}
+
+// Resident blocks of kThreads threads per SM at `smem` bytes of dynamic
+// shared memory (the grid's size).
+extern "C" int dprf_krb5_blocks_per_sm(int smem, int* blocks)
+{
+    cudaError_t err = raise_smem_limit(smem);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, krb5_kernel, kThreads, (size_t)smem);
+}

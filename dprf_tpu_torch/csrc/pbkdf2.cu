@@ -1,8 +1,23 @@
-// pbkdf2.cu -- the fused WPA2-PMKID kernel for Hopper (sm_90a): mask
-// decode -> PBKDF2-HMAC-SHA1 -> PMK -> PMKID for every target of one
-// ESSID -> compare.
+// pbkdf2.cu -- the PBKDF2-HMAC-SHA1 kernels for Hopper (sm_90a): the
+// fused WPA2-PMKID kernel (mask decode -> PBKDF2-HMAC-SHA1 -> PMK ->
+// PMKID for every target of one ESSID -> compare) and the generic KDF
+// kernel (mask decode -> PBKDF2-HMAC-SHA1 -> the derived key's words),
+// the one PBKDF2 body, pbkdf2_block, shared by both.
 //
-// Replaces: the TPU kernel of dprf_tpu/ops/pallas_pbkdf2.py
+// The KDF kernel (kdf_kernel, the C entry dprf_kdf_launch) replaces the
+// TPU kernel make_pbkdf2_kdf_pallas_fn of dprf_tpu/ops/pallas_pbkdf2.py
+// (pl.pallas_call at :169, body pbkdf2_lanes): per candidate the key
+// states, T1 and, only when n_words > 5, T2, and the first n_words
+// big-endian words of T1 || T2 written to out[lane, :n_words] (4 for a
+// Kerberos etype-17 key, 8 for etype 18).  The salt (1-51 bytes, its two
+// first-message blocks built on the host), the iteration count and
+// n_words are launch parameters, so one build serves every target.  It
+// is bound by issue slots as the PMKID kernel is (ops/opcount.kdf_ops)
+// and writes 4 * n_words bytes a candidate; the verdict of the Kerberos
+// AES engines runs on its output in torch (engines/device/krb5aes.py),
+// as the reference runs its verdict in XLA after its kernel.
+//
+// The PMKID kernel replaces the TPU kernel of dprf_tpu/ops/pallas_pbkdf2.py
 // (make_pmkid_pallas_fn / pmkid_lanes, and the PBKDF2 body pbkdf2_lanes
 // it shares with make_pbkdf2_kdf_pallas_fn).  Per candidate: decode the
 // mask index into the passphrase (<= 63 bytes) as one big-endian key
@@ -105,6 +120,30 @@ __device__ __forceinline__ void key_states(const uint32_t* key,
     sha1_compress(iv, w, ost);
 }
 
+// One PBKDF2 output block T_i from the key states: U1 = HMAC(key, salt
+// || INT(i)), its message the pre-padded block `salt`, then iters - 1
+// HMAC rounds over the 20-byte U, t = U1 ^ ... ^ U_iters.
+__device__ __forceinline__ void pbkdf2_block(const uint32_t* ist,
+                                             const uint32_t* ost,
+                                             const uint32_t* salt,
+                                             int32_t iters, uint32_t* t)
+{
+    uint32_t w[16], u[5];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) w[i] = salt[i];
+    sha1_compress(ist, w, u);
+    block20(u, w);
+    sha1_compress(ost, w, u);
+#pragma unroll
+    for (int i = 0; i < 5; ++i) t[i] = u[i];
+#pragma unroll 1
+    for (int j = 1; j < iters; ++j) {
+        hmac20(ist, ost, u, u);
+#pragma unroll
+        for (int i = 0; i < 5; ++i) t[i] ^= u[i];
+    }
+}
+
 __global__ void __launch_bounds__(kThreads)
 pmkid_kernel(const uint8_t* __restrict__ lut, const PmkidArgs args,
              const uint32_t* __restrict__ targets, uint32_t n_valid,
@@ -135,20 +174,8 @@ pmkid_kernel(const uint8_t* __restrict__ lut, const PmkidArgs args,
         uint32_t pmk[16];
 #pragma unroll
         for (int blk = 0; blk < 2; ++blk) {
-            uint32_t w[16], u[5], t[5];
-#pragma unroll
-            for (int i = 0; i < 16; ++i) w[i] = args.salt[blk][i];
-            sha1_compress(ist, w, u);
-            block20(u, w);
-            sha1_compress(ost, w, u);
-#pragma unroll
-            for (int i = 0; i < 5; ++i) t[i] = u[i];
-#pragma unroll 1
-            for (int j = 1; j < args.iters; ++j) {
-                hmac20(ist, ost, u, u);
-#pragma unroll
-                for (int i = 0; i < 5; ++i) t[i] ^= u[i];
-            }
+            uint32_t t[5];
+            pbkdf2_block(ist, ost, args.salt[blk], args.iters, t);
 #pragma unroll
             for (int i = 0; i < 5; ++i)
                 if (5 * blk + i < 8) pmk[5 * blk + i] = t[i];
@@ -174,6 +201,55 @@ pmkid_kernel(const uint8_t* __restrict__ lut, const PmkidArgs args,
                     tidx[slot] = k;
                 }
             }
+        }
+    }
+}
+
+// Kernel parameters of one KDF launch (mirrored by ops/cuda_pbkdf2.
+// _KdfArgs).
+struct KdfArgs {
+    int32_t length;
+    int32_t radix[DPRF_PMKID_MAX_LEN];
+    int32_t base[DPRF_PMKID_MAX_LEN];
+    // salt || INT32BE(i) padded as the block after the 64-byte key
+    // block, for i = 1, 2
+    uint32_t salt[2][16];
+    int32_t iters;
+    int32_t n_words;
+};
+
+__global__ void __launch_bounds__(kThreads)
+kdf_kernel(const uint8_t* __restrict__ lut, const KdfArgs args,
+           uint32_t n_valid, uint32_t* __restrict__ out)
+{
+    extern __shared__ __align__(16) uint8_t s_lut[];
+    const int L = args.length;
+    for (int i = threadIdx.x; i < L * 256; i += blockDim.x)
+        s_lut[i] = lut[i];
+    __syncthreads();
+
+    const int n = args.n_words;
+    const uint32_t stride = gridDim.x * blockDim.x;
+    for (uint32_t gidx = blockIdx.x * blockDim.x + threadIdx.x;
+         gidx < n_valid; gidx += stride) {
+        uint32_t m[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) m[i] = 0u;
+        uint32_t carry = gidx;
+        DPRF_DECODE(Sha1Core, DPRF_PMKID_MAX_LEN, L);
+
+        uint32_t ist[5], ost[5], t[5];
+        key_states(m, ist, ost);
+        uint32_t* row = out + (size_t)gidx * n;
+        pbkdf2_block(ist, ost, args.salt[0], args.iters, t);
+#pragma unroll
+        for (int i = 0; i < 5; ++i)
+            if (i < n) row[i] = t[i];
+        if (n > 5) {
+            pbkdf2_block(ist, ost, args.salt[1], args.iters, t);
+#pragma unroll
+            for (int i = 0; i < 5; ++i)
+                if (5 + i < n) row[5 + i] = t[i];
         }
     }
 }
@@ -206,4 +282,29 @@ extern "C" int dprf_pmkid_blocks_per_sm(int smem, int* blocks)
 {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, pmkid_kernel, kThreads, (size_t)smem);
+}
+
+// Launch the KDF kernel over lanes [0, n_valid) on the caller's stream
+// without synchronising; out holds n_valid rows of n_words words.
+// Returns the launch's cudaError_t.  `threads` must be kThreads.
+extern "C" int dprf_kdf_launch(int device, const uint8_t* lut,
+                               const KdfArgs* args, uint32_t n_valid,
+                               uint32_t* out, int grid, int threads,
+                               void* stream)
+{
+    if (threads != kThreads || args->n_words < 1 || args->n_words > 10)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = (size_t)args->length * 256;
+    kdf_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        lut, *args, n_valid, out);
+    return (int)cudaGetLastError();
+}
+
+// Resident blocks of the KDF kernel per SM at `smem` bytes.
+extern "C" int dprf_kdf_blocks_per_sm(int smem, int* blocks)
+{
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kdf_kernel, kThreads, (size_t)smem);
 }

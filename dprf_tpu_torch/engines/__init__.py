@@ -53,9 +53,13 @@ def _ensure_imported(device: str) -> None:
     # in torch.
     if device == "cpu":
         import dprf_tpu_torch.engines.cpu.engines  # noqa: F401
+        import dprf_tpu_torch.engines.cpu.krb5  # noqa: F401
+        import dprf_tpu_torch.engines.cpu.krb5aes  # noqa: F401
     elif device == "cuda":
         import dprf_tpu_torch.engines.device.bcrypt  # noqa: F401
         import dprf_tpu_torch.engines.device.engines  # noqa: F401
+        import dprf_tpu_torch.engines.device.krb5  # noqa: F401
+        import dprf_tpu_torch.engines.device.krb5aes  # noqa: F401
         import dprf_tpu_torch.engines.device.nested  # noqa: F401
         import dprf_tpu_torch.engines.device.pmkid  # noqa: F401
         import dprf_tpu_torch.engines.device.salted  # noqa: F401

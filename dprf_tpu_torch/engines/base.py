@@ -27,6 +27,15 @@ class Target:
     params: dict = dataclasses.field(default_factory=dict)
 
 
+class TargetRefused(ValueError):
+    """A target the card's path does not take.  ``target_index`` is its
+    position in the job, which the CLI turns into its hashlist line."""
+
+    def __init__(self, target_index: int, message: str):
+        super().__init__(message)
+        self.target_index = target_index
+
+
 class HashEngine(abc.ABC):
     """Algorithm plugin: candidate bytes -> digest -> compare vs targets."""
 

@@ -1,0 +1,156 @@
+"""Kerberos etype-23 engines on the card: krb5tgs (hashcat 13100) and
+krb5asrep (18200), the counterpart of the JAX package's
+engines/device/krb5.py.
+
+RFC 4757 checks a candidate by RC4 over the whole multi-kilobyte ticket
+and an HMAC-MD5 over the plaintext.  The card's path does neither: the
+plaintext is an 8-byte random confounder and then the DER ticket, whose
+header at plaintext bytes [8, 12) follows from len(edata2) alone
+(``der_filter_words``), so the kernel (ops/cuda_krb5.py) computes NT ->
+K1 -> K3 -> 12 RC4 keystream bytes and compares one masked 32-bit word.
+A survivor is a *maybe*: a wrong candidate passes with odds of 2^-32
+per ticket (2^-30 for AS-REP's relaxed tag byte).  The worker confirms
+each with the oracle's full RFC 4757 check before it reports a hit, and
+counts the rejected ones (``maybes=`` in the CLI's summary), so a false
+maybe never sends a unit to the coordinator's rescan of the whole unit
+on the CPU.
+
+A mask job runs one kernel launch per (ticket, batch); one build serves
+both engines and every ticket.  A non-DER (BER long-form) encoder would
+defeat the header prediction: MIT krb5 and Windows KDCs emit DER, and
+``--device cpu`` runs the full check for anything else.  Wordlist jobs
+are refused, naming ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dprf_tpu_torch.engines import register
+from dprf_tpu_torch.engines.cpu.krb5 import (TGS_MSG_TYPE, Krb5AsRepEngine,
+                                             Krb5TgsEngine)
+from dprf_tpu_torch.ops.cuda_krb5 import CONF
+from dprf_tpu_torch.runtime.worker import PerTargetSweepWorker
+
+
+def der_header(blob_len: int, tag: int, tag_mask: int, inner: int,
+               short_mask: int) -> tuple[int, int]:
+    """(expected, mask), little-endian words over the first four bytes of
+    a DER blob of ``blob_len`` bytes: the tag (matched under
+    ``tag_mask``), the outer length of C content bytes in DER's minimal
+    definite form, then the content's first bytes, whose first is
+    ``inner``:
+
+      C < 0x80:        [tag,   C, inner, C-2]   (the last byte under
+                                                 ``short_mask``)
+      C <= 0xFF:       [tag, 0x81,   C, inner]
+      C <= 0xFFFF:     [tag, 0x82, C>>8, C&0xFF]
+      C <= 0xFFFFFF:   [tag, 0x83, C>>16, (C>>8)&0xFF]"""
+    L = blob_len
+    if L - 2 < 0x80:
+        exp = [tag, L - 2, inner, (L - 4) & 0xFF]
+        msk = [tag_mask, 0xFF, 0xFF, short_mask]
+    else:
+        msk = [tag_mask, 0xFF, 0xFF, 0xFF]
+        if L - 3 <= 0xFF:
+            exp = [tag, 0x81, L - 3, inner]
+        elif L - 4 <= 0xFFFF:
+            C = L - 4
+            exp = [tag, 0x82, (C >> 8) & 0xFF, C & 0xFF]
+        elif L - 5 <= 0xFFFFFF:
+            C = L - 5
+            exp = [tag, 0x83, (C >> 16) & 0xFF, (C >> 8) & 0xFF]
+        else:
+            # a silent filter miss would be a false negative: refuse
+            raise ValueError(f"DER blob of {L} bytes (edata2 minus the "
+                             "confounder) exceeds the header forms the "
+                             "card's filter predicts; use --device cpu")
+
+    def pack(bs):
+        return sum(b << (8 * t) for t, b in enumerate(bs))
+
+    return pack(exp) & pack(msk), pack(msk)
+
+
+def der_filter_words(edata_len: int, msg_type: int) -> tuple[int, int]:
+    """(expected, mask), little-endian words over plaintext bytes [8, 12):
+    the DER header right after the confounder (``der_header``).
+
+    The decrypted ticket is an [APPLICATION n] tag and its length, then
+    the inner SEQUENCE (0x30) and its length, all 32 bits compared.  A
+    TGS ticket is EncTicketPart [APPLICATION 3] = 0x63 (exact); an
+    AS-REP is EncASRepPart [APPLICATION 25] = 0x79, but some KDCs tag it
+    EncTGSRepPart 0x7A, so its tag byte matches 0x78-0x7B (mask 0xFC)."""
+    if msg_type == TGS_MSG_TYPE:
+        tag, tag_mask = 0x63, 0xFF
+    else:
+        tag, tag_mask = 0x78, 0xFC
+    return der_header(edata_len - CONF, tag, tag_mask, 0x30, 0xFF)
+
+
+class CudaKrb5MaskWorker(PerTargetSweepWorker):
+    """Mask worker over the krb5 kernel, the counterpart of the
+    reference's PallasKrb5MaskWorker: one launch per (ticket, batch),
+    every survivor confirmed by the oracle (the engine itself when no
+    oracle is given: it subclasses the oracle)."""
+
+    confirm = True
+
+    def __init__(self, engine, gen, targets, batch: int = 1 << 24,
+                 hit_capacity: int = 64, oracle=None, device="cuda"):
+        from dprf_tpu_torch.ops import cuda_krb5
+        super().__init__(engine, gen, targets, batch, hit_capacity,
+                         oracle or engine)
+        device = torch.device(device)
+        if device.type == "cuda":
+            cuda_krb5.load_kernel()
+        self.step = cuda_krb5.make_krb5_step(gen, batch, hit_capacity,
+                                             device=device)
+        self._targs = [(cuda_krb5.target_kernel_args(t),)
+                       for t in self.targets]
+
+
+class _TorchKrb5Mixin:
+    """The device engine: the oracle's parsing and ``hash_batch`` (one
+    definition, so the oracle and the card cannot diverge), plus the
+    kernel's mask worker.  torch_device: "cuda" (the default) or "cpu",
+    where the worker runs the kernel's plain version."""
+
+    def __init__(self, torch_device="cuda"):
+        self.torch_device = torch.device(torch_device)
+
+    def make_mask_worker(self, gen, targets, batch: int, hit_capacity: int,
+                         oracle=None):
+        """The krb5 kernel's worker; a job the kernel does not take is
+        refused, never moved to another path."""
+        from dprf_tpu_torch.engines.base import TargetRefused
+        from dprf_tpu_torch.ops import cuda_krb5
+        from dprf_tpu_torch.ops.cuda_mask import mask_fits
+        if not mask_fits(gen, cuda_krb5.MAX_LENGTH):
+            raise ValueError(
+                f"{self.name}: no krb5 kernel for this job (it takes masks "
+                f"of 1..{cuda_krb5.MAX_LENGTH} positions, got "
+                f"{getattr(gen, 'length', None)}); use --device cpu")
+        for i, t in enumerate(targets):
+            try:
+                der_filter_words(len(t.params["edata"]), t.params["msg_type"])
+            except ValueError as e:
+                raise TargetRefused(i, f"{self.name}: {e}") from None
+        return CudaKrb5MaskWorker(self, gen, targets, batch=batch,
+                                  hit_capacity=hit_capacity, oracle=oracle,
+                                  device=self.torch_device)
+
+    def make_wordlist_worker(self, gen, targets, batch: int,
+                             hit_capacity: int, oracle=None):
+        raise ValueError(f"{self.name}: the krb5 kernel takes mask jobs "
+                         "only; use --device cpu for a wordlist")
+
+
+@register("krb5tgs", device="cuda")
+class TorchKrb5TgsEngine(_TorchKrb5Mixin, Krb5TgsEngine):
+    pass
+
+
+@register("krb5asrep", device="cuda")
+class TorchKrb5AsRepEngine(_TorchKrb5Mixin, Krb5AsRepEngine):
+    pass

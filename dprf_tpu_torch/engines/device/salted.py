@@ -31,61 +31,21 @@ from dprf_tpu_torch.engines.device.engines import (TorchMd5Engine,
                                                    TorchSha256Engine)
 from dprf_tpu_torch.ops import cuda_ext
 from dprf_tpu_torch.ops.compare import digest_rows
-from dprf_tpu_torch.runtime.worker import CpuWorker, Hit
-from dprf_tpu_torch.runtime.workunit import WorkUnit
+from dprf_tpu_torch.runtime.worker import PerTargetSweepWorker
 
 
-class _PendingSalted:
-    """A unit whose launches are all queued: per target, its batches'
-    results and its hit count summed on the device, and the sum over
-    the targets, so resolving a unit without hits reads one scalar."""
-
-    __slots__ = ("worker", "unit", "batches", "results", "flags")
-
-    def __init__(self, worker, unit, batches, results, flags):
-        self.worker = worker
-        self.unit = unit
-        self.batches = batches
-        self.results = results
-        self.flags = flags
-
-    def resolve(self) -> list[Hit]:
-        if not self.flags:
-            return []
-        flags = torch.cat(self.flags)
-        if int(flags.sum().item()) == 0:
-            return []
-        hits: list[Hit] = []
-        for ti in torch.nonzero(flags).flatten().tolist():
-            for (bstart, _, _), result in zip(self.batches,
-                                              self.results[ti]):
-                hits.extend(self.worker._batch_hits(ti, bstart, result,
-                                                    self.unit))
-        return sorted(hits, key=lambda h: (h.cand_index, h.target_index))
-
-
-class CudaSaltedMaskWorker:
+class CudaSaltedMaskWorker(PerTargetSweepWorker):
     """Salted mask worker over the salted kernel, the counterpart of the
     reference's PallasSaltedMaskWorker and of SaltedMaskWorker's
-    per-target sweep: every batch of a unit once per target, one launch
-    each, queued asynchronously; a hit's ``target_index`` is the
-    target's position in the job, and a batch whose hits overflow the
-    hit buffer is rescanned exactly by the oracle, for that target only.
-    On a card the kernel builds at construction, so a build failure
-    raises here; with ``device="cpu"`` each launch runs the kernel's
-    plain version."""
+    per-target sweep (runtime/worker.PerTargetSweepWorker): each target's
+    salt and digest words are its launch arguments.  On a card the
+    kernel builds at construction, so a build failure raises here; with
+    ``device="cpu"`` each launch runs the kernel's plain version."""
 
     def __init__(self, engine, gen, targets: Sequence[Target],
                  batch: int = 1 << 24, hit_capacity: int = 64,
                  oracle=None, device="cuda"):
-        self.engine = engine
-        self.gen = gen
-        self.targets = list(targets)
-        self.hit_capacity = hit_capacity
-        self.oracle = oracle
-        self.batch = self.stride = batch
-        #: launches this worker has queued
-        self.dispatched = 0
+        super().__init__(engine, gen, targets, batch, hit_capacity, oracle)
         device = torch.device(device)
         if device.type == "cuda":
             cuda_ext.load_kernel()
@@ -97,47 +57,6 @@ class CudaSaltedMaskWorker:
              [int(w) for w in digest_rows([t.digest],
                                           engine.little_endian)[0]])
             for t in self.targets]
-
-    def submit(self, unit: WorkUnit) -> _PendingSalted:
-        batches = [(b, min(self.stride, unit.end - b), self.gen.digits(b))
-                   for b in range(unit.start, unit.end, self.stride)]
-        results, flags = [], []
-        for salt, words in self._targs:
-            out, flag = [], None
-            for _, n_valid, digits in batches:
-                result = self.step(digits, n_valid, salt, words)
-                self.dispatched += 1
-                flag = result[0] if flag is None else flag + result[0]
-                out.append(result)
-            results.append(out)
-            if flag is not None:
-                flags.append(flag)
-        return _PendingSalted(self, unit, batches, results, flags)
-
-    def process(self, unit: WorkUnit) -> list[Hit]:
-        return self.submit(unit).resolve()
-
-    def _batch_hits(self, ti: int, bstart: int, result,
-                    unit: WorkUnit) -> list[Hit]:
-        count, lanes, _ = result
-        count = int(count.item())
-        if count == 0:
-            return []
-        if count > lanes.shape[0]:
-            return self._rescan(ti, bstart, unit)
-        return [Hit(ti, bstart + lane, self.gen.candidate(bstart + lane))
-                for lane in sorted(lanes.tolist()) if lane >= 0]
-
-    def _rescan(self, ti: int, bstart: int, unit: WorkUnit) -> list[Hit]:
-        """Exact oracle rescan of one overflowed batch of one target."""
-        if self.oracle is None:
-            raise RuntimeError(
-                f"hit buffer overflow (> {self.hit_capacity}) and no "
-                "oracle engine to rescan with; raise hit_capacity")
-        end = min(bstart + self.stride, unit.end)
-        hits = CpuWorker(self.oracle, self.gen, [self.targets[ti]]).process(
-            WorkUnit(-1, bstart, end - bstart))
-        return [Hit(ti, h.cand_index, h.plaintext) for h in hits]
 
 
 class _SaltedDeviceMixin:

@@ -1,8 +1,8 @@
 """The least work one candidate takes in the mask kernel (csrc/mask.cu,
-csrc/keccak.cu), the rule kernel (csrc/rules.cu), the PMKID kernel
-(csrc/pbkdf2.cu) and the bcrypt kernels (csrc/bcrypt.cu): the operation
-count behind the bound that chip_smoke.py prints beside each kernel's
-time.
+csrc/keccak.cu), the rule kernel (csrc/rules.cu), the PMKID and KDF
+kernels (csrc/pbkdf2.cu), the bcrypt kernels (csrc/bcrypt.cu) and the
+Kerberos RC4 kernel (csrc/krb5.cu): the operation count behind the bound
+that chip_smoke.py prints beside each kernel's time.
 
 Each core runs here once, in Python, over the job's message block with
 symbolic words: a word that holds candidate bytes is a ``Var``, every
@@ -141,8 +141,8 @@ def _md5_i(x, y, z):
     return y ^ (x | ~z)
 
 
-def _md5(m):
-    a, b, c, d = (int(v) for v in md5.INIT)
+def _md5(m, state=None):
+    a, b, c, d = (int(v) for v in md5.INIT) if state is None else state
     for i in range(64):
         rnd = i // 16
         fn, g = ((_choose, i), (_md5_g, (5 * i + 1) % 16),
@@ -583,15 +583,118 @@ def pmkid_ops(length: int, iterations: int, n_targets: int = 1) -> Work:
     return Work(alu, add_ + length, fma + 2 * length)
 
 
+def kdf_compressions(iterations: int, n_words: int) -> dict:
+    """SHA-1 compressions of one KDF candidate, by kind (as
+    ``pmkid_compressions``): the two key states, then per PBKDF2 block
+    (one for n_words <= 5, else two) its U1 inner block and 1 + 2 x
+    (iterations - 1) over a 20-byte message."""
+    blocks = 1 if n_words <= 5 else 2
+    return {"key": 2, "first": blocks,
+            "block20": blocks * (1 + 2 * (iterations - 1))}
+
+
+def kdf_ops(length: int, iterations: int, n_words: int) -> Work:
+    """The least work of one KDF candidate: its decode, the compressions
+    counted as ``pmkid_ops`` counts them and the 5 xors of T per
+    iteration and block; the output words are stores."""
+    v = [Var("alu", 0, []) for _ in range(16)]
+    block20 = v[:5] + [0x80000000] + [0] * 9 + [(64 + 20) * 8]
+    per = {"key": sha1_compress_work(False, v),
+           "first": sha1_compress_work(True, [1] * 16),
+           "block20": sha1_compress_work(True, block20)}
+    alu = add_ = fma = 0
+    for kind, n in kdf_compressions(iterations, n_words).items():
+        alu += n * per[kind]["alu"]
+        add_ += n * per[kind]["add"]
+        fma += n * per[kind]["fma"]
+    blocks = 1 if n_words <= 5 else 2
+    alu += blocks * 5 * (iterations - 1) + length
+    return Work(alu, add_ + length, fma + 2 * length)
+
+
+# ---- the Kerberos RC4 kernel -----------------------------------------------
+
+def md5_compress_work(state_var: bool, message) -> dict:
+    """One MD5 compression with its feed-forward, by pipe: the chaining
+    state all ``Var`` (state_var) or the IV, over ``message`` (16 words,
+    each an int or a ``Var``)."""
+    iv = [int(v) for v in md5.INIT]
+    state = [Var("alu", 0, []) for _ in range(4)] if state_var else iv
+    out = _md5(list(message), state)
+    return tally([add(o, s) for o, s in zip(out, state)])
+
+
+#: one RC4 step's least instructions: j's sum (IADD3) and its & 255
+#: (LOP3), then S[j]'s shared-memory address, (j >> 2) * 4 * threads +
+#: (j & 3) + the thread's base (two ALU ops, an IADD3); S[i]'s address
+#: is a constant offset of the base
+RC4_STEP = Work(alu=3, add=2, fma=0)
+#: a kept output byte: (S[i] + S[j]) & 255 (IADD3, LOP3), its address
+#: (two ALU ops, an IADD3), its place in the word (PRMT)
+RC4_OUT_BYTE = Work(alu=4, add=2, fma=0)
+#: shared-memory accesses of one candidate's RC4: 64 word stores of the
+#: initial state, two loads and two stores a step (256 + 12 steps), a
+#: load per kept output byte (4)
+RC4_SHARED = 64 + 4 * (256 + 12) + 4
+#: shared memory serves 32 accesses a clock per SM (one warp's, without
+#: bank conflicts)
+SHARED_READS_PER_SM_CLOCK = 32
+
+
+def krb5_compressions() -> dict:
+    """The MD5 compressions of one candidate, by kind: ``key`` the four
+    HMAC key states (a 16-byte key from the IV), ``inner`` the two inner
+    hashes over a message fixed per target (msg_type, the checksum),
+    ``outer`` the two outer hashes over the 16-byte inner digest."""
+    return {"key": 4, "inner": 2, "outer": 2}
+
+
+def krb5_ops(length: int) -> Work:
+    """The least issue work of one krb5 candidate: the decode, the MD4
+    block over the widened candidate with its feed-forward, the eight MD5
+    compressions, the 16 key bytes' extracts, RC4's 256 + 12 steps and 4
+    kept bytes, and the masked compare (LOP3, ISETP)."""
+    md4_block = list(message_block("ntlm", length))
+    for w in range(-(-2 * length // 4)):
+        md4_block[w] = Var("alu", 0, [])
+    nt = _md4(md4_block)
+    work = tally([add(o, int(s)) for o, s in zip(nt, md4.INIT)])
+    v = [Var("alu", 0, []) for _ in range(4)]
+    per = {"key": md5_compress_work(False, v + [0x36363636] * 12),
+           "inner": md5_compress_work(True, [2, 0x80] + [0] * 12
+                                      + [(64 + 4) * 8, 0]),
+           "outer": md5_compress_work(True, v + [0x80] + [0] * 9
+                                      + [(64 + 16) * 8, 0])}
+    for kind, n in krb5_compressions().items():
+        for pipe in work:
+            work[pipe] += n * per[kind][pipe]
+    steps = 256 + 12
+    return Work(work["alu"] + length + 16 + steps * RC4_STEP.alu
+                + 4 * RC4_OUT_BYTE.alu + 2,
+                work["add"] + length + steps * RC4_STEP.add
+                + 4 * RC4_OUT_BYTE.add,
+                work["fma"] + 2 * length)
+
+
+def krb5_bound(batch: int, length: int, sms: int, clock_hz: float) -> dict:
+    """Two limits on ``batch`` krb5 candidates, in seconds: ``issue``,
+    ``krb5_ops``'s slots (64 lanes a pipe per SM per clock); ``shared``,
+    RC4's shared-memory accesses and the decode's table reads at 32 per
+    SM per clock."""
+    issue = batch * krb5_ops(length).slots / (sms * 64 * clock_hz)
+    shared = batch * (RC4_SHARED + length) / (
+        sms * SHARED_READS_PER_SM_CLOCK * clock_hz)
+    return {"issue": issue, "shared": shared}
+
+
 # ---- the bcrypt kernels ----------------------------------------------------
 
 #: one Feistel round's least instructions: per S-box read a byte
 #: extract and an address (LEA), F's middle xor, and one LOP3 that xors
 #: F and the P word into the other half, on the INT32 pipe; F's two adds
 BCRYPT_ROUND = Work(alu=4 * 2 + 1 + 1, add=2, fma=0)
-#: S-box reads of one round; shared memory serves 32 a clock per SM
+#: S-box reads of one round
 BCRYPT_ROUND_READS = 4
-SHARED_READS_PER_SM_CLOCK = 32
 #: the dependent chain of one round in cycles, for the latency limit:
 #: extract, address, the shared read (~30 cycles, an assumed Hopper
 #: figure, not measured), two adds and two xors at ~4 cycles each

@@ -252,6 +252,126 @@ class CudaMaskWorker(MaskWorkerBase):
                          device=device)
 
 
+class PendingSweep:
+    """A unit of a per-target sweep whose launches are all queued: per
+    target, its batches' results and its hit count summed on the device,
+    and the sum over the targets, so resolving a unit without hits reads
+    one scalar."""
+
+    __slots__ = ("worker", "unit", "batches", "results", "flags")
+
+    def __init__(self, worker, unit, batches, results, flags):
+        self.worker = worker
+        self.unit = unit
+        self.batches = batches
+        self.results = results
+        self.flags = flags
+
+    def resolve(self) -> list[Hit]:
+        if not self.flags:
+            return []
+        flags = torch.cat(self.flags)
+        if int(flags.sum().item()) == 0:
+            return []
+        hits: list[Hit] = []
+        for ti in torch.nonzero(flags).flatten().tolist():
+            for (bstart, _, _), result in zip(self.batches,
+                                              self.results[ti]):
+                hits.extend(self.worker._batch_hits(ti, bstart, result,
+                                                    self.unit))
+        return sorted(hits, key=lambda h: (h.cand_index, h.target_index))
+
+
+class PerTargetSweepWorker:
+    """A mask sweep once per target, for engines whose targets each
+    reshape the work (a salt, a ticket): every batch of a unit once per
+    target, one step call each, queued asynchronously; a hit's
+    ``target_index`` is the target's position in the job, and a batch
+    whose hits overflow the hit buffer is rescanned exactly by the
+    oracle, for that target only.  The counterpart of the reference's
+    PerTargetSweepSetup sweep.
+
+    Subclasses set ``self.step`` (step(base digits, n_valid, *targ) ->
+    (count int32[1], lanes int32[cap], _) on the device, still being
+    computed) and ``self._targs`` (each target's step arguments).  With
+    ``confirm`` set, every reported lane is a *maybe* of a prefilter:
+    the oracle verifies it before it becomes a Hit, and ``n_maybe()``
+    counts the ones it rejected."""
+
+    #: the step's lanes are prefilter maybes the oracle confirms
+    confirm = False
+
+    def __init__(self, engine, gen, targets: Sequence[Target], batch: int,
+                 hit_capacity: int, oracle: Optional[HashEngine]):
+        self.engine = engine
+        self.gen = gen
+        self.targets = list(targets)
+        self.hit_capacity = hit_capacity
+        self.oracle = oracle
+        self.batch = self.stride = batch
+        #: step calls this worker has queued
+        self.dispatched = 0
+        #: reported lanes the oracle rejected
+        self.rejected_maybes = 0
+        if self.confirm and oracle is None:
+            raise ValueError("a prefilter's maybes need an oracle engine")
+
+    def submit(self, unit: WorkUnit) -> PendingSweep:
+        batches = [(b, min(self.stride, unit.end - b), self.gen.digits(b))
+                   for b in range(unit.start, unit.end, self.stride)]
+        results, flags = [], []
+        for targ in self._targs:
+            out, flag = [], None
+            for _, n_valid, digits in batches:
+                result = self.step(digits, n_valid, *targ)
+                self.dispatched += 1
+                flag = result[0] if flag is None else flag + result[0]
+                out.append(result)
+            results.append(out)
+            if flag is not None:
+                flags.append(flag)
+        return PendingSweep(self, unit, batches, results, flags)
+
+    def process(self, unit: WorkUnit) -> list[Hit]:
+        return self.submit(unit).resolve()
+
+    def n_maybe(self) -> Optional[int]:
+        """Maybes the oracle rejected so far (a prefilter's worker),
+        else None."""
+        return self.rejected_maybes if self.confirm else None
+
+    def _batch_hits(self, ti: int, bstart: int, result,
+                    unit: WorkUnit) -> list[Hit]:
+        count, lanes, _ = result
+        count = int(count.item())
+        if count == 0:
+            return []
+        if count > lanes.shape[0]:
+            return self._rescan(ti, bstart, unit)
+        hits = []
+        for lane in sorted(lanes.tolist()):
+            if lane < 0:
+                continue
+            plain = self.gen.candidate(bstart + lane)
+            if self.confirm and not self.oracle.verify(plain,
+                                                       self.targets[ti]):
+                self.rejected_maybes += 1
+                continue
+            hits.append(Hit(ti, bstart + lane, plain))
+        return hits
+
+    def _rescan(self, ti: int, bstart: int, unit: WorkUnit) -> list[Hit]:
+        """Exact oracle rescan of one overflowed batch of one target."""
+        if self.oracle is None:
+            raise RuntimeError(
+                f"hit buffer overflow (> {self.hit_capacity}) and no "
+                "oracle engine to rescan with; raise hit_capacity")
+        end = min(bstart + self.stride, unit.end)
+        hits = CpuWorker(self.oracle, self.gen, [self.targets[ti]]).process(
+            WorkUnit(-1, bstart, end - bstart))
+        return [Hit(ti, h.cand_index, h.plaintext) for h in hits]
+
+
 class WordlistWorkerBase(MaskWorkerBase):
     """Wordlist hit decoding and rescan.  Subclasses set
     ``self.word_batch`` (words per step, the lanes' stride between

@@ -19,6 +19,8 @@ class HashlistResult:
     targets: list
     skipped: list        # (line_number, text, error)
     duplicates: int
+    #: each target's line number (from 1), in the order of ``targets``
+    line_numbers: list = dataclasses.field(default_factory=list)
 
 
 def _dedup_key(t: Target):
@@ -30,6 +32,7 @@ def _dedup_key(t: Target):
 
 def parse_lines(engine: HashEngine, lines: Sequence[str]) -> HashlistResult:
     targets: list[Target] = []
+    numbers: list[int] = []
     seen: set = set()
     skipped, dups = [], 0
     for no, raw in enumerate(lines, 1):
@@ -47,7 +50,9 @@ def parse_lines(engine: HashEngine, lines: Sequence[str]) -> HashlistResult:
             continue
         seen.add(key)
         targets.append(t)
-    return HashlistResult(targets=targets, skipped=skipped, duplicates=dups)
+        numbers.append(no)
+    return HashlistResult(targets=targets, skipped=skipped, duplicates=dups,
+                          line_numbers=numbers)
 
 
 def load_hashlist(engine: HashEngine, path: str) -> HashlistResult:

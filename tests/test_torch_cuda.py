@@ -542,3 +542,94 @@ def test_cli_sha512_and_keccak_on_card(tmp_path, capsys):
         assert mod.launches[key] == 7
         assert sum(cuda_mask.launches.values()) + \
             sum(cuda_keccak.launches.values()) == 7
+
+
+def _krb5_line(password: bytes, asrep: bool, body_len: int,
+               tag: int = None) -> str:
+    """A valid etype-23 line: RFC 4757 run forward over an 8-byte
+    confounder and a DER ticket of ``body_len`` content bytes."""
+    import random
+
+    from dprf_tpu_torch.engines.cpu.krb5 import der, encrypt
+
+    rng = random.Random(body_len)
+    tag = tag if tag is not None else (0x79 if asrep else 0x63)
+    plain = bytes(rng.randrange(256) for _ in range(8)) + der(
+        tag, der(0x30, bytes(rng.randrange(256) for _ in range(body_len))))
+    chk, edata = encrypt(password, 8 if asrep else 2, plain)
+    return (f"$krb5asrep$23$u@R:{chk.hex()}${edata.hex()}" if asrep else
+            f"$krb5tgs$23$*u$R$s*${chk.hex()}${edata.hex()}")
+
+
+def test_krb5_kernel_matches_plain():
+    """2^20 lanes of ?a^8: hits at lane 0 and at the last valid lane of a
+    partial batch, AS-REP with the relaxed 0x7A tag, each DER form, hit
+    capacity 0, no hit; count and sorted lanes equal."""
+    _need_card()
+    from dprf_tpu_torch.ops import cuda_krb5
+    gen, batch = MaskGenerator("?a" * 8), 1 << 20
+    lut = gen.charset_lut("cuda")
+    start = 987 * batch
+    cases = [(False, 300, None, 0, batch, 64), (False, 60, None, batch - 8,
+                                               batch - 7, 64),
+             (True, 180, 0x7A, 4242, batch, 64), (True, 70_000, None, 99,
+                                                  batch, 64),
+             (False, 300, None, 5, batch, 0), (False, 300, None, None,
+                                               batch, 64)]
+    for asrep, body, tag, lane, nv, cap in cases:
+        plain = gen.candidate(start + lane) if lane is not None else b"-"
+        line = _krb5_line(plain, asrep, body, tag)
+        eng = get_engine("krb5asrep" if asrep else "krb5tgs")
+        tgt = cuda_krb5.target_kernel_args(eng.parse_target(line))
+        args = (lut, gen.radices, gen.digits(start), nv, tgt, cap, batch)
+        k = cuda_krb5.krb5_kernel(*args)
+        p = cuda_krb5.krb5_plain(*args)
+        torch.cuda.synchronize()
+        assert _hit_set(*k) == _hit_set(*p) == \
+            ((0, []) if lane is None else (1, [lane] if cap else []))
+
+
+def test_kdf_kernel_matches_plain_and_hashlib():
+    """16 iterations over 2^14 lanes of ?l^8: 4 and 8 words, salts of 1,
+    20 and 51 bytes, every word equal; one lane against hashlib."""
+    _need_card()
+    from dprf_tpu_torch.ops import cuda_pbkdf2
+    gen, batch = MaskGenerator("?l" * 8), 1 << 14
+    lut = gen.charset_lut("cuda")
+    start, nv = 31 * batch, batch - 3
+    for n_words in (4, 8):
+        for salt in (b"s", b"EXAMPLE.COMsvc123456", b"r" * 51):
+            args = (lut, gen.radices, gen.digits(start), nv, salt, 16,
+                    n_words, batch)
+            launches = cuda_pbkdf2.launches["pbkdf2_kdf"]
+            k = cuda_pbkdf2.kdf_kernel(*args)
+            p = cuda_pbkdf2.kdf_plain(*args)
+            torch.cuda.synchronize()
+            assert cuda_pbkdf2.launches["pbkdf2_kdf"] == launches + 1
+            assert k.shape == (nv, n_words) and torch.equal(k, p)
+            want = hashlib.pbkdf2_hmac("sha1", gen.candidate(start + nv - 1),
+                                       salt, 16, 4 * n_words)
+            assert k[nv - 1].cpu().numpy().view(np.uint32).astype(
+                ">u4").tobytes() == want
+
+
+def test_cli_krb5_on_card(tmp_path, capsys):
+    """crack --device cuda for krb5tgs and krb5asrep over ?l^4: every
+    plant found, only the krb5 kernel launched, once per ticket and
+    batch."""
+    _need_card()
+    from dprf_tpu_torch.ops import cuda_krb5
+    for engine, asrep in (("krb5tgs", False), ("krb5asrep", True)):
+        lines = [_krb5_line(p, asrep, 300 + i)
+                 for i, p in enumerate((b"aaaa", b"zzzz", b"!!"))]
+        hashfile = tmp_path / "h.txt"
+        hashfile.write_text("".join(ln + "\n" for ln in lines))
+        cuda_krb5.reset_launches()
+        cuda_mask.reset_launches()
+        rc = cli.main(["crack", "?l?l?l?l", str(hashfile), "--engine",
+                       engine, "--no-potfile", "--batch", "65536"])
+        captured = capsys.readouterr()
+        assert rc == 0 and len(captured.out.splitlines()) == 2
+        assert "rejected=0" in captured.err and "maybes=" in captured.err
+        assert cuda_krb5.launches["krb5"] == 3 * 7
+        assert sum(cuda_mask.launches.values()) == 0

@@ -80,7 +80,9 @@ def test_potfile_preload_skips_cracked(tmp_path, capsys):
 
 def test_engines_and_keyspace(capsys):
     names = ("bcrypt, keccak-224, keccak-256, keccak-384, keccak-512, "
-             "keccak224, keccak256, keccak384, keccak512, ldap-smd5, "
+             "keccak224, keccak256, keccak384, keccak512, krb5asrep, "
+             "krb5asrep-aes, krb5asrep17, krb5asrep18, krb5pa, krb5pa17, "
+             "krb5pa18, krb5tgs, krb5tgs-aes, krb5tgs17, krb5tgs18, ldap-smd5, "
              "ldap-ssha, md5, md5(md5), md5(sha1), md5-ps, md5-sp, mysql41, "
              "ntlm, oracle-11g, oracle11, pmkid, postgres, postgres-md5, "
              "sha-1, sha-256, sha-384, sha-512, sha1, sha1(md5), sha1(sha1), "

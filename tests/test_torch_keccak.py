@@ -39,7 +39,7 @@ pytestmark = pytest.mark.smoke
 VARIANTS = [(kind, bits, rate) for bits, rate in KECCAK_SIZES
             for kind in ("sha3", "keccak")]
 PAD = {"sha3": 0x06, "keccak": 0x01}
-#: the 17 names this slice adds, and the 29 the port had before it
+#: the 17 names this slice adds
 SLICE_NAMES = {"sha512", "sha-512", "sha384", "sha-384", "sha3",
                "sha3-224", "sha3-256", "sha3-384", "sha3-512",
                "keccak-224", "keccak-256", "keccak-384", "keccak-512",
@@ -220,11 +220,11 @@ def test_wordlist_jobs_are_refused(name, tmp_path, capsys):
 
 
 def test_engine_names_grow_by_the_slice():
-    """29 names before the slice, 46 after, the same on cuda and on the
-    port's cpu; every one is a name of the reference's device engines."""
+    """The slice's 17 names on cuda and on the port's cpu, which list the
+    same names; every one is a name of the reference's device engines.
+    The count of all names lives in tests/test_torch_krb5.py."""
     cuda, cpu = set(engine_names("cuda")), set(engine_names("cpu"))
-    assert cuda == cpu and len(cuda) == 46
-    assert SLICE_NAMES <= cuda and len(cuda - SLICE_NAMES) == 29
+    assert cuda == cpu and len(SLICE_NAMES) == 17 and SLICE_NAMES <= cuda
     assert cuda <= set(ref_engine_names("jax"))
 
 

@@ -314,3 +314,44 @@ def test_wide_counts_at_the_measured_masks():
     # a list: lanes 0-1 for words 0-2, one probe, no feed-forward
     multi = opcount.ops_per_candidate("sha3-256", 7, True, probes=1.0)
     assert multi.add == 7 and multi.alu > 4285 + 5
+
+
+def test_md5_from_any_state_is_the_compression():
+    """Over fixed words and a fixed chaining state the counted MD5 is
+    ops/md5.md5_compress (the HMAC-MD5 compressions of the krb5 kernel
+    chain from keyed states)."""
+    from dprf_tpu_torch.ops import md5
+    rng = np.random.default_rng(12)
+    state = [int(x) for x in rng.integers(0, 2 ** 32, 4, dtype=np.uint64)]
+    words = [int(x) for x in rng.integers(0, 2 ** 32, 16, dtype=np.uint64)]
+    out = [(a + b) & 0xFFFFFFFF
+           for a, b in zip(opcount._md5(words, state), state)]
+    want = md5.md5_compress(
+        torch.as_tensor(np.array(state, np.uint32).view(np.int32)),
+        torch.as_tensor(np.array(words, np.uint32).view(np.int32)))
+    assert out == [int(x) for x in want.numpy().view(np.uint32)]
+
+
+def test_krb5_and_kdf_counts():
+    """krb5: one MD4 block, 8 MD5 compressions (4 key states from the IV,
+    2 inner over a message fixed per ticket, 2 outer), 268 RC4 steps and
+    4 kept bytes; its shared accesses; the two limits.  The KDF: the
+    PMKID count without the PMK's states and targets, one PBKDF2 block
+    for 4 words, two for 8 (8,194 and 16,386 compressions at 4096)."""
+    assert opcount.krb5_compressions() == {"key": 4, "inner": 2,
+                                           "outer": 2}
+    v = [_var() for _ in range(4)]
+    assert opcount.md5_compress_work(True, v + [0x80] + [0] * 9
+                                     + [640, 0]) == \
+        {"alu": 128, "add": 84, "fma": 0}
+    assert opcount.krb5_ops(8) == Work(1961, 1236, 16)
+    assert opcount.RC4_SHARED == 64 + 4 * 268 + 4
+    lim = opcount.krb5_bound(1 << 24, 8, 132, 1.98e9)
+    assert lim["shared"] == (1 << 24) * (opcount.RC4_SHARED + 8) / (
+        132 * 32 * 1.98e9)
+    assert lim["issue"] == (1 << 24) * opcount.krb5_ops(8).slots / (
+        132 * 64 * 1.98e9)
+    assert [sum(opcount.kdf_compressions(4096, n).values())
+            for n in (4, 8)] == [8194, 16386]
+    assert opcount.kdf_ops(8, 4096, 4) == Work(3429033, 1352004, 16)
+    assert opcount.kdf_ops(8, 4096, 8) == Work(6857204, 2703684, 16)
