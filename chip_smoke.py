@@ -10,9 +10,9 @@ card, and holds every kernel against its plain PyTorch version:
 2. builds the mask kernel (csrc/mask.cu, every core x compare mode), the
    rule kernel (csrc/rules.cu, every core), the PMKID and KDF kernels
    (csrc/pbkdf2.cu), the bcrypt kernels (csrc/bcrypt.cu), the ext,
-   Keccak and Kerberos kernels (csrc/ext.cu, csrc/keccak.cu,
-   csrc/krb5.cu) from the checkout's sources, one nvcc each, all at
-   once, and prints nvcc's
+   Keccak, Kerberos, 7-Zip and PDF kernels (csrc/ext.cu, csrc/keccak.cu,
+   csrc/krb5.cu, csrc/sevenzip.cu, csrc/pdf.cu) from the checkout's
+   sources, one nvcc each, all at once, and prints nvcc's
    register / shared memory / spill lines and a SASS census of each
    instantiation;
 3. holds each instantiation against its plain version on the card at a
@@ -170,7 +170,30 @@ card, and holds every kernel against its plain PyTorch version:
     (ops/opcount.krb5_bound, kdf_ops) and their plain versions (the
     KDF's on phase 25's input, with the kernel's time there beside it),
     then one etype-18 step of the main path and its torch verdict alone;
-28. prints the kernels line and, last, the device line.
+28. builds csrc/sevenzip.cu and csrc/pdf.cu with the others (csrc/krb5.cu
+    now takes its RC4 from csrc/rc4.cuh, and every sha256 instantiation its
+    rounds from the macro that sha256_compress shares: the build phase
+    fails if krb5 or any ``CENSUS_BEFORE`` instantiation moved,
+    ``KRB5_BEFORE``); holds the 7-Zip KDF kernel against its plain version
+    at the main path's batch (whole resident waves, the last three lanes
+    invalid), every output word equal, at cycles 8 and 10, salts of 0, 4
+    and 16 bytes and masks of 3 and 8 positions, and at cycles 19 against
+    hashlib on 64 lanes, the CLI run's planted lanes among them;
+29. the PDF kernel against its plain version over 2^16 lanes of ?a^6 for
+    R2/40, R3/40, R3/128 and R4/128 with metadata in the clear, the count
+    and the sorted lanes equal, the planted lane among them;
+30. the slice end to end through ``crack --device cuda``: two stored 7z
+    entries at cycles 19 (no salt and a 100-byte payload; a 16-byte salt
+    and a 1,024-byte payload, the card's cap) over a 2^18 window of ?l^8,
+    and a hashlist of four PDF documents (R2/40, R3/128, R4/128 without
+    metadata encryption, R3/40) over a 2^28 window of ?a^6, each with
+    every launch count set to 0 just before it and read just after: its
+    own kernel (instantiations) launched once per document and batch, no
+    other; every plant found, ``rejected=0``;
+31. times both kernels with CUDA events beside their bounds
+    (ops/opcount.sevenzip_bound, pdf_bound) and their plain versions,
+    then one 7z step of the main path and its torch verdict alone;
+32. prints the kernels line and, last, the device line.
 
 Any failure exits non-zero before the last line.  Without a card it
 exits 1 and prints no result.
@@ -303,6 +326,33 @@ KDF_TIMING_SALT = b"CORP.LOCALsvc_sql01"
 #: kernel joined csrc/pbkdf2.cu (sm_90a, CUDA 12.8), which must not
 #: change them
 PMKID_BEFORE = (59, 10656)
+#: the nvcc registers and SASS instruction count of krb5 before its RC4
+#: moved into csrc/rc4.cuh (sm_90a, CUDA 12.8), which must not change them
+KRB5_BEFORE = (32, 6336)
+#: slice F3: the 7-Zip KDF's cycles power (7-Zip's default) and the mask
+#: and window of its CLI run
+SEVENZIP_CYCLES = 19
+SEVENZIP_WINDOW = 1 << 18
+#: the KDF against its plain version: (mask length, salt bytes, cycles);
+#: units of 14 (7-block groups), 28, 30, 40 (the CLI's salted entry's,
+#: 5-block groups) and 24 bytes (the main path's unsalted unit, whose
+#: plain time the kernels line carries)
+SEVENZIP_CHECKS = [(3, 0, 8), (8, 4, 8), (3, 16, 8), (8, 16, 8),
+                   (8, 0, 10)]
+#: lanes of the cycles-19 launch held against hashlib
+SEVENZIP_HASHLIB_LANES = 64
+#: the PDF documents: (revision, key bits, metadata encrypted) and the
+#: CLI's window of ?a^6.  The kernel against its plain version: R2 at the
+#: main path's batch (BATCH); the R3 kinds, whose plain version would take
+#: minutes at BATCH, at PDF_R3_CHECK_BATCH, five resident waves, so that
+#: every thread takes later passes of the grid-stride loop.  The plain
+#: version runs in pieces of PDF_PLAIN_CHUNK lanes (its RC4 states take
+#: 1 KiB a lane)
+PDF_DOCS = [(2, 40, True), (3, 128, True), (4, 128, False), (3, 40, True)]
+PDF_R3_CHECK_BATCH = 1 << 19
+PDF_PLAIN_CHUNK = 1 << 22
+PDF_WINDOW = 1 << 28
+MASK_PDF = "?a?a?a?a?a?a"
 #: slice F1: the 64-bit cores' instantiations, (kernel name, engine the
 #: checks drive it through, multi target), in the kernels line's order;
 #: sha3-N and keccak-N share keccakN's instantiation
@@ -348,12 +398,15 @@ def rname(engine: str) -> str:
 PLAIN_KERNELS = {"pmkid_kernel": "pmkid", "setup_kernel": "bcrypt_setup",
                  "advance_kernel": "bcrypt_advance",
                  "finish_kernel": "bcrypt_finish", "kdf_kernel": "pbkdf2_kdf",
-                 "krb5_kernel": "krb5"}
+                 "krb5_kernel": "krb5", "sevenzip_kernel": "sevenzip_kdf"}
 
 
 def instance_of(mangled: str) -> str:
     """The kernel name of a mangled mask_kernel<Core, multi>,
     rules_kernel<Core> or single kernel's symbol."""
+    m = re.search(r"pdf_kernelILi(\d)ELi(\d+)E", mangled)
+    if m:
+        return f"pdf_r{m.group(1)}_{8 * int(m.group(2))}"
     for fn, name in PLAIN_KERNELS.items():
         if re.search(rf"\d{fn}", mangled):
             return name
@@ -449,7 +502,8 @@ class Smoke:
                                         "bcrypt_advance", "bcrypt_finish")})
         self.err.update({kname(n, m): 0 for n, m in EXT_INSTANCES})
         self.err.update({k: 0 for k, _, _ in F1_INSTANCES})
-        self.err.update({"krb5": 0, "pbkdf2_kdf": 0})
+        self.err.update({"krb5": 0, "pbkdf2_kdf": 0, "sevenzip_kdf": 0,
+                         "pdf": 0})
         #: per instantiation: launches of the main path that runs it
         self.path_launches = {}
 
@@ -859,10 +913,10 @@ def run(smoke, oracle4, words4) -> None:
     from dprf_tpu_torch.engines.device.engines import TorchMd5Engine
     from dprf_tpu_torch.generators.mask import MaskGenerator
     from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
-    from dprf_tpu_torch.ops import (_build, blowfish, bloom, cuda_bcrypt,
-                                    cuda_ext, cuda_keccak, cuda_krb5,
-                                    cuda_mask, cuda_pbkdf2, cuda_rules,
-                                    opcount)
+    from dprf_tpu_torch.ops import (_build, blowfish, bloom, cuda_7z,
+                                    cuda_bcrypt, cuda_ext, cuda_keccak,
+                                    cuda_krb5, cuda_mask, cuda_pbkdf2,
+                                    cuda_pdf, cuda_rules, opcount)
     from dprf_tpu_torch.rules import load_rules
     from dprf_tpu_torch.runtime.worker import CudaMaskWorker
     from dprf_tpu_torch.runtime.workunit import WorkUnit
@@ -882,13 +936,13 @@ def run(smoke, oracle4, words4) -> None:
 
     # 2. the kernel builds: one nvcc per source, all at once
     from concurrent.futures import ThreadPoolExecutor
-    sources = ("mask", "rules", "pbkdf2", "bcrypt", "ext", "keccak", "krb5")
+    sources = ("mask", "rules", "pbkdf2", "bcrypt", "ext", "keccak", "krb5",
+               "sevenzip", "pdf")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = {src: pool.submit(_build.build, src) for src in sources}
         builds = {src: f.result() for src, f in builds.items()}
-    for mod in (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt, cuda_ext,
-                cuda_keccak, cuda_krb5):
+    for mod in kernel_modules():
         mod.load_kernel()
     say(f"== build: {len(sources)} sources in "
         f"{time.perf_counter() - t0:.2f} s wall")
@@ -909,7 +963,8 @@ def run(smoke, oracle4, words4) -> None:
                 check(not frame or frame.group(1) == "0" or kernel not in
                       {kname(n, m) for n, m in EXT_INSTANCES}
                       | {k for k, _, _ in F1_INSTANCES}
-                      | {"krb5", "pbkdf2_kdf"},
+                      | {"krb5", "pbkdf2_kdf", "sevenzip_kdf", "pdf_r2_40",
+                         "pdf_r3_40", "pdf_r3_128"},
                       f"{kernel}: {line.strip()} (local memory)")
         census = _build.sass_census(src)
         for func, c in sorted(census.items(),
@@ -921,6 +976,13 @@ def run(smoke, oracle4, words4) -> None:
                 "; registers and census before the wide cores: "
                 + ("same" if was == (registers.get(inst), c["total"])
                    else f"DIFFER, it had {was}"))
+            check(was is None or same.endswith("same"), f"{inst}{same}")
+            if inst == "krb5":
+                same = "; registers and census before csrc/rc4.cuh: " + (
+                    "same" if KRB5_BEFORE == (registers.get(inst),
+                                              c["total"])
+                    else f"DIFFER, it had {KRB5_BEFORE}")
+                check(same.endswith("same"), f"krb5{same}")
             if inst == "pmkid":
                 same = "; registers and census before the KDF kernel: " + (
                     "same" if PMKID_BEFORE == (registers.get(inst),
@@ -1593,8 +1655,9 @@ def run(smoke, oracle4, words4) -> None:
     ext_timing = slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
     f1_timing = slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
     f2_timing = slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms)
+    f3_timing = slice_f3(smoke, cli, card, clock_mhz, sms)
 
-    # 28. the kernels line, then the device line
+    # 32. the kernels line, then the device line
     kernels = []
     for engine, multi in INSTANCES:
         key = kname(engine, multi)
@@ -1655,7 +1718,19 @@ def run(smoke, oracle4, words4) -> None:
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             **more})
-    check(all(k["launches"] > 0 for k in kernels),
+    for key, source, replaces in (
+            ("sevenzip_kdf", cuda_7z.SOURCE, cuda_7z.REPLACES),
+            ("pdf", cuda_pdf.SOURCE, cuda_pdf.REPLACES)):
+        ms, plain_ms, bound, bound_by, more = f3_timing[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            **more})
+    check(all(k["launches"] > 0 for k in kernels)
+          and all(r["launches"] > 0 for r in
+                  f3_timing["pdf"][4]["instantiations"].values()),
           "a kernel was not launched on its path")
     check(all(k["max_abs_err"] == 0 for k in kernels),
           "a kernel differs from its plain version")
@@ -1673,11 +1748,11 @@ def unit_batches(cli, window: int) -> int:
 
 def kernel_modules() -> tuple:
     """Every kernel wrapper module, whose launch counts a path reads."""
-    from dprf_tpu_torch.ops import (cuda_bcrypt, cuda_ext, cuda_keccak,
-                                    cuda_krb5, cuda_mask, cuda_pbkdf2,
-                                    cuda_rules)
+    from dprf_tpu_torch.ops import (cuda_7z, cuda_bcrypt, cuda_ext,
+                                    cuda_keccak, cuda_krb5, cuda_mask,
+                                    cuda_pbkdf2, cuda_pdf, cuda_rules)
     return (cuda_mask, cuda_rules, cuda_pbkdf2, cuda_bcrypt, cuda_ext,
-            cuda_keccak, cuda_krb5)
+            cuda_keccak, cuda_krb5, cuda_7z, cuda_pdf)
 
 
 def run_path(smoke, cli, engine, mask, lines, want, window, key, n_launches,
@@ -2147,6 +2222,7 @@ def slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms) -> dict:
 
     from dprf_tpu_torch.engines.device import krb5aes as dev_aes
     from dprf_tpu_torch.engines.device.krb5 import CudaKrb5MaskWorker
+    from dprf_tpu_torch.ops.pack import words_to_bytes_be
     from dprf_tpu_torch.generators.mask import MaskGenerator
     from dprf_tpu_torch.ops import cuda_krb5, cuda_pbkdf2, opcount
     from dprf_tpu_torch.runtime.potfile import encode_plain
@@ -2426,7 +2502,7 @@ def slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms) -> dict:
                                    params["salt"], KDF_ITERS, 8, b19)
 
     def verdict(w):
-        return check_fn(dev_aes._words_to_bytes_be(w))[:, 0] == expected
+        return check_fn(words_to_bytes_be(w))[:, 0] == expected
 
     verdict_ms = smoke.time_launches(verdict, (words,), n=5, warm=1)
     step_ms = smoke.time_launches(step, (gl8.digits(s19), b19), n=3, warm=1)
@@ -2444,6 +2520,296 @@ def slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms) -> dict:
         "kdf18_16it_ms": rows[8][4]["ms_at_plain_input"],
         "kdf17_16it_ms": rows[4][4]["ms_at_plain_input"],
         "aes18_step_ms": step_ms, "aes18_verdict_ms": verdict_ms}}))
+    return timing
+
+
+def sevenzip_line(rng, password: bytes, payload_len: int,
+                  salt_len: int) -> str:
+    """A stored 7-Zip entry holding ``payload_len`` seeded bytes under
+    ``password`` at SEVENZIP_CYCLES, by the port's oracle run forward."""
+    from dprf_tpu_torch.engines.cpu.sevenzip import encrypt
+    salt = bytes(rng.integers(0, 256, salt_len, dtype="uint8"))
+    iv = bytes(rng.integers(0, 256, 16, dtype="uint8"))
+    payload = bytes(rng.integers(0, 256, payload_len, dtype="uint8"))
+    return encrypt(password, payload, SEVENZIP_CYCLES, salt, iv)
+
+
+def pdf_line(rng, password: bytes, rev: int, bits: int, meta: bool) -> str:
+    """A $pdf$ line whose user password is ``password``: seeded O and
+    ID, U by the port's oracle run forward."""
+    from dprf_tpu_torch.engines.cpu.pdf import make_line
+    o = bytes(rng.integers(0, 256, 32, dtype="uint8"))
+    doc_id = bytes(rng.integers(0, 256, 16, dtype="uint8"))
+    return make_line(password, rev, bits, o, -3904, doc_id, meta)
+
+
+def slice_f3(smoke, cli, card, clock_mhz, sms) -> dict:
+    """Phases 28-31: the 7-Zip KDF kernel of csrc/sevenzip.cu and the PDF
+    kernel of csrc/pdf.cu.  Returns their timing rows (ms, plain ms,
+    bound ms, bound_by, more); their main paths' launches go to
+    smoke.path_launches."""
+    import numpy as np
+    import torch
+
+    from dprf_tpu_torch.engines.cpu.sevenzip import sevenzip_key
+    from dprf_tpu_torch.engines.device import sevenzip as dev7z
+    from dprf_tpu_torch.generators.mask import MaskGenerator
+    from dprf_tpu_torch.ops import cuda_7z, cuda_pdf, opcount
+    from dprf_tpu_torch.runtime.potfile import encode_plain
+
+    rng = smoke.rng
+    gl8 = MaskGenerator(MASK_CONFIG5)
+    lutl8 = gl8.charset_lut("cuda")
+    b7 = dev7z.batch_for(gl8, dev7z.BATCH, torch.device("cuda"))
+    nv7 = b7 - 3
+    def clocked(fn, *args):
+        """(fn(*args), its ms by CUDA events)."""
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = fn(*args)
+        t1.record()
+        torch.cuda.synchronize()
+        return out, t0.elapsed_time(t1)
+
+    # 28. the 7z KDF kernel vs its plain version at the main path's batch,
+    # then hashlib at cycles 19
+    say(f"== 28. sevenzip_kdf (csrc/sevenzip.cu) vs plain over {nv7} valid "
+        f"lanes of a batch of {b7}, the main path's (whole resident waves; "
+        f"exact equality of every word), then hashlib at cycles "
+        f"{SEVENZIP_CYCLES}")
+    checks = {}
+    for length, salt_len, cycles in SEVENZIP_CHECKS:
+        gen = MaskGenerator("?l" * length if length == 8 else "?b" * length)
+        lut = gen.charset_lut("cuda")
+        salt = bytes(rng.integers(0, 256, salt_len, dtype=np.uint8))
+        start = int(rng.integers(0, gen.keyspace - b7))
+        args = (lut, gen.radices, gen.digits(start), nv7, salt, cycles, b7)
+        k, ms_k = clocked(cuda_7z.sevenzip_kdf_kernel, *args)
+        p, ms_p = clocked(cuda_7z.sevenzip_kdf_plain, *args)
+        err = int((k.long() - p.long()).abs().max().item())
+        smoke.err["sevenzip_kdf"] = max(smoke.err["sevenzip_kdf"], err)
+        kk = k.cpu().numpy()
+        oracle = all(kk[x].view(np.uint32).astype(">u4").tobytes()
+                     == sevenzip_key(gen.candidate(start + x), salt, cycles)
+                     for x in (0, nv7 - 1))
+        comps = opcount.sevenzip_compressions(length, salt_len, cycles)
+        checks[(length, salt_len, cycles)] = (ms_k, ms_p, comps)
+        say(f"  L={length} salt {salt_len} B cycles {cycles} (unit "
+            f"{cuda_7z.unit_bytes(length, salt_len)}, {comps} compressions): "
+            f"{tuple(k.shape)} words, max |kernel - plain| = {err}; lanes 0 "
+            f"and {nv7 - 1} equal hashlib: {oracle}; kernel {ms_k:.2f} ms, "
+            f"plain {ms_p:.1f} ms")
+        check(err == 0 and k.shape == (nv7, 8) and oracle,
+              "sevenzip_kdf: kernel, plain and hashlib differ")
+    # the CLI's window: its planted lanes are among the hashlib lanes
+    skip7 = int(rng.integers(0, gl8.keyspace - b7))
+    plants7 = [int(rng.integers(0, SEVENZIP_WINDOW - 1)),
+               SEVENZIP_WINDOW - 1]
+    args19 = (lutl8, gl8.radices, gl8.digits(skip7), nv7, b"",
+              SEVENZIP_CYCLES, b7)
+    k19, ms19 = clocked(cuda_7z.sevenzip_kdf_kernel, *args19)
+    k19 = k19.cpu().numpy()
+    lanes = [0, nv7 - 1, *plants7]
+    lanes += [x for x in sorted({int(x) for x in rng.integers(
+        1, nv7 - 1, 2 * SEVENZIP_HASHLIB_LANES)} - set(lanes))][
+        :SEVENZIP_HASHLIB_LANES - len(lanes)]
+    for x in lanes:
+        check(k19[x].view(np.uint32).astype(">u4").tobytes()
+              == sevenzip_key(gl8.candidate(skip7 + x), b"", SEVENZIP_CYCLES),
+              f"sevenzip_kdf cycles {SEVENZIP_CYCLES} lane {x}: kernel and "
+              "hashlib differ")
+    say(f"  cycles {SEVENZIP_CYCLES} over {nv7} lanes of {MASK_CONFIG5}: "
+        f"{len(lanes)} lanes (0, {nv7 - 1}, the CLI's planted {plants7}) "
+        f"equal hashlib; {ms19:.1f} ms for the launch")
+
+    # 29. the PDF kernel vs its plain version
+    g6 = MaskGenerator(MASK_PDF)
+    lut6 = g6.charset_lut("cuda")
+    say(f"== 29. pdf (csrc/pdf.cu) vs plain of {MASK_PDF}, the last 5 lanes "
+        f"invalid: R2 at the main path's batch of {BATCH}, the R3 kinds at "
+        f"{PDF_R3_CHECK_BATCH} (exact equality of the count and the sorted "
+        "lanes; the password planted in the batch's second half, on a later "
+        "pass of the grid-stride loop)")
+
+    def plain_pieces(kind, start, n_valid, tgt):
+        """pdf_plain over lanes [0, n_valid) from candidate ``start``, in
+        pieces of PDF_PLAIN_CHUNK lanes: (count, sorted lanes)."""
+        count, lanes = 0, []
+        for off in range(0, n_valid, PDF_PLAIN_CHUNK):
+            n = min(PDF_PLAIN_CHUNK, n_valid - off)
+            c, ln = cuda_pdf.pdf_plain(kind, lut6, g6.radices,
+                                       g6.digits(start + off), n, tgt, 64, n)
+            count += int(c.item())
+            lanes += [off + x for x in ln.tolist() if x >= 0]
+        return count, sorted(lanes)
+
+    pdf_plain_ms, pdf_check_ms, pdf_check_lanes = {}, {}, {}
+    for rev, bits, meta in PDF_DOCS:
+        batch = BATCH if rev == 2 else PDF_R3_CHECK_BATCH
+        nvp = batch - 5
+        start = int(rng.integers(0, g6.keyspace // batch)) * batch
+        plant = int(rng.integers(nvp // 2, nvp))
+        line = pdf_line(rng, g6.candidate(start + plant), rev, bits, meta)
+        kind, tgt = cuda_pdf.target_kernel_args(
+            smoke.get_engine("pdf").parse_target(line))
+        name = cuda_pdf.KINDS[kind][1]
+        args = (kind, lut6, g6.radices, g6.digits(start), nvp, tgt, 64,
+                batch)
+        kc, kl = cuda_pdf.pdf_kernel(*args)
+        pf, plain_ms = clocked(plain_pieces, kind, start, nvp, tgt)
+        kf = (int(kc.item()), sorted(x for x in kl.tolist() if x >= 0))
+        err = max([abs(kf[0] - pf[0]), abs(len(kf[1]) - len(pf[1]))]
+                  + [abs(a - b) for a, b in zip(kf[1], pf[1])])
+        smoke.err["pdf"] = max(smoke.err["pdf"], err)
+        wave = sms * cuda_pdf.THREADS * cuda_pdf.blocks_per_sm(
+            kind, cuda_pdf.shared_bytes(g6.length))
+        if (rev, meta) != (4, False):
+            pdf_plain_ms[name] = plain_ms
+            pdf_check_lanes[name] = nvp
+            pdf_check_ms[name] = smoke.time_launches(cuda_pdf.pdf_kernel,
+                                                     args, n=5)
+        say(f"  {name} (R{rev}/{bits}{'' if meta else ', metadata in the '
+            'clear'}) over {nvp} lanes, {nvp / wave:.2f} resident waves of "
+            f"{wave}: kernel {kf} | plain {pf}, planted lane {plant} (pass "
+            f"{plant // wave + 1}); plain {plain_ms:.1f} ms")
+        check(kf == pf and plant in kf[1] and (rev == 2 or kf[0] == 1),
+              f"pdf R{rev}/{bits}: kernel {kf}, plain {pf}, planted {plant}")
+
+    # 30. the slice end to end through the CLI
+    say(f"== 30. crack --device cuda: 7z (two stored entries at cycles "
+        f"{SEVENZIP_CYCLES}: no salt and a 100-byte payload; a 16-byte salt "
+        f"and a {dev7z.DATA_CAP}-byte payload) over {SEVENZIP_WINDOW} of "
+        f"{MASK_CONFIG5}; pdf (R2/40, R3/128, R4/128 with metadata in the "
+        f"clear, R3/40) over {PDF_WINDOW} of {MASK_PDF}; card: {card}")
+    e2e = {}
+    planted = [gl8.candidate(skip7 + i) for i in plants7]
+    lines7 = [sevenzip_line(rng, planted[0], 100, 0),
+              sevenzip_line(rng, planted[1], dev7z.DATA_CAP, 16)]
+    want = [f"{ln}:{encode_plain(p)}" for ln, p in zip(lines7, planted)]
+    batches7 = -(-SEVENZIP_WINDOW // b7)
+    summary, wall = run_path(smoke, cli, "7z", MASK_CONFIG5, lines7, want,
+                             SEVENZIP_WINDOW, "sevenzip_kdf",
+                             2 * batches7, skip7)
+    e2e["7z"] = {"wall_s": wall, "rate": loop_rate(summary),
+                 "planted_at": plants7, "skip": skip7, "batch": b7}
+    say(f"  7z: {wall:.3f} s wall, 2 entries x {SEVENZIP_WINDOW} candidates "
+        f"in launches of {b7}, loop {loop_rate(summary):,} candidates/s "
+        "(x entries)")
+    skip6 = int(rng.integers(0, g6.keyspace - PDF_WINDOW))
+    idx = sorted({PDF_WINDOW - 1, *(int(x) for x in rng.integers(
+        0, PDF_WINDOW - 1, len(PDF_DOCS) - 1))})
+    check(len(idx) == len(PDF_DOCS), f"planted indices collide: {idx}")
+    order = rng.permutation(len(PDF_DOCS))
+    docs = [PDF_DOCS[i] for i in order]
+    planted = [g6.candidate(skip6 + i) for i in idx]
+    lines = [pdf_line(rng, p, *d) for p, d in zip(planted, docs)]
+    want = [f"{ln}:{encode_plain(p)}" for ln, p in zip(lines, planted)]
+    summary, wall, launches = smoke.crack_lines(
+        cli, "pdf", ["--skip", str(skip6), "--limit", str(PDF_WINDOW),
+                     MASK_PDF], lines, want, PDF_WINDOW, kernel_modules())
+    per_doc = unit_batches(cli, PDF_WINDOW)
+    by_kind = {}
+    for rev, bits, _ in PDF_DOCS:
+        name = cuda_pdf.KINDS[(2 if rev == 2 else 3, bits // 8)][1]
+        by_kind[name] = by_kind.get(name, 0) + per_doc
+    batches = int(re.search(r" batches=(\d+)", summary).group(1))
+    maybes = int(re.search(r"maybes=(\d+)", summary).group(1))
+    # an R2 document's maybe matches 32 bits: 2^-32 a candidate
+    predicted = PDF_WINDOW * 2.0 ** -32
+    check(all(launches[k] == n for k, n in by_kind.items())
+          and sum(launches.values()) == batches == len(PDF_DOCS) * per_doc
+          and maybes <= 5,
+          f"pdf: launches {launches}, {batches} batches, expected {by_kind}"
+          f"; maybes {maybes}, predicted {predicted:.4f}")
+    for k, n in by_kind.items():
+        smoke.path_launches[k] = n
+    smoke.path_launches["pdf"] = sum(by_kind.values())
+    e2e["pdf"] = {"wall_s": wall, "rate": loop_rate(summary),
+                  "launches": by_kind, "planted_at": idx, "skip": skip6,
+                  "maybes": maybes, "maybes_predicted": predicted}
+    say(f"  pdf: {wall:.3f} s wall, {len(PDF_DOCS)} documents x "
+        f"{PDF_WINDOW} candidates, loop {loop_rate(summary):,} candidates/s "
+        f"(x documents)")
+    say(json.dumps({"slice_f3": e2e}))
+
+    # 31. timing
+    say(f"== 31. slice F3 timing (CUDA events); card: {card}")
+    clock = clock_mhz * 1e6
+    timing = {}
+    bound7 = opcount.sevenzip_bound(nv7, gl8.length, 0, SEVENZIP_CYCLES, sms,
+                                    clock)["issue"] * 1e3
+    work = opcount.sevenzip_ops(gl8.length, 0, SEVENZIP_CYCLES)
+    comps = opcount.sevenzip_compressions(gl8.length, 0, SEVENZIP_CYCLES)
+    ms_k, ms_p, comps10 = checks[(8, 0, 10)]
+    timing["sevenzip_kdf"] = (ms19, ms_p, bound7, "operations", {
+        "plain_input": f"{nv7} lanes of ?l^8 at cycles 10 (ms: the same "
+                       f"lanes at cycles {SEVENZIP_CYCLES})",
+        "ms_at_plain_input": ms_k})
+    smem = cuda_7z.shared_bytes(gl8.length)
+    say(f"  sevenzip_kdf {MASK_CONFIG5} at cycles {SEVENZIP_CYCLES}: "
+        f"{ms19:.1f} ms per launch of {nv7} = {nv7 / ms19 * 1e3:,.0f} "
+        f"candidates/s = {nv7 * comps / ms19 / 1e6:.3f} G SHA-256 "
+        f"compressions/s ({comps} a candidate); bound {bound7:.1f} ms "
+        f"({work.slots:,.0f} slots a candidate); kernel at "
+        f"{bound7 / ms19:.1%} of it; {smem} B shared, "
+        f"{cuda_7z.blocks_per_sm(smem)} resident blocks of "
+        f"{cuda_7z.THREADS} per SM.  At cycles 10 ({comps10} compressions): "
+        f"kernel {ms_k:.2f} ms, plain version {ms_p:.1f} ms")
+    # one step of the main path (the 1,024-byte entry) and its verdict
+    params = smoke.get_engine("7z").parse_target(lines7[1]).params
+    step = dev7z.make_kernel_step(gl8, b7, params, 64, "cuda")
+    check_fn = dev7z.make_state_check(params, "cuda")
+    words = torch.as_tensor(k19, device="cuda")
+    verdict_ms = smoke.time_launches(check_fn, (words,), n=3, warm=1)
+    step_ms = smoke.time_once(step, (gl8.digits(skip7), nv7), warm=False)
+    say(f"  7z step of {nv7} (the entry with a 16-byte salt, a "
+        f"{cuda_7z.unit_bytes(gl8.length, 16)}-byte unit, and a "
+        f"{dev7z.DATA_CAP}-byte payload): "
+        f"{step_ms:.1f} ms; the torch verdict alone (AES-256-CBC of "
+        f"{dev7z.DATA_CAP // 16} blocks, CRC32 of {dev7z.DATA_CAP} bytes) "
+        f"{verdict_ms:.2f} ms = {verdict_ms / step_ms:.2%} of the step")
+    rows = {}
+    for kind, (_, name) in cuda_pdf.KINDS.items():
+        line = pdf_line(rng, b"\0" * 7, kind[0], 8 * kind[1], True)
+        _, tgt = cuda_pdf.target_kernel_args(
+            smoke.get_engine("pdf").parse_target(line))
+        start = int(rng.integers(0, g6.keyspace // BATCH)) * BATCH
+        args = (kind, lut6, g6.radices, g6.digits(start), BATCH, tgt, 64,
+                BATCH)
+        ms = smoke.time_launches(cuda_pdf.pdf_kernel, args, n=5)
+        lim = opcount.pdf_bound(BATCH, g6.length, *kind, sms, clock)
+        bound = max(lim.values()) * 1e3
+        work = opcount.pdf_ops(g6.length, *kind)
+        rows[name] = {"ms": ms, "bound_ms": bound,
+                      "bound_limit": max(lim, key=lim.get),
+                      "plain_ms": pdf_plain_ms[name],
+                      "plain_lanes": pdf_check_lanes[name],
+                      "ms_at_plain_input": pdf_check_ms[name],
+                      "launches": smoke.path_launches[name]}
+        say(f"  {name} {MASK_PDF}: {ms:.3f} ms per launch of {BATCH} = "
+            f"{BATCH / ms / 1e3:,.3f} M candidates/s; bound {bound:.3f} ms "
+            f"({max(lim, key=lim.get)}: issue {lim['issue'] * 1e3:.3f} ms at "
+            f"{work.slots:,.1f} slots a candidate, shared "
+            f"{lim['shared'] * 1e3:.3f} ms at "
+            f"{opcount.pdf_shared(kind[0]) + g6.length} accesses); kernel at "
+            f"{bound / ms:.1%} of it; plain version {pdf_plain_ms[name]:.1f} "
+            f"ms over {pdf_check_lanes[name]} lanes (kernel there "
+            f"{pdf_check_ms[name]:.3f} ms)")
+    main = rows["pdf_r3_128"]
+    timing["pdf"] = (main["ms"], main["plain_ms"], main["bound_ms"],
+                     "operations", {
+                         "bound_limit": main["bound_limit"],
+                         "plain_input": f"{main['plain_lanes']} lanes "
+                                        f"(ms: {BATCH})",
+                         "ms_at_plain_input": main["ms_at_plain_input"],
+                         "instantiations": rows})
+    say(json.dumps({"slice_f3_timing": {
+        "sevenzip_kdf_ms": ms19, "sevenzip_kdf_bound_ms": bound7,
+        "sevenzip_kdf_plain10_ms": ms_p, "sevenzip_kdf_10_ms": ms_k,
+        "sevenzip_step_ms": step_ms, "sevenzip_verdict_ms": verdict_ms,
+        "pdf": rows}}))
     return timing
 
 

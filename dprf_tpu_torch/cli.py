@@ -5,7 +5,8 @@ Subcommands: crack (a local mask or wordlist+rules job), bench
 
 - ``cuda`` (the default): the hand-written CUDA kernels on the card
   (the mask kernel, the rule kernel, the PMKID and KDF kernels, the
-  bcrypt kernels, the Kerberos RC4 kernel);
+  bcrypt kernels, the Kerberos RC4 kernel, the 7-Zip KDF kernel, the
+  PDF kernel);
 - ``torch-cpu``: the same workers on CPU tensors, running the kernels'
   plain PyTorch versions;
 - ``cpu``: the CPU oracle (hashlib; a pure-Python MD4 for ntlm).

@@ -1,9 +1,9 @@
 // cores.cuh -- the hash cores the port's kernels share (csrc/mask.cu,
 // csrc/rules.cu, csrc/pbkdf2.cu): md5, md4 (ntlm, over UTF-16LE), sha1
 // and sha256, one 64-byte block each, fully unrolled, with everything
-// in registers; md5_compress and sha1_compress, MD5 and SHA-1 from any
-// chaining state (HMAC); and sha512 / sha384 over one 128-byte block of
-// 64-bit words.
+// in registers; md5_compress, sha1_compress and sha256_compress, MD5,
+// SHA-1 and SHA-256 from any chaining state (HMAC, the 7-Zip KDF); and
+// sha512 / sha384 over one 128-byte block of 64-bit words.
 //
 // Each core is a struct: kWords digest words; kMaxLen, the longest
 // candidate one block holds; word(q) / shift(q), where candidate byte q
@@ -253,6 +253,56 @@ struct Sha1Core {
     }
 };
 
+// The 64 SHA-256 rounds over w (overwritten as the rolling schedule), on
+// the caller's working variables a..h.  A macro over the caller's names,
+// so that Sha256Core::digest compiles to the same SASS as when the rounds
+// were its own statements (chip_smoke.py's CENSUS_BEFORE), which a call
+// of sha256_compress with the IV did not (an inlined function's copy of
+// the same statements moved sha256-sp_mask and sha256_rules).
+#define DPRF_SHA256_ROUNDS(w)                                             \
+    _Pragma("unroll")                                                     \
+    for (int t = 0; t < 64; ++t) {                                        \
+        if (t >= 16) {                                                    \
+            const uint32_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];  \
+            const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);\
+            const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10); \
+            w[t & 15] += s0 + w[(t - 7) & 15] + s1;                       \
+        }                                                                 \
+        const uint32_t t1 = h + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25))  \
+                            + (g ^ (e & (f ^ g))) + K_SHA256[t]           \
+                            + w[t & 15];                                  \
+        const uint32_t t2 = (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22))      \
+                            + ((a & b) | (c & (a | b)));                  \
+        h = g;                                                            \
+        g = f;                                                            \
+        f = e;                                                            \
+        e = d + t1;                                                       \
+        d = c;                                                            \
+        c = b;                                                            \
+        b = a;                                                            \
+        a = t1 + t2;                                                      \
+    }
+
+// SHA-256 compression with an arbitrary chaining state: the 64 rounds
+// over w (overwritten as the rolling schedule) and the feed-forward,
+// out = st + rounds(st, w).  out may alias st.  csrc/sevenzip.cu chains
+// it over the 7-Zip KDF's stream.
+__device__ __forceinline__ void sha256_compress(const uint32_t* st,
+                                                uint32_t* w, uint32_t* out)
+{
+    uint32_t a = st[0], b = st[1], c = st[2], d = st[3], e = st[4],
+             f = st[5], g = st[6], h = st[7];
+    DPRF_SHA256_ROUNDS(w)
+    out[0] = a + st[0];
+    out[1] = b + st[1];
+    out[2] = c + st[2];
+    out[3] = d + st[3];
+    out[4] = e + st[4];
+    out[5] = f + st[5];
+    out[6] = g + st[6];
+    out[7] = h + st[7];
+}
+
 struct Sha256Core {
     static constexpr int kWords = 8;
     static constexpr int kMaxLen = 55;
@@ -272,28 +322,7 @@ struct Sha256Core {
                                0x1f83d9abu, 0x5be0cd19u};
         uint32_t a = H[0], b = H[1], c = H[2], d = H[3], e = H[4],
                  f = H[5], g = H[6], h = H[7];
-#pragma unroll
-        for (int t = 0; t < 64; ++t) {
-            if (t >= 16) {
-                const uint32_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
-                const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
-                const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
-                w[t & 15] += s0 + w[(t - 7) & 15] + s1;
-            }
-            const uint32_t t1 = h + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25))
-                                + (g ^ (e & (f ^ g))) + K_SHA256[t]
-                                + w[t & 15];
-            const uint32_t t2 = (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22))
-                                + ((a & b) | (c & (a | b)));
-            h = g;
-            g = f;
-            f = e;
-            e = d + t1;
-            d = c;
-            c = b;
-            b = a;
-            a = t1 + t2;
-        }
+        DPRF_SHA256_ROUNDS(w)
         out[0] = a + H[0];
         out[1] = b + H[1];
         out[2] = c + H[2];

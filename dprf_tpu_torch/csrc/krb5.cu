@@ -34,23 +34,20 @@
 // grid-stride loop.  The NT hash, K1 and K3 stay in registers, and both
 // HMACs' padding words (the 0x80 marker, zeros, the bit lengths (64 +
 // 4) * 8 and (64 + 16) * 8) are constants, so their terms fold.  Each
-// thread's RC4 state lives in shared memory, 256 bytes a thread, laid
-// out so that byte e of thread t is at byte 4 * ((e >> 2) * kThreads +
-// t) + (e & 3): its 32-bit word sits in bank t mod 32 whatever e is, so
-// a warp's 32 data-dependent accesses never conflict, and byte loads and
-// stores need no read-modify-write.  A 256-thread block takes 64 KB of
-// it, past the 48 KB a launch gets without asking, so the launch raises
-// its limit.  The key schedule is unrolled in full: the key byte K3[i %
-// 16] is an extract at a constant position and S[i]'s address a
-// constant offset, so nothing is indexed in registers and there is no
-// stack frame.  The swap stores S[i] = S[j] before S[j] = S[i], both
-// from values read first, which is right when j == i.
+// thread's RC4 state lives in shared memory, 256 bytes a thread, in the
+// conflict-free layout of csrc/rc4.cuh (shared with csrc/pdf.cu).  A
+// 256-thread block takes 64 KB of it, past the 48 KB a launch gets
+// without asking, so the launch raises its limit.  The key schedule is
+// unrolled in full: the key byte K3[i % 16] is an extract at a constant
+// position and S[i]'s address a constant offset, so nothing is indexed
+// in registers and there is no stack frame.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "cores.cuh"
 #include "decode.cuh"
+#include "rc4.cuh"
 
 #define DPRF_KRB5_MAX_LEN 27
 
@@ -103,38 +100,23 @@ __device__ __forceinline__ void hmac_md5(const uint32_t* key,
     md5_compress(ost, w, out);
 }
 
-// Byte e of the calling thread's RC4 state (s: the state's base plus
-// 4 * threadIdx.x).
-#define RC4_AT(s, e) ((s)[(((e) >> 2) * (4 * kThreads)) + ((e) & 3)])
-
 // Keystream bytes [8, 12) under the 16-byte key k (little-endian words),
 // packed little-endian.
 __device__ __forceinline__ uint32_t rc4_word2(uint8_t* s, const uint32_t* k)
 {
-    uint32_t* s32 = reinterpret_cast<uint32_t*>(s);
-#pragma unroll
-    for (int w = 0; w < 64; ++w)
-        s32[w * kThreads] = 0x03020100u + 0x04040404u * (uint32_t)w;
+    RC4_INIT(s);
     uint32_t j = 0u;
 #pragma unroll
     for (int i = 0; i < 256; ++i) {
         const uint32_t kb = (k[(i >> 2) & 3] >> (8 * (i & 3))) & 0xffu;
-        const uint32_t si = RC4_AT(s, i);
-        j = (j + si + kb) & 0xffu;
-        const uint32_t sj = RC4_AT(s, j);
-        RC4_AT(s, i) = (uint8_t)sj;
-        RC4_AT(s, j) = (uint8_t)si;
+        RC4_KSA_STEP(s, i, kb, j);
     }
     j = 0u;
     uint32_t word = 0u;
 #pragma unroll
     for (int t = 0; t < 12; ++t) {
         const int i = t + 1;
-        const uint32_t si = RC4_AT(s, i);
-        j = (j + si) & 0xffu;
-        const uint32_t sj = RC4_AT(s, j);
-        RC4_AT(s, i) = (uint8_t)sj;
-        RC4_AT(s, j) = (uint8_t)si;
+        RC4_OUT_STEP(s, i, j, si, sj);
         if (t >= 8) word |= (uint32_t)RC4_AT(s, (si + sj) & 0xffu)
                             << (8 * (t - 8));
     }

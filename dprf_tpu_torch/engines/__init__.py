@@ -55,14 +55,18 @@ def _ensure_imported(device: str) -> None:
         import dprf_tpu_torch.engines.cpu.engines  # noqa: F401
         import dprf_tpu_torch.engines.cpu.krb5  # noqa: F401
         import dprf_tpu_torch.engines.cpu.krb5aes  # noqa: F401
+        import dprf_tpu_torch.engines.cpu.pdf  # noqa: F401
+        import dprf_tpu_torch.engines.cpu.sevenzip  # noqa: F401
     elif device == "cuda":
         import dprf_tpu_torch.engines.device.bcrypt  # noqa: F401
         import dprf_tpu_torch.engines.device.engines  # noqa: F401
         import dprf_tpu_torch.engines.device.krb5  # noqa: F401
         import dprf_tpu_torch.engines.device.krb5aes  # noqa: F401
         import dprf_tpu_torch.engines.device.nested  # noqa: F401
+        import dprf_tpu_torch.engines.device.pdf  # noqa: F401
         import dprf_tpu_torch.engines.device.pmkid  # noqa: F401
         import dprf_tpu_torch.engines.device.salted  # noqa: F401
+        import dprf_tpu_torch.engines.device.sevenzip  # noqa: F401
         import dprf_tpu_torch.engines.device.sha3  # noqa: F401
     else:
         raise KeyError(f"unknown device {device!r} "

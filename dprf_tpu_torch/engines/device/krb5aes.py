@@ -42,6 +42,7 @@ from dprf_tpu_torch.engines.cpu.krb5aes import (USAGE_AS_REP,
                                                 Krb5TgsAesEngine, nfold)
 from dprf_tpu_torch.engines.device.krb5 import der_header
 from dprf_tpu_torch.ops.aes import aes_decrypt_blocks, aes_encrypt_block_batch
+from dprf_tpu_torch.ops.pack import words_to_bytes_be
 from dprf_tpu_torch.runtime.worker import PerTargetSweepWorker
 
 #: the confounder before the DER plaintext: one AES block
@@ -75,16 +76,6 @@ def der_filter_words_aes(edata_len: int, usage: int) -> tuple[int, int]:
     inner = 0xA0 if usage == USAGE_PA_TIMESTAMP else 0x30
     # the DER blob: CTS has no padding
     return der_header(edata_len - CONF, tag, tag_mask, inner, 0x00)
-
-
-def _words_to_bytes_be(words: torch.Tensor) -> torch.Tensor:
-    """int32[B, W] big-endian words -> uint8[B, 4W] (the PBKDF2 output's
-    bytes)."""
-    B, W = words.shape
-    shifts = torch.tensor([24, 16, 8, 0], dtype=torch.int32,
-                          device=words.device)
-    return ((words[:, :, None] >> shifts) & 0xFF).reshape(
-        B, 4 * W).to(torch.uint8)
 
 
 def _dk_batch(base: torch.Tensor, constant: bytes) -> torch.Tensor:
@@ -143,7 +134,7 @@ def make_krb5aes_filter(params: dict, iterations: int = 4096):
         words = [hmac_sha1.pbkdf2_sha1_block(istate, ostate, salt, i,
                                              iterations)
                  for i in range(1, 1 + (key_len > 20) + 1)]
-        base = _words_to_bytes_be(torch.cat(words, dim=1))[:, :key_len]
+        base = words_to_bytes_be(torch.cat(words, dim=1))[:, :key_len]
         return check(base)
 
     return fb
@@ -173,7 +164,7 @@ def make_kdf_step(gen, batch: int, params: dict, hit_capacity: int,
     def step(base_digits, n_valid: int):
         words = cuda_pbkdf2.kdf(lut, radices, base_digits, n_valid, salt,
                                 iterations, key_len // 4, batch)
-        found = check(_words_to_bytes_be(words))[:, 0] == expected
+        found = check(words_to_bytes_be(words))[:, 0] == expected
         count = found.sum(dtype=torch.int32).reshape(1)
         # the first hits: each lane's index, or n_valid where it missed
         idx = torch.where(found, torch.arange(n_valid, dtype=torch.int32,

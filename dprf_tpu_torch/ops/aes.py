@@ -138,9 +138,12 @@ def _table(values, device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _tables(device) -> dict:
-    """The S-boxes and the products as uint8[256] tensors on ``device``."""
+    """The S-boxes and the products as uint8[256] tensors on ``device``,
+    and the (inverse) ShiftRows permutations."""
     out = {"sbox": _table(bytearray(SBOX), device),
-           "inv_sbox": _table(bytearray(INV_SBOX), device)}
+           "inv_sbox": _table(bytearray(INV_SBOX), device),
+           "shift": torch.as_tensor(SHIFT, device=device),
+           "inv_shift": torch.as_tensor(INV_SHIFT, device=device)}
     out.update({c: _table(v, device) for c, v in _MUL.items()})
     return out
 
@@ -187,7 +190,7 @@ def aes_encrypt_block_batch(keys: torch.Tensor,
     tabs = _tables(keys.device)
     rks = aes_key_schedule_batch(keys)
     last = rks.shape[1] - 1
-    shift = torch.as_tensor(SHIFT, device=keys.device)
+    shift = tabs["shift"]
     s = block ^ rks[:, 0]
     for rnd in range(1, last + 1):
         s = _take(tabs["sbox"], s)[:, shift]
@@ -197,16 +200,18 @@ def aes_encrypt_block_batch(keys: torch.Tensor,
     return s
 
 
-def aes_decrypt_blocks(keys: torch.Tensor,
-                       blocks: np.ndarray) -> torch.Tensor:
+def aes_decrypt_blocks(keys: torch.Tensor, blocks) -> torch.Tensor:
     """Per-candidate keys uint8[B, 16|32] and CONSTANT ciphertext blocks
-    uint8[N, 16] -> plaintext uint8[B, N, 16] (ECB; a CBC caller xors
+    uint8[N, 16] (numpy, or a tensor already on the keys' device, which
+    spares the copy) -> plaintext uint8[B, N, 16] (ECB; a CBC caller xors
     the previous ciphertext block itself)."""
     tabs = _tables(keys.device)
     rks = aes_key_schedule_batch(keys)
     last = rks.shape[1] - 1
-    inv_shift = torch.as_tensor(INV_SHIFT, device=keys.device)
-    ct = torch.as_tensor(np.array(blocks, np.uint8), device=keys.device)
+    inv_shift = tabs["inv_shift"]
+    if not isinstance(blocks, torch.Tensor):
+        blocks = np.array(blocks, np.uint8)
+    ct = torch.as_tensor(blocks, device=keys.device)
     out = []
     for n in range(ct.shape[0]):
         s = ct[n] ^ rks[:, last]

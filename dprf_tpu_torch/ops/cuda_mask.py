@@ -126,6 +126,29 @@ def message_block(engine_name: str, length: int) -> tuple:
     return tuple(int(w) for w in words.view(np.uint32))
 
 
+def check_decode(lut: torch.Tensor, radices: Sequence[int],
+                 base_digits: Sequence[int], n_valid: int, batch: int,
+                 max_length: int) -> None:
+    """The mask decode's arguments of a kernel of 1..max_length
+    positions: the charset tables, the radices and base digits, the
+    batch and its valid lanes."""
+    if lut.dtype != torch.uint8 or lut.dim() != 2 or lut.shape[1] != 256:
+        raise ValueError(f"lut must be uint8[length, 256], got "
+                         f"{lut.dtype}{list(lut.shape)}")
+    length = lut.shape[0]
+    if not 1 <= length <= max_length:
+        raise ValueError(f"mask length {length} outside 1..{max_length}")
+    if len(radices) != length or len(base_digits) != length:
+        raise ValueError("radices and base digits need one entry per "
+                         "mask position")
+    if not all(1 <= r <= 256 for r in radices) or \
+            not all(0 <= d < r for d, r in zip(base_digits, radices)):
+        raise ValueError("radices must be 1..256 and base digits below them")
+    check_batch(batch)
+    if not 0 <= n_valid <= batch:
+        raise ValueError(f"n_valid {n_valid} outside 0..{batch}")
+
+
 def check_job(eng, lut: torch.Tensor, radices: Sequence[int],
               base_digits: Sequence[int], n_valid: int, hit_capacity: int,
               batch: int) -> None:

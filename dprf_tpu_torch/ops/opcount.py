@@ -1,8 +1,9 @@
 """The least work one candidate takes in the mask kernel (csrc/mask.cu,
 csrc/keccak.cu), the rule kernel (csrc/rules.cu), the PMKID and KDF
-kernels (csrc/pbkdf2.cu), the bcrypt kernels (csrc/bcrypt.cu) and the
-Kerberos RC4 kernel (csrc/krb5.cu): the operation count behind the bound
-that chip_smoke.py prints beside each kernel's time.
+kernels (csrc/pbkdf2.cu), the bcrypt kernels (csrc/bcrypt.cu), the
+Kerberos RC4 kernel (csrc/krb5.cu), the 7-Zip KDF kernel
+(csrc/sevenzip.cu) and the PDF kernel (csrc/pdf.cu): the operation count
+behind the bound that chip_smoke.py prints beside each kernel's time.
 
 Each core runs here once, in Python, over the job's message block with
 symbolic words: a word that holds candidate bytes is a ``Var``, every
@@ -177,9 +178,10 @@ def _sha1(m, state=None):
     return [a, b, c, d, e]
 
 
-def _sha256(m):
+def _sha256(m, state=None):
     w = list(m)
-    a, b, c, d, e, f, g, h = (int(v) for v in sha256.INIT)
+    a, b, c, d, e, f, g, h = (int(v) for v in sha256.INIT) \
+        if state is None else state
     for t in range(64):
         if t >= 16:
             w15, w2 = w[(t - 15) % 16], w[(t - 2) % 16]
@@ -725,3 +727,112 @@ def bcrypt_bound(batch: int, rounds: int, sms: int, clock_hz: float,
     waves = -(-batch // (sms * threads_per_sm))
     latency = waves * rounds * BCRYPT_ROUND_LATENCY / clock_hz
     return {"shared": shared, "issue": issue, "latency": latency}
+
+
+# ---- the 7-Zip KDF kernel --------------------------------------------------
+
+def sha256_compress_work(state_var: bool, message) -> dict:
+    """One SHA-256 compression with its feed-forward, by pipe: the
+    chaining state all ``Var`` (state_var) or the IV, over ``message``
+    (16 words, each an int or a ``Var``)."""
+    iv = [int(v) for v in sha256.INIT]
+    state = [Var("alu", 0, []) for _ in range(8)] if state_var else iv
+    out = _sha256(list(message), state)
+    return tally([add(o, s) for o, s in zip(out, state)])
+
+
+def sevenzip_compressions(length: int, salt_len: int, cycles: int) -> int:
+    """SHA-256 compressions of one 7-Zip KDF candidate: the 2^cycles
+    units of salt || UTF-16LE(pw) || LE64(i) in 64-byte blocks, then the
+    padding block (the stream ends on a block boundary)."""
+    unit = salt_len + 2 * length + 8
+    return (unit << cycles) // 64 + 1
+
+
+def sevenzip_ops(length: int, salt_len: int, cycles: int) -> Work:
+    """The least work of one 7-Zip KDF candidate: its decode and every
+    compression with all 16 message words and the chaining state
+    variable (the stream's words mix the password, the salt and the
+    running counter, so none folds; the padding block's fixed words are
+    not worth the distinction at ~10^5 compressions); gathering a block
+    from the stream is not counted."""
+    v = [Var("alu", 0, []) for _ in range(16)]
+    per = sha256_compress_work(True, v)
+    n = sevenzip_compressions(length, salt_len, cycles)
+    return Work(n * per["alu"] + length, n * per["add"] + length,
+                n * per["fma"] + 2 * length)
+
+
+def sevenzip_bound(batch: int, length: int, salt_len: int, cycles: int,
+                   sms: int, clock_hz: float) -> dict:
+    """The issue limit on ``batch`` 7-Zip KDF candidates, in seconds:
+    ``sevenzip_ops``'s slots at 64 lanes a pipe per SM per clock."""
+    work = sevenzip_ops(length, salt_len, cycles)
+    return {"issue": batch * work.slots / (sms * 64 * clock_hz)}
+
+
+# ---- the PDF kernel --------------------------------------------------------
+
+def pdf_rc4(rev: int) -> tuple:
+    """(RC4 runs, kept output bytes a run) of one PDF candidate: R2 one
+    run and 4 bytes, R3+ 20 runs of 16."""
+    return (1, 4) if rev == 2 else (20, 16)
+
+
+def pdf_shared(rev: int) -> int:
+    """Shared-memory accesses of one candidate's RC4: per run 64 word
+    stores of the initial state, two loads and two stores a step (256
+    key-schedule steps and one output step per kept byte) and a load per
+    kept byte."""
+    runs, kept = pdf_rc4(rev)
+    return runs * (64 + 4 * 256 + 5 * kept)
+
+
+def pdf_compressions(rev: int) -> dict:
+    """MD5 compressions of one candidate, by kind: ``block1`` Algorithm
+    2's first block (pad32(password) || O, from the IV), ``block2`` the
+    document's second block (fixed words, a variable state), ``stretch``
+    R3+'s 50 over digest[:key_len] from the IV."""
+    return {"block1": 1, "block2": 1, "stretch": 0 if rev == 2 else 50}
+
+
+def pdf_ops(length: int, rev: int, key_len: int) -> Work:
+    """The least issue work of one PDF candidate: the decode, the MD5
+    compressions (O, block 2 and the stretch's padding words fold as
+    job constants), per RC4 run the key's xor with the pass (one LOP3 a
+    key word, R3+ only), one extract a key byte, 256 + kept steps and the
+    kept bytes (each xored into U for R3+), and the compare."""
+    block1 = [Var("alu", 0, []) if 4 * w < length else 1 for w in range(8)]
+    v = [Var("alu", 0, []) for _ in range(4)]
+    nw = -(-key_len // 4)
+    stretch = v[:nw] + [0x80] * (key_len % 4 == 0) + \
+        [0] * (14 - nw - (key_len % 4 == 0)) + [8 * key_len, 0]
+    per = {"block1": md5_compress_work(False, block1 + [1] * 8),
+           "block2": md5_compress_work(True, [1] * 16),
+           "stretch": md5_compress_work(False, stretch)}
+    work = {"alu": length, "add": length, "fma": 2 * length}
+    for kind, n in pdf_compressions(rev).items():
+        for pipe in work:
+            work[pipe] += n * per[kind][pipe]
+    runs, kept = pdf_rc4(rev)
+    steps = 256 + kept
+    xor_pass = 0 if rev == 2 else nw
+    xor_u = 0 if rev == 2 else kept
+    work["alu"] += runs * (xor_pass + key_len + steps * RC4_STEP.alu
+                           + kept * RC4_OUT_BYTE.alu + xor_u) \
+        + (1 if rev == 2 else 4)
+    work["add"] += runs * (steps * RC4_STEP.add + kept * RC4_OUT_BYTE.add)
+    return Work(work["alu"], work["add"], work["fma"])
+
+
+def pdf_bound(batch: int, length: int, rev: int, key_len: int, sms: int,
+              clock_hz: float) -> dict:
+    """Two limits on ``batch`` PDF candidates, in seconds: ``issue``,
+    ``pdf_ops``'s slots (64 lanes a pipe per SM per clock); ``shared``,
+    RC4's shared-memory accesses and the decode's table reads at 32 per
+    SM per clock."""
+    issue = batch * pdf_ops(length, rev, key_len).slots / (
+        sms * 64 * clock_hz)
+    shared = batch * (pdf_shared(rev) + length) / (
+        sms * SHARED_READS_PER_SM_CLOCK * clock_hz)
+    return {"issue": issue, "shared": shared}

@@ -111,3 +111,12 @@ def utf16le_widen(cand: torch.Tensor) -> torch.Tensor:
                        device=cand.device)
     wide[:, :, 0] = cand
     return wide.reshape(batch, 2 * length)
+
+
+def words_to_bytes_be(words: torch.Tensor) -> torch.Tensor:
+    """int32[B, W] big-endian words -> their uint8[B, 4W] bytes (a SHA
+    digest's or a PBKDF2 output's); the shifts are scalars, so nothing is
+    copied to the words' device."""
+    B, W = words.shape
+    return torch.stack([(words >> s) & 0xFF for s in (24, 16, 8, 0)],
+                       dim=2).reshape(B, 4 * W).to(torch.uint8)

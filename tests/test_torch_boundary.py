@@ -40,7 +40,12 @@ slices = {"dprf_tpu_torch.ops.hmac_sha1", "dprf_tpu_torch.ops.blowfish",
           "dprf_tpu_torch.ops.sha512", "dprf_tpu_torch.ops.keccak",
           "dprf_tpu_torch.ops.cuda_keccak",
           "dprf_tpu_torch.engines.device.sha3",
-          "dprf_tpu_torch.tools.bench_word64"}
+          "dprf_tpu_torch.tools.bench_word64",
+          "dprf_tpu_torch.ops.cuda_7z", "dprf_tpu_torch.ops.cuda_pdf",
+          "dprf_tpu_torch.engines.cpu.sevenzip",
+          "dprf_tpu_torch.engines.cpu.pdf",
+          "dprf_tpu_torch.engines.device.sevenzip",
+          "dprf_tpu_torch.engines.device.pdf"}
 print(len(names), sorted(slices - set(names)), bad)
 """
 

@@ -633,3 +633,56 @@ def test_cli_krb5_on_card(tmp_path, capsys):
         assert "rejected=0" in captured.err and "maybes=" in captured.err
         assert cuda_krb5.launches["krb5"] == 3 * 7
         assert sum(cuda_mask.launches.values()) == 0
+
+
+@pytest.mark.parametrize("mask,salt_len,cycles", [("?b?b?b", 0, 8),
+                                                  ("?l" * 8, 16, 8),
+                                                  ("?l?d" * 4, 4, 7)])
+def test_sevenzip_kernel_matches_plain_and_hashlib(mask, salt_len, cycles):
+    """2^15 lanes, the last three invalid: every key word equal to the
+    plain version's, lanes 0 and the last valid one to hashlib."""
+    _need_card()
+    from dprf_tpu_torch.engines.cpu.sevenzip import sevenzip_key
+    from dprf_tpu_torch.ops import cuda_7z
+    gen, batch = MaskGenerator(mask), 1 << 15
+    salt = bytes(range(7, 7 + salt_len))
+    start = 3 * batch
+    args = (gen.charset_lut("cuda"), gen.radices, gen.digits(start),
+            batch - 3, salt, cycles, batch)
+    launches = cuda_7z.launches[cuda_7z.KERNEL]
+    k = cuda_7z.sevenzip_kdf_kernel(*args)
+    p = cuda_7z.sevenzip_kdf_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_7z.launches[cuda_7z.KERNEL] == launches + 1
+    assert torch.equal(k, p) and k.shape == (batch - 3, 8)
+    kk = k.cpu().numpy()
+    for lane in (0, batch - 4):
+        assert kk[lane].view(np.uint32).astype(">u4").tobytes() == \
+            sevenzip_key(gen.candidate(start + lane), salt, cycles)
+
+
+def test_pdf_kernel_matches_plain():
+    """2^14 lanes of ?a^5 for each kind (R4 without metadata encryption
+    on the R3/128 instantiation): a hit at lane 0, at the last valid lane
+    of a partial batch, hit capacity 0; count and sorted lanes equal."""
+    _need_card()
+    from dprf_tpu_torch.engines.cpu.pdf import make_line
+    from dprf_tpu_torch.ops import cuda_pdf
+    gen, batch = MaskGenerator("?a" * 5), 1 << 14
+    lut = gen.charset_lut("cuda")
+    start = 77 * batch
+    o, doc_id = bytes(range(32)), bytes(range(100, 116))
+    for rev, bits, meta in ((2, 40, True), (3, 40, True), (3, 128, True),
+                            (4, 128, False)):
+        for lane, nv, cap in ((0, batch, 8), (batch - 10, batch - 9, 8),
+                              (99, batch, 0)):
+            line = make_line(gen.candidate(start + lane), rev, bits, o, -4,
+                             doc_id, meta)
+            kind, tgt = cuda_pdf.target_kernel_args(
+                get_engine("pdf").parse_target(line))
+            args = (kind, lut, gen.radices, gen.digits(start), nv, tgt, cap,
+                    batch)
+            k = cuda_pdf.pdf_kernel(*args)
+            p = cuda_pdf.pdf_plain(*args)
+            torch.cuda.synchronize()
+            assert _hit_set(*k) == _hit_set(*p) == (1, [lane] if cap else [])

@@ -312,10 +312,10 @@ def test_refusals_name_device_cpu(tmp_path, capsys):
 
 
 def test_engine_names_of_the_slice():
-    """57 names on cuda and on the port's cpu, the same set, the 11
-    Kerberos names among them, every one a name of the reference's
-    device engines."""
+    """The same names on cuda and on the port's cpu, the 11 Kerberos
+    names among them, every one a name of the reference's device engines
+    (the count is the newest slice's test's)."""
     cuda, cpu = set(engine_names("cuda")), set(engine_names("cpu"))
-    assert cuda == cpu and len(cuda) == 57
+    assert cuda == cpu
     assert SLICE_NAMES <= cuda
     assert cuda <= set(ref_engine_names("jax"))

@@ -355,3 +355,60 @@ def test_krb5_and_kdf_counts():
             for n in (4, 8)] == [8194, 16386]
     assert opcount.kdf_ops(8, 4096, 4) == Work(3429033, 1352004, 16)
     assert opcount.kdf_ops(8, 4096, 8) == Work(6857204, 2703684, 16)
+
+
+def test_sha256_from_any_state_is_the_compression():
+    """Over fixed words and a fixed chaining state the counted SHA-256 is
+    ops/sha256.sha256_compress (the 7-Zip KDF's compressions chain)."""
+    from dprf_tpu_torch.ops import sha256
+    rng = np.random.default_rng(13)
+    state = [int(x) for x in rng.integers(0, 2 ** 32, 8, dtype=np.uint64)]
+    words = [int(x) for x in rng.integers(0, 2 ** 32, 16, dtype=np.uint64)]
+    out = [(a + b) & 0xFFFFFFFF
+           for a, b in zip(opcount._sha256(words, state), state)]
+    want = sha256.sha256_compress(
+        torch.as_tensor(np.array(state, np.uint32).view(np.int32)),
+        torch.as_tensor(np.array(words, np.uint32).view(np.int32)))
+    assert out == [int(x) for x in want.numpy().view(np.uint32)]
+
+
+@pytest.mark.parametrize("length,salt_len,cycles", [(8, 0, 19), (3, 0, 8),
+                                                    (8, 16, 10), (1, 4, 7)])
+def test_sevenzip_counts(length, salt_len, cycles):
+    """The KDF's compressions are the blocks hashlib's SHA-256 runs over
+    the stream (it ends on a block boundary, so one padding block
+    follows), each a compression with every word and the state variable:
+    1,024 ALU + 360 IADD3; the bound is its slots over the pipes."""
+    unit = salt_len + 2 * length + 8
+    stream = unit << cycles
+    assert stream % 64 == 0
+    n = opcount.sevenzip_compressions(length, salt_len, cycles)
+    assert n == stream // 64 + 1 == -(-(stream + 9) // 64)
+    v = [_var() for _ in range(16)]
+    assert opcount.sha256_compress_work(True, v) == \
+        {"alu": 1024, "add": 360, "fma": 0}
+    work = opcount.sevenzip_ops(length, salt_len, cycles)
+    assert work == Work(1024 * n + length, 360 * n + length, 2 * length)
+    lim = opcount.sevenzip_bound(1 << 18, length, salt_len, cycles, 132,
+                                 1.98e9)
+    assert lim == {"issue": (1 << 18) * work.slots / (132 * 64 * 1.98e9)}
+
+
+def test_pdf_counts():
+    """PDF: RC4's shared accesses a candidate, 64 + 256 x 4 + kept x 5 a
+    run (R2 one run of 4 kept bytes: 1,108; R3+ 20 of 16: 23,360); the
+    MD5 compressions (2, and 50 more for the stretch); the two limits."""
+    assert opcount.pdf_shared(2) == 64 + 256 * 4 + 4 * 5 == 1108
+    assert opcount.pdf_shared(3) == 20 * (64 + 256 * 4 + 16 * 5) == 23360
+    assert opcount.pdf_compressions(2) == {"block1": 1, "block2": 1,
+                                           "stretch": 0}
+    assert sum(opcount.pdf_compressions(3).values()) == 52
+    r2, r3 = opcount.pdf_ops(6, 2, 5), opcount.pdf_ops(6, 3, 16)
+    assert r3.alu > 20 * 256 * opcount.RC4_STEP.alu > r2.alu > \
+        256 * opcount.RC4_STEP.alu
+    for rev, key_len in ((2, 5), (3, 5), (3, 16)):
+        lim = opcount.pdf_bound(1 << 24, 6, rev, key_len, 132, 1.98e9)
+        assert lim["shared"] == (1 << 24) * (opcount.pdf_shared(rev) + 6) / (
+            132 * 32 * 1.98e9)
+        assert lim["issue"] == (1 << 24) * opcount.pdf_ops(
+            6, rev, key_len).slots / (132 * 64 * 1.98e9)
