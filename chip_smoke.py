@@ -193,7 +193,31 @@ card, and holds every kernel against its plain PyTorch version:
 31. times both kernels with CUDA events beside their bounds
     (ops/opcount.sevenzip_bound, pdf_bound) and their plain versions,
     then one 7z step of the main path and its torch verdict alone;
-32. prints the kernels line and, last, the device line.
+32. slice G, the window offset and the blocked probe of csrc/mask.cu
+    (built in phase 2; the window offset's add in the kernel's prologue
+    moves ten earlier instantiations by one 8-instruction padding group,
+    ``CENSUS_OFFSET``): the probe instantiation of each core against
+    its plain version at config 2's shape (?a^7, 1,000 targets, a batch
+    of 2^24 at a window offset), hits at the window's first lane, its
+    last valid lane and a lane on a late pass of the grid-stride loop,
+    count, lanes, table positions and n_maybe equal; md5 at 8,192
+    targets (a 64 KB bitmap, past the 48 KB default); one target and
+    the Bloom sets at an offset; configs 1 and 2 of phases 4-5 ran the
+    loop superstep (their windows and wall clock beside PR 8's); then
+    the single-device worker on configs 1 and 2 with its loop windows
+    and with one launch a batch, in the order loop, batch, batch, loop,
+    the same found set each time;
+33. the sharded path: ``make_sharded_mask_worker`` over a mesh of the
+    one card and over 4 shards of it, config 2's shape (ntlm over 2^32
+    of ?a^7) at 1,000 and 8,192 targets, md5 with one target over the
+    whole ?l^6, and every other core at 1,000 targets over 2^28, each
+    with every launch count set to 0 just before it and read just
+    after: only its instantiation, once per shard and batch; the found
+    set equals the single-device worker's and the plants;
+34. times each core's probe instantiation against its Bloom-sets one at
+    2^24 a launch, 1,000 and 8,192 targets, beside the bound
+    (ops/opcount.probe_ops, ops_per_candidate) and the plain version;
+35. prints the kernels line and, last, the device line.
 
 Any failure exits non-zero before the last line.  Without a card it
 exits 1 and prints no result.
@@ -231,6 +255,16 @@ LANES_PER_SM = 64
 #: every instantiation: (engine, multi target)
 INSTANCES = [(e, m) for e in ("md5", "ntlm", "sha1", "sha256")
              for m in (False, True)]
+#: slice G: the cores of the probe instantiations (compare mode 2)
+PROBE_CORES = ("md5", "ntlm", "sha1", "sha256", "sha512", "sha384")
+PROBE = 2
+#: the target counts of the probe's checks and timing
+PROBE_TARGETS = (N_TARGETS, 8192)
+#: config 1's and config 2's CLI wall clock in PR 8's chip run (PERF.md
+#: section 5), one launch a batch; this run's loop superstep beside them
+PR8_WALL = {"md5_mask": 0.027, "ntlm_mask_multi": 0.121}
+#: the shards of the sharded path's second mesh, all on the one card
+SHARDS = 4
 #: the C++ core of each engine, as in the kernels' mangled names
 CPP_CORE = {"Md5Core": "md5", "Md4Core": "ntlm", "Sha1Core": "sha1",
             "Sha256Core": "sha256", "Sha512Core": "sha512",
@@ -310,6 +344,16 @@ CENSUS_BEFORE = {
     "md5-ps_mask": (25, 2656), "md5-sp_mask": (31, 2656),
     "sha1-ps_mask": (32, 2976), "sha1-sp_mask": (31, 2952),
     "sha256-ps_mask": (32, 3800), "sha256-sp_mask": (37, 3728)}
+#: the instantiations of CENSUS_BEFORE that the window offset moved: its
+#: one add in the kernel's prologue (offset + the thread's first lane,
+#: once a thread, nothing a candidate) crosses a 128-byte padding
+#: boundary of these ten, one 8-instruction group more; registers equal
+CENSUS_OFFSET = {
+    "ntlm_mask": (25, 1560), "ntlm_mask_multi": (25, 1360),
+    "sha256_mask_multi": (32, 3544), "md5(md5)_mask": (31, 3080),
+    "md5(sha1)_mask": (32, 3496), "md5(sha1)_mask_multi": (31, 3232),
+    "sha1(sha1)_mask": (32, 3800), "sha256(md5)_mask_multi": (32, 3976),
+    "mysql41_mask": (32, 3552), "sha256-sp_mask": (37, 3736)}
 #: slice F2: the Kerberoast's and the AS-REP roast's windows of ?a^8, and
 #: their ticket counts
 KRB5_WINDOW = 1 << 28
@@ -386,8 +430,10 @@ def nvidia_smi(fields: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kname(engine: str, multi: bool) -> str:
-    return f"{engine}_mask" + ("_multi" if multi else "")
+def kname(engine: str, mode) -> str:
+    """A mask instantiation's name: mode False / 0 one target, True / 1
+    the Bloom sets, 2 the blocked probe."""
+    return f"{engine}_mask" + ("", "_multi", "_probe")[int(mode)]
 
 
 def rname(engine: str) -> str:
@@ -410,9 +456,9 @@ def instance_of(mangled: str) -> str:
     for fn, name in PLAIN_KERNELS.items():
         if re.search(rf"\d{fn}", mangled):
             return name
-    m = re.search(r"mask_kernelI(\w+?)Lb([01])E", mangled)
+    m = re.search(r"mask_kernelI(\w+?)L7Compare([012])E", mangled)
     if m:
-        args, multi = m.group(1), m.group(2) == "1"
+        args, multi = m.group(1), int(m.group(2))
         cores = [CPP_CORE[c] for c in re.findall(
             r"\d+(Md5Core|Md4Core|Sha1Core|Sha256Core|Sha512Core|Sha384Core)",
             args)]
@@ -504,8 +550,12 @@ class Smoke:
         self.err.update({k: 0 for k, _, _ in F1_INSTANCES})
         self.err.update({"krb5": 0, "pbkdf2_kdf": 0, "sevenzip_kdf": 0,
                          "pdf": 0})
+        self.err.update({kname(e, PROBE): 0 for e in PROBE_CORES})
         #: per instantiation: launches of the main path that runs it
         self.path_launches = {}
+        #: configs 1 and 2 through the loop superstep: (wall s, windows,
+        #: launches) by instantiation
+        self.loop_walls = {}
 
     # -- targets ---------------------------------------------------------
 
@@ -603,7 +653,8 @@ class Smoke:
     def crack(self, cli, engine, mask, digests, planted, skip=0, limit=None):
         """crack --device cuda over [skip, skip + limit) with the launch
         counts set to 0 just before it; checks the found set, the
-        potfile and the launches, and returns (summary, elapsed s)."""
+        potfile, the launches and the loop superstep's windows, and
+        returns (summary, elapsed s)."""
         from dprf_tpu_torch.generators.mask import MaskGenerator
         from dprf_tpu_torch.runtime.potfile import encode_plain
         gen = MaskGenerator(mask)
@@ -644,20 +695,27 @@ class Smoke:
               f"crack {engine} printed {out.splitlines()}, expected {want}")
         check(pot_lines == want, f"potfile holds {pot_lines}")
         finished = [ln for ln in err.splitlines() if "job finished" in ln]
+        want_windows = unit_windows(cli, window)
         check(len(finished) == 1 and "rejected=0" in finished[0]
               and f"found={len(planted)}/{len(digests)}" in finished[0]
               and f"tested={window}" in finished[0]
-              and f" batches={want_batches}" in finished[0],
+              and f" batches={want_batches} " in finished[0]
+              and f" windows={want_windows}" in finished[0],
               f"{name}: job summary {finished}, expected "
-              f"{want_batches} batches")
+              f"{want_batches} batches in {want_windows} windows")
         check(launches[name] == want_batches and
               sum(launches.values()) == want_batches,
               f"{name}: launches {launches} for {want_batches} batches")
         self.path_launches[name] = launches[name]
+        if name in PR8_WALL:
+            self.loop_walls[name] = (elapsed, want_windows, want_batches)
         say(f"  {name}: {finished[0].split('job finished', 1)[1].strip()}")
         say(f"    wall {elapsed:.3f} s for {window} candidates = "
             f"{window / elapsed:,.0f} candidates/s (the whole CLI call); "
-            f"{name} launches={launches[name]} batches={want_batches}")
+            f"{name} launches={launches[name]} batches={want_batches} "
+            f"loop windows={want_windows}"
+            + (f"; PR 8, one launch a batch: {PR8_WALL[name]:.3f} s"
+               if name in PR8_WALL else ""))
         return finished[0], elapsed
 
     # -- phase 8: the rule kernel vs plain ----------------------------------
@@ -963,6 +1021,7 @@ def run(smoke, oracle4, words4) -> None:
                 check(not frame or frame.group(1) == "0" or kernel not in
                       {kname(n, m) for n, m in EXT_INSTANCES}
                       | {k for k, _, _ in F1_INSTANCES}
+                      | {kname(e, PROBE) for e in PROBE_CORES}
                       | {"krb5", "pbkdf2_kdf", "sevenzip_kdf", "pdf_r2_40",
                          "pdf_r3_40", "pdf_r3_128"},
                       f"{kernel}: {line.strip()} (local memory)")
@@ -972,10 +1031,14 @@ def run(smoke, oracle4, words4) -> None:
             top = ", ".join(f"{op} {n}" for op, n in c["by_opcode"].items())
             inst = instance_of(func)
             was = CENSUS_BEFORE.get(inst)
+            now = (registers.get(inst), c["total"])
             same = "" if was is None else (
                 "; registers and census before the wide cores: "
-                + ("same" if was == (registers.get(inst), c["total"])
-                   else f"DIFFER, it had {was}"))
+                + ("same" if was == now else f"DIFFER, it had {was}"))
+            if inst in CENSUS_OFFSET:
+                same += ("; with the window offset's prologue add: "
+                         + ("same" if CENSUS_OFFSET[inst] == now
+                            else f"DIFFER, expected {CENSUS_OFFSET[inst]}"))
             check(was is None or same.endswith("same"), f"{inst}{same}")
             if inst == "krb5":
                 same = "; registers and census before csrc/rc4.cuh: " + (
@@ -1656,8 +1719,9 @@ def run(smoke, oracle4, words4) -> None:
     f1_timing = slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
     f2_timing = slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms)
     f3_timing = slice_f3(smoke, cli, card, clock_mhz, sms)
+    g_timing = slice_g(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
 
-    # 32. the kernels line, then the device line
+    # 35. the kernels line, then the device line
     kernels = []
     for engine, multi in INSTANCES:
         key = kname(engine, multi)
@@ -1728,6 +1792,16 @@ def run(smoke, oracle4, words4) -> None:
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             **more})
+    for engine in PROBE_CORES:
+        key = kname(engine, PROBE)
+        ms, plain_ms, bound = g_timing[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": cuda_mask.SOURCE,
+            "replaces": cuda_mask.REPLACES,
+            "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations",
+            "library_ms": None})
     check(all(k["launches"] > 0 for k in kernels)
           and all(r["launches"] > 0 for r in
                   f3_timing["pdf"][4]["instantiations"].values()),
@@ -1737,6 +1811,13 @@ def run(smoke, oracle4, words4) -> None:
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
+
+
+def unit_windows(cli, window: int) -> int:
+    """Loop-superstep windows the mask worker makes of a window of a
+    core: one for each of the CLI's units (16 batches of 2^24, within
+    max_inner's 127), the last one partial."""
+    return -(-window // (cli.UNIT_BATCHES * BATCH))
 
 
 def unit_batches(cli, window: int) -> int:
@@ -2810,6 +2891,334 @@ def slice_f3(smoke, cli, card, clock_mhz, sms) -> dict:
         "sevenzip_kdf_plain10_ms": ms_p, "sevenzip_kdf_10_ms": ms_k,
         "sevenzip_step_ms": step_ms, "sevenzip_verdict_ms": verdict_ms,
         "pdf": rows}}))
+    return timing
+
+
+
+def window_case(smoke, engine, mode, gen, lut, start, offset, n_valid,
+                plants, name, n_targets=N_TARGETS):
+    """One window case of the mask kernel (compare ``mode``) against its
+    plain version at a window offset: lanes [offset, n_valid) of a batch
+    of 2^24 from ``start``; the planted candidates' digests first, then
+    fillers up to ``n_targets`` for a list.  Count, (lane, table
+    position) pairs and n_maybe must be equal, and the hits the plants
+    inside the window."""
+    cm, torch = smoke.cm, smoke.torch
+    digests = smoke.get_engine(engine).hash_batch(
+        [gen.candidate(p) for p in plants])
+    base = (engine, lut, gen.radices, gen.digits(start), n_valid)
+    order = [0]
+    if mode == 0:
+        args = (*base, digest_words(engine, digests[0]), 64, BATCH)
+        kernel, plain = cm.mask_kernel, cm.mask_plain
+    else:
+        digests += smoke.fillers(engine, n_targets - len(plants))
+        table, rows, words = smoke.tables(engine, digests)
+        order = table.order
+        if mode == 1:
+            args = (*base, rows, words, 64, BATCH)
+            kernel, plain = cm.mask_multi_kernel, cm.mask_multi_plain
+        else:
+            bits, block_bits, k = cm.probe_rows(table.words)
+            args = (*base, torch.as_tensor(bits.view(smoke.np.int32),
+                                           device="cuda"),
+                    block_bits, k, words, 64, BATCH)
+            kernel, plain = cm.mask_probe_kernel, cm.mask_probe_plain
+    got = kernel(*args, offset=offset)
+    want = plain(*args, offset=offset)
+    torch.cuda.synchronize()
+
+    def flat(out):
+        tpos = out[2].tolist() if mode else [0] * out[1].shape[0]
+        pairs = sorted((int(a), int(b)) for a, b in
+                       zip(out[1].tolist(), tpos) if a >= 0)
+        return (int(out[0].item()), pairs,
+                int(out[3].item()) if mode else 0)
+
+    (kc, kp, km), (pc, pp, pm) = flat(got), flat(want)
+    err = max([abs(kc - pc), abs(km - pm)]
+              + [abs(a - b) for x, y in zip(kp, pp) for a, b in zip(x, y)])
+    key = kname(engine, mode)
+    hits = [(lane, int(order[t])) for lane, t in kp]
+    expect = [(p - start, i) for i, p in enumerate(plants)
+              if offset <= p - start < n_valid][:1 if mode == 0 else None]
+    say(f"  {key} {name}: kernel count={kc} (lane, target)={hits} "
+        f"n_maybe={km} | plain count={pc} n_maybe={pm}")
+    check((kc, kp, km) == (pc, pp, pm), f"{key} {name}: kernel and plain "
+          "differ")
+    check(hits == expect, f"{key} {name}: hits {hits}, expected {expect}")
+    smoke.err[key] = max(smoke.err.get(key, 0), err)
+
+
+def sharded_path(smoke, cli, engine, gen, digests, planted, skip, window,
+                 meshes):
+    """The sharded mask worker (``make_sharded_mask_worker``, the CLI's
+    entry for --devices N) over [skip, skip + window) in the CLI's
+    units, on each mesh, with every launch count set to 0 just before
+    it and read just after: only the instantiation of the job's compare
+    (one target exact, a list the probe), once per shard and batch.
+    The found set must equal the single-device worker's and the plants.
+    Returns {mesh size: wall s}."""
+    import torch
+
+    from dprf_tpu_torch import get_engine
+    from dprf_tpu_torch.runtime.workunit import WorkUnit
+
+    dev = get_engine(engine, device="cuda", torch_device="cuda")
+    oracle = smoke.get_engine(engine)
+    targets = [dev.parse_target(d.hex()) for d in digests]
+    want = sorted((digests.index(d), gen.index_of(p))
+                  for d, p in zip(oracle.hash_batch(planted), planted))
+    key = kname(engine, 2 if len(digests) > 1 else 0)
+
+    def sweep(worker):
+        units = [WorkUnit(i, u, min(cli.UNIT_BATCHES * worker.stride,
+                                    skip + window - u))
+                 for i, u in enumerate(range(
+                     skip, skip + window,
+                     cli.UNIT_BATCHES * worker.stride))]
+        pending = [worker.submit(u) for u in units]
+        hits = [h for p in pending for h in p.resolve()]
+        torch.cuda.synchronize()
+        return sorted((h.target_index, h.cand_index) for h in hits)
+
+    single = dev.make_mask_worker(gen, targets, batch=BATCH,
+                                  hit_capacity=64, oracle=oracle)
+    base = sweep(single)
+    check(base == want, f"{engine}: the single-device worker found {base}, "
+          f"expected {want}")
+    walls = {}
+    for mesh in meshes:
+        for mod in kernel_modules():
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        worker = dev.make_sharded_mask_worker(gen, targets, mesh, BATCH,
+                                              hit_capacity=64,
+                                              oracle=oracle)
+        got = sweep(worker)
+        wall = time.perf_counter() - t0
+        launches = {k: v for mod in kernel_modules()
+                    for k, v in mod.launches.items()}
+        n = len(mesh) * worker.dispatched
+        check(got == base, f"{engine} on {len(mesh)} shards found {got}, "
+              f"the single-device worker {base}")
+        check(launches[key] == n == sum(launches.values()) and n > 0,
+              f"{key} on {len(mesh)} shards: launches {launches}, "
+              f"expected {n}")
+        if len(mesh) == SHARDS:
+            smoke.path_launches.setdefault(key, n)
+        walls[len(mesh)] = wall
+        say(f"  {engine} x {len(digests)} target(s), {window} candidates "
+            f"on {len(mesh)} shard(s): {len(got)} found (= the "
+            f"single-device worker's), {worker.dispatched} strides in "
+            f"{worker.windows} sharded windows, {key} launches={n}, "
+            f"maybes={worker.n_maybe()}, {wall:.3f} s wall")
+    return walls
+
+
+def loop_ab(smoke, cli, engine, gen, digests, skip, window) -> dict:
+    """The loop superstep against one launch a batch in one call: the
+    single-device worker over [skip, skip + window) in the CLI's units,
+    its windows as built (``loop``) and with ``window_batches`` set to
+    1 (``batch``), in the order loop, batch, batch, loop; every sweep's
+    hits must be equal.  Returns the wall clock of each order's runs
+    and their sums."""
+    import torch
+
+    from dprf_tpu_torch import get_engine
+    from dprf_tpu_torch.runtime.workunit import WorkUnit
+
+    dev = get_engine(engine, device="cuda", torch_device="cuda")
+    targets = [dev.parse_target(d.hex()) for d in digests]
+    oracle = smoke.get_engine(engine)
+    unit = cli.UNIT_BATCHES * BATCH
+    units = [WorkUnit(i, u, min(unit, skip + window - u))
+             for i, u in enumerate(range(skip, skip + window, unit))]
+    walls = {"loop": [], "batch": []}
+    found = set()
+    for mode in ("loop", "batch", "batch", "loop"):
+        worker = dev.make_mask_worker(gen, targets, batch=BATCH,
+                                      hit_capacity=64, oracle=oracle)
+        if mode == "batch":
+            worker.window_batches = 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = [worker.submit(u) for u in units]
+        hits = [h for p in pending for h in p.resolve()]
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+        found.add(tuple(sorted((h.target_index, h.cand_index)
+                               for h in hits)))
+        check(worker.windows == (len(units) if mode == "loop" else 0),
+              f"{engine} {mode}: {worker.windows} windows")
+    check(len(found) == 1, f"{engine}: the loop and the per-batch sweeps "
+          f"found different sets {found}")
+    out = {m: {"runs_s": w, "sum_s": sum(w)} for m, w in walls.items()}
+    say(f"  {engine} x {len(digests)} over {window} candidates, "
+        f"{len(units)} units: loop {walls['loop']} s, one launch a batch "
+        f"{walls['batch']} s; loop / batch "
+        f"{sum(walls['loop']) / sum(walls['batch']):.4f}")
+    return out
+
+
+def slice_g(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
+    """Phases 32-34: the window offset and the blocked probe of
+    csrc/mask.cu, the sharded path, the probe's timing.  Returns the
+    probe instantiations' timing rows (ms, plain ms, bound ms); the
+    sharded path's launches go to smoke.path_launches."""
+    import numpy as np
+    import torch
+
+    from dprf_tpu_torch.generators.mask import MaskGenerator
+    from dprf_tpu_torch.ops import bloom, cuda_mask, opcount
+    from dprf_tpu_torch.parallel import make_mesh
+
+    rng = smoke.rng
+    # 32. kernel vs plain at a window offset
+    offset, nv = 2 * BATCH, 3 * BATCH - 3
+    say(f"== 32. slice G: the probe and the window offset vs plain, "
+        f"?a^7, window lanes [{offset}, {nv}) of a batch of {BATCH} "
+        f"(exact equality)")
+    for engine in PROBE_CORES:
+        for n in PROBE_TARGETS:
+            blocks = 1 << cuda_mask.probe_rows(
+                np.zeros((n, 4), np.uint32))[1]
+            smem = cuda_mask.shared_bytes(7, probe_blocks=blocks)
+            say(f"  {kname(engine, PROBE)} at {n} targets: {blocks} blocks "
+                f"of 64 B, {smem} B shared, "
+                f"{cuda_mask.blocks_per_sm(engine, PROBE, smem)} resident "
+                f"blocks of {cuda_mask.THREADS} per SM")
+    start = int(rng.integers(0, g7.keyspace // BATCH - 4)) * BATCH
+    for engine in PROBE_CORES:
+        smem = cuda_mask.shared_bytes(7, probe_blocks=128)
+        threads = cuda_mask.grid_size(engine, PROBE, BATCH, smem,
+                                      torch.device("cuda")) \
+            * cuda_mask.THREADS
+        late = offset + (BATCH // threads - 1) * threads + 777
+        plants = [start + offset, start + late, start + late + 1,
+                  start + nv - 1, start + nv, start + offset - 1]
+        window_case(smoke, engine, PROBE, g7, lut7, start, offset, nv,
+                    plants, f"{N_TARGETS} targets, hits at the window's "
+                    f"first lane, lanes {late} and {late + 1} (pass "
+                    f"{(late - offset) // threads} of {threads} threads' "
+                    "grid-stride loop), "
+                    "the last valid lane; one at n_valid, one before the "
+                    "offset")
+    g55 = MaskGenerator("?a" * 7 + "?d" * 48)
+    s55 = int(rng.integers(0, 1 << 62)) * BATCH
+    window_case(smoke, "md5", PROBE, g55, g55.charset_lut("cuda"), s55,
+                offset, nv, [s55 + offset, s55 + nv - 1],
+                f"?a^7?d^48 at {bloom.MAX_TARGETS} targets (a 64 KB bitmap "
+                "after 14,080 B of charset tables)",
+                n_targets=bloom.MAX_TARGETS)
+    window_case(smoke, "md5", 0, g6, lut6, 0, offset, nv, [offset + 4321],
+                "?l^6, one target")
+    window_case(smoke, "ntlm", 1, g7, lut7, start, offset, nv,
+                [start + offset, start + nv - 1], "the Bloom sets, "
+                f"{N_TARGETS} targets")
+    loops = {name: {"wall_s": wall, "windows": windows, "launches": batches,
+                    "pr8_wall_s": PR8_WALL[name]}
+             for name, (wall, windows, batches) in smoke.loop_walls.items()}
+    say(f"  configs 1 and 2 through the loop superstep (phases 4-5): "
+        f"{json.dumps(loops)}; card: {card}")
+    say(f"  the loop superstep vs one launch a batch, in this call "
+        f"(worker sweeps, wall clock); card: {card}")
+    ab = {"config1": loop_ab(
+        smoke, cli, "md5", g6,
+        smoke.get_engine("md5").hash_batch([g6.candidate(12345)]), 0,
+        g6.keyspace)}
+    skip = int(rng.integers(0, g7.keyspace - CONFIG2_WINDOW))
+    ab["config2"] = loop_ab(
+        smoke, cli, "ntlm", g7,
+        smoke.get_engine("ntlm").hash_batch([g7.candidate(skip + 77)])
+        + smoke.fillers("ntlm", N_TARGETS - 1), skip, CONFIG2_WINDOW)
+    say(json.dumps({"loop_ab": ab}))
+
+    # 33. the sharded path: a mesh of the card, and SHARDS shards of it
+    say(f"== 33. the sharded path: make_sharded_mask_worker over a mesh of "
+        f"the card and over {SHARDS} shards of it, {BATCH} lanes a shard "
+        f"and launch; card: {card}")
+    meshes = (make_mesh(1), make_mesh(devices=["cuda:0"] * SHARDS))
+    skip = int(rng.integers(0, g7.keyspace - CONFIG2_WINDOW))
+    idx = sorted({0, CONFIG2_WINDOW - 1, BATCH - 1, BATCH, 4 * BATCH - 1,
+                  4 * BATCH, *(int(x) for x in rng.integers(
+                      1, CONFIG2_WINDOW - 1, 2))})
+    planted = [g7.candidate(skip + i) for i in idx]
+    ntlm = smoke.get_engine("ntlm").hash_batch(planted)
+    sharded = {}
+    for n in PROBE_TARGETS:
+        digests = ntlm + smoke.fillers("ntlm", n - len(planted))
+        sharded[f"ntlm_{n}"] = sharded_path(
+            smoke, cli, "ntlm", g7, digests, planted, skip, CONFIG2_WINDOW,
+            meshes)
+    plain = g6.candidate(g6.keyspace - 1)
+    sharded["md5_1"] = sharded_path(
+        smoke, cli, "md5", g6, smoke.get_engine("md5").hash_batch([plain]),
+        [plain], 0, g6.keyspace, meshes)
+    for engine in PROBE_CORES:
+        if engine == "ntlm":
+            continue
+        skip = int(rng.integers(0, g7.keyspace - OTHER_WINDOW))
+        planted = [g7.candidate(skip + int(i)) for i in
+                   sorted(set(rng.integers(0, OTHER_WINDOW, 3).tolist()))]
+        digests = smoke.get_engine(engine).hash_batch(planted) + \
+            smoke.fillers(engine, N_TARGETS - len(planted))
+        sharded[f"{engine}_{N_TARGETS}"] = sharded_path(
+            smoke, cli, engine, g7, digests, planted, skip, OTHER_WINDOW,
+            meshes)
+    say(json.dumps({"sharded_wall_s": sharded}))
+
+    # 34. the probe against the Bloom sets at 2^24 a launch
+    say(f"== 34. the probe vs the Bloom sets at batch 2^24, ?a^7 (CUDA "
+        f"events, {TIMED_LAUNCHES} launches); card: {card}")
+    timing = {}
+    for engine in PROBE_CORES:
+        s = int(rng.integers(0, g7.keyspace // BATCH)) * BATCH
+        for n in PROBE_TARGETS:
+            table, rows, words = smoke.tables(engine,
+                                              smoke.fillers(engine, n))
+            base = (engine, lut7, g7.radices, g7.digits(s), BATCH)
+            sets_args = (*base, rows, words, 64, BATCH)
+            bits, block_bits, k = cuda_mask.probe_rows(table.words)
+            probe_args = (*base, torch.as_tensor(bits.view(np.int32),
+                                                 device="cuda"),
+                          block_bits, k, words, 64, BATCH)
+            ms_sets = smoke.time_launches(cuda_mask.mask_multi_kernel,
+                                          sets_args)
+            ms_probe = smoke.time_launches(cuda_mask.mask_probe_kernel,
+                                           probe_args)
+            m_sets = int(cuda_mask.mask_multi_kernel(*sets_args)[3].item())
+            m_probe = int(cuda_mask.mask_probe_kernel(*probe_args)[3]
+                          .item())
+            w_sets = opcount.ops_per_candidate(
+                engine, 7, True,
+                bloom.expected_probes(rows.cpu().numpy().view(np.uint32)),
+                m_sets / BATCH, n)
+            fill = opcount.probe_fill(bits)
+            w_probe = opcount.probe_ops(engine, 7, fill, k, m_probe / BATCH,
+                                        n)
+            b_sets = BATCH * w_sets.slots / rate_ops * 1e3
+            b_probe = BATCH * w_probe.slots / rate_ops * 1e3
+            say(f"  {engine} x {n}: probe {ms_probe:.4f} ms (bound "
+                f"{b_probe:.4f} ms, {w_probe.slots:.1f} slots, "
+                f"{b_probe / ms_probe:.1%}; fill {fill:.4f}, k {k}, "
+                f"maybes {m_probe}) | sets {ms_sets:.4f} ms (bound "
+                f"{b_sets:.4f} ms, {w_sets.slots:.1f} slots, "
+                f"{b_sets / ms_sets:.1%}; maybes {m_sets}); probe/sets "
+                f"{ms_probe / ms_sets:.3f}")
+            if n == N_TARGETS:
+                plain_ms = smoke.time_once(cuda_mask.mask_probe_plain,
+                                           probe_args)
+                timing[kname(engine, PROBE)] = (ms_probe, plain_ms, b_probe)
+                say(f"    plain probe version {plain_ms:.2f} ms")
+            timing[f"{engine}_{n}"] = {"probe_ms": ms_probe,
+                                       "sets_ms": ms_sets,
+                                       "probe_bound_ms": b_probe,
+                                       "sets_bound_ms": b_sets,
+                                       "probe_maybes": m_probe,
+                                       "sets_maybes": m_sets}
+    say(json.dumps({"slice_g_timing": {k: v for k, v in timing.items()
+                                       if isinstance(v, dict)}}))
     return timing
 
 

@@ -12,7 +12,8 @@ Subcommands: crack (a local mask or wordlist+rules job), bench
 - ``cpu``: the CPU oracle (hashlib; a pure-Python MD4 for ntlm).
 
 ``--device cuda`` without a card is an error, never a quiet move to
-the CPU.
+the CPU.  ``crack --devices N`` shards a mask job of a kernel core over
+N cards (N CPU shards on ``torch-cpu``), one process over the list.
 """
 
 from __future__ import annotations
@@ -59,6 +60,11 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="cuda: the CUDA kernel on the card (default); "
                    "torch-cpu: the kernel's plain version on CPU tensors; "
                    "cpu: the CPU oracle")
+    c.add_argument("--devices", type=int, default=1,
+                   help="shard a mask job over N cards, a keyspace slice "
+                   "each (clamped to the cards present; N CPU shards on "
+                   "torch-cpu; the md5, ntlm, sha1, sha256, sha384 and "
+                   "sha512 kernels)")
     c.add_argument("-a", "--attack", default="mask", choices=ATTACKS,
                    help="attack mode: mask, or wordlist (with --rules)")
     c.add_argument("--rules", default=None,
@@ -167,13 +173,42 @@ def _unit_size(args, worker, gen, batch: int) -> int:
     return max(gen.n_rules, (unit_size // gen.n_rules) * gen.n_rules)
 
 
-def _make_worker(args, tdev, gen, targets, oracle, batch: int):
+def _mesh(tdev: str, n_devices: int, log: Log) -> list:
+    """The mesh of ``--devices N``: cuda:0..N-1, clamped to the cards
+    present with the reference's warning, or N CPU shards."""
+    import torch
+
+    from dprf_tpu_torch.parallel import make_mesh
+    if tdev != "cuda":
+        return make_mesh(devices=[tdev] * n_devices)
+    have = torch.cuda.device_count()
+    if have < n_devices:
+        log.warn("host has fewer devices than requested; clamping the "
+                 "mesh", requested=n_devices, have=have)
+        n_devices = have
+    return make_mesh(n_devices)
+
+
+def _make_worker(args, tdev, gen, targets, oracle, batch: int, log: Log):
     """The oracle's CpuWorker for tdev None, else the torch engine's
-    mask or wordlist worker on torch device tdev."""
+    mask or wordlist worker on torch device tdev, or its sharded mask
+    worker for ``--devices`` above 1."""
     from dprf_tpu_torch.runtime.worker import CpuWorker
     if tdev is None:
         return CpuWorker(oracle, gen, targets)
+    if args.devices < 1:
+        raise ValueError(f"--devices {args.devices}: at least 1")
     dev = get_engine(args.engine, device="cuda", torch_device=tdev)
+    mesh = _mesh(tdev, args.devices, log) if args.devices > 1 else None
+    if mesh is not None and len(mesh) > 1:
+        make = getattr(dev, "make_sharded_mask_worker", None)
+        if make is None or args.attack != "mask":
+            raise ValueError(
+                f"{args.engine}: no sharded {args.attack} worker on "
+                f"--devices {args.devices} yet; run it with --devices 1")
+        log.info("mesh", devices=len(mesh))
+        return make(gen, targets, mesh, batch, hit_capacity=args.hit_cap,
+                    oracle=oracle)
     make = dev.make_wordlist_worker if args.attack == "wordlist" \
         else dev.make_mask_worker
     return make(gen, targets, batch=batch, hit_capacity=args.hit_cap,
@@ -219,7 +254,8 @@ def cmd_crack(args, log: Log) -> int:
                      _wordlist_max_len(oracle), log)
     batch = args.batch or DEFAULT_BATCH[device]
     try:
-        worker = _make_worker(args, tdev, gen, hl.targets, oracle, batch)
+        worker = _make_worker(args, tdev, gen, hl.targets, oracle, batch,
+                              log)
     except TargetRefused as e:
         raise ValueError(f"{args.hashfile} line "
                          f"{hl.line_numbers[e.target_index]}: {e}") from None
@@ -255,8 +291,19 @@ def cmd_crack(args, log: Log) -> int:
              rate=f"{result.rate:,.0f}/s", exhausted=result.exhausted,
              rejected=result.rejected,
              batches=getattr(worker, "dispatched", 0),
-             **_maybes(worker))
+             **_windows(worker), **_maybes(worker))
     return 0 if result.found else 1
+
+
+def _windows(worker) -> dict:
+    """The loop-superstep windows a mask worker queued, for the
+    summary: ``windows=`` (and ``shards=`` over several devices)."""
+    out = {}
+    if hasattr(worker, "windows"):
+        out["windows"] = worker.windows
+    if len(getattr(worker, "mesh", ())) > 1:
+        out["shards"] = len(worker.mesh)
+    return out
 
 
 def _maybes(worker) -> dict:

@@ -172,26 +172,26 @@ using Sha256OfSha1 = Nested<Sha256Core, Sha1Core>;
 // md5-ps, md5-sp, sha1-ps, sha1-sp, sha256-ps, sha256-sp, single only
 #define DPRF_EXT_DISPATCH(CALL)                                           \
     switch (variant * 2 + (multi_mode ? 1 : 0)) {                         \
-    case 0: return CALL(Md5OfMd5, false);                                 \
-    case 1: return CALL(Md5OfMd5, true);                                  \
-    case 2: return CALL(Sha1OfSha1, false);                               \
-    case 3: return CALL(Sha1OfSha1, true);                                \
-    case 4: return CALL(Md5OfSha1, false);                                \
-    case 5: return CALL(Md5OfSha1, true);                                 \
-    case 6: return CALL(Sha1OfMd5, false);                                \
-    case 7: return CALL(Sha1OfMd5, true);                                 \
-    case 8: return CALL(Sha256OfMd5, false);                              \
-    case 9: return CALL(Sha256OfMd5, true);                               \
-    case 10: return CALL(Sha256OfSha1, false);                            \
-    case 11: return CALL(Sha256OfSha1, true);                             \
-    case 12: return CALL(Mysql41, false);                                 \
-    case 13: return CALL(Mysql41, true);                                  \
-    case 14: return CALL(SaltPs<Md5Core>, false);                         \
-    case 16: return CALL(SaltSp<Md5Core>, false);                         \
-    case 18: return CALL(SaltPs<Sha1Core>, false);                        \
-    case 20: return CALL(SaltSp<Sha1Core>, false);                        \
-    case 22: return CALL(SaltPs<Sha256Core>, false);                      \
-    case 24: return CALL(SaltSp<Sha256Core>, false);                      \
+    case 0: return CALL(Md5OfMd5, kSingle);                                 \
+    case 1: return CALL(Md5OfMd5, kSets);                                  \
+    case 2: return CALL(Sha1OfSha1, kSingle);                               \
+    case 3: return CALL(Sha1OfSha1, kSets);                                \
+    case 4: return CALL(Md5OfSha1, kSingle);                                \
+    case 5: return CALL(Md5OfSha1, kSets);                                 \
+    case 6: return CALL(Sha1OfMd5, kSingle);                                \
+    case 7: return CALL(Sha1OfMd5, kSets);                                 \
+    case 8: return CALL(Sha256OfMd5, kSingle);                              \
+    case 9: return CALL(Sha256OfMd5, kSets);                               \
+    case 10: return CALL(Sha256OfSha1, kSingle);                            \
+    case 11: return CALL(Sha256OfSha1, kSets);                             \
+    case 12: return CALL(Mysql41, kSingle);                                 \
+    case 13: return CALL(Mysql41, kSets);                                  \
+    case 14: return CALL(SaltPs<Md5Core>, kSingle);                         \
+    case 16: return CALL(SaltSp<Md5Core>, kSingle);                         \
+    case 18: return CALL(SaltPs<Sha1Core>, kSingle);                        \
+    case 20: return CALL(SaltSp<Sha1Core>, kSingle);                        \
+    case 22: return CALL(SaltPs<Sha256Core>, kSingle);                      \
+    case 24: return CALL(SaltSp<Sha256Core>, kSingle);                      \
     default: return (int)cudaErrorInvalidValue;                           \
     }
 

@@ -148,14 +148,14 @@ using Keccak512 = KeccakCore<72, 16>;
 // multi target
 #define DPRF_KECCAK_DISPATCH(CALL)                                        \
     switch (variant * 2 + (multi_mode ? 1 : 0)) {                         \
-    case 0: return CALL(Keccak224, false);                                \
-    case 1: return CALL(Keccak224, true);                                 \
-    case 2: return CALL(Keccak256, false);                                \
-    case 3: return CALL(Keccak256, true);                                 \
-    case 4: return CALL(Keccak384, false);                                \
-    case 5: return CALL(Keccak384, true);                                 \
-    case 6: return CALL(Keccak512, false);                                \
-    case 7: return CALL(Keccak512, true);                                 \
+    case 0: return CALL(Keccak224, kSingle);                                \
+    case 1: return CALL(Keccak224, kSets);                                 \
+    case 2: return CALL(Keccak256, kSingle);                                \
+    case 3: return CALL(Keccak256, kSets);                                 \
+    case 4: return CALL(Keccak384, kSingle);                                \
+    case 5: return CALL(Keccak384, kSets);                                 \
+    case 6: return CALL(Keccak512, kSingle);                                \
+    case 7: return CALL(Keccak512, kSets);                                 \
     default: return (int)cudaErrorInvalidValue;                           \
     }
 

@@ -10,22 +10,40 @@
 // (hit_lane + 1) output and its one-lane-per-tile rule exist only for
 // Mosaic and are not carried over: every hit appends its lane.
 //
-// Multi-target compare: the reference's Bloom prefilter, bit for bit
-// (bloom_tables / bloom_found: 8 probes of 12 digest bits per set of
-// 1024 targets), then an exact verify of each survivor on the card.  The
-// reference leaves every maybe to a host oracle hash; at 1,000 targets
-// and a batch of 2^24 that is ~81 false maybes a launch, so here each
-// maybe binary-searches digest word 0 in the sorted target table
-// (ops/compare.make_target_table's layout, in device memory, small
-// enough to stay in L2), walks the run of equal word-0 entries and
-// compares whole digests.  Only real hits are appended, with their
-// table position; n_maybe counts the prefilter's survivors.
+// Multi-target compare, one of two prefilters (the Compare mode), then an
+// exact verify of each survivor on the card:
+// - kSets: the reference's per-set Bloom prefilter, bit for bit
+//   (bloom_tables / bloom_found: 8 probes of 12 digest bits per set of
+//   1024 targets);
+// - kProbe: the reference's blocked probe (targets/probe.bloom_fill /
+//   probe_block_found): each target set k bits of one 512-bit block,
+//   picked by dg[0] * 0x9E3779B1 >> (32 - block_bits); a candidate
+//   tests the k double-hashed bits of its own block, alternating the
+//   (dg[0], dg[1] | 1) and (dg[2], dg[3] | 1) pairs, and stops at the
+//   first miss -- O(1) a candidate whatever the list length.
+// The reference leaves every maybe to a host oracle hash (the probe's
+// survivors sentinel-tagged); at 1,000 targets and a batch of 2^24 the
+// sets give ~81 false maybes a launch, so here each maybe binary-searches
+// digest word 0 in the sorted target table (ops/compare.make_target_table's
+// layout, in device memory, small enough to stay in L2), walks the run
+// of equal word-0 entries and compares whole digests.  Only real hits
+// are appended, with their table position; n_maybe counts the
+// prefilter's survivors.
+//
+// The window offset (the reference's with_offset): a launch runs the
+// window lanes [args.offset, n_valid), decodes each from the base digits
+// plus its window lane and appends the window lane, so `inner` launches
+// of one step at offsets i * batch fill one window's buffers (the
+// atomic append sums across launches) and one build serves every batch
+// of a window and every shard.  Each launch gets n_valid =
+// min(offset + batch, the window's valid lanes) (ops/superstep.py clips
+// it, the wrapper checks it); a plain batch is offset 0.
 //
 // What bounds it: the INT32 issue rate, not memory.  A candidate reads
-// no device memory (charset table and Bloom rows sit in shared memory;
-// base digits, radices, the fixed message words and the target are
-// kernel parameters) and writes ~0 bytes.  ops/opcount.py counts the
-// least instructions per candidate in Hopper's forms, by pipe.
+// no device memory (charset table and Bloom rows or probe bitmap sit in
+// shared memory; base digits, radices, the fixed message words and the
+// target are kernel parameters) and writes ~0 bytes.  ops/opcount.py
+// counts the least instructions per candidate in Hopper's forms, by pipe.
 //
 // What the design does about it: one thread per candidate in a
 // grid-stride loop, everything in registers.  The rounds are fully
@@ -50,10 +68,12 @@
 // bytes) takes the wide parameter layout, WideMaskArgs: up to 143
 // positions, 36 message words and 16 target words.  Its charset table
 // (143 * 256 bytes) and the Bloom rows of 8,192 targets (32 KB) pass
-// the 48 KB of dynamic shared memory a launch gets without asking, so
-// a wide instantiation raises its limit (the function attribute) before
-// every launch and occupancy query.  The narrow cores keep MaskArgs and
-// compile as they did before the wide layout existed.
+// the 48 KB of dynamic shared memory a launch gets without asking, as
+// does the probe bitmap of 8,192 targets (64 KB) after any charset
+// table, so a wide instantiation, and any launch past 48 KB, raises its
+// limit (the function attribute) before the launch and the occupancy
+// query.  The narrow cores keep MaskArgs and compile as they did before
+// the wide layout existed.
 
 #pragma once
 
@@ -67,6 +87,17 @@
 #define DPRF_MAX_LEN 55
 #define DPRF_WIDE_MAX_LEN 143
 #define DPRF_K_PROBES 8
+// the blocked probe (targets/probe.py): 16-word blocks, the most bits a
+// candidate tests, the block hash's multiplier
+#define DPRF_PROBE_BLOCK_WORDS 16
+#define DPRF_PROBE_MAX_K 8
+#define DPRF_PROBE_GOLDEN 0x9E3779B1u
+// dynamic shared memory a launch gets without the opt-in
+#define DPRF_DEFAULT_SHARED (48 * 1024)
+
+// The compare of an instantiation: one target, the per-set Bloom
+// prefilter, or the blocked probe (the last two verify on the card).
+enum Compare : int { kSingle = 0, kSets = 1, kProbe = 2 };
 
 // Kernel parameters of one job (mirrored by ops/cuda_mask.MaskArgs).
 struct MaskArgs {
@@ -80,6 +111,8 @@ struct MaskArgs {
     uint32_t target[8];
     // the candidate's first byte in the message (a kShifted core's)
     int32_t shift;
+    // the window lane of the launch's first candidate
+    uint32_t offset;
 };
 
 // The same for a wide core (mirrored by ops/cuda_mask.WideMaskArgs).
@@ -90,14 +123,19 @@ struct WideMaskArgs {
     uint32_t block[36];
     uint32_t target[16];
     int32_t shift;
+    uint32_t offset;
 };
 
-// The multi-target state (mirrored by ops/cuda_mask._MultiArgs).
+// The multi-target state (mirrored by ops/cuda_mask.MultiArgs).
 struct MultiArgs {
-    const uint32_t* bloom;    // uint32[n_sets * 8][128], bloom_tables
+    // the prefilter's words: kSets uint32[n_sets * 8][128]
+    // (bloom_tables), kProbe uint32[16 << block_bits] (bloom_fill)
+    const uint32_t* bloom;
     const uint32_t* table;    // uint32[n_targets][words], sorted
-    int32_t n_sets;
+    int32_t n_sets;           // kSets: the Bloom sets
     int32_t n_targets;
+    int32_t block_bits;       // kProbe: log2 of the bitmap's blocks
+    int32_t k;                // kProbe: bits a candidate tests, 1..8
 };
 
 // Whether a core decodes at byte 0 and moves its candidate afterwards.
@@ -159,6 +197,42 @@ __device__ __forceinline__ bool bloom_maybe(const uint32_t* dg,
     return false;
 }
 
+// The reference's probe_block_found for one lane: all k bits of the
+// lane's block, tested in bloom_fill's order, stopping at the first
+// miss.  A core of fewer than 4 words reuses its first pair.
+template <int W>
+__device__ __forceinline__ bool probe_maybe(const uint32_t* dg,
+                                            const uint32_t* s_probe,
+                                            int block_bits, int k)
+{
+    const uint32_t h1 = dg[0], h2 = dg[1] | 1u;
+    const uint32_t h3 = dg[W > 3 ? 2 : 0], h4 = dg[W > 3 ? 3 : 1] | 1u;
+    const uint32_t block =
+        block_bits ? (h1 * DPRF_PROBE_GOLDEN) >> (32 - block_bits) : 0u;
+    const uint32_t* words = s_probe + block * DPRF_PROBE_BLOCK_WORDS;
+#pragma unroll
+    for (int j = 0; j < DPRF_PROBE_MAX_K; ++j) {
+        if (j >= k) break;
+        const uint32_t g = (j & 1 ? h3 : h1)
+                           + (uint32_t)(2 * (j >> 1) + 1) * (j & 1 ? h4 : h2);
+        const uint32_t bit = g & (DPRF_PROBE_BLOCK_WORDS * 32 - 1);
+        if (!((words[bit >> 5] >> (bit & 31)) & 1u)) return false;
+    }
+    return true;
+}
+
+// The prefilter of a multi-target mode.
+template <Compare kMode, int W>
+__device__ __forceinline__ bool prefilter(const uint32_t* dg,
+                                          const uint32_t* s_filter,
+                                          const MultiArgs& multi)
+{
+    if constexpr (kMode == kProbe)
+        return probe_maybe<W>(dg, s_filter, multi.block_bits, multi.k);
+    else
+        return bloom_maybe(dg, s_filter, multi.n_sets);
+}
+
 // Position of the digest in the sorted table, or -1: the lower bound of
 // word 0, then the run of equal word-0 entries compared in full.
 template <int W>
@@ -183,7 +257,7 @@ __device__ __forceinline__ int find_target(const uint32_t* dg,
 
 // ---- the kernel --------------------------------------------------------
 
-template <class Core, bool kMulti>
+template <class Core, Compare kMode>
 __global__ void __launch_bounds__(256, MinBlocks<Core>::value)
 mask_kernel(const uint8_t* __restrict__ lut, const ArgsOf<Core> args,
             const MultiArgs multi, uint32_t n_valid,
@@ -194,22 +268,25 @@ mask_kernel(const uint8_t* __restrict__ lut, const ArgsOf<Core> args,
     constexpr bool kShifted = ShiftsMessage<Core>::value;
     constexpr int kBlock = BlockWords<Core>::value;
     // per-position 256-byte charset tables, uint8[length][256], then
-    // (multi) the Bloom rows; length * 256 keeps the rows word-aligned
+    // (multi) the prefilter's words; length * 256 keeps them
+    // word-aligned
     extern __shared__ __align__(16) uint8_t smem[];
     uint8_t* s_lut = smem;
     const int L = args.length;
     for (int i = threadIdx.x; i < L * 256; i += blockDim.x)
         s_lut[i] = lut[i];
     uint32_t* s_bloom = reinterpret_cast<uint32_t*>(smem + L * 256);
-    if constexpr (kMulti) {
-        const int n = multi.n_sets * DPRF_K_PROBES * 128;
+    if constexpr (kMode != kSingle) {
+        const int n = kMode == kSets
+                          ? multi.n_sets * DPRF_K_PROBES * 128
+                          : DPRF_PROBE_BLOCK_WORDS << multi.block_bits;
         for (int i = threadIdx.x; i < n; i += blockDim.x)
             s_bloom[i] = multi.bloom[i];
     }
     __syncthreads();
 
     const uint32_t stride = gridDim.x * blockDim.x;
-    for (uint32_t gidx = blockIdx.x * blockDim.x + threadIdx.x;
+    for (uint32_t gidx = args.offset + blockIdx.x * blockDim.x + threadIdx.x;
          gidx < n_valid; gidx += stride) {
         uint32_t m[kBlock];
 #pragma unroll
@@ -223,7 +300,7 @@ mask_kernel(const uint8_t* __restrict__ lut, const ArgsOf<Core> args,
         uint32_t dg[Core::kWords];
         Core::digest(m, dg);
 
-        if constexpr (!kMulti) {
+        if constexpr (kMode == kSingle) {
             bool hit = true;
 #pragma unroll
             for (int i = 0; i < Core::kWords; ++i)
@@ -232,7 +309,7 @@ mask_kernel(const uint8_t* __restrict__ lut, const ArgsOf<Core> args,
                 const int32_t slot = atomicAdd(count, 1);
                 if (slot < cap) lanes[slot] = (int32_t)gidx;
             }
-        } else if (bloom_maybe(dg, s_bloom, multi.n_sets)) {
+        } else if (prefilter<kMode, Core::kWords>(dg, s_bloom, multi)) {
             atomicAdd(n_maybe, 1);
             const int pos = find_target<Core::kWords>(dg, multi.table,
                                                       multi.n_targets);
@@ -249,54 +326,56 @@ mask_kernel(const uint8_t* __restrict__ lut, const ArgsOf<Core> args,
 
 // ---- launching one instantiation ----------------------------------------
 
-// Dynamic shared memory of one block: the charset table, then the Bloom
-// rows.
-static size_t shared_bytes(int length, const MultiArgs* multi,
-                           bool multi_mode)
+// Dynamic shared memory of one block: the charset table, then the
+// prefilter's words.
+static size_t shared_bytes(int length, const MultiArgs* multi, Compare mode)
 {
-    return (size_t)length * 256
-           + (multi_mode ? (size_t)multi->n_sets * DPRF_K_PROBES * 128 * 4
-                         : 0);
+    const size_t filter =
+        mode == kSets ? (size_t)multi->n_sets * DPRF_K_PROBES * 128 * 4
+        : mode == kProbe
+            ? ((size_t)DPRF_PROBE_BLOCK_WORDS << multi->block_bits) * 4
+            : 0;
+    return (size_t)length * 256 + filter;
 }
 
-// A wide instantiation's dynamic shared memory limit, raised to smem
-// (past the 48 KB default a launch needs it).
-template <class Core, bool kMulti>
+// The instantiation's dynamic shared memory limit, raised to smem: a
+// wide core's always, any other's past the 48 KB default.
+template <class Core, Compare kMode>
 static cudaError_t allow_shared(size_t smem)
 {
-    if constexpr (kWideCore<Core>)
+    if (kWideCore<Core> || smem > DPRF_DEFAULT_SHARED)
         return cudaFuncSetAttribute(
-            mask_kernel<Core, kMulti>,
+            mask_kernel<Core, kMode>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     return cudaSuccess;
 }
 
 // args points to the core's layout, ArgsOf<Core>.
-template <class Core, bool kMulti>
+template <class Core, Compare kMode>
 static int launch(const uint8_t* lut, const void* args,
                   const MultiArgs* multi, uint32_t n_valid, int32_t* count,
                   int32_t* lanes, int32_t* tpos, int32_t* n_maybe,
                   int32_t cap, int grid, int threads, cudaStream_t stream)
 {
     const ArgsOf<Core>& a = *static_cast<const ArgsOf<Core>*>(args);
-    const size_t smem = shared_bytes(a.length, multi, kMulti);
-    const cudaError_t err = allow_shared<Core, kMulti>(smem);
+    const size_t smem = shared_bytes(a.length, multi, kMode);
+    const cudaError_t err = allow_shared<Core, kMode>(smem);
     if (err != cudaSuccess) return (int)err;
-    mask_kernel<Core, kMulti><<<grid, threads, smem, stream>>>(
+    mask_kernel<Core, kMode><<<grid, threads, smem, stream>>>(
         lut, a, *multi, n_valid, count, lanes, tpos, n_maybe, cap);
     return (int)cudaGetLastError();
 }
 
-template <class Core, bool kMulti>
+template <class Core, Compare kMode>
 static int occupancy(int threads, size_t smem, int* blocks)
 {
-    const cudaError_t err = allow_shared<Core, kMulti>(smem);
+    const cudaError_t err = allow_shared<Core, kMode>(smem);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, mask_kernel<Core, kMulti>, threads, smem);
+        blocks, mask_kernel<Core, kMode>, threads, smem);
 }
 
-// CALL(Core, multi) bodies for the sources' C entries: a launch on the
+// CALL(Core, mode) bodies for the sources' C entries: a launch on the
 // entry's stream, and the occupancy query.
 #define DPRF_LAUNCH_ONE(C, M)                                             \
     launch<C, M>(lut, args, multi, n_valid, count, lanes, tpos, n_maybe,  \

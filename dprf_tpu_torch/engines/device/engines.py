@@ -3,8 +3,9 @@
 Each engine exposes (a) ``digest_packed``, the digest over packed
 message words on any torch device, used by the fused crack step; (b)
 ``hash_batch``, the HashEngine host API, which round-trips bytes through
-the engine's device; and (c) ``make_mask_worker`` and
-``make_wordlist_worker``, the CLI's entries into the device path.
+the engine's device; and (c) ``make_mask_worker``,
+``make_sharded_mask_worker`` and ``make_wordlist_worker``, the CLI's
+entries into the device path.
 
 Digest word layouts match the CPU oracles bit for bit.
 """
@@ -74,15 +75,11 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
                 out[i] = words[row].tobytes()[:self.digest_size]
         return out
 
-    def make_mask_worker(self, gen, targets, batch: int, hit_capacity: int,
-                         oracle=None):
-        """The mask worker for this engine: the hand-written kernel's
-        worker, which runs the kernel on a card and its plain version on
-        CPU tensors.  A job the kernel does not take is refused, never
-        moved to another path."""
+    def _refuse_unless_eligible(self, gen, targets) -> None:
+        """A mask job the kernel does not take is refused, never moved to
+        another path."""
         from dprf_tpu_torch.ops.bloom import MAX_TARGETS
         from dprf_tpu_torch.ops.cuda_mask import kernel_eligible
-        from dprf_tpu_torch.runtime.worker import CudaMaskWorker
         if not kernel_eligible(self.name, gen, len(targets)):
             raise ValueError(
                 f"{self.name}: no mask kernel for this job (it takes "
@@ -90,9 +87,40 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
                 f"1..{self.max_candidate_len} positions, got "
                 f"{len(targets)} targets and {gen.length} positions); "
                 "use --device cpu")
+
+    def make_mask_worker(self, gen, targets, batch: int, hit_capacity: int,
+                         oracle=None):
+        """The mask worker for this engine: the hand-written kernel's
+        worker, which runs the kernel on a card and its plain version on
+        CPU tensors.  A job the kernel does not take is refused, never
+        moved to another path."""
+        from dprf_tpu_torch.runtime.worker import CudaMaskWorker
+        self._refuse_unless_eligible(gen, targets)
         return CudaMaskWorker(self, gen, targets, batch=batch,
                               hit_capacity=hit_capacity, oracle=oracle,
                               device=self.torch_device)
+
+    def make_sharded_mask_worker(self, gen, targets, mesh: list,
+                                 batch_per_device: int, hit_capacity: int,
+                                 oracle=None):
+        """The mask worker over a mesh of devices (parallel/mesh.py):
+        the sharded runtime with the mask kernel as every shard's
+        compute, for the kernel's cores (``cuda_mask.KERNEL_CORES``).
+        A job the kernel does not take, or an engine without a sharded
+        path yet, is refused, never run on fewer devices.  Unlike the
+        reference, which sends lists of 4,096 or more to its XLA probe
+        table, 2..8,192 targets run the kernel's blocked probe."""
+        from dprf_tpu_torch.ops.cuda_mask import KERNEL_CORES
+        from dprf_tpu_torch.parallel.worker import ShardedMaskWorker
+        if self.name not in KERNEL_CORES:
+            raise ValueError(
+                f"{self.name}: no sharded mask worker on several devices "
+                f"yet (cores: {', '.join(KERNEL_CORES)}); run it with "
+                "--devices 1")
+        self._refuse_unless_eligible(gen, targets)
+        return ShardedMaskWorker(self, gen, targets, mesh,
+                                 batch_per_device=batch_per_device,
+                                 hit_capacity=hit_capacity, oracle=oracle)
 
     def make_wordlist_worker(self, gen, targets, batch: int,
                              hit_capacity: int, oracle=None):

@@ -1,7 +1,7 @@
 """The fused mask -> hash -> compare kernel: the counterpart of the JAX
 package's ops/pallas_mask.py for the md5, ntlm (md4), sha1, sha256,
 sha512 and sha384 cores, with one target or a list of up to
-MAX_TARGETS.
+MAX_TARGETS, and the window offset.
 
 Per candidate the kernel (csrc/mask.cu) decodes the mixed-radix
 keyspace index into charset bytes, packs one padded block, runs the
@@ -10,23 +10,34 @@ core's rounds and compares; only hits write anything back.
 - Single target: outputs ``count int32[1]``, the exact number of hits,
   and ``lanes int32[hit_capacity]``, the batch lanes of the first
   ``hit_capacity`` hits in no fixed order, -1 where unused.
-- Multi target: the reference's Bloom prefilter (ops/bloom.py), then an
+- Multi target: a prefilter, the reference's per-set Bloom filter
+  (ops/bloom.py; mode SETS, the single-card worker's) or its blocked
+  probe (targets/probe.py; mode PROBE, the sharded runtime's), then an
   exact verify of each survivor against the sorted target table
   (ops/compare.make_target_table) on the card.  Outputs ``count``,
   ``lanes``, ``tpos int32[hit_capacity]`` (each hit's position in the
   sorted table) and ``n_maybe int32[1]``, the prefilter's survivors.
 
+The window offset: a launch covers the window lanes [offset, n_valid)
+of a ``batch``-lane step (n_valid <= offset + batch), decodes each from
+the base digits plus its window lane and reports window lanes; given
+``out``, the buffers of a window (``hit_buffers``), it appends to them
+instead of allocating its own, so the launches of one window sum into
+one count and one set of lanes on the device (ops/superstep.py).
+
 ``count > hit_capacity`` sends the batch to the worker's exact oracle
 rescan, the reference's contract.
 
 For each mode three functions carry it: the kernel's wrapper
-(``mask_kernel`` / ``mask_multi_kernel``: CUDA tensors only, launches on
-the current stream without synchronising, counts its launches in
-``launches``), the same function in plain PyTorch (``mask_plain`` /
-``mask_multi_plain``, hit lanes in ascending order), and the dispatcher
-(``mask_crack`` / ``mask_crack_multi``: the kernel for CUDA tensors, the
-plain version for CPU tensors).  ``make_cuda_mask_crack_step`` and
-``make_cuda_multi_crack_step`` build the worker's steps on the
+(``mask_kernel`` / ``mask_multi_kernel`` / ``mask_probe_kernel``: CUDA
+tensors only, launches on the current stream without synchronising,
+counts its launches in ``launches``), the same function in plain
+PyTorch (``mask_plain`` / ``mask_multi_plain`` / ``mask_probe_plain``,
+hit lanes in ascending order), and the dispatcher (``mask_crack`` /
+``mask_crack_multi`` / ``mask_crack_probe``: the kernel for CUDA
+tensors, the plain version for CPU tensors).
+``make_cuda_mask_crack_step``, ``make_cuda_multi_crack_step`` and
+``make_shard_mask_compute`` build the workers' steps on the
 dispatchers, so one step serves ``--device cuda`` and ``--device
 torch-cpu``.
 """
@@ -43,6 +54,7 @@ import torch
 from dprf_tpu_torch.generators.mask import decode_lut
 from dprf_tpu_torch.ops import bloom
 from dprf_tpu_torch.ops import compare as cmp_ops
+from dprf_tpu_torch.targets import probe
 
 #: threads per block (the kernel's __launch_bounds__)
 THREADS = 256
@@ -58,6 +70,19 @@ SOURCE = "dprf_tpu_torch/csrc/mask.cu"
 KERNEL_CORES = {"md5": 0, "ntlm": 1, "sha1": 2, "sha256": 3, "sha512": 4,
                 "sha384": 5}
 
+#: the compare modes of csrc/mask.cu's C interface: one target, the
+#: per-set Bloom prefilter, the blocked probe; and each one's suffix of
+#: the instantiation's name
+SINGLE, SETS, PROBE = 0, 1, 2
+MODES = {SINGLE: "", SETS: "_multi", PROBE: "_probe"}
+
+#: the blocked probe's false-positive budget a candidate and its cap in
+#: groups of 128 blocks (the reference's DPRF_PALLAS_PROBE_FP default
+#: and KERNEL_PROBE_GROUPS): 64 KiB of bitmap at most, 1,024 blocks
+PROBE_FP = 1e-7
+PROBE_GROUPS = 8
+PROBE_MAX_BLOCK_BITS = (PROBE_GROUPS * 128).bit_length() - 1
+
 
 @functools.lru_cache(maxsize=None)
 def device_engine(engine_name: str, device="cpu"):
@@ -72,14 +97,16 @@ def device_engine(engine_name: str, device="cpu"):
                      f"(cores: {', '.join(KERNEL_CORES)})")
 
 
-def kernel_name(engine_name: str, multi: bool) -> str:
-    """The instantiation's name: ``<core>_mask`` or ``<core>_mask_multi``."""
-    return f"{engine_name}_mask" + ("_multi" if multi else "")
+def kernel_name(engine_name: str, mode: int) -> str:
+    """The instantiation's name: ``<core>_mask``, ``<core>_mask_multi``
+    or ``<core>_mask_probe`` for mode SINGLE, SETS or PROBE (False and
+    True name the first two)."""
+    return f"{engine_name}_mask" + MODES[int(mode)]
 
 
 #: launches of each kernel instantiation in this process, by
 #: ``kernel_name`` (tests and chip_smoke.py reset them and read them)
-launches = {kernel_name(n, m): 0 for n in KERNEL_CORES for m in (False, True)}
+launches = {kernel_name(n, m): 0 for n in KERNEL_CORES for m in MODES}
 
 
 def reset_launches() -> None:
@@ -106,12 +133,15 @@ def mask_fits(gen, longest: int) -> bool:
             and all(1 <= len(cs) <= 256 for cs in gen.charsets))
 
 
-def check_batch(batch: int) -> None:
+def check_batch(batch: int, offset: int = 0) -> None:
     """Lane arithmetic is 32-bit: the first mixed-radix addition
-    computes base_digit + lane with base_digit <= 255, so a batch needs
-    256 of headroom below 2^31."""
+    computes base_digit + lane with base_digit <= 255, so the last lane
+    of a batch at a window offset needs 256 of headroom below 2^31."""
     if not 1 <= batch <= (1 << 31) - 256:
         raise ValueError(f"batch {batch} outside 1..2**31-256")
+    if not 0 <= offset <= (1 << 31) - 256 - batch:
+        raise ValueError(f"offset {offset} + batch {batch} outside "
+                         "0..2**31-256")
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,7 +181,9 @@ def check_decode(lut: torch.Tensor, radices: Sequence[int],
 
 def check_job(eng, lut: torch.Tensor, radices: Sequence[int],
               base_digits: Sequence[int], n_valid: int, hit_capacity: int,
-              batch: int) -> None:
+              batch: int, offset: int = 0) -> None:
+    """A launch's arguments: the mask decode's, the hit capacity, and
+    the window lanes [offset, n_valid) of a ``batch``-lane step."""
     if lut.dtype != torch.uint8 or lut.dim() != 2 or lut.shape[1] != 256:
         raise ValueError(f"lut must be uint8[length, 256], got "
                          f"{lut.dtype}{list(lut.shape)}")
@@ -165,9 +197,9 @@ def check_job(eng, lut: torch.Tensor, radices: Sequence[int],
     if not all(1 <= r <= 256 for r in radices) or \
             not all(0 <= d < r for d, r in zip(base_digits, radices)):
         raise ValueError("radices must be 1..256 and base digits below them")
-    check_batch(batch)
-    if not 0 <= n_valid <= batch:
-        raise ValueError(f"n_valid {n_valid} outside 0..{batch}")
+    check_batch(batch, offset)
+    if not 0 <= n_valid <= offset + batch:
+        raise ValueError(f"n_valid {n_valid} outside 0..{offset + batch}")
     if hit_capacity < 0:
         raise ValueError("hit_capacity must be >= 0")
 
@@ -178,23 +210,62 @@ def check_target(eng, target: Sequence[int]) -> None:
                          f"words, got {len(target)}")
 
 
+def _check_tensor(name: str, t: torch.Tensor, dim: int, device) -> None:
+    if t.dtype != torch.int32 or t.dim() != dim:
+        raise ValueError(f"{name} must be int32 {dim}-D, got "
+                         f"{t.dtype}{list(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, lut on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def check_tables(eng, bloom_rows: torch.Tensor,
                  table: torch.Tensor, device) -> None:
-    for name, t in (("bloom rows", bloom_rows), ("target table", table)):
-        if t.dtype != torch.int32 or t.dim() != 2:
-            raise ValueError(f"{name} must be int32 2-D, got "
-                             f"{t.dtype}{list(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"{name} on {t.device}, lut on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    """The per-set Bloom rows and the sorted target table."""
+    _check_tensor("bloom rows", bloom_rows, 2, device)
+    check_table(eng, table, device)
+    n = table.shape[0]
+    if list(bloom_rows.shape) != [bloom.n_sets(n) * bloom.K_PROBES, 128]:
+        raise ValueError(f"bloom rows {list(bloom_rows.shape)} do not fit "
+                         f"{n} targets")
+
+
+def check_table(eng, table: torch.Tensor, device) -> None:
+    """The sorted target table of a list: int32[1..MAX_TARGETS, W]."""
+    _check_tensor("target table", table, 2, device)
     n = table.shape[0]
     if not 1 <= n <= bloom.MAX_TARGETS or table.shape[1] != eng.digest_words:
         raise ValueError(f"target table must be int32[1..{bloom.MAX_TARGETS},"
                          f" {eng.digest_words}], got {list(table.shape)}")
-    if list(bloom_rows.shape) != [bloom.n_sets(n) * bloom.K_PROBES, 128]:
-        raise ValueError(f"bloom rows {list(bloom_rows.shape)} do not fit "
-                         f"{n} targets")
+
+
+def check_probe(words: torch.Tensor, block_bits: int, k: int,
+                device) -> None:
+    """The probe bitmap: int32[16 << block_bits] for 0..10 block bits,
+    and 1..8 bits a candidate."""
+    _check_tensor("probe bitmap", words, 1, device)
+    if not 0 <= block_bits <= PROBE_MAX_BLOCK_BITS or \
+            words.shape[0] != probe.BLOCK_WORDS << block_bits:
+        raise ValueError(f"probe bitmap of {words.shape[0]} words does not "
+                         f"fit {block_bits} block bits "
+                         f"(0..{PROBE_MAX_BLOCK_BITS})")
+    if not 1 <= k <= probe.MAX_K:
+        raise ValueError(f"probe k {k} outside 1..{probe.MAX_K}")
+
+
+def probe_rows(twords: np.ndarray):
+    """Target digest words uint32[N, W] -> (rows uint32[16 <<
+    block_bits], block_bits, k): targets/probe.bloom_fill's bitmap,
+    block-major as the kernel reads it (word w of block b at b * 16 +
+    w), sized for the false-positive budget PROBE_FP and capped at
+    PROBE_GROUPS groups of 128 blocks.  The reference's lane-major
+    transpose serves Mosaic's gathers and is not carried over."""
+    m_bits, k, _ = probe.kernel_bloom_geometry(
+        int(twords.shape[0]), PROBE_FP,
+        PROBE_GROUPS * 128 * probe.BLOCK_BITS)
+    rows = probe.bloom_fill(np.ascontiguousarray(twords), m_bits, k)
+    return rows, (m_bits // probe.BLOCK_BITS).bit_length() - 1, k
 
 
 def _args_fields(positions: int, block_words: int, target_words: int):
@@ -203,7 +274,8 @@ def _args_fields(positions: int, block_words: int, target_words: int):
             ("base", ctypes.c_int32 * positions),
             ("block", ctypes.c_uint32 * block_words),
             ("target", ctypes.c_uint32 * target_words),
-            ("shift", ctypes.c_int32)]
+            ("shift", ctypes.c_int32),
+            ("offset", ctypes.c_uint32)]
 
 
 class MaskArgs(ctypes.Structure):
@@ -228,9 +300,11 @@ def args_layout(block_words: int):
 
 
 class MultiArgs(ctypes.Structure):
-    """``struct MultiArgs`` of csrc/mask_kernel.cuh."""
+    """``struct MultiArgs`` of csrc/mask_kernel.cuh: ``bloom`` points to
+    the Bloom rows (mode SETS) or the probe bitmap (mode PROBE)."""
     _fields_ = [("bloom", ctypes.c_void_p), ("table", ctypes.c_void_p),
-                ("n_sets", ctypes.c_int32), ("n_targets", ctypes.c_int32)]
+                ("n_sets", ctypes.c_int32), ("n_targets", ctypes.c_int32),
+                ("block_bits", ctypes.c_int32), ("k", ctypes.c_int32)]
 
 
 @functools.cache
@@ -255,22 +329,27 @@ def load_kernel() -> None:
     _library()
 
 
-def shared_bytes(length: int, n_sets: int = 0) -> int:
+def shared_bytes(length: int, n_sets: int = 0,
+                 probe_blocks: int = 0) -> int:
     """Dynamic shared memory of one block: the charset table, then the
-    Bloom rows (at most 14,080 + 32,768 bytes for a 64-byte core, under
-    the 48 KiB that needs no opt-in; up to 36,608 + 32,768 for a wide
-    one, which raises its limit before the launch)."""
-    return length * 256 + n_sets * bloom.K_PROBES * 128 * 4
+    Bloom rows of ``n_sets`` sets or the probe bitmap of
+    ``probe_blocks`` blocks (at most 14,080 + 32,768 bytes with the
+    rows for a 64-byte core, under the 48 KiB that needs no opt-in; up
+    to 36,608 + 32,768 for a wide one, and up to 65,536 bytes of
+    bitmap, which raise their limit before the launch)."""
+    return (length * 256 + n_sets * bloom.K_PROBES * 128 * 4
+            + probe_blocks * probe.BLOCK_WORDS * 4)
 
 
 @functools.cache
-def blocks_per_sm(engine_name: str, multi: bool, smem: int) -> int:
-    """Resident blocks per SM for one instantiation at ``smem`` bytes,
-    from the CUDA occupancy calculator: the Bloom rows of a long list
-    leave room for fewer blocks than the 8 of 256 threads an SM holds."""
+def blocks_per_sm(engine_name: str, mode: int, smem: int) -> int:
+    """Resident blocks per SM for one instantiation (compare ``mode``,
+    or a bool: multi target) at ``smem`` bytes, from the CUDA occupancy
+    calculator: the Bloom rows or the probe bitmap of a long list leave
+    room for fewer blocks than the 8 of 256 threads an SM holds."""
     blocks = ctypes.c_int(0)
     rc = _library().dprf_mask_blocks_per_sm(
-        KERNEL_CORES[engine_name], int(multi), THREADS, smem,
+        KERNEL_CORES[engine_name], int(mode), THREADS, smem,
         ctypes.byref(blocks))
     if rc != 0 or blocks.value < 1:
         raise RuntimeError(f"occupancy query failed: CUDA error {rc}, "
@@ -278,11 +357,11 @@ def blocks_per_sm(engine_name: str, multi: bool, smem: int) -> int:
     return blocks.value
 
 
-def grid_size(engine_name: str, multi: bool, n_valid: int, smem: int,
+def grid_size(engine_name: str, mode: int, n_lanes: int, smem: int,
               device) -> int:
     """Blocks of the grid-stride grid: one resident wave, or fewer for
-    a short batch."""
-    return wave_grid(blocks_per_sm(engine_name, multi, smem), n_valid,
+    a launch of few lanes."""
+    return wave_grid(blocks_per_sm(engine_name, mode, smem), n_lanes,
                      device)
 
 
@@ -302,28 +381,59 @@ def require_cuda(lut: torch.Tensor) -> None:
         raise ValueError("lut must be contiguous")
 
 
-def launch_template(entry, kid: int, multi: bool, lut: torch.Tensor,
+def hit_buffers(multi: bool, capacity: int, device):
+    """Fresh hit buffers, in a step's contract, for a launch or the
+    launches of one window to append to: one target (count int32[1] 0,
+    lanes int32[capacity] -1, tpos int32[capacity] 0); a list adds
+    n_maybe int32[1] 0, and its tpos starts at -1."""
+    count = torch.zeros((1,), dtype=torch.int32, device=device)
+    lanes = torch.full((capacity,), -1, dtype=torch.int32, device=device)
+    if not multi:
+        return count, lanes, torch.zeros_like(lanes)
+    return (count, lanes, torch.full_like(lanes, -1),
+            torch.zeros((1,), dtype=torch.int32, device=device))
+
+
+def check_out(out, multi: bool, hit_capacity: int, device) -> None:
+    """Hit buffers a launch appends to: ``hit_buffers``' tuple on the
+    lut's device, hit_capacity lanes."""
+    if len(out) != (4 if multi else 3):
+        raise ValueError(f"hit buffers of {len(out)} tensors for a "
+                         f"{'multi' if multi else 'single'}-target launch")
+    for name, t in zip(("count", "lanes", "tpos", "n_maybe"), out):
+        _check_tensor(f"{name} buffer", t, 1, device)
+    if [t.shape[0] for t in out] != [1, hit_capacity, hit_capacity,
+                                      1][:len(out)]:
+        raise ValueError(f"hit buffers {[list(t.shape) for t in out]} "
+                         f"do not hold {hit_capacity} hits")
+
+
+def launch_template(entry, kid: int, mode: int, lut: torch.Tensor,
                     radices: Sequence[int], base_digits: Sequence[int],
                     n_valid: int, block: Sequence[int],
                     target: Sequence[int], margs: MultiArgs,
-                    hit_capacity: int, grid: int, shift: int = 0):
+                    hit_capacity: int, grid: int, shift: int = 0, *,
+                    offset: int = 0, out=None):
     """Launch one instantiation of the mask kernel template
     (csrc/mask_kernel.cuh) through a source's C entry ``entry`` (its
-    instantiation id ``kid``): the job's fixed message words ``block``,
-    the single target's words ``target``, the multi-target state
-    ``margs`` and, for a shifted core, the candidate's first byte
-    ``shift``.  Allocates and returns (count, lanes, tpos, n_maybe) on
-    the lut's card (tpos and n_maybe None for one target), still being
-    computed; raises if the launch is refused."""
+    instantiation id ``kid``, compare ``mode``; a bool: multi target)
+    over the window lanes [offset, n_valid): the job's fixed message
+    words ``block``, the single target's words ``target``, the
+    multi-target state ``margs`` and, for a shifted core, the
+    candidate's first byte ``shift``.  Appends to the hit buffers
+    ``out`` (``hit_buffers``) when given, else allocates them on the
+    lut's card; returns (count, lanes, tpos, n_maybe), still being
+    computed (tpos and n_maybe None for one target); raises if the
+    launch is refused."""
     require_cuda(lut)
     device = lut.device
-    count = torch.zeros((1,), dtype=torch.int32, device=device)
-    lanes = torch.full((hit_capacity,), -1, dtype=torch.int32,
-                       device=device)
-    tpos = torch.full((hit_capacity,), -1, dtype=torch.int32,
-                      device=device) if multi else None
-    n_maybe = torch.zeros((1,), dtype=torch.int32, device=device) \
-        if multi else None
+    multi = int(mode) != SINGLE
+    if out is None:
+        out = hit_buffers(multi, hit_capacity, device)
+    else:
+        check_out(out, multi, hit_capacity, device)
+    count, lanes = out[0], out[1]
+    tpos, n_maybe = (out[2], out[3]) if multi else (None, None)
     layout = args_layout(len(block))
     args = layout(lut.shape[0],
                   (ctypes.c_int32 * layout.POSITIONS)(*radices),
@@ -331,9 +441,9 @@ def launch_template(entry, kid: int, multi: bool, lut: torch.Tensor,
                   (ctypes.c_uint32 * layout.BLOCK_WORDS)(*block),
                   (ctypes.c_uint32 * layout.TARGET_WORDS)(
                       *(int(w) & 0xFFFFFFFF for w in target)),
-                  shift)
+                  shift, offset)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = entry(kid, int(multi), device.index, lut.data_ptr(),
+    rc = entry(kid, int(mode), device.index, lut.data_ptr(),
                ctypes.byref(args), ctypes.byref(margs), n_valid,
                count.data_ptr(), lanes.data_ptr(),
                tpos.data_ptr() if multi else None,
@@ -344,135 +454,280 @@ def launch_template(entry, kid: int, multi: bool, lut: torch.Tensor,
     return count, lanes, tpos, n_maybe
 
 
-def _launch(eng, multi: bool, lut: torch.Tensor,
+def _launch(eng, mode: int, lut: torch.Tensor,
             radices: Sequence[int], base_digits: Sequence[int],
             n_valid: int, target: Sequence[int], margs: MultiArgs,
-            n_sets: int, hit_capacity: int):
+            smem: int, hit_capacity: int, offset: int, out):
     require_cuda(lut)
-    grid = grid_size(eng.name, multi, n_valid,
-                     shared_bytes(lut.shape[0], n_sets), lut.device)
+    grid = grid_size(eng.name, mode, max(0, n_valid - offset), smem,
+                     lut.device)
     out = launch_template(_library().dprf_mask_launch,
-                          KERNEL_CORES[eng.name], multi, lut, radices,
+                          KERNEL_CORES[eng.name], mode, lut, radices,
                           base_digits, n_valid,
                           message_block(eng.name, lut.shape[0]), target,
-                          margs, hit_capacity, grid)
-    launches[kernel_name(eng.name, multi)] += 1
+                          margs, hit_capacity, grid, offset=offset, out=out)
+    launches[kernel_name(eng.name, mode)] += 1
     return out
 
 
 def mask_kernel(engine: str, lut: torch.Tensor, radices: Sequence[int],
                 base_digits: Sequence[int], n_valid: int,
-                target: Sequence[int], hit_capacity: int, batch: int):
-    """Launch the single-target kernel over lanes [0, n_valid) of a
-    ``batch``-lane step: lut uint8[L, 256] on the card
-    (``MaskGenerator.charset_lut``), the radices and the base digits of
-    the batch's first candidate as ints, the target as the core's
-    uint32 digest words.  Returns (count int32[1], lanes
-    int32[hit_capacity]) on the card, still being computed."""
+                target: Sequence[int], hit_capacity: int, batch: int, *,
+                offset: int = 0, out=None):
+    """Launch the single-target kernel over the window lanes [offset,
+    n_valid) of a ``batch``-lane step (n_valid <= offset + batch): lut
+    uint8[L, 256] on the card (``MaskGenerator.charset_lut``), the
+    radices and the base digits of the window's first candidate as ints,
+    the target as the core's uint32 digest words.  Returns (count
+    int32[1], lanes int32[hit_capacity]) on the card, still being
+    computed: fresh buffers, or ``out``'s (``hit_buffers``) appended
+    to."""
     eng = device_engine(engine, lut.device)
-    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
+    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch,
+              offset)
     check_target(eng, target)
-    count, lanes, _, _ = _launch(eng, False, lut, radices, base_digits,
-                                 n_valid, target, MultiArgs(), 0,
-                                 hit_capacity)
+    count, lanes, _, _ = _launch(eng, SINGLE, lut, radices, base_digits,
+                                 n_valid, target, MultiArgs(),
+                                 shared_bytes(lut.shape[0]), hit_capacity,
+                                 offset, out)
     return count, lanes
 
 
 def mask_multi_kernel(engine: str, lut: torch.Tensor, radices: Sequence[int],
                       base_digits: Sequence[int], n_valid: int,
                       bloom_rows: torch.Tensor, table: torch.Tensor,
-                      hit_capacity: int, batch: int):
-    """Launch the multi-target kernel: bloom_rows int32[n_sets * 8, 128]
-    (``bloom.bloom_tables``) and table int32[T, W] (the sorted
-    ``TargetTable``) on the card.  Returns (count int32[1], lanes
-    int32[cap], tpos int32[cap], n_maybe int32[1]), still being
-    computed."""
+                      hit_capacity: int, batch: int, *, offset: int = 0,
+                      out=None):
+    """Launch the multi-target kernel with the per-set Bloom prefilter:
+    bloom_rows int32[n_sets * 8, 128] (``bloom.bloom_tables``) and table
+    int32[T, W] (the sorted ``TargetTable``) on the card.  Returns
+    (count int32[1], lanes int32[cap], tpos int32[cap], n_maybe
+    int32[1]), still being computed (window and ``out`` as
+    ``mask_kernel``)."""
     eng = device_engine(engine, lut.device)
-    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
+    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch,
+              offset)
     check_tables(eng, bloom_rows, table, lut.device)
     n_sets = bloom_rows.shape[0] // bloom.K_PROBES
     margs = MultiArgs(bloom_rows.data_ptr(), table.data_ptr(), n_sets,
                       table.shape[0])
-    return _launch(eng, True, lut, radices, base_digits, n_valid, [],
-                   margs, n_sets, hit_capacity)
+    return _launch(eng, SETS, lut, radices, base_digits, n_valid, [], margs,
+                   shared_bytes(lut.shape[0], n_sets), hit_capacity, offset,
+                   out)
 
 
-def _digest_plain(eng, lut, radices, base_digits, batch):
-    cand = decode_lut(lut, radices, base_digits, batch)
+def mask_probe_kernel(engine: str, lut: torch.Tensor,
+                      radices: Sequence[int], base_digits: Sequence[int],
+                      n_valid: int, probe_words: torch.Tensor,
+                      block_bits: int, k: int, table: torch.Tensor,
+                      hit_capacity: int, batch: int, *, offset: int = 0,
+                      out=None):
+    """Launch the multi-target kernel with the blocked probe:
+    probe_words int32[16 << block_bits] (``probe_rows``), k bits a
+    candidate, and table int32[T, W] (the sorted ``TargetTable``) on
+    the card.  Returns (count, lanes, tpos, n_maybe) as
+    ``mask_multi_kernel``."""
+    eng = device_engine(engine, lut.device)
+    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch,
+              offset)
+    check_probe(probe_words, block_bits, k, lut.device)
+    check_table(eng, table, lut.device)
+    margs = MultiArgs(probe_words.data_ptr(), table.data_ptr(), 0,
+                      table.shape[0], block_bits, k)
+    return _launch(eng, PROBE, lut, radices, base_digits, n_valid, [],
+                   margs, shared_bytes(lut.shape[0],
+                                       probe_blocks=1 << block_bits),
+                   hit_capacity, offset, out)
+
+
+def _digest_plain(eng, lut, radices, base_digits, batch, offset):
+    cand = decode_lut(lut, radices, base_digits, batch, lane_offset=offset)
     return eng.digest_packed(eng.pack(cand, lut.shape[0]))
+
+
+def _window_lanes(lut, n_valid, batch, offset):
+    """The step's lanes as window lanes, and which of them are valid."""
+    lane = offset + torch.arange(batch, dtype=torch.int32, device=lut.device)
+    return lane, lane < n_valid
+
+
+def _compact(found, tpos, hit_capacity, offset):
+    """Hit buffers of ``found`` with window lanes, ascending."""
+    count, idx, tpos = cmp_ops.compact_hits(found, tpos, hit_capacity)
+    return count, torch.where(idx >= 0, idx + offset, idx), tpos
+
+
+def append_plain(out, count, lanes, tpos=None, n_maybe=None):
+    """Fold one launch's hit buffers into the buffers ``out`` in place,
+    as the kernel's atomic append does: the count and n_maybe sum, the
+    hit lanes (and table positions) fill the free slots in order, and a
+    hit past the capacity drops (the count keeps it).  Returns out."""
+    cap = out[1].shape[0]
+    slot = out[0] + torch.arange(lanes.shape[0], dtype=torch.int32,
+                                 device=lanes.device)
+    keep = (lanes >= 0) & (slot < cap)
+    idx = slot[keep].long()
+    out[1][idx] = lanes[keep]
+    if tpos is not None:
+        out[2][idx] = tpos[keep]
+        out[3].add_(n_maybe)
+    out[0].add_(count)
+    return out
 
 
 def single_plain(eng, lut: torch.Tensor, radices: Sequence[int],
                  base_digits: Sequence[int], n_valid: int,
-                 target: Sequence[int], hit_capacity: int, batch: int):
+                 target: Sequence[int], hit_capacity: int, batch: int, *,
+                 offset: int = 0, out=None):
     """The single-target kernel's function in plain PyTorch for the
     device engine ``eng`` (its ``pack`` and ``digest_packed``), on the
-    lut's device; hit lanes come back in ascending order."""
-    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
+    lut's device; hit lanes come back in ascending order (window and
+    ``out`` as ``mask_kernel``)."""
+    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch,
+              offset)
     check_target(eng, target)
-    device = lut.device
-    lane = torch.arange(batch, dtype=torch.int32, device=device)
-    digest = _digest_plain(eng, lut, radices, base_digits, batch)
+    if out is not None:
+        check_out(out, False, hit_capacity, lut.device)
+    lane, valid = _window_lanes(lut, n_valid, batch, offset)
+    digest = _digest_plain(eng, lut, radices, base_digits, batch, offset)
     want = cmp_ops.target_words_from_numpy(np.asarray(target, np.uint32),
-                                           device)
-    found = cmp_ops.compare_single(digest, want) & (lane < n_valid)
-    count, lanes, _ = cmp_ops.compact_hits(found, torch.zeros_like(lane),
-                                           hit_capacity)
+                                           lut.device)
+    found = cmp_ops.compare_single(digest, want) & valid
+    count, lanes, _ = _compact(found, torch.zeros_like(lane), hit_capacity,
+                               offset)
+    if out is not None:
+        return append_plain(out, count, lanes)[:2]
     return count, lanes
+
+
+def _multi_hits(eng, lut, digest, maybe, table, hit_capacity, offset, out):
+    """A list's exact verify of the prefilter's survivors ``maybe``:
+    (count, lanes, tpos, n_maybe), or ``out`` appended to."""
+    found, tpos = cmp_ops.compare_multi(digest, table)
+    count, lanes, tpos = _compact(found & maybe, tpos, hit_capacity, offset)
+    n_maybe = maybe.sum(dtype=torch.int32).reshape(1)
+    if out is not None:
+        check_out(out, True, hit_capacity, lut.device)
+        return append_plain(out, count, lanes, tpos, n_maybe)
+    return count, lanes, tpos, n_maybe
 
 
 def multi_plain(eng, lut: torch.Tensor, radices: Sequence[int],
                 base_digits: Sequence[int], n_valid: int,
                 bloom_rows: torch.Tensor, table: torch.Tensor,
-                hit_capacity: int, batch: int):
+                hit_capacity: int, batch: int, *, offset: int = 0,
+                out=None):
     """The multi-target kernel's function in plain PyTorch for the
     device engine ``eng``: the plain ``bloom_found``, then
     ``compare_multi`` on the survivors; hit lanes come back in
     ascending order."""
-    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch)
+    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch,
+              offset)
     check_tables(eng, bloom_rows, table, lut.device)
-    lane = torch.arange(batch, dtype=torch.int32, device=lut.device)
-    digest = _digest_plain(eng, lut, radices, base_digits, batch)
-    maybe = bloom.bloom_found(digest, bloom_rows, lane < n_valid)
-    found, tpos = cmp_ops.compare_multi(digest, table)
-    count, lanes, tpos = cmp_ops.compact_hits(found & maybe, tpos,
-                                              hit_capacity)
-    return count, lanes, tpos, maybe.sum(dtype=torch.int32).reshape(1)
+    _, valid = _window_lanes(lut, n_valid, batch, offset)
+    digest = _digest_plain(eng, lut, radices, base_digits, batch, offset)
+    maybe = bloom.bloom_found(digest, bloom_rows, valid)
+    return _multi_hits(eng, lut, digest, maybe, table, hit_capacity, offset,
+                       out)
 
 
-def mask_plain(engine: str, lut: torch.Tensor, *args):
+def probe_found(digest: torch.Tensor, words: torch.Tensor, block_bits: int,
+                k: int, valid: torch.Tensor) -> torch.Tensor:
+    """The blocked probe in plain PyTorch (the reference's
+    probe_block_found over targets/probe.bloom_fill's bitmap): int32[B,
+    W] digest words, the bitmap int32[16 << block_bits] -> bool[B], a
+    lane valid and all k bits of its block set.  The uint32 arithmetic
+    runs in int64 with masks, the golden-ratio product in 16-bit
+    halves so no int64 product overflows."""
+    d = digest.to(torch.int64) & 0xFFFFFFFF
+    h1, h2 = d[:, 0], d[:, 1] | 1
+    h3, h4 = (d[:, 2], d[:, 3] | 1) if d.shape[1] > 3 else (h1, h2)
+    if block_bits:
+        g = probe._GOLDEN
+        mul = (h1 * (g & 0xFFFF) + (((h1 * (g >> 16)) & 0xFFFF) << 16)) \
+            & 0xFFFFFFFF
+        block = mul >> (32 - block_bits)
+    else:
+        block = torch.zeros_like(h1)
+    found = valid.clone()
+    for j in range(k):
+        a, b = (h3, h4) if j & 1 else (h1, h2)
+        bit = (a + (2 * (j >> 1) + 1) * b) & (probe.BLOCK_BITS - 1)
+        word = words[block * probe.BLOCK_WORDS + (bit >> 5)]
+        found &= ((word >> (bit & 31).to(torch.int32)) & 1) == 1
+    return found
+
+
+def probe_plain(eng, lut: torch.Tensor, radices: Sequence[int],
+                base_digits: Sequence[int], n_valid: int,
+                probe_words: torch.Tensor, block_bits: int, k: int,
+                table: torch.Tensor, hit_capacity: int, batch: int, *,
+                offset: int = 0, out=None):
+    """The probe kernel's function in plain PyTorch for the device
+    engine ``eng``: ``probe_found``, then ``compare_multi`` on the
+    survivors; hit lanes come back in ascending order."""
+    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch,
+              offset)
+    check_probe(probe_words, block_bits, k, lut.device)
+    check_table(eng, table, lut.device)
+    _, valid = _window_lanes(lut, n_valid, batch, offset)
+    digest = _digest_plain(eng, lut, radices, base_digits, batch, offset)
+    maybe = probe_found(digest, probe_words, block_bits, k, valid)
+    return _multi_hits(eng, lut, digest, maybe, table, hit_capacity, offset,
+                       out)
+
+
+def mask_plain(engine: str, lut: torch.Tensor, *args, **window):
     """``mask_kernel``'s function in plain PyTorch on the lut's device;
     hit lanes come back in ascending order."""
-    return single_plain(device_engine(engine, lut.device), lut, *args)
+    return single_plain(device_engine(engine, lut.device), lut, *args,
+                        **window)
 
 
-def mask_multi_plain(engine: str, lut: torch.Tensor, *args):
+def mask_multi_plain(engine: str, lut: torch.Tensor, *args, **window):
     """``mask_multi_kernel``'s function in plain PyTorch on the lut's
     device (arguments as ``mask_multi_kernel``)."""
-    return multi_plain(device_engine(engine, lut.device), lut, *args)
+    return multi_plain(device_engine(engine, lut.device), lut, *args,
+                       **window)
 
 
-def dispatch(kernel, plain, lut, args):
-    """``kernel(*args)`` for a lut on a card, ``plain(*args)`` for one
-    on the CPU, and nothing else."""
+def mask_probe_plain(engine: str, lut: torch.Tensor, *args, **window):
+    """``mask_probe_kernel``'s function in plain PyTorch on the lut's
+    device (arguments as ``mask_probe_kernel``)."""
+    return probe_plain(device_engine(engine, lut.device), lut, *args,
+                       **window)
+
+
+def dispatch(kernel, plain, lut, args, window=None):
+    """``kernel(*args, **window)`` for a lut on a card, ``plain(*args,
+    **window)`` for one on the CPU, and nothing else."""
+    window = window or {}
     if lut.device.type == "cuda":
-        return kernel(*args)
+        return kernel(*args, **window)
     if lut.device.type == "cpu":
-        return plain(*args)
+        return plain(*args, **window)
     raise ValueError(f"no mask kernel for device {lut.device}")
 
 
-def mask_crack(engine: str, lut: torch.Tensor, *args):
+def mask_crack(engine: str, lut: torch.Tensor, *args, **window):
     """The single-target kernel on CUDA tensors, its plain version on
     CPU tensors (arguments as ``mask_kernel``)."""
-    return dispatch(mask_kernel, mask_plain, lut, (engine, lut, *args))
+    return dispatch(mask_kernel, mask_plain, lut, (engine, lut, *args),
+                    window)
 
 
-def mask_crack_multi(engine: str, lut: torch.Tensor, *args):
+def mask_crack_multi(engine: str, lut: torch.Tensor, *args, **window):
     """The multi-target kernel on CUDA tensors, its plain version on CPU
     tensors (arguments as ``mask_multi_kernel``)."""
     return dispatch(mask_multi_kernel, mask_multi_plain, lut,
-                     (engine, lut, *args))
+                    (engine, lut, *args), window)
+
+
+def mask_crack_probe(engine: str, lut: torch.Tensor, *args, **window):
+    """The probe kernel on CUDA tensors, its plain version on CPU
+    tensors (arguments as ``mask_probe_kernel``)."""
+    return dispatch(mask_probe_kernel, mask_probe_plain, lut,
+                    (engine, lut, *args), window)
 
 
 def _check_step(engine: str, gen, n_targets: int, batch: int) -> None:
@@ -489,17 +744,41 @@ def single_step(crack, engine: str, gen, target_words: np.ndarray,
                 batch: int, hit_capacity: int, device):
     """A single-target step over the dispatcher ``crack`` (arguments as
     ``mask_crack``): step(base_digits, n_valid) -> (count, lanes, tpos
-    all 0); the lut goes to ``device`` once, here."""
+    all 0); the lut goes to ``device`` once, here.  A core's step also
+    takes a window, step(base_digits, n_valid, offset=, out=), and then
+    appends to ``out`` (``hit_buffers``, its capacity) and returns it."""
     device = torch.device(device)
     lut = gen.charset_lut(device)
     radices = gen.radices
     target = [int(w) for w in np.asarray(target_words, np.uint32).ravel()]
     tpos = torch.zeros((hit_capacity,), dtype=torch.int32, device=device)
 
-    def step(base_digits: Sequence[int], n_valid: int):
+    def step(base_digits: Sequence[int], n_valid: int, **window):
+        out = window.get("out")
+        if out is not None:
+            crack(engine, lut, radices, base_digits, n_valid, target,
+                  out[1].shape[0], batch, **window)
+            return out
         count, lanes = crack(engine, lut, radices, base_digits, n_valid,
-                             target, hit_capacity, batch)
+                             target, hit_capacity, batch, **window)
         return count, lanes, tpos
+
+    return step
+
+
+def _list_step(crack_multi, engine: str, gen, state: tuple, batch: int,
+               hit_capacity: int, device):
+    """A list's step over the dispatcher ``crack_multi``, whose
+    arguments after n_valid are ``state`` (the prefilter's tensors and
+    the sorted table), then the capacity and the batch."""
+    lut = gen.charset_lut(device)
+    radices = gen.radices
+
+    def step(base_digits: Sequence[int], n_valid: int, **window):
+        out = window.get("out")
+        cap = hit_capacity if out is None else out[1].shape[0]
+        return crack_multi(engine, lut, radices, base_digits, n_valid,
+                           *state, cap, batch, **window)
 
     return step
 
@@ -509,21 +788,15 @@ def multi_step(crack_multi, engine: str, gen, table: cmp_ops.TargetTable,
     """A multi-target step over the dispatcher ``crack_multi``
     (arguments as ``mask_crack_multi``): step(base_digits, n_valid) ->
     (count, lanes, tpos, n_maybe); the lut, the Bloom rows and the
-    sorted table go to ``device`` once, here."""
+    sorted table go to ``device`` once, here.  A window as
+    ``single_step``'s."""
     device = torch.device(device)
-    lut = gen.charset_lut(device)
-    radices = gen.radices
     # the sets hold the targets in the job's order, as the reference's
     rows = torch.as_tensor(
         bloom.bloom_tables(table.original_words()).view(np.int32),
         device=device)
-    words = table.tensor(device)
-
-    def step(base_digits: Sequence[int], n_valid: int):
-        return crack_multi(engine, lut, radices, base_digits, n_valid, rows,
-                           words, hit_capacity, batch)
-
-    return step
+    return _list_step(crack_multi, engine, gen, (rows, table.tensor(device)),
+                      batch, hit_capacity, device)
 
 
 def make_cuda_mask_crack_step(engine: str, gen, target_words: np.ndarray,
@@ -532,8 +805,10 @@ def make_cuda_mask_crack_step(engine: str, gen, target_words: np.ndarray,
     """The worker's single-target step: step(base_digits, n_valid) ->
     (count int32[1], lanes int32[hit_capacity], tpos
     int32[hit_capacity]), with base_digits the host digit list of the
-    batch's first candidate (``gen.digits``) and tpos all 0.
-    target_words: the core's uint32 digest words."""
+    batch's first candidate (``gen.digits``) and tpos all 0; or
+    step(base_digits, n_valid, offset=, out=) over the window lanes
+    [offset, n_valid), appending to ``out``.  target_words: the core's
+    uint32 digest words."""
     _check_step(engine, gen, 1, batch)
     return single_step(mask_crack, engine, gen, target_words, batch,
                        hit_capacity, device)
@@ -545,7 +820,30 @@ def make_cuda_multi_crack_step(engine: str, gen,
     """The worker's multi-target step: step(base_digits, n_valid) ->
     (count int32[1], lanes int32[cap], tpos int32[cap], n_maybe
     int32[1]); tpos indexes the sorted table (map it through
-    ``table.order``)."""
+    ``table.order``).  A window as ``make_cuda_mask_crack_step``'s."""
     _check_step(engine, gen, table.num_targets, batch)
     return multi_step(mask_crack_multi, engine, gen, table, batch,
                       hit_capacity, device)
+
+
+def make_shard_mask_compute(engine: str, gen, target, batch_per_device: int,
+                            hit_capacity: int, device="cuda"):
+    """One shard's compute of the sharded runtime (parallel/sharded.py),
+    the counterpart of the reference's make_shard_mask_compute:
+    compute(base_digits, n_valid, offset=, out=) runs the window lanes
+    [offset, n_valid) of a ``batch_per_device``-lane step on ``device``
+    and appends to ``out``.  ``target``: one target's uint32 digest
+    words (the exact compare), or the sorted ``TargetTable`` of 2..
+    MAX_TARGETS targets (the blocked probe at PROBE_FP, and the verify
+    on the card)."""
+    if not isinstance(target, cmp_ops.TargetTable):
+        return make_cuda_mask_crack_step(engine, gen, target,
+                                         batch_per_device, hit_capacity,
+                                         device)
+    _check_step(engine, gen, target.num_targets, batch_per_device)
+    device = torch.device(device)
+    rows, block_bits, k = probe_rows(target.words)
+    words = torch.as_tensor(rows.view(np.int32), device=device)
+    return _list_step(mask_crack_probe, engine, gen,
+                      (words, block_bits, k, target.tensor(device)),
+                      batch_per_device, hit_capacity, device)

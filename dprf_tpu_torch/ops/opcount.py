@@ -24,8 +24,9 @@ forms, by pipe:
 Only what the compared digest words depend on counts.  A single target
 needs digest word 0 (the others only for the rare candidate whose word
 0 matches), so md5 and md4 skip their last three steps; the Bloom
-prefilter reads words 0-2.  Each mask position costs its decode: one
-add, two IMAD and one ALU op placing the byte.
+prefilter reads words 0-2, the blocked probe words 0-1 and, once its
+first bit passes, 2-3 (``probe_ops``).  Each mask position costs its
+decode: one add, two IMAD and one ALU op placing the byte.
 
 A rule-kernel candidate counts the core for its own length (its
 padding and bit length are constants of that length, so they fold as in
@@ -417,6 +418,45 @@ def ops_per_candidate(engine_name: str, length: int, multi: bool = False,
     search = int(np.ceil(np.log2(n_targets + 1)))
     return Work(alu + 5 * probes + maybes * (4 * search + eng.digest_words),
                 add_ + (0 if is_sponge(eng) else 3), fma)
+
+
+def probe_fill(words: np.ndarray) -> float:
+    """The share of a probe bitmap's bits set (``cuda_mask.probe_rows``'
+    uint32 words): the chance that one bit a non-matching candidate
+    tests passes."""
+    return float(np.unpackbits(np.ascontiguousarray(words).view(np.uint8))
+                 .mean())
+
+
+def probe_ops(engine_name: str, length: int, fill: float, k: int,
+              maybes: float = 0.0, n_targets: int = 1) -> Work:
+    """The least work of one candidate of a ``length``-position mask
+    under the blocked probe (csrc/mask_kernel.cuh ``probe_maybe``),
+    from this run's bitmap ``fill`` (``probe_fill``).
+
+    The decode; the core up to digest words 0-1 and their feed-forward
+    adds, and for the share ``fill`` of candidates whose first bit
+    passes, words 2-3 and theirs; the block (one IMAD, one shift) and
+    the two odd pair ends (two LOP3); each bit tested (sum over j < k
+    of fill^j: testing stops at the first miss) 4 ALU ops (the bit, its
+    word offset, the shift of the word, the test) and its index a +
+    (2i + 1) b, an add for the first two bits and an IMAD after; each
+    survivor's search as ``ops_per_candidate``'s.  A sponge has no
+    feed-forward."""
+    eng = _engine(engine_name)
+    w2 = core_work(engine_name, length, 2)
+    w4 = core_work(engine_name, length, 4)
+
+    def words(pipe: str) -> float:
+        return w2[pipe] + fill * (w4[pipe] - w2[pipe])
+
+    reach = [fill ** j for j in range(k)]
+    search = int(np.ceil(np.log2(n_targets + 1)))
+    feed = 0 if is_sponge(eng) else 2 + 2 * fill
+    return Work(words("alu") + length + 3 + 4 * sum(reach)
+                + maybes * (4 * search + eng.digest_words),
+                words("add") + length + feed + sum(reach[:2]),
+                words("fma") + 2 * length + 1 + sum(reach[2:]))
 
 
 def rule_lengths(words: np.ndarray, lens: np.ndarray, rules,

@@ -3,11 +3,13 @@
 CudaMaskWorker is the card's mask path: one hand-written kernel launch
 per batch (ops/cuda_mask.py), for one target or a list, queued
 asynchronously on the current stream so the card never drains between
-batches; a unit's hits are resolved after the whole unit is queued, and
-only hit buffers cross back to the host.  CudaWordlistWorker is the
-wordlist+rules path, one rule-kernel launch per word window
-(ops/cuda_rules.py).  On CPU tensors (``--device torch-cpu``) both run
-their kernel's plain PyTorch version.
+batches; a core's unit goes out as loop-superstep windows
+(ops/superstep.py), whose launches share one set of hit buffers.  A
+unit's hits are resolved after the whole unit is queued, and only hit
+buffers cross back to the host.
+CudaWordlistWorker is the wordlist+rules path, one rule-kernel launch
+per word window (ops/cuda_rules.py).  On CPU tensors (``--device
+torch-cpu``) both run their kernel's plain PyTorch version.
 
 CpuWorker is the reference path (``--device cpu``): the oracle engine
 over host-materialized candidates.  It also rescans a batch exactly
@@ -35,11 +37,13 @@ class Hit:
 
 class PendingUnit:
     """A WorkUnit whose device work is fully enqueued but not yet
-    resolved.  ``flag`` is the unit's hit count summed on the device
-    across its batches, so ``resolve()`` costs one scalar readback for a
-    unit without hits and fetches the batches' hit buffers only when it
-    is nonzero.  Holding a PendingUnit while submitting the next unit
-    overlaps that readback with the next unit's compute."""
+    resolved.  ``queued`` holds (start, result) per dispatch, decoded by
+    the worker's ``_batch_hits``.  ``flag`` is the unit's hit count
+    summed on the device across its dispatches, so ``resolve()`` costs
+    one scalar readback for a unit without hits and fetches the hit
+    buffers only when it is nonzero.  Holding a PendingUnit while
+    submitting the next unit overlaps that readback with the next
+    unit's compute."""
 
     __slots__ = ("worker", "unit", "queued", "flag")
 
@@ -132,7 +136,20 @@ class MaskWorkerBase:
     n_valid) and returns (count int32[1], lanes int32[cap], tpos
     int32[cap]) on the device, still being computed; a multi-target
     step adds n_maybe int32[1], its Bloom prefilter's survivors.
+
+    A worker with a window (``window_batches`` above 1) sends a unit
+    out as windows of up to that many batches through ``_window``, each
+    with one set of hit buffers, its last batch partial; the others one
+    step per batch.  A dispatch is queued as ((first index, span),
+    result).  A window that overflows its hit buffers is redriven batch
+    by batch through the device step.  A window that fails to launch
+    raises: there is no fallback to per-batch dispatch.
     """
+
+    #: most batches of one window (the int32 lane budget applies on top)
+    SUPER_CAP = 256
+    #: batches of one dispatch; a worker with a window raises it
+    window_batches = 1
 
     def _setup_targets(self, engine, gen, targets: Sequence[Target],
                        hit_capacity: int, oracle: Optional[HashEngine]):
@@ -146,8 +163,10 @@ class MaskWorkerBase:
         self.targets = list(targets)
         self.hit_capacity = hit_capacity
         self.oracle = oracle
-        #: batches this worker has dispatched (one step call each)
+        #: batches this worker has dispatched (one step call each, a
+        #: window's launches included), and its windows
         self.dispatched = 0
+        self.windows = 0
         #: Bloom survivors summed on the device (multi-target steps)
         self._maybes = None
         self.multi = len(self.targets) > 1
@@ -158,21 +177,39 @@ class MaskWorkerBase:
             return self.table
         return digest_rows(digests, engine.little_endian)[0]
 
+    def _window(self, base_digits, n_valid: int):
+        """One dispatch over the lanes [0, n_valid) from
+        ``base_digits``: the step, for a worker without a window."""
+        return self.step(base_digits, n_valid)
+
+    def _queue(self, queued: list, start, result, flag, batches: int = 1):
+        """Record one dispatch of ``batches`` batches; returns the
+        unit's flag with its count added on the device."""
+        self.dispatched += batches
+        queued.append((start, result))
+        if self.multi:
+            maybes = self._maybes_of(result)
+            self._maybes = maybes if self._maybes is None \
+                else self._maybes + maybes
+        return result[0] if flag is None else flag + result[0]
+
+    def _maybes_of(self, result):
+        """A list's step result -> its prefilter survivors, int32[1]."""
+        return result[3]
+
     def submit(self, unit: WorkUnit) -> PendingUnit:
-        """Enqueue every batch of the unit and return a PendingUnit.
-        The unit's hit flag is summed on the device, so a unit without
-        hits costs exactly one scalar readback."""
+        """Enqueue the unit as dispatches of up to ``window_batches``
+        batches and return a PendingUnit.  The unit's hit flag is
+        summed on the device, so a unit without hits costs exactly one
+        scalar readback."""
         queued = []
         flag = None
-        for bstart in range(unit.start, unit.end, self.stride):
-            n_valid = min(self.stride, unit.end - bstart)
-            result = self.step(self.gen.digits(bstart), n_valid)
-            self.dispatched += 1
-            flag = result[0] if flag is None else flag + result[0]
-            if len(result) > 3:
-                self._maybes = result[3] if self._maybes is None \
-                    else self._maybes + result[3]
-            queued.append((bstart, result))
+        span = self.window_batches * self.stride
+        for pos in range(unit.start, unit.end, span):
+            n_valid = min(span, unit.end - pos)
+            flag = self._queue(queued, (pos, n_valid),
+                               self._window(self.gen.digits(pos), n_valid),
+                               flag, -(-n_valid // self.stride))
         return PendingUnit(self, unit, queued, flag)
 
     def process(self, unit: WorkUnit) -> list[Hit]:
@@ -208,15 +245,34 @@ class MaskWorkerBase:
         sub = WorkUnit(-1, bstart, end - bstart)
         return CpuWorker(self.oracle, self.gen, self.targets).process(sub)
 
-    def _batch_hits(self, bstart: int, result, unit: WorkUnit) -> list[Hit]:
+    def _batch_hits(self, window, result, unit: WorkUnit) -> list[Hit]:
+        """One dispatch over ``window`` = (first index, span) -> Hit
+        records; an overflowed window is redriven, an overflowed batch
+        rescanned."""
+        bstart, span = window
         count, lanes, tpos = result[:3]
         count = int(count.item())
         if count == 0:
             return []
         if count > lanes.shape[0]:
+            if span > self.stride:
+                return self._redrive(bstart, span, unit)
             return self._rescan(bstart, unit)
         return self._decode_lanes(bstart, lanes.cpu().numpy(),
                                   tpos.cpu().numpy())
+
+    def _redrive(self, bstart: int, span: int, unit: WorkUnit) -> list[Hit]:
+        """An overflowed window runs again batch by batch through the
+        device step, so an exact rescan, if one is needed, covers one
+        batch, not the window."""
+        hits: list[Hit] = []
+        end = min(bstart + span, unit.end)
+        for bs in range(bstart, end, self.stride):
+            nv = min(self.stride, end - bs)
+            self.dispatched += 1
+            hits.extend(self._batch_hits(
+                (bs, nv), self.step(self.gen.digits(bs), nv), unit))
+        return hits
 
 
 class CudaMaskWorker(MaskWorkerBase):
@@ -246,10 +302,32 @@ class CudaMaskWorker(MaskWorkerBase):
         if device.type == "cuda":
             kernels.load_kernel()
         self.batch = self.stride = batch
+        self.device = device
         make = kernels.make_cuda_multi_crack_step if self.multi \
             else kernels.make_cuda_mask_crack_step
         self.step = make(engine.name, gen, tgt, batch, hit_capacity,
                          device=device)
+        if engine.name in cuda_mask.KERNEL_CORES:
+            from dprf_tpu_torch.ops.superstep import max_inner
+            self.window_batches = max_inner(batch, self.SUPER_CAP)
+
+    def _window(self, base_digits, n_valid: int):
+        """A core's window: its launches of the per-batch step (it takes
+        the window offset and appends to the window's buffers) into
+        buffers of the reference's window capacity, the hit capacity
+        times the launches, at most 1,024 and never below the hit
+        capacity.  The nested and Keccak instantiations have no window
+        (``window_batches`` 1) and keep one step a batch, as in the
+        reference."""
+        if self.window_batches == 1:
+            return self.step(base_digits, n_valid)
+        from dprf_tpu_torch.ops.cuda_mask import hit_buffers
+        from dprf_tpu_torch.ops.superstep import loop_super_step
+        launches = -(-n_valid // self.batch)
+        cap = max(self.hit_capacity, min(self.hit_capacity * launches, 1024))
+        self.windows += 1
+        return loop_super_step(self.step, self.batch, base_digits, n_valid,
+                               hit_buffers(self.multi, cap, self.device))
 
 
 class PendingSweep:
@@ -458,8 +536,5 @@ class CudaWordlistWorker(WordlistWorkerBase):
         flag = None
         for ws in range(w_start, w_end, self.word_batch):
             nw = min(self.word_batch, w_end - ws)
-            result = self.step(ws, nw)
-            self.dispatched += 1
-            flag = result[0] if flag is None else flag + result[0]
-            queued.append(((ws, nw), result))
+            flag = self._queue(queued, (ws, nw), self.step(ws, nw), flag)
         return PendingUnit(self, unit, queued, flag)

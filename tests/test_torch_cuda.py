@@ -128,7 +128,9 @@ def test_kernel_worker_rescans_overflow_on_card():
         hits = w.process(WorkUnit(0, 0, 5 * 4096))
         assert [(h.cand_index, h.plaintext) for h in hits] == \
             [(plant, gen.candidate(plant))]
-        assert w.dispatched == 5
+        # one loop window of 5 batches; at capacity 0 it overflows and
+        # its batches run again one by one before the rescan
+        assert w.dispatched == (10 if cap == 0 else 5)
 
 
 def test_cli_crack_on_card(tmp_path, capsys):
@@ -686,3 +688,145 @@ def test_pdf_kernel_matches_plain():
             p = cuda_pdf.pdf_plain(*args)
             torch.cuda.synchronize()
             assert _hit_set(*k) == _hit_set(*p) == (1, [lane] if cap else [])
+
+
+@pytest.mark.parametrize("engine", ["md5", "ntlm", "sha1", "sha256", "sha512",
+                                    "sha384"])
+def test_probe_kernel_matches_plain(engine):
+    """The blocked probe at a window offset, 2^20 lanes of ?a^5, 1,000
+    targets: hits at the window's first lane, two in one warp and its
+    last valid lane; count, (lane, table position) pairs and n_maybe
+    equal, and the launch counted under ``<core>_mask_probe``."""
+    _need_card()
+    batch, gen = 1 << 20, MaskGenerator("?a" * 5)
+    offset, n_valid = 3 * batch, 4 * batch - 5
+    plants = [offset, offset + 100, offset + 101, n_valid - 1]
+    rng = np.random.default_rng(13)
+    fill = [bytes(rng.integers(33, 127, 8, dtype=np.uint8))
+            for _ in range(996)]
+    digests = get_engine(engine).hash_batch(
+        [gen.candidate(p) for p in plants] + fill)
+    table = make_target_table(digests, not engine.startswith("sha"))
+    rows, block_bits, k = cuda_mask.probe_rows(table.words)
+    words = torch.as_tensor(rows.view(np.int32), device="cuda")
+    args = (engine, gen.charset_lut("cuda"), gen.radices, gen.digits(0),
+            n_valid, words, block_bits, k, table.tensor("cuda"), 64, batch)
+    name = cuda_mask.kernel_name(engine, cuda_mask.PROBE)
+    launches = cuda_mask.launches[name]
+    got = cuda_mask.mask_probe_kernel(*args, offset=offset)
+    want = cuda_mask.mask_probe_plain(*args, offset=offset)
+    torch.cuda.synchronize()
+    assert cuda_mask.launches[name] == launches + 1
+
+    def flat(count, lanes, tpos, n_maybe):
+        return (int(count.item()), sorted(
+            (int(a), int(table.order[b])) for a, b in
+            zip(lanes.tolist(), tpos.tolist()) if a >= 0),
+            int(n_maybe.item()))
+
+    assert flat(*got) == flat(*want)
+    assert flat(*got)[:2] == (4, [(p, i) for i, p in enumerate(plants)])
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_window_launches_match_plain(multi):
+    """Four md5 launches at offsets i * 2^20 into one set of window
+    buffers, the last one partial: the kernel's window equals the plain
+    version's (count, sorted lanes, positions, n_maybe)."""
+    _need_card()
+    from dprf_tpu_torch.ops.superstep import loop_super_step
+    batch, inner, gen = 1 << 20, 4, MaskGenerator("?a" * 5)
+    n_valid = inner * batch - 7
+    plants = [0, batch - 1, batch, 3 * batch + 5, n_valid - 1]
+    digests = get_engine("md5").hash_batch([gen.candidate(p)
+                                            for p in plants])
+    results = []
+    for device in ("cuda", "cpu"):
+        if multi:
+            step = cuda_mask.make_cuda_multi_crack_step(
+                "md5", gen, make_target_table(digests), batch, 8, device)
+        else:
+            step = cuda_mask.make_cuda_mask_crack_step(
+                "md5", gen, _words("md5", gen.candidate(plants[3])), batch,
+                8, device)
+        out = loop_super_step(step, batch, gen.digits(0), n_valid,
+                              cuda_mask.hit_buffers(multi, 32, device))
+        torch.cuda.synchronize()
+        pairs = sorted(zip(out[1].tolist(), out[2].tolist()))
+        results.append((int(out[0]), pairs,
+                        int(out[3]) if multi else None))
+    assert results[0] == results[1]
+    assert [a for a, _ in results[0][1] if a >= 0] == \
+        (plants if multi else [plants[3]])
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_sharded_worker_on_card(n_shards):
+    """The sharded worker over a mesh of the card (4 shards on one card
+    or a mesh of 1), 1,000 md5 targets over ?l^5 in 2^14-lane shards:
+    the single-device worker's found set, and only the probe
+    instantiation launched."""
+    _need_card()
+    from dprf_tpu_torch.parallel import make_mesh
+    from dprf_tpu_torch.parallel.worker import ShardedMaskWorker
+    gen = MaskGenerator("?l" * 5)
+    plants = [0, 16383, 16384, 4 * 16384 * 8 - 1, gen.keyspace - 1]
+    rng = np.random.default_rng(17)
+    fill = [bytes(rng.integers(33, 127, 8, dtype=np.uint8))
+            for _ in range(995)]
+    digests = Md5Engine().hash_batch([gen.candidate(p) for p in plants]
+                                     + fill)
+    targets = [Target(d.hex(), d) for d in digests]
+    unit = WorkUnit(0, 0, gen.keyspace)
+    mesh = make_mesh(devices=["cuda:0"] * n_shards)
+    cuda_mask.reset_launches()
+    w = ShardedMaskWorker(TorchMd5Engine(), gen, targets, mesh,
+                          batch_per_device=1 << 14, hit_capacity=16,
+                          oracle=Md5Engine())
+    got = sorted((h.target_index, h.cand_index) for h in w.process(unit))
+    assert cuda_mask.launches["md5_mask_probe"] == \
+        sum(cuda_mask.launches.values()) == w.dispatched * n_shards
+    single = CudaMaskWorker(TorchMd5Engine(), gen, targets, batch=1 << 14,
+                            hit_capacity=16, oracle=Md5Engine())
+    assert got == sorted((h.target_index, h.cand_index)
+                         for h in single.process(unit)) == \
+        [(i, p) for i, p in enumerate(plants)]
+
+
+def test_sharded_worker_across_cards(tmp_path, capsys):
+    """On a machine with several cards, the sharded worker over all of
+    them (each shard's launches on its own card, the gather onto the
+    first) and ``crack --devices N`` find the single-device worker's set
+    over ?l^6 at 1,000 md5 targets; every card's launches counted.
+    Skips with fewer than two cards."""
+    _need_card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs several cards, torch finds {n}")
+    from dprf_tpu_torch.parallel import make_mesh
+    from dprf_tpu_torch.parallel.worker import ShardedMaskWorker
+    gen = MaskGenerator("?l" * 6)
+    plants = [0, (1 << 24) - 1, 1 << 24, 5 * (1 << 24) + 7, gen.keyspace - 1]
+    rng = np.random.default_rng(19)
+    fill = [bytes(rng.integers(33, 127, 8, dtype=np.uint8))
+            for _ in range(995)]
+    digests = Md5Engine().hash_batch([gen.candidate(p) for p in plants]
+                                     + fill)
+    targets = [Target(d.hex(), d) for d in digests]
+    unit = WorkUnit(0, 0, gen.keyspace)
+    cuda_mask.reset_launches()
+    w = ShardedMaskWorker(TorchMd5Engine(), gen, targets, make_mesh(n),
+                          batch_per_device=1 << 24, hit_capacity=16,
+                          oracle=Md5Engine())
+    got = sorted((h.target_index, h.cand_index) for h in w.process(unit))
+    assert got == [(i, p) for i, p in enumerate(plants)]
+    assert cuda_mask.launches["md5_mask_probe"] == w.dispatched * n
+    hashfile = tmp_path / "h.txt"
+    hashfile.write_text("".join(d.hex() + "\n" for d in digests))
+    assert cli.main(["crack", "?l" * 6, str(hashfile), "--engine", "md5",
+                     "--devices", str(n), "--no-potfile"]) == 0
+    captured = capsys.readouterr()
+    assert sorted(captured.out.splitlines()) == sorted(
+        f"{digests[i].hex()}:{gen.candidate(p).decode()}"
+        for i, p in enumerate(plants))
+    assert f"shards={n}" in captured.err and "rejected=0" in captured.err

@@ -125,7 +125,10 @@ def test_worker_overflow_rescans_exactly(make_worker, hit_cap):
     """A batch whose count exceeds its hit buffer goes to the oracle
     rescan; a unit of several batches finds its hit in the right one
     and the launch counter of the CUDA kernel stays 0 on the CPU.  The
-    worker is built directly and through the engine, as the CLI does."""
+    unit goes out as one loop-superstep window of 4 batches, which a
+    hit capacity of 0 overflows, so its batches run again one by one
+    before the rescan.  The worker is built directly and through the
+    engine, as the CLI does."""
     gen = MaskGenerator(MASK)
     plant = 2 * 1024 + 517
     d = hashlib.md5(gen.candidate(plant)).digest()
@@ -135,7 +138,7 @@ def test_worker_overflow_rescans_exactly(make_worker, hit_cap):
     hits = w.process(WorkUnit(0, 0, 4 * 1024))
     assert [(h.target_index, h.cand_index, h.plaintext) for h in hits] == \
         [(0, plant, gen.candidate(plant))]
-    assert w.dispatched == 4
+    assert w.dispatched == (8 if hit_cap == 0 else 4)
     assert w.process(WorkUnit(1, 4 * 1024, 1024)) == []
     assert cuda_mask.launches == launches
 
