@@ -87,18 +87,29 @@ card, and holds every kernel against its plain PyTorch version:
     at the first index and at the last valid lane of a partial batch;
 15. times the PMKID kernel and the bcrypt kernels with CUDA events
     beside their bounds (ops/opcount.py) and their plain versions;
-16. builds csrc/ext.cu with the others (its 20 instantiations: the six
-    nested chains and mysql41, one target and multi; md5/sha1/sha256 x
-    $pass.$salt / $salt.$pass) and holds each against its plain version
-    at 2^24: every nested chain at one target (first lane, last valid
-    lane of a partial batch, no hit) and at 1,000 targets (hits at lanes
-    0, 64, 65 and the last valid lane, one just past it; no hit); every
-    salted core with salts of 0, 3, 4, 7 and 32 bytes (first lane, last
-    valid lane, no hit).  The build phase fails on any instantiation
-    with a stack frame (local memory) and prints, beside each earlier
-    mask and rule instantiation, whether its registers and SASS count
-    are those it compiled to before csrc/mask_kernel.cuh took the
-    kernel body out of csrc/mask.cu;
+16. builds csrc/ext.cu with the others (its 14 instantiations of the
+    mask kernel template: the six nested chains and mysql41, one target
+    and multi; and the salted kernel of csrc/salted.cuh, md5/sha1/sha256
+    x $pass.$salt / $salt.$pass, a group of targets a launch) and holds
+    each against its plain version at 2^24: every nested chain at one
+    target (first lane, last valid lane of a partial batch, no hit) and
+    at 1,000 targets (hits at lanes 0, 64, 65 and the last valid lane,
+    one just past it; no hit); every salted core over a target of every
+    salt length 0..32, grouped as the worker groups them (one ps group
+    of 33; 33 sp groups), hits at the first lane, the last valid lane of
+    a partial batch and a random lane, one just past the valid lanes,
+    the count, the (lane, target) pairs and the per-target counts
+    equal; md5-ps at phase 18's group of 256 targets (salts of 0..32
+    bytes, plants at target positions 0 and past 200: the first lane,
+    the last valid lane, two targets on one random lane, one past the
+    valid lanes); a worker's group of two whose hits fill its buffer of
+    a slot a target (no rescan), and whose one-slot buffer overflows
+    (the unrecorded target rescanned alone).  The build phase fails on any
+    instantiation with a stack frame (local memory) and prints, beside
+    each earlier mask and rule instantiation, whether its registers and
+    SASS count are those it compiled to before csrc/mask_kernel.cuh took
+    the kernel body out of csrc/mask.cu, and beside each grouped kernel
+    its pin (``CENSUS_GROUPED``);
 17. nested at full width: ``crack --device cuda --engine 'md5(md5)'
     ?a^7`` with 1,000 targets (8 planted, 992 fillers) over a 2^32
     window, config 2's shape for hashcat 2600; then mysql41 on one
@@ -106,17 +117,20 @@ card, and holds every kernel against its plain PyTorch version:
 18. salted at full width: ``crack --device cuda --engine md5-ps ?l^6``
     against 1,000 ``hexdigest:salt`` targets, each with its own
     alphanumeric salt of 2-32 bytes, eight planted (one at the
-    keyspace's last index), every target swept in full (19,000
-    launches); the host's own time per launch; then sha1-sp, sha256-ps,
-    md5-sp, sha256-sp, postgres, ldap-ssha and oracle11, one target
-    each, over the whole ?l^6;
+    keyspace's last index), every target swept in full (one launch per
+    group of up to 256 targets and batch: 4 x 19); the host's own time
+    per launch; then sha1-sp, sha256-ps, md5-sp, sha256-sp, postgres,
+    ldap-ssha and oracle11, one target each, over the whole ?l^6;
 19. the other nested instantiations through the CLI over 2^28 windows
     of ?a^7.  Every path of phases 17-19 runs with the launch counts of
     every kernel set to 0 just before it and read just after: its own
-    instantiation launched once per batch (per target and batch for a
+    instantiation launched once per batch (per group and batch for a
     salted core), no other;
 20. times every ext instantiation per launch with CUDA events beside its
-    bound (ops/opcount.nested_ops, salted_ops) and its plain version;
+    bound (ops/opcount.nested_ops, salted_ops) and its plain version on
+    the same inputs; a salted core at the group its main path launches
+    (md5-ps: 256 targets; the others: one), then per 2^24 hashes at
+    groups of 1 and 256;
 21. builds the 64-bit cores with the others -- sha512 and sha384 in
     csrc/mask.cu (4 instantiations), the Keccak kernel csrc/keccak.cu (8:
     rates 144, 136, 104, 72 x one target / multi; sha3-N and keccak-N
@@ -143,13 +157,17 @@ card, and holds every kernel against its plain PyTorch version:
     csrc/pbkdf2.cu with its second entry, the KDF kernel; fails on
     either with a stack frame, and if pmkid's registers or SASS count
     moved (``PMKID_BEFORE``); then holds the krb5 kernel against its
-    plain version at 2^24 candidates of ?a^8, exact equality of the
-    count and the sorted lanes: TGS tickets of every DER length form
-    (short, 0x81, 0x82, 0x83) with hits at lane 0, at the last valid
-    lane of a partial batch, at a random lane and with no hit; AS-REP
-    with the 0x79 tag and with the relaxed 0x7A; the longest mask (27
-    positions); hit capacity 0, and a worker with hit capacity 0 that
-    recovers its hit by the oracle rescan;
+    plain version at 2^24 candidates of ?a^8, a list of tickets grouped
+    by msg_type, exact equality of the count, the (lane, ticket) pairs
+    and the per-ticket counts: TGS tickets of every DER length form
+    (short, 0x81, 0x82, 0x83) and AS-REP tickets with the 0x79 tag and
+    with the relaxed 0x7A in one list (two groups), hits at lane 0, at
+    the last valid lane of a partial batch, at random lanes, one just
+    past the valid lanes and a ticket no candidate opens; the
+    Kerberoast's group of 100 TGS tickets at 2^20 lanes (plants at
+    ticket positions 0 and past 90); the longest mask (27 positions);
+    hit capacity 0, and a worker with hit capacity 0 that recovers its
+    hit by the oracle rescan;
 25. the KDF kernel against its plain version at the main path's batch
     (2^19 lanes of ?l^8, the last three invalid) and 16 iterations,
     every output word equal, at 4 and 8 words and salts of 1, 19 and 51
@@ -164,17 +182,20 @@ card, and holds every kernel against its plain PyTorch version:
     window's last index) over 2^22 and krb5asrep17 over 2^20 of ?l^8 at
     4096 iterations; each path with every launch count set to 0 just
     before it and read just after: its own kernel launched once per
-    ticket and batch, no other; then a krb5pa line under 64 bytes, which
+    ticket group (etype 23, up to 128 tickets of one msg_type) or ticket
+    (AES) and batch, no other; then a krb5pa line under 64 bytes, which
     must exit 2 naming its line and --device cpu;
 27. times both kernels with CUDA events beside their bounds
-    (ops/opcount.krb5_bound, kdf_ops) and their plain versions (the
-    KDF's on phase 25's input, with the kernel's time there beside it),
-    then one etype-18 step of the main path and its torch verdict alone;
+    (ops/opcount.krb5_bound, kdf_ops) and their plain versions (krb5 at
+    the Kerberoast's 100 tickets, its plain version and the kernel at
+    one ticket; the KDF's on phase 25's input, with the kernel's time
+    there beside it), then one
+    etype-18 step of the main path and its torch verdict alone;
 28. builds csrc/sevenzip.cu and csrc/pdf.cu with the others (csrc/krb5.cu
-    now takes its RC4 from csrc/rc4.cuh, and every sha256 instantiation its
-    rounds from the macro that sha256_compress shares: the build phase
-    fails if krb5 or any ``CENSUS_BEFORE`` instantiation moved,
-    ``KRB5_BEFORE``); holds the 7-Zip KDF kernel against its plain version
+    and csrc/pdf.cu take their RC4 from csrc/rc4.cuh, and every sha256
+    instantiation its rounds from the macro that sha256_compress shares:
+    the build phase fails if any ``CENSUS_BEFORE`` instantiation moved);
+    holds the 7-Zip KDF kernel against its plain version
     at the main path's batch (whole resident waves, the last three lanes
     invalid), every output word equal, at cycles 8 and 10, salts of 0, 4
     and 16 bytes and masks of 3 and 8 positions, and at cycles 19 against
@@ -308,18 +329,21 @@ OPENBSD = [(b"U*U",
 
 
 #: slice D (ops/cuda_ext.py): every instantiation of csrc/ext.cu,
-#: (chain, multi target), in the kernels line's order
+#: (chain, multi target), in the kernels line's order: the nested chains
+#: of the mask kernel template, then the salted kernel's cores (a group
+#: of targets a launch, csrc/salted.cuh; multi True)
 EXT_INSTANCES = [(n, m) for n in ("md5(md5)", "sha1(sha1)", "md5(sha1)",
                                   "sha1(md5)", "sha256(md5)", "sha256(sha1)",
                                   "mysql41") for m in (False, True)] + \
-    [(f"{a}-{o}", False) for a in ("md5", "sha1", "sha256")
+    [(f"{a}-{o}", True) for a in ("md5", "sha1", "sha256")
      for o in ("ps", "sp")]
-#: the salts of the salted cores' kernel-vs-plain cases, in bytes
-EXT_SALTS = (0, 3, 4, 7, 32)
 #: the salted sweep: md5-ps over ?l^6 against this many targets, each
 #: with its own salt of 2-32 bytes
 N_SALTED = 1000
-#: the salt length of the salted cores' timing launches
+#: the salt length of the salted cores' timing launches.  The kernels
+#: line times each core at the group its main path launches (md5-ps:
+#: phase 18's largest group; the others: one target, phase 18's single
+#: target jobs); the per-hash table adds one target and a whole group
 TIMING_SALT = 11
 #: salt characters of the salted lists (Joomla's and osCommerce's
 #: salts are alphanumeric)
@@ -340,10 +364,7 @@ CENSUS_BEFORE = {
     "sha1(sha1)_mask": (32, 3792), "sha1(sha1)_mask_multi": (32, 3536),
     "sha256(md5)_mask": (32, 4232), "sha256(md5)_mask_multi": (32, 3968),
     "sha256(sha1)_mask": (32, 4592), "sha256(sha1)_mask_multi": (32, 4328),
-    "mysql41_mask": (32, 3544), "mysql41_mask_multi": (32, 3288),
-    "md5-ps_mask": (25, 2656), "md5-sp_mask": (31, 2656),
-    "sha1-ps_mask": (32, 2976), "sha1-sp_mask": (31, 2952),
-    "sha256-ps_mask": (32, 3800), "sha256-sp_mask": (37, 3728)}
+    "mysql41_mask": (32, 3544), "mysql41_mask_multi": (32, 3288)}
 #: the instantiations of CENSUS_BEFORE that the window offset moved: its
 #: one add in the kernel's prologue (offset + the thread's first lane,
 #: once a thread, nothing a candidate) crosses a 128-byte padding
@@ -353,11 +374,15 @@ CENSUS_OFFSET = {
     "sha256_mask_multi": (32, 3544), "md5(md5)_mask": (31, 3080),
     "md5(sha1)_mask": (32, 3496), "md5(sha1)_mask_multi": (31, 3232),
     "sha1(sha1)_mask": (32, 3800), "sha256(md5)_mask_multi": (32, 3976),
-    "mysql41_mask": (32, 3552), "sha256-sp_mask": (37, 3736)}
+    "mysql41_mask": (32, 3552)}
 #: slice F2: the Kerberoast's and the AS-REP roast's windows of ?a^8, and
 #: their ticket counts
 KRB5_WINDOW = 1 << 28
 KERBEROAST_TICKETS, ASREP_TICKETS = 100, 10
+#: the lanes of the krb5 check at the Kerberoast's group of tickets: the
+#: plain version runs RC4 in torch a ticket at a time (~1.8 s a ticket
+#: at 2^24 lanes, phase 27), so 100 tickets are held at 2^20
+KRB5_GROUP_LANES = 1 << 20
 #: the AES runs' windows of ?l^8 (etype 18, 4 tickets; etype 17, one)
 AES18_WINDOW, AES17_WINDOW = 1 << 22, 1 << 20
 #: the KDF kernel against its plain version: iterations; then
@@ -370,9 +395,22 @@ KDF_TIMING_SALT = b"CORP.LOCALsvc_sql01"
 #: kernel joined csrc/pbkdf2.cu (sm_90a, CUDA 12.8), which must not
 #: change them
 PMKID_BEFORE = (59, 10656)
-#: the nvcc registers and SASS instruction count of krb5 before its RC4
-#: moved into csrc/rc4.cuh (sm_90a, CUDA 12.8), which must not change them
-KRB5_BEFORE = (32, 6336)
+#: the nvcc registers and SASS instruction count of the grouped kernels
+#: (sm_90a, CUDA 12.8): the salted kernel's six cores (csrc/salted.cuh)
+#: and krb5 (csrc/krb5.cu).  They replaced the six salted instantiations
+#: of the mask kernel template and the per-ticket krb5 kernel (32
+#: registers, 6,336 instructions), redesigned to serve a group of targets
+#: a launch
+CENSUS_GROUPED = {
+    "md5-ps_group": (47, 2120), "md5-sp_group": (47, 2264),
+    "sha1-ps_group": (46, 2128), "sha1-sp_group": (46, 2264),
+    "sha256-ps_group": (48, 2952), "sha256-sp_group": (48, 3088),
+    "krb5_group": (32, 6112)}
+#: the nvcc registers and SASS instruction count of the pdf instantiations
+#: (sm_90a, CUDA 12.8), which share csrc/rc4.cuh with krb5 and must not
+#: change when krb5 does
+PDF_BEFORE = {"pdf_r2_40": (32, 5560), "pdf_r3_128": (79, 6152),
+              "pdf_r3_40": (63, 6096)}
 #: slice F3: the 7-Zip KDF's cycles power (7-Zip's default) and the mask
 #: and window of its CLI run
 SEVENZIP_CYCLES = 19
@@ -440,11 +478,23 @@ def rname(engine: str) -> str:
     return f"{engine}_rules"
 
 
+def ename(chain: str, multi: bool) -> str:
+    """An ext instantiation's name: the nested chain's mask kernel, or a
+    salted core's grouped kernel (``cuda_ext.kernel_name``)."""
+    return f"{chain}_group" if "-" in chain else kname(chain, multi)
+
+
+#: the grouped kernels, whose registers and SASS count CENSUS_GROUPED pins
+GROUPED_KERNELS = {f"{a}-{o}_group" for a in ("md5", "sha1", "sha256")
+                   for o in ("ps", "sp")} | {"krb5_group"}
+
+
 #: the single-instantiation kernels, by their function name
 PLAIN_KERNELS = {"pmkid_kernel": "pmkid", "setup_kernel": "bcrypt_setup",
                  "advance_kernel": "bcrypt_advance",
                  "finish_kernel": "bcrypt_finish", "kdf_kernel": "pbkdf2_kdf",
-                 "krb5_kernel": "krb5", "sevenzip_kernel": "sevenzip_kdf"}
+                 "krb5_kernel": "krb5_group",
+                 "sevenzip_kernel": "sevenzip_kdf"}
 
 
 def instance_of(mangled: str) -> str:
@@ -456,6 +506,10 @@ def instance_of(mangled: str) -> str:
     for fn, name in PLAIN_KERNELS.items():
         if re.search(rf"\d{fn}", mangled):
             return name
+    m = re.search(r"salted_kernelI\d+(\w+?Core)Lb([01])E", mangled)
+    if m:
+        return f"{CPP_CORE[m.group(1)]}-{'sp' if m.group(2) == '1' else 'ps'}"\
+            "_group"
     m = re.search(r"mask_kernelI(\w+?)L7Compare([012])E", mangled)
     if m:
         args, multi = m.group(1), int(m.group(2))
@@ -469,8 +523,6 @@ def instance_of(mangled: str) -> str:
             chain = "mysql41"
         elif "Nested" in args:          # outer, then inner (or S<n>_: same)
             chain = f"{cores[0]}({cores[-1]})"
-        elif "SaltPs" in args or "SaltSp" in args:
-            chain = f"{cores[0]}-{'ps' if 'SaltPs' in args else 'sp'}"
         else:
             chain = cores[0]
         return kname(chain, multi)
@@ -546,9 +598,9 @@ class Smoke:
         self.err.update({rname(e): 0 for e in RULE_CORES})
         self.err.update({k: 0 for k in ("pmkid", "bcrypt_setup",
                                         "bcrypt_advance", "bcrypt_finish")})
-        self.err.update({kname(n, m): 0 for n, m in EXT_INSTANCES})
+        self.err.update({ename(n, m): 0 for n, m in EXT_INSTANCES})
         self.err.update({k: 0 for k, _, _ in F1_INSTANCES})
-        self.err.update({"krb5": 0, "pbkdf2_kdf": 0, "sevenzip_kdf": 0,
+        self.err.update({"krb5_group": 0, "pbkdf2_kdf": 0, "sevenzip_kdf": 0,
                          "pdf": 0})
         self.err.update({kname(e, PROBE): 0 for e in PROBE_CORES})
         #: per instantiation: launches of the main path that runs it
@@ -647,6 +699,31 @@ class Smoke:
         check(hits == want, f"{name}: hits {hits}, expected {want}")
         check(km >= len(want), f"{name}: n_maybe {km} below the hits")
         self.err[key] = max(self.err[key], err)
+
+    def group_case(self, kernel, plain, args, idx, want, key, name):
+        """One grouped launch (the salted kernel's, krb5's): kernel and
+        plain on the same inputs, equal count, (lane, target) pairs and
+        per-target counts; ``want`` the (lane, job target) pairs,
+        ``idx`` the group's job targets.  Returns the pairs."""
+        def flat(count, lanes, tpos, tcount):
+            pairs = sorted((int(a), idx[int(b)]) for a, b in
+                           zip(lanes.tolist(), tpos.tolist()) if a >= 0)
+            return int(count.item()), pairs, tcount.tolist()
+
+        k = flat(*kernel(*args))
+        p = flat(*plain(*args))
+        self.torch.cuda.synchronize()
+        err = max([abs(k[0] - p[0])]
+                  + [abs(a - b) for x, y in zip(k[1], p[1])
+                     for a, b in zip(x, y)]
+                  + [abs(a - b) for a, b in zip(k[2], p[2])])
+        say(f"  {key} {name}: kernel count={k[0]} (lane, target)={k[1]} | "
+            f"plain count={p[0]} (lane, target)={p[1]}")
+        check(k == p, f"{key} {name}: kernel and plain differ")
+        check(want is None or k[1] == sorted(want),
+              f"{key} {name}: hits {k[1]}, expected {want}")
+        self.err[key] = max(self.err[key], err)
+        return k[1]
 
     # -- phases 4-6: the CLI ----------------------------------------------
 
@@ -1019,11 +1096,11 @@ def run(smoke, oracle4, words4) -> None:
                     registers[kernel] = int(used.group(1))
                 frame = re.search(r"(\d+) bytes stack frame", line)
                 check(not frame or frame.group(1) == "0" or kernel not in
-                      {kname(n, m) for n, m in EXT_INSTANCES}
+                      {ename(n, m) for n, m in EXT_INSTANCES}
                       | {k for k, _, _ in F1_INSTANCES}
                       | {kname(e, PROBE) for e in PROBE_CORES}
-                      | {"krb5", "pbkdf2_kdf", "sevenzip_kdf", "pdf_r2_40",
-                         "pdf_r3_40", "pdf_r3_128"},
+                      | {"krb5_group", "pbkdf2_kdf", "sevenzip_kdf",
+                         "pdf_r2_40", "pdf_r3_40", "pdf_r3_128"},
                       f"{kernel}: {line.strip()} (local memory)")
         census = _build.sass_census(src)
         for func, c in sorted(census.items(),
@@ -1040,12 +1117,16 @@ def run(smoke, oracle4, words4) -> None:
                          + ("same" if CENSUS_OFFSET[inst] == now
                             else f"DIFFER, expected {CENSUS_OFFSET[inst]}"))
             check(was is None or same.endswith("same"), f"{inst}{same}")
-            if inst == "krb5":
-                same = "; registers and census before csrc/rc4.cuh: " + (
-                    "same" if KRB5_BEFORE == (registers.get(inst),
-                                              c["total"])
-                    else f"DIFFER, it had {KRB5_BEFORE}")
-                check(same.endswith("same"), f"krb5{same}")
+            if inst in PDF_BEFORE:
+                same = "; registers and census before the grouped krb5: " + (
+                    "same" if PDF_BEFORE[inst] == now
+                    else f"DIFFER, it had {PDF_BEFORE[inst]}")
+                check(same.endswith("same"), f"{inst}{same}")
+            if inst in GROUPED_KERNELS:
+                pin = CENSUS_GROUPED[inst]
+                same = "; the grouped kernel's pin: " + (
+                    "same" if pin == now else f"DIFFER, pinned {pin}")
+                check(same.endswith("same"), f"{inst}{same}")
             if inst == "pmkid":
                 same = "; registers and census before the KDF kernel: " + (
                     "same" if PMKID_BEFORE == (registers.get(inst),
@@ -1075,10 +1156,16 @@ def run(smoke, oracle4, words4) -> None:
             f"{cuda_rules.THREADS} per SM (the grid's wave)")
 
     for chain, multi in EXT_INSTANCES:
-        length = 6 if "-" in chain else 7
+        if chain in cuda_ext.SALTED_NAMES:
+            smem = cuda_ext.salted_shared_bytes(6, cuda_ext.SALTED_GROUP)
+            say(f"  {ename(chain, multi)}: {smem} B shared at 6 positions "
+                f"and {cuda_ext.SALTED_GROUP} targets, "
+                f"{cuda_ext.salted_blocks_per_sm(chain, smem)} resident "
+                f"blocks of {cuda_mask.THREADS} per SM (the grid's wave)")
+            continue
         n_sets = bloom.n_sets(N_TARGETS) if multi else 0
-        smem = cuda_mask.shared_bytes(length, n_sets)
-        say(f"  {kname(chain, multi)}: {smem} B shared at {length} "
+        smem = cuda_mask.shared_bytes(7, n_sets)
+        say(f"  {kname(chain, multi)}: {smem} B shared at 7 "
             f"positions{' and 1,000 targets' if multi else ''}, "
             f"{cuda_ext.blocks_per_sm(chain, multi, smem)} resident blocks "
             f"of {cuda_mask.THREADS} per SM (the grid's wave)")
@@ -1087,8 +1174,9 @@ def run(smoke, oracle4, words4) -> None:
         say(f"  {k}: {smem} B shared at 8 positions, "
             f"{cuda_pbkdf2.blocks_per_sm(smem, k)} resident blocks of "
             f"{cuda_pbkdf2.THREADS} per SM (the grid's wave)")
-    smem = cuda_krb5.shared_bytes(8)
-    say(f"  krb5: {smem} B shared at 8 positions (the RC4 states and the "
+    smem = cuda_krb5.shared_bytes(8, cuda_krb5.GROUP)
+    say(f"  krb5_group: {smem} B shared at 8 positions and "
+        f"{cuda_krb5.GROUP} tickets (the RC4 states, the rows and the "
         f"tables; the opt-in above 48 KB), {cuda_krb5.blocks_per_sm(smem)} "
         f"resident blocks of {cuda_krb5.THREADS} per SM (the grid's wave)")
     for k in cuda_bcrypt.KERNELS:
@@ -1754,15 +1842,15 @@ def run(smoke, oracle4, words4) -> None:
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             **more})
     for chain, multi in EXT_INSTANCES:
-        key = kname(chain, multi)
-        ms, plain_ms, bound = ext_timing[key]
+        key = ename(chain, multi)
+        ms, plain_ms, bound, more = ext_timing[key]
         kernels.append({
             "name": key, "route": "cuda", "source": cuda_ext.SOURCE,
             "replaces": cuda_ext.replaces(chain),
             "launches": smoke.path_launches[key],
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "operations",
-            "library_ms": None})
+            "library_ms": None, **more})
     for key, engine, _ in F1_INSTANCES:
         ms, plain_ms, bound = f1_timing[key]
         mod = cuda_keccak if key.startswith("keccak") else cuda_mask
@@ -1773,7 +1861,7 @@ def run(smoke, oracle4, words4) -> None:
             "bound_ms": bound, "bound_by": "operations",
             "library_ms": None})
     for key, source, replaces in (
-            ("krb5", cuda_krb5.SOURCE, cuda_krb5.REPLACES),
+            ("krb5_group", cuda_krb5.SOURCE, cuda_krb5.REPLACES),
             ("pbkdf2_kdf", cuda_pbkdf2.SOURCE, cuda_pbkdf2.KDF_REPLACES)):
         ms, plain_ms, bound, bound_by, more = f2_timing[key]
         kernels.append({
@@ -1898,22 +1986,99 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
                          f"n_valid-1 and n_valid={nv}", fns=multi)
         smoke.multi_case(name, g7, lut7, base + BATCH, BATCH, [base],
                          "?a^7 no hit", fns=multi)
-    salted = (cuda_ext.salted_kernel, cuda_ext.salted_plain)
-    last = g6.keyspace // BATCH * BATCH
+    # the salted kernel: a target of every salt length 0..32, grouped as
+    # the worker groups them (one ps group; 33 sp groups), one plant at
+    # lane 0, at the last valid lane of a partial batch, at a random
+    # lane and one just past the valid lanes
+    s16 = 3 * BATCH
     for variant in cuda_ext.SALTED_NAMES:
-        for n in EXT_SALTS:
+        oracle = smoke.get_engine(variant)
+        lanes_of = {0: 0, 32: nv - 1, 16: int(rng.integers(1, nv - 1)),
+                    7: nv}
+        targets, want = [], []
+        for n in range(cuda_ext.SALT_MAX + 1):
             salt = bytes(rng.integers(0, 256, n, dtype=np.uint8))
-            tag = f"?l^6, {n}-byte salt"
-            smoke.single_case(variant, g6, lut6, 3 * BATCH, BATCH,
-                              3 * BATCH, 64, [0], f"{tag}, hit at lane 0",
-                              salted, salt)
-            smoke.single_case(variant, g6, lut6, last, g6.keyspace - last,
-                              g6.keyspace - 1, 64,
-                              [g6.keyspace - last - 1],
-                              f"{tag}, hit at the last valid lane", salted,
-                              salt)
-            smoke.single_case(variant, g6, lut6, 5 * BATCH, BATCH, None, 64,
-                              [], f"{tag}, no hit", salted, salt)
+            lane = lanes_of.get(n)
+            plain = g6.candidate(s16 + lane) if lane is not None \
+                else b"\0" * 7
+            d = oracle.hash_batch([plain], params={"salt": salt})[0]
+            if lane is not None and lane < nv:
+                want.append((lane, n))
+            targets.append((salt, digest_words(variant, d)))
+        got = []
+        for idx in cuda_ext.salted_groups(variant,
+                                          [t[0] for t in targets]):
+            rows, shift = cuda_ext.salted_table(
+                variant, g6.length, [targets[i] for i in idx], "cuda")
+            got += smoke.group_case(
+                cuda_ext.salted_kernel, cuda_ext.salted_plain,
+                (variant, lut6, g6.radices, g6.digits(s16), nv, shift, rows,
+                 64, BATCH), idx, [w for w in want if w[1] in idx],
+                f"{variant}_group",
+                f"?l^6, {len(idx)} targets, salts of "
+                f"{sorted({len(targets[i][0]) for i in idx})} bytes")
+        check(sorted(got) == sorted(want), f"{variant}: hits {got}")
+    # md5-ps at phase 18's group size: SALTED_GROUP targets with salts of
+    # 0..32 bytes, the plants at target positions past 200 (lane 0, the
+    # last valid lane, a random lane, two targets on one lane, one plant
+    # just past the valid lanes) and one at position 0
+    oracle = smoke.get_engine("md5-ps")
+    n_group = cuda_ext.SALTED_GROUP
+    rnd = int(rng.integers(1, nv - 1))
+    lanes_of = {0: rnd, 201: 0, 230: nv - 1, 254: rnd, n_group - 1: nv - 1,
+                240: nv, 222: int(rng.integers(1, nv - 1))}
+    targets, want = [], []
+    for i in range(n_group):
+        salt = alnum(int(rng.integers(0, cuda_ext.SALT_MAX + 1)))
+        lane = lanes_of.get(i)
+        plain = g6.candidate(s16 + lane) if lane is not None \
+            else b"\0" * 7
+        d = oracle.hash_batch([plain], params={"salt": salt})[0]
+        if lane is not None and lane < nv:
+            want.append((lane, i))
+        targets.append((salt, digest_words("md5-ps", d)))
+    rows, shift = cuda_ext.salted_table("md5-ps", g6.length, targets, "cuda")
+    smoke.group_case(
+        cuda_ext.salted_kernel, cuda_ext.salted_plain,
+        ("md5-ps", lut6, g6.radices, g6.digits(s16), nv, shift, rows,
+         64 * n_group, BATCH), list(range(n_group)), want, "md5-ps_group",
+        f"?l^6, a group of {n_group} targets (phase 18's), salts of 0-32 "
+        f"bytes, plants at target positions {sorted(lanes_of)}")
+    # the worker's hit buffer: hit_capacity a target of the group.  Two
+    # targets hit in one batch at a capacity of one: the group's buffer
+    # holds both and nothing is rescanned; with a buffer of one slot the
+    # worker rescans the target it did not record, alone
+    from dprf_tpu_torch.engines.device.salted import CudaSaltedMaskWorker
+    from dprf_tpu_torch.runtime.workunit import WorkUnit
+    plants = [s16 + 5, s16 + 900]
+    tl = [oracle.parse_target(f"{d.hex()}:{salt.decode()}") for d, salt in
+          ((oracle.hash_batch([g6.candidate(p)],
+                              params={"salt": salt})[0], salt)
+           for p, salt in zip(plants, (b"ab", b"cdef")))]
+    def one_slot(step):
+        def narrow(base_digits, n_valid):
+            count, lanes, tpos, tcount = step(base_digits, n_valid)
+            return count, lanes[:1], tpos[:1], tcount
+        return narrow
+
+    for slots in (None, 1):
+        w = CudaSaltedMaskWorker(smoke.get_engine("md5-ps", "cuda"), g6, tl,
+                                 batch=BATCH, hit_capacity=1, oracle=oracle)
+        if slots:
+            w.groups = [(idx, one_slot(step)) for idx, step in w.groups]
+        rescans = []
+        rescan = w._rescan
+        w._rescan = lambda tis, b, u: rescans.append(tis) or rescan(tis, b, u)
+        hits = w.process(WorkUnit(0, s16, 4096))
+        # the kernel records one of the two hits, whichever lands first
+        check([(h.target_index, h.cand_index) for h in hits]
+              == [(0, plants[0]), (1, plants[1])]
+              and [len(r) for r in rescans] == ([1] if slots else []),
+              f"salted group of 2, {slots or 2} slots: {hits}, rescans "
+              f"{rescans}")
+        say(f"  md5-ps group of 2, hit capacity 1, a buffer of "
+            f"{slots or 2} slots: {len(hits)} hits, targets rescanned "
+            f"{rescans}")
 
     # 17. nested at full width: config 2's shape for hashcat 2600
     say(f"== 17. crack --device cuda --engine md5(md5) {MASK_CONFIG2}, "
@@ -1960,35 +2125,41 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
         lines.append(f"{d.hex()}:{salt.decode()}")
         if i < 8:
             want.append(f"{lines[-1]}:{plain.decode()}")
-    per_target = unit_batches(cli, g6.keyspace)
-    n_launch = per_target * N_SALTED
+    per_group = unit_batches(cli, g6.keyspace)
+    groups = cuda_ext.salted_groups("md5-ps", salts)
+    path_group = {"md5-ps": max(len(g) for g in groups)}
+    n_launch = per_group * len(groups)
     summary, wall_s = path("md5-ps", MASK_CONFIG1, lines, want, g6.keyspace,
-                           "md5-ps_mask", n_launch)
+                           "md5-ps_group", n_launch)
     rate_s = loop_rate(summary)
     loop_s = g6.keyspace / rate_s
     # the host's cost of one launch as the worker queues it (the step
     # and the device add of its hit flag), over launches of 1,024 lanes
     # the card finishes at once
-    step = cuda_ext.make_salted_crack_step("md5-ps", g6, BATCH, 64, "cuda")
     words = digest_words("md5-ps", oracle.hash_batch(
         [b"-"], params={"salt": salts[0]})[0])
+    step = cuda_ext.make_salted_crack_step(
+        "md5-ps", g6, [(salts[0], words)] * len(groups[0]), BATCH,
+        64 * len(groups[0]), "cuda")
     n_host = 2000
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     flag = None
     for _ in range(n_host):
-        count = step(g6.digits(0), 1024, salts[0], words)[0]
+        count = step(g6.digits(0), 1024)[0]
         flag = count if flag is None else flag + count
     torch.cuda.synchronize()
     host_us = (time.perf_counter() - t0) / n_host * 1e6
     say(f"  md5-ps sweep: {wall_s:.3f} s wall, loop {loop_s:.3f} s = "
         f"{rate_s * N_SALTED:,} hashes/s ({rate_s:,} candidates/s x "
-        f"{N_SALTED} targets), {n_launch} launches = "
+        f"{N_SALTED} targets), {n_launch} launches ({len(groups)} groups of "
+        f"{[len(g) for g in groups]} targets x {per_group} batches) = "
         f"{loop_s / n_launch * 1e3:.4f} ms a launch of the loop; the host's "
         f"own time per launch {host_us:.1f} us; card: {card}")
     say(json.dumps({"salted_sweep": {
         "wall_s": wall_s, "loop_s": loop_s, "hashes_per_s": rate_s * N_SALTED,
-        "launches": n_launch, "host_us_per_launch": host_us,
+        "launches": n_launch, "groups": [len(g) for g in groups],
+        "host_us_per_launch": host_us,
         "targets": N_SALTED, "salt_lens": [min(lens), max(lens)]},
         "nested_1000": {"wall_s": wall2600, "rate": rate2600}}))
     for engine, salt in (("sha1-sp", alnum(16)), ("sha256-ps", alnum(32)),
@@ -2013,7 +2184,7 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
         variant = f"{smoke.get_engine(engine, 'cuda').algo}-" \
                   f"{smoke.get_engine(engine, 'cuda').order}"
         path(engine, MASK_CONFIG1, [line], [f"{line}:{plain.decode()}"],
-             g6.keyspace, f"{variant}_mask", unit_batches(cli, g6.keyspace))
+             g6.keyspace, f"{variant}_group", unit_batches(cli, g6.keyspace))
 
     # 19. the other nested instantiations, each over 16 batches
     say(f"== 19. the other nested instantiations: crack --device cuda over "
@@ -2039,18 +2210,30 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
         f"{TIMED_LAUNCHES} launches); card: {card}")
     timing = {}
     salt = alnum(TIMING_SALT)
+    per_hash = {}
     for name, multi_ in EXT_INSTANCES:
-        key = kname(name, multi_)
+        key = ename(name, multi_)
         gen, lut = (g6, lut6) if "-" in name else (g7, lut7)
         start = int(rng.integers(0, gen.keyspace // BATCH)) * BATCH
         head = (name, lut, gen.radices, gen.digits(start), BATCH)
+        more = {}
         if "-" in name:
             miss = digest_words(name, smoke.get_engine(name).hash_batch(
                 [b"\0" * 9], params={"salt": salt})[0])
-            args = (*head, salt, miss, 64, BATCH)
+
+            def group_args(n_targets):
+                rows, shift = cuda_ext.salted_table(
+                    name, gen.length, [(salt, miss)] * n_targets, "cuda")
+                return (*head, shift, rows, 64, BATCH)
+
+            group = path_group.get(name, 1)
+            args = group_args(group)
             fn, plain_fn = cuda_ext.salted_kernel, cuda_ext.salted_plain
-            work = opcount.salted_ops(name, gen.length, salt)
-            what = f"{gen.mask}, a {TIMING_SALT}-byte salt"
+            work = opcount.salted_ops(name, gen.length, salt, group)
+            hashes = BATCH * group
+            more = {"group": group}
+            what = (f"{gen.mask}, a {TIMING_SALT}-byte salt, a group of "
+                    f"{group} targets (its main path's)")
         elif multi_:
             _, rows, words = smoke.tables(name,
                                           smoke.fillers(name, N_TARGETS))
@@ -2062,6 +2245,7 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
                                            .view(np.uint32))
             work = opcount.nested_ops(name, gen.length, True, probes,
                                       n_maybe / BATCH, N_TARGETS)
+            hashes = BATCH
             what = f"{gen.mask}, {N_TARGETS} targets"
         else:
             miss = digest_words(name, smoke.get_engine(name).hash_batch(
@@ -2069,18 +2253,34 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
             args = (*head, miss, 64, BATCH)
             fn, plain_fn = cuda_ext.nested_kernel, cuda_ext.nested_plain
             work = opcount.nested_ops(name, gen.length)
+            hashes = BATCH
             what = gen.mask
         ms = smoke.time_launches(fn, args)
-        plain_ms = smoke.time_once(plain_fn, args)
-        bound = BATCH * work.slots / rate_ops * 1e3
-        timing[key] = (ms, plain_ms, bound)
+        # the plain version at a whole group (~17 s for md5-ps) skips its
+        # warm-up: phase 16 ran the same torch ops at that group
+        plain_ms = smoke.time_once(plain_fn, args,
+                                   warm=more.get("group", 1) == 1)
+        bound = hashes * work.slots / rate_ops * 1e3
+        timing[key] = (ms, plain_ms, bound, more)
         say(f"  {key} {what}: {ms:.4f} ms/launch = "
-            f"{BATCH / ms / 1e6:.3f} G candidates/s; bound {bound:.4f} ms "
-            f"(per candidate {work.alu:.1f} ALU, {work.add:.1f} IADD3, "
+            f"{hashes / ms / 1e6:.3f} G hashes/s; bound {bound:.4f} ms "
+            f"(per hash {work.alu:.1f} ALU, {work.add:.1f} IADD3, "
             f"{work.fma:.1f} IMAD = {work.slots:.1f} slots; kernel at "
             f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
+        if "-" in name:
+            per_hash[name] = {}
+            for t in sorted({1, cuda_ext.SALTED_GROUP, group}):
+                t_ms = ms if t == group else \
+                    smoke.time_launches(fn, group_args(t), n=10)
+                w_t = opcount.salted_ops(name, gen.length, salt, t)
+                b_t = BATCH * t * w_t.slots / rate_ops * 1e3
+                per_hash[name][t] = {"ms_per_2e24_hashes": t_ms / t,
+                                     "bound_per_2e24_hashes": b_t / t}
+                say(f"    {name} at a group of {t}: {t_ms:.4f} ms a launch "
+                    f"= {t_ms / t:.4f} ms per 2^24 hashes (bound "
+                    f"{b_t / t:.4f} ms, {b_t / t_ms:.1%})")
+    say(json.dumps({"salted_per_hash": per_hash, "card": card}))
     return timing
-
 
 
 def f1_key(engine: str, multi: bool) -> str:
@@ -2321,62 +2521,82 @@ def slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms) -> dict:
         return eng, eng.parse_target(krb5_line(rng, plain, asrep, body, tag))
 
     # 24. the krb5 kernel vs its plain version
-    say(f"== 24. krb5 kernel (csrc/krb5.cu) vs plain at batch {BATCH} "
-        "(exact equality of the count and the sorted lanes)")
+    say(f"== 24. krb5 kernel (csrc/krb5.cu) vs plain at batch {BATCH}, "
+        "tickets grouped by msg_type (exact equality of the count, the "
+        "(lane, ticket) pairs and the per-ticket counts)")
 
-    def hits(count, lanes, _=None):
-        return int(count.item()), sorted(x for x in lanes.tolist() if x >= 0)
-
-    def case(gen, lut, start, n_valid, eng_t, cap, planted, name):
-        """The kernel and its plain version on one ticket: equal count
-        and lanes; the planted lanes among them, and any other lane a
-        false maybe of the prefilter (odds 2^-32 a candidate, 2^-30 for
-        AS-REP), which the oracle rejects."""
-        eng, t = eng_t
-        args = (lut, gen.radices, gen.digits(start), n_valid,
-                cuda_krb5.target_kernel_args(t), cap, BATCH)
-        kf = hits(*cuda_krb5.krb5_kernel(*args))
-        pf = hits(*cuda_krb5.krb5_plain(*args))
-        check(kf == pf, f"krb5 {name}: kernel {kf} and plain {pf} differ")
-        err = max([abs(kf[0] - pf[0])] + [abs(a - b) for a, b in
-                                          zip(kf[1], pf[1])])
-        smoke.err["krb5"] = max(smoke.err["krb5"], err)
-        count, lanes = kf
-        maybes = sorted(set(lanes) - set(planted))
-        check(count >= len(planted) and (cap == 0 or (
-            count == len(lanes) and set(planted) <= set(lanes)))
-              and not any(eng.verify(gen.candidate(start + x), t)
-                          for x in maybes),
-              f"krb5 {name}: {kf}, planted {planted}")
-        say(f"  krb5 {name}: kernel {kf} | plain {pf}"
-            + (f"; lanes {maybes} are false maybes the oracle rejects"
-               if maybes else ""))
+    def case(gen, lut, start, n_valid, tickets, cap, planted, name,
+             batch=BATCH):
+        """The kernel and its plain version on each msg_type group of
+        ``tickets`` ((oracle, Target) each): equal count, pairs and
+        per-ticket counts; the planted (lane, ticket) pairs among them,
+        and any other pair a false maybe of the prefilter (odds 2^-32 a
+        candidate, 2^-30 for AS-REP), which the oracle rejects."""
+        tgts = [cuda_krb5.target_kernel_args(t) for _, t in tickets]
+        got = []
+        for idx in cuda_krb5.krb5_groups(tgts):
+            rows = torch.as_tensor(cuda_krb5.ticket_rows(
+                [tgts[i] for i in idx]).view(np.int32), device="cuda")
+            got += smoke.group_case(
+                cuda_krb5.krb5_kernel, cuda_krb5.krb5_plain,
+                (lut, gen.radices, gen.digits(start), n_valid,
+                 tgts[idx[0]].msg_type, rows, cap, batch), idx, None,
+                "krb5_group", f"{name}, msg_type {tgts[idx[0]].msg_type}, "
+                f"{len(idx)} tickets")
+        maybes = sorted(set(got) - set(planted))
+        check((cap == 0 and not got) or (cap and set(planted) <= set(got)
+              and not any(tickets[t][0].verify(gen.candidate(start + x),
+                                               tickets[t][1])
+                          for x, t in maybes)),
+              f"krb5 {name}: {got}, planted {planted}")
+        if maybes:
+            say(f"    pairs {maybes} are false maybes the oracle rejects")
 
     base = int(rng.integers(0, g8.keyspace // BATCH - 2)) * BATCH
     nv = BATCH - 1000
-    lane = int(rng.integers(0, BATCH))
-    for asrep, body, tag, start, n_valid, plant, form in (
-            (False, 1200, None, base, BATCH, 0, "TGS, 0x82 form, lane 0"),
-            (False, 60, None, base + BATCH, nv, nv - 1,
-             f"TGS, short form, the last valid lane, n_valid={nv}"),
-            (False, 180, None, base, BATCH, None, "TGS, 0x81 form, no hit"),
-            (False, 70_000, None, base, BATCH, lane,
-             f"TGS, 0x83 form, lane {lane}"),
-            (True, 1200, None, base + BATCH, BATCH, BATCH // 3,
-             f"AS-REP 0x79, 0x82 form, lane {BATCH // 3}"),
-            (True, 300, 0x7A, base, BATCH, 77,
-             "AS-REP with the relaxed tag 0x7A, lane 77")):
-        plain = g8.candidate(start + plant) if plant is not None else b"-"
-        case(g8, lut8, start, n_valid, ticket(plain, asrep, body, tag), 64,
-             [plant] if plant is not None else [], form)
+    lane = int(rng.integers(0, nv))
+    # TGS tickets of every DER length form and AS-REP tickets with the
+    # 0x79 and the relaxed 0x7A tag, in one list: two groups
+    spec = [(False, 1200, None, 0, "TGS 0x82 form"),
+            (False, 60, None, nv - 1, "TGS short form"),
+            (False, 180, None, None, "TGS 0x81 form"),
+            (False, 70_000, None, lane, "TGS 0x83 form"),
+            (True, 1200, None, BATCH // 3, "AS-REP 0x79 0x82 form"),
+            (True, 300, 0x7A, 77, "AS-REP 0x7A"),
+            (True, 250, None, nv, "AS-REP, a plant past the valid lanes")]
+    tickets = [ticket(g8.candidate(base + p) if p is not None else b"-",
+                      asrep, body, tag) for asrep, body, tag, p, _ in spec]
+    planted = [(p, i) for i, (_, _, _, p, _) in enumerate(spec)
+               if p is not None and p < nv]
+    case(g8, lut8, base, nv, tickets, 64, planted,
+         f"{len(spec)} tickets ({', '.join(x[4] for x in spec)}), hits at "
+         f"lanes 0, {nv - 1} (the last valid), {lane}, {BATCH // 3}, 77, "
+         f"n_valid={nv}")
     g27 = MaskGenerator("?a" * 7 + "?d" * 20)
     s27 = int(rng.integers(0, 1 << 62)) * BATCH
     case(g27, g27.charset_lut("cuda"), s27, BATCH - 5,
-         ticket(g27.candidate(s27 + BATCH - 6), False, 1200), 64,
-         [BATCH - 6], f"the longest mask, 27 positions, lane {BATCH - 6}")
+         [ticket(g27.candidate(s27 + BATCH - 6), False, 1200)], 64,
+         [(BATCH - 6, 0)], f"the longest mask, 27 positions, lane "
+         f"{BATCH - 6}")
+    # the Kerberoast's group: 100 TGS tickets of 990-1,490-byte bodies,
+    # the plants at ticket positions 0 and past 90 (lane 0, the last
+    # valid lane, a random lane twice, one just past the valid lanes)
+    nvg = KRB5_GROUP_LANES - 3
+    rnd = int(rng.integers(1, nvg - 1))
+    lanes_of = {0: rnd, 91: 0, 95: nvg - 1, 97: rnd, 98: nvg,
+                KERBEROAST_TICKETS - 1: int(rng.integers(1, nvg - 1))}
+    roast = [ticket(g8.candidate(base + lanes_of[i]) if i in lanes_of
+                    else b"-", False, int(rng.integers(990, 1490)))
+             for i in range(KERBEROAST_TICKETS)]
+    case(g8, lut8, base, nvg, roast, 64 * KERBEROAST_TICKETS,
+         [(p, i) for i, p in lanes_of.items() if p < nvg],
+         f"the Kerberoast's group of {KERBEROAST_TICKETS} tickets at "
+         f"{KRB5_GROUP_LANES} lanes, n_valid={nvg}, plants at ticket "
+         f"positions {sorted(lanes_of)}", batch=KRB5_GROUP_LANES)
     plant = base + BATCH // 5
-    case(g8, lut8, base, BATCH, ticket(g8.candidate(plant), False, 60), 0,
-         [plant - base], "hit capacity 0")
+    case(g8, lut8, base, BATCH, [ticket(g8.candidate(plant), False, 60),
+                                 ticket(g8.candidate(plant + 1), False, 61)],
+         0, [(plant - base, 0), (plant + 1 - base, 1)], "hit capacity 0")
     eng = smoke.get_engine("krb5tgs")
     dev = smoke.get_engine("krb5tgs", "cuda")
     t = eng.parse_target(krb5_line(rng, g8.candidate(plant), False, 60))
@@ -2459,16 +2679,18 @@ def slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms) -> dict:
                   for i in range(n_targets - n_planted)]
         order = rng.permutation(n_targets)
         want = [f"{ln}:{encode_plain(p)}" for ln, p in zip(lines, planted)]
+        n_groups = -(-n_targets // cuda_krb5.GROUP)
         summary, wall = run_path(
             smoke, cli, engine, MASK_BENCH, [lines[i] for i in order], want,
-            window, "krb5", n_targets * unit_batches(cli, window), skip)
+            window, "krb5_group", n_groups * unit_batches(cli, window), skip)
         maybes = int(re.search(r"maybes=(\d+)", summary).group(1))
         predicted = p_false * window * n_targets
         check(maybes <= max(20, 4 * predicted),
               f"{engine}: {maybes} maybes, predicted {predicted:.2f}")
         e2e[engine] = {"wall_s": wall, "rate": loop_rate(summary),
                        "maybes": maybes, "maybes_predicted": predicted,
-                       "planted_at": idx, "skip": skip}
+                       "planted_at": idx, "skip": skip,
+                       "launches": n_groups * unit_batches(cli, window)}
         say(f"  {engine}: {wall:.3f} s wall, {n_targets} tickets x {window} "
             f"candidates, loop {loop_rate(summary):,} candidates/s "
             f"(x tickets), maybes {maybes} (predicted {predicted:.2f})")
@@ -2525,26 +2747,45 @@ def slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms) -> dict:
     # 27. timing
     say(f"== 27. slice F2 timing (CUDA events); card: {card}")
     timing = {}
-    tgt = cuda_krb5.target_kernel_args(ticket(b"\0" * 9, False, 1200)[1])
     start = int(rng.integers(0, g8.keyspace // BATCH)) * BATCH
-    args = (lut8, g8.radices, g8.digits(start), BATCH, tgt, 64, BATCH)
-    ms = smoke.time_launches(cuda_krb5.krb5_kernel, args)
-    plain_ms = smoke.time_once(cuda_krb5.krb5_plain, args, warm=False)
-    work = opcount.krb5_ops(g8.length)
-    lim = opcount.krb5_bound(BATCH, g8.length, sms, clock_mhz * 1e6)
+    tgt = cuda_krb5.target_kernel_args(ticket(b"\0" * 9, False, 1200)[1])
+
+    def group_args(n_tickets):
+        rows = torch.as_tensor(cuda_krb5.ticket_rows(
+            [tgt] * n_tickets).view(np.int32), device="cuda")
+        return (lut8, g8.radices, g8.digits(start), BATCH, tgt.msg_type,
+                rows, 64, BATCH)
+
+    # the Kerberoast's group; the plain version on one ticket
+    args = group_args(KERBEROAST_TICKETS)
+    ms = smoke.time_launches(cuda_krb5.krb5_kernel, args, n=5, warm=1)
+    ms1 = smoke.time_launches(cuda_krb5.krb5_kernel, group_args(1))
+    plain_ms = smoke.time_once(cuda_krb5.krb5_plain, group_args(1),
+                               warm=False)
+    lim = opcount.krb5_bound(BATCH, g8.length, sms, clock_mhz * 1e6,
+                             KERBEROAST_TICKETS)
+    lim1 = opcount.krb5_bound(BATCH, g8.length, sms, clock_mhz * 1e6)
+    work = opcount.krb5_ops(g8.length, KERBEROAST_TICKETS)
     bound = max(lim.values()) * 1e3
-    timing["krb5"] = (ms, plain_ms, bound, "operations",
-                      {"bound_limit": max(lim, key=lim.get)})
-    smem = cuda_krb5.shared_bytes(g8.length)
-    say(f"  krb5 {MASK_BENCH}: {ms:.4f} ms per launch of {BATCH} = "
-        f"{BATCH / ms / 1e6:.3f} G candidates/s; bound {bound:.4f} ms (issue "
-        f"{lim['issue'] * 1e3:.4f} ms at {work.slots:.1f} slots a candidate: "
-        f"{work.alu:.0f} ALU, {work.add:.0f} IADD3, {work.fma:.0f} IMAD; "
-        f"shared {lim['shared'] * 1e3:.4f} ms at "
-        f"{opcount.RC4_SHARED + g8.length} accesses); kernel at "
-        f"{bound / ms:.1%} of it; {smem} B shared, "
-        f"{cuda_krb5.blocks_per_sm(smem)} resident blocks per SM; plain "
-        f"version {plain_ms:.1f} ms")
+    bound1 = max(lim1.values()) * 1e3
+    per_pair = ms / KERBEROAST_TICKETS
+    timing["krb5_group"] = (ms, plain_ms, bound, "operations", {
+        "bound_limit": max(lim, key=lim.get), "group": KERBEROAST_TICKETS,
+        "plain_input": f"one ticket (ms: {KERBEROAST_TICKETS})",
+        "ms_at_plain_input": ms1})
+    smem = cuda_krb5.shared_bytes(g8.length, KERBEROAST_TICKETS)
+    say(f"  krb5_group {MASK_BENCH}, {KERBEROAST_TICKETS} tickets: {ms:.4f} "
+        f"ms per launch of {BATCH} candidates = {per_pair:.4f} ms per 2^24 "
+        f"(candidate, ticket) pairs = "
+        f"{BATCH * KERBEROAST_TICKETS / ms / 1e6:.3f} G pairs/s; bound "
+        f"{bound:.4f} ms (issue {lim['issue'] * 1e3:.4f} ms at "
+        f"{work.slots:.1f} slots a pair: {work.alu:.1f} ALU, {work.add:.1f} "
+        f"IADD3, {work.fma:.1f} IMAD; shared {lim['shared'] * 1e3:.4f} ms at "
+        f"{opcount.RC4_SHARED} accesses a pair); kernel at {bound / ms:.1%} "
+        f"of it; {smem} B shared, {cuda_krb5.blocks_per_sm(smem)} resident "
+        f"blocks per SM.  One ticket a launch: {ms1:.4f} ms (bound "
+        f"{bound1:.4f} ms, {bound1 / ms1:.1%}); plain version "
+        f"{plain_ms:.1f} ms (one ticket)")
     rows = {}
     for n_words in (8, 4):
         args = (lutl8, gl8.radices, gl8.digits(s19), b19, KDF_TIMING_SALT,
@@ -2593,8 +2834,11 @@ def slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms) -> dict:
         f"= {verdict_ms / step_ms:.1%} of the step; the rest of the step "
         f"outside the kernel {step_ms - rows[8][0]:.2f} ms")
     say(json.dumps({"slice_f2_timing": {
-        "krb5_ms": timing["krb5"][0], "krb5_plain_ms": timing["krb5"][1],
-        "krb5_bound_ms": timing["krb5"][2],
+        "krb5_group_ms": timing["krb5_group"][0],
+        "krb5_group_tickets": KERBEROAST_TICKETS,
+        "krb5_ms_per_2e24_pairs": per_pair, "krb5_one_ticket_ms": ms1,
+        "krb5_plain_ms": timing["krb5_group"][1],
+        "krb5_bound_ms": timing["krb5_group"][2],
         "kdf18_ms": rows[8][0], "kdf17_ms": rows[4][0],
         "kdf18_bound_ms": rows[8][2], "kdf17_bound_ms": rows[4][2],
         "kdf18_plain16_ms": rows[8][1], "kdf17_plain16_ms": rows[4][1],

@@ -125,3 +125,62 @@
         default: break;                                                   \
         }                                                                 \
     } while (0)
+
+// ---- the decode by reciprocals (the grouped kernels) ----------------------
+//
+// DPRF_DECODE_RCP computes what DPRF_DECODE does without a division: a
+// position's quotient is a multiply-high by a reciprocal the host
+// computed from its radix r (ops/cuda_mask.decode_reciprocals),
+//
+//   sh = ceil(log2 r),  rcp = ceil(2^(31 + sh) / r),
+//   s / r = umulhi(2 s, rcp) >> sh   for every s < 2^31,
+//
+// (2 s rcp / 2^(32 + sh) = s / r + e with 0 <= e < s / 2^(31 + sh) <
+// 2^-sh <= 1 / r, so the floor is the quotient's; the lane arithmetic
+// keeps s = base digit + carry below 2^31), and its remainder a
+// multiply-subtract: an IMAD.HI, a shift and an IMAD where the divide
+// sequence nvcc emits for a runtime radix takes a dozen instructions.
+// It expects, beside DPRF_DECODE's names, uint32 rcp[] and int32 rsh[]
+// in `args`.  kMax is at most 55.
+
+#define DPRF_POS_RCP(Place, q)                                            \
+    {                                                                     \
+        const uint32_t s = (uint32_t)args.base[q] + carry;                \
+        carry = __umulhi(s << 1, args.rcp[q]) >> args.rsh[q];             \
+        const uint32_t digit = s - carry * (uint32_t)args.radix[q];       \
+        m[Place::word(q)] |= (uint32_t)s_lut[(q) * 256 + digit]           \
+                             << Place::shift(q);                          \
+    }
+
+// Positions L - 1 .. 0, last first.
+#define DPRF_DECODE_RCP(Place, kMax, L)                                   \
+    do {                                                                  \
+        static_assert((kMax) <= 55, "the reciprocal decode takes 55");    \
+        if constexpr ((kMax) > 27) {                                      \
+            switch (L) {                                                  \
+        case 55: DPRF_POS_RCP(Place, 54)  case 54: DPRF_POS_RCP(Place, 53)  case 53: DPRF_POS_RCP(Place, 52) \
+        case 52: DPRF_POS_RCP(Place, 51)  case 51: DPRF_POS_RCP(Place, 50)  case 50: DPRF_POS_RCP(Place, 49) \
+        case 49: DPRF_POS_RCP(Place, 48)  case 48: DPRF_POS_RCP(Place, 47)  case 47: DPRF_POS_RCP(Place, 46) \
+        case 46: DPRF_POS_RCP(Place, 45)  case 45: DPRF_POS_RCP(Place, 44)  case 44: DPRF_POS_RCP(Place, 43) \
+        case 43: DPRF_POS_RCP(Place, 42)  case 42: DPRF_POS_RCP(Place, 41)  case 41: DPRF_POS_RCP(Place, 40) \
+        case 40: DPRF_POS_RCP(Place, 39)  case 39: DPRF_POS_RCP(Place, 38)  case 38: DPRF_POS_RCP(Place, 37) \
+        case 37: DPRF_POS_RCP(Place, 36)  case 36: DPRF_POS_RCP(Place, 35)  case 35: DPRF_POS_RCP(Place, 34) \
+        case 34: DPRF_POS_RCP(Place, 33)  case 33: DPRF_POS_RCP(Place, 32)  case 32: DPRF_POS_RCP(Place, 31) \
+        case 31: DPRF_POS_RCP(Place, 30)  case 30: DPRF_POS_RCP(Place, 29)  case 29: DPRF_POS_RCP(Place, 28) \
+        case 28: DPRF_POS_RCP(Place, 27) \
+            default: break;                                               \
+            }                                                             \
+        }                                                                 \
+        switch ((L) < 27 ? (L) : 27) {                                    \
+        case 27: DPRF_POS_RCP(Place, 26)  case 26: DPRF_POS_RCP(Place, 25)  case 25: DPRF_POS_RCP(Place, 24) \
+        case 24: DPRF_POS_RCP(Place, 23)  case 23: DPRF_POS_RCP(Place, 22)  case 22: DPRF_POS_RCP(Place, 21) \
+        case 21: DPRF_POS_RCP(Place, 20)  case 20: DPRF_POS_RCP(Place, 19)  case 19: DPRF_POS_RCP(Place, 18) \
+        case 18: DPRF_POS_RCP(Place, 17)  case 17: DPRF_POS_RCP(Place, 16)  case 16: DPRF_POS_RCP(Place, 15) \
+        case 15: DPRF_POS_RCP(Place, 14)  case 14: DPRF_POS_RCP(Place, 13)  case 13: DPRF_POS_RCP(Place, 12) \
+        case 12: DPRF_POS_RCP(Place, 11)  case 11: DPRF_POS_RCP(Place, 10)  case 10: DPRF_POS_RCP(Place, 9) \
+        case 9: DPRF_POS_RCP(Place, 8)  case 8: DPRF_POS_RCP(Place, 7)  case 7: DPRF_POS_RCP(Place, 6) \
+        case 6: DPRF_POS_RCP(Place, 5)  case 5: DPRF_POS_RCP(Place, 4)  case 4: DPRF_POS_RCP(Place, 3) \
+        case 3: DPRF_POS_RCP(Place, 2)  case 2: DPRF_POS_RCP(Place, 1)  case 1: DPRF_POS_RCP(Place, 0) \
+        default: break;                                                   \
+        }                                                                 \
+    } while (0)

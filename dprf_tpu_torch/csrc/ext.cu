@@ -8,9 +8,10 @@
 //   sha1(md5), sha256(md5), sha256(sha1), and mysql41 (sha1 of the raw
 //   sha1 digest), with one target or the multi-target Bloom compare;
 // - make_salted_pallas_fn: md5, sha1 and sha256 over $pass.$salt ("ps")
-//   and $salt.$pass ("sp"), one target a launch.
+//   and $salt.$pass ("sp"): salted.cuh's kernel, a group of targets a
+//   launch.
 //
-// Every chain is a core type for the mask kernel template of
+// Every nested chain is a core type for the mask kernel template of
 // mask_kernel.cuh, so the decode, the single and multi-target compares
 // and the hit append are the mask kernel's own:
 //
@@ -22,28 +23,13 @@
 //   runs the outer core.  kWords is the outer core's.
 // - Mysql41: sha1, then sha1 over a second block of the five raw inner
 //   words, 0x80000000 and the bit length 160.
-// - SaltPs<Core>: the core itself.  The candidate sits at [0, L) as in
-//   the mask kernel; the host folds the target's salt at [L, L + S), the
-//   marker and the bit length into the fixed message words, so a launch
-//   is the mask kernel with that target's block and digest.
-// - SaltSp<Core>: the candidate starts at byte S, a launch parameter.
-//   It is decoded into a zeroed block at [0, L) (constant positions, as
-//   always), then moved by S bytes -- a funnel shift by 8 (S & 3) bits,
-//   then a warp-uniform switch over S >> 2 whole words, constant
-//   indices in every case -- and ORed into the target's fixed words
-//   (salt at [0, S), marker, bit length).  The message stays in
-//   registers: no runtime index into it, so no local memory.
-//
-// The reference compiles one salted kernel per salt LENGTH and caps a
-// job at 8 lengths; here S is a runtime value, so one instantiation per
-// (core, order) serves every salt of 0..32 bytes.
 //
 // What bounds it: the INT32 issue rate, as for the mask kernel; a nested
-// candidate costs two cores plus the hex map (~6 ALU ops a digest byte),
-// a salted one the core plus (sp) ~2 ops a message word for the move.
+// candidate costs two cores plus the hex map (~6 ALU ops a digest byte).
 // ops/opcount.py counts the least work of each.
 
 #include "mask_kernel.cuh"
+#include "salted.cuh"
 
 // ---- nested: outer(hex(inner(p))) -----------------------------------------
 
@@ -107,57 +93,6 @@ struct Mysql41 : Sha1Core {
     }
 };
 
-// ---- salted: $pass.$salt and $salt.$pass -----------------------------------
-
-// $pass.$salt: the core; the salt is in the target's fixed words.
-template <class Core>
-struct SaltPs : Core {};
-
-// m[j] = t[j - K] (0 below K): the move by K whole words.
-template <int K>
-__device__ __forceinline__ void move_words(const uint32_t* t, uint32_t* m)
-{
-#pragma unroll
-    for (int j = 0; j < 16; ++j) m[j] = j >= K ? t[j - K] : 0u;
-}
-
-// $salt.$pass: the candidate, decoded at [0, L), moves to [S, S + L).
-template <class Core>
-struct SaltSp : Core {
-    static constexpr bool kShifted = true;
-    // byte 0 is a word's low byte (md5) or its high byte (SHA)
-    static constexpr bool kBigEndian = Core::shift(0) != 0;
-
-    __device__ __forceinline__ static void shift_in(uint32_t* m,
-                                                    const uint32_t* fixed,
-                                                    int s)
-    {
-        const uint32_t r = 8u * (uint32_t)(s & 3);
-        uint32_t t[16];
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-            const uint32_t prev = j ? m[j - 1] : 0u;
-            // bytes move toward higher addresses: up in a little-endian
-            // word, down in a big-endian one, carrying from word j - 1
-            t[j] = kBigEndian ? __funnelshift_r(m[j], prev, r)
-                              : __funnelshift_l(prev, m[j], r);
-        }
-        switch (s >> 2) {
-        case 0: move_words<0>(t, m); break;
-        case 1: move_words<1>(t, m); break;
-        case 2: move_words<2>(t, m); break;
-        case 3: move_words<3>(t, m); break;
-        case 4: move_words<4>(t, m); break;
-        case 5: move_words<5>(t, m); break;
-        case 6: move_words<6>(t, m); break;
-        case 7: move_words<7>(t, m); break;
-        default: move_words<8>(t, m); break;
-        }
-#pragma unroll
-        for (int j = 0; j < 16; ++j) m[j] |= fixed[j];
-    }
-};
-
 // ---- the C interface ---------------------------------------------------
 
 using Md5OfMd5 = Nested<Md5Core, Md5Core>;
@@ -168,8 +103,7 @@ using Sha256OfMd5 = Nested<Sha256Core, Md5Core>;
 using Sha256OfSha1 = Nested<Sha256Core, Sha1Core>;
 
 // variant ids (ops/cuda_ext.VARIANTS): 0-5 the nested combos in
-// NESTED_COMBOS order, 6 mysql41, each single or multi target; 7-12
-// md5-ps, md5-sp, sha1-ps, sha1-sp, sha256-ps, sha256-sp, single only
+// NESTED_COMBOS order, 6 mysql41, each single or multi target
 #define DPRF_EXT_DISPATCH(CALL)                                           \
     switch (variant * 2 + (multi_mode ? 1 : 0)) {                         \
     case 0: return CALL(Md5OfMd5, kSingle);                                 \
@@ -186,12 +120,6 @@ using Sha256OfSha1 = Nested<Sha256Core, Sha1Core>;
     case 11: return CALL(Sha256OfSha1, kSets);                             \
     case 12: return CALL(Mysql41, kSingle);                                 \
     case 13: return CALL(Mysql41, kSets);                                  \
-    case 14: return CALL(SaltPs<Md5Core>, kSingle);                         \
-    case 16: return CALL(SaltSp<Md5Core>, kSingle);                         \
-    case 18: return CALL(SaltPs<Sha1Core>, kSingle);                        \
-    case 20: return CALL(SaltSp<Sha1Core>, kSingle);                        \
-    case 22: return CALL(SaltPs<Sha256Core>, kSingle);                      \
-    case 24: return CALL(SaltSp<Sha256Core>, kSingle);                      \
     default: return (int)cudaErrorInvalidValue;                           \
     }
 
@@ -217,4 +145,50 @@ extern "C" int dprf_ext_blocks_per_sm(int variant, int multi_mode,
                                       int threads, int smem, int* blocks)
 {
     DPRF_EXT_DISPATCH(DPRF_OCCUPANCY_ONE)
+}
+
+// ---- the salted kernel (salted.cuh) -------------------------------------
+
+// salted ids (ops/cuda_ext.SALTED_NAMES): md5-ps, md5-sp, sha1-ps,
+// sha1-sp, sha256-ps, sha256-sp
+#define DPRF_SALTED_DISPATCH(CALL)                                        \
+    switch (salted) {                                                     \
+    case 0: return CALL(Md5Core, false);                                  \
+    case 1: return CALL(Md5Core, true);                                   \
+    case 2: return CALL(Sha1Core, false);                                 \
+    case 3: return CALL(Sha1Core, true);                                  \
+    case 4: return CALL(Sha256Core, false);                               \
+    case 5: return CALL(Sha256Core, true);                                \
+    default: return (int)cudaErrorInvalidValue;                           \
+    }
+
+#define DPRF_SALTED_LAUNCH(C, SP)                                         \
+    salted_launch<C, SP>(lut, args, rows, n_valid, count, lanes, tpos,    \
+                         tcount, cap, grid, threads, (cudaStream_t)stream)
+#define DPRF_SALTED_OCCUPANCY(C, SP)                                      \
+    salted_occupancy<C, SP>(threads, (size_t)smem, blocks)
+
+// Launch the salted kernel `salted` over a group of args->n_targets
+// targets (rows: uint32[n_targets][DPRF_SALTED_ROW] in device memory) on
+// the caller's stream without synchronising; returns the launch's
+// cudaError_t.  count and tcount must hold 0 and lanes -1 on entry.
+extern "C" int dprf_salted_launch(int salted, int device, const uint8_t* lut,
+                                  const SaltedArgs* args,
+                                  const uint32_t* rows, uint32_t n_valid,
+                                  int32_t* count, int32_t* lanes,
+                                  int32_t* tpos, int32_t* tcount,
+                                  int32_t cap, int grid, int threads,
+                                  void* stream)
+{
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    DPRF_SALTED_DISPATCH(DPRF_SALTED_LAUNCH)
+}
+
+// Resident blocks of `threads` threads per SM of the salted kernel
+// `salted` at `smem` bytes of dynamic shared memory.
+extern "C" int dprf_salted_blocks_per_sm(int salted, int threads, int smem,
+                                         int* blocks)
+{
+    DPRF_SALTED_DISPATCH(DPRF_SALTED_OCCUPANCY)
 }

@@ -14,9 +14,9 @@
 // values read first, which is right when j == i.
 //
 // The steps are macros over the caller's names, not inlined functions:
-// csrc/krb5.cu compiles to the same SASS as before they moved here
-// (chip_smoke.py's KRB5_BEFORE), which an inlined function's copy of the
-// same statements did not.
+// csrc/krb5.cu compiled to the same SASS as before they moved here, which
+// an inlined function's copy of the same statements did not; csrc/pdf.cu's
+// instantiations are pinned (chip_smoke.py's PDF_BEFORE).
 
 #pragma once
 

@@ -15,11 +15,13 @@ counts the rejected ones (``maybes=`` in the CLI's summary), so a false
 maybe never sends a unit to the coordinator's rescan of the whole unit
 on the CPU.
 
-A mask job runs one kernel launch per (ticket, batch); one build serves
-both engines and every ticket.  A non-DER (BER long-form) encoder would
-defeat the header prediction: MIT krb5 and Windows KDCs emit DER, and
-``--device cpu`` runs the full check for anything else.  Wordlist jobs
-are refused, naming ``--device cpu``.
+A mask job runs one kernel launch per (group, batch): a group is up to
+128 tickets of one msg_type (``cuda_krb5.krb5_groups``), and each
+launch computes a candidate's NT hash and K1 once for the whole group;
+one build serves both engines and every ticket.  A non-DER (BER
+long-form) encoder would defeat the header prediction: MIT krb5 and
+Windows KDCs emit DER, and ``--device cpu`` runs the full check for
+anything else.  Wordlist jobs are refused, naming ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from dprf_tpu_torch.engines import register
 from dprf_tpu_torch.engines.cpu.krb5 import (TGS_MSG_TYPE, Krb5AsRepEngine,
                                              Krb5TgsEngine)
 from dprf_tpu_torch.ops.cuda_krb5 import CONF
-from dprf_tpu_torch.runtime.worker import PerTargetSweepWorker
+from dprf_tpu_torch.runtime.worker import GroupedSweepWorker
 
 
 def der_header(blob_len: int, tag: int, tag_mask: int, inner: int,
@@ -88,11 +90,13 @@ def der_filter_words(edata_len: int, msg_type: int) -> tuple[int, int]:
     return der_header(edata_len - CONF, tag, tag_mask, 0x30, 0xFF)
 
 
-class CudaKrb5MaskWorker(PerTargetSweepWorker):
+class CudaKrb5MaskWorker(GroupedSweepWorker):
     """Mask worker over the krb5 kernel, the counterpart of the
-    reference's PallasKrb5MaskWorker: one launch per (ticket, batch),
-    every survivor confirmed by the oracle (the engine itself when no
-    oracle is given: it subclasses the oracle)."""
+    reference's PallasKrb5MaskWorker: one launch per (group of tickets
+    of one msg_type, batch) (runtime/worker.GroupedSweepWorker), every
+    survivor confirmed by the oracle (the engine itself when no oracle
+    is given: it subclasses the oracle), its hit buffer ``hit_capacity``
+    a ticket of the group.  A single ticket is a group of one."""
 
     confirm = True
 
@@ -104,10 +108,12 @@ class CudaKrb5MaskWorker(PerTargetSweepWorker):
         device = torch.device(device)
         if device.type == "cuda":
             cuda_krb5.load_kernel()
-        self.step = cuda_krb5.make_krb5_step(gen, batch, hit_capacity,
-                                             device=device)
-        self._targs = [(cuda_krb5.target_kernel_args(t),)
-                       for t in self.targets]
+        tgts = [cuda_krb5.target_kernel_args(t) for t in self.targets]
+        self.groups = [
+            (idx, cuda_krb5.make_krb5_step(gen, [tgts[i] for i in idx],
+                                           batch, hit_capacity * len(idx),
+                                           device=device))
+            for idx in cuda_krb5.krb5_groups(tgts)]
 
 
 class _TorchKrb5Mixin:

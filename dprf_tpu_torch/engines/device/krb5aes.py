@@ -43,7 +43,8 @@ from dprf_tpu_torch.engines.cpu.krb5aes import (USAGE_AS_REP,
 from dprf_tpu_torch.engines.device.krb5 import der_header
 from dprf_tpu_torch.ops.aes import aes_decrypt_blocks, aes_encrypt_block_batch
 from dprf_tpu_torch.ops.pack import words_to_bytes_be
-from dprf_tpu_torch.runtime.worker import PerTargetSweepWorker
+from dprf_tpu_torch.runtime.worker import (GroupedSweepWorker,
+                                           singleton_groups)
 
 #: the confounder before the DER plaintext: one AES block
 CONF = 16
@@ -179,12 +180,13 @@ def make_kdf_step(gen, batch: int, params: dict, hit_capacity: int,
     return step
 
 
-class Krb5AesMaskWorker(PerTargetSweepWorker):
+class Krb5AesMaskWorker(GroupedSweepWorker):
     """Mask worker over the KDF kernel and the torch verdict, the
     counterpart of the reference's Krb5AesMaskWorker: each ticket has
-    its own step (its salt, key length and ciphertext), one launch per
-    (ticket, batch); every survivor is confirmed by the oracle (the
-    engine itself when no oracle is given: it subclasses the oracle)."""
+    its own step (its salt, key length and ciphertext), a group of one,
+    one launch per (ticket, batch); every survivor is confirmed by the
+    oracle (the engine itself when no oracle is given: it subclasses the
+    oracle)."""
 
     confirm = True
 
@@ -196,13 +198,10 @@ class Krb5AesMaskWorker(PerTargetSweepWorker):
         device = torch.device(device)
         if device.type == "cuda":
             cuda_pbkdf2.load_kernel()
-        self._steps = [make_kdf_step(gen, batch, t.params, hit_capacity,
-                                     engine.iterations, device)
-                       for t in self.targets]
-        self._targs = [(ti,) for ti in range(len(self.targets))]
-
-    def step(self, base_digits, n_valid: int, ti: int):
-        return self._steps[ti](base_digits, n_valid)
+        self.groups = singleton_groups(
+            [make_kdf_step(gen, batch, t.params, hit_capacity,
+                           engine.iterations, device)
+             for t in self.targets])
 
 
 #: candidates per launch on the card.  A candidate at 4,096 iterations is

@@ -23,14 +23,16 @@ import torch
 
 from dprf_tpu_torch.engines import register
 from dprf_tpu_torch.engines.cpu.pdf import PdfEngine
-from dprf_tpu_torch.runtime.worker import PerTargetSweepWorker
+from dprf_tpu_torch.runtime.worker import (GroupedSweepWorker,
+                                           singleton_groups)
 
 
-class PdfMaskWorker(PerTargetSweepWorker):
+class PdfMaskWorker(GroupedSweepWorker):
     """Mask worker over the pdf kernel, the counterpart of the
-    reference's PdfMaskWorker: one launch per (document, batch) on its
-    kind's instantiation, every hit confirmed by the oracle (the engine
-    itself when no oracle is given: it subclasses the oracle)."""
+    reference's PdfMaskWorker: each document a group of one, one launch
+    per (document, batch) on its kind's instantiation, every hit
+    confirmed by the oracle (the engine itself when no oracle is given:
+    it subclasses the oracle)."""
 
     confirm = True
 
@@ -42,9 +44,9 @@ class PdfMaskWorker(PerTargetSweepWorker):
         device = torch.device(device)
         if device.type == "cuda":
             cuda_pdf.load_kernel()
-        self.step = cuda_pdf.make_pdf_step(gen, batch, hit_capacity,
-                                           device=device)
-        self._targs = [cuda_pdf.target_kernel_args(t) for t in self.targets]
+        self.groups = singleton_groups(cuda_pdf.make_pdf_steps(
+            gen, [cuda_pdf.target_kernel_args(t) for t in self.targets],
+            batch, hit_capacity, device=device))
 
 
 @register("pdf", device="cuda")

@@ -24,8 +24,7 @@ from dprf_tpu_torch.engines import register
 from dprf_tpu_torch.engines.base import Target
 from dprf_tpu_torch.engines.cpu.engines import Pmkid2Engine
 from dprf_tpu_torch.ops import cuda_pbkdf2
-from dprf_tpu_torch.runtime.worker import CpuWorker, Hit
-from dprf_tpu_torch.runtime.workunit import WorkUnit
+from dprf_tpu_torch.runtime.worker import GroupedSweepWorker
 
 #: candidates per launch.  A candidate at 4096 iterations is 16,390
 #: SHA-1 compressions; the kernel runs 1.99 M candidates/s on an H100
@@ -76,47 +75,19 @@ def _group_targets(targets: Sequence[Target]) -> dict:
     return by_essid
 
 
-class _PendingPmkid:
-    """A unit whose launches are all queued: per ESSID group, the
-    batches' results and the group's hit count summed on the device, so
-    resolving a unit without hits reads one scalar per group."""
-
-    __slots__ = ("worker", "unit", "groups")
-
-    def __init__(self, worker, unit, groups):
-        self.worker = worker
-        self.unit = unit
-        self.groups = groups
-
-    def resolve(self) -> list[Hit]:
-        hits: list[Hit] = []
-        for tidx, queued, flag in self.groups:
-            if flag is None or int(flag.item()) == 0:
-                continue
-            for bstart, result in queued:
-                hits.extend(self.worker._batch_hits(bstart, result, tidx,
-                                                    self.unit))
-        return sorted(hits, key=lambda h: (h.cand_index, h.target_index))
-
-
-class CudaPmkidWorker:
+class CudaPmkidWorker(GroupedSweepWorker):
     """Mask worker over the PMKID kernel: one launch per (ESSID group,
-    batch), queued asynchronously; every (lane, target) hit decodes to
-    a Hit, so a lane that matches two targets gives two hits.  On a card
-    the kernel builds at construction, so a build failure raises here;
-    with ``device="cpu"`` each batch runs the kernel's plain version."""
+    batch), queued asynchronously (runtime/worker.GroupedSweepWorker);
+    every (lane, target) hit decodes to a Hit, so a lane that matches two
+    targets gives two hits, and an overflowing batch is rescanned for
+    its whole group.  On a card the kernel builds at construction, so a
+    build failure raises here; with ``device="cpu"`` each batch runs the
+    kernel's plain version."""
 
     def __init__(self, engine, gen, targets: Sequence[Target],
                  batch: int = BATCH, hit_capacity: int = 64, oracle=None,
                  device="cuda"):
-        self.engine = engine
-        self.gen = gen
-        self.targets = list(targets)
-        self.hit_capacity = hit_capacity
-        self.oracle = oracle
-        self.batch = self.stride = batch
-        #: launches this worker has queued
-        self.dispatched = 0
+        super().__init__(engine, gen, targets, batch, hit_capacity, oracle)
         device = torch.device(device)
         if device.type == "cuda":
             cuda_pbkdf2.load_kernel()
@@ -125,43 +96,3 @@ class CudaPmkidWorker:
                 gen, essid, [self.targets[i] for i in tidx],
                 engine.iterations, batch, hit_capacity, device=device))
             for essid, tidx in _group_targets(self.targets).items()]
-
-    def submit(self, unit: WorkUnit) -> _PendingPmkid:
-        groups = []
-        for tidx, step in self.groups:
-            queued, flag = [], None
-            for bstart in range(unit.start, unit.end, self.stride):
-                n_valid = min(self.stride, unit.end - bstart)
-                result = step(self.gen.digits(bstart), n_valid)
-                self.dispatched += 1
-                flag = result[0] if flag is None else flag + result[0]
-                queued.append((bstart, result))
-            groups.append((tidx, queued, flag))
-        return _PendingPmkid(self, unit, groups)
-
-    def process(self, unit: WorkUnit) -> list[Hit]:
-        return self.submit(unit).resolve()
-
-    def _batch_hits(self, bstart: int, result, tidx: list,
-                    unit: WorkUnit) -> list[Hit]:
-        count, lanes, ts = result
-        count = int(count.item())
-        if count == 0:
-            return []
-        if count > lanes.shape[0]:
-            return self._rescan(bstart, tidx, unit)
-        return [Hit(tidx[t], bstart + lane, self.gen.candidate(bstart + lane))
-                for lane, t in zip(lanes.tolist(), ts.tolist()) if lane >= 0]
-
-    def _rescan(self, bstart: int, tidx: list, unit: WorkUnit) -> list[Hit]:
-        """Exact oracle rescan of one overflowed batch of one group."""
-        if self.oracle is None:
-            raise RuntimeError(
-                f"hit buffer overflow (> {self.hit_capacity}) and no "
-                "oracle engine to rescan with; raise hit_capacity")
-        end = min(bstart + self.stride, unit.end)
-        hits = CpuWorker(self.oracle, self.gen,
-                         [self.targets[i] for i in tidx]).process(
-            WorkUnit(-1, bstart, end - bstart))
-        return [Hit(tidx[h.target_index], h.cand_index, h.plaintext)
-                for h in hits]

@@ -5,11 +5,13 @@ MD5 (12), LDAP {SSHA} (111) and {SMD5}, Oracle 11g (112).
 
 Target lines use the hashcat convention ``hexdigest:salt`` (the salt is
 the literal bytes after the first colon; ``$HEX[..]`` decodes hex
-salts).  Each salt reshapes the digest of every candidate, so the
-worker sweeps the keyspace once per target: one launch of the salted
-kernel (ops/cuda_ext.py, csrc/ext.cu) per (target, batch), the target's
-salt and digest its launch parameters, so one instantiation serves the
-whole hash list.  A job the kernel does not take raises, naming
+salts).  Each salt reshapes the digest of every candidate, so every
+candidate is hashed once per target; the worker sweeps the keyspace
+once per group of targets (``cuda_ext.salted_groups``: all ``ps``
+targets, the ``sp`` targets of one salt length, up to 256 a group), one
+launch of the salted kernel (ops/cuda_ext.py, csrc/salted.cuh) per
+(group, batch), which decodes each candidate once and hashes it with
+each target's salt.  A job the kernel does not take raises, naming
 ``--device cpu``; wordlist jobs are refused the same way.
 """
 
@@ -31,16 +33,18 @@ from dprf_tpu_torch.engines.device.engines import (TorchMd5Engine,
                                                    TorchSha256Engine)
 from dprf_tpu_torch.ops import cuda_ext
 from dprf_tpu_torch.ops.compare import digest_rows
-from dprf_tpu_torch.runtime.worker import PerTargetSweepWorker
+from dprf_tpu_torch.runtime.worker import GroupedSweepWorker
 
 
-class CudaSaltedMaskWorker(PerTargetSweepWorker):
+class CudaSaltedMaskWorker(GroupedSweepWorker):
     """Salted mask worker over the salted kernel, the counterpart of the
     reference's PallasSaltedMaskWorker and of SaltedMaskWorker's
-    per-target sweep (runtime/worker.PerTargetSweepWorker): each target's
-    salt and digest words are its launch arguments.  On a card the
-    kernel builds at construction, so a build failure raises here; with
-    ``device="cpu"`` each launch runs the kernel's plain version."""
+    per-target sweep: one launch per (group, batch), each group's salts
+    and digest words its rows (runtime/worker.GroupedSweepWorker), its
+    hit buffer ``hit_capacity`` a target of the group.  A single target
+    is a group of one.  On a card the kernel builds at construction, so
+    a build failure raises here; with ``device="cpu"`` each launch runs
+    the kernel's plain version."""
 
     def __init__(self, engine, gen, targets: Sequence[Target],
                  batch: int = 1 << 24, hit_capacity: int = 64,
@@ -50,13 +54,16 @@ class CudaSaltedMaskWorker(PerTargetSweepWorker):
         if device.type == "cuda":
             cuda_ext.load_kernel()
         self.variant = f"{engine.algo}-{engine.order}"
-        self.step = cuda_ext.make_salted_crack_step(
-            self.variant, gen, batch, hit_capacity, device=device)
-        self._targs = [
-            (t.params["salt"],
-             [int(w) for w in digest_rows([t.digest],
-                                          engine.little_endian)[0]])
-            for t in self.targets]
+        targs = [(t.params["salt"],
+                  [int(w) for w in digest_rows([t.digest],
+                                               engine.little_endian)[0]])
+                 for t in self.targets]
+        self.groups = [
+            (idx, cuda_ext.make_salted_crack_step(
+                self.variant, gen, [targs[i] for i in idx], batch,
+                hit_capacity * len(idx), device=device))
+            for idx in cuda_ext.salted_groups(self.variant,
+                                              [s for s, _ in targs])]
 
 
 class _SaltedDeviceMixin:

@@ -34,7 +34,8 @@ from dprf_tpu_torch.engines.cpu.sevenzip import SevenZipEngine
 from dprf_tpu_torch.ops.aes import aes_decrypt_blocks
 from dprf_tpu_torch.ops.compare import compact_hits
 from dprf_tpu_torch.ops.pack import words_to_bytes_be
-from dprf_tpu_torch.runtime.worker import PerTargetSweepWorker
+from dprf_tpu_torch.runtime.worker import (GroupedSweepWorker,
+                                           singleton_groups)
 
 #: the largest encrypted payload the card's verdict takes, in bytes (the
 #: reference's DPRF_7Z_DEVICE_DATA_CAP default): the AES and CRC32 loops
@@ -136,11 +137,11 @@ def batch_for(gen, batch: int, device) -> int:
     return wave * max(1, round(batch / wave))
 
 
-class SevenZipMaskWorker(PerTargetSweepWorker):
+class SevenZipMaskWorker(GroupedSweepWorker):
     """Mask worker over the KDF kernel and the torch verdict, the
     counterpart of the reference's SevenZipMaskWorker: each entry has its
-    own step (its salt, cycles and payload), one launch per (entry,
-    batch)."""
+    own step (its salt, cycles and payload), a group of one, one launch
+    per (entry, batch)."""
 
     def __init__(self, engine, gen, targets, batch: int = BATCH,
                  hit_capacity: int = 64, oracle=None, device="cuda"):
@@ -150,13 +151,9 @@ class SevenZipMaskWorker(PerTargetSweepWorker):
             cuda_7z.load_kernel()
         batch = batch_for(gen, batch, device)
         super().__init__(engine, gen, targets, batch, hit_capacity, oracle)
-        self._steps = [make_kernel_step(gen, batch, t.params, hit_capacity,
-                                        device)
-                       for t in self.targets]
-        self._targs = [(ti,) for ti in range(len(self.targets))]
-
-    def step(self, base_digits, n_valid: int, ti: int):
-        return self._steps[ti](base_digits, n_valid)
+        self.groups = singleton_groups(
+            [make_kernel_step(gen, batch, t.params, hit_capacity, device)
+             for t in self.targets])
 
 
 def entry_refusal(gen, params: dict):

@@ -71,6 +71,23 @@ def make_target_table(digests, little_endian: bool = True) -> TargetTable:
     return TargetTable(words=rows[order], order=order)
 
 
+def compact_group_hits(found: torch.Tensor, capacity: int):
+    """(found bool[B, T]: lane b hits the group's target t) -> the
+    grouped kernels' hit buffers: (count int32[1], lanes int32[capacity],
+    tpos int32[capacity], tcount int32[T]), the first ``capacity`` (lane,
+    target) pairs in lane then target order, -1 in unused slots, and
+    each target's own hit count."""
+    pairs = found.nonzero().to(torch.int32)
+    n = min(capacity, pairs.shape[0])
+    lanes = torch.full((capacity,), -1, dtype=torch.int32,
+                       device=found.device)
+    tpos = torch.full_like(lanes, -1)
+    lanes[:n], tpos[:n] = pairs[:n, 0], pairs[:n, 1]
+    count = torch.tensor([pairs.shape[0]], dtype=torch.int32,
+                         device=found.device)
+    return count, lanes, tpos, found.sum(dim=0, dtype=torch.int32)
+
+
 def compare_single(digest: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """int32[B, W] vs int32[W] -> bool[B]."""
     return (digest == target[None, :]).all(dim=-1)

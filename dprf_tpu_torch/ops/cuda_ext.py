@@ -8,12 +8,16 @@ decode, single or multi-target compare, hit append) over new cores:
   ``mysql41`` (sha1 over the raw sha1 digest), with one target or a list
   of up to ``bloom.MAX_TARGETS`` -- the same contract as
   ops/cuda_mask.py: (count, lanes[, tpos, n_maybe]);
-- the salted cores ``<algo>-ps`` ($pass.$salt) and ``<algo>-sp``
-  ($salt.$pass) for the algos of ``SALTED_ALGOS``, one target a launch:
-  the target's salt, padding and bit length are its fixed message words,
-  its digest the compared words, and for ``sp`` the salt's length is the
-  candidate's first byte, a launch parameter.  One instantiation serves
-  every salt of 0..SALT_MAX bytes.
+- the salted kernel (csrc/salted.cuh), ``<algo>-ps`` ($pass.$salt) and
+  ``<algo>-sp`` ($salt.$pass) for the algos of ``SALTED_ALGOS``, a group
+  of up to ``SALTED_GROUP`` targets a launch (``salted_groups``: every
+  ``ps`` target, or the ``sp`` targets of one salt length).  Each
+  target is a row of ``salted_rows``: its fixed message words (salt,
+  padding, bit length) and its digest words; the ``sp`` group's salt
+  length is a launch parameter, the candidate's first byte.  Outputs
+  (count, lanes, tpos, tcount): the hits as (lane, target position)
+  pairs and each target's own hit count, so an overflowing batch is
+  rescanned for the targets that overflowed only.
 
 For each chain three functions carry it, as in ops/cuda_mask.py: the
 kernel's wrapper (``nested_kernel``, ``nested_multi_kernel``,
@@ -39,7 +43,7 @@ from dprf_tpu_torch.generators.mask import decode_lut
 from dprf_tpu_torch.ops import bloom
 from dprf_tpu_torch.ops import compare as cmp_ops
 from dprf_tpu_torch.ops import cuda_mask
-from dprf_tpu_torch.ops.pack import pack_fixed, pad_const
+from dprf_tpu_torch.ops.pack import pad_const
 
 #: the nested chains (outer, inner), in the kernel's variant order; the
 #: inner hex (32 or 40 bytes) fits one outer block
@@ -62,8 +66,16 @@ BLOCK_LIMIT = 55
 #: the longest salt a salted target line parses to
 SALT_MAX = 32
 
-#: the variant id of csrc/ext.cu's C interface, by chain name
-VARIANTS = {name: i for i, name in enumerate(NESTED_NAMES + SALTED_NAMES)}
+#: the variant id of csrc/ext.cu's nested entry, by chain name
+VARIANTS = {name: i for i, name in enumerate(NESTED_NAMES)}
+#: the salted kernel's id of csrc/ext.cu's salted entry, by core name
+SALTED_IDS = {name: i for i, name in enumerate(SALTED_NAMES)}
+#: the most targets a launch of the salted kernel takes
+#: (DPRF_SALTED_GROUP), and the words of a target's row (DPRF_SALTED_ROW)
+SALTED_GROUP = 256
+SALTED_ROW = 24
+#: MD5's IV word 0: the salted kernel compares md5's word 0 less it
+MD5_A0 = 0x67452301
 
 #: the TPU kernels these replace, and the source
 REPLACES_NESTED = "dprf_tpu/ops/pallas_ext.py:292"
@@ -77,13 +89,17 @@ def replaces(variant: str) -> str:
 
 def kernel_name(variant: str, multi: bool = False) -> str:
     """The instantiation's name: ``<chain>_mask`` or
-    ``<chain>_mask_multi``, as ops/cuda_mask.kernel_name."""
+    ``<chain>_mask_multi`` (as ops/cuda_mask.kernel_name) for a nested
+    chain, ``<core>_group`` for a salted core."""
+    if variant in SALTED_NAMES:
+        return f"{variant}_group"
     return f"{variant}_mask" + ("_multi" if multi else "")
 
 
-#: every instantiation: (chain, multi target)
+#: every instantiation: (chain, multi target); a salted core's takes a
+#: group of targets
 INSTANCES = tuple([(n, m) for n in NESTED_NAMES for m in (False, True)]
-                  + [(n, False) for n in SALTED_NAMES])
+                  + [(n, True) for n in SALTED_NAMES])
 
 #: launches of each instantiation in this process, by ``kernel_name``
 #: (tests and chip_smoke.py reset them and read them)
@@ -156,15 +172,6 @@ def nested_block(name: str, length: int) -> tuple:
     return tuple(int(w) for w in words.view(np.uint32))
 
 
-def salted_message(order: str, cand: torch.Tensor,
-                   salt: bytes) -> torch.Tensor:
-    """uint8[B, L] candidates -> uint8[B, L + S] messages: ``cand``
-    then the salt (``ps``), or the salt then ``cand`` (``sp``)."""
-    s = torch.as_tensor(np.frombuffer(salt, np.uint8).copy(),
-                        device=cand.device).expand(cand.shape[0], len(salt))
-    return torch.cat([cand, s] if order == "ps" else [s, cand], dim=1)
-
-
 def salted_block(variant: str, length: int, salt: bytes) -> tuple:
     """One target's fixed message words: the block of an all-zero
     candidate with the target's salt (after it for ``ps``, before it for
@@ -186,7 +193,70 @@ def check_salt(length: int, salt: bytes) -> None:
                          f"exceeds the {BLOCK_LIMIT}-byte block")
 
 
+def salted_groups(variant: str, salts: Sequence[bytes]) -> list:
+    """The launch groups of a job's targets (their salts, in job order):
+    lists of target indices of at most SALTED_GROUP, each of one
+    message layout.  A ``ps`` candidate sits at byte 0 whatever the salt,
+    so every ``ps`` target shares one layout; an ``sp`` candidate starts
+    after the salt, so ``sp`` targets group by salt length (shortest
+    first)."""
+    _, order = split_salted(variant)
+    by_layout: dict = {}
+    for i, salt in enumerate(salts):
+        key = len(salt) if order == "sp" else 0
+        by_layout.setdefault(key, []).append(i)
+    return [idx[k:k + SALTED_GROUP] for _, idx in sorted(by_layout.items())
+            for k in range(0, len(idx), SALTED_GROUP)]
+
+
+def salted_rows(variant: str, length: int, group) -> np.ndarray:
+    """A group's rows, uint32[T, SALTED_ROW]: per target (salt bytes,
+    digest uint32 words), its fixed message words (``salted_block``),
+    then its digest words; md5 keeps word 0 less the IV's in word 20,
+    the kernel's compare after step 60.  An ``sp`` group's salts are of
+    one length."""
+    algo, order = split_salted(variant)
+    n_words = cuda_mask.device_engine(algo).digest_words
+    if not 1 <= len(group) <= SALTED_GROUP:
+        raise ValueError(f"a salted group takes 1..{SALTED_GROUP} targets, "
+                         f"got {len(group)}")
+    if order == "sp" and len({len(salt) for salt, _ in group}) != 1:
+        raise ValueError("an sp group's salts must be of one length")
+    rows = np.zeros((len(group), SALTED_ROW), np.uint32)
+    for row, (salt, words) in zip(rows, group):
+        check_salt(length, bytes(salt))
+        if len(words) != n_words:
+            raise ValueError(f"{variant} needs {n_words} target words, got "
+                             f"{len(words)}")
+        row[:16] = salted_block(variant, length, bytes(salt))
+        row[16:16 + n_words] = [int(w) & 0xFFFFFFFF for w in words]
+        if algo == "md5":
+            row[20] = (int(words[0]) - MD5_A0) & 0xFFFFFFFF
+    return rows
+
+
+def salted_table(variant: str, length: int, group, device) -> tuple:
+    """(rows int32[T, SALTED_ROW] on ``device``, shift): a group's
+    launch arguments, the rows of ``salted_rows`` and the candidate's
+    first byte (the ``sp`` salt length, 0 for ``ps``)."""
+    rows = salted_rows(variant, length, group)
+    shift = len(group[0][0]) if split_salted(variant)[1] == "sp" else 0
+    return torch.as_tensor(rows.view(np.int32), device=device), shift
+
+
 # ---- the kernels ----------------------------------------------------------
+
+class SaltedArgs(ctypes.Structure):
+    """``struct SaltedArgs`` of csrc/salted.cuh."""
+    POSITIONS = BLOCK_LIMIT
+    _fields_ = [("length", ctypes.c_int32),
+                ("radix", ctypes.c_int32 * POSITIONS),
+                ("base", ctypes.c_int32 * POSITIONS),
+                ("rcp", ctypes.c_uint32 * POSITIONS),
+                ("rsh", ctypes.c_int32 * POSITIONS),
+                ("shift", ctypes.c_int32), ("n_targets", ctypes.c_int32),
+                ("one", ctypes.c_uint32)]
+
 
 @functools.cache
 def _library():
@@ -202,6 +272,13 @@ def _library():
     lib.dprf_ext_blocks_per_sm.argtypes = [i32, i32, i32, i32,
                                            ctypes.POINTER(i32)]
     lib.dprf_ext_blocks_per_sm.restype = i32
+    lib.dprf_salted_launch.argtypes = [
+        i32, i32, ptr, ctypes.POINTER(SaltedArgs), ptr, ctypes.c_uint32,
+        ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.dprf_salted_launch.restype = i32
+    lib.dprf_salted_blocks_per_sm.argtypes = [i32, i32, i32,
+                                              ctypes.POINTER(i32)]
+    lib.dprf_salted_blocks_per_sm.restype = i32
     return lib
 
 
@@ -276,30 +353,78 @@ def nested_multi_kernel(name: str, lut: torch.Tensor,
                    hit_capacity)
 
 
-def _check_salted(variant, lut, radices, base_digits, n_valid, salt,
-                  target, hit_capacity, batch):
-    eng = cuda_mask.device_engine(split_salted(variant)[0], lut.device)
+def salted_shared_bytes(length: int, n_targets: int) -> int:
+    """Dynamic shared memory of one salted block: the group's rows, then
+    the charset tables (at most 24 KiB + 14,080 bytes)."""
+    return n_targets * SALTED_ROW * 4 + length * 256
+
+
+@functools.cache
+def salted_blocks_per_sm(variant: str, smem: int) -> int:
+    """Resident blocks per SM of a salted core at ``smem`` bytes."""
+    blocks = ctypes.c_int(0)
+    rc = _library().dprf_salted_blocks_per_sm(
+        SALTED_IDS[variant], cuda_mask.THREADS, smem, ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}, "
+                           f"{blocks.value} blocks per SM")
+    return blocks.value
+
+
+def _check_salted(variant, lut, radices, base_digits, n_valid, shift, rows,
+                  hit_capacity, batch):
+    algo, order = split_salted(variant)
+    eng = cuda_mask.device_engine(algo, lut.device)
     cuda_mask.check_job(eng, lut, radices, base_digits, n_valid,
                         hit_capacity, batch)
-    check_salt(lut.shape[0], salt)
-    cuda_mask.check_target(eng, target)
+    cuda_mask._check_tensor("salted rows", rows, 2, lut.device)
+    if not 1 <= rows.shape[0] <= SALTED_GROUP or \
+            rows.shape[1] != SALTED_ROW:
+        raise ValueError(f"salted rows must be int32[1..{SALTED_GROUP}, "
+                         f"{SALTED_ROW}], got {list(rows.shape)}")
+    if not (0 <= shift <= SALT_MAX and (shift == 0 or order == "sp")
+            and lut.shape[0] + shift <= BLOCK_LIMIT):
+        raise ValueError(f"salt shift {shift} outside 0..{SALT_MAX}, past "
+                         f"the {BLOCK_LIMIT}-byte block or on a ps core")
     return eng
 
 
 def salted_kernel(variant: str, lut: torch.Tensor, radices: Sequence[int],
-                  base_digits: Sequence[int], n_valid: int, salt: bytes,
-                  target: Sequence[int], hit_capacity: int, batch: int):
+                  base_digits: Sequence[int], n_valid: int, shift: int,
+                  rows: torch.Tensor, hit_capacity: int, batch: int):
     """Launch the salted core ``variant`` (``md5-ps`` ... ``sha256-sp``)
-    for one target: its salt bytes and its digest's uint32 words.
-    Returns (count int32[1], lanes int32[hit_capacity]) on the card,
-    still being computed."""
-    _check_salted(variant, lut, radices, base_digits, n_valid, salt, target,
+    for a group of targets: ``rows`` (``salted_table``) on the card and,
+    for ``sp``, the group's salt length ``shift``.  Returns (count
+    int32[1], lanes int32[cap], tpos int32[cap], tcount int32[T]) on the
+    card, still being computed: the (lane, target position) hits, -1 in
+    unused slots, and each target's hit count."""
+    cuda_mask.require_cuda(lut)
+    _check_salted(variant, lut, radices, base_digits, n_valid, shift, rows,
                   hit_capacity, batch)
-    count, lanes, _, _ = _launch(
-        variant, False, lut, radices, base_digits, n_valid,
-        salted_block(variant, lut.shape[0], bytes(salt)), target,
-        cuda_mask.MultiArgs(), 0, hit_capacity, shift=len(salt))
-    return count, lanes
+    device = lut.device
+    n_targets = rows.shape[0]
+    count, lanes, tpos = cuda_mask.hit_buffers(False, hit_capacity, device)
+    tpos.fill_(-1)
+    tcount = torch.zeros((n_targets,), dtype=torch.int32, device=device)
+    length = lut.shape[0]
+    rcp, rsh = cuda_mask.decode_reciprocals(radices)
+    n = SaltedArgs.POSITIONS
+    args = SaltedArgs(length, (ctypes.c_int32 * n)(*radices),
+                      (ctypes.c_int32 * n)(*base_digits),
+                      (ctypes.c_uint32 * n)(*rcp), (ctypes.c_int32 * n)(*rsh),
+                      shift, n_targets, 1)
+    smem = salted_shared_bytes(length, n_targets)
+    grid = cuda_mask.wave_grid(salted_blocks_per_sm(variant, smem), n_valid,
+                               device)
+    rc = _library().dprf_salted_launch(
+        SALTED_IDS[variant], device.index, lut.data_ptr(),
+        ctypes.byref(args), rows.data_ptr(), n_valid, count.data_ptr(),
+        lanes.data_ptr(), tpos.data_ptr(), tcount.data_ptr(), hit_capacity,
+        grid, cuda_mask.THREADS, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"salted kernel launch failed: CUDA error {rc}")
+    launches[kernel_name(variant)] += 1
+    return count, lanes, tpos, tcount
 
 
 # ---- the plain versions ---------------------------------------------------
@@ -317,27 +442,35 @@ def nested_multi_plain(name: str, lut: torch.Tensor, *args):
     return cuda_mask.multi_plain(ext_engine(name, lut.device), lut, *args)
 
 
+def candidate_words(cand: torch.Tensor, at: int,
+                    big_endian: bool) -> torch.Tensor:
+    """uint8[B, L] candidates -> int32[B, 16]: each candidate's bytes at
+    [at, at + L) of a zeroed 64-byte block, as message words."""
+    block = torch.zeros((cand.shape[0], 64), dtype=torch.uint8,
+                        device=cand.device)
+    block[:, at:at + cand.shape[1]] = cand
+    if big_endian:
+        block = block.view(-1, 16, 4).flip(-1).reshape(-1, 64)
+    return block.contiguous().view(torch.int32)
+
+
 def salted_plain(variant: str, lut: torch.Tensor, radices: Sequence[int],
-                 base_digits: Sequence[int], n_valid: int, salt: bytes,
-                 target: Sequence[int], hit_capacity: int, batch: int):
+                 base_digits: Sequence[int], n_valid: int, shift: int,
+                 rows: torch.Tensor, hit_capacity: int, batch: int):
     """``salted_kernel``'s function in plain PyTorch on the lut's device:
-    the decoded candidates beside the salt, one padded block of L + S
-    bytes each, the core, the compare; hit lanes ascending."""
-    eng = _check_salted(variant, lut, radices, base_digits, n_valid, salt,
-                        target, hit_capacity, batch)
-    device = lut.device
-    length = lut.shape[0]
+    the decoded candidates' words at [shift, shift + L), per target ORed
+    into its fixed words, the core, the compare of every digest word;
+    the (lane, target) hits in lane then target order."""
+    eng = _check_salted(variant, lut, radices, base_digits, n_valid, shift,
+                        rows, hit_capacity, batch)
     cand = decode_lut(lut, radices, base_digits, batch)
-    msg = salted_message(split_salted(variant)[1], cand, bytes(salt))
-    digest = eng.digest_packed(pack_fixed(msg, length + len(salt),
-                                          big_endian=not eng.little_endian))
-    lane = torch.arange(batch, dtype=torch.int32, device=device)
-    want = cmp_ops.target_words_from_numpy(np.asarray(target, np.uint32),
-                                           device)
-    found = cmp_ops.compare_single(digest, want) & (lane < n_valid)
-    count, lanes, _ = cmp_ops.compact_hits(found, torch.zeros_like(lane),
-                                           hit_capacity)
-    return count, lanes
+    words = candidate_words(cand, shift, not eng.little_endian)
+    lane = torch.arange(batch, device=lut.device)
+    found = torch.stack(
+        [cmp_ops.compare_single(eng.digest_packed(words | row[:16]),
+                                row[16:16 + eng.digest_words])
+         for row in rows], dim=1) & (lane < n_valid)[:, None]
+    return cmp_ops.compact_group_hits(found, hit_capacity)
 
 
 def nested_crack(name: str, lut: torch.Tensor, *args):
@@ -394,26 +527,24 @@ def make_cuda_multi_crack_step(name: str, gen, table: cmp_ops.TargetTable,
                                 hit_capacity, device)
 
 
-def make_salted_crack_step(variant: str, gen, batch: int,
+def make_salted_crack_step(variant: str, gen, group, batch: int,
                            hit_capacity: int = 64, device="cuda"):
-    """The salted worker's step: step(base_digits, n_valid, salt,
-    target_words) -> (count int32[1], lanes int32[hit_capacity], tpos
-    all 0), one target per call."""
+    """The salted worker's step for one group: ``group`` its targets'
+    (salt bytes, digest uint32 words) (``salted_groups``), their rows on
+    ``device`` once, here.  step(base_digits, n_valid) -> (count
+    int32[1], lanes int32[cap], tpos int32[cap], tcount int32[T])."""
     algo, order = split_salted(variant)
-    if not salted_eligible(algo, order, gen, [0]):
+    if not salted_eligible(algo, order, gen, [len(s) for s, _ in group]):
         raise ValueError(f"mask job not eligible for the salted kernel "
                          f"{variant!r}: length {gen.length}")
     cuda_mask.check_batch(batch)
     device = torch.device(device)
     lut = gen.charset_lut(device)
     radices = gen.radices
-    tpos = torch.zeros((hit_capacity,), dtype=torch.int32, device=device)
+    rows, shift = salted_table(variant, gen.length, group, device)
 
-    def step(base_digits: Sequence[int], n_valid: int, salt: bytes,
-             target_words: Sequence[int]):
-        count, lanes = salted_crack(variant, lut, radices, base_digits,
-                                    n_valid, salt, target_words,
-                                    hit_capacity, batch)
-        return count, lanes, tpos
+    def step(base_digits: Sequence[int], n_valid: int):
+        return salted_crack(variant, lut, radices, base_digits, n_valid,
+                            shift, rows, hit_capacity, batch)
 
     return step

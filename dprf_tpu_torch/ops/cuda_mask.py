@@ -179,6 +179,16 @@ def check_decode(lut: torch.Tensor, radices: Sequence[int],
         raise ValueError(f"n_valid {n_valid} outside 0..{batch}")
 
 
+def decode_reciprocals(radices: Sequence[int]) -> tuple:
+    """The reciprocal decode's per-position constants (csrc/decode.cuh,
+    DPRF_DECODE_RCP): for a radix r of 1..256, sh = ceil(log2 r) and
+    rcp = ceil(2^(31 + sh) / r), so that s // r == umulhi(2 s, rcp) >> sh
+    for every s < 2^31.  Returns (rcp, sh), lists of ints."""
+    sh = [(int(r) - 1).bit_length() for r in radices]
+    rcp = [-(-(1 << (31 + k)) // int(r)) for r, k in zip(radices, sh)]
+    return rcp, sh
+
+
 def check_job(eng, lut: torch.Tensor, radices: Sequence[int],
               base_digits: Sequence[int], n_valid: int, hit_capacity: int,
               batch: int, offset: int = 0) -> None:

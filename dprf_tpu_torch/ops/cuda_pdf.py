@@ -21,7 +21,7 @@ tensors only, launches on the current stream without synchronising,
 counts its launches in ``launches``), the same function in plain
 PyTorch ``pdf_plain`` (ops/md5.py, ops/rc4.py; lanes ascending), and the
 dispatcher ``pdf_crack``: the kernel for CUDA tensors, the plain version
-for CPU tensors.  ``make_pdf_step`` builds the worker's step on the
+for CPU tensors.  ``make_pdf_steps`` builds the worker's steps on the
 dispatcher.
 """
 
@@ -307,10 +307,12 @@ def pdf_crack(kind: tuple, lut: torch.Tensor, *args):
     raise ValueError(f"no pdf kernel for device {lut.device}")
 
 
-def make_pdf_step(gen, batch: int, hit_capacity: int = 64, device="cuda"):
-    """The worker's step: step(base_digits, n_valid, kind, tgt) ->
-    (count int32[1], lanes int32[cap], None) for one document.  The
-    charset tables go to ``device`` once, here."""
+def make_pdf_steps(gen, docs: Sequence[tuple], batch: int,
+                   hit_capacity: int = 64, device="cuda") -> list:
+    """The worker's steps, one a document of ``docs`` ((kind, tgt) each,
+    ``target_kernel_args``): step(base_digits, n_valid) -> (count
+    int32[1], lanes int32[cap], None).  The charset tables go to
+    ``device`` once, here."""
     if not mask_fits(gen, MAX_LENGTH):
         raise ValueError(
             f"pdf job not eligible for the kernel: masks of 1.."
@@ -318,9 +320,9 @@ def make_pdf_step(gen, batch: int, hit_capacity: int = 64, device="cuda"):
     lut = gen.charset_lut(torch.device(device))
     radices = gen.radices
 
-    def step(base_digits: Sequence[int], n_valid: int, kind: tuple,
-             tgt: PdfTarget):
+    def step(kind: tuple, tgt: PdfTarget, base_digits: Sequence[int],
+             n_valid: int):
         return (*pdf_crack(kind, lut, radices, base_digits, n_valid, tgt,
                            hit_capacity, batch), None)
 
-    return step
+    return [functools.partial(step, kind, tgt) for kind, tgt in docs]

@@ -564,21 +564,27 @@ def nested_ops(name: str, length: int, multi: bool = False,
                                maybes, n_targets, core)
 
 
-def salted_ops(variant: str, length: int, salt: bytes) -> Work:
-    """The least work of one candidate of a salted core
-    (``cuda_ext.SALTED_NAMES``) over a ``length``-position mask and one
-    target's ``salt``: the decode, the core up to digest word 0 with the
-    target's salt, padding and bit length folded as constants and the
-    candidate's words -- [0, L) for ``ps``, [S, S + L) for ``sp`` --
-    variable, and one compare.  The kernel's move of an ``sp`` candidate
-    by S bytes is not counted: it is not needed work."""
+def salted_ops(variant: str, length: int, salt: bytes,
+               group: int = 1) -> Work:
+    """The least work of one hash of a salted core
+    (``cuda_ext.SALTED_NAMES``), one (candidate, target) pair of a
+    ``length``-position mask and a target's ``salt``, in a launch whose
+    ``group`` targets share each candidate's decode (csrc/salted.cuh):
+    the core up to digest word 0 with the target's salt, padding and bit
+    length folded as constants and the candidate's words -- [0, L) for
+    ``ps``, [S, S + L) for ``sp`` -- variable, and one compare per pair;
+    the decode once per candidate, 1 / ``group`` of it a pair.  The
+    kernel's move of an ``sp`` candidate by S bytes is not counted: it
+    is not needed work."""
     from dprf_tpu_torch.ops import cuda_ext
     algo, order = cuda_ext.split_salted(variant)
     first = 0 if order == "ps" else len(salt)
     block = cuda_ext.salted_block(variant, length, bytes(salt))
     core = _core_work(algo, block,
                       range(first // 4, (first + length - 1) // 4 + 1), 1)
-    return _decode_and_compare(length, False, 0, 0.0, 0.0, 1, core)
+    share = length / group
+    return Work(core["alu"] + 1 + share, core["add"] + share,
+                core["fma"] + 2 * share)
 
 
 # ---- the PMKID kernel ------------------------------------------------------
@@ -683,48 +689,63 @@ RC4_SHARED = 64 + 4 * (256 + 12) + 4
 SHARED_READS_PER_SM_CLOCK = 32
 
 
-def krb5_compressions() -> dict:
-    """The MD5 compressions of one candidate, by kind: ``key`` the four
-    HMAC key states (a 16-byte key from the IV), ``inner`` the two inner
-    hashes over a message fixed per target (msg_type, the checksum),
-    ``outer`` the two outer hashes over the 16-byte inner digest."""
-    return {"key": 4, "inner": 2, "outer": 2}
+def krb5_compressions(per_ticket: bool = False) -> dict:
+    """The MD5 compressions of the krb5 kernel, by kind: ``key`` an HMAC
+    key state (a 16-byte key from the IV), ``inner`` an inner hash over
+    a message fixed per launch or ticket (msg_type, the checksum),
+    ``outer`` an outer hash over the 16-byte inner digest.  Once per
+    candidate: K1 = HMAC-MD5(NT, msg_type) (two key states, an inner and
+    an outer hash) and K1's two key states; per ticket (``per_ticket``):
+    K3's inner and outer hash over the checksum."""
+    if per_ticket:
+        return {"key": 0, "inner": 1, "outer": 1}
+    return {"key": 4, "inner": 1, "outer": 1}
 
 
-def krb5_ops(length: int) -> Work:
-    """The least issue work of one krb5 candidate: the decode, the MD4
-    block over the widened candidate with its feed-forward, the eight MD5
+def krb5_ops(length: int, n_tickets: int = 1) -> Work:
+    """The least issue work of one (candidate, ticket) pair of the krb5
+    kernel, in a launch whose ``n_tickets`` tickets share each
+    candidate's work (csrc/krb5.cu).  Per ticket: K3's two MD5
     compressions, the 16 key bytes' extracts, RC4's 256 + 12 steps and 4
-    kept bytes, and the masked compare (LOP3, ISETP)."""
+    kept bytes, and the masked compare (LOP3, ISETP).  Per candidate,
+    1 / ``n_tickets`` of it a pair: the decode, the MD4 block over the
+    widened candidate with its feed-forward and six MD5 compressions (K1
+    and its key states)."""
     md4_block = list(message_block("ntlm", length))
     for w in range(-(-2 * length // 4)):
         md4_block[w] = Var("alu", 0, [])
     nt = _md4(md4_block)
-    work = tally([add(o, int(s)) for o, s in zip(nt, md4.INIT)])
+    cand = tally([add(o, int(s)) for o, s in zip(nt, md4.INIT)])
     v = [Var("alu", 0, []) for _ in range(4)]
     per = {"key": md5_compress_work(False, v + [0x36363636] * 12),
            "inner": md5_compress_work(True, [2, 0x80] + [0] * 12
                                       + [(64 + 4) * 8, 0]),
            "outer": md5_compress_work(True, v + [0x80] + [0] * 9
                                       + [(64 + 16) * 8, 0])}
-    for kind, n in krb5_compressions().items():
-        for pipe in work:
-            work[pipe] += n * per[kind][pipe]
+    ticket = {pipe: 0 for pipe in cand}
+    for work, per_ticket in ((cand, False), (ticket, True)):
+        for kind, n in krb5_compressions(per_ticket).items():
+            for pipe in work:
+                work[pipe] += n * per[kind][pipe]
     steps = 256 + 12
-    return Work(work["alu"] + length + 16 + steps * RC4_STEP.alu
-                + 4 * RC4_OUT_BYTE.alu + 2,
-                work["add"] + length + steps * RC4_STEP.add
-                + 4 * RC4_OUT_BYTE.add,
-                work["fma"] + 2 * length)
+    share = 1 / n_tickets
+    return Work(ticket["alu"] + 16 + steps * RC4_STEP.alu
+                + 4 * RC4_OUT_BYTE.alu + 2 + share * (cand["alu"] + length),
+                ticket["add"] + steps * RC4_STEP.add + 4 * RC4_OUT_BYTE.add
+                + share * (cand["add"] + length),
+                ticket["fma"] + share * (cand["fma"] + 2 * length))
 
 
-def krb5_bound(batch: int, length: int, sms: int, clock_hz: float) -> dict:
-    """Two limits on ``batch`` krb5 candidates, in seconds: ``issue``,
-    ``krb5_ops``'s slots (64 lanes a pipe per SM per clock); ``shared``,
-    RC4's shared-memory accesses and the decode's table reads at 32 per
-    SM per clock."""
-    issue = batch * krb5_ops(length).slots / (sms * 64 * clock_hz)
-    shared = batch * (RC4_SHARED + length) / (
+def krb5_bound(batch: int, length: int, sms: int, clock_hz: float,
+               n_tickets: int = 1) -> dict:
+    """Two limits on a launch of ``batch`` candidates over a group of
+    ``n_tickets`` tickets, in seconds: ``issue``, ``krb5_ops``'s slots a
+    pair (64 lanes a pipe per SM per clock); ``shared``, RC4's
+    shared-memory accesses a pair and the decode's table reads a
+    candidate at 32 per SM per clock."""
+    pairs = batch * n_tickets
+    issue = pairs * krb5_ops(length, n_tickets).slots / (sms * 64 * clock_hz)
+    shared = (pairs * RC4_SHARED + batch * length) / (
         sms * SHARED_READS_PER_SM_CLOCK * clock_hz)
     return {"issue": issue, "shared": shared}
 

@@ -331,10 +331,10 @@ class CudaMaskWorker(MaskWorkerBase):
 
 
 class PendingSweep:
-    """A unit of a per-target sweep whose launches are all queued: per
-    target, its batches' results and its hit count summed on the device,
-    and the sum over the targets, so resolving a unit without hits reads
-    one scalar."""
+    """A unit of a grouped sweep whose launches are all queued: per
+    group, its batches' results and its hit count summed on the device,
+    and the sum over them, so resolving a unit without hits reads one
+    scalar."""
 
     __slots__ = ("worker", "unit", "batches", "results", "flags")
 
@@ -352,29 +352,42 @@ class PendingSweep:
         if int(flags.sum().item()) == 0:
             return []
         hits: list[Hit] = []
-        for ti in torch.nonzero(flags).flatten().tolist():
+        for gi in torch.nonzero(flags).flatten().tolist():
             for (bstart, _, _), result in zip(self.batches,
-                                              self.results[ti]):
-                hits.extend(self.worker._batch_hits(ti, bstart, result,
+                                              self.results[gi]):
+                hits.extend(self.worker._batch_hits(gi, bstart, result,
                                                     self.unit))
         return sorted(hits, key=lambda h: (h.cand_index, h.target_index))
 
 
-class PerTargetSweepWorker:
-    """A mask sweep once per target, for engines whose targets each
-    reshape the work (a salt, a ticket): every batch of a unit once per
-    target, one step call each, queued asynchronously; a hit's
-    ``target_index`` is the target's position in the job, and a batch
-    whose hits overflow the hit buffer is rescanned exactly by the
-    oracle, for that target only.  The counterpart of the reference's
-    PerTargetSweepSetup sweep.
+def singleton_groups(steps: Sequence) -> list:
+    """Per-target steps (one a target, in job order) as
+    ``GroupedSweepWorker.groups``: each target a group of one."""
+    return [([ti], step) for ti, step in enumerate(steps)]
 
-    Subclasses set ``self.step`` (step(base digits, n_valid, *targ) ->
-    (count int32[1], lanes int32[cap], _) on the device, still being
-    computed) and ``self._targs`` (each target's step arguments).  With
-    ``confirm`` set, every reported lane is a *maybe* of a prefilter:
-    the oracle verifies it before it becomes a Hit, and ``n_maybe()``
-    counts the ones it rejected."""
+
+class GroupedSweepWorker:
+    """A mask sweep once per group of targets, for engines whose targets
+    each reshape the work (a salt, a ticket, an ESSID, an entry): every
+    batch of a unit once per group, one step call each, queued
+    asynchronously, the unit's hit count summed on the device over every
+    launch.  A hit is a (lane, target position) pair whose
+    ``target_index`` is the target's position in the job; a batch whose
+    hits overflow the hit buffer is rescanned exactly by the oracle for
+    the targets whose own count (``tcount``) its recorded hits do not
+    cover, and only for those.  A target that shares no work with
+    another is a group of one (``singleton_groups``).  The counterpart
+    of the reference's per-target sweep (PerTargetSweepSetup), with the
+    same hits.
+
+    Subclasses set ``self.groups``: (the group's target indices in the
+    job, step(base digits, n_valid) -> (count int32[1], lanes int32[cap],
+    tpos int32[cap], tcount int32[T]) on the device, still being
+    computed).  A group of one may give None for tpos; a step without
+    tcount (a 3-tuple) has every target of its group rescanned when its
+    batch overflows.  With ``confirm`` set, every reported lane is a
+    *maybe* of a prefilter: the oracle verifies it before it becomes a
+    Hit, and ``n_maybe()`` counts the ones it rejected."""
 
     #: the step's lanes are prefilter maybes the oracle confirms
     confirm = False
@@ -398,16 +411,12 @@ class PerTargetSweepWorker:
         batches = [(b, min(self.stride, unit.end - b), self.gen.digits(b))
                    for b in range(unit.start, unit.end, self.stride)]
         results, flags = [], []
-        for targ in self._targs:
-            out, flag = [], None
-            for _, n_valid, digits in batches:
-                result = self.step(digits, n_valid, *targ)
-                self.dispatched += 1
-                flag = result[0] if flag is None else flag + result[0]
-                out.append(result)
+        for _, step in self.groups:
+            out = [step(digits, n_valid) for _, n_valid, digits in batches]
+            self.dispatched += len(out)
             results.append(out)
-            if flag is not None:
-                flags.append(flag)
+            if out:
+                flags.append(sum(r[0] for r in out))
         return PendingSweep(self, unit, batches, results, flags)
 
     def process(self, unit: WorkUnit) -> list[Hit]:
@@ -418,36 +427,55 @@ class PerTargetSweepWorker:
         else None."""
         return self.rejected_maybes if self.confirm else None
 
-    def _batch_hits(self, ti: int, bstart: int, result,
+    def _batch_hits(self, gi: int, bstart: int, result,
                     unit: WorkUnit) -> list[Hit]:
-        count, lanes, _ = result
+        count, lanes, tpos = result[:3]
         count = int(count.item())
         if count == 0:
             return []
-        if count > lanes.shape[0]:
-            return self._rescan(ti, bstart, unit)
+        tidx = self.groups[gi][0]
+        n = min(count, lanes.shape[0])
+        at = tpos[:n].tolist() if tpos is not None else [0] * n
+        pairs = sorted((lane, t) for lane, t in zip(lanes[:n].tolist(), at)
+                       if lane >= 0)
+        overflow = set()
+        if count > len(pairs):
+            if len(result) < 4:
+                overflow = set(range(len(tidx)))
+            else:
+                recorded = [0] * len(tidx)
+                for _, t in pairs:
+                    recorded[t] += 1
+                overflow = {t for t, k in enumerate(result[3].tolist())
+                            if k > recorded[t]}
         hits = []
-        for lane in sorted(lanes.tolist()):
-            if lane < 0:
+        for lane, t in pairs:
+            if t in overflow:
                 continue
             plain = self.gen.candidate(bstart + lane)
-            if self.confirm and not self.oracle.verify(plain,
-                                                       self.targets[ti]):
+            if self.confirm and not self.oracle.verify(
+                    plain, self.targets[tidx[t]]):
                 self.rejected_maybes += 1
                 continue
-            hits.append(Hit(ti, bstart + lane, plain))
+            hits.append(Hit(tidx[t], bstart + lane, plain))
+        if overflow:
+            hits.extend(self._rescan([tidx[t] for t in sorted(overflow)],
+                                     bstart, unit))
         return hits
 
-    def _rescan(self, ti: int, bstart: int, unit: WorkUnit) -> list[Hit]:
-        """Exact oracle rescan of one overflowed batch of one target."""
+    def _rescan(self, tis: list, bstart: int, unit: WorkUnit) -> list[Hit]:
+        """Exact oracle rescan of one overflowed batch for the job's
+        targets ``tis``, and no other."""
         if self.oracle is None:
             raise RuntimeError(
                 f"hit buffer overflow (> {self.hit_capacity}) and no "
                 "oracle engine to rescan with; raise hit_capacity")
         end = min(bstart + self.stride, unit.end)
-        hits = CpuWorker(self.oracle, self.gen, [self.targets[ti]]).process(
+        hits = CpuWorker(self.oracle, self.gen,
+                         [self.targets[i] for i in tis]).process(
             WorkUnit(-1, bstart, end - bstart))
-        return [Hit(ti, h.cand_index, h.plaintext) for h in hits]
+        return [Hit(tis[h.target_index], h.cand_index, h.plaintext)
+                for h in hits]
 
 
 class WordlistWorkerBase(MaskWorkerBase):

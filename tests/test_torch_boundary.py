@@ -225,18 +225,24 @@ def test_ext_kernels_refuse_cpu_tensors():
         cuda_ext.nested_multi_kernel(
             "mysql41", lut, *base, torch.zeros((8, 128), dtype=torch.int32),
             torch.zeros((1, 5), dtype=torch.int32), 4, 64)
+    rows, shift = cuda_ext.salted_table("sha1-sp", 3, [(b"salt", [0] * 5)],
+                                        "cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda_ext.salted_kernel("sha1-sp", lut, *base, b"salt", [0] * 5, 4,
-                               64)
+        cuda_ext.salted_kernel("sha1-sp", lut, *base, shift, rows, 4, 64)
     assert cuda_ext.launches == launches
-    count, lanes = cuda_ext.salted_crack("md5-ps", lut, *base, b"s", [0] * 4,
-                                         4, 64)
+    rows, _ = cuda_ext.salted_table("md5-ps", 3, [(b"s", [0] * 4)], "cpu")
+    count, lanes, tpos, tcount = cuda_ext.salted_crack("md5-ps", lut, *base,
+                                                       0, rows, 4, 64)
     assert int(count) == 0 and lanes.tolist() == [-1] * 4
+    assert tpos.tolist() == [-1] * 4 and tcount.tolist() == [0]
     for salt in (b"x" * 33, b"x" * 53):
         with pytest.raises(ValueError, match="salt"):
-            cuda_ext.salted_crack("md5-ps", lut, *base, salt, [0] * 4, 4, 64)
+            cuda_ext.salted_table("md5-ps", 3, [(salt, [0] * 4)], "cpu")
+    for shift in (33, 53):
+        with pytest.raises(ValueError, match="salt"):
+            cuda_ext.salted_crack("md5-sp", lut, *base, shift, rows, 4, 64)
     with pytest.raises(ValueError):
-        cuda_ext.salted_crack("sha512-ps", lut, *base, b"", [0] * 16, 4, 64)
+        cuda_ext.salted_crack("sha512-ps", lut, *base, 0, rows, 4, 64)
     with pytest.raises(ValueError):
         cuda_ext.nested_crack("md5(sha256)", lut, *base, [0] * 4, 4, 64)
 

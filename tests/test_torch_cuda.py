@@ -386,12 +386,22 @@ def test_nested_kernel_matches_plain(name):
     assert pairs(*k)[1] == [(x, i) for i, x in enumerate(plants[:4])]
 
 
+def _group_hits(result, idx):
+    """A grouped kernel's (count, (lane, job target) pairs, tcount)."""
+    count, lanes, tpos, tcount = result
+    pairs = sorted((int(a), idx[int(b)]) for a, b in
+                   zip(lanes.cpu().tolist(), tpos.cpu().tolist()) if a >= 0)
+    return int(count.item()), pairs, tcount.cpu().tolist()
+
+
 @pytest.mark.parametrize("variant", ["md5-ps", "md5-sp", "sha1-ps",
                                      "sha1-sp", "sha256-ps", "sha256-sp"])
 def test_salted_kernel_matches_plain(variant):
-    """Each salted core on ?l^5 at batch 2^20: salts of 0, 3, 4, 7 and
-    32 bytes, a hit at the first lane, at the last valid lane of a
-    partial batch, and none."""
+    """Each salted core on ?l^5 at batch 2^20, its targets grouped as the
+    worker groups them (salts of 0, 3, 4, 7 and 32 bytes, two targets a
+    length): for each group a partial batch with hits at the first lane
+    and the last valid lane and one just past it, count, (lane, target)
+    pairs and per-target counts equal to the plain version's."""
     _need_card()
     from dprf_tpu_torch.ops import cuda_ext
     algo, _ = cuda_ext.split_salted(variant)
@@ -399,30 +409,37 @@ def test_salted_kernel_matches_plain(variant):
     lut = gen.charset_lut("cuda")
     oracle = get_engine(variant)
     rng = np.random.default_rng(23)
+    start, n_valid = batch, batch - 9
+    targets, want = [], []
     for n in (0, 3, 4, 7, 32):
         salt = bytes(rng.integers(0, 256, n, dtype=np.uint8))
-        for start, n_valid, plant in ((0, batch, 0),
-                                      (batch, batch - 9, 2 * batch - 10),
-                                      (batch, batch - 9, 2 * batch - 9)):
-            d = oracle.hash_batch([gen.candidate(plant)],
+        for lane in (0, n_valid - 1, n_valid):
+            d = oracle.hash_batch([gen.candidate(start + lane)],
                                   params={"salt": salt})[0]
-            args = (variant, lut, gen.radices, gen.digits(start), n_valid,
-                    salt, [int(w) for w in np.frombuffer(
-                        d, "<u4" if algo == "md5" else ">u4")], 64, batch)
-            launches = cuda_ext.launches[f"{variant}_mask"]
-            k = cuda_ext.salted_kernel(*args)
-            p = cuda_ext.salted_plain(*args)
-            torch.cuda.synchronize()
-            assert cuda_ext.launches[f"{variant}_mask"] == launches + 1
-            want = (1, [plant - start]) if plant - start < n_valid \
-                else (0, [])
-            assert _ext_hits(k) == _ext_hits(p) == want, (n, plant)
+            if lane < n_valid:
+                want.append((lane, len(targets)))
+            targets.append((salt, [int(w) for w in np.frombuffer(
+                d, "<u4" if algo == "md5" else ">u4")]))
+    got = []
+    for idx in cuda_ext.salted_groups(variant, [t[0] for t in targets]):
+        rows, shift = cuda_ext.salted_table(
+            variant, 5, [targets[i] for i in idx], "cuda")
+        args = (variant, lut, gen.radices, gen.digits(start), n_valid, shift,
+                rows, 64, batch)
+        launches = cuda_ext.launches[f"{variant}_group"]
+        k = _group_hits(cuda_ext.salted_kernel(*args), idx)
+        p = _group_hits(cuda_ext.salted_plain(*args), idx)
+        torch.cuda.synchronize()
+        assert cuda_ext.launches[f"{variant}_group"] == launches + 1
+        assert k == p
+        got += k[1]
+    assert sorted(got) == sorted(want)
 
 
 def test_cli_nested_and_salted_on_card(tmp_path, capsys):
     """crack --device cuda for md5(md5) over a 1,000-target list and
     for sha1-sp over three salted targets: every plant found, launches
-    once per batch (per target for salted)."""
+    once per batch (per group of one salt length for salted)."""
     _need_card()
     from dprf_tpu_torch.ops import cuda_ext
     gen = MaskGenerator("?l?l?l?l")
@@ -453,7 +470,8 @@ def test_cli_nested_and_salted_on_card(tmp_path, capsys):
     captured = capsys.readouterr()
     assert rc == 0 and len(captured.out.splitlines()) == 3
     assert "rejected=0" in captured.err
-    assert cuda_ext.launches["sha1-sp_mask"] == 3 * 7
+    # three salt lengths: three groups, one launch a (group, batch)
+    assert cuda_ext.launches["sha1-sp_group"] == 3 * 7
 
 
 #: slice F1's instantiations: (engine driving it, multi target)
@@ -564,31 +582,45 @@ def _krb5_line(password: bytes, asrep: bool, body_len: int,
 
 
 def test_krb5_kernel_matches_plain():
-    """2^20 lanes of ?a^8: hits at lane 0 and at the last valid lane of a
-    partial batch, AS-REP with the relaxed 0x7A tag, each DER form, hit
-    capacity 0, no hit; count and sorted lanes equal."""
+    """2^20 lanes of ?a^8, a partial batch, tickets grouped by msg_type:
+    a TGS group with hits at lane 0 and at the last valid lane, each DER
+    form and a ticket no candidate opens; an AS-REP group with the
+    relaxed 0x7A tag; then hit capacity 0.  Count, (lane, ticket) pairs
+    and per-ticket counts equal."""
     _need_card()
     from dprf_tpu_torch.ops import cuda_krb5
     gen, batch = MaskGenerator("?a" * 8), 1 << 20
     lut = gen.charset_lut("cuda")
-    start = 987 * batch
-    cases = [(False, 300, None, 0, batch, 64), (False, 60, None, batch - 8,
-                                               batch - 7, 64),
-             (True, 180, 0x7A, 4242, batch, 64), (True, 70_000, None, 99,
-                                                  batch, 64),
-             (False, 300, None, 5, batch, 0), (False, 300, None, None,
-                                               batch, 64)]
-    for asrep, body, tag, lane, nv, cap in cases:
+    start, nv = 987 * batch, batch - 7
+    cases = [(False, 300, None, 0), (False, 60, None, nv - 1),
+             (True, 180, 0x7A, 4242), (True, 70_000, None, 99),
+             (False, 300, None, None), (False, 200, None, 5)]
+    tgts, want = [], []
+    for i, (asrep, body, tag, lane) in enumerate(cases):
         plain = gen.candidate(start + lane) if lane is not None else b"-"
         line = _krb5_line(plain, asrep, body, tag)
         eng = get_engine("krb5asrep" if asrep else "krb5tgs")
-        tgt = cuda_krb5.target_kernel_args(eng.parse_target(line))
-        args = (lut, gen.radices, gen.digits(start), nv, tgt, cap, batch)
-        k = cuda_krb5.krb5_kernel(*args)
-        p = cuda_krb5.krb5_plain(*args)
-        torch.cuda.synchronize()
-        assert _hit_set(*k) == _hit_set(*p) == \
-            ((0, []) if lane is None else (1, [lane] if cap else []))
+        tgts.append(cuda_krb5.target_kernel_args(eng.parse_target(line)))
+        if lane is not None:
+            want.append((lane, i))
+    groups = cuda_krb5.krb5_groups(tgts)
+    assert len(groups) == 2
+    got = []
+    for cap in (64, 0):
+        for idx in groups:
+            rows = torch.as_tensor(cuda_krb5.ticket_rows(
+                [tgts[i] for i in idx]).view(np.int32), device="cuda")
+            args = (lut, gen.radices, gen.digits(start), nv,
+                    tgts[idx[0]].msg_type, rows, cap, batch)
+            k = _group_hits(cuda_krb5.krb5_kernel(*args), idx)
+            p = _group_hits(cuda_krb5.krb5_plain(*args), idx)
+            torch.cuda.synchronize()
+            assert k == p
+            if cap:
+                got += k[1]
+            else:
+                assert k[1] == [] and k[0] == sum(k[2])
+    assert sorted(got) == sorted(want)
 
 
 def test_kdf_kernel_matches_plain_and_hashlib():
@@ -617,8 +649,8 @@ def test_kdf_kernel_matches_plain_and_hashlib():
 
 def test_cli_krb5_on_card(tmp_path, capsys):
     """crack --device cuda for krb5tgs and krb5asrep over ?l^4: every
-    plant found, only the krb5 kernel launched, once per ticket and
-    batch."""
+    plant found, only the krb5 kernel launched, once per batch for the
+    three tickets of one msg_type."""
     _need_card()
     from dprf_tpu_torch.ops import cuda_krb5
     for engine, asrep in (("krb5tgs", False), ("krb5asrep", True)):
@@ -633,7 +665,7 @@ def test_cli_krb5_on_card(tmp_path, capsys):
         captured = capsys.readouterr()
         assert rc == 0 and len(captured.out.splitlines()) == 2
         assert "rejected=0" in captured.err and "maybes=" in captured.err
-        assert cuda_krb5.launches["krb5"] == 3 * 7
+        assert cuda_krb5.launches["krb5_group"] == 7
         assert sum(cuda_mask.launches.values()) == 0
 
 

@@ -189,8 +189,9 @@ def test_kernel_args_match_target_scalars_and_targs():
 
 def test_filter_batch_and_step_match_reference():
     """The plain filter against the reference's ``krb5_filter_batch`` on
-    seeded candidates; the plain step against ``make_krb5_mask_step``
-    over one batch with a planted hit (count and lanes)."""
+    seeded candidates; the plain grouped step against
+    ``make_krb5_mask_step`` over one batch with a planted hit (count and
+    lanes), the ticket a group of one."""
     rng = np.random.default_rng(5)
     cand = rng.integers(32, 127, (16, 9), dtype=np.uint8)
     lens = rng.integers(1, 10, 16).astype(np.int32)
@@ -212,12 +213,13 @@ def test_filter_batch_and_step_match_reference():
     r_count, r_lanes, _ = ref_step(
         jnp.asarray(rgen.digits(start), jnp.int32), jnp.int32(batch - 3),
         *ref_dkrb5._targs([rt])[0])
-    step = cuda_krb5.make_krb5_step(gen, batch, 8, device="cpu")
-    count, lanes, _ = step(gen.digits(start), batch - 3,
-                           cuda_krb5.target_kernel_args(rt))
-    assert int(count[0]) == int(r_count) == 1
+    step = cuda_krb5.make_krb5_step(gen, [cuda_krb5.target_kernel_args(rt)],
+                                    batch, 8, device="cpu")
+    count, lanes, tpos, tcount = step(gen.digits(start), batch - 3)
+    assert int(count[0]) == int(r_count) == int(tcount[0]) == 1
     assert sorted(x for x in lanes.tolist() if x >= 0) == \
         sorted(int(x) for x in np.asarray(r_lanes) if x >= 0) == [37]
+    assert [x for x in tpos.tolist() if x >= 0] == [0]
 
 
 def test_worker_finds_planted_and_rescans_overflow():
@@ -239,7 +241,10 @@ def test_worker_finds_planted_and_rescans_overflow():
                        key=lambda x: (x[1], x[0]))
             assert all(h.plaintext == gen.candidate(h.cand_index)
                        for h in hits)
-            assert w.dispatched == 3 * 3 and w.n_maybe() == 0
+            # the three tickets of one msg_type are one group: one
+            # launch a batch
+            assert len(w.groups) == 1
+            assert w.dispatched == 3 and w.n_maybe() == 0
 
 
 def test_maybes_are_confirmed_and_counted(monkeypatch):
@@ -252,11 +257,13 @@ def test_maybes_are_confirmed_and_counted(monkeypatch):
     w = dev.make_mask_worker(gen, [t], batch=100, hit_capacity=100,
                              oracle=eng)
 
-    def always(base_digits, n_valid, tgt):
+    def always(base_digits, n_valid):
         return (torch.tensor([n_valid], dtype=torch.int32),
-                torch.arange(100, dtype=torch.int32), None)
+                torch.arange(100, dtype=torch.int32),
+                torch.zeros(100, dtype=torch.int32),
+                torch.tensor([n_valid], dtype=torch.int32))
 
-    monkeypatch.setattr(w, "step", always)
+    monkeypatch.setattr(w, "groups", [(w.groups[0][0], always)])
     hits = w.process(WorkUnit(0, 0, 100))
     assert [(h.cand_index, h.plaintext) for h in hits] == [(42, b"42")]
     assert w.n_maybe() == 99 and w.rejected_maybes == 99
@@ -306,9 +313,10 @@ def test_refusals_name_device_cpu(tmp_path, capsys):
     gen = MaskGenerator("?l")
     tgt = cuda_krb5.target_kernel_args(get_engine("krb5tgs")
                                        .parse_target(line))
+    rows = torch.as_tensor(cuda_krb5.ticket_rows([tgt]).view(np.int32))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda_krb5.krb5_kernel(gen.charset_lut(), gen.radices, [0], 1, tgt,
-                              4, 8)
+        cuda_krb5.krb5_kernel(gen.charset_lut(), gen.radices, [0], 1,
+                              tgt.msg_type, rows, 4, 8)
 
 
 def test_engine_names_of_the_slice():

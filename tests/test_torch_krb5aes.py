@@ -266,11 +266,11 @@ def test_worker_finds_planted_and_confirms_maybes(low_iterations,
     w = d.make_mask_worker(gen, targets[:1], batch=100, hit_capacity=100,
                            oracle=eng)
 
-    def always(base_digits, n_valid, ti):
+    def always(base_digits, n_valid):
         return (torch.tensor([n_valid], dtype=torch.int32),
                 torch.arange(100, dtype=torch.int32), None)
 
-    monkeypatch.setattr(w, "step", always)
+    monkeypatch.setattr(w, "groups", [([0], always)])
     hits = w.process(WorkUnit(0, 0, gen.keyspace))
     assert [(h.cand_index, h.plaintext) for h in hits] == [(0, b"00")]
     assert w.n_maybe() == gen.keyspace - 1

@@ -261,6 +261,57 @@ def test_nested_and_salted_counts():
         Work(937, 329, 12)
 
 
+def test_grouped_counts():
+    """The grouped kernels' counts.  Salted: a group of one is the
+    per-target count; a group of T shares the decode (one add, two IMAD
+    and one ALU op a position) T ways and keeps the core and compare
+    per hash.  krb5: a group of one ticket is the per-ticket count; at
+    T tickets the decode, the NT hash and K1's six compressions are
+    shared T ways, K3's two compressions, RC4 and the compare stay per
+    ticket, as do RC4's shared accesses (the decode's table reads are
+    shared)."""
+    for variant in ("md5-ps", "sha1-sp", "sha256-ps"):
+        one = opcount.salted_ops(variant, 6, b"x" * 11)
+        assert opcount.salted_ops(variant, 6, b"x" * 11, group=1) == one
+        for t in (2, 32, 256):
+            got = opcount.salted_ops(variant, 6, b"x" * 11, group=t)
+            assert got == Work(one.alu - 6 + 6 / t, one.add - 6 + 6 / t,
+                               one.fma - 12 + 12 / t)
+    assert opcount.salted_ops("md5-ps", 6, b"x" * 11, 32) == \
+        Work(122 + 6 / 32, 67 + 6 / 32, 12 / 32)
+    one = opcount.krb5_ops(8)
+    assert opcount.krb5_ops(8, 1) == one == Work(1961, 1236, 16)
+    v = [_var() for _ in range(4)]
+    key = opcount.md5_compress_work(False, v + [0x36363636] * 12)
+    inner = opcount.md5_compress_work(True, [2, 0x80] + [0] * 12
+                                      + [(64 + 4) * 8, 0])
+    outer = opcount.md5_compress_work(True, v + [0x80] + [0] * 9
+                                      + [640, 0])
+    shared = {p: 4 * key[p] + inner[p] + outer[p] for p in key}
+    for t in (2, 100, 128):
+        got = opcount.krb5_ops(8, t)
+        md4_and_decode = {
+            "alu": one.alu - 4 * key["alu"] - 2 * inner["alu"]
+            - 2 * outer["alu"] - 16 - 268 * 3 - 4 * 4 - 2,
+            "add": one.add - 4 * key["add"] - 2 * inner["add"]
+            - 2 * outer["add"] - 268 * 2 - 4 * 2,
+            "fma": one.fma}
+        per_ticket_alu = one.alu - shared["alu"] - md4_and_decode["alu"]
+        assert got.alu == pytest.approx(
+            per_ticket_alu + (shared["alu"] + md4_and_decode["alu"]) / t)
+        assert got.fma == pytest.approx(16 / t)
+        assert got.slots < one.slots
+    lim1 = opcount.krb5_bound(1 << 24, 8, 132, 1.98e9)
+    lim = opcount.krb5_bound(1 << 24, 8, 132, 1.98e9, 100)
+    assert lim["shared"] == pytest.approx(
+        ((1 << 24) * 100 * opcount.RC4_SHARED + (1 << 24) * 8)
+        / (132 * 32 * 1.98e9))
+    assert lim["issue"] == pytest.approx(
+        (1 << 24) * 100 * opcount.krb5_ops(8, 100).slots
+        / (132 * 64 * 1.98e9))
+    assert lim["shared"] < 100 * lim1["shared"]
+
+
 @pytest.mark.parametrize("engine", ["sha512", "sha384", "sha3-224",
                                     "keccak-256", "sha3-384", "keccak512"])
 def test_symbolic_wide_core_computes_the_hash(engine):
@@ -334,12 +385,18 @@ def test_md5_from_any_state_is_the_compression():
 
 def test_krb5_and_kdf_counts():
     """krb5: one MD4 block, 8 MD5 compressions (4 key states from the IV,
-    2 inner over a message fixed per ticket, 2 outer), 268 RC4 steps and
-    4 kept bytes; its shared accesses; the two limits.  The KDF: the
-    PMKID count without the PMK's states and targets, one PBKDF2 block
-    for 4 words, two for 8 (8,194 and 16,386 compressions at 4096)."""
-    assert opcount.krb5_compressions() == {"key": 4, "inner": 2,
-                                           "outer": 2}
+    2 inner over a message fixed per launch or ticket, 2 outer), 268 RC4
+    steps and 4 kept bytes; its shared accesses; the two limits.  A
+    group of one ticket counts the per-ticket launch's work: K3's inner
+    and outer per ticket, the rest per candidate.  The KDF: the PMKID
+    count without the PMK's states and targets, one PBKDF2 block for 4
+    words, two for 8 (8,194 and 16,386 compressions at 4096)."""
+    per_cand, per_ticket = (opcount.krb5_compressions(t)
+                            for t in (False, True))
+    assert per_cand == {"key": 4, "inner": 1, "outer": 1}
+    assert per_ticket == {"key": 0, "inner": 1, "outer": 1}
+    assert {k: per_cand[k] + per_ticket[k] for k in per_cand} == \
+        {"key": 4, "inner": 2, "outer": 2}
     v = [_var() for _ in range(4)]
     assert opcount.md5_compress_work(True, v + [0x80] + [0] * 9
                                      + [640, 0]) == \

@@ -152,11 +152,11 @@ def test_maybes_are_confirmed_and_counted(monkeypatch):
     w = get_engine("pdf", "cuda", torch_device="cpu").make_mask_worker(
         gen, [t], batch=100, hit_capacity=100, oracle=eng)
 
-    def always(base_digits, n_valid, kind, tgt):
+    def always(base_digits, n_valid):
         return (torch.tensor([n_valid], dtype=torch.int32),
                 torch.arange(100, dtype=torch.int32), None)
 
-    monkeypatch.setattr(w, "step", always)
+    monkeypatch.setattr(w, "groups", [([0], always)])
     hits = w.process(WorkUnit(0, 0, 100))
     assert [(h.cand_index, h.plaintext) for h in hits] == [(42, b"42")]
     assert w.n_maybe() == 99

@@ -48,31 +48,49 @@ def _words(algo: str, digest: bytes) -> np.ndarray:
 
 @pytest.mark.parametrize("variant", cuda_ext.SALTED_NAMES)
 def test_salted_step_matches_emulated_kernel(variant):
-    """Each salt length, a plant at a seeded lane of a partial batch
-    (the last valid lane for the longest salt, lane 0 for the empty
-    one): the step's hit set is the reference body's."""
+    """A job of one target per salt length of SALT_LENS and one no
+    candidate reaches, grouped as the worker groups them (every ps
+    target in one group, sp by salt length): each group's step over a
+    partial batch gives exactly the (lane, target) hits of the reference
+    body run per target -- the plant at lane 0 for the empty salt, at
+    the last valid lane for the longest, at a seeded lane otherwise."""
     algo, order = cuda_ext.split_salted(variant)
     rng = np.random.default_rng(sum(variant.encode()))
     gen, gen_ref = MaskGenerator(MASK), RefMaskGenerator(MASK)
-    step = cuda_ext.make_salted_crack_step(variant, gen, TILE, 8,
-                                           device="cpu")
     oracle = get_engine(variant)
-    for n in SALT_LENS:
+    start = int(rng.integers(0, gen.keyspace // TILE - 1)) * TILE
+    n_valid = TILE - int(rng.integers(1, 50))
+    targets, want = [], set()
+    for i, n in enumerate(SALT_LENS + (5,)):
         salt = _salt(rng, n)
-        start = int(rng.integers(0, gen.keyspace // TILE - 1)) * TILE
-        n_valid = TILE - int(rng.integers(1, 50))
         plant = {0: 0, 32: n_valid - 1}.get(n, int(rng.integers(0, n_valid)))
-        digest = oracle.hash_batch([gen.candidate(start + plant)],
-                                   params={"salt": salt})[0]
-        tw = _words(algo, digest)
+        plain = gen.candidate(start + plant) if i < len(SALT_LENS) else \
+            b"not-in-the-mask"
+        tw = _words(algo, oracle.hash_batch([plain],
+                                            params={"salt": salt})[0])
         counts, lanes = pallas_ext.emulate_ext_kernel(
             algo, gen_ref, tw, TILE, gen.digits(start), n_valid, sub=SUB,
             order=order, salt=salt)
-        assert (int(counts[0, 0]), int(lanes[0, 0])) == (1, plant), n
-        count, got, _ = step(gen.digits(start), n_valid, salt,
-                             [int(w) for w in tw])
-        assert int(count) == 1 and \
-            [x for x in got.tolist() if x >= 0] == [plant], n
+        if int(counts.sum()):
+            assert int(counts[0, 0]) == 1
+            want.add((int(lanes[0, 0]), i))
+        targets.append((salt, [int(w) for w in tw]))
+    assert len(want) == len(SALT_LENS)
+    groups = cuda_ext.salted_groups(variant, [s for s, _ in targets])
+    assert len(groups) == (1 if order == "ps" else len(set(SALT_LENS + (5,))))
+    got = set()
+    for idx in groups:
+        step = cuda_ext.make_salted_crack_step(
+            variant, gen, [targets[i] for i in idx], TILE, 8, device="cpu")
+        count, lanes, tpos, tcount = step(gen.digits(start), n_valid)
+        pairs = {(int(a), idx[int(b)]) for a, b in zip(lanes.tolist(),
+                                                       tpos.tolist())
+                 if a >= 0}
+        assert int(count) == len(pairs) == int(tcount.sum())
+        assert tcount.tolist() == [sum(1 for _, t in pairs if t == i)
+                                   for i in idx]
+        got |= pairs
+    assert got == want
 
 
 def test_salted_engines_hash_like_the_oracles():
@@ -171,7 +189,10 @@ def test_worker_matches_reference_cpu_worker(variant, cap):
         got += [(h.target_index, h.cand_index, h.plaintext) for h in
                 w.process(WorkUnit(0, start, end - start))]
     assert sorted(got) == want
-    assert w.dispatched == 3 * (1 + 5 + 1)
+    # one launch a (group, batch): ps targets share a group, sp targets
+    # of three salt lengths take three
+    assert len(w.groups) == (1 if variant.endswith("ps") else 3)
+    assert w.dispatched == len(w.groups) * (1 + 5 + 1)
 
 
 def test_eligibility_and_length_checks():
