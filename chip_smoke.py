@@ -14,7 +14,9 @@ card, and holds every kernel against its plain PyTorch version:
    csrc/krb5.cu, csrc/sevenzip.cu, csrc/pdf.cu) from the checkout's
    sources, one nvcc each, all at once, and prints nvcc's
    register / shared memory / spill lines and a SASS census of each
-   instantiation;
+   instantiation, each mask, ext, keccak and bcrypt kernel held to its
+   slice K2 pin (``CENSUS_K2``), each rule instantiation to its first
+   pin (``CENSUS_BEFORE``);
 3. holds each instantiation against its plain version on the card at a
    batch of 2^24, with exact equality of the hit count, the sorted hit
    lanes and, for the multi-target compare, the table positions and
@@ -25,8 +27,12 @@ card, and holds every kernel against its plain PyTorch version:
    at the first lane, two in one warp and the last valid lane of a
    partial batch, and with no hit; md5 at the largest shared memory a
    block takes (55 positions, 8,192 targets), where fewer blocks fit on
-   an SM.  A worker with hit capacity 0 recovers its hit by the oracle
-   rescan;
+   an SM.  Slice K2's runs of lanes: hits on both sides of a carry of
+   position L - 2 into L - 3 (two runs of two periods), a window offset
+   no run length divides and n_valid inside a run, for md5 and ntlm
+   (one target, the Bloom sets, the probe), the 55-position mask, a
+   wide core (sha512) and md5(md5).  A worker with hit capacity 0
+   recovers its hit by the oracle rescan;
 4. config 1: cracks md5("zzzzzz") -- the last index of ?l^6, so the
    whole keyspace is swept -- with ``crack --device cuda``;
 5. config 2 at full width: 1,000 NTLM targets under ?a^7 -- 8 planted
@@ -40,8 +46,11 @@ card, and holds every kernel against its plain PyTorch version:
    Every path of phases 4-6 runs with the launch counts set to 0 just
    before it and read just after: its own kernel must have launched
    once per batch the worker dispatched, and no other;
-7. times every instantiation per launch with CUDA events, the plain
-   version for one launch, beside the bound, and the CLI's ``bench``;
+7. times every instantiation per launch with CUDA events over 0.4 s of
+   launches, the SM clock sampled meanwhile (nvidia-smi), beside its
+   parent time (``PARENT_MS``), the bound at the card's top clock and at
+   the sampled one, the plain version for one launch; and the CLI's
+   ``bench``;
 8. the rule kernel against its plain version, each core at 2^24
    candidates a launch (2^18 words of the reference bench's synthetic
    list x best64), with exact equality of the count and the hit lanes:
@@ -73,8 +82,9 @@ card, and holds every kernel against its plain PyTorch version:
     counts set to 0 just before it and read just after: only the PMKID
     kernel, once per batch;
 13. the bcrypt kernels (csrc/bcrypt.cu) against their plain version on
-    one wave of candidates: setup + advance(1) + finish, exact equality
-    of P, S, the digest words and the hits; then the kernels' whole
+    one wave of candidates and on a batch whose last block is partial:
+    setup + advance(1) + finish, exact equality of P, S, the digest
+    words and the hits; then the kernels' whole
     chain at cost 4 and 5 against the pure-Python oracle, the OpenBSD
     $2a$05 vectors included;
 14. config 4 at full width: ``crack --device cuda --engine bcrypt -a
@@ -86,7 +96,10 @@ card, and holds every kernel against its plain PyTorch version:
     the mask worker: ``crack --engine bcrypt ?l?l?l`` at cost 4, targets
     at the first index and at the last valid lane of a partial batch;
 15. times the PMKID kernel and the bcrypt kernels with CUDA events
-    beside their bounds (ops/opcount.py) and their plain versions;
+    beside their bounds (ops/opcount.py), their plain versions and
+    bcrypt's parent times; the cost loop at the parent's wave (4,224
+    candidates) and at this one, the SM clock sampled meanwhile: ms a
+    cost round, ps a candidate-round, cycles a Feistel round;
 16. builds csrc/ext.cu with the others (its 14 instantiations of the
     mask kernel template: the six nested chains and mysql41, one target
     and multi; and the salted kernel of csrc/salted.cuh, md5/sha1/sha256
@@ -127,10 +140,11 @@ card, and holds every kernel against its plain PyTorch version:
     instantiation launched once per batch (per group and batch for a
     salted core), no other;
 20. times every ext instantiation per launch with CUDA events beside its
-    bound (ops/opcount.nested_ops, salted_ops) and its plain version on
-    the same inputs; a salted core at the group its main path launches
-    (md5-ps: 256 targets; the others: one), then per 2^24 hashes at
-    groups of 1 and 256;
+    bound (ops/opcount.nested_ops, salted_ops), its plain version on
+    the same inputs and, for a nested chain, its parent time and the SM
+    clock sampled over the phase; a salted core at the group its main
+    path launches (md5-ps: 256 targets; the others: one), then per 2^24
+    hashes at groups of 1 and 256;
 21. builds the 64-bit cores with the others -- sha512 and sha384 in
     csrc/mask.cu (4 instantiations), the Keccak kernel csrc/keccak.cu (8:
     rates 144, 136, 104, 72 x one target / multi; sha3-N and keccak-N
@@ -152,7 +166,8 @@ card, and holds every kernel against its plain PyTorch version:
     set to 0 just before it and read just after: its own instantiation
     launched once per batch, no other;
 23. times each new instantiation per launch beside its bound
-    (ops/opcount.ops_per_candidate) and its plain version;
+    (ops/opcount.ops_per_candidate), its plain version, its parent time
+    and the SM clock sampled over the phase;
 24. builds the Kerberos RC4 kernel csrc/krb5.cu with the others, and
     csrc/pbkdf2.cu with its second entry, the KDF kernel; fails on
     either with a stack frame, and if pmkid's registers or SASS count
@@ -194,7 +209,7 @@ card, and holds every kernel against its plain PyTorch version:
 28. builds csrc/sevenzip.cu and csrc/pdf.cu with the others (csrc/krb5.cu
     and csrc/pdf.cu take their RC4 from csrc/rc4.cuh, and every sha256
     instantiation its rounds from the macro that sha256_compress shares:
-    the build phase fails if any ``CENSUS_BEFORE`` instantiation moved);
+    the build phase fails if any pinned instantiation moved);
     holds the 7-Zip KDF kernel against its plain version
     at the main path's batch (whole resident waves, the last three lanes
     invalid), every output word equal, at cycles 8 and 10, salts of 0, 4
@@ -215,12 +230,10 @@ card, and holds every kernel against its plain PyTorch version:
     (ops/opcount.sevenzip_bound, pdf_bound) and their plain versions,
     then one 7z step of the main path and its torch verdict alone;
 32. slice G, the window offset and the blocked probe of csrc/mask.cu
-    (built in phase 2; the window offset's add in the kernel's prologue
-    moves ten earlier instantiations by one 8-instruction padding group,
-    ``CENSUS_OFFSET``): the probe instantiation of each core against
+    (built in phase 2): the probe instantiation of each core against
     its plain version at config 2's shape (?a^7, 1,000 targets, a batch
     of 2^24 at a window offset), hits at the window's first lane, its
-    last valid lane and a lane on a late pass of the grid-stride loop,
+    last valid lane and a lane on the last pass of the grid-stride loop,
     count, lanes, table positions and n_maybe equal; md5 at 8,192
     targets (a 64 KB bitmap, past the 48 KB default); one target and
     the Bloom sets at an offset; configs 1 and 2 of phases 4-5 ran the
@@ -237,8 +250,11 @@ card, and holds every kernel against its plain PyTorch version:
     set equals the single-device worker's and the plants;
 34. times each core's probe instantiation against its Bloom-sets one at
     2^24 a launch, 1,000 and 8,192 targets, beside the bound
-    (ops/opcount.probe_ops, ops_per_candidate) and the plain version;
-35. prints the kernels line and, last, the device line.
+    (ops/opcount.probe_ops, ops_per_candidate), the plain version, the
+    parent time and the SM clock sampled over the phase;
+35. prints the kernels line (a kernel timed with the SM clock sampled
+    also carries the clock, ``sm_mhz``, and its bound at that clock)
+    and, last, the device line.
 
 Any failure exits non-zero before the last line.  Without a card it
 exits 1 and prints no result.
@@ -252,6 +268,7 @@ import io
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -348,33 +365,79 @@ TIMING_SALT = 11
 #: salt characters of the salted lists (Joomla's and osCommerce's
 #: salts are alphanumeric)
 ALNUM = b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
-#: the nvcc registers and SASS instruction count of the mask, ext and
-#: rule instantiations before the wide cores joined the mask kernel
-#: template (sm_90a, CUDA 12.8), which must not change them
+#: the nvcc registers and SASS instruction count of the rule
+#: instantiations since they were first pinned (sm_90a, CUDA 12.8),
+#: which share csrc/cores.cuh and csrc/decode.cuh with the mask kernel
+#: and must not change when it does
 CENSUS_BEFORE = {
-    "md5_mask": (25, 2656), "md5_mask_multi": (28, 2408),
-    "ntlm_mask": (25, 1552), "ntlm_mask_multi": (25, 1352),
-    "sha1_mask": (32, 2976), "sha1_mask_multi": (31, 2712),
-    "sha256_mask": (32, 3800), "sha256_mask_multi": (32, 3536),
     "md5_rules": (32, 3104), "ntlm_rules": (32, 2824),
-    "sha1_rules": (32, 3400), "sha256_rules": (40, 4232),
-    "md5(md5)_mask": (31, 3072), "md5(md5)_mask_multi": (30, 2840),
-    "md5(sha1)_mask": (32, 3488), "md5(sha1)_mask_multi": (31, 3224),
-    "sha1(md5)_mask": (30, 3440), "sha1(md5)_mask_multi": (32, 3184),
-    "sha1(sha1)_mask": (32, 3792), "sha1(sha1)_mask_multi": (32, 3536),
-    "sha256(md5)_mask": (32, 4232), "sha256(md5)_mask_multi": (32, 3968),
-    "sha256(sha1)_mask": (32, 4592), "sha256(sha1)_mask_multi": (32, 4328),
-    "mysql41_mask": (32, 3544), "mysql41_mask_multi": (32, 3288)}
-#: the instantiations of CENSUS_BEFORE that the window offset moved: its
-#: one add in the kernel's prologue (offset + the thread's first lane,
-#: once a thread, nothing a candidate) crosses a 128-byte padding
-#: boundary of these ten, one 8-instruction group more; registers equal
-CENSUS_OFFSET = {
-    "ntlm_mask": (25, 1560), "ntlm_mask_multi": (25, 1360),
-    "sha256_mask_multi": (32, 3544), "md5(md5)_mask": (31, 3080),
-    "md5(sha1)_mask": (32, 3496), "md5(sha1)_mask_multi": (31, 3232),
-    "sha1(sha1)_mask": (32, 3800), "sha256(md5)_mask_multi": (32, 3976),
-    "mysql41_mask": (32, 3552)}
+    "sha1_rules": (32, 3400), "sha256_rules": (40, 4232)}
+#: the nvcc registers and SASS instruction count of every instantiation
+#: of the mask kernel template (csrc/mask.cu, ext.cu, keccak.cu) and of
+#: the bcrypt kernels since slice K2 (sm_90a, CUDA 12.8).  The earlier
+#: mask, ext and keccak pins (the kernel body's first, and those the
+#: window offset moved) moved again because the
+#: kernel body changed for every core: a 64-byte core's thread now takes
+#: runs of lanes (the reciprocal decode once a run, the last position
+#: stepped a lane, three arrays more among the kernel parameters), and a
+#: wide core's parameters lost the unused byte shift; bcrypt's block
+#: became four warps of 16, 16, 16 and 8 candidates with a shorter round
+CENSUS_K2 = {
+    "md5_mask": (40, 2024), "md5_mask_multi": (45, 1688),
+    "md5_mask_probe": (40, 1808), "ntlm_mask": (42, 1312),
+    "ntlm_mask_multi": (42, 1064), "ntlm_mask_probe": (40, 1128),
+    "sha1_mask": (48, 2312), "sha1_mask_multi": (48, 1984),
+    "sha1_mask_probe": (48, 2112), "sha256_mask": (53, 3144),
+    "sha256_mask_multi": (53, 2752), "sha256_mask_probe": (54, 2928),
+    "sha512_mask": (58, 8464), "sha512_mask_multi": (64, 7672),
+    "sha512_mask_probe": (64, 7680), "sha384_mask": (58, 8456),
+    "sha384_mask_multi": (64, 7664), "sha384_mask_probe": (64, 7672),
+    "md5(md5)_mask": (54, 2440), "md5(md5)_mask_multi": (57, 2048),
+    "sha1(sha1)_mask": (48, 3136), "sha1(sha1)_mask_multi": (48, 2808),
+    "md5(sha1)_mask": (48, 2840), "md5(sha1)_mask_multi": (48, 2504),
+    "sha1(md5)_mask": (48, 2792), "sha1(md5)_mask_multi": (48, 2456),
+    "sha256(md5)_mask": (53, 3576), "sha256(md5)_mask_multi": (53, 3184),
+    "sha256(sha1)_mask": (54, 3936), "sha256(sha1)_mask_multi": (53, 3544),
+    "mysql41_mask": (48, 2888), "mysql41_mask_multi": (48, 2560),
+    "keccak224_mask": (70, 11488), "keccak224_mask_multi": (71, 9688),
+    "keccak256_mask": (71, 10888), "keccak256_mask_multi": (71, 9408),
+    "keccak384_mask": (71, 8992), "keccak384_mask_multi": (72, 8416),
+    "keccak512_mask": (71, 7440), "keccak512_mask_multi": (72, 7280),
+    "bcrypt_setup": (48, 8856), "bcrypt_advance": (64, 17144),
+    "bcrypt_finish": (40, 3008)}
+#: slice K2: each redesigned kernel's parent time per launch, ms, from
+#: PERF.md's table before slice K2 (an NVIDIA H100 80GB HBM3 at 700 W): the
+#: mask, ext and keccak instantiations at 2^24 lanes (?l^6 for md5 with
+#: one target, else ?a^7; 1,000 targets a list), the bcrypt kernels at
+#: the parent's wave of 4,224 candidates (advance: 16 cost rounds)
+PARENT_MS = {
+    "md5_mask": 0.4192, "md5_mask_multi": 0.4674, "ntlm_mask": 0.3375,
+    "ntlm_mask_multi": 0.3622, "sha1_mask": 0.7097,
+    "sha1_mask_multi": 0.7327, "sha256_mask": 1.4363,
+    "sha256_mask_multi": 1.4878, "sha512_mask": 3.8759,
+    "sha512_mask_multi": 3.9241, "sha384_mask": 3.8347,
+    "sha384_mask_multi": 3.9029, "md5_mask_probe": 0.4499,
+    "ntlm_mask_probe": 0.3569, "sha1_mask_probe": 0.7319,
+    "sha256_mask_probe": 1.4806, "sha512_mask_probe": 3.8740,
+    "sha384_mask_probe": 3.8597, "md5(md5)_mask": 0.7717,
+    "md5(md5)_mask_multi": 0.7980, "sha1(sha1)_mask": 1.3383,
+    "sha1(sha1)_mask_multi": 1.3895, "md5(sha1)_mask": 1.0713,
+    "md5(sha1)_mask_multi": 1.1009, "sha1(md5)_mask": 1.0187,
+    "sha1(md5)_mask_multi": 1.0275, "sha256(md5)_mask": 1.7420,
+    "sha256(md5)_mask_multi": 1.7934, "sha256(sha1)_mask": 2.1115,
+    "sha256(sha1)_mask_multi": 2.1640, "mysql41_mask": 1.1694,
+    "mysql41_mask_multi": 1.2182, "keccak224_mask": 5.2844,
+    "keccak224_mask_multi": 5.4017, "keccak256_mask": 5.2938,
+    "keccak256_mask_multi": 5.3687, "keccak384_mask": 5.3426,
+    "keccak384_mask_multi": 5.3811, "keccak512_mask": 5.3228,
+    "keccak512_mask_multi": 5.3541, "bcrypt_setup": 0.425,
+    "bcrypt_advance": 8.723, "bcrypt_finish": 0.192}
+#: the parent's bcrypt wave (132 SMs x 32 candidates), where slice K2's
+#: advance is also timed
+PARENT_BCRYPT_WAVE = 4224
+#: Feistel rounds of one cost round of one candidate (2 ExpandKeys x 521
+#: encryptions x 16 rounds)
+FEISTEL_PER_COST_ROUND = 2 * 521 * 16
 #: slice F2: the Kerberoast's and the AS-REP roast's windows of ?a^8, and
 #: their ticket counts
 KRB5_WINDOW = 1 << 28
@@ -466,6 +529,61 @@ def nvidia_smi(fields: str) -> str:
                          capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+#: the SM clock under load, sampled while a block of work runs with
+#: nvidia-smi's loop mode (``--query-gpu=clocks.sm --loop-ms=PERIOD``) in
+#: a process of its own from ``__enter__`` to ``__exit__``, which stops
+#: it and waits for it: ``with SmClock() as clock: ...`` (launches, then
+#: torch.cuda.synchronize()), then ``clock.mhz``, the median sample or
+#: None.  nvidia-smi takes ~0.1-0.3 s to print its first sample, so a
+#: block keeps the card busy for half a second or more (``busy``).
+class SmClock:
+    def __init__(self, period_ms: int = 20, device: int = 0):
+        self.cmd = ["nvidia-smi", f"--id={device}", "--query-gpu=clocks.sm",
+                    "--format=csv,noheader,nounits", f"--loop-ms={period_ms}"]
+        self.samples: list = []
+        self._proc = None
+
+    def __enter__(self) -> "SmClock":
+        self._proc = subprocess.Popen(self.cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._proc.terminate()
+        try:
+            out, _ = self._proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            out, _ = self._proc.communicate()
+        self.samples = [float(x) for x in out.split()
+                        if x.replace(".", "", 1).isdigit()]
+
+    @property
+    def mhz(self):
+        """The median sample in MHz, or None if nvidia-smi printed none."""
+        return statistics.median(self.samples) if self.samples else None
+
+
+def busy(torch, fn, seconds: float = 0.6, chunk: int = 8) -> tuple:
+    """Call ``fn`` in chunks of ``chunk`` calls until ``seconds`` of wall
+    clock passed, timing the calls with CUDA events (the time between
+    chunks, the host's sync, is not counted).  Returns (ms a call,
+    calls)."""
+    ms, calls = 0.0, 0
+    t_end = time.perf_counter() + seconds
+    while calls == 0 or time.perf_counter() < t_end:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(chunk):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        ms += t0.elapsed_time(t1)
+        calls += chunk
+    return ms / calls, calls
 
 
 def kname(engine: str, mode) -> str:
@@ -935,7 +1053,8 @@ class Smoke:
         check(kf == (len(want), sorted(want)),
               f"pmkid {name}: hits {kf}, expected {sorted(want)}")
 
-    def crack_lines(self, cli, engine, argv, lines, want, window, kernels):
+    def crack_lines(self, cli, engine, argv, lines, want, window, kernels,
+                    same=None):
         """crack --device cuda over a file of target lines: argv, the
         attack's options then its mask or wordlist.  The launch counts
         of the ``kernels`` modules are set to 0 just before it.  Checks
@@ -964,9 +1083,10 @@ class Smoke:
         out, err = out.getvalue(), err.getvalue()
         check(rc == (0 if want else 1),
               f"crack {engine} exited {rc}: {err[-2000:]}")
-        check(sorted(out.splitlines()) == sorted(want),
+        same = same or (lambda got, want: sorted(got) == sorted(want))
+        check(same(out.splitlines(), want),
               f"crack {engine} printed {out.splitlines()}, expected {want}")
-        check(sorted(pot_lines) == sorted(want), f"potfile {pot_lines}")
+        check(same(pot_lines, want), f"potfile {pot_lines}")
         finished = [ln for ln in err.splitlines() if "job finished" in ln]
         check(len(finished) == 1 and "rejected=0" in finished[0]
               and f"found={len(want)}/{len(lines)}" in finished[0]
@@ -993,6 +1113,19 @@ class Smoke:
         t1.record()
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / n
+
+    def time_clocked(self, fn, args, seconds=0.4, chunk=32) -> tuple:
+        """(ms per launch, the SM clock in MHz): launches for ``seconds``
+        of wall clock, CUDA events around each chunk of ``chunk``
+        launches (enough that the host's time before a chunk's first
+        launch is noise), the clock sampled by nvidia-smi meanwhile
+        (``SmClock``)."""
+        fn(*args)
+        self.torch.cuda.synchronize()
+        with SmClock() as clock:
+            ms, _ = busy(self.torch, lambda: fn(*args), seconds, chunk)
+        check(clock.mhz is not None, "nvidia-smi gave no SM clock sample")
+        return ms, clock.mhz
 
     def time_once(self, fn, args, warm=True) -> float:
         """ms of one call, after one warm-up call (if warm)."""
@@ -1110,13 +1243,15 @@ def run(smoke, oracle4, words4) -> None:
             was = CENSUS_BEFORE.get(inst)
             now = (registers.get(inst), c["total"])
             same = "" if was is None else (
-                "; registers and census before the wide cores: "
+                "; registers and census as first pinned: "
                 + ("same" if was == now else f"DIFFER, it had {was}"))
-            if inst in CENSUS_OFFSET:
-                same += ("; with the window offset's prologue add: "
-                         + ("same" if CENSUS_OFFSET[inst] == now
-                            else f"DIFFER, expected {CENSUS_OFFSET[inst]}"))
             check(was is None or same.endswith("same"), f"{inst}{same}")
+            if src in ("mask", "ext", "keccak", "bcrypt") and \
+                    inst not in GROUPED_KERNELS:
+                pin = CENSUS_K2.get(inst)
+                same = "; the slice K2 pin: " + (
+                    "same" if pin == now else f"DIFFER, pinned {pin}")
+                check(same.endswith("same"), f"{inst}{same}")
             if inst in PDF_BEFORE:
                 same = "; registers and census before the grouped krb5: " + (
                     "same" if PDF_BEFORE[inst] == now
@@ -1182,7 +1317,8 @@ def run(smoke, oracle4, words4) -> None:
     for k in cuda_bcrypt.KERNELS:
         blocks, smem = cuda_bcrypt.occupancy(0, k)
         say(f"  {k}: {smem} B shared (the opt-in above 48 KB took), "
-            f"{blocks} resident blocks of {cuda_bcrypt.THREADS} per SM")
+            f"{blocks} resident blocks of {cuda_bcrypt.BLOCK} candidates "
+            f"({'/'.join(map(str, cuda_bcrypt.WARPS))} a warp) per SM")
     wave = cuda_bcrypt.resident_batch("cuda")
     say(f"  bcrypt: {wave} candidates a wave ({sms} SMs)")
 
@@ -1246,6 +1382,40 @@ def run(smoke, oracle4, words4) -> None:
                      [s, s + 1, s + nv - 1], f"?a^7?d^48 at "
                      f"{bloom.MAX_TARGETS} targets, hits at lanes 0, 1 and "
                      f"n_valid-1={nv - 1}", n_targets=bloom.MAX_TARGETS)
+    # slice K2's runs of lanes: the hits straddle a carry of position
+    # L - 2 into L - 3 between two runs (lanes X - 1 and X), the window
+    # starts at an offset no run length divides and n_valid ends inside
+    # a run; one target, the Bloom sets and the probe, a 55-position mask,
+    # a wide core (one lane a thread) and a nested chain
+    offset, nv = 12347, BATCH - 17
+    X = offset + 3 * 4096 + 5
+    for gen, lut, engine, mode in ((g7, lut7, "md5", 0), (g7, lut7, "md5", 1),
+                                   (g7, lut7, "ntlm", 0),
+                                   (g7, lut7, "ntlm", 1),
+                                   (g7, lut7, "ntlm", PROBE),
+                                   (g55, g55.charset_lut("cuda"), "md5", 1),
+                                   (g7, lut7, "sha512", 0)):
+        start = carry_start(rng, gen, X)
+        runs = cuda_mask.lanes_a_run(engine, gen.radices) > 1
+        for first in ((X - 1, X) if mode == 0 and runs else (X - 1,)):
+            # one target: the first plant; a list: the plants by lane
+            plants = [start + first, start + X, start + offset,
+                      start + nv - 1, start + nv, start + offset - 1]
+            window_case(
+                smoke, engine, mode, gen, lut, start, offset, nv,
+                plants if mode == 0 else sorted(plants),
+                f"{gen.mask[:16]}{'...' if gen.length > 8 else ''}, the "
+                f"carry into position {gen.length - 3} between lanes "
+                f"{X - 1} and {X}, window [{offset}, {nv})"
+                + (f", target lane {first}" if mode == 0 else ""))
+    start = carry_start(rng, g7, X)
+    smoke.multi_case("md5(md5)", g7, lut7, start, nv,
+                     [start + X - 1, start + X, start + nv - 1, start + nv],
+                     f"?a^7, the carry into position 4 between lanes {X - 1}"
+                     f" and {X}, n_valid={nv}",
+                     fns=(cuda_ext.nested_multi_kernel,
+                          cuda_ext.nested_multi_plain),
+                     key="md5(md5)_mask_multi")
 
     # 4. config 1: the whole ?l^6 keyspace
     say("== config 1: crack --device cuda --engine md5 -a mask ?l^6")
@@ -1303,9 +1473,10 @@ def run(smoke, oracle4, words4) -> None:
                     limit=OTHER_WINDOW)
 
     # 7. timing at batch 2^24
-    say(f"== timing at batch 2^24 (CUDA events, {TIMED_LAUNCHES} launches);"
-        f" card: {card}")
+    say(f"== timing at batch 2^24 (CUDA events over 0.4 s of launches, the "
+        f"SM clock sampled meanwhile); card: {card}")
     rate_ops = sms * LANES_PER_SM * clock_mhz * 1e6
+    smoke.clock_mhz = clock_mhz
     timing = {}
     for engine, multi in INSTANCES:
         gen, lut = (g6, lut6) if engine == "md5" and not multi \
@@ -1321,24 +1492,35 @@ def run(smoke, oracle4, words4) -> None:
             n_maybe = int(fn(*args)[3].item())
             probes = bloom.expected_probes(rows.cpu().numpy()
                                            .view(np.uint32))
-            work = opcount.ops_per_candidate(engine, gen.length, True, probes,
-                                             n_maybe / BATCH, N_TARGETS)
+            work = opcount.ops_per_candidate(
+                engine, gen.length, True, probes, n_maybe / BATCH, N_TARGETS,
+                run=cuda_mask.lanes_a_run(engine, gen.radices))
         else:
             miss = digest_words(engine, smoke.get_engine(engine)
                                 .hash_batch([b"\0" * 9])[0])
             args = (engine, lut, gen.radices, gen.digits(start), BATCH,
                     miss, 64, BATCH)
             fn, plain_fn = cuda_mask.mask_kernel, cuda_mask.mask_plain
-            work = opcount.ops_per_candidate(engine, gen.length)
-        ms = smoke.time_launches(fn, args)
+            work = opcount.ops_per_candidate(
+                engine, gen.length,
+                run=cuda_mask.lanes_a_run(engine, gen.radices))
+        ms, mhz = smoke.time_clocked(fn, args)
         plain_ms = smoke.time_once(plain_fn, args)
         bound = BATCH * work.slots / rate_ops * 1e3
-        timing[kname(engine, multi)] = (ms, plain_ms, bound)
-        say(f"  {kname(engine, multi)} {gen.mask}: {ms:.4f} ms/launch = "
-            f"{BATCH / ms / 1e6:.3f} G candidates/s; bound {bound:.4f} ms "
+        key = kname(engine, multi)
+        timing[key] = (ms, plain_ms, bound,
+                       clock_keys(bound, mhz, clock_mhz))
+        say(f"  {key} {gen.mask}: {ms:.4f} ms/launch = "
+            f"{BATCH / ms / 1e6:.3f} G candidates/s (parent "
+            f"{PARENT_MS[key]:.4f} ms, x{PARENT_MS[key] / ms:.3f}); bound "
+            f"{bound:.4f} ms at {clock_mhz:.0f} MHz, "
+            f"{bound * clock_mhz / mhz:.4f} ms at the sampled {mhz:.0f} MHz "
             f"(per candidate {work.alu:.1f} ALU, {work.add:.1f} IADD3, "
-            f"{work.fma:.1f} IMAD = {work.slots:.1f} slots; kernel at "
-            f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
+            f"{work.fma:.1f} IMAD = {work.slots:.1f} slots at runs of "
+            f"{cuda_mask.lanes_a_run(engine, gen.radices):.2f} lanes; "
+            f"kernel at "
+            f"{bound / ms:.1%} / {bound * clock_mhz / mhz / ms:.1%} of "
+            f"it); plain version {plain_ms:.3f} ms")
     ms8 = smoke.time_launches(cuda_mask.mask_kernel, (
         "md5", lut8, g8.radices, g8.digits(0), BATCH,
         digest_words("md5", hashlib.md5(b"\0" * 9).digest()), 64, BATCH))
@@ -1649,6 +1831,31 @@ def run(smoke, oracle4, words4) -> None:
           "bcrypt_advance: kernel != plain")
     check(smoke.err["bcrypt_finish"] == 0 and kh == (2, [hit, B4 // 2]),
           f"bcrypt_finish: kernel {kh} != plain {ph} or the planted lanes")
+    # a partial last block: 17 whole blocks, then one of 45 candidates
+    # (two whole warps, one of 13, the last warp empty), a twin of the
+    # hit in its last lane (lane 40's twin, masked above, counts here)
+    Bp = 17 * cuda_bcrypt.BLOCK + 45
+    candp, lensp = cand[:Bp].copy(), lens4[:Bp].copy()
+    candp[Bp - 1], lensp[Bp - 1] = cand[hit], lens4[hit]
+    keyp = blowfish.key_words_from_candidates(
+        torch.as_tensor(candp, device="cuda"),
+        torch.as_tensor(lensp.astype(np.int32), device="cuda"))
+    Pk, Sk = cuda_bcrypt.setup_kernel(keyp, sw)
+    cuda_bcrypt.advance_kernel(Pk, Sk, keyp, s18, 1)
+    kc, kl, kd = cuda_bcrypt.finish_kernel(Pk, Sk, None, Bp, tgt, 64)
+    Pp, Sp = cuda_bcrypt.setup_plain(keyp, sw)
+    Pp, Sp = cuda_bcrypt.advance_plain(Pp, Sp, keyp, s18, 1)
+    pc, pl, pd = cuda_bcrypt.finish_plain(Pp, Sp, None, Bp, tgt, 64)
+    kh = (int(kc.item()), sorted(x for x in kl.tolist() if x >= 0))
+    ph = (int(pc.item()), sorted(x for x in pl.tolist() if x >= 0))
+    errp = max(diff(Pp, Pk), diff(Sp, Sk), diff(kd, pd),
+               abs(kh[0] - ph[0]))
+    say(f"  a partial last block ({Bp} candidates, its last block of 45): "
+        f"largest |kernel - plain| of P, S and the digest words {errp}; "
+        f"kernel hits {kh} | plain hits {ph}")
+    check(errp == 0 and kh == ph == (3, [hit, 40, Bp - 1]),
+          f"bcrypt at {Bp} candidates: kernel {kh} != plain {ph} or the "
+          "planted lanes")
     beng = smoke.get_engine("bcrypt", "cuda")
     oracle_b = smoke.get_engine("bcrypt")
     for password, line in OPENBSD:
@@ -1767,6 +1974,37 @@ def run(smoke, oracle4, words4) -> None:
     per_round = ms_adv / n_adv
     per_cand12 = (ms_set + per_round * (1 << CONFIG4_COST) + ms_fin) / wk
     tps = wave // sms
+    BLOCK4 = cuda_bcrypt.BLOCK
+    # the cost loop at the parent's wave and at this one, the SM clock
+    # sampled while it runs: per candidate-round, per Feistel round
+    adv_waves = {}
+    for n_c in (PARENT_BCRYPT_WAVE, wk):
+        kw = key[:n_c].contiguous()
+        Pw, Sw = cuda_bcrypt.setup_kernel(kw, sw)
+        ms_w, mhz = smoke.time_clocked(cuda_bcrypt.advance_kernel,
+                                       (Pw, Sw, kw, s18, n_adv), seconds=0.6,
+                                       chunk=4)
+        cost_round = ms_w / n_adv
+        adv_waves[n_c] = {
+            "ms": ms_w, "sm_mhz": mhz, "ms_per_cost_round": cost_round,
+            "ps_per_candidate_round": cost_round / n_c * 1e9,
+            "cycles_per_feistel_round": cost_round * 1e-3 * mhz * 1e6
+            / FEISTEL_PER_COST_ROUND,
+            "cycles_per_feistel_round_at_max_clock": cost_round * 1e-3
+            * clock_mhz * 1e6 / FEISTEL_PER_COST_ROUND}
+        parent = PARENT_MS["bcrypt_advance"] / n_adv
+        say(f"  bcrypt_advance at {n_c} candidates ({-(-n_c // BLOCK4)} "
+            f"blocks of {BLOCK4}, {tps} chains an SM in a full wave): "
+            f"{ms_w:.3f} ms per "
+            f"launch of {n_adv} cost rounds = {cost_round:.4f} ms a cost "
+            f"round = {cost_round / n_c * 1e9:,.1f} ps per candidate-round "
+            f"(parent at {PARENT_BCRYPT_WAVE}: {parent:.4f} ms, "
+            f"{parent / PARENT_BCRYPT_WAVE * 1e9:,.1f} ps); "
+            f"{adv_waves[n_c]['cycles_per_feistel_round']:.2f} cycles a "
+            f"Feistel round at the sampled {mhz:.0f} MHz "
+            f"({adv_waves[n_c]['cycles_per_feistel_round_at_max_clock']:.2f}"
+            f" at {clock_mhz:.0f}; opcount assumes "
+            f"{opcount.BCRYPT_ROUND_LATENCY})")
     for k, ms_k, plain_k, rounds, moved in (
             ("bcrypt_setup", ms_set, plain_set,
              opcount.bcrypt_rounds(setup=True), 72 * 2 + 4096),
@@ -1783,9 +2021,13 @@ def run(smoke, oracle4, words4) -> None:
         timing[k] = (ms_k, plain_k, bound,
                      "operations" if ops_ms >= bytes_ms else "bytes",
                      {"bound_limit": limit} | ({
-                         "plain_input": f"one round (ms: {n_adv} rounds)"}
-                         if k == "bcrypt_advance" else {}))
+                         "plain_input": f"one round (ms: {n_adv} rounds)",
+                         "waves": adv_waves}
+                         if k == "bcrypt_advance" else {})
+                     | clock_keys(bound, adv_waves[wk]["sm_mhz"], clock_mhz)
+                     | {"wave": wk})
         say(f"  {k}: {ms_k:.3f} ms per launch of {wk} candidates "
+            f"(parent {PARENT_MS[k]:.3f} ms at {PARENT_BCRYPT_WAVE}) "
             f"({rounds} Feistel rounds each); bound {bound:.3f} ms (shared "
             f"reads {lim['shared'] * 1e3:.3f} ms, issue slots "
             f"{lim['issue'] * 1e3:.3f} ms, bytes {bytes_ms:.4f} ms; kernel "
@@ -1813,14 +2055,14 @@ def run(smoke, oracle4, words4) -> None:
     kernels = []
     for engine, multi in INSTANCES:
         key = kname(engine, multi)
-        ms, plain_ms, bound = timing[key]
+        ms, plain_ms, bound, more = timing[key]
         kernels.append({
             "name": key, "route": "cuda", "source": cuda_mask.SOURCE,
             "replaces": cuda_mask.REPLACES,
             "launches": smoke.path_launches[key],
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "operations",
-            "library_ms": None})
+            "library_ms": None, **more})
     for engine in RULE_CORES:
         key = rname(engine)
         ms, plain_ms, bound, bound_by = timing[key]
@@ -1852,14 +2094,14 @@ def run(smoke, oracle4, words4) -> None:
             "bound_ms": bound, "bound_by": "operations",
             "library_ms": None, **more})
     for key, engine, _ in F1_INSTANCES:
-        ms, plain_ms, bound = f1_timing[key]
+        ms, plain_ms, bound, more = f1_timing[key]
         mod = cuda_keccak if key.startswith("keccak") else cuda_mask
         kernels.append({
             "name": key, "route": "cuda", "source": mod.SOURCE,
             "replaces": mod.REPLACES, "launches": smoke.path_launches[key],
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "operations",
-            "library_ms": None})
+            "library_ms": None, **more})
     for key, source, replaces in (
             ("krb5_group", cuda_krb5.SOURCE, cuda_krb5.REPLACES),
             ("pbkdf2_kdf", cuda_pbkdf2.SOURCE, cuda_pbkdf2.KDF_REPLACES)):
@@ -1882,14 +2124,14 @@ def run(smoke, oracle4, words4) -> None:
             **more})
     for engine in PROBE_CORES:
         key = kname(engine, PROBE)
-        ms, plain_ms, bound = g_timing[key]
+        ms, plain_ms, bound, more = g_timing[key]
         kernels.append({
             "name": key, "route": "cuda", "source": cuda_mask.SOURCE,
             "replaces": cuda_mask.REPLACES,
             "launches": smoke.path_launches[key],
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "operations",
-            "library_ms": None})
+            "library_ms": None, **more})
     check(all(k["launches"] > 0 for k in kernels)
           and all(r["launches"] > 0 for r in
                   f3_timing["pdf"][4]["instantiations"].values()),
@@ -1899,6 +2141,32 @@ def run(smoke, oracle4, words4) -> None:
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
+
+
+def carry_start(rng, gen, lane: int) -> int:
+    """A batch start whose lane ``lane`` is the first of a period of the
+    last position in which position L - 2 wraps to 0 too (its carry goes
+    into L - 3): the candidate there has digits ..., d, 0, 0 with d > 0,
+    from a random index of ``gen``'s keyspace."""
+    digits = gen.digits(int.from_bytes(rng.bytes(32), "little")
+                        % (gen.keyspace // 2) + lane)
+    digits[-1] = digits[-2] = 0
+    digits[-3] = max(1, digits[-3])
+    index = 0
+    for d, r in zip(digits, gen.radices):
+        index = index * r + d
+    return index - lane
+
+
+def clock_keys(bound: float, mhz, clock_mhz: float) -> dict:
+    """The kernels line's keys of a kernel timed with the SM clock
+    sampled: the sampled clock (None where the phase sampled none) and
+    the bound at that clock.  Both come from this run; the parent times
+    (PARENT_MS) are printed in the phases' text only."""
+    more = {"sm_mhz": mhz}
+    if mhz:
+        more["bound_ms_at_sm_mhz"] = bound * clock_mhz / mhz
+    return more
 
 
 def unit_windows(cli, window: int) -> int:
@@ -1953,7 +2221,7 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
     import numpy as np
     import torch
 
-    from dprf_tpu_torch.ops import bloom, cuda_ext, opcount
+    from dprf_tpu_torch.ops import bloom, cuda_ext, cuda_mask, opcount
     from dprf_tpu_torch.runtime.potfile import encode_plain
 
     rng = smoke.rng
@@ -2207,78 +2475,92 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
 
     # 20. timing at batch 2^24
     say(f"== 20. ext kernel timing at batch 2^24 (CUDA events, "
-        f"{TIMED_LAUNCHES} launches); card: {card}")
+        f"{TIMED_LAUNCHES} launches, the SM clock sampled over the phase); "
+        f"card: {card}")
     timing = {}
     salt = alnum(TIMING_SALT)
     per_hash = {}
-    for name, multi_ in EXT_INSTANCES:
-        key = ename(name, multi_)
-        gen, lut = (g6, lut6) if "-" in name else (g7, lut7)
-        start = int(rng.integers(0, gen.keyspace // BATCH)) * BATCH
-        head = (name, lut, gen.radices, gen.digits(start), BATCH)
-        more = {}
-        if "-" in name:
-            miss = digest_words(name, smoke.get_engine(name).hash_batch(
-                [b"\0" * 9], params={"salt": salt})[0])
+    with SmClock() as clock:
+        for name, multi_ in EXT_INSTANCES:
+            key = ename(name, multi_)
+            gen, lut = (g6, lut6) if "-" in name else (g7, lut7)
+            start = int(rng.integers(0, gen.keyspace // BATCH)) * BATCH
+            head = (name, lut, gen.radices, gen.digits(start), BATCH)
+            more = {}
+            if "-" in name:
+                miss = digest_words(name, smoke.get_engine(name).hash_batch(
+                    [b"\0" * 9], params={"salt": salt})[0])
 
-            def group_args(n_targets):
-                rows, shift = cuda_ext.salted_table(
-                    name, gen.length, [(salt, miss)] * n_targets, "cuda")
-                return (*head, shift, rows, 64, BATCH)
+                def group_args(n_targets):
+                    rows, shift = cuda_ext.salted_table(
+                        name, gen.length, [(salt, miss)] * n_targets, "cuda")
+                    return (*head, shift, rows, 64, BATCH)
 
-            group = path_group.get(name, 1)
-            args = group_args(group)
-            fn, plain_fn = cuda_ext.salted_kernel, cuda_ext.salted_plain
-            work = opcount.salted_ops(name, gen.length, salt, group)
-            hashes = BATCH * group
-            more = {"group": group}
-            what = (f"{gen.mask}, a {TIMING_SALT}-byte salt, a group of "
-                    f"{group} targets (its main path's)")
-        elif multi_:
-            _, rows, words = smoke.tables(name,
-                                          smoke.fillers(name, N_TARGETS))
-            args = (*head, rows, words, 64, BATCH)
-            fn, plain_fn = cuda_ext.nested_multi_kernel, \
-                cuda_ext.nested_multi_plain
-            n_maybe = int(fn(*args)[3].item())
-            probes = bloom.expected_probes(rows.cpu().numpy()
-                                           .view(np.uint32))
-            work = opcount.nested_ops(name, gen.length, True, probes,
-                                      n_maybe / BATCH, N_TARGETS)
-            hashes = BATCH
-            what = f"{gen.mask}, {N_TARGETS} targets"
-        else:
-            miss = digest_words(name, smoke.get_engine(name).hash_batch(
-                [b"\0" * 9])[0])
-            args = (*head, miss, 64, BATCH)
-            fn, plain_fn = cuda_ext.nested_kernel, cuda_ext.nested_plain
-            work = opcount.nested_ops(name, gen.length)
-            hashes = BATCH
-            what = gen.mask
-        ms = smoke.time_launches(fn, args)
-        # the plain version at a whole group (~17 s for md5-ps) skips its
-        # warm-up: phase 16 ran the same torch ops at that group
-        plain_ms = smoke.time_once(plain_fn, args,
-                                   warm=more.get("group", 1) == 1)
-        bound = hashes * work.slots / rate_ops * 1e3
-        timing[key] = (ms, plain_ms, bound, more)
-        say(f"  {key} {what}: {ms:.4f} ms/launch = "
-            f"{hashes / ms / 1e6:.3f} G hashes/s; bound {bound:.4f} ms "
-            f"(per hash {work.alu:.1f} ALU, {work.add:.1f} IADD3, "
-            f"{work.fma:.1f} IMAD = {work.slots:.1f} slots; kernel at "
-            f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
-        if "-" in name:
-            per_hash[name] = {}
-            for t in sorted({1, cuda_ext.SALTED_GROUP, group}):
-                t_ms = ms if t == group else \
-                    smoke.time_launches(fn, group_args(t), n=10)
-                w_t = opcount.salted_ops(name, gen.length, salt, t)
-                b_t = BATCH * t * w_t.slots / rate_ops * 1e3
-                per_hash[name][t] = {"ms_per_2e24_hashes": t_ms / t,
-                                     "bound_per_2e24_hashes": b_t / t}
-                say(f"    {name} at a group of {t}: {t_ms:.4f} ms a launch "
-                    f"= {t_ms / t:.4f} ms per 2^24 hashes (bound "
-                    f"{b_t / t:.4f} ms, {b_t / t_ms:.1%})")
+                group = path_group.get(name, 1)
+                args = group_args(group)
+                fn, plain_fn = cuda_ext.salted_kernel, cuda_ext.salted_plain
+                work = opcount.salted_ops(name, gen.length, salt, group)
+                hashes = BATCH * group
+                more = {"group": group}
+                what = (f"{gen.mask}, a {TIMING_SALT}-byte salt, a group of "
+                        f"{group} targets (its main path's)")
+            elif multi_:
+                _, rows, words = smoke.tables(name,
+                                              smoke.fillers(name, N_TARGETS))
+                args = (*head, rows, words, 64, BATCH)
+                fn, plain_fn = cuda_ext.nested_multi_kernel, \
+                    cuda_ext.nested_multi_plain
+                n_maybe = int(fn(*args)[3].item())
+                probes = bloom.expected_probes(rows.cpu().numpy()
+                                               .view(np.uint32))
+                work = opcount.nested_ops(
+                    name, gen.length, True, probes, n_maybe / BATCH,
+                    N_TARGETS, run=cuda_mask.lanes_a_run(name, gen.radices))
+                hashes = BATCH
+                what = f"{gen.mask}, {N_TARGETS} targets"
+            else:
+                miss = digest_words(name, smoke.get_engine(name).hash_batch(
+                    [b"\0" * 9])[0])
+                args = (*head, miss, 64, BATCH)
+                fn, plain_fn = cuda_ext.nested_kernel, cuda_ext.nested_plain
+                work = opcount.nested_ops(
+                    name, gen.length,
+                    run=cuda_mask.lanes_a_run(name, gen.radices))
+                hashes = BATCH
+                what = gen.mask
+            ms = smoke.time_launches(fn, args)
+            # the plain version at a whole group (~17 s for md5-ps) skips its
+            # warm-up: phase 16 ran the same torch ops at that group
+            plain_ms = smoke.time_once(plain_fn, args,
+                                       warm=more.get("group", 1) == 1)
+            bound = hashes * work.slots / rate_ops * 1e3
+            timing[key] = (ms, plain_ms, bound, more)
+            say(f"  {key} {what}: {ms:.4f} ms/launch = "
+                f"{hashes / ms / 1e6:.3f} G hashes/s; bound {bound:.4f} ms "
+                f"(per hash {work.alu:.1f} ALU, {work.add:.1f} IADD3, "
+                f"{work.fma:.1f} IMAD = {work.slots:.1f} slots; kernel at "
+                f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
+            if "-" in name:
+                per_hash[name] = {}
+                for t in sorted({1, cuda_ext.SALTED_GROUP, group}):
+                    t_ms = ms if t == group else \
+                        smoke.time_launches(fn, group_args(t), n=10)
+                    w_t = opcount.salted_ops(name, gen.length, salt, t)
+                    b_t = BATCH * t * w_t.slots / rate_ops * 1e3
+                    per_hash[name][t] = {"ms_per_2e24_hashes": t_ms / t,
+                                         "bound_per_2e24_hashes": b_t / t}
+                    say(f"    {name} at a group of {t}: {t_ms:.4f} ms a "
+                        f"launch = {t_ms / t:.4f} ms per 2^24 hashes "
+                        f"(bound {b_t / t:.4f} ms, {b_t / t_ms:.1%})")
+    say(f"  the SM clock over the phase: {clock.mhz} MHz (nvidia-smi, "
+        f"{len(clock.samples)} samples); card: {card}")
+    for key, (ms, _, bound, more) in timing.items():
+        if key in PARENT_MS:
+            more.update(clock_keys(bound, clock.mhz, smoke.clock_mhz))
+            say(f"    {key}: {ms:.4f} ms, parent {PARENT_MS[key]:.4f} ms "
+                f"(x{PARENT_MS[key] / ms:.3f}); kernel at "
+                f"{more['bound_ms_at_sm_mhz'] / ms:.1%} of the bound at the "
+                f"sampled clock")
     say(json.dumps({"salted_per_hash": per_hash, "card": card}))
     return timing
 
@@ -2425,37 +2707,48 @@ def slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
 
     # 23. timing at batch 2^24
     say(f"== 23. slice F1 timing at batch 2^24 (CUDA events, "
-        f"{TIMED_LAUNCHES} launches); card: {card}")
+        f"{TIMED_LAUNCHES} launches, the SM clock sampled over the phase); "
+        f"card: {card}")
     timing = {}
-    for key, engine, multi in F1_INSTANCES:
-        fn, plain_fn = fns(key, multi)
-        start = int(rng.integers(0, g7.keyspace // BATCH)) * BATCH
-        head = (engine, lut7, g7.radices, g7.digits(start), BATCH)
-        if multi:
-            _, rows, words = smoke.tables(engine,
-                                          smoke.fillers(engine, N_TARGETS))
-            args = (*head, rows, words, 64, BATCH)
-            n_maybe = int(fn(*args)[3].item())
-            probes = bloom.expected_probes(rows.cpu().numpy()
-                                           .view(np.uint32))
-            work = opcount.ops_per_candidate(engine, g7.length, True, probes,
-                                             n_maybe / BATCH, N_TARGETS)
-            what = f"{g7.mask}, {N_TARGETS} targets"
-        else:
-            miss = digest_words(engine, smoke.get_engine(engine).hash_batch(
-                [b"\0" * 9])[0])
-            args = (*head, miss, 64, BATCH)
-            work = opcount.ops_per_candidate(engine, g7.length)
-            what = g7.mask
-        ms = smoke.time_launches(fn, args)
-        plain_ms = smoke.time_once(plain_fn, args, warm=False)
-        bound = BATCH * work.slots / rate_ops * 1e3
-        timing[key] = (ms, plain_ms, bound)
-        say(f"  {key} ({engine}) {what}: {ms:.4f} ms/launch = "
-            f"{BATCH / ms / 1e6:.3f} G candidates/s; bound {bound:.4f} ms "
-            f"(per candidate {work.alu:.1f} ALU, {work.add:.1f} IADD3, "
-            f"{work.fma:.1f} IMAD = {work.slots:.1f} slots; kernel at "
-            f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
+    with SmClock() as clock:
+        for key, engine, multi in F1_INSTANCES:
+            fn, plain_fn = fns(key, multi)
+            start = int(rng.integers(0, g7.keyspace // BATCH)) * BATCH
+            head = (engine, lut7, g7.radices, g7.digits(start), BATCH)
+            if multi:
+                _, rows, words = smoke.tables(engine,
+                                              smoke.fillers(engine, N_TARGETS))
+                args = (*head, rows, words, 64, BATCH)
+                n_maybe = int(fn(*args)[3].item())
+                probes = bloom.expected_probes(rows.cpu().numpy()
+                                               .view(np.uint32))
+                work = opcount.ops_per_candidate(
+                    engine, g7.length, True, probes, n_maybe / BATCH,
+                    N_TARGETS)
+                what = f"{g7.mask}, {N_TARGETS} targets"
+            else:
+                miss = digest_words(engine, smoke.get_engine(engine)
+                                    .hash_batch([b"\0" * 9])[0])
+                args = (*head, miss, 64, BATCH)
+                work = opcount.ops_per_candidate(engine, g7.length)
+                what = g7.mask
+            ms = smoke.time_launches(fn, args)
+            plain_ms = smoke.time_once(plain_fn, args, warm=False)
+            bound = BATCH * work.slots / rate_ops * 1e3
+            timing[key] = (ms, plain_ms, bound, {})
+            say(f"  {key} ({engine}) {what}: {ms:.4f} ms/launch = "
+                f"{BATCH / ms / 1e6:.3f} G candidates/s; bound {bound:.4f} ms "
+                f"(per candidate {work.alu:.1f} ALU, {work.add:.1f} IADD3, "
+                f"{work.fma:.1f} IMAD = {work.slots:.1f} slots; kernel at "
+                f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
+    say(f"  the SM clock over the phase: {clock.mhz} MHz (nvidia-smi, "
+        f"{len(clock.samples)} samples); card: {card}")
+    for key, (ms, _, bound, more) in timing.items():
+        more.update(clock_keys(bound, clock.mhz, smoke.clock_mhz))
+        say(f"    {key}: {ms:.4f} ms, parent {PARENT_MS[key]:.4f} ms "
+            f"(x{PARENT_MS[key] / ms:.3f}; one lane a thread, as the "
+            f"parent); kernel at {more['bound_ms_at_sm_mhz'] / ms:.1%} of "
+            "the bound at the sampled clock")
     say(json.dumps({"slice_f1": e2e}))
     return timing
 
@@ -2880,7 +3173,7 @@ def slice_f3(smoke, cli, card, clock_mhz, sms) -> dict:
     from dprf_tpu_torch.engines.device import sevenzip as dev7z
     from dprf_tpu_torch.generators.mask import MaskGenerator
     from dprf_tpu_torch.ops import cuda_7z, cuda_pdf, opcount
-    from dprf_tpu_torch.runtime.potfile import encode_plain
+    from dprf_tpu_torch.runtime.potfile import decode_plain, encode_plain
 
     rng = smoke.rng
     gl8 = MaskGenerator(MASK_CONFIG5)
@@ -3031,9 +3324,34 @@ def slice_f3(smoke, cli, card, clock_mhz, sms) -> dict:
     planted = [g6.candidate(skip6 + i) for i in idx]
     lines = [pdf_line(rng, p, *d) for p, d in zip(planted, docs)]
     want = [f"{ln}:{encode_plain(p)}" for ln, p in zip(lines, planted)]
+    oracle = smoke.get_engine("pdf")
+
+    def opens(got, want):
+        """Every document found once, with its planted password or, for a
+        40-bit document, another the oracle verifies: its RC4 key has 40
+        bits, so a window of 2^28 holds a second password that opens it
+        with chance 2^28 / 2^40, and the sweep reports the first."""
+        if len(got) != len(want):
+            return False
+        for ln, (_, bits, _) in zip(lines, docs):
+            mine = [g for g in got if g.startswith(ln + ":")]
+            if len(mine) != 1:
+                return False
+            if mine[0] in want:
+                continue
+            plain = decode_plain(mine[0][len(ln) + 1:])
+            t = oracle.parse_target(ln)
+            if bits != 40 or oracle.hash_batch(
+                    [plain], params=t.params)[0] != t.digest:
+                return False
+            say(f"  pdf: {ln[:24]}... opens with {plain!r} too, found "
+                "before the planted password (a 40-bit key collision)")
+        return True
+
     summary, wall, launches = smoke.crack_lines(
         cli, "pdf", ["--skip", str(skip6), "--limit", str(PDF_WINDOW),
-                     MASK_PDF], lines, want, PDF_WINDOW, kernel_modules())
+                     MASK_PDF], lines, want, PDF_WINDOW, kernel_modules(),
+        same=opens)
     per_doc = unit_batches(cli, PDF_WINDOW)
     by_kind = {}
     for rev, bits, _ in PDF_DOCS:
@@ -3335,17 +3653,31 @@ def slice_g(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
     start = int(rng.integers(0, g7.keyspace // BATCH - 4)) * BATCH
     for engine in PROBE_CORES:
         smem = cuda_mask.shared_bytes(7, probe_blocks=128)
-        threads = cuda_mask.grid_size(engine, PROBE, BATCH, smem,
-                                      torch.device("cuda")) \
-            * cuda_mask.THREADS
-        late = offset + (BATCH // threads - 1) * threads + 777
+        blocks = cuda_mask.blocks_per_sm(engine, PROBE, smem)
+        r, b = g7.radices[-1], g7.digits(start)[-1]
+        if cuda_mask.lanes_a_run(engine, g7.radices) > 1:
+            # a lane of the last run of the grid-stride loop's last pass
+            n_runs = cuda_mask.run_count(r, b, offset, nv)
+            threads = cuda_mask.run_grid(blocks, n_runs, "cuda") \
+                * cuda_mask.THREADS
+            passes = -(-n_runs // threads)
+            done = (passes - 1) * threads
+            lo, hi, _ = cuda_mask.run_lanes(r, b, offset, nv,
+                                            done + (n_runs - done) // 2)
+            late = lo + (hi - lo) // 2
+            where = (f"pass {passes - 1} of {threads} threads' loop over "
+                     f"{n_runs} runs")
+        else:
+            threads = cuda_mask.wave_grid(blocks, nv - offset, "cuda") \
+                * cuda_mask.THREADS
+            late = offset + (BATCH // threads - 1) * threads + 777
+            where = (f"pass {(late - offset) // threads} of {threads} "
+                     "threads' grid-stride loop")
         plants = [start + offset, start + late, start + late + 1,
                   start + nv - 1, start + nv, start + offset - 1]
         window_case(smoke, engine, PROBE, g7, lut7, start, offset, nv,
                     plants, f"{N_TARGETS} targets, hits at the window's "
-                    f"first lane, lanes {late} and {late + 1} (pass "
-                    f"{(late - offset) // threads} of {threads} threads' "
-                    "grid-stride loop), "
+                    f"first lane, lanes {late} and {late + 1} ({where}), "
                     "the last valid lane; one at n_valid, one before the "
                     "offset")
     g55 = MaskGenerator("?a" * 7 + "?d" * 48)
@@ -3414,53 +3746,67 @@ def slice_g(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
 
     # 34. the probe against the Bloom sets at 2^24 a launch
     say(f"== 34. the probe vs the Bloom sets at batch 2^24, ?a^7 (CUDA "
-        f"events, {TIMED_LAUNCHES} launches); card: {card}")
+        f"events, {TIMED_LAUNCHES} launches, the SM clock sampled over the "
+        f"phase); card: {card}")
     timing = {}
+    with SmClock() as clock:
+        for engine in PROBE_CORES:
+            s = int(rng.integers(0, g7.keyspace // BATCH)) * BATCH
+            for n in PROBE_TARGETS:
+                table, rows, words = smoke.tables(engine,
+                                                  smoke.fillers(engine, n))
+                base = (engine, lut7, g7.radices, g7.digits(s), BATCH)
+                sets_args = (*base, rows, words, 64, BATCH)
+                bits, block_bits, k = cuda_mask.probe_rows(table.words)
+                probe_args = (*base, torch.as_tensor(bits.view(np.int32),
+                                                     device="cuda"),
+                              block_bits, k, words, 64, BATCH)
+                ms_sets = smoke.time_launches(cuda_mask.mask_multi_kernel,
+                                              sets_args)
+                ms_probe = smoke.time_launches(cuda_mask.mask_probe_kernel,
+                                               probe_args)
+                m_sets = int(cuda_mask.mask_multi_kernel(*sets_args)[3].item())
+                m_probe = int(cuda_mask.mask_probe_kernel(*probe_args)[3]
+                              .item())
+                run = cuda_mask.lanes_a_run(engine, g7.radices)
+                w_sets = opcount.ops_per_candidate(
+                    engine, 7, True,
+                    bloom.expected_probes(rows.cpu().numpy().view(np.uint32)),
+                    m_sets / BATCH, n, run=run)
+                fill = opcount.probe_fill(bits)
+                w_probe = opcount.probe_ops(engine, 7, fill, k,
+                                            m_probe / BATCH, n, run=run)
+                b_sets = BATCH * w_sets.slots / rate_ops * 1e3
+                b_probe = BATCH * w_probe.slots / rate_ops * 1e3
+                say(f"  {engine} x {n}: probe {ms_probe:.4f} ms (bound "
+                    f"{b_probe:.4f} ms, {w_probe.slots:.1f} slots, "
+                    f"{b_probe / ms_probe:.1%}; fill {fill:.4f}, k {k}, "
+                    f"maybes {m_probe}) | sets {ms_sets:.4f} ms (bound "
+                    f"{b_sets:.4f} ms, {w_sets.slots:.1f} slots, "
+                    f"{b_sets / ms_sets:.1%}; maybes {m_sets}); probe/sets "
+                    f"{ms_probe / ms_sets:.3f}")
+                if n == N_TARGETS:
+                    plain_ms = smoke.time_once(cuda_mask.mask_probe_plain,
+                                               probe_args)
+                    timing[kname(engine, PROBE)] = (ms_probe, plain_ms,
+                                                    b_probe, {})
+                    say(f"    plain probe version {plain_ms:.2f} ms")
+                timing[f"{engine}_{n}"] = {"probe_ms": ms_probe,
+                                           "sets_ms": ms_sets,
+                                           "probe_bound_ms": b_probe,
+                                           "sets_bound_ms": b_sets,
+                                           "probe_maybes": m_probe,
+                                           "sets_maybes": m_sets}
+    say(f"  the SM clock over the phase: {clock.mhz} MHz (nvidia-smi, "
+        f"{len(clock.samples)} samples); card: {card}")
     for engine in PROBE_CORES:
-        s = int(rng.integers(0, g7.keyspace // BATCH)) * BATCH
-        for n in PROBE_TARGETS:
-            table, rows, words = smoke.tables(engine,
-                                              smoke.fillers(engine, n))
-            base = (engine, lut7, g7.radices, g7.digits(s), BATCH)
-            sets_args = (*base, rows, words, 64, BATCH)
-            bits, block_bits, k = cuda_mask.probe_rows(table.words)
-            probe_args = (*base, torch.as_tensor(bits.view(np.int32),
-                                                 device="cuda"),
-                          block_bits, k, words, 64, BATCH)
-            ms_sets = smoke.time_launches(cuda_mask.mask_multi_kernel,
-                                          sets_args)
-            ms_probe = smoke.time_launches(cuda_mask.mask_probe_kernel,
-                                           probe_args)
-            m_sets = int(cuda_mask.mask_multi_kernel(*sets_args)[3].item())
-            m_probe = int(cuda_mask.mask_probe_kernel(*probe_args)[3]
-                          .item())
-            w_sets = opcount.ops_per_candidate(
-                engine, 7, True,
-                bloom.expected_probes(rows.cpu().numpy().view(np.uint32)),
-                m_sets / BATCH, n)
-            fill = opcount.probe_fill(bits)
-            w_probe = opcount.probe_ops(engine, 7, fill, k, m_probe / BATCH,
-                                        n)
-            b_sets = BATCH * w_sets.slots / rate_ops * 1e3
-            b_probe = BATCH * w_probe.slots / rate_ops * 1e3
-            say(f"  {engine} x {n}: probe {ms_probe:.4f} ms (bound "
-                f"{b_probe:.4f} ms, {w_probe.slots:.1f} slots, "
-                f"{b_probe / ms_probe:.1%}; fill {fill:.4f}, k {k}, "
-                f"maybes {m_probe}) | sets {ms_sets:.4f} ms (bound "
-                f"{b_sets:.4f} ms, {w_sets.slots:.1f} slots, "
-                f"{b_sets / ms_sets:.1%}; maybes {m_sets}); probe/sets "
-                f"{ms_probe / ms_sets:.3f}")
-            if n == N_TARGETS:
-                plain_ms = smoke.time_once(cuda_mask.mask_probe_plain,
-                                           probe_args)
-                timing[kname(engine, PROBE)] = (ms_probe, plain_ms, b_probe)
-                say(f"    plain probe version {plain_ms:.2f} ms")
-            timing[f"{engine}_{n}"] = {"probe_ms": ms_probe,
-                                       "sets_ms": ms_sets,
-                                       "probe_bound_ms": b_probe,
-                                       "sets_bound_ms": b_sets,
-                                       "probe_maybes": m_probe,
-                                       "sets_maybes": m_sets}
+        key = kname(engine, PROBE)
+        ms, _, bound, more = timing[key]
+        more.update(clock_keys(bound, clock.mhz, smoke.clock_mhz))
+        say(f"    {key}: {ms:.4f} ms, parent {PARENT_MS[key]:.4f} ms "
+            f"(x{PARENT_MS[key] / ms:.3f}); kernel at "
+            f"{more['bound_ms_at_sm_mhz'] / ms:.1%} of the bound at the "
+            "sampled clock")
     say(json.dumps({"slice_g_timing": {k: v for k, v in timing.items()
                                        if isinstance(v, dict)}}))
     return timing

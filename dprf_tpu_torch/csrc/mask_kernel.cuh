@@ -45,21 +45,53 @@
 // target are kernel parameters) and writes ~0 bytes.  ops/opcount.py
 // counts the least instructions per candidate in Hopper's forms, by pipe.
 //
-// What the design does about it: one thread per candidate in a
-// grid-stride loop, everything in registers.  The rounds are fully
-// unrolled (the SHA schedules as a rolling 16-word window), so message
-// words, constants and shift counts are register or immediate operands.
-// The decode enters an unrolled run of positions through one
-// warp-uniform switch on the mask length, so only the mask's own
-// positions cost instructions; the byte placement of each position is a
-// compile-time constant of the core.  The Bloom probes are tested in
-// order and stop at the first miss (Hopper can branch; the TPU tested
-// all 8), which costs ~1.3 probes per set at config 2's fill.
+// What the design does about it: everything in registers, and a thread
+// of a 64-byte core takes a run of consecutive window lanes rather than
+// one candidate:
 //
-// A core whose candidate does not start at byte 0 ($salt.$pass) sets
-// kShifted: its candidate is decoded into a zeroed block at [0, L), and
-// Core::shift_in moves it by the launch's byte shift and ORs in the
-// fixed words.
+// - A run lies inside one period of position L - 1, the least
+//   significant digit: the lanes whose sum base[L - 1] + lane falls in
+//   [j * r, (j + 1) * r) share every other position's digit (the carry
+//   j into position L - 2 decides them) and step position L - 1 through
+//   r consecutive digits.  A period is cut into ceil(r / DPRF_RUN)
+//   runs of ceil(r / chunks) lanes (at most DPRF_RUN), clipped to the
+//   launch's lanes [offset, n_valid); a grid-stride loop hands the runs
+//   to the threads (ops/cuda_mask.run_count and run_lanes mirror it,
+//   and the wrapper sizes the grid so every thread takes the same
+//   number of runs).
+// - The run's first lane decodes positions L - 2 .. 0 from the carry j
+//   once, by reciprocals (decode.cuh, DPRF_DECODE_RCP: no division),
+//   into the message words, which stay in registers for the run.
+// - Each lane then reads one charset byte, repeats it in the four bytes
+//   of a word and ORs it into every word that can hold a candidate byte
+//   under a mask the host computed (args.sel: position L - 1's byte in
+//   its word, zero elsewhere), one LOP3 a word with the mask a kernel
+//   parameter, so no register holds it.  No lane divides; no run
+//   wraps, so the lanes of a warp run the same trip count.
+// - That OR touches every such word (14 for md5, ntlm and sha1), not
+//   the one word position L - 1 lies in: L is a launch parameter and a
+//   register array takes only compile-time indices.  A warp-uniform
+//   branch into a second copy of the lane loop that ORs words 0-3 alone
+//   (L <= 16 for md5) measured 6-15 % faster on md5, ntlm and the probes but
+//   3.4 % slower on the ntlm list (config 2's kernel), so it is not
+//   taken (PERF.md, slice K2).
+// - DPRF_RUN = 32: of runs of at most 8, 16, 32 and 64 lanes, 32
+//   measured fastest at ?a^7 (PERF.md, slice K2).
+//
+// A wide core (below) keeps one candidate a thread in a grid-stride loop
+// over the lanes, each decoded in full (DPRF_DECODE): held across a
+// run, its 28-36 message words raise its registers past what its
+// resident blocks allow (sha512 to 97, two blocks an SM), and the runs
+// measured slower there than the full decode.
+//
+// The rounds are fully unrolled (the SHA schedules as a rolling 16-word
+// window), so message words, constants and shift counts are register or
+// immediate operands.  The decode enters an unrolled run of positions
+// through one warp-uniform switch on the mask length, so only the mask's
+// own positions cost instructions; the byte placement of each position
+// is a compile-time constant of the core.  The Bloom probes are tested
+// in order and stop at the first miss (Hopper can branch; the TPU tested
+// all 8), which costs ~1.3 probes per set at config 2's fill.
 //
 // The widths are properties of the core: kMaxLen positions, kWords
 // digest words and kBlockWords message words (16, a 64-byte block,
@@ -72,8 +104,7 @@
 // does the probe bitmap of 8,192 targets (64 KB) after any charset
 // table, so a wide instantiation, and any launch past 48 KB, raises its
 // limit (the function attribute) before the launch and the occupancy
-// query.  The narrow cores keep MaskArgs and compile as they did before
-// the wide layout existed.
+// query.
 
 #pragma once
 
@@ -87,6 +118,8 @@
 #define DPRF_MAX_LEN 55
 #define DPRF_WIDE_MAX_LEN 143
 #define DPRF_K_PROBES 8
+// the most lanes of a thread's run (ops/cuda_mask.RUN)
+#define DPRF_RUN 32
 // the blocked probe (targets/probe.py): 16-word blocks, the most bits a
 // candidate tests, the block hash's multiplier
 #define DPRF_PROBE_BLOCK_WORDS 16
@@ -104,13 +137,17 @@ struct MaskArgs {
     int32_t length;
     int32_t radix[DPRF_MAX_LEN];
     int32_t base[DPRF_MAX_LEN];
-    // the job's fixed message words: the 0x80 marker and the bit length
-    // (and a salted target's salt), zero wherever a candidate byte goes
+    // the decode's reciprocals (decode.cuh, DPRF_DECODE_RCP)
+    uint32_t rcp[DPRF_MAX_LEN];
+    int32_t rsh[DPRF_MAX_LEN];
+    // the job's fixed message words: the 0x80 marker and the bit length,
+    // zero wherever a candidate byte goes
     uint32_t block[16];
+    // position L - 1's byte in the message words (0xff bits), zero
+    // elsewhere
+    uint32_t sel[16];
     // the single target's digest words (unused by the multi compare)
     uint32_t target[8];
-    // the candidate's first byte in the message (a kShifted core's)
-    int32_t shift;
     // the window lane of the launch's first candidate
     uint32_t offset;
 };
@@ -122,7 +159,6 @@ struct WideMaskArgs {
     int32_t base[DPRF_WIDE_MAX_LEN];
     uint32_t block[36];
     uint32_t target[16];
-    int32_t shift;
     uint32_t offset;
 };
 
@@ -138,13 +174,6 @@ struct MultiArgs {
     int32_t k;                // kProbe: bits a candidate tests, 1..8
 };
 
-// Whether a core decodes at byte 0 and moves its candidate afterwards.
-template <class C, class = void>
-struct ShiftsMessage : std::false_type {};
-template <class C>
-struct ShiftsMessage<C, std::void_t<decltype(C::kShifted)>>
-    : std::bool_constant<C::kShifted> {};
-
 // A core's message words: kBlockWords, or the 64-byte block's 16.
 template <class C, class = void>
 struct BlockWords : std::integral_constant<int, 16> {};
@@ -154,6 +183,11 @@ struct BlockWords<C, std::void_t<decltype(C::kBlockWords)>>
 
 template <class C>
 constexpr bool kWideCore = BlockWords<C>::value > 16;
+
+// The message words that can hold a candidate byte: 1 + the word of the
+// core's last position.
+template <class C>
+constexpr int kByteWords = C::word(C::kMaxLen - 1) + 1;
 
 // The resident blocks per SM a core asks ptxas to fit (the second
 // argument of __launch_bounds__): kMinBlocks, or 0, no request.
@@ -265,7 +299,6 @@ mask_kernel(const uint8_t* __restrict__ lut, const ArgsOf<Core> args,
             int32_t* __restrict__ tpos, int32_t* __restrict__ n_maybe,
             int32_t cap)
 {
-    constexpr bool kShifted = ShiftsMessage<Core>::value;
     constexpr int kBlock = BlockWords<Core>::value;
     // per-position 256-byte charset tables, uint8[length][256], then
     // (multi) the prefilter's words; length * 256 keeps them
@@ -285,21 +318,10 @@ mask_kernel(const uint8_t* __restrict__ lut, const ArgsOf<Core> args,
     }
     __syncthreads();
 
-    const uint32_t stride = gridDim.x * blockDim.x;
-    for (uint32_t gidx = args.offset + blockIdx.x * blockDim.x + threadIdx.x;
-         gidx < n_valid; gidx += stride) {
-        uint32_t m[kBlock];
-#pragma unroll
-        for (int i = 0; i < kBlock; ++i) m[i] = kShifted ? 0u : args.block[i];
-
-        // decode, last (least significant) position first (decode.cuh)
-        uint32_t carry = gidx;
-        DPRF_DECODE(Core, Core::kMaxLen, L);
-        if constexpr (kShifted) Core::shift_in(m, args.block, args.shift);
-
+    // the digest of message words w, its compare and its hit append
+    auto hash_lane = [&](uint32_t* w, uint32_t gidx) {
         uint32_t dg[Core::kWords];
-        Core::digest(m, dg);
-
+        Core::digest(w, dg);
         if constexpr (kMode == kSingle) {
             bool hit = true;
 #pragma unroll
@@ -319,6 +341,62 @@ mask_kernel(const uint8_t* __restrict__ lut, const ArgsOf<Core> args,
                     lanes[slot] = (int32_t)gidx;
                     tpos[slot] = pos;
                 }
+            }
+        }
+    };
+    const uint32_t stride = gridDim.x * blockDim.x;
+
+    if constexpr (kWideCore<Core>) {
+        for (uint32_t gidx = args.offset + blockIdx.x * blockDim.x
+                             + threadIdx.x;
+             gidx < n_valid; gidx += stride) {
+            uint32_t m[kBlock];
+#pragma unroll
+            for (int i = 0; i < kBlock; ++i) m[i] = args.block[i];
+            // decode, last (least significant) position first
+            uint32_t carry = gidx;
+            DPRF_DECODE(Core, Core::kMaxLen, L);
+            hash_lane(m, gidx);
+        }
+        return;
+    } else {
+        // position L - 1 steps inside a run (the notes above); the sums
+        // base[L - 1] + lane of the launch's lanes are [s0, s1)
+        const int last = L - 1;
+        const uint32_t radix = (uint32_t)args.radix[last];
+        const uint32_t b = (uint32_t)args.base[last];
+        const uint32_t chunks = (radix + DPRF_RUN - 1) / DPRF_RUN;
+        const uint32_t run = (radix + chunks - 1) / chunks;
+        const uint32_t s0 = b + args.offset, s1 = b + n_valid;
+        if (s1 <= s0) return;
+        const uint32_t j0 = s0 / radix;
+        const uint32_t n_runs = ((s1 - 1) / radix - j0 + 1) * chunks;
+        const uint8_t* lut_last = s_lut + last * 256;
+
+        for (uint32_t g = blockIdx.x * blockDim.x + threadIdx.x; g < n_runs;
+             g += stride) {
+            const uint32_t jj = g / chunks;
+            const uint32_t j = j0 + jj, period = j * radix;
+            const uint32_t first = period + (g - jj * chunks) * run;
+            const uint32_t lo = max(first, s0);
+            const uint32_t hi = min(min(first + run, period + radix), s1);
+
+            // positions L - 2 .. 0 from the carry j, once a run
+            uint32_t m[kBlock];
+#pragma unroll
+            for (int i = 0; i < kBlock; ++i) m[i] = args.block[i];
+            uint32_t carry = j;
+            DPRF_DECODE_RCP(Core, Core::kMaxLen, last);
+
+            for (uint32_t sum = lo; sum < hi; ++sum) {
+                const uint32_t byte =
+                    (uint32_t)lut_last[sum - period] * 0x01010101u;
+                uint32_t w[kBlock];
+#pragma unroll
+                for (int i = 0; i < kBlock; ++i)
+                    w[i] = i < kByteWords<Core> ? m[i] | (byte & args.sel[i])
+                                                : m[i];
+                hash_lane(w, sum - b);
             }
         }
     }

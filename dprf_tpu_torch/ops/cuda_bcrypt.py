@@ -34,9 +34,23 @@ import torch
 
 from dprf_tpu_torch.ops import blowfish as bf
 
-#: candidates per block (kThreads in the source): a block's S-boxes take
-#: 128 KB of shared memory, so an SM holds one
-THREADS = 32
+#: the candidates each warp of a block holds (kLanes, kLanes, kLanes,
+#: kLast in the source); a warp's S-boxes interleave its candidates
+WARPS = (16, 16, 16, 8)
+#: candidates per block (kCands in the source): their S-boxes take 224 KB
+#: of shared memory, so an SM holds one block, 56 candidates
+BLOCK = sum(WARPS)
+
+
+def shared_word(t: int, e: int) -> int:
+    """The shared-memory word of S entry e (0..1023) of the block's
+    candidate t: entry e of its warp's lane at e * (the warp's
+    candidates) + lane, after the regions of the warps before it (the
+    kernels' word_of)."""
+    w = min(t // WARPS[0], len(WARPS) - 1)
+    lane = t - w * WARPS[0]
+    return sum(WARPS[:w]) * 1024 + e * WARPS[w] + lane
+
 
 #: the TPU kernel these replace, and their source
 REPLACES = "dprf_tpu/ops/pallas_bcrypt.py:171"
@@ -83,6 +97,9 @@ def _library():
     """The C entry points, built from csrc/bcrypt.cu at first use."""
     from dprf_tpu_torch.ops import _build
     lib = _build.load("bcrypt")
+    if lib.dprf_bcrypt_block() != BLOCK:
+        raise RuntimeError(f"csrc/bcrypt.cu takes {lib.dprf_bcrypt_block()} "
+                           f"candidates a block, the wrapper {BLOCK}")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.dprf_bcrypt_setup.argtypes = [i32, ptr, ptr, ptr, ptr,
                                       ctypes.POINTER(_Salt4), i32, ptr]
@@ -124,11 +141,11 @@ def occupancy(device_index: int, kernel: str) -> tuple:
 
 def resident_batch(device) -> int:
     """Candidates one wave of the card holds: SMs x resident blocks x
-    THREADS (4,224 on a 132-SM H100 at one block per SM)."""
+    BLOCK (7,392 on a 132-SM H100 at one block per SM)."""
     device = torch.device(device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return sms * min(occupancy(device.index or 0, k)[0]
-                     for k in KERNELS) * THREADS
+                     for k in KERNELS) * BLOCK
 
 
 def _check_state(P: torch.Tensor, S: torch.Tensor,

@@ -304,16 +304,14 @@ def blocks_per_sm(variant: str, multi: bool, smem: int) -> int:
 
 def _launch(variant: str, multi: bool, lut: torch.Tensor,
             radices: Sequence[int], base_digits: Sequence[int],
-            n_valid: int, block: Sequence[int], target: Sequence[int],
-            margs, n_sets: int, hit_capacity: int, shift: int = 0):
+            n_valid: int, target: Sequence[int], margs, n_sets: int,
+            hit_capacity: int):
     cuda_mask.require_cuda(lut)
     smem = cuda_mask.shared_bytes(lut.shape[0], n_sets)
-    grid = cuda_mask.wave_grid(blocks_per_sm(variant, multi, smem), n_valid,
-                               lut.device)
     out = cuda_mask.launch_template(
-        _library().dprf_ext_launch, VARIANTS[variant], multi, lut, radices,
-        base_digits, n_valid, block, target, margs, hit_capacity, grid,
-        shift)
+        _library().dprf_ext_launch, VARIANTS[variant], multi, variant, lut,
+        radices, base_digits, n_valid, target, margs, hit_capacity,
+        blocks_per_sm(variant, multi, smem))
     launches[kernel_name(variant, multi)] += 1
     return out
 
@@ -329,9 +327,8 @@ def nested_kernel(name: str, lut: torch.Tensor, radices: Sequence[int],
                         hit_capacity, batch)
     cuda_mask.check_target(eng, target)
     count, lanes, _, _ = _launch(
-        name, False, lut, radices, base_digits, n_valid,
-        nested_block(name, lut.shape[0]), target, cuda_mask.MultiArgs(),
-        0, hit_capacity)
+        name, False, lut, radices, base_digits, n_valid, target,
+        cuda_mask.MultiArgs(), 0, hit_capacity)
     return count, lanes
 
 
@@ -348,9 +345,8 @@ def nested_multi_kernel(name: str, lut: torch.Tensor,
     n_sets = bloom_rows.shape[0] // bloom.K_PROBES
     margs = cuda_mask.MultiArgs(bloom_rows.data_ptr(), table.data_ptr(),
                                  n_sets, table.shape[0])
-    return _launch(name, True, lut, radices, base_digits, n_valid,
-                   nested_block(name, lut.shape[0]), [], margs, n_sets,
-                   hit_capacity)
+    return _launch(name, True, lut, radices, base_digits, n_valid, [],
+                   margs, n_sets, hit_capacity)
 
 
 def salted_shared_bytes(length: int, n_targets: int) -> int:

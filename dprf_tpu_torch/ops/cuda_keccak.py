@@ -142,12 +142,10 @@ def _launch(name: str, multi: bool, lut: torch.Tensor,
     cuda_mask.require_cuda(lut)
     bits = bits_of(name)
     smem = cuda_mask.shared_bytes(lut.shape[0], n_sets)
-    grid = cuda_mask.wave_grid(blocks_per_sm(bits, multi, smem), n_valid,
-                               lut.device)
     out = cuda_mask.launch_template(
-        _library().dprf_keccak_launch, VARIANTS[bits], multi, lut, radices,
-        base_digits, n_valid, cuda_mask.message_block(name, lut.shape[0]),
-        target, margs, hit_capacity, grid)
+        _library().dprf_keccak_launch, VARIANTS[bits], multi, name, lut,
+        radices, base_digits, n_valid, target, margs, hit_capacity,
+        blocks_per_sm(bits, multi, smem))
     launches[kernel_name(bits, multi)] += 1
     return out
 

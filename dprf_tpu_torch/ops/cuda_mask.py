@@ -5,7 +5,10 @@ MAX_TARGETS, and the window offset.
 
 Per candidate the kernel (csrc/mask.cu) decodes the mixed-radix
 keyspace index into charset bytes, packs one padded block, runs the
-core's rounds and compares; only hits write anything back.
+core's rounds and compares; only hits write anything back.  A thread
+takes a run of consecutive lanes inside one period of the last (least
+significant) position: it decodes the other positions once a run and
+steps the last one a lane (``RUN``, ``run_count``, ``run_lanes``).
 
 - Single target: outputs ``count int32[1]``, the exact number of hits,
   and ``lanes int32[hit_capacity]``, the batch lanes of the first
@@ -58,6 +61,9 @@ from dprf_tpu_torch.targets import probe
 
 #: threads per block (the kernel's __launch_bounds__)
 THREADS = 256
+
+#: the most lanes of a thread's run (DPRF_RUN in csrc/mask_kernel.cuh)
+RUN = 32
 
 #: the TPU kernel this one replaces, and this kernel's source
 REPLACES = "dprf_tpu/ops/pallas_mask.py:733"
@@ -156,6 +162,21 @@ def message_block(engine_name: str, length: int) -> tuple:
     return tuple(int(w) for w in words.view(np.uint32))
 
 
+@functools.lru_cache(maxsize=None)
+def byte_mask(engine_name: str, length: int) -> tuple:
+    """The message words' mask of the last position's byte (0xff bits
+    where the engine's ``pack`` puts it, zero elsewhere), as uint32
+    ints: the kernel's ``sel``."""
+    from dprf_tpu_torch.engines import get_engine
+    eng = get_engine(engine_name, "cuda", torch_device="cpu")
+    zero = torch.zeros((1, length), dtype=torch.uint8)
+    one = zero.clone()
+    one[0, -1] = 0xFF
+    words = (eng.pack(zero, length).numpy()[0].view(np.uint32)
+             ^ eng.pack(one, length).numpy()[0].view(np.uint32))
+    return tuple(int(w) for w in words)
+
+
 def check_decode(lut: torch.Tensor, radices: Sequence[int],
                  base_digits: Sequence[int], n_valid: int, batch: int,
                  max_length: int) -> None:
@@ -187,6 +208,64 @@ def decode_reciprocals(radices: Sequence[int]) -> tuple:
     sh = [(int(r) - 1).bit_length() for r in radices]
     rcp = [-(-(1 << (31 + k)) // int(r)) for r, k in zip(radices, sh)]
     return rcp, sh
+
+
+def run_shape(radix: int) -> tuple:
+    """(chunks, run): a period of a last position of ``radix`` digits
+    is cut into ``chunks`` runs of at most ``run`` lanes, run <= RUN."""
+    chunks = -(-int(radix) // RUN)
+    return chunks, -(-int(radix) // chunks)
+
+
+def mean_run(radix: int) -> float:
+    """Lanes a run of a whole period holds on average: radix / chunks
+    (``ops/opcount.decode_work``'s run)."""
+    return radix / run_shape(radix)[0]
+
+
+def lanes_a_run(engine_name: str, radices: Sequence[int]) -> float:
+    """Lanes a thread's run holds on average in ``engine_name``'s
+    instantiation: ``mean_run`` of the last radix for a 64-byte core, 1
+    for a wide one, which takes one lane a thread (``WideMaskArgs``)."""
+    block = message_block(engine_name, len(radices))
+    return mean_run(radices[-1]) if args_layout(len(block)).RUNS else 1.0
+
+
+def run_count(radix: int, base_digit: int, offset: int,
+              n_valid: int) -> int:
+    """The runs of a launch over the window lanes [offset, n_valid):
+    every period of the last position those lanes touch, ``chunks``
+    runs each (the kernel's ``n_runs``).  ``radix`` and ``base_digit``
+    are the last position's."""
+    s0, s1 = base_digit + offset, base_digit + n_valid
+    if s1 <= s0:
+        return 0
+    return ((s1 - 1) // radix - s0 // radix + 1) * run_shape(radix)[0]
+
+
+def run_lanes(radix: int, base_digit: int, offset: int, n_valid: int,
+              g: int) -> tuple:
+    """Run ``g``'s window lanes [lo, hi) (empty where the window clips
+    it away) and its carry into the position before the last, which
+    decides every other digit of its lanes: the kernel's loop body."""
+    chunks, run = run_shape(radix)
+    s0, s1 = base_digit + offset, base_digit + n_valid
+    jj, c = divmod(g, chunks)
+    carry = s0 // radix + jj
+    period = carry * radix
+    first = period + c * run
+    lo, hi = max(first, s0), min(first + run, period + radix, s1)
+    return lo - base_digit, hi - base_digit, carry
+
+
+def run_grid(blocks_per_sm: int, n_runs: int, device) -> int:
+    """Blocks of the grid-stride grid over ``n_runs`` runs: as few
+    passes as one resident wave of ``blocks_per_sm`` blocks on every SM
+    needs, and as many threads as give every thread that many runs, so
+    the last pass is as full as the first."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    passes = max(1, -(-n_runs // (sms * blocks_per_sm * THREADS)))
+    return max(1, -(-n_runs // (passes * THREADS)))
 
 
 def check_job(eng, lut: torch.Tensor, radices: Sequence[int],
@@ -278,29 +357,37 @@ def probe_rows(twords: np.ndarray):
     return rows, (m_bits // probe.BLOCK_BITS).bit_length() - 1, k
 
 
-def _args_fields(positions: int, block_words: int, target_words: int):
-    return [("length", ctypes.c_int32),
-            ("radix", ctypes.c_int32 * positions),
-            ("base", ctypes.c_int32 * positions),
-            ("block", ctypes.c_uint32 * block_words),
-            ("target", ctypes.c_uint32 * target_words),
-            ("shift", ctypes.c_int32),
-            ("offset", ctypes.c_uint32)]
-
-
 class MaskArgs(ctypes.Structure):
-    """``struct MaskArgs`` of csrc/mask_kernel.cuh: the 64-byte cores.
-    POSITIONS is the longest mask the layout holds; each core's own
-    limit is its engine's ``max_candidate_len``."""
+    """``struct MaskArgs`` of csrc/mask_kernel.cuh: the 64-byte cores,
+    which take runs of lanes (``RUNS``): the decode's reciprocals and
+    the last position's byte mask.  POSITIONS is the longest mask the
+    layout holds; each core's own limit is its engine's
+    ``max_candidate_len``."""
     POSITIONS, BLOCK_WORDS, TARGET_WORDS = 55, 16, 8
-    _fields_ = _args_fields(POSITIONS, BLOCK_WORDS, TARGET_WORDS)
+    RUNS = True
+    _fields_ = [("length", ctypes.c_int32),
+                ("radix", ctypes.c_int32 * POSITIONS),
+                ("base", ctypes.c_int32 * POSITIONS),
+                ("rcp", ctypes.c_uint32 * POSITIONS),
+                ("rsh", ctypes.c_int32 * POSITIONS),
+                ("block", ctypes.c_uint32 * BLOCK_WORDS),
+                ("sel", ctypes.c_uint32 * BLOCK_WORDS),
+                ("target", ctypes.c_uint32 * TARGET_WORDS),
+                ("offset", ctypes.c_uint32)]
 
 
 class WideMaskArgs(ctypes.Structure):
     """``struct WideMaskArgs`` of csrc/mask_kernel.cuh: the cores of more
-    than 16 message words (sha512, sha384, the Keccak rate blocks)."""
+    than 16 message words (sha512, sha384, the Keccak rate blocks),
+    which take one lane a thread, decoded in full."""
     POSITIONS, BLOCK_WORDS, TARGET_WORDS = 143, 36, 16
-    _fields_ = _args_fields(POSITIONS, BLOCK_WORDS, TARGET_WORDS)
+    RUNS = False
+    _fields_ = [("length", ctypes.c_int32),
+                ("radix", ctypes.c_int32 * POSITIONS),
+                ("base", ctypes.c_int32 * POSITIONS),
+                ("block", ctypes.c_uint32 * BLOCK_WORDS),
+                ("target", ctypes.c_uint32 * TARGET_WORDS),
+                ("offset", ctypes.c_uint32)]
 
 
 def args_layout(block_words: int):
@@ -367,14 +454,6 @@ def blocks_per_sm(engine_name: str, mode: int, smem: int) -> int:
     return blocks.value
 
 
-def grid_size(engine_name: str, mode: int, n_lanes: int, smem: int,
-              device) -> int:
-    """Blocks of the grid-stride grid: one resident wave, or fewer for
-    a launch of few lanes."""
-    return wave_grid(blocks_per_sm(engine_name, mode, smem), n_lanes,
-                     device)
-
-
 def wave_grid(blocks_per_sm: int, n_valid: int, device) -> int:
     """One resident wave of ``blocks_per_sm`` blocks on every SM, or
     fewer blocks for a short batch."""
@@ -418,23 +497,25 @@ def check_out(out, multi: bool, hit_capacity: int, device) -> None:
                          f"do not hold {hit_capacity} hits")
 
 
-def launch_template(entry, kid: int, mode: int, lut: torch.Tensor,
-                    radices: Sequence[int], base_digits: Sequence[int],
-                    n_valid: int, block: Sequence[int],
+def launch_template(entry, kid: int, mode: int, engine_name: str,
+                    lut: torch.Tensor, radices: Sequence[int],
+                    base_digits: Sequence[int], n_valid: int,
                     target: Sequence[int], margs: MultiArgs,
-                    hit_capacity: int, grid: int, shift: int = 0, *,
+                    hit_capacity: int, blocks_per_sm: int, *,
                     offset: int = 0, out=None):
     """Launch one instantiation of the mask kernel template
     (csrc/mask_kernel.cuh) through a source's C entry ``entry`` (its
     instantiation id ``kid``, compare ``mode``; a bool: multi target)
-    over the window lanes [offset, n_valid): the job's fixed message
-    words ``block``, the single target's words ``target``, the
-    multi-target state ``margs`` and, for a shifted core, the
-    candidate's first byte ``shift``.  Appends to the hit buffers
-    ``out`` (``hit_buffers``) when given, else allocates them on the
-    lut's card; returns (count, lanes, tpos, n_maybe), still being
-    computed (tpos and n_maybe None for one target); raises if the
-    launch is refused."""
+    over the window lanes [offset, n_valid): the fixed message words
+    and the last position's byte mask of ``engine_name``'s packing
+    (``message_block``, ``byte_mask``), the single target's words
+    ``target`` and the multi-target state ``margs``; the grid from the
+    instantiation's
+    ``blocks_per_sm`` and the launch's runs (``run_grid``).  Appends to
+    the hit buffers ``out`` (``hit_buffers``) when given, else
+    allocates them on the lut's card; returns (count, lanes, tpos,
+    n_maybe), still being computed (tpos and n_maybe None for one
+    target); raises if the launch is refused."""
     require_cuda(lut)
     device = lut.device
     multi = int(mode) != SINGLE
@@ -444,14 +525,25 @@ def launch_template(entry, kid: int, mode: int, lut: torch.Tensor,
         check_out(out, multi, hit_capacity, device)
     count, lanes = out[0], out[1]
     tpos, n_maybe = (out[2], out[3]) if multi else (None, None)
+    block = message_block(engine_name, lut.shape[0])
     layout = args_layout(len(block))
-    args = layout(lut.shape[0],
-                  (ctypes.c_int32 * layout.POSITIONS)(*radices),
-                  (ctypes.c_int32 * layout.POSITIONS)(*base_digits),
-                  (ctypes.c_uint32 * layout.BLOCK_WORDS)(*block),
-                  (ctypes.c_uint32 * layout.TARGET_WORDS)(
+    n, words = layout.POSITIONS, layout.BLOCK_WORDS
+    args = layout(length=lut.shape[0], radix=(ctypes.c_int32 * n)(*radices),
+                  base=(ctypes.c_int32 * n)(*base_digits),
+                  block=(ctypes.c_uint32 * words)(*block),
+                  target=(ctypes.c_uint32 * layout.TARGET_WORDS)(
                       *(int(w) & 0xFFFFFFFF for w in target)),
-                  shift, offset)
+                  offset=offset)
+    if layout.RUNS:
+        rcp, rsh = decode_reciprocals(radices)
+        args.rcp = (ctypes.c_uint32 * n)(*rcp)
+        args.rsh = (ctypes.c_int32 * n)(*rsh)
+        args.sel = (ctypes.c_uint32 * words)(
+            *byte_mask(engine_name, lut.shape[0]))
+        grid = run_grid(blocks_per_sm, run_count(
+            radices[-1], base_digits[-1], offset, n_valid), device)
+    else:
+        grid = wave_grid(blocks_per_sm, max(0, n_valid - offset), device)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = entry(kid, int(mode), device.index, lut.data_ptr(),
                ctypes.byref(args), ctypes.byref(margs), n_valid,
@@ -469,13 +561,12 @@ def _launch(eng, mode: int, lut: torch.Tensor,
             n_valid: int, target: Sequence[int], margs: MultiArgs,
             smem: int, hit_capacity: int, offset: int, out):
     require_cuda(lut)
-    grid = grid_size(eng.name, mode, max(0, n_valid - offset), smem,
-                     lut.device)
     out = launch_template(_library().dprf_mask_launch,
-                          KERNEL_CORES[eng.name], mode, lut, radices,
-                          base_digits, n_valid,
-                          message_block(eng.name, lut.shape[0]), target,
-                          margs, hit_capacity, grid, offset=offset, out=out)
+                          KERNEL_CORES[eng.name], mode, eng.name, lut,
+                          radices, base_digits, n_valid, target,
+                          margs, hit_capacity,
+                          blocks_per_sm(eng.name, mode, smem), offset=offset,
+                          out=out)
     launches[kernel_name(eng.name, mode)] += 1
     return out
 

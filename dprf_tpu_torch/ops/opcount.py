@@ -394,15 +394,33 @@ def core_work(engine_name: str, length: int, words_needed: int) -> dict:
     return tally(state_words(eng.name, block)[:words_needed])
 
 
+#: one lane's step inside a run of the mask kernel (csrc/mask_kernel.cuh):
+#: the lane's add and the charset byte placed in its word
+DECODE_STEP = Work(alu=1, add=1, fma=0)
+
+
+def decode_work(length: int, run: float = 1) -> Work:
+    """The decode's least work a lane when a thread takes runs of
+    ``run`` lanes on average (``cuda_mask.mean_run``): the run's first
+    lane decodes every position (an add, two IMAD and an ALU op each),
+    each other lane one ``DECODE_STEP``.  A run of 1 is a full decode a
+    lane."""
+    rest = 1 - 1 / run
+    return Work(length / run + rest * DECODE_STEP.alu,
+                length / run + rest * DECODE_STEP.add,
+                2 * length / run + rest * DECODE_STEP.fma)
+
+
 def ops_per_candidate(engine_name: str, length: int, multi: bool = False,
                       probes: float = 0.0, maybes: float = 0.0,
-                      n_targets: int = 1) -> Work:
+                      n_targets: int = 1, run: float = 1) -> Work:
     """The least work of one candidate of a ``length``-position mask.
 
-    Single target: the decode, the core up to digest word 0 and one
-    compare (the feed-forward folds into the target word).  Multi
-    target: the decode, the core up to words 0-2, their feed-forward
-    adds, ``probes`` Bloom probes per candidate (this run's data:
+    Single target: the decode (``decode_work`` at runs of ``run``
+    lanes), the core up to digest word 0 and one compare (the
+    feed-forward folds into the target word).  Multi target: the
+    decode, the core up to words 0-2, their feed-forward adds,
+    ``probes`` Bloom probes per candidate (this run's data:
     ``bloom.expected_probes``) at 5 ALU ops each (align the digest
     bits, word offset and mask, shift the row word, test), and for
     each of ``maybes`` survivors per candidate a binary search of
@@ -410,9 +428,10 @@ def ops_per_candidate(engine_name: str, length: int, multi: bool = False,
     word.  A sponge has no feed-forward."""
     eng = _engine(engine_name)
     core = core_work(engine_name, length, 3 if multi else 1)
-    alu = core["alu"] + length
-    add_ = core["add"] + length
-    fma = core["fma"] + 2 * length
+    dec = decode_work(length, run)
+    alu = core["alu"] + dec.alu
+    add_ = core["add"] + dec.add
+    fma = core["fma"] + dec.fma
     if not multi:
         return Work(alu + 1, add_, fma)
     search = int(np.ceil(np.log2(n_targets + 1)))
@@ -429,12 +448,14 @@ def probe_fill(words: np.ndarray) -> float:
 
 
 def probe_ops(engine_name: str, length: int, fill: float, k: int,
-              maybes: float = 0.0, n_targets: int = 1) -> Work:
+              maybes: float = 0.0, n_targets: int = 1,
+              run: float = 1) -> Work:
     """The least work of one candidate of a ``length``-position mask
     under the blocked probe (csrc/mask_kernel.cuh ``probe_maybe``),
     from this run's bitmap ``fill`` (``probe_fill``).
 
-    The decode; the core up to digest words 0-1 and their feed-forward
+    The decode (``decode_work``); the core up to digest words 0-1 and
+    their feed-forward
     adds, and for the share ``fill`` of candidates whose first bit
     passes, words 2-3 and theirs; the block (one IMAD, one shift) and
     the two odd pair ends (two LOP3); each bit tested (sum over j < k
@@ -453,10 +474,11 @@ def probe_ops(engine_name: str, length: int, fill: float, k: int,
     reach = [fill ** j for j in range(k)]
     search = int(np.ceil(np.log2(n_targets + 1)))
     feed = 0 if is_sponge(eng) else 2 + 2 * fill
-    return Work(words("alu") + length + 3 + 4 * sum(reach)
+    dec = decode_work(length, run)
+    return Work(words("alu") + dec.alu + 3 + 4 * sum(reach)
                 + maybes * (4 * search + eng.digest_words),
-                words("add") + length + feed + sum(reach[:2]),
-                words("fma") + 2 * length + 1 + sum(reach[2:]))
+                words("add") + dec.add + feed + sum(reach[:2]),
+                words("fma") + dec.fma + 1 + sum(reach[2:]))
 
 
 def rule_lengths(words: np.ndarray, lens: np.ndarray, rules,
@@ -511,14 +533,15 @@ def _core_work(core: str, block, var_words, words_needed: int) -> dict:
 
 def _decode_and_compare(length: int, multi: bool, digest_words: int,
                         probes: float, maybes: float, n_targets: int,
-                        core: dict) -> Work:
-    """``ops_per_candidate``'s decode and compare around ``core``: each
-    mask position one add, two IMAD and one ALU op; one target a
+                        core: dict, run: float = 1) -> Work:
+    """``ops_per_candidate``'s decode and compare around ``core``: the
+    decode at runs of ``run`` lanes (``decode_work``); one target a
     compare, a list the feed-forward of words 0-2, the Bloom probes and
     the survivors' search."""
-    alu = core["alu"] + length
-    add_ = core["add"] + length
-    fma = core["fma"] + 2 * length
+    dec = decode_work(length, run)
+    alu = core["alu"] + dec.alu
+    add_ = core["add"] + dec.add
+    fma = core["fma"] + dec.fma
     if not multi:
         return Work(alu + 1, add_, fma)
     search = int(np.ceil(np.log2(n_targets + 1)))
@@ -528,7 +551,7 @@ def _decode_and_compare(length: int, multi: bool, digest_words: int,
 
 def nested_ops(name: str, length: int, multi: bool = False,
                probes: float = 0.0, maybes: float = 0.0,
-               n_targets: int = 1) -> Work:
+               n_targets: int = 1, run: float = 1) -> Work:
     """The least work of one candidate of a nested chain
     (``cuda_ext.NESTED_NAMES``) over a ``length``-position mask: the
     decode; the inner core over the job's block (fixed words folded),
@@ -561,7 +584,7 @@ def nested_ops(name: str, length: int, multi: bool = False,
     core = {k: work[k] + outer_work[k] for k in work}
     return _decode_and_compare(length, multi,
                                device_engine(outer).digest_words, probes,
-                               maybes, n_targets, core)
+                               maybes, n_targets, core, run)
 
 
 def salted_ops(variant: str, length: int, salt: bytes,
