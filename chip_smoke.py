@@ -15,8 +15,8 @@ card, and holds every kernel against its plain PyTorch version:
    sources, one nvcc each, all at once, and prints nvcc's
    register / shared memory / spill lines and a SASS census of each
    instantiation, each mask, ext, keccak and bcrypt kernel held to its
-   slice K2 pin (``CENSUS_K2``), each rule instantiation to its first
-   pin (``CENSUS_BEFORE``);
+   slice K2 pin (``CENSUS_K2``), each rule instantiation to its slice K3
+   pin (``CENSUS_K3``; none of them with a stack frame or a spill);
 3. holds each instantiation against its plain version on the card at a
    batch of 2^24, with exact equality of the hit count, the sorted hit
    lanes and, for the multi-target compare, the table positions and
@@ -57,7 +57,13 @@ card, and holds every kernel against its plain PyTorch version:
    hits at word 0 under rule 0, at the last valid word of a partial
    window under the 8-op rule, at a window that starts at an odd word,
    both lanes of the "'7" / "]" pair, and a candidate that rejects
-   (growth past max_len) never hits;
+   (growth past max_len) never hits.  Then every opcode the kernel
+   takes (``RULES_ALL_OPS``) for each core at max_len 16, 27 and 55 (ntlm
+   16 and 27) over ``RULE_WORDS`` and a random word of every length up to
+   max_len, a window cut mid-warp, exact equality of the count and the
+   lanes: each rule alone with a target of each length class of its
+   candidates (0, 1, 3-5, 15-17, max_len - 1, max_len), then all the
+   rules as one run of a thread with a target a rule;
 9. config 3 at full width: the reference bench's 2^20 synthetic 8-letter
    words x best64 (67,108,864 candidates) with ``crack --device cuda
    --engine sha256 -a wordlist --rules best64``: an unreachable target
@@ -366,12 +372,27 @@ TIMING_SALT = 11
 #: salts are alphanumeric)
 ALNUM = b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
 #: the nvcc registers and SASS instruction count of the rule
-#: instantiations since they were first pinned (sm_90a, CUDA 12.8),
-#: which share csrc/cores.cuh and csrc/decode.cuh with the mask kernel
-#: and must not change when it does
-CENSUS_BEFORE = {
-    "md5_rules": (32, 3104), "ntlm_rules": (32, 2824),
-    "sha1_rules": (32, 3400), "sha256_rules": (40, 4232)}
+#: instantiations since slice K3 redesigned them (sm_90a, CUDA 12.8): the
+#: candidate as 32-bit words in shared-memory slots, runs of rules a
+#: thread, a short-message path.  They share csrc/cores.cuh with the mask
+#: kernel and must not change when it does (before slice K3: md5 32 /
+#: 3,104, ntlm 32 / 2,824, sha1 32 / 3,400, sha256 40 / 4,232)
+CENSUS_K3 = {
+    "md5_rules": (32, 4512), "ntlm_rules": (32, 4160),
+    "sha1_rules": (32, 5152), "sha256_rules": (40, 6776)}
+#: the words and rule lines of the every-opcode check (phase 8): the
+#: reference's rule-kernel test set (tests/test_torch_rules.py) less the
+#: ops the kernel refuses (@, E, e)
+RULE_WORDS = ([b"alpha", b"bravo", b"s3cret", b"Delta", b"echo99",
+               b"FOXtrot", b"g0lf!", b"hotellll", b"in", b"j", b"",
+               b"aAzZ09!~", b"xxxxxxxxxxxxxxxx"]
+              + [b"w%02d" % i for i in range(19)])
+RULES_ALL_OPS = [
+    ":", "l", "u", "c", "C", "t", "T2", "r", "d", "p2", "f", "{", "}", "[",
+    "]", "D2", "x12", "O12", "i2X", "o2Y", "'3", "se3", "z2", "Z2", "q", "k",
+    "K", "*03", "L2", "R2", "+2", "-2", ".2", ",2", "y2", "Y2", "$!", "^#",
+    "<5", ">3", "_6", "!x", "/e", "(a", ")o", "=1e", "%2e", "c $1 $2 $3",
+    "u r ]", "TZ", "oZa", "=Za", "x0Z", "*0Z", "p9"]
 #: the nvcc registers and SASS instruction count of every instantiation
 #: of the mask kernel template (csrc/mask.cu, ext.cu, keccak.cu) and of
 #: the bcrypt kernels since slice K2 (sm_90a, CUDA 12.8).  The earlier
@@ -536,18 +557,26 @@ def nvidia_smi(fields: str) -> str:
 #: a process of its own from ``__enter__`` to ``__exit__``, which stops
 #: it and waits for it: ``with SmClock() as clock: ...`` (launches, then
 #: torch.cuda.synchronize()), then ``clock.mhz``, the median sample or
-#: None.  nvidia-smi takes ~0.1-0.3 s to print its first sample, so a
-#: block keeps the card busy for half a second or more (``busy``).
+#: None.  nvidia-smi takes ~0.1-0.3 s to print its first sample, more on
+#: a busy host, so ``__enter__`` waits for that sample (at most
+#: ``FIRST_S`` seconds) before the block runs, and the block keeps the
+#: card busy for half a second or more (``busy``).
 class SmClock:
+    FIRST_S = 20.0
+
     def __init__(self, period_ms: int = 20, device: int = 0):
         self.cmd = ["nvidia-smi", f"--id={device}", "--query-gpu=clocks.sm",
                     "--format=csv,noheader,nounits", f"--loop-ms={period_ms}"]
         self.samples: list = []
+        self._first = ""
         self._proc = None
 
     def __enter__(self) -> "SmClock":
+        import select
         self._proc = subprocess.Popen(self.cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.DEVNULL, text=True)
+        if select.select([self._proc.stdout], [], [], self.FIRST_S)[0]:
+            self._first = self._proc.stdout.readline()
         return self
 
     def __exit__(self, *exc) -> None:
@@ -557,7 +586,7 @@ class SmClock:
         except subprocess.TimeoutExpired:
             self._proc.kill()
             out, _ = self._proc.communicate()
-        self.samples = [float(x) for x in out.split()
+        self.samples = [float(x) for x in (self._first + out).split()
                         if x.replace(".", "", 1).isdigit()]
 
     @property
@@ -918,18 +947,17 @@ class Smoke:
     def rules_case(self, engine, gen, tables, ws, n_valid, plants, name,
                    rejected=()):
         """One rule-kernel case over words [ws, ws + n_valid) x every
-        rule: kernel and plain on the same inputs, with the digest of
-        the candidate at keyspace index plants[0] as target.  Every
-        index of ``plants`` must come back as a hit lane; every word
-        index (a rule's candidate that rejects) of ``rejected`` must
-        not."""
-        from dprf_tpu_torch.ops import cuda_rules
+        rule: kernel and plain on the same inputs (``tables``: the
+        kernel's padded word table, the plain version's, lens, bytecode,
+        n_ops), with the digest of the candidate at keyspace index
+        plants[0] as target.  Every index of ``plants`` must come back
+        as a hit lane; every word index (a rule's candidate that
+        rejects) of ``rejected`` must not."""
         plain = gen.candidate(plants[0])
         target = digest_words(engine,
                               self.get_engine(engine).hash_batch([plain])[0])
-        args = (engine, *tables, ws, n_valid, target, 64, RULE_BATCH)
-        kc, kl = cuda_rules.rules_kernel(*args)
-        pc, pl = cuda_rules.rules_plain(*args)
+        (kc, kl), (pc, pl) = self.rules_pair(
+            engine, tables, gen.max_len, ws, n_valid, target, RULE_BATCH)
         self.torch.cuda.synchronize()
         kc, pc = int(kc.item()), int(pc.item())
         kl = sorted(int(x) for x in kl.cpu().tolist())
@@ -949,6 +977,104 @@ class Smoke:
         check(not any(r in gidx for r in rejected),
               f"{name}: a rejected candidate hit")
         self.err[rname(engine)] = max(self.err[rname(engine)], err)
+
+    @staticmethod
+    def rules_pair(engine, tables, max_len, ws, n_valid, target, word_batch,
+                   cap=64, run=None):
+        """The rule kernel on the padded table and its plain version on
+        the table of max_len-byte rows, same job: ((count, lanes),
+        (count, lanes)), still being computed.  run: the kernel's rules a
+        thread, by default its host's choice."""
+        from dprf_tpu_torch.ops import cuda_rules
+        padded, plain, *rest = tables
+        tail = (ws, n_valid, target, cap, word_batch)
+        return (cuda_rules.rules_kernel(engine, padded, *rest, *tail,
+                                        max_len=max_len, run=run),
+                cuda_rules.rules_plain(engine, plain, *rest, *tail))
+
+    def rules_equal(self, engine, tables, max_len, ws, nv, wb, want, what,
+                    run=None) -> int:
+        """One launch whose target is the digest of ``want``: the count
+        and the lanes must equal the plain version's, and hit.  Returns
+        the count."""
+        target = digest_words(
+            engine, self.get_engine(engine).hash_batch([want])[0])
+        n_rules = tables[3].shape[0]
+        (kc, kl), (pc, pl) = self.rules_pair(
+            engine, tables, max_len, ws, nv, target, wb, cap=wb * n_rules,
+            run=run)
+        self.torch.cuda.synchronize()
+        k = (int(kc.item()), sorted(x for x in kl.tolist() if x >= 0))
+        p = (int(pc.item()), sorted(x for x in pl.tolist() if x >= 0))
+        check(k == p and k[0] > 0,
+              f"{rname(engine)} max_len {max_len} {what}, target "
+              f"{want!r}: kernel {k}, plain {p}")
+        return k[0]
+
+    def rules_all_ops(self, engine, max_len) -> tuple:
+        """Every opcode the kernel takes (RULES_ALL_OPS) at max_len over
+        RULE_WORDS and a random word of every length 0..max_len, the
+        window cut mid-warp (words 3 .. n - 2), the hit capacity every
+        lane; kernel and plain must agree exactly on count and lanes.
+        Each rule alone, a launch for each length class of its
+        candidates (0, 1, 3-5, 15-17, max_len - 1, max_len; a random
+        candidate of the class as target); then all the rules as one run
+        of a thread, a launch a rule, the target its candidate of the
+        word whose candidate under the rule before is longest, so the
+        restore between rules has the most to undo.  Returns (rules,
+        launches, hits)."""
+        import numpy as np
+
+        from dprf_tpu_torch.generators.wordlist import \
+            WordlistRulesGenerator
+        from dprf_tpu_torch.ops import cuda_rules
+        from dprf_tpu_torch.rules.parser import parse_rules
+        torch, rng = self.torch, self.rng
+        rules = parse_rules(RULES_ALL_OPS)
+        check(cuda_rules.rules_supported(rules)
+              and len(rules) <= cuda_rules.MAX_RUN,
+              "RULES_ALL_OPS holds an op the kernel refuses, or more rules "
+              "than a run")
+        words = [w for w in RULE_WORDS if len(w) <= max_len] + [
+            bytes(rng.integers(0, 256, n, dtype=np.uint8))
+            for n in range(max_len + 1)]
+        gen = WordlistRulesGenerator(words, rules, max_len)
+        buf, lens = gen.packed_words()
+        plain = torch.as_tensor(buf, device="cuda")
+        words_t = (cuda_rules.pad_rows(plain), plain,
+                   torch.as_tensor(lens, device="cuda"))
+        ws, nv = 3, len(words) - 5
+        wb = -(-nv // 32) * 32
+        # cands[r][b]: rule r's candidate of window word b, None = rejected
+        cands = [[gen.candidate(gen.index_of(ws + b, r)) for b in range(nv)]
+                 for r in range(len(rules))]
+        classes = ((0, 0), (1, 1), (3, 5), (15, 17),
+                   (max_len - 1, max_len - 1), (max_len, max_len))
+        launches = hits = 0
+        for r, line in enumerate(RULES_ALL_OPS):
+            one = (*words_t, *cuda_rules.rule_tables([rules[r]], "cuda"))
+            for lo, hi in classes:
+                pool = sorted({c for c in cands[r]
+                               if c is not None and lo <= len(c) <= hi})
+                if pool:
+                    hits += self.rules_equal(
+                        engine, one, max_len, ws, nv, wb,
+                        pool[int(rng.integers(0, len(pool)))],
+                        f"rule {line!r} alone")
+                    launches += 1
+        tables = (*words_t, *cuda_rules.rule_tables(rules, "cuda"))
+        for r, line in enumerate(RULES_ALL_OPS):
+            prev = [len(c) if c is not None else -1
+                    for c in cands[r - 1]] if r else [0] * nv
+            live = [b for b in range(nv) if cands[r][b] is not None]
+            if live:
+                b = max(live, key=lambda b: (prev[b], -b))
+                hits += self.rules_equal(
+                    engine, tables, max_len, ws, nv, wb, cands[r][b],
+                    f"rule {line!r} in one run of {len(rules)} rules",
+                    run=len(rules))
+                launches += 1
+        return len(rules), launches, hits
 
     # -- phase 9: config 3 through the CLI -----------------------------------
 
@@ -1232,6 +1358,7 @@ def run(smoke, oracle4, words4) -> None:
                       {ename(n, m) for n, m in EXT_INSTANCES}
                       | {k for k, _, _ in F1_INSTANCES}
                       | {kname(e, PROBE) for e in PROBE_CORES}
+                      | {rname(e) for e in RULE_CORES}
                       | {"krb5_group", "pbkdf2_kdf", "sevenzip_kdf",
                          "pdf_r2_40", "pdf_r3_40", "pdf_r3_128"},
                       f"{kernel}: {line.strip()} (local memory)")
@@ -1240,11 +1367,11 @@ def run(smoke, oracle4, words4) -> None:
                               key=lambda kv: instance_of(kv[0])):
             top = ", ".join(f"{op} {n}" for op, n in c["by_opcode"].items())
             inst = instance_of(func)
-            was = CENSUS_BEFORE.get(inst)
+            was = CENSUS_K3.get(inst)
             now = (registers.get(inst), c["total"])
             same = "" if was is None else (
-                "; registers and census as first pinned: "
-                + ("same" if was == now else f"DIFFER, it had {was}"))
+                "; the slice K3 pin: "
+                + ("same" if was == now else f"DIFFER, pinned {was}"))
             check(was is None or same.endswith("same"), f"{inst}{same}")
             if src in ("mask", "ext", "keccak", "bcrypt") and \
                     inst not in GROUPED_KERNELS:
@@ -1284,11 +1411,12 @@ def run(smoke, oracle4, words4) -> None:
         f"{cuda_mask.blocks_per_sm('md5', True, smem)} resident blocks per "
         "SM")
     for engine in RULE_CORES:
-        max_len = 27 if engine == "ntlm" else 55
-        smem = cuda_rules.shared_bytes(max_len)
-        say(f"  {rname(engine)}: {smem} B shared at max_len {max_len}, "
-            f"{cuda_rules.blocks_per_sm(engine, smem)} resident blocks of "
-            f"{cuda_rules.THREADS} per SM (the grid's wave)")
+        blocks = cuda_rules.blocks_per_sm(engine)
+        say(f"  {rname(engine)}: {cuda_rules.shared_bytes(engine)} B shared, "
+            f"{blocks} resident blocks of {cuda_rules.THREADS} per SM; "
+            f"2^24 candidates a launch in runs of "
+            f"{cuda_rules.rule_runs(RULE_BATCH, N_RULES, sms * blocks)} "
+            "rules")
 
     for chain, multi in EXT_INSTANCES:
         if chain in cuda_ext.SALTED_NAMES:
@@ -1556,14 +1684,18 @@ def run(smoke, oracle4, words4) -> None:
         gen = WordlistRulesGenerator(words3, best64, max_len=max_len)
         buf, lens = gen.packed_words()
         rule_gens[max_len] = gen
-        rule_tables[max_len] = (torch.as_tensor(buf, device="cuda"),
-                                torch.as_tensor(lens, device="cuda"),
-                                *cuda_rules.rule_tables(best64, "cuda"))
+        # the kernel's table (rows padded to 16 bytes), the plain's
+        plain = torch.as_tensor(buf, device="cuda")
+        rule_tables[max_len] = (
+            cuda_rules.pad_rows(plain), plain,
+            torch.as_tensor(lens, device="cuda"),
+            *cuda_rules.rule_tables(best64, "cuda"))
     # a list whose rows are 16 bytes wide: "p2 '7 p1 x58" grows its
     # 8-byte words to 24 bytes on the way, so each such candidate rejects
     gen16 = WordlistRulesGenerator(words3[:RULE_BATCH], best64, max_len=16)
     buf16, lens16 = gen16.packed_words()
-    tables16 = (torch.as_tensor(buf16, device="cuda"),
+    plain16 = torch.as_tensor(buf16, device="cuda")
+    tables16 = (cuda_rules.pad_rows(plain16), plain16,
                 torch.as_tensor(lens16, device="cuda"),
                 *cuda_rules.rule_tables(best64, "cuda"))
     n3 = CONFIG3_WORDS
@@ -1598,9 +1730,8 @@ def run(smoke, oracle4, words4) -> None:
               "the grow rule did not reject at max_len 16")
         target = digest_words(engine,
                               smoke.get_engine(engine).hash_batch([plant])[0])
-        args = (engine, *tables16, 0, RULE_BATCH, target, 64, RULE_BATCH)
-        k = cuda_rules.rules_kernel(*args)
-        p = cuda_rules.rules_plain(*args)
+        k, p = smoke.rules_pair(engine, tables16, 16, 0, RULE_BATCH, target,
+                                RULE_BATCH)
         torch.cuda.synchronize()
         k = (int(k[0].item()), sorted(k[1].cpu().tolist()))
         p = (int(p[0].item()), sorted(p[1].cpu().tolist()))
@@ -1609,6 +1740,15 @@ def run(smoke, oracle4, words4) -> None:
               f"{rname(engine)}: a rejected candidate hit")
         say(f"  {rname(engine)} max_len 16, target {plant!r} whose rule "
             f"rejects there: kernel count={k[0]} | plain count={p[0]}")
+        for ml in (16, 27, 55):
+            if ml > (27 if engine == "ntlm" else 55):
+                continue
+            t0 = time.perf_counter()
+            n_r, n_l, n_hits = smoke.rules_all_ops(engine, ml)
+            say(f"  {rname(engine)} every opcode at max_len {ml}: {n_r} "
+                f"rules, each alone at every length class and all as one "
+                f"run, {n_l} launches, {n_hits} hits, kernel == plain "
+                f"({time.perf_counter() - t0:.1f} s)")
 
     # 9. config 3 at full width, then the other rule cores
     say(f"== config 3: crack --device cuda --engine sha256 -a wordlist "
@@ -1671,10 +1811,13 @@ def run(smoke, oracle4, words4) -> None:
                   for n, c in lengths[max_len].items()}
         miss = digest_words(engine, smoke.get_engine(engine)
                             .hash_batch([b"\0" * 9])[0])
-        args = (engine, *rule_tables[max_len], 0, RULE_BATCH, miss, 64,
-                RULE_BATCH)
-        ms = smoke.time_launches(cuda_rules.rules_kernel, args)
-        plain_ms = smoke.time_once(cuda_rules.rules_plain, args)
+        padded, plain, *rest = rule_tables[max_len]
+        tail = (0, RULE_BATCH, miss, 64, RULE_BATCH)
+        ms = smoke.time_launches(
+            lambda: cuda_rules.rules_kernel(engine, padded, *rest, *tail,
+                                            max_len=max_len), ())
+        plain_ms = smoke.time_once(cuda_rules.rules_plain,
+                                   (engine, plain, *rest, *tail))
         work = opcount.rules_ops(engine, counts)
         ops_ms = work.slots / rate_ops * 1e3
         bytes_ = RULE_BATCH * (max_len + 4)
@@ -1690,8 +1833,9 @@ def run(smoke, oracle4, words4) -> None:
             f"{work.add / n:.1f} IADD3, {work.fma / n:.1f} IMAD = "
             f"{work.slots / n:.1f} slots over lengths {lengths[max_len]} "
             f"(x {RULE_BATCH // OTHER_WORDS}); bytes {bytes_ms:.4f} ms: "
-            f"the word table once, {bytes_} B; kernel at {bound / ms:.1%} "
-            f"of it); plain version {plain_ms:.3f} ms")
+            f"the word table once, {bytes_} B, though the kernel reads "
+            f"its rows padded to {cuda_rules.row_bytes(max_len)} B; kernel "
+            f"at {bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
 
     # 11. the PMKID kernel vs its plain version
     say(f"== PMKID kernel vs plain at {PMKID_CHECK_ITERS} iterations over "

@@ -8,6 +8,12 @@ with the semantics of rules/cpu.py, packs the variable-length message,
 runs the core and compares exactly with the target.  Hit lanes are
 rule-major, lane = r * word_batch + b, as in the reference's step.
 
+The kernel reads the word table with rows padded with zeros to a
+multiple of 16 bytes (``pad_rows``, ``row_bytes``), in 16-byte
+loads; a thread holds one word and runs ``rule_runs`` consecutive rules
+over it, the block's threads the same rules, so that a launch of
+``launch_grid`` blocks fills whole resident waves.
+
 Outputs: ``count int32[1]``, the exact number of hits, and ``lanes
 int32[hit_capacity]``, the lanes of the first ``hit_capacity`` hits in
 no fixed order, -1 where unused; ``count > hit_capacity`` sends the word
@@ -43,9 +49,20 @@ from dprf_tpu_torch.rules.parser import Op, Opcode
 MAX_STEPS = 8
 #: threads per block (kThreads in the source)
 THREADS = 256
-#: the hit lanes' word stride is a multiple of a warp, so a warp's
-#: threads share one rule
+#: threads of a warp; the hit lanes' word stride (word_batch) is a
+#: multiple of it
 WARP = 32
+#: the word table's row alignment: the kernel loads a row in 16-byte
+#: vector loads
+ROW_ALIGN = 16
+#: rules a thread runs at most (kMaxRun in the source: a block stages
+#: its run's bytecode in shared memory)
+MAX_RUN = 64
+#: resident waves a launch fills before its runs grow past one rule
+#: (``rule_runs``): the last blocks of a launch find idle SMs, so a
+#: launch of a few waves loses more of its time to its end than runs of
+#: a few rules lose to loading their word
+MIN_WAVES = 8
 
 #: the TPU kernel this one replaces, and this kernel's source
 REPLACES = "dprf_tpu/ops/pallas_rules.py:442"
@@ -147,15 +164,21 @@ def kernel_rules_eligible(engine_name: str, gen, n_targets: int) -> bool:
 def _check_job(eng, words: torch.Tensor, lens: torch.Tensor,
                bytecode: torch.Tensor, n_ops: torch.Tensor, ws: int,
                n_valid: int, target: Sequence[int], hit_capacity: int,
-               word_batch: int) -> None:
+               word_batch: int, max_len: int = None) -> None:
+    """Raise on a job the kernel does not take.  The table's rows are
+    max_len bytes (default: its width), or that padded (``row_bytes``)."""
     device = words.device
     if words.dtype != torch.uint8 or words.dim() != 2:
         raise ValueError(f"words must be uint8[n_words, max_len], got "
                          f"{words.dtype}{list(words.shape)}")
-    n_words, max_len = words.shape
+    n_words, width = words.shape
+    max_len = width if max_len is None else max_len
     if not 1 <= max_len <= eng.max_candidate_len:
         raise ValueError(f"{eng.name}: max_len {max_len} outside "
                          f"1..{eng.max_candidate_len}")
+    if width not in (max_len, row_bytes(max_len)):
+        raise ValueError(f"word table rows of {width} bytes: max_len "
+                         f"{max_len} takes {max_len} or {row_bytes(max_len)}")
     if lens.dtype != torch.int32 or list(lens.shape) != [n_words]:
         raise ValueError(f"lens must be int32[{n_words}], got "
                          f"{lens.dtype}{list(lens.shape)}")
@@ -196,7 +219,7 @@ class _RulesArgs(ctypes.Structure):
     _fields_ = [("max_len", ctypes.c_int32), ("n_rules", ctypes.c_int32),
                 ("word_batch", ctypes.c_int32), ("ws", ctypes.c_int32),
                 ("n_valid", ctypes.c_int32),
-                ("target", ctypes.c_uint32 * 8)]
+                ("target", ctypes.c_uint32 * 8), ("run", ctypes.c_int32)]
 
 
 @functools.cache
@@ -209,8 +232,9 @@ def _library():
         i32, i32, ptr, ptr, ptr, ptr, ctypes.POINTER(_RulesArgs), ptr, ptr,
         i32, i32, i32, ptr]
     lib.dprf_rules_launch.restype = i32
-    lib.dprf_rules_blocks_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
-    lib.dprf_rules_blocks_per_sm.restype = i32
+    for fn in (lib.dprf_rules_blocks_per_sm, lib.dprf_rules_shared_bytes):
+        fn.argtypes = [i32, ctypes.POINTER(i32)]
+        fn.restype = i32
     return lib
 
 
@@ -220,67 +244,128 @@ def load_kernel() -> None:
     _library()
 
 
-def shared_bytes(max_len: int) -> int:
-    """Dynamic shared memory of one block: max_len bytes per thread."""
-    return max_len * THREADS
+def row_bytes(max_len: int) -> int:
+    """The kernel's word table row: max_len bytes padded to ROW_ALIGN."""
+    return -(-max_len // ROW_ALIGN) * ROW_ALIGN
+
+
+def pad_rows(words: torch.Tensor) -> torch.Tensor:
+    """A word table uint8[n_words, max_len] (``gen.packed_words``') with
+    its rows padded with zeros to ``row_bytes(max_len)``, on its device."""
+    max_len = words.shape[1]
+    return torch.nn.functional.pad(words, (0, row_bytes(max_len) - max_len))
+
+
+def _query(fn, engine_name: str, what: str) -> int:
+    value = ctypes.c_int(0)
+    rc = fn(KERNEL_CORES[engine_name], ctypes.byref(value))
+    if rc != 0:
+        raise RuntimeError(f"{what} query failed: CUDA error {rc}")
+    return value.value
 
 
 @functools.cache
-def blocks_per_sm(engine_name: str, smem: int) -> int:
-    """Resident blocks per SM for one instantiation at ``smem`` bytes,
-    from the CUDA occupancy calculator."""
-    blocks = ctypes.c_int(0)
-    rc = _library().dprf_rules_blocks_per_sm(KERNEL_CORES[engine_name],
-                                             smem, ctypes.byref(blocks))
-    if rc != 0 or blocks.value < 1:
-        raise RuntimeError(f"occupancy query failed: CUDA error {rc}, "
-                           f"{blocks.value} blocks per SM")
-    return blocks.value
+def shared_bytes(engine_name: str) -> int:
+    """Dynamic shared memory of one block of an instantiation: its
+    threads' word slots and its run's ops."""
+    return _query(_library().dprf_rules_shared_bytes, engine_name,
+                  "shared memory")
 
 
-def grid_size(engine_name: str, lanes: int, smem: int, device) -> int:
-    """Blocks of the grid-stride grid: one resident wave, or fewer for a
-    short launch."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    resident = sms * blocks_per_sm(engine_name, smem)
-    return max(1, min(-(-lanes // THREADS), resident))
+@functools.cache
+def blocks_per_sm(engine_name: str) -> int:
+    """Resident blocks per SM for one instantiation, from the CUDA
+    occupancy calculator."""
+    blocks = _query(_library().dprf_rules_blocks_per_sm, engine_name,
+                    "occupancy")
+    if blocks < 1:
+        raise RuntimeError(f"occupancy query: {blocks} blocks per SM")
+    return blocks
+
+
+def word_blocks(n_valid: int) -> int:
+    """Blocks of THREADS words that cover a window of n_valid words."""
+    return -(-n_valid // THREADS)
+
+
+def rule_runs(n_valid: int, n_rules: int, wave: int) -> int:
+    """Rules a thread runs over its word: the longest run (at most
+    MAX_RUN) at which the launch's ``launch_grid`` blocks still fill
+    MIN_WAVES waves of ``wave`` resident blocks, or runs of one rule
+    where even those fill fewer."""
+    n_runs = min(n_rules, -(-MIN_WAVES * wave // word_blocks(n_valid)))
+    run = -(-n_rules // n_runs)
+    while -(-n_rules // run) < n_runs:
+        run -= 1
+    return min(MAX_RUN, run)
+
+
+def launch_grid(n_valid: int, n_rules: int, run: int) -> int:
+    """The launch's blocks: word blocks x runs.  Block g takes run
+    g // word_blocks(n_valid) and word block g % word_blocks(n_valid)."""
+    return word_blocks(n_valid) * -(-n_rules // run)
+
+
+def thread_work(block: int, thread: int, n_valid: int, n_rules: int,
+                run: int):
+    """(word b of the window, its rules) of one thread, as csrc/rules.cu
+    derives them, or None for a thread whose warp lies past the window;
+    a thread of a live warp past n_valid has no rules."""
+    bx = word_blocks(n_valid)
+    j = block // bx
+    b = (block - j * bx) * THREADS + thread
+    if b & ~(WARP - 1) >= n_valid:
+        return None
+    rules = range(j * run, min(j * run + run, n_rules))
+    return b, (rules if b < n_valid else range(0))
 
 
 def rules_kernel(engine: str, words: torch.Tensor, lens: torch.Tensor,
                  bytecode: torch.Tensor, n_ops: torch.Tensor, ws: int,
                  n_valid: int, target: Sequence[int], hit_capacity: int,
-                 word_batch: int):
+                 word_batch: int, max_len: int = None, run: int = None):
     """Launch the kernel over words [ws, ws + n_valid) of the table
-    under every rule: words uint8[n_words, max_len] and lens
-    int32[n_words] (``gen.packed_words``), bytecode and n_ops from
-    ``rule_tables``, all on the card; the target as the core's uint32
-    digest words; word_batch, the hit lanes' stride between rules.
+    under every rule: words uint8[n_words, row_bytes(max_len)]
+    (``pad_rows`` of ``gen.packed_words``) and lens int32[n_words],
+    bytecode and n_ops from ``rule_tables``, all on the card; the target
+    as the core's uint32 digest words; word_batch, the hit lanes' stride
+    between rules.  max_len defaults to the table's width; a table of
+    unpadded max_len-byte rows is padded here, a copy each launch.  run:
+    rules a thread takes, by default ``rule_runs`` for this card
+    (chip_smoke.py sets it to run a whole rule set as one run).
     Returns (count int32[1], lanes int32[hit_capacity]) on the card,
     still being computed."""
     if words.device.type != "cuda":
         raise ValueError(f"the CUDA rules kernel takes CUDA tensors, got "
                          f"words on {words.device}")
     eng = rules_engine(engine, words.device)
+    max_len = words.shape[1] if max_len is None else max_len
     _check_job(eng, words, lens, bytecode, n_ops, ws, n_valid, target,
-               hit_capacity, word_batch)
+               hit_capacity, word_batch, max_len)
+    if words.shape[1] != row_bytes(max_len):
+        words = pad_rows(words)
     device = words.device
     count = torch.zeros((1,), dtype=torch.int32, device=device)
     lanes = torch.full((hit_capacity,), -1, dtype=torch.int32,
                        device=device)
-    n_rules, max_len = bytecode.shape[0], words.shape[1]
+    if n_valid == 0:
+        return count, lanes
+    n_rules = bytecode.shape[0]
+    if run is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        run = rule_runs(n_valid, n_rules, sms * blocks_per_sm(eng.name))
+    if not 1 <= run <= min(n_rules, MAX_RUN):
+        raise ValueError(f"run {run} outside 1..{min(n_rules, MAX_RUN)}")
     target = list(target) + [0] * (8 - len(target))
     args = _RulesArgs(max_len, n_rules, word_batch, ws, n_valid,
                       (ctypes.c_uint32 * 8)(*(int(w) & 0xFFFFFFFF
-                                              for w in target)))
-    smem = shared_bytes(max_len)
-    grid = grid_size(eng.name, n_rules * (-(-n_valid // WARP) * WARP),
-                     smem, device)
+                                              for w in target)), run)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _library().dprf_rules_launch(
         KERNEL_CORES[eng.name], device.index, words.data_ptr(),
         lens.data_ptr(), bytecode.data_ptr(), n_ops.data_ptr(),
         ctypes.byref(args), count.data_ptr(), lanes.data_ptr(),
-        hit_capacity, grid, THREADS, stream)
+        hit_capacity, launch_grid(n_valid, n_rules, run), THREADS, stream)
     if rc != 0:
         raise RuntimeError(f"{kernel_name(eng.name)} kernel launch failed: "
                            f"CUDA error {rc}")
@@ -319,11 +404,13 @@ def rules_plain(engine: str, words: torch.Tensor, lens: torch.Tensor,
     return count, lanes
 
 
-def rules_crack(engine: str, words: torch.Tensor, *args):
-    """The kernel on CUDA tensors, its plain version on CPU tensors
-    (arguments as ``rules_kernel``)."""
+def rules_crack(engine: str, words: torch.Tensor, *args,
+                max_len: int = None):
+    """The kernel on CUDA tensors (``max_len``: its growth limit, for a
+    padded table), its plain version on CPU tensors, whose table is
+    unpadded (arguments as ``rules_plain``)."""
     if words.device.type == "cuda":
-        return rules_kernel(engine, words, *args)
+        return rules_kernel(engine, words, *args, max_len=max_len)
     if words.device.type == "cpu":
         return rules_plain(engine, words, *args)
     raise ValueError(f"no rules kernel for device {words.device}")
@@ -336,8 +423,9 @@ def make_cuda_rules_crack_step(engine: str, gen, target_words: np.ndarray,
     lanes int32[hit_capacity], tpos int32[hit_capacity]) over words
     [ws, ws + n_valid_words) and every rule, lanes rule-major (lane =
     r * word_batch + b), tpos all 0.  The packed word table and the rule
-    tables go to ``device`` once, here.  target_words: the core's uint32
-    digest words."""
+    tables go to ``device`` once, here, the table's rows padded to
+    ``row_bytes`` on a card.  target_words: the core's uint32 digest
+    words."""
     if not kernel_rules_eligible(engine, gen, 1):
         limit = rules_engine(engine).max_candidate_len
         raise ValueError(
@@ -347,6 +435,8 @@ def make_cuda_rules_crack_step(engine: str, gen, target_words: np.ndarray,
     device = torch.device(device)
     buf, lens = gen.packed_words()
     words = torch.as_tensor(buf, device=device)
+    if device.type == "cuda":
+        words = pad_rows(words)
     lens = torch.as_tensor(lens, device=device)
     bytecode, n_ops = rule_tables(gen.rules, device)
     target = [int(w) for w in np.asarray(target_words, np.uint32).ravel()]
@@ -354,7 +444,8 @@ def make_cuda_rules_crack_step(engine: str, gen, target_words: np.ndarray,
 
     def step(ws: int, n_valid: int):
         count, lanes = rules_crack(engine, words, lens, bytecode, n_ops, ws,
-                                   n_valid, target, hit_capacity, word_batch)
+                                   n_valid, target, hit_capacity, word_batch,
+                                   max_len=gen.max_len)
         return count, lanes, tpos
 
     step.word_batch = word_batch

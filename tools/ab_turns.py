@@ -1,5 +1,5 @@
-"""Time the port's mask-template and bcrypt kernels for two or more trees
-on one card, in turns, each turn a process of its own:
+"""Time the port's mask-template, bcrypt and rule kernels for two or more
+trees on one card, in turns, each turn a process of its own:
 
     python3 tools/ab_turns.py --tree NAME=DIR[:FAMILIES] ... \\
         [--order NAME,NAME,...] [--out FILE] [--sass DIR]
@@ -22,15 +22,23 @@ that its families use are built first, all at once, into the tree's own
   candidates (a 132-SM card at 32 an SM) and at the tree's resident
   wave, after one cost round at that wave is held equal to its plain
   version; ms a cost round, ps a candidate-round and cycles a Feistel
-  round at the sampled clock.
+  round at the sampled clock;
+- ``rules``: the four rule-kernel instantiations (csrc/rules.cu: md5,
+  ntlm, sha1, sha256) per launch of 2^24 candidates, 2^18 words of
+  chip_smoke.py's synthetic list x best64 (max_len 27 for ntlm, else
+  55), through the worker's step, which lays out each tree's tables as
+  its kernel takes them.  Each is first held equal to its plain version
+  over a window of 2^18 - 777 words at word 12,345, a hit planted at its
+  last word under best64's 8-op rule (exact count and lanes).
 
 The SM clock is sampled over each family (``SmClock`` of chip_smoke.py).
 --order is a comma-separated list of tree names, by default the trees
 in order and then in reverse (a, b, b, a).  With --sass DIR, each tree's
 first turn writes DIR/NAME/census.json (registers and SASS instructions
 of every kernel of its built libraries, by mangled name) and
-DIR/NAME/bcrypt.sass.  Prints one JSON line a turn, then each kernel's
-mean ms by tree; writes the turns to --out.  Needs a card.
+DIR/NAME/bcrypt.sass or rules.sass where it built them.  Prints one
+JSON line a turn, then each kernel's mean ms by tree; writes the turns
+to --out.  Needs a card.
 """
 
 from __future__ import annotations
@@ -60,7 +68,12 @@ NESTED = ("md5(md5)", "sha1(sha1)", "md5(sha1)", "sha1(md5)", "sha256(md5)",
 KECCAK = ("sha3-224", "sha3-256", "sha3-384", "sha3-512")
 #: the csrc/ libraries of each family
 LIBRARIES = {"mask": ("mask", "ext", "keccak"), "mask64": ("mask", "ext"),
-             "bcrypt": ("bcrypt",)}
+             "bcrypt": ("bcrypt",), "rules": ("rules",)}
+RULE_CORES = ("md5", "ntlm", "sha1", "sha256")
+#: words a rule-kernel launch: 2^24 candidates under best64's 64 rules
+RULE_WORDS = BATCH // 64
+#: best64's 8-op rule, the check's planted hit
+RULE_8OPS = 56
 
 
 def _smoke():
@@ -94,6 +107,7 @@ class Turn:
         if not torch.cuda.is_available():
             raise SystemExit("ab_turns: no CUDA card")
         smoke = _smoke()
+        self.smoke = smoke
         self.SmClock, self.busy = smoke.SmClock, smoke.busy
         self.np, self.torch, self.rng = np, torch, np.random.default_rng(SEED)
         self.get_engine, self.bloom = get_engine, bloom
@@ -269,6 +283,52 @@ def bcrypt_family(t: Turn) -> dict:
     return res
 
 
+def rules_family(t: Turn) -> dict:
+    """ms a launch of 2^24 candidates of each rule instantiation through
+    the worker's step (``make_cuda_rules_crack_step``, which lays out the
+    tree's tables its own way), after the check: the step with a hit
+    planted at the window's last word under best64's 8-op rule == the
+    plain version on the packed table (exact count and lanes)."""
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    from dprf_tpu_torch.ops import cuda_rules as cr
+    from dprf_tpu_torch.rules import load_rules
+    np, torch, out = t.np, t.torch, {}
+    best64 = load_rules("best64")
+    words = t.smoke.synthetic_words(RULE_WORDS + 12345)
+    with t.SmClock() as clock:
+        for engine in RULE_CORES:
+            name = f"{engine}_rules"
+            gen = WordlistRulesGenerator(
+                words, best64, max_len=27 if engine == "ntlm" else 55)
+            buf, lens = gen.packed_words()
+
+            def step(plain):
+                target = t.smoke.digest_words(
+                    engine, t.get_engine(engine).hash_batch([plain])[0])
+                return cr.make_cuda_rules_crack_step(
+                    engine, gen, np.asarray(target, np.uint32), RULE_WORDS)
+
+            ws, nv = 12345, RULE_WORDS - 777
+            want = gen.candidate(gen.index_of(ws + nv - 1, RULE_8OPS))
+            k = step(want)(ws, nv)[:2]
+            p = cr.rules_plain(
+                engine, torch.as_tensor(buf, device="cuda"),
+                torch.as_tensor(lens, device="cuda"),
+                *cr.rule_tables(best64, "cuda"), ws, nv,
+                t.smoke.digest_words(engine, t.get_engine(engine)
+                                     .hash_batch([want])[0]), 64, RULE_WORDS)
+            torch.cuda.synchronize()
+            k = (int(k[0].item()), sorted(k[1].tolist()))
+            p = (int(p[0].item()), sorted(p[1].tolist()))
+            lane = RULE_8OPS * RULE_WORDS + nv - 1
+            if k != p or lane not in k[1]:
+                raise SystemExit(f"ab_turns: {name} kernel {k} != plain {p}")
+            miss = step(b"\0" * 9)
+            out[name] = t.time(lambda: miss(0, RULE_WORDS))
+    return {"ms": out, "sm_mhz": clock.mhz,
+            "clock_samples": len(clock.samples)}
+
+
 def census(_build, name: str) -> dict:
     """(registers, SASS instructions) of each kernel of a built library,
     by mangled name (nvcc's -Xptxas -v log and ``_build.sass_census``)."""
@@ -292,18 +352,20 @@ def turn(tree: str, families: list, sass_dir=None) -> dict:
             res["mask"] = mask_family(t, wide=fam == "mask")
         elif fam == "bcrypt":
             res["bcrypt"] = bcrypt_family(t)
+        elif fam == "rules":
+            res["rules"] = rules_family(t)
     if sass_dir:
         os.makedirs(sass_dir, exist_ok=True)
         libs = sorted({lib for f in families for lib in LIBRARIES[f]})
         with open(os.path.join(sass_dir, "census.json"), "w") as fh:
             json.dump({lib: census(t._build, lib) for lib in libs}, fh,
                       indent=1)
-        if "bcrypt" in libs:
-            cuobjdump = os.path.join(os.path.dirname(t._build.nvcc_path()),
-                                     "cuobjdump")
-            with open(os.path.join(sass_dir, "bcrypt.sass"), "w") as fh:
+        cuobjdump = os.path.join(os.path.dirname(t._build.nvcc_path()),
+                                 "cuobjdump")
+        for lib in {"bcrypt", "rules"} & set(libs):
+            with open(os.path.join(sass_dir, f"{lib}.sass"), "w") as fh:
                 fh.write(subprocess.run(
-                    [cuobjdump, "-sass", t._build.build("bcrypt").path],
+                    [cuobjdump, "-sass", t._build.build(lib).path],
                     capture_output=True, text=True, check=True).stdout)
     res["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -339,8 +401,9 @@ def summary(turns: list) -> dict:
     """Each kernel's mean ms by tree (bcrypt: ms a cost round by wave)."""
     acc: dict = {}
     for tr in turns:
-        for k, ms in tr.get("mask", {}).get("ms", {}).items():
-            acc.setdefault(k, {}).setdefault(tr["name"], []).append(ms)
+        for fam in ("mask", "rules"):
+            for k, ms in tr.get(fam, {}).get("ms", {}).items():
+                acc.setdefault(k, {}).setdefault(tr["name"], []).append(ms)
         for k, v in tr.get("bcrypt", {}).items():
             if isinstance(v, dict) and "ms_per_cost_round" in v:
                 acc.setdefault(f"bcrypt_advance@{k}", {}).setdefault(
