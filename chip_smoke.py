@@ -258,7 +258,33 @@ card, and holds every kernel against its plain PyTorch version:
     2^24 a launch, 1,000 and 8,192 targets, beside the bound
     (ops/opcount.probe_ops, ops_per_candidate), the plain version, the
     parent time and the SM clock sampled over the phase;
-35. prints the kernels line (a kernel timed with the SM clock sampled
+35. slice L, cores the reference runs on XLA only (built in phase 2):
+    sha224 (csrc/mask.cu, one target, the Bloom sets, the probe) and
+    mysql323 (one target; its lists run the probe: 2 digest words have
+    no Bloom sets) against their plain versions at 2^24 (?a^7 and ?l^6,
+    1,000 targets a list; first lane, last valid lane, no hit, a window
+    offset), mysql323 over a mask with spaces and tabs (a plant's other
+    arrangements collide, counted alike); the salted kernel's wide
+    sha512-ps / sha512-sp variants and MSSQL's UTF-16LE placements
+    (csrc/salted.cuh; mssql2000 on uppercase-mapped charset tables) at
+    the path's group of 256 targets (salts of 0..32 bytes, plants at
+    target positions 0 and past 200, lanes 0 and the last valid one):
+    each launch of 2^24 against the hashlib plants, and against the
+    plain version at ``L_CHECK_LANES``;
+36. the slice through ``crack --device cuda``: sha224 (one target over
+    ?l^6, 1,000 over 2^32 of ?a^7), ldap-sha and ldap-md5 (1,000 lines
+    over ?l^6; ldap-sha over a 2^16-word list with best64), mysql323
+    (one target and 1,000 over ?l^6), sha512-ps (a group of 256 over
+    ?l^5), sha512-sp (one over ?l^5), mssql2005 and mssql2000 (256
+    logins over ?l^6), mssql2012 (256 over ?l^5), each with every launch
+    count set to 0 just before it and read just after: only its
+    instantiation, once per (group and) batch; and sha224 on the sharded
+    runtime (the probe) over 1 and 4 shards of the card;
+37. times each new instantiation with CUDA events beside its bound
+    (ops/opcount.ops_per_candidate, probe_ops, mysql323_ops,
+    salted_ops), its plain version and the SM clock sampled over the
+    phase;
+38. prints the kernels line (a kernel timed with the SM clock sampled
     also carries the clock, ``sm_mhz``, and its bound at that clock)
     and, last, the device line.
 
@@ -312,7 +338,8 @@ SHARDS = 4
 #: the C++ core of each engine, as in the kernels' mangled names
 CPP_CORE = {"Md5Core": "md5", "Md4Core": "ntlm", "Sha1Core": "sha1",
             "Sha256Core": "sha256", "Sha512Core": "sha512",
-            "Sha384Core": "sha384"}
+            "Sha384Core": "sha384", "Sha224Core": "sha224",
+            "Mysql323Core": "mysql323"}
 #: the rule kernel's cores, and config 3's list: the reference bench's
 #: 2^20 synthetic 8-letter words x best64 (its 64 rules)
 RULE_CORES = ("md5", "ntlm", "sha1", "sha256")
@@ -528,6 +555,33 @@ F1_INSTANCES = [(f"{e}_mask" + ("_multi" if m else ""), e, m)
      for b in (224, 256, 384, 512) for m in (False, True)]
 #: the Keccak rates by digest bits; the longest mask of each core
 KECCAK_RATE = {224: 144, 256: 136, 384: 104, 512: 72}
+#: slice L: the new instantiations of the mask kernel template, (kernel
+#: name, engine, compare mode), and of the salted kernel, (variant, the
+#: engine its main path and timing drive it through), in the kernels
+#: line's order; the reference has no Pallas kernel for any of them
+L_MASK = [("sha224_mask", "sha224", 0), ("sha224_mask_multi", "sha224", 1),
+          ("sha224_mask_probe", "sha224", 2), ("mysql323_mask", "mysql323", 0),
+          ("mysql323_mask_probe", "mysql323", 2)]
+L_SALTED = [("sha512-ps", "sha512-ps"), ("sha512-sp", "sha512-sp"),
+            ("sha1-ps-utf16", "mssql2005"), ("sha512-ps-utf16", "mssql2012")]
+L_KERNELS = [k for k, _, _ in L_MASK] + [f"{v}_group" for v, _ in L_SALTED]
+#: the lanes of a salted variant's check against its plain version at a
+#: group of 256: the plain version runs the core in torch a target at a
+#: time (sha512's took 8.8-15.4 s for 256 targets at 2^19 lanes), so the
+#: wide ones are held at 2^18 lanes and sha1's at 2^20, several resident
+#: waves; each launch at 2^24 is held to the hashlib plants alone
+L_CHECK_LANES = {"sha512-ps": 1 << 18, "sha512-sp": 1 << 18,
+                 "sha1-ps-utf16": 1 << 20, "sha512-ps-utf16": 1 << 18}
+#: the nvcc registers and SASS instruction count of slice L's
+#: instantiations (sm_90a, CUDA 12.8), pinned from their first build;
+#: none has a stack frame.  sha224's are sha256's but for its probe (8
+#: fewer); the wide salted variants hold 97 registers
+CENSUS_L = {
+    "sha224_mask": (53, 3144), "sha224_mask_multi": (53, 2752),
+    "sha224_mask_probe": (54, 2920), "mysql323_mask": (32, 2704),
+    "mysql323_mask_probe": (32, 2496), "sha512-ps_group": (97, 8160),
+    "sha512-sp_group": (97, 8424), "sha1-ps-utf16_group": (46, 1488),
+    "sha512-ps-utf16_group": (97, 6040)}
 
 
 def fail(msg: str) -> None:
@@ -653,15 +707,16 @@ def instance_of(mangled: str) -> str:
     for fn, name in PLAIN_KERNELS.items():
         if re.search(rf"\d{fn}", mangled):
             return name
-    m = re.search(r"salted_kernelI\d+(\w+?Core)Lb([01])E", mangled)
+    m = re.search(r"salted_kernelI\d+(\w+?Core)Lb([01])E(5Utf16)?", mangled)
     if m:
         return f"{CPP_CORE[m.group(1)]}-{'sp' if m.group(2) == '1' else 'ps'}"\
-            "_group"
+            f"{'-utf16' if m.group(3) else ''}_group"
     m = re.search(r"mask_kernelI(\w+?)L7Compare([012])E", mangled)
     if m:
         args, multi = m.group(1), int(m.group(2))
         cores = [CPP_CORE[c] for c in re.findall(
-            r"\d+(Md5Core|Md4Core|Sha1Core|Sha256Core|Sha512Core|Sha384Core)",
+            r"\d+(Md5Core|Md4Core|Sha1Core|Sha256Core|Sha512Core|Sha384Core"
+            r"|Sha224Core|Mysql323Core)",
             args)]
         keccak = re.search(r"KeccakCoreILi(\d+)E", args)
         if keccak:
@@ -750,6 +805,7 @@ class Smoke:
         self.err.update({"krb5_group": 0, "pbkdf2_kdf": 0, "sevenzip_kdf": 0,
                          "pdf": 0})
         self.err.update({kname(e, PROBE): 0 for e in PROBE_CORES})
+        self.err.update({k: 0 for k in L_KERNELS})
         #: per instantiation: launches of the main path that runs it
         self.path_launches = {}
         #: configs 1 and 2 through the loop superstep: (wall s, windows,
@@ -766,10 +822,15 @@ class Smoke:
         return self.get_engine(engine).hash_batch(words)
 
     def tables(self, engine: str, digests: list):
+        """(the sorted table, the Bloom rows on the card -- None for a
+        core without the sets, mysql323 -- the table on the card)."""
         table = self.make_target_table(digests, little_endian(engine))
-        rows = self.torch.as_tensor(
-            self.bloom.bloom_tables(table.original_words())
-            .view(self.np.int32), device="cuda")
+        rows = None
+        if self.cm.SETS in self.cm.core_modes(
+                self.get_engine(engine, "cuda").core):
+            rows = self.torch.as_tensor(
+                self.bloom.bloom_tables(table.original_words())
+                .view(self.np.int32), device="cuda")
         return table, rows, table.tensor("cuda")
 
     # -- phase 3: kernel vs plain -----------------------------------------
@@ -1360,7 +1421,8 @@ def run(smoke, oracle4, words4) -> None:
                       | {kname(e, PROBE) for e in PROBE_CORES}
                       | {rname(e) for e in RULE_CORES}
                       | {"krb5_group", "pbkdf2_kdf", "sevenzip_kdf",
-                         "pdf_r2_40", "pdf_r3_40", "pdf_r3_128"},
+                         "pdf_r2_40", "pdf_r3_40", "pdf_r3_128"}
+                      | set(L_KERNELS),
                       f"{kernel}: {line.strip()} (local memory)")
         census = _build.sass_census(src)
         for func, c in sorted(census.items(),
@@ -1374,7 +1436,7 @@ def run(smoke, oracle4, words4) -> None:
                 + ("same" if was == now else f"DIFFER, pinned {was}"))
             check(was is None or same.endswith("same"), f"{inst}{same}")
             if src in ("mask", "ext", "keccak", "bcrypt") and \
-                    inst not in GROUPED_KERNELS:
+                    inst not in GROUPED_KERNELS and inst not in L_KERNELS:
                 pin = CENSUS_K2.get(inst)
                 same = "; the slice K2 pin: " + (
                     "same" if pin == now else f"DIFFER, pinned {pin}")
@@ -1387,6 +1449,11 @@ def run(smoke, oracle4, words4) -> None:
             if inst in GROUPED_KERNELS:
                 pin = CENSUS_GROUPED[inst]
                 same = "; the grouped kernel's pin: " + (
+                    "same" if pin == now else f"DIFFER, pinned {pin}")
+                check(same.endswith("same"), f"{inst}{same}")
+            if inst in L_KERNELS:
+                pin = CENSUS_L.get(inst)
+                same = "; the slice L pin: " + (
                     "same" if pin == now else f"DIFFER, pinned {pin}")
                 check(same.endswith("same"), f"{inst}{same}")
             if inst == "pmkid":
@@ -1418,9 +1485,17 @@ def run(smoke, oracle4, words4) -> None:
             f"{cuda_rules.rule_runs(RULE_BATCH, N_RULES, sms * blocks)} "
             "rules")
 
+    for variant, _ in L_SALTED:
+        smem = cuda_ext.salted_shared_bytes(variant, 6,
+                                            cuda_ext.SALTED_GROUP)
+        say(f"  {variant}_group: {smem} B shared at 6 positions and "
+            f"{cuda_ext.SALTED_GROUP} targets, "
+            f"{cuda_ext.salted_blocks_per_sm(variant, smem)} resident blocks "
+            f"of {cuda_mask.THREADS} per SM (the grid's wave)")
     for chain, multi in EXT_INSTANCES:
         if chain in cuda_ext.SALTED_NAMES:
-            smem = cuda_ext.salted_shared_bytes(6, cuda_ext.SALTED_GROUP)
+            smem = cuda_ext.salted_shared_bytes(chain, 6,
+                                                cuda_ext.SALTED_GROUP)
             say(f"  {ename(chain, multi)}: {smem} B shared at 6 positions "
                 f"and {cuda_ext.SALTED_GROUP} targets, "
                 f"{cuda_ext.salted_blocks_per_sm(chain, smem)} resident "
@@ -2194,8 +2269,9 @@ def run(smoke, oracle4, words4) -> None:
     f2_timing = slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms)
     f3_timing = slice_f3(smoke, cli, card, clock_mhz, sms)
     g_timing = slice_g(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
+    l_timing = slice_l(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
 
-    # 35. the kernels line, then the device line
+    # 38. the kernels line, then the device line
     kernels = []
     for engine, multi in INSTANCES:
         key = kname(engine, multi)
@@ -2272,6 +2348,25 @@ def run(smoke, oracle4, words4) -> None:
         kernels.append({
             "name": key, "route": "cuda", "source": cuda_mask.SOURCE,
             "replaces": cuda_mask.REPLACES,
+            "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations",
+            "library_ms": None, **more})
+    for key, _, _ in L_MASK:
+        ms, plain_ms, bound, more = l_timing[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": cuda_mask.SOURCE,
+            "replaces": cuda_mask.REPLACES,
+            "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations",
+            "library_ms": None, **more})
+    for variant, _ in L_SALTED:
+        key = f"{variant}_group"
+        ms, plain_ms, bound, more = l_timing[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": cuda_ext.SOURCE,
+            "replaces": cuda_ext.replaces(variant),
             "launches": smoke.path_launches[key],
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "operations",
@@ -3955,6 +4050,407 @@ def slice_g(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
                                        if isinstance(v, dict)}}))
     return timing
 
+
+def l_lines(engine: str, digests: list, salts: list) -> list:
+    """Target lines of a slice L engine in its own format: bare hex,
+    ``{SHA}`` / ``{MD5}`` base64, ``hex:$HEX[salt]``, MSSQL's
+    ``0x0100`` / ``0x0200`` (2000 with its case-sensitive digest first)."""
+    import base64
+    out = []
+    for d, salt in zip(digests, salts):
+        if engine in ("ldap-sha", "ldap-md5"):
+            out.append("{" + engine[5:].upper() + "}"
+                       + base64.b64encode(d).decode())
+        elif engine.startswith("mssql"):
+            tag = "0200" if engine == "mssql2012" else "0100"
+            case = d.hex() if engine == "mssql2000" else ""
+            out.append(f"0x{tag}{(salt.hex() + case + d.hex()).upper()}")
+        elif salt is not None:
+            out.append(f"{d.hex()}:$HEX[{salt.hex()}]")
+        else:
+            out.append(d.hex())
+    return out
+
+
+def l_plants(rng, n_lines: int, window: int, skip: int = 0) -> list:
+    """Indices of the planted targets of a slice L CLI run: one target
+    at the window's last candidate (the whole window swept); a list's
+    3 at its first, its last and a random one."""
+    if n_lines == 1:
+        return [skip + window - 1]
+    idx = sorted({skip, skip + window - 1,
+                  skip + int(rng.integers(1, window - 1))})
+    check(len(idx) == 3, f"planted indices collide: {idx}")
+    return idx
+
+
+def l_path(smoke, cli, engine, gen, n_lines, key, n_launches, salt_of=None,
+           window=None, skip=0, mask=None):
+    """crack --device cuda of ``engine`` over ``n_lines`` targets in its
+    own line format (3 planted, the rest out of the mask's reach), each
+    with its salt (``salt_of(i)``, or none), over ``window`` candidates
+    from ``skip`` (default: the whole keyspace): only ``key`` launches,
+    ``n_launches`` times.  Returns (summary, wall s)."""
+    import numpy as np
+
+    from dprf_tpu_torch.runtime.potfile import encode_plain
+    rng = smoke.rng
+    window = window or gen.keyspace - skip
+    idx = l_plants(rng, n_lines, window, skip)
+    oracle = smoke.get_engine(engine)
+    salts = [salt_of(i) if salt_of else None for i in range(n_lines)]
+    plains = [gen.candidate(i) for i in idx] + [
+        bytes(rng.integers(33, 127, 9, dtype=np.uint8))
+        for _ in range(n_lines - len(idx))]
+    digests = [oracle.hash_batch([p], None if s is None else {"salt": s})[0]
+               for p, s in zip(plains, salts)]
+    lines = l_lines(engine, digests, salts)
+    order = rng.permutation(n_lines)
+    want = [f"{lines[i]}:{encode_plain(plains[i])}" for i in range(len(idx))]
+    summary, wall = run_path(smoke, cli, engine, mask or gen.mask,
+                             [lines[i] for i in order], want, window, key,
+                             n_launches, skip)
+    say(f"    {engine} x {n_lines}: {wall:.3f} s wall, rate "
+        f"{loop_rate(summary):,}/s; planted at {idx}")
+    return summary, wall
+
+
+def l_group(smoke, variant, engine, gen, lut, start, n_valid, batch, n_group,
+            salt_of, lanes_of, name, plain=True):
+    """One launch of the salted variant over a group of ``n_group``
+    targets of ``engine`` (``salt_of(i)`` its salts; ``lanes_of`` {target:
+    lane} the plants), the kernel against its plain version (``plain``)
+    or against the plants alone: equal count, (lane, target) pairs and
+    per-target counts, the pairs the plants inside [0, n_valid).  Returns
+    the plain version's ms (CUDA events) or None."""
+    import torch
+
+    from dprf_tpu_torch.ops import cuda_ext
+    oracle = smoke.get_engine(engine)
+    targets, want = [], []
+    for i in range(n_group):
+        salt = salt_of(i)
+        lane = lanes_of.get(i)
+        cand = gen.candidate(start + lane) if lane is not None \
+            else b"\0" * (gen.length + 1)
+        d = oracle.hash_batch([cand], params={"salt": salt})[0]
+        if lane is not None and lane < n_valid:
+            want.append((lane, i))
+        targets.append((salt, digest_words(engine, d)))
+    rows, shift = cuda_ext.salted_table(variant, gen.length, targets, "cuda")
+    args = (variant, lut, gen.radices, gen.digits(start), n_valid, shift,
+            rows, 64 * n_group, batch)
+    key = f"{variant}_group"
+
+    def flat(count, lanes, tpos, tcount):
+        return (int(count.item()), sorted(
+            (int(a), int(b)) for a, b in zip(lanes.tolist(), tpos.tolist())
+            if a >= 0), tcount.tolist())
+
+    got = flat(*cuda_ext.salted_kernel(*args))
+    counts = [sum(1 for _, t in want if t == i) for i in range(n_group)]
+    say(f"  {key} {name}: kernel count={got[0]} (lane, target)={got[1]}")
+    check(got == (len(want), sorted(want), counts),
+          f"{key} {name}: hits {got[1]}, expected the plants {sorted(want)}")
+    if not plain:
+        return None
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    ref = cuda_ext.salted_plain(*args)
+    t1.record()
+    torch.cuda.synchronize()
+    ref = flat(*ref)
+    err = max([abs(got[0] - ref[0])]
+              + [abs(a - b) for x, y in zip(got[1], ref[1])
+                 for a, b in zip(x, y)]
+              + [abs(a - b) for a, b in zip(got[2], ref[2])])
+    smoke.err[key] = max(smoke.err[key], err)
+    ms = t0.elapsed_time(t1)
+    say(f"    plain count={ref[0]} (lane, target)={ref[1]}, {ms:.1f} ms for "
+        f"{n_group} targets x {batch} lanes")
+    check(got == ref, f"{key} {name}: kernel and plain differ")
+    return ms
+
+
+def slice_l(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
+    """Phases 35-38: slice L -- sha224 and mysql323, two cores of the mask
+    kernel template (csrc/mask.cu), and the salted kernel's wide sha512
+    variants and MSSQL's UTF-16LE placements (csrc/salted.cuh), none of
+    which the reference has a Pallas kernel for.  Returns their timing
+    rows (ms, plain ms, bound ms, more) by instantiation; their main
+    paths' launches go to smoke.path_launches."""
+    import numpy as np
+    import torch
+
+    from dprf_tpu_torch.generators.mask import MaskGenerator
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    from dprf_tpu_torch.ops import bloom, cuda_ext, cuda_mask, opcount
+    from dprf_tpu_torch.parallel import make_mesh
+    from dprf_tpu_torch.rules import load_rules
+    from dprf_tpu_torch.runtime.potfile import encode_plain
+
+    rng = smoke.rng
+    t_phase = time.perf_counter()
+
+    def alnum(n: int) -> bytes:
+        return bytes(rng.choice(np.frombuffer(ALNUM, np.uint8), n))
+
+    # 35. the new instantiations against their plain versions
+    say(f"== 35. slice L kernels vs plain (exact equality); card: {card}")
+    base = int(rng.integers(0, g7.keyspace // BATCH - 2)) * BATCH
+    nv = BATCH - 1000
+    smoke.single_case("sha224", g7, lut7, base, BATCH, base, 64, [0],
+                      "?a^7 hit at lane 0")
+    smoke.single_case("sha224", g7, lut7, base + BATCH, nv,
+                      base + BATCH + nv - 1, 64, [nv - 1],
+                      f"?a^7 hit at last valid lane, n_valid={nv}")
+    smoke.single_case("sha224", g7, lut7, base, BATCH, None, 64, [],
+                      "?a^7 no hit")
+    smoke.multi_case("sha224", g7, lut7, base, nv,
+                     [base, base + 64, base + 65, base + nv - 1, base + nv],
+                     f"?a^7 {N_TARGETS} targets, hits at lanes 0, 64, 65, "
+                     f"n_valid-1 and n_valid={nv}")
+    smoke.multi_case("sha224", g7, lut7, base + BATCH, BATCH, [base],
+                     "?a^7 no hit")
+    offset = 12347
+    for engine, gen, lut in (("sha224", g7, lut7), ("mysql323", g6, lut6)):
+        start = int(rng.integers(0, gen.keyspace // BATCH - 1)) * BATCH
+        plants = sorted([start + offset, start + offset + 1,
+                         start + offset + 5000, start + nv - 1, start + nv,
+                         start + offset - 1])
+        window_case(smoke, engine, PROBE, gen, lut, start, offset, nv,
+                    plants, f"{gen.mask} at {N_TARGETS} targets, window "
+                    f"[{offset}, {nv})")
+    s6 = 3 * BATCH
+    nv6 = BATCH - 1000
+    smoke.single_case("mysql323", g6, lut6, s6, BATCH, s6, 64, [0],
+                      "?l^6 hit at lane 0")
+    smoke.single_case("mysql323", g6, lut6, s6 + BATCH, nv6,
+                      s6 + BATCH + nv6 - 1, 64, [nv6 - 1],
+                      f"?l^6 hit at last valid lane, n_valid={nv6}")
+    smoke.single_case("mysql323", g6, lut6, s6, BATCH, None, 64, [],
+                      "?l^6 no hit")
+    # spaces and tabs: ?a^7 holds the space, a custom position the tab;
+    # a plant with both collides with its other arrangements, which the
+    # kernel and the plain version must count alike
+    gsp = MaskGenerator("?a?a?a?a?a?1?1", {1: b"ab \t"})
+    lsp = gsp.charset_lut("cuda")
+    ssp = int(rng.integers(0, gsp.keyspace // BATCH - 1)) * BATCH
+    lane = next(x for x in range(BATCH // 2, BATCH)
+                if b" " in gsp.candidate(ssp + x)[:5]
+                and b"\t" in gsp.candidate(ssp + x)[5:])
+    target = digest_words("mysql323", smoke.get_engine("mysql323")
+                          .hash_batch([gsp.candidate(ssp + lane)])[0])
+    args = ("mysql323", lsp, gsp.radices, gsp.digits(ssp), BATCH, target,
+            4096, BATCH)
+    k, p = cuda_mask.mask_kernel(*args), cuda_mask.mask_plain(*args)
+    torch.cuda.synchronize()
+    kc, pc = int(k[0].item()), int(p[0].item())
+    kl = sorted(x for x in k[1].tolist() if x >= 0)
+    pl = sorted(x for x in p[1].tolist() if x >= 0)
+    say(f"  mysql323_mask {gsp.mask} (space, tab), plant "
+        f"{gsp.candidate(ssp + lane)!r} at lane {lane}: kernel count={kc} | "
+        f"plain count={pc}; the collisions {kl[:8]}")
+    check((kc, kl) == (pc, pl) and lane in kl and kc > 1,
+          "mysql323 with spaces and tabs: kernel and plain differ")
+
+    # the salted variants at the path's group of 256: each launch of 2^24
+    # held to the hashlib plants (the plain version runs the core in torch
+    # a target at a time), and against the plain version at L_CHECK_LANES
+    n_group = cuda_ext.SALTED_GROUP
+    plain_ms = {}
+    for variant, engine, salt_of in (
+            ("sha512-ps", "sha512-ps", lambda i: alnum(i % 33)),
+            ("sha512-sp", "sha512-sp", lambda i: alnum(32)),
+            ("sha1-ps-utf16", "mssql2005", lambda i: alnum(4)),
+            ("sha1-ps-utf16", "mssql2000", lambda i: alnum(4)),
+            ("sha512-ps-utf16", "mssql2012", lambda i: alnum(4))):
+        dev = smoke.get_engine(engine, "cuda")
+        lut = cuda_ext.mapped_lut(g6, "cuda", dev.byte_map)
+        salts = {i: salt_of(i) for i in range(n_group)}
+        for batch in (BATCH, L_CHECK_LANES[variant]):
+            nvs = batch - 9
+            start = int(rng.integers(0, g6.keyspace // batch - 1)) * batch
+            rnd, rnd2 = (int(x) for x in rng.integers(1, nvs - 1, 2))
+            lanes_of = {0: rnd, 201: 0, 230: nvs - 1, 254: rnd,
+                        n_group - 1: nvs - 1, 240: nvs, 222: rnd2}
+            ms = l_group(smoke, variant, engine, g6, lut, start, nvs, batch,
+                         n_group, salts.get, lanes_of,
+                         f"{engine}, ?l^6, {n_group} targets x {batch} "
+                         f"lanes, plants at target positions "
+                         f"{sorted(lanes_of)}", plain=batch != BATCH)
+            if ms is not None:
+                plain_ms[engine] = (ms, batch)
+    # sha512-sp: a group of another salt length, the empty salt
+    l_group(smoke, "sha512-sp", "sha512-sp", g6, lut6, 0,
+            L_CHECK_LANES["sha512-sp"] - 9, L_CHECK_LANES["sha512-sp"], 8,
+            lambda i: b"", {3: 0, 5: 77},
+            "sha512-sp, ?l^6, 8 targets, the empty salt")
+    say(f"  phase 35: {time.perf_counter() - t_phase:.1f} s")
+
+    # 36. the slice end to end through the CLI
+    t_phase = time.perf_counter()
+    say(f"== 36. the slice through crack --device cuda; card: {card}")
+    g5 = MaskGenerator("?l?l?l?l?l")
+    per6, per5 = unit_batches(cli, g6.keyspace), unit_batches(cli, g5.keyspace)
+    walls = {}
+    for engine, gen, n_lines, key, launches, salt_of in (
+            ("sha224", g6, 1, "sha224_mask", per6, None),
+            ("ldap-sha", g6, N_TARGETS, "sha1_mask_multi", per6, None),
+            ("ldap-md5", g6, N_TARGETS, "md5_mask_multi", per6, None),
+            ("mysql323", g6, 1, "mysql323_mask", per6, None),
+            ("mysql323", g6, N_TARGETS, "mysql323_mask_probe", per6, None),
+            ("sha512-ps", g5, n_group, "sha512-ps_group", per5,
+             lambda i: alnum(i % 33)),
+            ("sha512-sp", g5, 1, "sha512-sp_group", per5,
+             lambda i: alnum(8)),
+            ("mssql2005", g6, n_group, "sha1-ps-utf16_group", per6,
+             lambda i: alnum(4)),
+            ("mssql2000", g6, n_group, "sha1-ps-utf16_group", per6,
+             lambda i: alnum(4)),
+            ("mssql2012", g5, n_group, "sha512-ps-utf16_group", per5,
+             lambda i: alnum(4))):
+        say(f"  crack --engine {engine} {gen.mask}, {n_lines} target(s)")
+        _, walls[f"{engine}_{n_lines}"] = l_path(
+            smoke, cli, engine, gen, n_lines, key, launches, salt_of)
+    # sha224 at config 2's shape: 1,000 targets over 2^32 of ?a^7
+    skip = int(rng.integers(0, g7.keyspace - CONFIG2_WINDOW))
+    say(f"  crack --engine sha224 {MASK_CONFIG2}, {N_TARGETS} targets over "
+        f"{CONFIG2_WINDOW} candidates")
+    _, walls["sha224_config2"] = l_path(
+        smoke, cli, "sha224", g7, N_TARGETS, "sha224_mask_multi",
+        unit_batches(cli, CONFIG2_WINDOW), window=CONFIG2_WINDOW, skip=skip)
+    # ldap-sha over a wordlist with best64: the sha1 rule core
+    words = synthetic_words(OTHER_WORDS)
+    wgen = WordlistRulesGenerator(words, load_rules("best64"), 55)
+    plant_i = wgen.index_of(OTHER_WORDS - 1, RULE_8OPS)
+    plant = wgen.candidate(plant_i)
+    line = l_lines("ldap-sha", smoke.get_engine("ldap-sha").hash_batch(
+        [plant]), [None])[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "words.txt")
+        with open(path, "wb") as fh:
+            fh.write(b"\n".join(words) + b"\n")
+        summary, wall, launches = smoke.crack_lines(
+            cli, "ldap-sha", ["-a", "wordlist", "--rules", "best64", path],
+            [line], [f"{line}:{encode_plain(plant)}"], OTHER_WORDS * N_RULES,
+            kernel_modules())
+    check(launches["sha1_rules"] == sum(launches.values()) > 0,
+          f"ldap-sha wordlist: launches {launches}")
+    walls["ldap-sha_wordlist"] = wall
+    # sha224 on the sharded runtime: the probe
+    meshes = (make_mesh(1), make_mesh(devices=["cuda:0"] * SHARDS))
+    skip = int(rng.integers(0, g7.keyspace - OTHER_WINDOW))
+    planted = [g7.candidate(skip + int(i)) for i in
+               sorted(set(rng.integers(0, OTHER_WINDOW, 3).tolist()))]
+    digests = smoke.get_engine("sha224").hash_batch(planted) + \
+        smoke.fillers("sha224", N_TARGETS - len(planted))
+    walls["sha224_sharded"] = sharded_path(smoke, cli, "sha224", g7, digests,
+                                           planted, skip, OTHER_WINDOW,
+                                           meshes)
+    say(json.dumps({"slice_l_cli_wall_s": walls, "card": card}))
+    say(f"  phase 36: {time.perf_counter() - t_phase:.1f} s")
+
+    # 37. timing at batch 2^24
+    t_phase = time.perf_counter()
+    say(f"== 37. slice L timing at batch 2^24 (CUDA events, "
+        f"{TIMED_LAUNCHES} launches, the SM clock sampled over the phase); "
+        f"card: {card}")
+    timing = {}
+    with SmClock() as clock:
+        for key, engine, mode in L_MASK:
+            gen, lut = (g7, lut7) if engine == "sha224" else (g6, lut6)
+            s = int(rng.integers(0, gen.keyspace // BATCH - 1)) * BATCH
+            head = (engine, lut, gen.radices, gen.digits(s), BATCH)
+            run = cuda_mask.lanes_a_run(engine, gen.radices)
+            if mode == 0:
+                miss = digest_words(engine, smoke.get_engine(engine)
+                                    .hash_batch([b"\0" * 9])[0])
+                args = (*head, miss, 64, BATCH)
+                fn, plain_fn = cuda_mask.mask_kernel, cuda_mask.mask_plain
+            else:
+                table, rows, words_t = smoke.tables(
+                    engine, smoke.fillers(engine, N_TARGETS))
+                if mode == PROBE:
+                    bits, block_bits, k = cuda_mask.probe_rows(table.words)
+                    args = (*head, torch.as_tensor(bits.view(np.int32),
+                                                   device="cuda"),
+                            block_bits, k, words_t, 64, BATCH)
+                    fn, plain_fn = cuda_mask.mask_probe_kernel, \
+                        cuda_mask.mask_probe_plain
+                else:
+                    args = (*head, rows, words_t, 64, BATCH)
+                    fn, plain_fn = cuda_mask.mask_multi_kernel, \
+                        cuda_mask.mask_multi_plain
+                maybes = int(fn(*args)[3].item()) / BATCH
+            if engine == "mysql323":
+                work = opcount.mysql323_ops(
+                    gen, None if mode == 0 else
+                    (opcount.probe_fill(bits), k),
+                    0.0 if mode == 0 else maybes, N_TARGETS)
+            elif mode == 0:
+                work = opcount.ops_per_candidate(engine, gen.length, run=run)
+            elif mode == PROBE:
+                work = opcount.probe_ops(engine, gen.length,
+                                         opcount.probe_fill(bits), k, maybes,
+                                         N_TARGETS, run=run)
+            else:
+                work = opcount.ops_per_candidate(
+                    engine, gen.length, True, bloom.expected_probes(
+                        rows.cpu().numpy().view(np.uint32)), maybes,
+                    N_TARGETS, run=run)
+            ms = smoke.time_launches(fn, args)
+            plain = smoke.time_once(plain_fn, args)
+            bound = BATCH * work.slots / rate_ops * 1e3
+            timing[key] = (ms, plain, bound, {"sm_mhz": None})
+            say(f"  {key} {gen.mask}"
+                f"{'' if mode == 0 else f', {N_TARGETS} targets'}: "
+                f"{ms:.4f} ms/launch = {BATCH / ms / 1e6:.3f} G cand/s; "
+                f"bound {bound:.4f} ms ({work.alu:.1f} ALU, {work.add:.1f} "
+                f"IADD3, {work.fma:.1f} IMAD = {work.slots:.1f} slots; "
+                f"{bound / ms:.1%}); plain version {plain:.2f} ms")
+        for variant, engine in L_SALTED:
+            dev = smoke.get_engine(engine, "cuda")
+            salt = alnum(4 if dev.widen else TIMING_SALT)
+            s = int(rng.integers(0, g6.keyspace // BATCH - 1)) * BATCH
+            lut = cuda_ext.mapped_lut(g6, "cuda", dev.byte_map)
+            miss = digest_words(engine, smoke.get_engine(engine).hash_batch(
+                [b"\0" * 9], params={"salt": salt})[0])
+            rows, shift = cuda_ext.salted_table(
+                variant, g6.length, [(salt, miss)] * n_group, "cuda")
+            args = (variant, lut, g6.radices, g6.digits(s), BATCH, shift,
+                    rows, 64, BATCH)
+            ms = smoke.time_launches(cuda_ext.salted_kernel, args, n=3,
+                                     warm=1)
+            work = opcount.salted_ops(variant, g6.length, salt, n_group)
+            hashes = BATCH * n_group
+            bound = hashes * work.slots / rate_ops * 1e3
+            key = f"{variant}_group"
+            pms, plain_lanes = plain_ms[engine]
+            timing[key] = (ms, pms, bound,
+                           {"group": n_group, "plain_lanes": plain_lanes,
+                            "sm_mhz": None})
+            say(f"  {key} ({engine}) ?l^6, a {len(salt)}-byte salt, "
+                f"{n_group} targets: {ms:.4f} ms/launch = {ms / n_group:.4f} "
+                f"ms per 2^24 hashes = {hashes / ms / 1e6:.3f} G hashes/s; "
+                f"bound {bound:.4f} ms ({work.slots:.1f} slots a hash; "
+                f"{bound / ms:.1%}); plain version {pms:.1f} ms at "
+                f"{plain_lanes} lanes")
+    say(f"  the SM clock over the phase: {clock.mhz} MHz (nvidia-smi, "
+        f"{len(clock.samples)} samples); card: {card}")
+    for key, (ms, _, bound, more) in timing.items():
+        more.update(clock_keys(bound, clock.mhz, smoke.clock_mhz))
+        if clock.mhz:
+            say(f"    {key}: {ms:.4f} ms; kernel at "
+                f"{more['bound_ms_at_sm_mhz'] / ms:.1%} of the bound at the "
+                "sampled clock")
+    say(json.dumps({"slice_l_timing": {k: {"ms": v[0], "plain_ms": v[1],
+                                           "bound_ms": v[2], **v[3]}
+                                       for k, v in timing.items()},
+                    "card": card}))
+    say(f"  phase 37: {time.perf_counter() - t_phase:.1f} s")
+    return timing
 
 if __name__ == "__main__":
     main()

@@ -1,6 +1,6 @@
 // cores.cuh -- the hash cores the port's kernels share (csrc/mask.cu,
-// csrc/rules.cu, csrc/pbkdf2.cu): md5, md4 (ntlm, over UTF-16LE), sha1
-// and sha256, one 64-byte block each, fully unrolled, with everything
+// csrc/rules.cu, csrc/pbkdf2.cu): md5, md4 (ntlm, over UTF-16LE), sha1,
+// sha256 and sha224, one 64-byte block each, fully unrolled, with everything
 // in registers; md5_compress, sha1_compress and sha256_compress, MD5,
 // SHA-1 and SHA-256 from any chaining state (HMAC, the 7-Zip KDF); and
 // sha512 / sha384 over one 128-byte block of 64-bit words.
@@ -331,6 +331,30 @@ struct Sha256Core {
         out[5] = f + H[5];
         out[6] = g + H[6];
         out[7] = h + H[7];
+    }
+};
+
+// SHA-224: SHA-256 from its own initial state (FIPS 180-4; ops/sha256.INIT224
+// computes it and a test holds them equal), the first 7 words kept.
+struct Sha224Core : Sha256Core {
+    static constexpr int kWords = 7;
+
+    __device__ __forceinline__ static void digest(uint32_t* w,
+                                                  uint32_t* out)
+    {
+        const uint32_t H[8] = {0xc1059ed8u, 0x367cd507u, 0x3070dd17u,
+                               0xf70e5939u, 0xffc00b31u, 0x68581511u,
+                               0x64f98fa7u, 0xbefa4fa4u};
+        uint32_t a = H[0], b = H[1], c = H[2], d = H[3], e = H[4],
+                 f = H[5], g = H[6], h = H[7];
+        DPRF_SHA256_ROUNDS(w)
+        out[0] = a + H[0];
+        out[1] = b + H[1];
+        out[2] = c + H[2];
+        out[3] = d + H[3];
+        out[4] = e + H[4];
+        out[5] = f + H[5];
+        out[6] = g + H[6];
     }
 };
 

@@ -9,7 +9,8 @@
 //   sha1 digest), with one target or the multi-target Bloom compare;
 // - make_salted_pallas_fn: md5, sha1 and sha256 over $pass.$salt ("ps")
 //   and $salt.$pass ("sp"): salted.cuh's kernel, a group of targets a
-//   launch.
+//   launch, which also takes sha512 and MSSQL's UTF-16LE placement (the
+//   reference runs those on XLA only).
 //
 // Every nested chain is a core type for the mask kernel template of
 // mask_kernel.cuh, so the decode, the single and multi-target compares
@@ -149,31 +150,39 @@ extern "C" int dprf_ext_blocks_per_sm(int variant, int multi_mode,
 
 // ---- the salted kernel (salted.cuh) -------------------------------------
 
-// salted ids (ops/cuda_ext.SALTED_NAMES): md5-ps, md5-sp, sha1-ps,
-// sha1-sp, sha256-ps, sha256-sp
+// salted ids (ops/cuda_ext.SALTED_VARIANTS): md5-ps, md5-sp, sha1-ps,
+// sha1-sp, sha256-ps, sha256-sp, sha512-ps, sha512-sp, sha1-ps-utf16,
+// sha512-ps-utf16
 #define DPRF_SALTED_DISPATCH(CALL)                                        \
     switch (salted) {                                                     \
-    case 0: return CALL(Md5Core, false);                                  \
-    case 1: return CALL(Md5Core, true);                                   \
-    case 2: return CALL(Sha1Core, false);                                 \
-    case 3: return CALL(Sha1Core, true);                                  \
-    case 4: return CALL(Sha256Core, false);                               \
-    case 5: return CALL(Sha256Core, true);                                \
+    case 0: return CALL(Md5Core, false, Md5Core);                         \
+    case 1: return CALL(Md5Core, true, Md5Core);                          \
+    case 2: return CALL(Sha1Core, false, Sha1Core);                       \
+    case 3: return CALL(Sha1Core, true, Sha1Core);                        \
+    case 4: return CALL(Sha256Core, false, Sha256Core);                   \
+    case 5: return CALL(Sha256Core, true, Sha256Core);                    \
+    case 6: return CALL(Sha512Core, false, Sha512Core);                   \
+    case 7: return CALL(Sha512Core, true, Sha512Core);                    \
+    case 8: return CALL(Sha1Core, false, Utf16<Sha1Core>);                \
+    case 9: return CALL(Sha512Core, false, Utf16<Sha512Core>);            \
     default: return (int)cudaErrorInvalidValue;                           \
     }
 
-#define DPRF_SALTED_LAUNCH(C, SP)                                         \
-    salted_launch<C, SP>(lut, args, rows, n_valid, count, lanes, tpos,    \
-                         tcount, cap, grid, threads, (cudaStream_t)stream)
-#define DPRF_SALTED_OCCUPANCY(C, SP)                                      \
-    salted_occupancy<C, SP>(threads, (size_t)smem, blocks)
+#define DPRF_SALTED_LAUNCH(C, SP, P)                                      \
+    salted_launch<C, SP, P>(lut, args, rows, n_valid, count, lanes, tpos, \
+                            tcount, cap, grid, threads,                   \
+                            (cudaStream_t)stream)
+#define DPRF_SALTED_OCCUPANCY(C, SP, P)                                   \
+    salted_occupancy<C, SP, P>(threads, (size_t)smem, blocks)
 
-// Launch the salted kernel `salted` over a group of args->n_targets
-// targets (rows: uint32[n_targets][DPRF_SALTED_ROW] in device memory) on
-// the caller's stream without synchronising; returns the launch's
-// cudaError_t.  count and tcount must hold 0 and lanes -1 on entry.
+// Launch the salted kernel `salted` over a group of n_targets targets
+// (args: a SaltedArgs, or a WideSaltedArgs for sha512; rows:
+// uint32[n_targets][DPRF_SALTED_ROW or DPRF_SALTED_WIDE_ROW] in device
+// memory) on the caller's stream without synchronising; returns the
+// launch's cudaError_t.  count and tcount must hold 0 and lanes -1 on
+// entry.
 extern "C" int dprf_salted_launch(int salted, int device, const uint8_t* lut,
-                                  const SaltedArgs* args,
+                                  const void* args,
                                   const uint32_t* rows, uint32_t n_valid,
                                   int32_t* count, int32_t* lanes,
                                   int32_t* tpos, int32_t* tcount,

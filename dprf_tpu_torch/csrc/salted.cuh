@@ -1,10 +1,28 @@
-// salted.cuh -- the salted kernel for Hopper (sm_90a): md5, sha1 and
-// sha256 over $pass.$salt ("ps") and $salt.$pass ("sp"), a group of
-// targets a launch.
+// salted.cuh -- the salted kernel for Hopper (sm_90a): md5, sha1,
+// sha256 and sha512 over $pass.$salt ("ps") and $salt.$pass ("sp"), and
+// sha1 and sha512 over the UTF-16LE candidate and the salt (MSSQL), a
+// group of targets a launch.
 //
 // Replaces: make_salted_pallas_fn of dprf_tpu/ops/pallas_ext.py
 // (pl.pallas_call at :352), which hashes every candidate for one target
-// a launch.
+// a launch, for md5, sha1 and sha256.  The sha512 variants and the
+// UTF-16LE placements replace no TPU kernel: the reference runs them on
+// XLA only (its salted engines, dprf_tpu/engines/device/salted.py).
+//
+// The variants (ops/cuda_ext.SALTED_VARIANTS) are properties of the
+// core and of the candidate's placement, Place: the core itself (byte q
+// at its byte q), or Utf16<Core> (byte q at message byte 2q, the odd
+// bytes 0; the salt after the widened candidate, unwidened, as the
+// host's salted_block writes it).  A core of a 128-byte block (sha512)
+// is wide: 32 message words in a target's row beside 16 digest words
+// (DPRF_SALTED_WIDE_ROW), 28 words a candidate and its salt can reach,
+// up to 111 positions (WideSaltedArgs, each decoded by a division: the
+// decode is once a candidate, shared by a group of pairs).  Its rows for
+// a group of 256 (48 KB) and a charset table pass the 48 KB of dynamic
+// shared memory a launch gets without asking, so a wide variant raises
+// its limit before the launch and the occupancy query.  It keeps one
+// candidate a thread, runs the whole sha512_block (cores.cuh) a pair and
+// compares word 0 first.
 //
 // A launch serves a group of up to DPRF_SALTED_GROUP targets whose
 // candidate sits at the same bytes: every "ps" target (the candidate at
@@ -50,18 +68,24 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "cores.cuh"
 #include "decode.cuh"
 
 #define DPRF_SALTED_MAX_LEN 55
+// candidate + salt in SHA-512's block (the wide core)
+#define DPRF_SALTED_WIDE_MAX_LEN 111
 // the most targets a launch takes (ops/cuda_ext.SALTED_GROUP)
 #define DPRF_SALTED_GROUP 256
 // words of a target's row: 16 fixed message words, then 8 digest words
 // (md5 keeps its word 0 less the IV's in word 20, the compare after
-// step 60)
+// step 60); the wide core's: 32 message words, then 16 digest words
 #define DPRF_SALTED_ROW 24
+#define DPRF_SALTED_WIDE_ROW 48
+// dynamic shared memory a launch gets without the opt-in
+#define DPRF_SALTED_DEFAULT_SHARED (48 * 1024)
 
 // Kernel parameters of one launch (mirrored by ops/cuda_ext.SaltedArgs).
 struct SaltedArgs {
@@ -76,6 +100,44 @@ struct SaltedArgs {
     int32_t n_targets;
     // 1: the multiplier of the adds moved to the FMA pipe
     uint32_t one;
+};
+
+// The same for the wide core (mirrored by ops/cuda_ext.WideSaltedArgs).
+struct WideSaltedArgs {
+    int32_t length;
+    int32_t radix[DPRF_SALTED_WIDE_MAX_LEN];
+    int32_t base[DPRF_SALTED_WIDE_MAX_LEN];
+    int32_t shift;
+    int32_t n_targets;
+    uint32_t one;
+};
+
+// MSSQL's placement: candidate byte q at the core's message byte 2q, as
+// Md4Core widens for ntlm; the odd bytes stay 0.
+template <class Core>
+struct Utf16 {
+    static constexpr int kMaxLen = Core::kMaxLen / 2;
+    static constexpr int kBitsPerChar = 16;
+    __host__ __device__ static constexpr int word(int q)
+    {
+        return Core::word(2 * q);
+    }
+    __host__ __device__ static constexpr int shift(int q)
+    {
+        return Core::shift(2 * q);
+    }
+};
+
+// A variant's layout: its message words, the words a candidate or salt
+// byte can reach, its row, its most positions and its parameters.
+template <class Core, class Place>
+struct SaltedLayout {
+    static constexpr bool kWide = Core::kMaxLen > DPRF_SALTED_MAX_LEN;
+    static constexpr int kBlock = kWide ? 32 : 16;
+    static constexpr int kCand = kWide ? 28 : 14;
+    static constexpr int kRow = kWide ? DPRF_SALTED_WIDE_ROW : DPRF_SALTED_ROW;
+    static constexpr int kMaxPos = Place::kMaxLen;
+    using Args = std::conditional_t<kWide, WideSaltedArgs, SaltedArgs>;
 };
 
 // x + y as an IMAD, x * one + y, on the FMA pipe.
@@ -141,53 +203,54 @@ __device__ __forceinline__ uint32_t md5_word0(const uint32_t* m,
     return b;   // steps 61-63 only rotate it into a
 }
 
-// m[j] = t[j - K] (0 below K) over the 14 words a candidate can reach
-// (L + S <= 55 bytes).
-template <int K>
-__device__ __forceinline__ void move_words14(const uint32_t* t, uint32_t* m)
+// m[j] = t[j - K] (0 below K) over the N words a candidate can reach
+// (L + S <= 55 bytes: 14; 111 bytes: 28).
+template <int K, int N>
+__device__ __forceinline__ void move_words(const uint32_t* t, uint32_t* m)
 {
 #pragma unroll
-    for (int j = 0; j < 14; ++j) m[j] = j >= K ? t[j - K] : 0u;
+    for (int j = 0; j < N; ++j) m[j] = j >= K ? t[j - K] : 0u;
 }
 
-// The candidate's words, decoded at [0, L), moved to [s, s + L).
-template <class Core>
+// The candidate's N words, decoded at [0, L), moved to [s, s + L).
+template <class Core, int N>
 __device__ __forceinline__ void move_candidate(uint32_t* c, int s)
 {
     // byte 0 is a word's low byte (md5) or its high byte (SHA)
     constexpr bool kBigEndian = Core::shift(0) != 0;
     const uint32_t r = 8u * (uint32_t)(s & 3);
-    uint32_t t[14];
+    uint32_t t[N];
 #pragma unroll
-    for (int j = 0; j < 14; ++j) {
+    for (int j = 0; j < N; ++j) {
         const uint32_t prev = j ? c[j - 1] : 0u;
         t[j] = kBigEndian ? __funnelshift_r(c[j], prev, r)
                           : __funnelshift_l(prev, c[j], r);
     }
     switch (s >> 2) {
-    case 0: move_words14<0>(t, c); break;
-    case 1: move_words14<1>(t, c); break;
-    case 2: move_words14<2>(t, c); break;
-    case 3: move_words14<3>(t, c); break;
-    case 4: move_words14<4>(t, c); break;
-    case 5: move_words14<5>(t, c); break;
-    case 6: move_words14<6>(t, c); break;
-    case 7: move_words14<7>(t, c); break;
-    default: move_words14<8>(t, c); break;
+    case 0: move_words<0, N>(t, c); break;
+    case 1: move_words<1, N>(t, c); break;
+    case 2: move_words<2, N>(t, c); break;
+    case 3: move_words<3, N>(t, c); break;
+    case 4: move_words<4, N>(t, c); break;
+    case 5: move_words<5, N>(t, c); break;
+    case 6: move_words<6, N>(t, c); break;
+    case 7: move_words<7, N>(t, c); break;
+    default: move_words<8, N>(t, c); break;
     }
 }
 
 // One (candidate, target) pair: the candidate's words c over the row's
 // fixed words; true if the whole digest equals the row's.
-template <class Core>
+template <class Core, class Lay>
 __device__ __forceinline__ bool salted_match(const uint32_t* c,
                                              const uint32_t* row,
                                              uint32_t one)
 {
-    uint32_t m[16];
+    constexpr int kBlock = Lay::kBlock;
+    uint32_t m[kBlock];
     const uint4* r4 = reinterpret_cast<const uint4*>(row);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kBlock / 4; ++j) {
         const uint4 v = r4[j];
         m[4 * j] = v.x;
         m[4 * j + 1] = v.y;
@@ -195,35 +258,37 @@ __device__ __forceinline__ bool salted_match(const uint32_t* c,
         m[4 * j + 3] = v.w;
     }
 #pragma unroll
-    for (int j = 0; j < 14; ++j) m[j] |= c[j];
+    for (int j = 0; j < Lay::kCand; ++j) m[j] |= c[j];
     uint32_t dg[Core::kWords];
     if constexpr (Core::kWords == 4) {          // md5
         if (md5_word0(m, one) != row[16 + 4]) return false;
         Core::digest(m, dg);
     } else {
         Core::digest(m, dg);
-        if (dg[0] != row[16]) return false;
+        if (dg[0] != row[kBlock]) return false;
     }
     bool eq = true;
 #pragma unroll
-    for (int i = 0; i < Core::kWords; ++i) eq &= dg[i] == row[16 + i];
+    for (int i = 0; i < Core::kWords; ++i) eq &= dg[i] == row[kBlock + i];
     return eq;
 }
 
-template <class Core, bool kSp>
+template <class Core, bool kSp, class Place = Core>
 __global__ void __launch_bounds__(256)
-salted_kernel(const uint8_t* __restrict__ lut, const SaltedArgs args,
+salted_kernel(const uint8_t* __restrict__ lut,
+              const typename SaltedLayout<Core, Place>::Args args,
               const uint32_t* __restrict__ rows, uint32_t n_valid,
               int32_t* __restrict__ count, int32_t* __restrict__ lanes,
               int32_t* __restrict__ tpos, int32_t* __restrict__ tcount,
               int32_t cap)
 {
+    using Lay = SaltedLayout<Core, Place>;
     // the targets' rows, then the per-position charset tables
     extern __shared__ __align__(16) uint8_t smem[];
     const int L = args.length, T = args.n_targets;
     uint32_t* s_rows = reinterpret_cast<uint32_t*>(smem);
-    uint8_t* s_lut = smem + T * DPRF_SALTED_ROW * 4;
-    for (int i = threadIdx.x; i < T * DPRF_SALTED_ROW; i += blockDim.x)
+    uint8_t* s_lut = smem + T * Lay::kRow * 4;
+    for (int i = threadIdx.x; i < T * Lay::kRow; i += blockDim.x)
         s_rows[i] = rows[i];
     for (int i = threadIdx.x; i < L * 256; i += blockDim.x)
         s_lut[i] = lut[i];
@@ -232,16 +297,19 @@ salted_kernel(const uint8_t* __restrict__ lut, const SaltedArgs args,
     const uint32_t stride = gridDim.x * blockDim.x;
     for (uint32_t gidx = blockIdx.x * blockDim.x + threadIdx.x;
          gidx < n_valid; gidx += stride) {
-        uint32_t m[14];
+        uint32_t m[Lay::kCand];
 #pragma unroll
-        for (int i = 0; i < 14; ++i) m[i] = 0u;
+        for (int i = 0; i < Lay::kCand; ++i) m[i] = 0u;
         uint32_t carry = gidx;
-        DPRF_DECODE_RCP(Core, DPRF_SALTED_MAX_LEN, L);
-        if constexpr (kSp) move_candidate<Core>(m, args.shift);
+        if constexpr (Lay::kWide)
+            DPRF_DECODE(Place, Lay::kMaxPos, L);
+        else
+            DPRF_DECODE_RCP(Place, Lay::kMaxPos, L);
+        if constexpr (kSp) move_candidate<Core, Lay::kCand>(m, args.shift);
 
         for (int t = 0; t < T; ++t) {
-            if (salted_match<Core>(m, s_rows + t * DPRF_SALTED_ROW,
-                                   args.one)) {
+            if (salted_match<Core, Lay>(m, s_rows + t * Lay::kRow,
+                                        args.one)) {
                 atomicAdd(tcount + t, 1);
                 const int32_t slot = atomicAdd(count, 1);
                 if (slot < cap) {
@@ -254,32 +322,50 @@ salted_kernel(const uint8_t* __restrict__ lut, const SaltedArgs args,
 }
 
 // Dynamic shared memory of one block (ops/cuda_ext.salted_shared_bytes).
-static size_t salted_shared_bytes(int length, int n_targets)
+static size_t salted_shared_bytes(int length, int n_targets, int row)
 {
-    return (size_t)n_targets * DPRF_SALTED_ROW * 4 + (size_t)length * 256;
+    return (size_t)n_targets * row * 4 + (size_t)length * 256;
 }
 
-template <class Core, bool kSp>
-static int salted_launch(const uint8_t* lut, const SaltedArgs* args,
+// The variant's dynamic shared memory limit, raised to smem: a wide
+// variant's always, any other's past the 48 KB default.
+template <class Core, bool kSp, class Place>
+static cudaError_t salted_allow_shared(size_t smem)
+{
+    if (SaltedLayout<Core, Place>::kWide || smem > DPRF_SALTED_DEFAULT_SHARED)
+        return cudaFuncSetAttribute(
+            salted_kernel<Core, kSp, Place>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    return cudaSuccess;
+}
+
+// args points to the variant's layout, SaltedLayout<Core, Place>::Args.
+template <class Core, bool kSp, class Place>
+static int salted_launch(const uint8_t* lut, const void* args_p,
                          const uint32_t* rows, uint32_t n_valid,
                          int32_t* count, int32_t* lanes, int32_t* tpos,
                          int32_t* tcount, int32_t cap, int grid, int threads,
                          cudaStream_t stream)
 {
-    if (args->length < 1 || args->length > DPRF_SALTED_MAX_LEN
-        || args->n_targets < 1 || args->n_targets > DPRF_SALTED_GROUP)
+    using Lay = SaltedLayout<Core, Place>;
+    const auto& args = *static_cast<const typename Lay::Args*>(args_p);
+    if (args.length < 1 || args.length > Lay::kMaxPos
+        || args.n_targets < 1 || args.n_targets > DPRF_SALTED_GROUP)
         return (int)cudaErrorInvalidValue;
-    salted_kernel<Core, kSp><<<grid, threads,
-                               salted_shared_bytes(args->length,
-                                                   args->n_targets),
-                               stream>>>(lut, *args, rows, n_valid, count,
-                                         lanes, tpos, tcount, cap);
+    const size_t smem =
+        salted_shared_bytes(args.length, args.n_targets, Lay::kRow);
+    const cudaError_t err = salted_allow_shared<Core, kSp, Place>(smem);
+    if (err != cudaSuccess) return (int)err;
+    salted_kernel<Core, kSp, Place><<<grid, threads, smem, stream>>>(
+        lut, args, rows, n_valid, count, lanes, tpos, tcount, cap);
     return (int)cudaGetLastError();
 }
 
-template <class Core, bool kSp>
+template <class Core, bool kSp, class Place>
 static int salted_occupancy(int threads, size_t smem, int* blocks)
 {
+    const cudaError_t err = salted_allow_shared<Core, kSp, Place>(smem);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, salted_kernel<Core, kSp>, threads, smem);
+        blocks, salted_kernel<Core, kSp, Place>, threads, smem);
 }

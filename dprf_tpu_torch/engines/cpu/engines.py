@@ -67,6 +67,13 @@ class Sha384Engine(_HashlibEngine):
     _algo = "sha384"
 
 
+@register("sha224")
+class Sha224Engine(_HashlibEngine):
+    name = "sha224"
+    digest_size = 28
+    _algo = "sha224"
+
+
 #: (bits, sponge rate) of the SHA3/Keccak family; rate = 200 - bits/4
 KECCAK_SIZES = [(224, 144), (256, 136), (384, 104), (512, 72)]
 
@@ -276,6 +283,7 @@ def _register_salted_cpu(algo: str, digest_size: int,
 _register_salted_cpu("md5", 16)
 _register_salted_cpu("sha1", 20)
 _register_salted_cpu("sha256", 32)
+_register_salted_cpu("sha512", 64, block_limit=111)
 
 
 def parse_ldap_line(text: str, scheme: str, digest_size: int):
@@ -329,6 +337,18 @@ class LdapSshaEngine(_LdapSaltedEngine):
     max_candidate_len = 55 - SALT_MAX
 
 
+@register("ldap-ssha512")
+@register("ssha512")
+class LdapSsha512Engine(_LdapSaltedEngine):
+    """LDAP {SSHA512} (hashcat 1711): sha512($pass.$salt)."""
+
+    name = "ldap-ssha512"
+    digest_size = 64
+    _algo = "sha512"
+    _scheme = "SSHA512"
+    max_candidate_len = 111 - SALT_MAX
+
+
 @register("ldap-smd5")
 class LdapSmd5Engine(_LdapSaltedEngine):
     """LDAP {SMD5}: md5($pass.$salt), base64 blob."""
@@ -338,6 +358,38 @@ class LdapSmd5Engine(_LdapSaltedEngine):
     _algo = "md5"
     _scheme = "SMD5"
     max_candidate_len = 55 - SALT_MAX
+
+
+class _LdapPlainMixin(HashEngine):
+    """Unsalted LDAP schemes ({SHA}, {MD5}): the plain fast hash with
+    the base64 line format, so the multi-target fast path applies."""
+
+    _scheme: str
+
+    def parse_target(self, text: str) -> Target:
+        digest, salt = parse_ldap_line(text, self._scheme,
+                                       self.digest_size)
+        if salt:
+            raise ValueError(f"unexpected salt bytes after the digest "
+                             f"in unsalted {{{self._scheme}}} line: "
+                             f"{text!r}")
+        return Target(raw=text.strip(), digest=digest)
+
+
+@register("ldap-sha")
+class LdapShaEngine(_LdapPlainMixin, Sha1Engine):
+    """LDAP {SHA} (hashcat 101): raw sha1, base64 line format."""
+
+    name = "ldap-sha"
+    _scheme = "SHA"
+
+
+@register("ldap-md5")
+class LdapMd5Engine(_LdapPlainMixin, Md5Engine):
+    """LDAP {MD5}: raw md5, base64 line format."""
+
+    name = "ldap-md5"
+    _scheme = "MD5"
 
 
 @register("oracle11")
@@ -476,3 +528,145 @@ class Mysql41Engine(HashEngine):
                    params: Optional[dict] = None) -> list[bytes]:
         return [hashlib.sha1(hashlib.sha1(c).digest()).digest()
                 for c in candidates]
+
+
+# ---- MySQL pre-4.1 and MSSQL -------------------------------------------
+
+def mysql323_words(password: bytes) -> tuple:
+    """MySQL pre-4.1 OLD_PASSWORD(): two 31-bit words from an
+    add/xor/shift scan over the password bytes (space and tab are
+    skipped, as the server does).  All arithmetic is u32."""
+    M = 0xFFFFFFFF
+    nr, nr2, add = 1345345333, 0x12345671, 7
+    for c in password:
+        if c in (0x20, 0x09):
+            continue
+        nr ^= ((((nr & 63) + add) * c) + ((nr << 8) & M)) & M
+        nr2 = (nr2 + (((nr2 << 8) & M) ^ nr)) & M
+        add = (add + c) & M
+    return nr & 0x7FFFFFFF, nr2 & 0x7FFFFFFF
+
+
+@register("mysql323")
+@register("mysql-old")
+class Mysql323Engine(HashEngine):
+    """MySQL pre-4.1 OLD_PASSWORD (hashcat 200): 16 hex chars = two
+    big-endian 31-bit words."""
+
+    name = "mysql323"
+    digest_size = 8
+    max_candidate_len = 55
+
+    def parse_target(self, text: str) -> Target:
+        t = text.strip()
+        digest = bytes.fromhex(t)
+        if len(digest) != 8:
+            raise ValueError(f"mysql323 wants 16 hex chars: {text!r}")
+        return Target(raw=t, digest=digest)
+
+    def hash_batch(self, candidates: Sequence[bytes],
+                   params: Optional[dict] = None) -> list[bytes]:
+        out = []
+        for c in candidates:
+            a, b = mysql323_words(c)
+            out.append(a.to_bytes(4, "big") + b.to_bytes(4, "big"))
+        return out
+
+
+def parse_mssql_line(text: str, version_tag: str, digest_hex: int):
+    """MSSQL '0x<ver><8-hex salt><hex digest[s]>' -> (salt, digests).
+    2000 lines carry TWO 40-hex sha1 digests (case-sensitive then
+    upper-cased); 2005 carry one 40-hex; 2012/2014 one 128-hex."""
+    t = text.strip()
+    if not t.lower().startswith("0x" + version_tag):
+        raise ValueError(f"not an MSSQL 0x{version_tag} line: {text!r}")
+    body = t[2 + len(version_tag):]
+    if len(body) < 8 + digest_hex or (len(body) - 8) % digest_hex:
+        raise ValueError(f"malformed MSSQL line (want 8-hex salt + "
+                         f"k x {digest_hex}-hex digest): {text!r}")
+    try:
+        salt = bytes.fromhex(body[:8])
+        digests = [bytes.fromhex(body[8 + i * digest_hex:
+                                      8 + (i + 1) * digest_hex])
+                   for i in range((len(body) - 8) // digest_hex)]
+    except ValueError:
+        raise ValueError(f"bad hex in MSSQL line: {text!r}")
+    return salt, digests
+
+
+class _MssqlCpuBase(HashEngine):
+    """sha-family over utf16le($pass) . $salt (4-byte salt)."""
+
+    salted = True
+    _algo: str
+    _tag: str
+    _upper = False
+    #: digests per line: 2000 stores [case-sensitive, upper-cased],
+    #: 2005/2012 exactly one.  Enforced so a 2000-format line fed to
+    #: the 2005 engine (or vice versa) is rejected instead of silently
+    #: cracking against the wrong digest.
+    _ndigests = 1
+
+    def parse_target(self, text: str) -> Target:
+        salt, digests = parse_mssql_line(text, self._tag,
+                                         2 * self.digest_size)
+        if len(digests) != self._ndigests:
+            raise ValueError(
+                f"{self.name} wants {self._ndigests} digest(s) per "
+                f"line, got {len(digests)} -- wrong MSSQL version? "
+                f"{text!r}")
+        # 2000 lines: [case-sensitive, upper]; crack the LAST digest
+        # (the case-insensitive one).
+        return Target(raw=text.strip(), digest=digests[-1],
+                      params={"salt": salt})
+
+    def hash_batch(self, candidates: Sequence[bytes],
+                   params: Optional[dict] = None) -> list[bytes]:
+        if not params:
+            raise ValueError(f"{self.name} needs target params (salt)")
+        salt = params["salt"]
+        out = []
+        for c in candidates:
+            if self._upper:
+                c = c.upper()          # ASCII-only, like the device path
+            wide = bytes(b for ch in c for b in (ch, 0))
+            out.append(hashlib.new(self._algo, wide + salt).digest())
+        return out
+
+
+@register("mssql2000")
+class Mssql2000Engine(_MssqlCpuBase):
+    """MSSQL 2000 (hashcat 131): sha1(utf16le(upper($pass)) . $salt) --
+    the case-insensitive second digest of the 0x0100 line."""
+
+    name = "mssql2000"
+    digest_size = 20
+    _algo = "sha1"
+    _tag = "0100"
+    _upper = True
+    _ndigests = 2
+    max_candidate_len = (55 - 4) // 2
+
+
+@register("mssql2005")
+class Mssql2005Engine(_MssqlCpuBase):
+    """MSSQL 2005 (hashcat 132): sha1(utf16le($pass) . $salt)."""
+
+    name = "mssql2005"
+    digest_size = 20
+    _algo = "sha1"
+    _tag = "0100"
+    max_candidate_len = (55 - 4) // 2
+
+
+@register("mssql2012")
+@register("mssql2014")
+class Mssql2012Engine(_MssqlCpuBase):
+    """MSSQL 2012/2014 (hashcat 1731): sha512(utf16le($pass) . $salt),
+    0x0200 lines."""
+
+    name = "mssql2012"
+    digest_size = 64
+    _algo = "sha512"
+    _tag = "0200"
+    max_candidate_len = (111 - 4) // 2

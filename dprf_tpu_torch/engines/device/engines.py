@@ -18,12 +18,14 @@ import numpy as np
 import torch
 
 from dprf_tpu_torch.engines import register
-from dprf_tpu_torch.engines.base import DeviceHashEngine, HashEngine
+from dprf_tpu_torch.engines.base import DeviceHashEngine, HashEngine, Target
 from dprf_tpu_torch.ops.md4 import md4_digest_words
 from dprf_tpu_torch.ops.md5 import md5_digest_words
+from dprf_tpu_torch.ops.mysql323 import mysql323_digest_words
 from dprf_tpu_torch.ops.pack import pack_fixed, pack_fixed_wide
 from dprf_tpu_torch.ops.sha1 import sha1_digest_words
-from dprf_tpu_torch.ops.sha256 import sha256_digest_words
+from dprf_tpu_torch.ops.sha256 import (sha224_digest_words,
+                                       sha256_digest_words)
 from dprf_tpu_torch.ops.sha512 import (sha384_digest_words,
                                        sha512_digest_words)
 
@@ -42,6 +44,14 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
 
     def __init__(self, torch_device="cuda"):
         self.torch_device = torch.device(torch_device)
+
+    @property
+    def core(self) -> str:
+        """The kernel core this engine runs on (``cuda_mask.KERNEL_CORES``,
+        ``cuda_rules.KERNEL_CORES``): its own name, unless it is a line
+        format that rides on another engine's core (``ldap-sha`` on
+        sha1), which then names it."""
+        return self.name
 
     def pack(self, cand: torch.Tensor, length: int) -> torch.Tensor:
         """uint8[B, length] candidates -> int32[B, 16] message words."""
@@ -112,7 +122,7 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
         table, 2..8,192 targets run the kernel's blocked probe."""
         from dprf_tpu_torch.ops.cuda_mask import KERNEL_CORES
         from dprf_tpu_torch.parallel.worker import ShardedMaskWorker
-        if self.name not in KERNEL_CORES:
+        if self.core not in KERNEL_CORES:
             raise ValueError(
                 f"{self.name}: no sharded mask worker on several devices "
                 f"yet (cores: {', '.join(KERNEL_CORES)}); run it with "
@@ -128,9 +138,14 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
         worker, which runs the kernel on a card and its plain version
         on CPU tensors.  A job the kernel does not take is refused,
         never moved to another path."""
-        from dprf_tpu_torch.ops.cuda_rules import (MAX_STEPS,
+        from dprf_tpu_torch.ops.cuda_rules import (KERNEL_CORES, MAX_STEPS,
                                                    kernel_rules_eligible)
         from dprf_tpu_torch.runtime.worker import CudaWordlistWorker
+        if self.core not in KERNEL_CORES:
+            raise ValueError(
+                f"{self.name}: the rules kernel has no {self.core} core "
+                f"(cores: {', '.join(KERNEL_CORES)}); use --device cpu for "
+                "a wordlist")
         if not kernel_rules_eligible(self.name, gen, len(targets)):
             raise ValueError(
                 f"{self.name}: no rules kernel for this job (it takes one "
@@ -195,6 +210,19 @@ class TorchSha256Engine(TorchEngineBase):
         return sha256_digest_words(blocks)
 
 
+@register("sha224", device="cuda")
+class TorchSha224Engine(TorchEngineBase):
+    """SHA-224: SHA-256 with its own IV, cut to 28 bytes."""
+
+    name = "sha224"
+    digest_size = 28
+    digest_words = 7
+    little_endian = False
+
+    def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
+        return sha224_digest_words(blocks)
+
+
 @register("sha512", device="cuda")
 @register("sha-512", device="cuda")
 class TorchSha512Engine(TorchEngineBase):
@@ -224,3 +252,51 @@ class TorchSha384Engine(TorchSha512Engine):
 
     def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
         return sha384_digest_words(blocks)
+
+
+@register("ldap-sha", device="cuda")
+class TorchLdapShaEngine(TorchSha1Engine):
+    """LDAP {SHA} (hashcat 101): the sha1 core (mask and rules kernels,
+    one target or a list) with the base64 line format."""
+
+    name = "ldap-sha"
+    core = "sha1"
+
+    def parse_target(self, text: str) -> Target:
+        from dprf_tpu_torch.engines.cpu.engines import LdapShaEngine
+        return LdapShaEngine().parse_target(text)
+
+
+@register("ldap-md5", device="cuda")
+class TorchLdapMd5Engine(TorchMd5Engine):
+    """LDAP {MD5}: the md5 core with the base64 line format."""
+
+    name = "ldap-md5"
+    core = "md5"
+
+    def parse_target(self, text: str) -> Target:
+        from dprf_tpu_torch.engines.cpu.engines import LdapMd5Engine
+        return LdapMd5Engine().parse_target(text)
+
+
+@register("mysql323", device="cuda")
+@register("mysql-old", device="cuda")
+class TorchMysql323Engine(TorchEngineBase):
+    """MySQL pre-4.1 OLD_PASSWORD (hashcat 200): an add/xor/shift scan
+    over the candidate's bytes (spaces and tabs skipped), two 31-bit
+    words.  ``digest_packed`` reads the bytes and the length back from
+    the big-endian single-block packing, as the reference's does, so it
+    gives the reference's words bit for bit; the mask kernel's core
+    (csrc/mask.cu) scans the same block."""
+
+    name = "mysql323"
+    digest_size = 8
+    digest_words = 2
+    little_endian = False
+
+    def parse_target(self, text: str) -> Target:
+        from dprf_tpu_torch.engines.cpu.engines import Mysql323Engine
+        return Mysql323Engine().parse_target(text)
+
+    def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
+        return mysql323_digest_words(blocks)

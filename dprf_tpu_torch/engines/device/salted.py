@@ -1,7 +1,9 @@
-"""Salted fast-hash engines on the card: md5, sha1 and sha256 over
-$pass.$salt (``-ps``) and $salt.$pass (``-sp``), hashcat modes 10/20,
-110/120, 1410/1420, and the line formats that ride on them: PostgreSQL
-MD5 (12), LDAP {SSHA} (111) and {SMD5}, Oracle 11g (112).
+"""Salted fast-hash engines on the card: md5, sha1, sha256 and sha512
+over $pass.$salt (``-ps``) and $salt.$pass (``-sp``), hashcat modes
+10/20, 110/120, 1410/1420, 1710/1720, and the line formats that ride on
+them: PostgreSQL MD5 (12), LDAP {SSHA} (111), {SSHA512} (1711) and
+{SMD5}, Oracle 11g (112); and MSSQL 2000/2005 (131/132) and 2012/2014
+(1731), sha1 or sha512 over the UTF-16LE candidate and a 4-byte salt.
 
 Target lines use the hashcat convention ``hexdigest:salt`` (the salt is
 the literal bytes after the first colon; ``$HEX[..]`` decodes hex
@@ -11,8 +13,10 @@ once per group of targets (``cuda_ext.salted_groups``: all ``ps``
 targets, the ``sp`` targets of one salt length, up to 256 a group), one
 launch of the salted kernel (ops/cuda_ext.py, csrc/salted.cuh) per
 (group, batch), which decodes each candidate once and hashes it with
-each target's salt.  A job the kernel does not take raises, naming
-``--device cpu``; wordlist jobs are refused the same way.
+each target's salt.  The sha512 engines run its wide variants and the
+MSSQL engines its UTF-16LE ones, which the reference runs on XLA only.
+A job the kernel does not take raises, naming ``--device cpu``;
+wordlist jobs are refused the same way.
 """
 
 from __future__ import annotations
@@ -24,13 +28,18 @@ import torch
 from dprf_tpu_torch.engines import register
 from dprf_tpu_torch.engines.base import Target
 from dprf_tpu_torch.engines.cpu.engines import (LdapSmd5Engine,
+                                                LdapSsha512Engine,
                                                 LdapSshaEngine,
+                                                Mssql2000Engine,
+                                                Mssql2005Engine,
+                                                Mssql2012Engine,
                                                 Oracle11Engine,
                                                 PostgresMd5Engine, SALT_MAX,
                                                 parse_salted_line)
 from dprf_tpu_torch.engines.device.engines import (TorchMd5Engine,
                                                    TorchSha1Engine,
-                                                   TorchSha256Engine)
+                                                   TorchSha256Engine,
+                                                   TorchSha512Engine)
 from dprf_tpu_torch.ops import cuda_ext
 from dprf_tpu_torch.ops.compare import digest_rows
 from dprf_tpu_torch.runtime.worker import GroupedSweepWorker
@@ -53,7 +62,7 @@ class CudaSaltedMaskWorker(GroupedSweepWorker):
         device = torch.device(device)
         if device.type == "cuda":
             cuda_ext.load_kernel()
-        self.variant = f"{engine.algo}-{engine.order}"
+        self.variant = engine.variant
         targs = [(t.params["salt"],
                   [int(w) for w in digest_rows([t.digest],
                                                engine.little_endian)[0]])
@@ -61,7 +70,8 @@ class CudaSaltedMaskWorker(GroupedSweepWorker):
         self.groups = [
             (idx, cuda_ext.make_salted_crack_step(
                 self.variant, gen, [targs[i] for i in idx], batch,
-                hit_capacity * len(idx), device=device))
+                hit_capacity * len(idx), device=device,
+                byte_map=engine.byte_map))
             for idx in cuda_ext.salted_groups(self.variant,
                                               [s for s, _ in targs])]
 
@@ -71,13 +81,23 @@ class _SaltedDeviceMixin:
     the salted kernel's mask worker."""
 
     salted = True
-    #: the kernel core and order (``cuda_ext.SALTED_NAMES``)
+    #: the kernel core and order (``cuda_ext.SALTED_VARIANTS``)
     algo: str
     order: str
+    #: MSSQL: the candidate is UTF-16LE before the salt, which is not
+    widen = False
+    #: a map of the candidate's bytes before it is hashed (MSSQL 2000's
+    #: uppercase, ``cuda_ext.UPPER``), applied to the charset tables
+    byte_map = None
     #: leave headroom for any parseable salt in the single block; the
     #: worker factory checks the job's actual salts
     max_candidate_len = cuda_ext.BLOCK_LIMIT - SALT_MAX
     _block_limit = cuda_ext.BLOCK_LIMIT
+
+    @property
+    def variant(self) -> str:
+        """The salted kernel's variant this engine runs."""
+        return f"{self.algo}-{self.order}" + ("-utf16" if self.widen else "")
 
     def parse_target(self, text: str) -> Target:
         digest, salt = parse_salted_line(text, self.digest_size)
@@ -91,6 +111,11 @@ class _SaltedDeviceMixin:
         if not params:
             raise ValueError(f"{self.name} needs target params (salt)")
         salt = params["salt"]
+        if self.byte_map is not None:
+            candidates = [bytes(self.byte_map[list(c)]) for c in candidates]
+        if self.widen:
+            candidates = [bytes(b for ch in c for b in (ch, 0))
+                          for c in candidates]
         msgs = [c + salt if self.order == "ps" else salt + c
                 for c in candidates]
         return self._hash_messages(msgs, self._block_limit)
@@ -101,10 +126,11 @@ class _SaltedDeviceMixin:
         refused, never moved to another path."""
         self._check_lengths(gen.length, targets)
         lens = [len(t.params["salt"]) for t in targets]
-        if not cuda_ext.salted_eligible(self.algo, self.order, gen, lens):
+        width = 2 if self.widen else 1
+        if not cuda_ext.variant_eligible(self.variant, gen, lens):
             raise ValueError(
                 f"{self.name}: no salted kernel for this job (it takes "
-                f"masks of 1..{cuda_ext.BLOCK_LIMIT} positions with "
+                f"masks of 1..{self._block_limit // width} positions with "
                 f"1..256 bytes each and salts of 0..{SALT_MAX} bytes); use "
                 "--device cpu")
         return CudaSaltedMaskWorker(self, gen, targets, batch=batch,
@@ -117,7 +143,8 @@ class _SaltedDeviceMixin:
                          "only; use --device cpu for a wordlist")
 
     def _check_lengths(self, cand_len: int, targets) -> None:
-        worst = cand_len + max(len(t.params["salt"]) for t in targets)
+        worst = cand_len * (2 if self.widen else 1) + \
+            max(len(t.params["salt"]) for t in targets)
         if worst > self._block_limit:
             raise ValueError(
                 f"candidate+salt can reach {worst} bytes, over the "
@@ -126,7 +153,16 @@ class _SaltedDeviceMixin:
 
 
 _BASES = {"md5": TorchMd5Engine, "sha1": TorchSha1Engine,
-          "sha256": TorchSha256Engine}
+          "sha256": TorchSha256Engine, "sha512": TorchSha512Engine}
+
+
+def _limits(base) -> dict:
+    """A base engine's single-block limit and the candidate length that
+    leaves room for any parseable salt (sha512: 111 and 79)."""
+    limit = cuda_ext.WIDE_BLOCK_LIMIT if base is TorchSha512Engine \
+        else cuda_ext.BLOCK_LIMIT
+    return {"_block_limit": limit, "max_candidate_len": limit - SALT_MAX}
+
 
 for _algo, _base in _BASES.items():
     for _order in cuda_ext.ORDERS:
@@ -138,7 +174,8 @@ for _algo, _base in _BASES.items():
              "__doc__": (f"Salted {_algo}: "
                          + ("$pass.$salt" if _order == "ps"
                             else "$salt.$pass")
-                         + " through the salted kernel.")}))
+                         + " through the salted kernel."),
+             **_limits(_base)}))
 
 
 def _register_line_format(names, base, cpu_cls, doc: str, **attrs):
@@ -150,7 +187,8 @@ def _register_line_format(names, base, cpu_cls, doc: str, **attrs):
 
     cls = type(f"Torch{cpu_cls.__name__}", (_SaltedDeviceMixin, base),
                {"name": names[0], "algo": base.name, "order": "ps",
-                "__doc__": doc, "parse_target": parse_target, **attrs})
+                "__doc__": doc, "parse_target": parse_target,
+                **_limits(base), **attrs})
     for n in names:
         register(n, device="cuda")(cls)
     return cls
@@ -171,3 +209,23 @@ _register_line_format(
     "Oracle 11g (hashcat 112): sha1($pass.$salt) with a 10-byte salt, "
     "``S:<40 hex><20 hex>`` lines.",
     max_candidate_len=cuda_ext.BLOCK_LIMIT - 10)
+_register_line_format(
+    ("ldap-ssha512", "ssha512"), TorchSha512Engine, LdapSsha512Engine,
+    "LDAP {SSHA512} (hashcat 1711): sha512($pass.$salt), a base64 blob.")
+
+# MSSQL: the candidate as UTF-16LE (uppercased first for 2000), then the
+# 4-byte salt unwidened; sha1 or sha512 (the kernel's UTF-16LE variants)
+_MSSQL = {"widen": True, "max_candidate_len": (cuda_ext.BLOCK_LIMIT - 4) // 2}
+_register_line_format(
+    ("mssql2000",), TorchSha1Engine, Mssql2000Engine,
+    "MSSQL 2000 (hashcat 131): sha1(utf16le(upper($pass)) . $salt), the "
+    "case-insensitive second digest of a 0x0100 line; the uppercase maps "
+    "the job's charset tables.", **_MSSQL, byte_map=cuda_ext.UPPER)
+_register_line_format(
+    ("mssql2005",), TorchSha1Engine, Mssql2005Engine,
+    "MSSQL 2005 (hashcat 132): sha1(utf16le($pass) . $salt).", **_MSSQL)
+_register_line_format(
+    ("mssql2012", "mssql2014"), TorchSha512Engine, Mssql2012Engine,
+    "MSSQL 2012/2014 (hashcat 1731): sha512(utf16le($pass) . $salt), "
+    "0x0200 lines.", widen=True,
+    max_candidate_len=(cuda_ext.WIDE_BLOCK_LIMIT - 4) // 2)

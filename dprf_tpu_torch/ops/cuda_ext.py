@@ -17,7 +17,13 @@ decode, single or multi-target compare, hit append) over new cores:
   length is a launch parameter, the candidate's first byte.  Outputs
   (count, lanes, tpos, tcount): the hits as (lane, target position)
   pairs and each target's own hit count, so an overflowing batch is
-  rescanned for the targets that overflowed only.
+  rescanned for the targets that overflowed only.  Beside the six
+  64-byte variants of the reference's Pallas kernel (``SALTED_NAMES``),
+  the same template holds two the reference runs on XLA only: the wide
+  core, sha512 over one 128-byte block (``WIDE_SALTED``: a row of 32
+  message and 16 digest words, candidate + salt up to 111 bytes), and
+  the UTF-16LE placement of MSSQL (``UTF16_SALTED``: candidate byte q at
+  message byte 2q, the salt after the widened candidate, unwidened).
 
 For each chain three functions carry it, as in ops/cuda_mask.py: the
 kernel's wrapper (``nested_kernel``, ``nested_multi_kernel``,
@@ -43,7 +49,7 @@ from dprf_tpu_torch.generators.mask import decode_lut
 from dprf_tpu_torch.ops import bloom
 from dprf_tpu_torch.ops import compare as cmp_ops
 from dprf_tpu_torch.ops import cuda_mask
-from dprf_tpu_torch.ops.pack import pad_const
+from dprf_tpu_torch.ops.pack import pad_const, utf16le_widen
 
 #: the nested chains (outer, inner), in the kernel's variant order; the
 #: inner hex (32 or 40 bytes) fits one outer block
@@ -57,23 +63,38 @@ NESTED_COMBOS = {
 }
 #: the chains of the nested kernel: the combos, then mysql41 (300)
 NESTED_NAMES = (*NESTED_COMBOS, "mysql41")
-#: the salted kernel's cores and orders
+#: the salted kernel's 64-byte cores and orders, the reference's
+#: Pallas salted kernel's
 SALTED_ALGOS = ("md5", "sha1", "sha256")
 ORDERS = ("ps", "sp")
 SALTED_NAMES = tuple(f"{a}-{o}" for a in SALTED_ALGOS for o in ORDERS)
-#: single-block message budget: 64 - 1 marker byte - 8 length bytes
+#: the wide core (sha512's 128-byte block) and the UTF-16LE placements
+#: (MSSQL: ps only), which the reference runs on XLA only
+WIDE_SALTED = ("sha512-ps", "sha512-sp")
+UTF16_SALTED = ("sha1-ps-utf16", "sha512-ps-utf16")
+#: every variant of the salted kernel, in the C entry's id order
+SALTED_VARIANTS = SALTED_NAMES + WIDE_SALTED + UTF16_SALTED
+#: single-block message budget: 64 - 1 marker byte - 8 length bytes;
+#: 128 - 1 - 16 in SHA-512's block
 BLOCK_LIMIT = 55
+WIDE_BLOCK_LIMIT = 111
 #: the longest salt a salted target line parses to
 SALT_MAX = 32
 
 #: the variant id of csrc/ext.cu's nested entry, by chain name
 VARIANTS = {name: i for i, name in enumerate(NESTED_NAMES)}
-#: the salted kernel's id of csrc/ext.cu's salted entry, by core name
-SALTED_IDS = {name: i for i, name in enumerate(SALTED_NAMES)}
+#: the salted kernel's id of csrc/ext.cu's salted entry, by variant
+SALTED_IDS = {name: i for i, name in enumerate(SALTED_VARIANTS)}
 #: the most targets a launch of the salted kernel takes
-#: (DPRF_SALTED_GROUP), and the words of a target's row (DPRF_SALTED_ROW)
+#: (DPRF_SALTED_GROUP), and the words of a target's row (DPRF_SALTED_ROW;
+#: the wide core's DPRF_SALTED_WIDE_ROW: 32 message and 16 digest words)
 SALTED_GROUP = 256
 SALTED_ROW = 24
+SALTED_WIDE_ROW = 48
+#: ASCII a-z to A-Z, every other byte kept: MSSQL 2000's uppercase,
+#: applied to a job's charset tables on the host
+UPPER = np.array([c - 32 if 97 <= c <= 122 else c for c in range(256)],
+                 np.uint8)
 #: MD5's IV word 0: the salted kernel compares md5's word 0 less it
 MD5_A0 = 0x67452301
 
@@ -84,22 +105,25 @@ SOURCE = "dprf_tpu_torch/csrc/ext.cu"
 
 
 def replaces(variant: str) -> str:
-    return REPLACES_SALTED if variant in SALTED_NAMES else REPLACES_NESTED
+    """The TPU kernel an instantiation replaces; a wide or UTF-16LE
+    salted variant replaces none (the reference runs it on XLA) and
+    names its template's, the salted kernel's."""
+    return REPLACES_SALTED if variant in SALTED_VARIANTS else REPLACES_NESTED
 
 
 def kernel_name(variant: str, multi: bool = False) -> str:
     """The instantiation's name: ``<chain>_mask`` or
     ``<chain>_mask_multi`` (as ops/cuda_mask.kernel_name) for a nested
-    chain, ``<core>_group`` for a salted core."""
-    if variant in SALTED_NAMES:
+    chain, ``<variant>_group`` for a salted variant."""
+    if variant in SALTED_VARIANTS:
         return f"{variant}_group"
     return f"{variant}_mask" + ("_multi" if multi else "")
 
 
-#: every instantiation: (chain, multi target); a salted core's takes a
-#: group of targets
+#: every instantiation: (chain, multi target); a salted variant's takes
+#: a group of targets
 INSTANCES = tuple([(n, m) for n in NESTED_NAMES for m in (False, True)]
-                  + [(n, True) for n in SALTED_NAMES])
+                  + [(n, True) for n in SALTED_VARIANTS])
 
 #: launches of each instantiation in this process, by ``kernel_name``
 #: (tests and chip_smoke.py reset them and read them)
@@ -112,12 +136,28 @@ def reset_launches() -> None:
 
 
 def split_salted(variant: str) -> tuple:
-    """``"sha1-sp"`` -> ``("sha1", "sp")``."""
-    algo, _, order = variant.partition("-")
-    if algo not in SALTED_ALGOS or order not in ORDERS:
-        raise ValueError(f"no salted kernel core {variant!r} (cores: "
-                         f"{', '.join(SALTED_NAMES)})")
+    """``"sha1-sp"`` -> ``("sha1", "sp")``; ``"sha1-ps-utf16"`` ->
+    ``("sha1", "ps")``."""
+    if variant not in SALTED_VARIANTS:
+        raise ValueError(f"no salted kernel variant {variant!r} "
+                         f"(variants: {', '.join(SALTED_VARIANTS)})")
+    algo, order = variant.split("-")[:2]
     return algo, order
+
+
+def widened(variant: str) -> bool:
+    """Whether the variant places the candidate as UTF-16LE."""
+    return variant in UTF16_SALTED
+
+
+def salted_geometry(variant: str) -> tuple:
+    """(block bytes, row words, block limit, bytes a candidate byte
+    takes) of a salted variant: 64 / 24 / 55 for the 64-byte cores, 128
+    / 48 / 111 for sha512; 2 bytes a character for a UTF-16LE one."""
+    width = 2 if widened(variant) else 1
+    if split_salted(variant)[0] == "sha512":
+        return 128, SALTED_WIDE_ROW, WIDE_BLOCK_LIMIT, width
+    return 64, SALTED_ROW, BLOCK_LIMIT, width
 
 
 def nested_eligible(name: str, gen, n_targets: int) -> bool:
@@ -132,13 +172,26 @@ def nested_eligible(name: str, gen, n_targets: int) -> bool:
 
 def salted_eligible(algo: str, order: str, gen,
                     salt_lens: Sequence[int]) -> bool:
-    """Whether the salted kernel takes this job: a core of
-    SALTED_ALGOS, an order of ORDERS, salts of 0..SALT_MAX bytes (any
-    number of distinct lengths: the length is a launch parameter) and a
-    mask that fits one block beside the longest salt."""
-    return (algo in SALTED_ALGOS and order in ORDERS and bool(salt_lens)
-            and all(0 <= n <= SALT_MAX for n in salt_lens)
-            and cuda_mask.mask_fits(gen, BLOCK_LIMIT - max(salt_lens)))
+    """Whether the salted kernel's 64-byte cores take this job (the
+    reference's Pallas kernel's rule, but for its two stated
+    differences): a core of SALTED_ALGOS, an order of ORDERS, salts of
+    0..SALT_MAX bytes (any number of distinct lengths: the length is a
+    launch parameter) and a mask that fits one block beside the longest
+    salt."""
+    return (algo in SALTED_ALGOS and order in ORDERS
+            and variant_eligible(f"{algo}-{order}", gen, salt_lens))
+
+
+def variant_eligible(variant: str, gen, salt_lens: Sequence[int]) -> bool:
+    """Whether the salted kernel takes this job in ``variant`` (any of
+    SALTED_VARIANTS): salts of 0..SALT_MAX bytes and a mask whose
+    candidate (widened for a UTF-16LE variant) fits the variant's block
+    beside the longest salt."""
+    if variant not in SALTED_VARIANTS or not salt_lens or \
+            not all(0 <= n <= SALT_MAX for n in salt_lens):
+        return False
+    _, _, limit, width = salted_geometry(variant)
+    return cuda_mask.mask_fits(gen, (limit - max(salt_lens)) // width)
 
 
 def variant_words(name: str) -> tuple:
@@ -175,22 +228,28 @@ def nested_block(name: str, length: int) -> tuple:
 def salted_block(variant: str, length: int, salt: bytes) -> tuple:
     """One target's fixed message words: the block of an all-zero
     candidate with the target's salt (after it for ``ps``, before it for
-    ``sp``), its 0x80 marker and bit length, as uint32 ints."""
+    ``sp``), its 0x80 marker and bit length, as uint32 ints (16, or 32
+    for sha512).  A UTF-16LE variant's candidate takes 2 bytes a
+    character: the salt at byte 2L, the bit length (2L + S) * 8."""
     algo, order = split_salted(variant)
+    block, _, _, width = salted_geometry(variant)
     big_endian = not cuda_mask.device_engine(algo).little_endian
-    msg = pad_const(length + len(salt), big_endian)
-    at = length if order == "ps" else 0
+    msg = pad_const(width * length + len(salt), big_endian, block)
+    at = width * length if order == "ps" else 0
     msg[at:at + len(salt)] = np.frombuffer(salt, np.uint8)
     words = msg.view(">u4" if big_endian else "<u4")
     return tuple(int(w) for w in words)
 
 
-def check_salt(length: int, salt: bytes) -> None:
+def check_salt(variant: str, length: int, salt: bytes) -> None:
+    """A salt of 0..SALT_MAX bytes that fits the variant's block beside
+    a candidate of ``length`` positions."""
+    _, _, limit, width = salted_geometry(variant)
     if not isinstance(salt, (bytes, bytearray)) or len(salt) > SALT_MAX:
         raise ValueError(f"salt must be 0..{SALT_MAX} bytes")
-    if length + len(salt) > BLOCK_LIMIT:
-        raise ValueError(f"candidate ({length}) + salt ({len(salt)}) "
-                         f"exceeds the {BLOCK_LIMIT}-byte block")
+    if width * length + len(salt) > limit:
+        raise ValueError(f"candidate ({width} x {length}) + salt "
+                         f"({len(salt)}) exceeds the {limit}-byte block")
 
 
 def salted_groups(variant: str, salts: Sequence[bytes]) -> list:
@@ -210,26 +269,28 @@ def salted_groups(variant: str, salts: Sequence[bytes]) -> list:
 
 
 def salted_rows(variant: str, length: int, group) -> np.ndarray:
-    """A group's rows, uint32[T, SALTED_ROW]: per target (salt bytes,
-    digest uint32 words), its fixed message words (``salted_block``),
-    then its digest words; md5 keeps word 0 less the IV's in word 20,
-    the kernel's compare after step 60.  An ``sp`` group's salts are of
-    one length."""
+    """A group's rows, uint32[T, SALTED_ROW] (SALTED_WIDE_ROW for
+    sha512): per target (salt bytes, digest uint32 words), its fixed
+    message words (``salted_block``), then its digest words; md5 keeps
+    word 0 less the IV's in word 20, the kernel's compare after step 60.
+    An ``sp`` group's salts are of one length."""
     algo, order = split_salted(variant)
+    block, row_words, _, _ = salted_geometry(variant)
+    m = block // 4
     n_words = cuda_mask.device_engine(algo).digest_words
     if not 1 <= len(group) <= SALTED_GROUP:
         raise ValueError(f"a salted group takes 1..{SALTED_GROUP} targets, "
                          f"got {len(group)}")
     if order == "sp" and len({len(salt) for salt, _ in group}) != 1:
         raise ValueError("an sp group's salts must be of one length")
-    rows = np.zeros((len(group), SALTED_ROW), np.uint32)
+    rows = np.zeros((len(group), row_words), np.uint32)
     for row, (salt, words) in zip(rows, group):
-        check_salt(length, bytes(salt))
+        check_salt(variant, length, bytes(salt))
         if len(words) != n_words:
             raise ValueError(f"{variant} needs {n_words} target words, got "
                              f"{len(words)}")
-        row[:16] = salted_block(variant, length, bytes(salt))
-        row[16:16 + n_words] = [int(w) & 0xFFFFFFFF for w in words]
+        row[:m] = salted_block(variant, length, bytes(salt))
+        row[m:m + n_words] = [int(w) & 0xFFFFFFFF for w in words]
         if algo == "md5":
             row[20] = (int(words[0]) - MD5_A0) & 0xFFFFFFFF
     return rows
@@ -247,13 +308,26 @@ def salted_table(variant: str, length: int, group, device) -> tuple:
 # ---- the kernels ----------------------------------------------------------
 
 class SaltedArgs(ctypes.Structure):
-    """``struct SaltedArgs`` of csrc/salted.cuh."""
+    """``struct SaltedArgs`` of csrc/salted.cuh: the 64-byte cores, whose
+    decode takes reciprocals."""
     POSITIONS = BLOCK_LIMIT
     _fields_ = [("length", ctypes.c_int32),
                 ("radix", ctypes.c_int32 * POSITIONS),
                 ("base", ctypes.c_int32 * POSITIONS),
                 ("rcp", ctypes.c_uint32 * POSITIONS),
                 ("rsh", ctypes.c_int32 * POSITIONS),
+                ("shift", ctypes.c_int32), ("n_targets", ctypes.c_int32),
+                ("one", ctypes.c_uint32)]
+
+
+class WideSaltedArgs(ctypes.Structure):
+    """``struct WideSaltedArgs`` of csrc/salted.cuh: the sha512 core, up
+    to 111 positions, each decoded by a division (once a candidate, for
+    a whole group of pairs)."""
+    POSITIONS = WIDE_BLOCK_LIMIT
+    _fields_ = [("length", ctypes.c_int32),
+                ("radix", ctypes.c_int32 * POSITIONS),
+                ("base", ctypes.c_int32 * POSITIONS),
                 ("shift", ctypes.c_int32), ("n_targets", ctypes.c_int32),
                 ("one", ctypes.c_uint32)]
 
@@ -273,8 +347,8 @@ def _library():
                                            ctypes.POINTER(i32)]
     lib.dprf_ext_blocks_per_sm.restype = i32
     lib.dprf_salted_launch.argtypes = [
-        i32, i32, ptr, ctypes.POINTER(SaltedArgs), ptr, ctypes.c_uint32,
-        ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+        i32, i32, ptr, ptr, ptr, ctypes.c_uint32, ptr, ptr, ptr, ptr, i32,
+        i32, i32, ptr]
     lib.dprf_salted_launch.restype = i32
     lib.dprf_salted_blocks_per_sm.argtypes = [i32, i32, i32,
                                               ctypes.POINTER(i32)]
@@ -349,10 +423,12 @@ def nested_multi_kernel(name: str, lut: torch.Tensor,
                    margs, n_sets, hit_capacity)
 
 
-def salted_shared_bytes(length: int, n_targets: int) -> int:
+def salted_shared_bytes(variant: str, length: int, n_targets: int) -> int:
     """Dynamic shared memory of one salted block: the group's rows, then
-    the charset tables (at most 24 KiB + 14,080 bytes)."""
-    return n_targets * SALTED_ROW * 4 + length * 256
+    the charset tables (at most 24 KiB + 14,080 bytes for a 64-byte
+    core; 48 KiB + 28,416 for sha512, past the 48 KB a launch gets
+    without the opt-in, which the wide variants take)."""
+    return n_targets * salted_geometry(variant)[1] * 4 + length * 256
 
 
 @functools.cache
@@ -370,26 +446,29 @@ def salted_blocks_per_sm(variant: str, smem: int) -> int:
 def _check_salted(variant, lut, radices, base_digits, n_valid, shift, rows,
                   hit_capacity, batch):
     algo, order = split_salted(variant)
+    _, row_words, limit, width = salted_geometry(variant)
     eng = cuda_mask.device_engine(algo, lut.device)
     cuda_mask.check_job(eng, lut, radices, base_digits, n_valid,
                         hit_capacity, batch)
     cuda_mask._check_tensor("salted rows", rows, 2, lut.device)
     if not 1 <= rows.shape[0] <= SALTED_GROUP or \
-            rows.shape[1] != SALTED_ROW:
+            rows.shape[1] != row_words:
         raise ValueError(f"salted rows must be int32[1..{SALTED_GROUP}, "
-                         f"{SALTED_ROW}], got {list(rows.shape)}")
+                         f"{row_words}], got {list(rows.shape)}")
     if not (0 <= shift <= SALT_MAX and (shift == 0 or order == "sp")
-            and lut.shape[0] + shift <= BLOCK_LIMIT):
+            and width * lut.shape[0] + shift <= limit):
         raise ValueError(f"salt shift {shift} outside 0..{SALT_MAX}, past "
-                         f"the {BLOCK_LIMIT}-byte block or on a ps core")
+                         f"the {limit}-byte block or on a ps core")
     return eng
 
 
 def salted_kernel(variant: str, lut: torch.Tensor, radices: Sequence[int],
                   base_digits: Sequence[int], n_valid: int, shift: int,
                   rows: torch.Tensor, hit_capacity: int, batch: int):
-    """Launch the salted core ``variant`` (``md5-ps`` ... ``sha256-sp``)
-    for a group of targets: ``rows`` (``salted_table``) on the card and,
+    """Launch the salted variant ``variant`` (``SALTED_VARIANTS``: for a
+    UTF-16LE one, ``lut`` already mapped, as the step maps MSSQL 2000's
+    to uppercase) for a group of targets: ``rows`` (``salted_table``) on
+    the card and,
     for ``sp``, the group's salt length ``shift``.  Returns (count
     int32[1], lanes int32[cap], tpos int32[cap], tcount int32[T]) on the
     card, still being computed: the (lane, target position) hits, -1 in
@@ -403,13 +482,19 @@ def salted_kernel(variant: str, lut: torch.Tensor, radices: Sequence[int],
     tpos.fill_(-1)
     tcount = torch.zeros((n_targets,), dtype=torch.int32, device=device)
     length = lut.shape[0]
-    rcp, rsh = cuda_mask.decode_reciprocals(radices)
-    n = SaltedArgs.POSITIONS
-    args = SaltedArgs(length, (ctypes.c_int32 * n)(*radices),
-                      (ctypes.c_int32 * n)(*base_digits),
-                      (ctypes.c_uint32 * n)(*rcp), (ctypes.c_int32 * n)(*rsh),
-                      shift, n_targets, 1)
-    smem = salted_shared_bytes(length, n_targets)
+    if salted_geometry(variant)[0] == 128:
+        n = WideSaltedArgs.POSITIONS
+        args = WideSaltedArgs(length, (ctypes.c_int32 * n)(*radices),
+                              (ctypes.c_int32 * n)(*base_digits), shift,
+                              n_targets, 1)
+    else:
+        rcp, rsh = cuda_mask.decode_reciprocals(radices)
+        n = SaltedArgs.POSITIONS
+        args = SaltedArgs(length, (ctypes.c_int32 * n)(*radices),
+                          (ctypes.c_int32 * n)(*base_digits),
+                          (ctypes.c_uint32 * n)(*rcp),
+                          (ctypes.c_int32 * n)(*rsh), shift, n_targets, 1)
+    smem = salted_shared_bytes(variant, length, n_targets)
     grid = cuda_mask.wave_grid(salted_blocks_per_sm(variant, smem), n_valid,
                                device)
     rc = _library().dprf_salted_launch(
@@ -438,33 +523,72 @@ def nested_multi_plain(name: str, lut: torch.Tensor, *args):
     return cuda_mask.multi_plain(ext_engine(name, lut.device), lut, *args)
 
 
-def candidate_words(cand: torch.Tensor, at: int,
-                    big_endian: bool) -> torch.Tensor:
-    """uint8[B, L] candidates -> int32[B, 16]: each candidate's bytes at
-    [at, at + L) of a zeroed 64-byte block, as message words."""
-    block = torch.zeros((cand.shape[0], 64), dtype=torch.uint8,
+def candidate_words(cand: torch.Tensor, at: int, big_endian: bool,
+                    block_bytes: int = 64) -> torch.Tensor:
+    """uint8[B, L] candidates -> int32[B, block_bytes / 4]: each
+    candidate's bytes at [at, at + L) of a zeroed block, as message
+    words."""
+    n = block_bytes // 4
+    block = torch.zeros((cand.shape[0], block_bytes), dtype=torch.uint8,
                         device=cand.device)
     block[:, at:at + cand.shape[1]] = cand
     if big_endian:
-        block = block.view(-1, 16, 4).flip(-1).reshape(-1, 64)
+        block = block.view(-1, n, 4).flip(-1).reshape(-1, block_bytes)
     return block.contiguous().view(torch.int32)
+
+
+def salted_candidate_words(variant: str, lut: torch.Tensor,
+                           radices: Sequence[int],
+                           base_digits: Sequence[int], batch: int,
+                           shift: int) -> torch.Tensor:
+    """A batch's decoded candidates (UTF-16LE for a widened variant) as
+    the variant's message words at [shift, ...), zero elsewhere:
+    int32[batch, 16 or 32]."""
+    algo, _ = split_salted(variant)
+    cand = decode_lut(lut, radices, base_digits, batch)
+    if widened(variant):
+        cand = utf16le_widen(cand)
+    return candidate_words(
+        cand, shift, not cuda_mask.device_engine(algo).little_endian,
+        salted_geometry(variant)[0])
+
+
+def salted_row_digest(variant: str, words: torch.Tensor,
+                      row: torch.Tensor) -> torch.Tensor:
+    """The digest words of each candidate of ``salted_candidate_words``
+    under one target's row: its fixed words ORed in, the core's plain
+    ``digest_packed``."""
+    eng = cuda_mask.device_engine(split_salted(variant)[0], words.device)
+    return eng.digest_packed(words | row[:salted_geometry(variant)[0] // 4])
+
+
+def mapped_lut(gen, device, byte_map=None) -> torch.Tensor:
+    """The job's charset tables on ``device``, each byte through
+    ``byte_map`` (uint8[256], e.g. ``UPPER``) if one is given."""
+    lut = gen.charset_lut(device)
+    if byte_map is None:
+        return lut
+    return torch.as_tensor(np.asarray(byte_map, np.uint8),
+                           device=device)[lut.long()]
 
 
 def salted_plain(variant: str, lut: torch.Tensor, radices: Sequence[int],
                  base_digits: Sequence[int], n_valid: int, shift: int,
                  rows: torch.Tensor, hit_capacity: int, batch: int):
     """``salted_kernel``'s function in plain PyTorch on the lut's device:
-    the decoded candidates' words at [shift, shift + L), per target ORed
-    into its fixed words, the core, the compare of every digest word;
-    the (lane, target) hits in lane then target order."""
+    the decoded candidates (UTF-16LE for a widened variant) as words at
+    [shift, shift + L), per target ORed into its fixed words, the core,
+    the compare of every digest word; the (lane, target) hits in lane
+    then target order."""
     eng = _check_salted(variant, lut, radices, base_digits, n_valid, shift,
                         rows, hit_capacity, batch)
-    cand = decode_lut(lut, radices, base_digits, batch)
-    words = candidate_words(cand, shift, not eng.little_endian)
+    m = salted_geometry(variant)[0] // 4
+    words = salted_candidate_words(variant, lut, radices, base_digits, batch,
+                                   shift)
     lane = torch.arange(batch, device=lut.device)
     found = torch.stack(
-        [cmp_ops.compare_single(eng.digest_packed(words | row[:16]),
-                                row[16:16 + eng.digest_words])
+        [cmp_ops.compare_single(salted_row_digest(variant, words, row),
+                                row[m:m + eng.digest_words])
          for row in rows], dim=1) & (lane < n_valid)[:, None]
     return cmp_ops.compact_group_hits(found, hit_capacity)
 
@@ -524,18 +648,21 @@ def make_cuda_multi_crack_step(name: str, gen, table: cmp_ops.TargetTable,
 
 
 def make_salted_crack_step(variant: str, gen, group, batch: int,
-                           hit_capacity: int = 64, device="cuda"):
+                           hit_capacity: int = 64, device="cuda",
+                           byte_map=None):
     """The salted worker's step for one group: ``group`` its targets'
     (salt bytes, digest uint32 words) (``salted_groups``), their rows on
-    ``device`` once, here.  step(base_digits, n_valid) -> (count
+    ``device`` once, here; ``byte_map`` (uint8[256], e.g. ``UPPER``)
+    maps the job's charset tables before they go there, so the hashed
+    candidate is the mapped one while the worker decodes its hits from
+    the generator's own charsets.  step(base_digits, n_valid) -> (count
     int32[1], lanes int32[cap], tpos int32[cap], tcount int32[T])."""
-    algo, order = split_salted(variant)
-    if not salted_eligible(algo, order, gen, [len(s) for s, _ in group]):
+    if not variant_eligible(variant, gen, [len(s) for s, _ in group]):
         raise ValueError(f"mask job not eligible for the salted kernel "
                          f"{variant!r}: length {gen.length}")
     cuda_mask.check_batch(batch)
     device = torch.device(device)
-    lut = gen.charset_lut(device)
+    lut = mapped_lut(gen, device, byte_map)
     radices = gen.radices
     rows, shift = salted_table(variant, gen.length, group, device)
 

@@ -1,7 +1,8 @@
 """The fused mask -> hash -> compare kernel: the counterpart of the JAX
 package's ops/pallas_mask.py for the md5, ntlm (md4), sha1, sha256,
 sha512 and sha384 cores, with one target or a list of up to
-MAX_TARGETS, and the window offset.
+MAX_TARGETS, and the window offset; and the sha224 and mysql323 cores,
+which the reference runs on XLA only.
 
 Per candidate the kernel (csrc/mask.cu) decodes the mixed-radix
 keyspace index into charset bytes, packs one padded block, runs the
@@ -20,6 +21,9 @@ steps the last one a lane (``RUN``, ``run_count``, ``run_lanes``).
   (ops/compare.make_target_table) on the card.  Outputs ``count``,
   ``lanes``, ``tpos int32[hit_capacity]`` (each hit's position in the
   sorted table) and ``n_maybe int32[1]``, the prefilter's survivors.
+  A core of fewer than 3 digest words (mysql323) has no Bloom sets
+  (their 8 probes read words 0-2): its lists run the probe on one card
+  too.
 
 The window offset: a launch covers the window lanes [offset, n_valid)
 of a ``batch``-lane step (n_valid <= offset + batch), decodes each from
@@ -69,18 +73,26 @@ RUN = 32
 REPLACES = "dprf_tpu/ops/pallas_mask.py:733"
 SOURCE = "dprf_tpu_torch/csrc/mask.cu"
 
-#: the core id of csrc/mask.cu's C interface, by device engine name.
-#: The engine class holds the rest of a core's facts: packing
+#: the core id of csrc/mask.cu's C interface, by the device engine's
+#: ``core`` (its name, or the core a line format rides on: ``ldap-sha``
+#: on sha1).  The engine class holds the rest of a core's facts: packing
 #: (``little_endian``, ``widen_utf16``, ``pack``), ``digest_words``,
 #: ``max_candidate_len`` and the plain ``digest_packed``.
 KERNEL_CORES = {"md5": 0, "ntlm": 1, "sha1": 2, "sha256": 3, "sha512": 4,
-                "sha384": 5}
+                "sha384": 5, "sha224": 6, "mysql323": 7}
 
 #: the compare modes of csrc/mask.cu's C interface: one target, the
 #: per-set Bloom prefilter, the blocked probe; and each one's suffix of
 #: the instantiation's name
 SINGLE, SETS, PROBE = 0, 1, 2
 MODES = {SINGLE: "", SETS: "_multi", PROBE: "_probe"}
+
+
+def core_modes(core: str) -> tuple:
+    """The compare modes a core is instantiated in: all three, but no
+    Bloom sets for mysql323, whose 2 digest words the sets' 8 probes of
+    12 bits (words 0-2) would read past."""
+    return (SINGLE, PROBE) if core == "mysql323" else tuple(MODES)
 
 #: the blocked probe's false-positive budget a candidate and its cap in
 #: groups of 128 blocks (the reference's DPRF_PALLAS_PROBE_FP default
@@ -93,26 +105,28 @@ PROBE_MAX_BLOCK_BITS = (PROBE_GROUPS * 128).bit_length() - 1
 @functools.lru_cache(maxsize=None)
 def device_engine(engine_name: str, device="cpu"):
     """The device engine of ``engine_name`` (an alias such as ``sha-1``
-    included), if the kernel has its core; its tensors on ``device``."""
+    included), if the kernel has its core (``eng.core``); its tensors on
+    ``device``."""
     from dprf_tpu_torch.engines import engine_names, get_engine
     if engine_name.lower() in engine_names("cuda"):
         eng = get_engine(engine_name, "cuda", torch_device=device)
-        if eng.name in KERNEL_CORES:
+        if getattr(eng, "core", None) in KERNEL_CORES:
             return eng
     raise ValueError(f"no mask kernel core for engine {engine_name!r} "
                      f"(cores: {', '.join(KERNEL_CORES)})")
 
 
-def kernel_name(engine_name: str, mode: int) -> str:
+def kernel_name(core: str, mode: int) -> str:
     """The instantiation's name: ``<core>_mask``, ``<core>_mask_multi``
     or ``<core>_mask_probe`` for mode SINGLE, SETS or PROBE (False and
     True name the first two)."""
-    return f"{engine_name}_mask" + MODES[int(mode)]
+    return f"{core}_mask" + MODES[int(mode)]
 
 
 #: launches of each kernel instantiation in this process, by
 #: ``kernel_name`` (tests and chip_smoke.py reset them and read them)
-launches = {kernel_name(n, m): 0 for n in KERNEL_CORES for m in MODES}
+launches = {kernel_name(n, m): 0 for n in KERNEL_CORES
+            for m in core_modes(n)}
 
 
 def reset_launches() -> None:
@@ -311,7 +325,11 @@ def _check_tensor(name: str, t: torch.Tensor, dim: int, device) -> None:
 
 def check_tables(eng, bloom_rows: torch.Tensor,
                  table: torch.Tensor, device) -> None:
-    """The per-set Bloom rows and the sorted target table."""
+    """The per-set Bloom rows and the sorted target table, for a core
+    instantiated with the sets."""
+    if SETS not in core_modes(eng.core):
+        raise ValueError(f"{eng.name}: no Bloom sets for {eng.digest_words}"
+                         " digest words; its lists run the probe")
     _check_tensor("bloom rows", bloom_rows, 2, device)
     check_table(eng, table, device)
     n = table.shape[0]
@@ -439,14 +457,15 @@ def shared_bytes(length: int, n_sets: int = 0,
 
 
 @functools.cache
-def blocks_per_sm(engine_name: str, mode: int, smem: int) -> int:
-    """Resident blocks per SM for one instantiation (compare ``mode``,
-    or a bool: multi target) at ``smem`` bytes, from the CUDA occupancy
-    calculator: the Bloom rows or the probe bitmap of a long list leave
-    room for fewer blocks than the 8 of 256 threads an SM holds."""
+def blocks_per_sm(core: str, mode: int, smem: int) -> int:
+    """Resident blocks per SM for one instantiation (its core, compare
+    ``mode``, or a bool: multi target) at ``smem`` bytes, from the CUDA
+    occupancy calculator: the Bloom rows or the probe bitmap of a long
+    list leave room for fewer blocks than the 8 of 256 threads an SM
+    holds."""
     blocks = ctypes.c_int(0)
     rc = _library().dprf_mask_blocks_per_sm(
-        KERNEL_CORES[engine_name], int(mode), THREADS, smem,
+        KERNEL_CORES[core], int(mode), THREADS, smem,
         ctypes.byref(blocks))
     if rc != 0 or blocks.value < 1:
         raise RuntimeError(f"occupancy query failed: CUDA error {rc}, "
@@ -562,12 +581,12 @@ def _launch(eng, mode: int, lut: torch.Tensor,
             smem: int, hit_capacity: int, offset: int, out):
     require_cuda(lut)
     out = launch_template(_library().dprf_mask_launch,
-                          KERNEL_CORES[eng.name], mode, eng.name, lut,
+                          KERNEL_CORES[eng.core], mode, eng.name, lut,
                           radices, base_digits, n_valid, target,
                           margs, hit_capacity,
-                          blocks_per_sm(eng.name, mode, smem), offset=offset,
+                          blocks_per_sm(eng.core, mode, smem), offset=offset,
                           out=out)
-    launches[kernel_name(eng.name, mode)] += 1
+    launches[kernel_name(eng.core, mode)] += 1
     return out
 
 
@@ -921,10 +940,27 @@ def make_cuda_multi_crack_step(engine: str, gen,
     """The worker's multi-target step: step(base_digits, n_valid) ->
     (count int32[1], lanes int32[cap], tpos int32[cap], n_maybe
     int32[1]); tpos indexes the sorted table (map it through
-    ``table.order``).  A window as ``make_cuda_mask_crack_step``'s."""
+    ``table.order``).  A window as ``make_cuda_mask_crack_step``'s.  The
+    Bloom sets, or the blocked probe for a core without them."""
     _check_step(engine, gen, table.num_targets, batch)
+    if SETS not in core_modes(device_engine(engine).core):
+        return probe_step(engine, gen, table, batch, hit_capacity, device)
     return multi_step(mask_crack_multi, engine, gen, table, batch,
                       hit_capacity, device)
+
+
+def probe_step(engine: str, gen, table: cmp_ops.TargetTable, batch: int,
+               hit_capacity: int, device):
+    """A list's step over the blocked probe (arguments as
+    ``mask_crack_probe``): the bitmap at PROBE_FP (``probe_rows``) and
+    the sorted table go to ``device`` once, here.  A window as
+    ``single_step``'s."""
+    device = torch.device(device)
+    rows, block_bits, k = probe_rows(table.words)
+    words = torch.as_tensor(rows.view(np.int32), device=device)
+    return _list_step(mask_crack_probe, engine, gen,
+                      (words, block_bits, k, table.tensor(device)),
+                      batch, hit_capacity, device)
 
 
 def make_shard_mask_compute(engine: str, gen, target, batch_per_device: int,
@@ -942,9 +978,5 @@ def make_shard_mask_compute(engine: str, gen, target, batch_per_device: int,
                                          batch_per_device, hit_capacity,
                                          device)
     _check_step(engine, gen, target.num_targets, batch_per_device)
-    device = torch.device(device)
-    rows, block_bits, k = probe_rows(target.words)
-    words = torch.as_tensor(rows.view(np.int32), device=device)
-    return _list_step(mask_crack_probe, engine, gen,
-                      (words, block_bits, k, target.tensor(device)),
-                      batch_per_device, hit_capacity, device)
+    return probe_step(engine, gen, target, batch_per_device, hit_capacity,
+                      device)

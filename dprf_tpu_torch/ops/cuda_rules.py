@@ -68,10 +68,11 @@ MIN_WAVES = 8
 REPLACES = "dprf_tpu/ops/pallas_rules.py:442"
 SOURCE = "dprf_tpu_torch/csrc/rules.cu"
 
-#: the core id of csrc/rules.cu's C interface, by device engine name: the
-#: 64-byte cores only.  The mask kernel's wider cores (sha512, sha384)
-#: have no rules instantiation, as the reference's rules kernel has none
-#: it can run, so their wordlist jobs are refused.
+#: the core id of csrc/rules.cu's C interface, by the device engine's
+#: ``core`` (``ldap-sha`` runs on sha1's): the 64-byte cores only.  The
+#: mask kernel's wider cores (sha512, sha384) have no rules
+#: instantiation, as the reference's rules kernel has none it can run,
+#: nor have sha224 and mysql323, so their wordlist jobs are refused.
 KERNEL_CORES = {"md5": 0, "ntlm": 1, "sha1": 2, "sha256": 3}
 
 #: opcodes the kernel interprets: all but PURGE (a compaction) and
@@ -81,9 +82,9 @@ SUPPORTED = frozenset(Opcode) - {Opcode.PURGE, Opcode.TITLE,
                                  Opcode.TITLE_SEP}
 
 
-def kernel_name(engine_name: str) -> str:
+def kernel_name(core: str) -> str:
     """The instantiation's name: ``<core>_rules``."""
-    return f"{engine_name}_rules"
+    return f"{core}_rules"
 
 
 #: launches of each kernel instantiation in this process, by
@@ -140,7 +141,7 @@ def rules_engine(engine_name: str, device="cpu"):
     """The device engine of ``engine_name`` if the rules kernel has its
     core; its tensors on ``device``."""
     eng = device_engine(engine_name, device)
-    if eng.name not in KERNEL_CORES:
+    if eng.core not in KERNEL_CORES:
         raise ValueError(f"no rules kernel core for engine {engine_name!r} "
                          f"(cores: {', '.join(KERNEL_CORES)})")
     return eng
@@ -256,27 +257,27 @@ def pad_rows(words: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(words, (0, row_bytes(max_len) - max_len))
 
 
-def _query(fn, engine_name: str, what: str) -> int:
+def _query(fn, core: str, what: str) -> int:
     value = ctypes.c_int(0)
-    rc = fn(KERNEL_CORES[engine_name], ctypes.byref(value))
+    rc = fn(KERNEL_CORES[core], ctypes.byref(value))
     if rc != 0:
         raise RuntimeError(f"{what} query failed: CUDA error {rc}")
     return value.value
 
 
 @functools.cache
-def shared_bytes(engine_name: str) -> int:
+def shared_bytes(core: str) -> int:
     """Dynamic shared memory of one block of an instantiation: its
     threads' word slots and its run's ops."""
-    return _query(_library().dprf_rules_shared_bytes, engine_name,
+    return _query(_library().dprf_rules_shared_bytes, core,
                   "shared memory")
 
 
 @functools.cache
-def blocks_per_sm(engine_name: str) -> int:
+def blocks_per_sm(core: str) -> int:
     """Resident blocks per SM for one instantiation, from the CUDA
     occupancy calculator."""
-    blocks = _query(_library().dprf_rules_blocks_per_sm, engine_name,
+    blocks = _query(_library().dprf_rules_blocks_per_sm, core,
                     "occupancy")
     if blocks < 1:
         raise RuntimeError(f"occupancy query: {blocks} blocks per SM")
@@ -353,7 +354,7 @@ def rules_kernel(engine: str, words: torch.Tensor, lens: torch.Tensor,
     n_rules = bytecode.shape[0]
     if run is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        run = rule_runs(n_valid, n_rules, sms * blocks_per_sm(eng.name))
+        run = rule_runs(n_valid, n_rules, sms * blocks_per_sm(eng.core))
     if not 1 <= run <= min(n_rules, MAX_RUN):
         raise ValueError(f"run {run} outside 1..{min(n_rules, MAX_RUN)}")
     target = list(target) + [0] * (8 - len(target))
@@ -362,14 +363,14 @@ def rules_kernel(engine: str, words: torch.Tensor, lens: torch.Tensor,
                                               for w in target)), run)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _library().dprf_rules_launch(
-        KERNEL_CORES[eng.name], device.index, words.data_ptr(),
+        KERNEL_CORES[eng.core], device.index, words.data_ptr(),
         lens.data_ptr(), bytecode.data_ptr(), n_ops.data_ptr(),
         ctypes.byref(args), count.data_ptr(), lanes.data_ptr(),
         hit_capacity, launch_grid(n_valid, n_rules, run), THREADS, stream)
     if rc != 0:
-        raise RuntimeError(f"{kernel_name(eng.name)} kernel launch failed: "
+        raise RuntimeError(f"{kernel_name(eng.core)} kernel launch failed: "
                            f"CUDA error {rc}")
-    launches[kernel_name(eng.name)] += 1
+    launches[kernel_name(eng.core)] += 1
     return count, lanes
 
 

@@ -316,13 +316,55 @@ def _keccak(m, rate: int, out_words: int):
     return out
 
 
+def shl(x, n: int):
+    return Var("alu", 1, [x]) if isinstance(x, Var) else (x << n) & M32
+
+
+def _byte(m, q: int):
+    """Candidate byte q of big-endian message words: one PRMT (or SHF)
+    for a word that depends on the candidate."""
+    w, sh = m[q >> 2], 8 * (3 - (q & 3))
+    return Var("alu", 1, [w]) if isinstance(w, Var) else (w >> sh) & 0xFF
+
+
+def _mad(a, b, c):
+    """a * b + c: one IMAD."""
+    if any(isinstance(t, Var) for t in (a, b, c)):
+        return Var("fma", 1, [a, b, c])
+    return (a * b + c) & M32
+
+
+def _mysql323(m):
+    """MySQL's OLD_PASSWORD scan over the candidate's bytes, to the
+    length the bit length of word 15 gives (csrc/mask.cu,
+    ``Mysql323Core``): a step a byte, (nr & 63) + add, its product with
+    the byte plus nr << 8, the xor into nr; (nr2 << 8) ^ nr added to
+    nr2; the byte added to add.  The skip of a space or tab (its
+    compares and selects) is not counted here: ``mysql323_ops`` adds it
+    for the positions whose charset holds one.  Returns the two digest
+    words, each masked to 31 bits (a LOP3)."""
+    nr, nr2, acc = 1345345333, 0x12345671, 7
+    for q in range(int(m[15]) >> 3):
+        c = _byte(m, q)
+        nr = xor(nr, _mad(add(logic(lambda x: x & 63, nr), acc), c,
+                          shl(nr, 8)))
+        nr2 = add(nr2, xor(shl(nr2, 8), nr))
+        acc = add(acc, c)
+    return [logic(lambda x: x & 0x7FFFFFFF, nr),
+            logic(lambda x: x & 0x7FFFFFFF, nr2)]
+
+
 #: each core's rounds (no feed-forward) and its initial state, by
-#: device engine name (sha512/384: the eight 64-bit words)
+#: device engine core (sha512/384: the eight 64-bit words; mysql323's
+#: scan has no feed-forward and starts from its own constants)
 CORES = {"md5": (_md5, md5.INIT), "ntlm": (_md4, md4.INIT),
          "sha1": (_sha1, sha1.INIT), "sha256": (_sha256, sha256.INIT),
+         "sha224": (lambda m: _sha256(m, [int(v) for v in sha256.INIT224]),
+                    sha256.INIT224),
          "sha512": (_sha512, sha512.INIT512),
          "sha384": (functools.partial(_sha512, init=sha512.INIT384),
-                    sha512.INIT384)}
+                    sha512.INIT384),
+         "mysql323": (_mysql323, None)}
 
 
 def _engine(engine_name: str):
@@ -345,7 +387,7 @@ def state_words(engine_name: str, words) -> list:
     eng = _engine(engine_name)
     if is_sponge(eng):
         return _keccak(list(words), eng._rate, eng.digest_words)
-    return CORES[eng.name][0](list(words))
+    return CORES[eng.core][0](list(words))
 
 
 def tally(outputs) -> dict:
@@ -425,7 +467,7 @@ def ops_per_candidate(engine_name: str, length: int, multi: bool = False,
     bits, word offset and mask, shift the row word, test), and for
     each of ``maybes`` survivors per candidate a binary search of
     ceil(log2(n_targets + 1)) steps at 4 each plus a compare per digest
-    word.  A sponge has no feed-forward."""
+    word.  A sponge has no feed-forward, nor has mysql323's scan."""
     eng = _engine(engine_name)
     core = core_work(engine_name, length, 3 if multi else 1)
     dec = decode_work(length, run)
@@ -436,7 +478,39 @@ def ops_per_candidate(engine_name: str, length: int, multi: bool = False,
         return Work(alu + 1, add_, fma)
     search = int(np.ceil(np.log2(n_targets + 1)))
     return Work(alu + 5 * probes + maybes * (4 * search + eng.digest_words),
-                add_ + (0 if is_sponge(eng) else 3), fma)
+                add_ + (0 if no_feed_forward(eng) else 3), fma)
+
+
+def no_feed_forward(eng) -> bool:
+    """A sponge's squeezed words and mysql323's scan are the digest:
+    no feed-forward add."""
+    return is_sponge(eng) or eng.core == "mysql323"
+
+
+#: a byte's skip test and its selects in the mysql323 scan: two compares
+#: (a space, a tab) and three selects (nr, nr2, add)
+MYSQL323_SKIP = Work(alu=2 + 3, add=0, fma=0)
+
+
+def mysql323_ops(gen, probe: tuple = None, maybes: float = 0.0,
+                 n_targets: int = 1) -> Work:
+    """The least work of one mysql323 candidate of the mask generator
+    ``gen``: ``ops_per_candidate`` (one target) or ``probe_ops`` (a
+    list: ``probe`` = (fill, k) of this run's bitmap) over the scan of
+    ``_mysql323``, at the mask template's runs of lanes, plus the skip
+    test and its selects (``MYSQL323_SKIP``) for every position whose
+    charset holds a space or a tab: where none does, no lane skips and
+    the scan needs no test."""
+    from dprf_tpu_torch.ops.cuda_mask import lanes_a_run
+    run = lanes_a_run("mysql323", gen.radices)
+    if probe is None:
+        work = ops_per_candidate("mysql323", gen.length, run=run)
+    else:
+        work = probe_ops("mysql323", gen.length, *probe, maybes, n_targets,
+                         run)
+    skips = sum(1 for cs in gen.charsets
+                if 0x20 in bytes(cs) or 0x09 in bytes(cs))
+    return Work(work.alu + skips * MYSQL323_SKIP.alu, work.add, work.fma)
 
 
 def probe_fill(words: np.ndarray) -> float:
@@ -473,7 +547,7 @@ def probe_ops(engine_name: str, length: int, fill: float, k: int,
 
     reach = [fill ** j for j in range(k)]
     search = int(np.ceil(np.log2(n_targets + 1)))
-    feed = 0 if is_sponge(eng) else 2 + 2 * fill
+    feed = 0 if no_feed_forward(eng) else 2 + 2 * fill
     dec = decode_work(length, run)
     return Work(words("alu") + dec.alu + 3 + 4 * sum(reach)
                 + maybes * (4 * search + eng.digest_words),
@@ -589,22 +663,23 @@ def nested_ops(name: str, length: int, multi: bool = False,
 
 def salted_ops(variant: str, length: int, salt: bytes,
                group: int = 1) -> Work:
-    """The least work of one hash of a salted core
-    (``cuda_ext.SALTED_NAMES``), one (candidate, target) pair of a
+    """The least work of one hash of a salted variant
+    (``cuda_ext.SALTED_VARIANTS``), one (candidate, target) pair of a
     ``length``-position mask and a target's ``salt``, in a launch whose
     ``group`` targets share each candidate's decode (csrc/salted.cuh):
     the core up to digest word 0 with the target's salt, padding and bit
     length folded as constants and the candidate's words -- [0, L) for
-    ``ps``, [S, S + L) for ``sp`` -- variable, and one compare per pair;
-    the decode once per candidate, 1 / ``group`` of it a pair.  The
-    kernel's move of an ``sp`` candidate by S bytes is not counted: it
-    is not needed work."""
+    ``ps``, [S, S + L) for ``sp``, [0, 2L) for a UTF-16LE variant --
+    variable, and one compare per pair; the decode once per candidate,
+    1 / ``group`` of it a pair.  The kernel's move of an ``sp``
+    candidate by S bytes is not counted: it is not needed work."""
     from dprf_tpu_torch.ops import cuda_ext
     algo, order = cuda_ext.split_salted(variant)
+    width = cuda_ext.salted_geometry(variant)[3]
     first = 0 if order == "ps" else len(salt)
     block = cuda_ext.salted_block(variant, length, bytes(salt))
-    core = _core_work(algo, block,
-                      range(first // 4, (first + length - 1) // 4 + 1), 1)
+    core = _core_work(algo, block, range(
+        first // 4, (first + width * length - 1) // 4 + 1), 1)
     share = length / group
     return Work(core["alu"] + 1 + share, core["add"] + share,
                 core["fma"] + 2 * share)

@@ -13,15 +13,19 @@ import numpy as np
 import torch
 
 
-def pad_const(length: int, big_endian: bool) -> np.ndarray:
+def pad_const(length: int, big_endian: bool, block: int = 64) -> np.ndarray:
     """Static MD padding for a fixed message length: 0x80 marker + 64-bit
-    bit count (LE for MD4/MD5, BE for SHA-1/SHA-256)."""
-    if length > 55:
-        raise ValueError(
-            f"single-block packing needs length <= 55, got {length}")
-    const = np.zeros(64, dtype=np.uint8)
+    bit count (LE for MD4/MD5, BE for SHA-1/SHA-256) in the last 8 bytes
+    of a 64-byte block, or of SHA-512's 128-byte block (``block``=128,
+    whose 128-bit count has its high half zero): messages of up to 55 or
+    111 bytes."""
+    limit = block - 1 - (8 if block == 64 else 16)
+    if length > limit:
+        raise ValueError(f"single-block packing needs length <= {limit}, "
+                         f"got {length}")
+    const = np.zeros(block, dtype=np.uint8)
     const[length] = 0x80
-    const[56:64] = np.frombuffer(
+    const[block - 8:block] = np.frombuffer(
         (length * 8).to_bytes(8, "big" if big_endian else "little"),
         dtype=np.uint8)
     return const
@@ -54,13 +58,7 @@ def pack_fixed_wide(cand: torch.Tensor, length: int) -> torch.Tensor:
     block as int32[B, 32]: big-endian words, the 0x80 marker at
     ``length`` and the 128-bit big-endian bit length (of which only the
     low 64 bits can be nonzero for a single block)."""
-    if length > 111:
-        raise ValueError(
-            f"single-block SHA-512 packing needs length <= 111, got {length}")
-    const = np.zeros(128, dtype=np.uint8)
-    const[length] = 0x80
-    const[120:128] = np.frombuffer((length * 8).to_bytes(8, "big"),
-                                   dtype=np.uint8)
+    const = pad_const(length, True, block=128)
     msg = torch.as_tensor(const, device=cand.device).repeat(cand.shape[0], 1)
     msg[:, :length] = cand
     return _words_from_bytes(msg, True)

@@ -1,7 +1,9 @@
-"""SHA-256 compression (FIPS 180-4) as vectorized int32 torch ops.
+"""SHA-256 and SHA-224 compression (FIPS 180-4) as vectorized int32
+torch ops.
 
 The round constants (fractional cube roots of the first 64 primes) and
-the initial state (fractional square roots of the first 8 primes) are
+the initial states (fractional square roots of the first 8 primes; for
+SHA-224 the second 32 fractional bits of those of primes 9-16) are
 computed here with exact integer arithmetic, not copied from a listing.
 """
 
@@ -40,6 +42,8 @@ K = np.array([_icbrt(p << 96) & 0xFFFFFFFF for p in _PRIMES],
              dtype=np.uint32)
 INIT = np.array([math.isqrt(p << 64) & 0xFFFFFFFF for p in _PRIMES[:8]],
                 dtype=np.uint32)
+INIT224 = np.array([math.isqrt(p << 128) & 0xFFFFFFFF
+                    for p in _PRIMES[8:16]], dtype=np.uint32)
 _K_I32 = as_i32(K)
 
 
@@ -76,3 +80,12 @@ def sha256_digest_words(words: torch.Tensor) -> torch.Tensor:
     """Single-block SHA-256: int32[B, 16] -> int32[B, 8] state words."""
     init = torch.tensor(as_i32(INIT), dtype=torch.int32, device=words.device)
     return sha256_compress(init.expand(words.shape[:-1] + (8,)), words)
+
+
+def sha224_digest_words(words: torch.Tensor) -> torch.Tensor:
+    """Single-block SHA-224: SHA-256 from its own initial state, cut to
+    7 words: int32[B, 16] -> int32[B, 7]."""
+    init = torch.tensor(as_i32(INIT224), dtype=torch.int32,
+                        device=words.device)
+    return sha256_compress(init.expand(words.shape[:-1] + (8,)),
+                           words)[..., :7]

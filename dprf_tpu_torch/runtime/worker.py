@@ -307,7 +307,7 @@ class CudaMaskWorker(MaskWorkerBase):
             else kernels.make_cuda_mask_crack_step
         self.step = make(engine.name, gen, tgt, batch, hit_capacity,
                          device=device)
-        if engine.name in cuda_mask.KERNEL_CORES:
+        if engine.core in cuda_mask.KERNEL_CORES:
             from dprf_tpu_torch.ops.superstep import max_inner
             self.window_batches = max_inner(batch, self.SUPER_CAP)
 

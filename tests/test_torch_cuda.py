@@ -862,3 +862,105 @@ def test_sharded_worker_across_cards(tmp_path, capsys):
         f"{digests[i].hex()}:{gen.candidate(p).decode()}"
         for i, p in enumerate(plants))
     assert f"shards={n}" in captured.err and "rejected=0" in captured.err
+
+
+@pytest.mark.parametrize("engine, mode", [("sha224", 0), ("sha224", 1),
+                                          ("sha224", 2), ("mysql323", 0),
+                                          ("mysql323", 2)])
+def test_slice_l_mask_cores_match_plain(engine, mode):
+    """sha224 and mysql323, the mask template's slice L cores, at batch
+    2^20 over ?a^5 (spaces included: a mysql323 plant's other
+    arrangements collide, counted alike): one target, the Bloom sets or
+    the blocked probe (mysql323 has no sets) over 1,000 targets, hits at
+    the first lane and the last valid lane of a partial batch."""
+    _need_card()
+    batch, gen = 1 << 20, MaskGenerator("?a" * 5)
+    lut = gen.charset_lut("cuda")
+    rng = np.random.default_rng(len(engine) + mode)
+    start = int(rng.integers(0, gen.keyspace // batch - 1)) * batch
+    n_valid = batch - 13
+    plants = [start, start + n_valid - 1]
+    oracle = get_engine(engine)
+    head = (engine, lut, gen.radices, gen.digits(start), n_valid)
+    le = False
+    if mode == 0:
+        target = [int(w) for w in np.frombuffer(
+            oracle.hash_batch([gen.candidate(plants[1])])[0], ">u4")]
+        args = (*head, target, 4096, batch)
+        kernel, plain = cuda_mask.mask_kernel, cuda_mask.mask_plain
+    else:
+        digests = oracle.hash_batch([gen.candidate(p) for p in plants]
+                                    + [b"%09d" % i for i in range(998)])
+        table = make_target_table(digests, le)
+        words = table.tensor("cuda")
+        if mode == 1:
+            rows = torch.as_tensor(bloom.bloom_tables(
+                table.original_words()).view(np.int32), device="cuda")
+            args = (*head, rows, words, 4096, batch)
+            kernel, plain = cuda_mask.mask_multi_kernel, \
+                cuda_mask.mask_multi_plain
+        else:
+            bits, block_bits, k = cuda_mask.probe_rows(table.words)
+            args = (*head, torch.as_tensor(bits.view(np.int32),
+                                           device="cuda"),
+                    block_bits, k, words, 4096, batch)
+            kernel, plain = cuda_mask.mask_probe_kernel, \
+                cuda_mask.mask_probe_plain
+    key = cuda_mask.kernel_name(engine, mode)
+    launches = cuda_mask.launches[key]
+    got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_mask.launches[key] == launches + 1
+
+    def flat(out):
+        tpos = out[2].tolist() if mode else [0] * out[1].shape[0]
+        return (int(out[0].item()), sorted(
+            (int(a), int(b)) for a, b in zip(out[1].tolist(), tpos)
+            if a >= 0), int(out[3].item()) if mode else 0)
+
+    assert flat(got) == flat(want)
+    assert n_valid - 1 in [lane for lane, _ in flat(got)[1]]
+
+
+@pytest.mark.parametrize("variant, engine", [
+    ("sha512-ps", "sha512-ps"), ("sha512-sp", "sha512-sp"),
+    ("sha1-ps-utf16", "mssql2005"), ("sha1-ps-utf16", "mssql2000"),
+    ("sha512-ps-utf16", "mssql2012")])
+def test_slice_l_salted_variants_match_plain(variant, engine):
+    """The salted kernel's wide and UTF-16LE variants on ?l^5 at batch
+    2^18 (mssql2000 on uppercase-mapped charset tables), grouped as the
+    worker groups them (sha512 salts of 0, 4 and 32 bytes; MSSQL's 4):
+    hits at the first lane and the last valid lane and one just past
+    it, count, (lane, target) pairs and per-target counts equal to the
+    plain version's and to the plants."""
+    _need_card()
+    from dprf_tpu_torch.ops import cuda_ext
+    batch, gen = 1 << 18, MaskGenerator("?l" * 5)
+    dev = get_engine(engine, "cuda")
+    lut = cuda_ext.mapped_lut(gen, "cuda", dev.byte_map)
+    oracle = get_engine(engine)
+    rng = np.random.default_rng(31)
+    start, n_valid = batch, batch - 9
+    targets, want = [], []
+    for n in ((4,) if dev.widen else (0, 4, 32)):
+        for lane in (0, n_valid - 1, n_valid):
+            salt = bytes(rng.integers(0, 256, n, dtype=np.uint8))
+            d = oracle.hash_batch([gen.candidate(start + lane)],
+                                  params={"salt": salt})[0]
+            if lane < n_valid:
+                want.append((lane, len(targets)))
+            targets.append((salt, [int(w) for w in np.frombuffer(d, ">u4")]))
+    got = []
+    for idx in cuda_ext.salted_groups(variant, [t[0] for t in targets]):
+        rows, shift = cuda_ext.salted_table(
+            variant, 5, [targets[i] for i in idx], "cuda")
+        args = (variant, lut, gen.radices, gen.digits(start), n_valid, shift,
+                rows, 64, batch)
+        launches = cuda_ext.launches[f"{variant}_group"]
+        k = _group_hits(cuda_ext.salted_kernel(*args), idx)
+        p = _group_hits(cuda_ext.salted_plain(*args), idx)
+        torch.cuda.synchronize()
+        assert cuda_ext.launches[f"{variant}_group"] == launches + 1
+        assert k == p
+        got += k[1]
+    assert sorted(got) == sorted(want)

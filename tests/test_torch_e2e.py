@@ -82,13 +82,15 @@ def test_engines_and_keyspace(capsys):
     names = ("7z, bcrypt, keccak-224, keccak-256, keccak-384, keccak-512, "
              "keccak224, keccak256, keccak384, keccak512, krb5asrep, "
              "krb5asrep-aes, krb5asrep17, krb5asrep18, krb5pa, krb5pa17, "
-             "krb5pa18, krb5tgs, krb5tgs-aes, krb5tgs17, krb5tgs18, "
-             "ldap-smd5, ldap-ssha, md5, md5(md5), md5(sha1), md5-ps, md5-sp, "
-             "mysql41, ntlm, oracle-11g, oracle11, pdf, pmkid, postgres, "
-             "postgres-md5, sevenzip, sha-1, sha-256, sha-384, sha-512, sha1, "
-             "sha1(md5), sha1(sha1), sha1-ps, sha1-sp, sha256, sha256(md5), "
-             "sha256(sha1), sha256-ps, sha256-sp, sha3, sha3-224, sha3-256, "
-             "sha3-384, sha3-512, sha384, sha512, ssha, wpa2-pmkid")
+             "krb5pa18, krb5tgs, krb5tgs-aes, krb5tgs17, krb5tgs18, ldap-md5, "
+             "ldap-sha, ldap-smd5, ldap-ssha, ldap-ssha512, md5, md5(md5), "
+             "md5(sha1), md5-ps, md5-sp, mssql2000, mssql2005, mssql2012, "
+             "mssql2014, mysql-old, mysql323, mysql41, ntlm, oracle-11g, "
+             "oracle11, pdf, pmkid, postgres, postgres-md5, sevenzip, sha-1, "
+             "sha-256, sha-384, sha-512, sha1, sha1(md5), sha1(sha1), sha1-ps, "
+             "sha1-sp, sha224, sha256, sha256(md5), sha256(sha1), sha256-ps, "
+             "sha256-sp, sha3, sha3-224, sha3-256, sha3-384, sha3-512, sha384, "
+             "sha512, sha512-ps, sha512-sp, ssha, ssha512, wpa2-pmkid")
     assert _run(port_main, ["engines"], capsys) == \
         (0, f"cpu: {names}\ncuda: {names}\n")
     assert _run(port_main, ["keyspace", "?l?l?l?l?l?l"], capsys) == \

@@ -275,10 +275,10 @@ def test_batch_rounds_to_whole_waves_on_a_card(monkeypatch, wave, want):
 
 
 def test_engine_names_of_the_slice():
-    """60 names on cuda and on the port's cpu, the same set, the three
-    of slice F3 among them, every one a name of the reference's device
-    engines."""
+    """73 names on cuda and on the port's cpu (60 through slice K3, 13
+    more since slice L), the same set, the three of slice F3 among them,
+    every one a name of the reference's device engines."""
     cuda, cpu = set(engine_names("cuda")), set(engine_names("cpu"))
-    assert cuda == cpu and len(cuda) == 60
+    assert cuda == cpu and len(cuda) == 73
     assert SLICE_NAMES <= cuda
     assert cuda <= set(ref_engine_names("jax"))
