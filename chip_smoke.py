@@ -284,7 +284,40 @@ card, and holds every kernel against its plain PyTorch version:
     (ops/opcount.ops_per_candidate, probe_ops, mysql323_ops,
     salted_ops), its plain version and the SM clock sampled over the
     phase;
-38. prints the kernels line (a kernel timed with the SM clock sampled
+38. slice M, target lists of any length (csrc/mask.cu's bulk probe,
+    mode 3, ``<core>_mask_bulk`` for all eight cores; the rules kernel's
+    lists, ``<core>_rules_probe`` and ``<core>_rules_bulk``; their pins
+    in ``CENSUS_M``): every bulk instantiation against its plain version
+    at 2^24 and 10^5 targets (planted at the list's first, last and
+    random positions; lanes at a window offset, the last valid lane,
+    one past it), ntlm in the host-verify layout (max_bytes 256 KiB);
+    every list instantiation of the rules kernel at 2^18 words x best64
+    (1,000 targets for the probe, 10^5 for the bulk, md5's host-verify
+    layout), count, (lane, table position) pairs and n_maybe equal;
+39. md5_mask_bulk and ntlm_mask_bulk alone at 10^4, 10^5, 10^6 and 10^7
+    random targets (plants at the first, last and a random list
+    position found): ms a launch of 2^24 and the flat ratio; the Bloom
+    sets, the shared-memory probe and the bulk probe at 1,024, 2,048,
+    4,096 and 8,192 targets (``cuda_mask.N_BULK``'s crossover);
+40. the host-verify layout through ``crack --device cuda`` (ntlm, 10^5
+    targets, the byte budget forced to 512 KiB, a 2^28 window of
+    ?a^7): every survivor confirmed by the oracle, ``rejected=0``;
+41. config 2 at bulk size: ``crack --engine ntlm ?a^7 --targets-file``
+    of 10^6 lines over 2^32 (8 planted), its set-up (parse, table and
+    bitmap) and loop times; every other bulk instantiation through the
+    CLI at 10^5 targets (2^28 of ?a^7; mysql323 the whole ?l^6);
+42. config 3 against lists: sha256 x best64 over the 2^20 words at 1,000
+    and 10^5 targets, ntlm at 10^6; md5 and sha1 at 1,000 and 10^5 and
+    ntlm at 1,000 over 2^16 words; each path with every launch count
+    set to 0 just before it and read just after: only its
+    instantiation, once per word window;
+43. dense hits: 200 plants in one loop window of md5 ?l^6 at 10^5
+    targets and ``--hit-cap 8``: the window is relaunched on the card
+    with a buffer of its count, never rescanned by the oracle;
+44. times each new instantiation at its main path's list beside its
+    bound (``opcount.bulk_ops`` / ``rules_list_ops`` and
+    ``bulk_bytes``), its plain version and the SM clock;
+45. prints the kernels line (a kernel timed with the SM clock sampled
     also carries the clock, ``sm_mhz``, and its bound at that clock)
     and, last, the device line.
 
@@ -584,6 +617,49 @@ CENSUS_L = {
     "sha512-ps-utf16_group": (97, 6040)}
 
 
+#: slice M, target lists of any length: the bulk probe's cores (every
+#: core of csrc/mask.cu), the lists of its checks against the plain
+#: version and of the other cores' CLI paths, config 2 at bulk size
+#: (10^6 NTLM lines), the kernel alone from 10^4 to 10^7 targets, the
+#: list lengths of the sets / probe / bulk crossover, the plants of the
+#: dense-hit window, and the rules kernel's CLI paths (engine, words,
+#: targets, compare mode 2 the shared-memory probe or 3 the bulk probe)
+M_MASK_CORES = ("md5", "ntlm", "sha1", "sha256", "sha512", "sha384",
+                "sha224", "mysql323")
+M_DIGEST_BYTES = {"md5": 16, "ntlm": 16, "sha1": 20, "sha256": 32,
+                  "sha512": 64, "sha384": 48, "sha224": 28, "mysql323": 8}
+M_CHECK_TARGETS = 10 ** 5
+M_CONFIG2_TARGETS = 10 ** 6
+M_FLAT_TARGETS = (10 ** 4, 10 ** 5, 10 ** 6, 10 ** 7)
+M_CROSS_TARGETS = (1024, 2048, 4096, 8192)
+M_DENSE_PLANTS = 200
+M_RULE_PATHS = [("sha256", CONFIG3_WORDS, 1000, 2),
+                ("sha256", CONFIG3_WORDS, 10 ** 5, 3),
+                ("ntlm", CONFIG3_WORDS, 10 ** 6, 3),
+                ("md5", OTHER_WORDS, 1000, 2), ("md5", OTHER_WORDS, 10 ** 5, 3),
+                ("sha1", OTHER_WORDS, 1000, 2),
+                ("sha1", OTHER_WORDS, 10 ** 5, 3),
+                ("ntlm", OTHER_WORDS, 1000, 2)]
+M_KERNELS = [f"{e}_mask_bulk" for e in M_MASK_CORES] + [
+    f"{e}_rules_{m}" for e in ("md5", "ntlm", "sha1", "sha256")
+    for m in ("probe", "bulk")]
+#: the nvcc registers and SASS instruction count of slice M's
+#: instantiations (sm_90a, CUDA 12.8), pinned from their first build;
+#: none has a stack frame.  A bulk instantiation is its probe's but for
+#: the staging loop (mysql323's holds 6 more registers), a rules list
+#: instantiation its one-target one's registers and ~270 more
+#: instructions (the whole digest and the probe)
+CENSUS_M = {
+    "md5_mask_bulk": (40, 1808), "ntlm_mask_bulk": (40, 1112),
+    "sha1_mask_bulk": (48, 2112), "sha256_mask_bulk": (54, 2928),
+    "sha512_mask_bulk": (59, 7680), "sha384_mask_bulk": (58, 7672),
+    "sha224_mask_bulk": (54, 2928), "mysql323_mask_bulk": (38, 2488),
+    "md5_rules_probe": (32, 4784), "md5_rules_bulk": (32, 4672),
+    "ntlm_rules_probe": (32, 4424), "ntlm_rules_bulk": (32, 4312),
+    "sha1_rules_probe": (32, 5416), "sha1_rules_bulk": (32, 5304),
+    "sha256_rules_probe": (40, 7056), "sha256_rules_bulk": (40, 6944)}
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -671,12 +747,14 @@ def busy(torch, fn, seconds: float = 0.6, chunk: int = 8) -> tuple:
 
 def kname(engine: str, mode) -> str:
     """A mask instantiation's name: mode False / 0 one target, True / 1
-    the Bloom sets, 2 the blocked probe."""
-    return f"{engine}_mask" + ("", "_multi", "_probe")[int(mode)]
+    the Bloom sets, 2 the blocked probe, 3 the bulk probe."""
+    return f"{engine}_mask" + ("", "_multi", "_probe", "_bulk")[int(mode)]
 
 
-def rname(engine: str) -> str:
-    return f"{engine}_rules"
+def rname(engine: str, mode: int = 0) -> str:
+    """A rule instantiation's name: mode 0 one target, 2 a list's
+    shared-memory probe, 3 its bulk probe."""
+    return f"{engine}_rules" + {0: "", 2: "_probe", 3: "_bulk"}[int(mode)]
 
 
 def ename(chain: str, multi: bool) -> str:
@@ -711,7 +789,7 @@ def instance_of(mangled: str) -> str:
     if m:
         return f"{CPP_CORE[m.group(1)]}-{'sp' if m.group(2) == '1' else 'ps'}"\
             f"{'-utf16' if m.group(3) else ''}_group"
-    m = re.search(r"mask_kernelI(\w+?)L7Compare([012])E", mangled)
+    m = re.search(r"mask_kernelI(\w+?)L7Compare([0123])E", mangled)
     if m:
         args, multi = m.group(1), int(m.group(2))
         cores = [CPP_CORE[c] for c in re.findall(
@@ -728,8 +806,8 @@ def instance_of(mangled: str) -> str:
         else:
             chain = cores[0]
         return kname(chain, multi)
-    m = re.search(r"rules_kernelI\d+(\w+?Core)E", mangled)
-    return rname(CPP_CORE[m.group(1)]) if m else mangled
+    m = re.search(r"rules_kernelI\d+(\w+?Core)L7Compare([023])E", mangled)
+    return rname(CPP_CORE[m.group(1)], int(m.group(2))) if m else mangled
 
 
 def synthetic_words(n: int, length: int = 8) -> list:
@@ -806,6 +884,7 @@ class Smoke:
                          "pdf": 0})
         self.err.update({kname(e, PROBE): 0 for e in PROBE_CORES})
         self.err.update({k: 0 for k in L_KERNELS})
+        self.err.update({k: 0 for k in M_KERNELS})
         #: per instantiation: launches of the main path that runs it
         self.path_launches = {}
         #: configs 1 and 2 through the loop superstep: (wall s, windows,
@@ -1422,7 +1501,7 @@ def run(smoke, oracle4, words4) -> None:
                       | {rname(e) for e in RULE_CORES}
                       | {"krb5_group", "pbkdf2_kdf", "sevenzip_kdf",
                          "pdf_r2_40", "pdf_r3_40", "pdf_r3_128"}
-                      | set(L_KERNELS),
+                      | set(L_KERNELS) | set(M_KERNELS),
                       f"{kernel}: {line.strip()} (local memory)")
         census = _build.sass_census(src)
         for func, c in sorted(census.items(),
@@ -1436,7 +1515,8 @@ def run(smoke, oracle4, words4) -> None:
                 + ("same" if was == now else f"DIFFER, pinned {was}"))
             check(was is None or same.endswith("same"), f"{inst}{same}")
             if src in ("mask", "ext", "keccak", "bcrypt") and \
-                    inst not in GROUPED_KERNELS and inst not in L_KERNELS:
+                    inst not in GROUPED_KERNELS and inst not in L_KERNELS \
+                    and inst not in M_KERNELS:
                 pin = CENSUS_K2.get(inst)
                 same = "; the slice K2 pin: " + (
                     "same" if pin == now else f"DIFFER, pinned {pin}")
@@ -1454,6 +1534,11 @@ def run(smoke, oracle4, words4) -> None:
             if inst in L_KERNELS:
                 pin = CENSUS_L.get(inst)
                 same = "; the slice L pin: " + (
+                    "same" if pin == now else f"DIFFER, pinned {pin}")
+                check(same.endswith("same"), f"{inst}{same}")
+            if inst in M_KERNELS:
+                pin = CENSUS_M.get(inst)
+                same = "; the slice M pin: " + (
                     "same" if pin == now else f"DIFFER, pinned {pin}")
                 check(same.endswith("same"), f"{inst}{same}")
             if inst == "pmkid":
@@ -2270,8 +2355,9 @@ def run(smoke, oracle4, words4) -> None:
     f3_timing = slice_f3(smoke, cli, card, clock_mhz, sms)
     g_timing = slice_g(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
     l_timing = slice_l(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
+    m_timing_rows = slice_m(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
 
-    # 38. the kernels line, then the device line
+    # 45. the kernels line, then the device line
     kernels = []
     for engine, multi in INSTANCES:
         key = kname(engine, multi)
@@ -2371,6 +2457,15 @@ def run(smoke, oracle4, words4) -> None:
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "operations",
             "library_ms": None, **more})
+    for key in M_KERNELS:
+        ms, plain_ms, bound, bound_by, more = m_timing_rows[key]
+        mod = cuda_mask if "_mask_" in key else cuda_rules
+        kernels.append({
+            "name": key, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES, "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            **more})
     check(all(k["launches"] > 0 for k in kernels)
           and all(r["launches"] > 0 for r in
                   f3_timing["pdf"][4]["instantiations"].values()),
@@ -4451,6 +4546,637 @@ def slice_l(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
                     "card": card}))
     say(f"  phase 37: {time.perf_counter() - t_phase:.1f} s")
     return timing
+
+
+# ---- slice M: target lists of any length -----------------------------------
+
+def m_hex_lines(rows):
+    """uint8[N, size] digest bytes -> the file's bytes, a hex line each."""
+    import numpy as np
+    hexd = np.frombuffer(b"0123456789abcdef", np.uint8)
+    n, size = rows.shape
+    out = np.empty((n, 2 * size + 1), np.uint8)
+    out[:, 0:2 * size:2] = hexd[rows >> 4]
+    out[:, 1:2 * size:2] = hexd[rows & 15]
+    out[:, -1] = 10
+    return out.tobytes()
+
+
+def m_random_digests(rng, engine: str, n: int):
+    """n random digests of ``engine``'s size as uint8[n, size] (mysql323:
+    two 31-bit big-endian words, as its oracle gives)."""
+    import numpy as np
+    size = M_DIGEST_BYTES.get(engine, 16)
+    rows = rng.integers(0, 256, (n, size), dtype=np.uint8)
+    if engine == "mysql323":
+        rows[:, 0] &= 0x7F
+        rows[:, 4] &= 0x7F
+    return rows
+
+
+def m_list(smoke, engine: str, n: int, plants: list):
+    """A list of n targets: the planted candidates' digests at the first,
+    the last and random positions, random digests elsewhere.  Returns
+    (uint8[n, size] digest bytes, the plants' positions)."""
+    import numpy as np
+    rng = smoke.rng
+    digests = smoke.get_engine(engine).hash_batch(plants)
+    rows = m_random_digests(rng, engine, n)
+    pos = [0, n - 1] + [int(x) + 1 for x in rng.choice(
+        n - 2, max(0, len(plants) - 2), replace=False)]
+    for p, d in zip(pos, digests):
+        rows[p] = np.frombuffer(d, np.uint8)
+    return rows, pos[:len(plants)]
+
+
+def m_rows(engine: str, rows):
+    """Digest bytes uint8[N, size] -> the core's uint32 words."""
+    import numpy as np
+    dt = "<u4" if little_endian(engine) else ">u4"
+    return np.ascontiguousarray(rows).view(dt).astype(np.uint32)
+
+
+def m_bulk_case(smoke, engine, gen, lut, start, offset, nv, plants, n,
+                name, max_bytes=None):
+    """One bulk-probe case against its plain version at a window offset:
+    lanes [offset, nv) of a batch of 2^24 from ``start``, a list of n
+    targets with ``plants`` (keyspace indices) planted at the first, last
+    and random positions (``m_list``).  Count, (lane, table position)
+    pairs and n_maybe equal; the hits are the plants inside the window
+    (in the host-verify layout, ``max_bytes`` forced small, every
+    survivor is reported at position -1 and the plants among them).
+    Returns the probe table."""
+    from dprf_tpu_torch.targets import probe
+    cm, torch = smoke.cm, smoke.torch
+    rows, pos = m_list(smoke, engine, n, [gen.candidate(p) for p in plants])
+    pt = probe.build_probe_rows(m_rows(engine, rows), max_bytes=max_bytes,
+                                device="cuda")
+    state = cm.probe_tensors(pt, "cuda")
+    args = (engine, lut, gen.radices, gen.digits(start), nv, *state,
+            1 << 16, BATCH)
+    got = cm.mask_bulk_kernel(*args, offset=offset)
+    want = cm.mask_bulk_plain(*args, offset=offset)
+    torch.cuda.synchronize()
+
+    def flat(out):
+        pairs = sorted((int(a), int(b)) for a, b in
+                       zip(out[1].tolist(), out[2].tolist()) if a >= 0)
+        return int(out[0].item()), pairs, int(out[3].item())
+
+    (kc, kp, km), (pc, pp, pm) = flat(got), flat(want)
+    key = kname(engine, 3)
+    err = max([abs(kc - pc), abs(km - pm)]
+              + [abs(a - b) for x, y in zip(kp, pp) for a, b in zip(x, y)])
+    inside = [(p - start, i) for p, i in zip(plants, pos)
+              if offset <= p - start < nv]
+    if pt.table is None:
+        lanes = {lane for lane, _ in kp}
+        ok = kc == km and all(t == -1 for _, t in kp) and \
+            {lane for lane, _ in inside} <= lanes
+        hits = f"{kc} survivors at -1"
+    else:
+        got_hits = sorted((lane, int(pt.order[t])) for lane, t in kp)
+        ok = got_hits == sorted(inside)
+        hits = f"(lane, target)={got_hits}"
+    say(f"  {key} {name}: {pt.mode}, {pt.num_targets} targets, 2^"
+        f"{pt.block_bits} blocks, k {pt.k}: kernel count={kc} {hits} "
+        f"n_maybe={km} | plain count={pc} n_maybe={pm}")
+    check((kc, kp, km) == (pc, pp, pm), f"{key} {name}: kernel and plain "
+          "differ")
+    check(ok, f"{key} {name}: hits {kp}, expected the plants {inside}")
+    smoke.err[key] = max(smoke.err.get(key, 0), err)
+    return pt
+
+
+def m_rules_state(smoke, engine, mode, plants, n, max_bytes=None):
+    """A list of n targets for the rules kernel with ``plants``
+    (candidates) planted: PROBE, the sorted table and ``probe_rows``'
+    bitmap; BULK, a probe table.  Returns (state tensors, order, rows)."""
+    from dprf_tpu_torch.ops import compare as cmp_ops
+    from dprf_tpu_torch.targets import probe
+    torch, cm = smoke.torch, smoke.cm
+    rows, pos = m_list(smoke, engine, n, plants)
+    words = m_rows(engine, rows)
+    if mode == 2:
+        table = cmp_ops.table_from_rows(words)
+        bits, block_bits, k = cm.probe_rows(table.words)
+        return ((torch.as_tensor(bits.view(smoke.np.int32), device="cuda"),
+                 block_bits, k, table.tensor("cuda")), table.order, pos)
+    pt = probe.build_probe_rows(words, max_bytes=max_bytes, device="cuda")
+    return cm.probe_tensors(pt, "cuda"), pt.order, pos
+
+
+def m_rules_case(smoke, engine, mode, tables, gen, ws, nv, plant_idx, n,
+                 name, max_bytes=None):
+    """One list case of the rules kernel (mode 2 or 3) against its plain
+    version over words [ws, ws + nv) x every rule (``tables``: the padded
+    table, the plain one, lens, bytecode, n_ops; ``gen`` their
+    generator), a list of n targets with the candidates at keyspace
+    indices ``plant_idx`` planted.  Count, (lane, table position) pairs
+    and n_maybe equal; every lane of a planted candidate reported."""
+    from dprf_tpu_torch.ops import cuda_rules
+    torch = smoke.torch
+    plants = [gen.candidate(i) for i in plant_idx]
+    state, _, _ = m_rules_state(smoke, engine, mode, plants, n, max_bytes)
+    padded, plain, *rest = tables
+    tail = (ws, nv, *state, 1 << 16, RULE_BATCH)
+    got = cuda_rules.rules_list_kernel(engine, mode, padded, *rest, *tail,
+                                       max_len=gen.max_len)
+    want = cuda_rules.rules_list_plain(engine, mode, plain, *rest, *tail)
+    torch.cuda.synchronize()
+
+    def flat(out):
+        pairs = sorted((int(a), int(b)) for a, b in
+                       zip(out[1].tolist(), out[2].tolist()) if a >= 0)
+        return int(out[0].item()), pairs, int(out[3].item())
+
+    (kc, kp, km), (pc, pp, pm) = flat(got), flat(want)
+    key = rname(engine, mode)
+    err = max([abs(kc - pc), abs(km - pm)]
+              + [abs(a - b) for x, y in zip(kp, pp) for a, b in zip(x, y)])
+    gidx = {(ws + lane % RULE_BATCH) * gen.n_rules + lane // RULE_BATCH: t
+            for lane, t in kp}
+    planted = [i for i in plant_idx
+               if ws * gen.n_rules <= i < (ws + nv) * gen.n_rules]
+    say(f"  {key} {name}: {n} targets: kernel count={kc} n_maybe={km} "
+        f"planted indices {planted} among the hits: "
+        f"{all(i in gidx for i in planted)} | plain count={pc} "
+        f"n_maybe={pm}")
+    check((kc, kp, km) == (pc, pp, pm), f"{key} {name}: kernel and plain "
+          "differ")
+    check(all(i in gidx for i in planted), f"{key} {name}: a plant missed")
+    check(all(gen.candidate(i) in plants for i in gidx) or
+          state[3] is None, f"{key} {name}: a hit decodes to another "
+          "candidate")
+    smoke.err[key] = max(smoke.err.get(key, 0), err)
+
+
+def m_crack(smoke, cli, engine, argv, rows, want, window):
+    """crack --device cuda --targets-file over the hex lines of ``rows``
+    (uint8[N, size]): argv, the attack's options then its mask or
+    wordlist.  Every launch count is set to 0 just before it.  Checks the
+    printed lines and the potfile (``want``), rejected=0, rescans=0 and
+    tested=``window``; returns (summary, the log, wall s, launches)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "targets.txt")
+        pot = os.path.join(tmp, "job.potfile")
+        with open(path, "wb") as fh:
+            fh.write(m_hex_lines(rows))
+        *opts, attack_arg = argv
+        args = ["crack", "--device", "cuda", "--engine", engine, *opts,
+                attack_arg, "--targets-file", path, "--potfile", pot]
+        for mod in kernel_modules():
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(args)
+        wall = time.perf_counter() - t0
+        launches = {k: v for mod in kernel_modules()
+                    for k, v in mod.launches.items()}
+        pot_lines = open(pot).read().splitlines() \
+            if os.path.exists(pot) else []
+    out, err = out.getvalue(), err.getvalue()
+    check(rc == (0 if want else 1), f"crack {engine} exited {rc}: "
+          f"{err[-2000:]}")
+    check(sorted(out.splitlines()) == sorted(want),
+          f"crack {engine} printed {out.splitlines()}, expected {want}")
+    check(sorted(pot_lines) == sorted(want), f"potfile {pot_lines}")
+    finished = [ln for ln in err.splitlines() if "job finished" in ln]
+    check(len(finished) == 1 and "rejected=0" in finished[0]
+          and "rescans=0" in finished[0]
+          and f"found={len(want)}/{len(rows)}" in finished[0]
+          and f"tested={window}" in finished[0],
+          f"{engine}: job summary {finished}")
+    return finished[0], err, wall, launches
+
+
+def m_log(err: str, what: str, key: str) -> float:
+    """A float ``key=`` of the first log line holding ``what`` and it."""
+    line = next(ln for ln in err.splitlines()
+                if what in ln and f" {key}=" in ln)
+    return float(re.search(rf" {key}=([\d.]+)", line).group(1))
+
+
+def m_path(smoke, cli, engine, gen, n, key, n_launches, window=None,
+           skip=0, plants=3, argv=None, words=None):
+    """crack --device cuda of ``engine`` over a --targets-file of n
+    targets, ``plants`` candidates of the window planted at the list's
+    first, last and random positions: only ``key`` launches,
+    ``n_launches`` times (the worker's batches; None: whatever the
+    summary's batches say).  A wordlist job passes ``argv`` (its options
+    and the wordlist) and its generator.  Returns (summary, log, wall s)."""
+    from dprf_tpu_torch.runtime.potfile import encode_plain
+    rng = smoke.rng
+    window = window or gen.keyspace - skip
+    idx = [skip, skip + window - 1] + [
+        skip + int(x) for x in rng.integers(1, window - 1, plants - 2)]
+    cands = [gen.candidate(i) for i in idx]
+    cands = list(dict.fromkeys(c for c in cands if c is not None))
+    rows, _ = m_list(smoke, engine, n, cands)
+    digests = smoke.get_engine(engine).hash_batch(cands)
+    want = [f"{d.hex()}:{encode_plain(c)}" for d, c in zip(digests, cands)]
+    if argv is None:
+        argv = (["--skip", str(skip), "--limit", str(window)] if skip
+                else []) + [gen.mask]
+    summary, err, wall, launches = m_crack(smoke, cli, engine, argv, rows,
+                                           want, window)
+    batches = int(re.search(r" batches=(\d+)", summary).group(1))
+    want_n = batches if n_launches is None else n_launches
+    check(launches[key] == want_n == batches
+          and sum(launches.values()) == want_n,
+          f"{engine}: launches {launches}, {batches} batches, expected "
+          f"{want_n} of {key}")
+    smoke.path_launches.setdefault(key, launches[key])
+    say(f"    {engine} x {n} targets ({key}): {wall:.3f} s wall, "
+        f"{summary.split('job finished', 1)[1].strip()}")
+    return summary, err, wall
+
+
+def m_time(smoke, fn, args, kwargs=None) -> float:
+    """ms per launch of fn(*args, **kwargs), CUDA events over
+    TIMED_LAUNCHES launches after warm-up."""
+    kwargs = kwargs or {}
+    return smoke.time_launches(lambda: fn(*args, **kwargs), ())
+
+
+def slice_m(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
+    """Phases 38-44: slice M -- target lists of any length: the bulk
+    probe of csrc/mask.cu (mode 3, ``<core>_mask_bulk``) and the rules
+    kernel's lists (``<core>_rules_probe``, ``<core>_rules_bulk``).
+    Returns the timing rows (ms, plain ms, bound ms, bound_by, more) of
+    the new instantiations; their main paths' launches go to
+    smoke.path_launches."""
+    ctx = m_rules_ctx()
+    m_kernels(smoke, card, g6, lut6, g7, lut7, ctx)
+    m_flat(smoke, card, g7, lut7)
+    m_cli(smoke, cli, card, g6, g7, ctx)
+    return m_timing(smoke, card, rate_ops, g6, lut6, g7, lut7, ctx)
+
+
+def m_rules_ctx() -> dict:
+    """The rules kernel's inputs of slice M: config 3's word list (the
+    reference bench's 2^20 synthetic words), best64, and per max_len (27,
+    55) the generator of its first RULE_BATCH words and their tables on
+    the card (padded, plain, lens, bytecode, n_ops)."""
+    import torch
+
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    from dprf_tpu_torch.ops import cuda_rules
+    from dprf_tpu_torch.rules import load_rules
+    best64 = load_rules("best64")
+    words = synthetic_words(CONFIG3_WORDS)
+    ctx = {"best64": best64, "words": words, "gens": {}, "tables": {}}
+    for max_len in (27, 55):
+        gen = WordlistRulesGenerator(words[:RULE_BATCH], best64,
+                                     max_len=max_len)
+        buf, lens = gen.packed_words()
+        plain = torch.as_tensor(buf, device="cuda")
+        ctx["gens"][max_len] = gen
+        ctx["tables"][max_len] = (
+            cuda_rules.pad_rows(plain), plain,
+            torch.as_tensor(lens, device="cuda"),
+            *cuda_rules.rule_tables(best64, "cuda"))
+    return ctx
+
+
+def m_kernels(smoke, card, g6, lut6, g7, lut7, ctx) -> None:
+    """Phase 38: every bulk mask instantiation and every list
+    instantiation of the rules kernel against its plain version."""
+    rng = smoke.rng
+    rule_gens, rule_tables = ctx["gens"], ctx["tables"]
+    # 38. every new instantiation against its plain version
+    t_phase = time.perf_counter()
+    say(f"== 38. slice M kernels vs plain at a batch of 2^24 (exact "
+        f"equality); card: {card}")
+    offset, nv = 12347, BATCH - 17
+    for engine in M_MASK_CORES:
+        gen, lut = (g6, lut6) if engine == "mysql323" else (g7, lut7)
+        start = int(rng.integers(0, gen.keyspace // BATCH - 1)) * BATCH
+        late = int(rng.integers(offset + 1, nv - 1))
+        plants = [start + offset, start + offset + 1, start + late,
+                  start + nv - 1, start + nv, start + offset - 1]
+        m_bulk_case(smoke, engine, gen, lut, start, offset, nv, plants,
+                    M_CHECK_TARGETS, f"{gen.mask}, window [{offset}, {nv})")
+    start = int(rng.integers(0, g7.keyspace // BATCH - 1)) * BATCH
+    pt = m_bulk_case(smoke, "ntlm", g7, lut7, start, 0, BATCH,
+                     [start, start + 99, start + BATCH - 1], M_CHECK_TARGETS,
+                     "?a^7, the host-verify layout (max_bytes 256 KiB)",
+                     max_bytes=256 * 1024)
+    check(pt.table is None, "max_bytes did not force the host-verify layout")
+    for engine in RULE_CORES:
+        max_len = 27 if engine == "ntlm" else 55
+        gen = rule_gens[max_len]
+        nw = gen.n_words
+        ws, nvw = 3, nw - 5
+        plants = [gen.index_of(ws, 0), gen.index_of(ws + 1, RULE_8OPS),
+                  gen.index_of(ws + nvw - 1, N_RULES - 1),
+                  gen.index_of(int(rng.integers(ws, ws + nvw)),
+                               int(rng.integers(0, N_RULES)))]
+        for mode, n in ((2, N_TARGETS), (3, M_CHECK_TARGETS)):
+            m_rules_case(smoke, engine, mode, rule_tables[max_len], gen, ws,
+                         nvw, plants, n, f"words [{ws}, {ws + nvw}) x best64")
+    m_rules_case(smoke, "md5", 3, rule_tables[55], rule_gens[55], 0,
+                 RULE_BATCH, [rule_gens[55].index_of(7, 1)],
+                 M_CHECK_TARGETS, "the host-verify layout",
+                 max_bytes=256 * 1024)
+    say(f"  phase 38: {time.perf_counter() - t_phase:.1f} s")
+
+
+def m_flat(smoke, card, g7, lut7) -> dict:
+    """Phase 39: the bulk kernel alone from 10^4 to 10^7 targets (its
+    flat ratio), and the Bloom sets, the shared-memory probe and the bulk
+    probe at 1,024, 2,048, 4,096 and 8,192 targets (N_BULK's crossover)."""
+    import numpy as np
+    import torch
+
+    from dprf_tpu_torch.ops import cuda_mask, opcount
+    from dprf_tpu_torch.targets import probe
+    rng = smoke.rng
+    # 39. the bulk kernel alone: flat in the list's length
+    t_phase = time.perf_counter()
+    say(f"== 39. md5_mask_bulk and ntlm_mask_bulk alone at 10^4..10^7 "
+        f"random targets, ?a^7, 2^24 a launch (CUDA events, "
+        f"{TIMED_LAUNCHES} launches); the Bloom sets, the shared-memory "
+        f"probe and the bulk probe at 1,024-8,192 targets; card: {card}")
+    flat = {}
+    start = int(rng.integers(0, g7.keyspace // BATCH - 1)) * BATCH
+    head = (lut7, g7.radices, g7.digits(start), BATCH)
+    for engine in ("md5", "ntlm"):
+        times = {}
+        for n in M_FLAT_TARGETS:
+            t0 = time.perf_counter()
+            plants = [start + 5, start + BATCH // 2, start + BATCH - 1]
+            rows, pos = m_list(smoke, engine, n,
+                               [g7.candidate(p) for p in plants])
+            pt = probe.build_probe_rows(m_rows(engine, rows), device="cuda")
+            state = cuda_mask.probe_tensors(pt, "cuda")
+            built = time.perf_counter() - t0
+            args = (engine, *head, *state, 64, BATCH)
+            _, lanes, tpos, n_maybe = cuda_mask.mask_bulk_kernel(*args)
+            torch.cuda.synchronize()
+            hits = sorted((int(a), int(pt.order[b])) for a, b in
+                          zip(lanes.tolist(), tpos.tolist()) if a >= 0)
+            check(hits == sorted((p - start, i) for p, i in
+                                 zip(plants, pos)),
+                  f"{engine} x {n}: hits {hits}, plants at {pos}")
+            ms = m_time(smoke, cuda_mask.mask_bulk_kernel, args)
+            times[n] = ms
+            bitmap = 64 << pt.block_bits
+            say(f"  {kname(engine, 3)} x {n:>8}: {ms:.4f} ms; bitmap "
+                f"{bitmap:,} B ({bitmap / opcount.L2_BYTES:.1%} of L2), "
+                f"table {pt.nbytes - bitmap:,} B, k {pt.k}, fp "
+                f"{pt.fp_est:.2e}, n_maybe {int(n_maybe.item())}; plants "
+                f"at list positions {pos} found; built in {built:.2f} s")
+            del state, args
+        ratio = max(times.values()) / min(times.values())
+        flat[engine] = {"ms": times, "flat_ratio": ratio}
+        say(f"  {engine}: flat_ratio {ratio:.3f} (largest / smallest ms "
+            f"from 10^4 to 10^7 targets)")
+        for n in M_CROSS_TARGETS:
+            digests = [r.tobytes() for r in m_random_digests(rng, engine, n)]
+            table, rows_t, words_t = smoke.tables(engine, digests)
+            bits, block_bits, k = cuda_mask.probe_rows(table.words)
+            bits_t = torch.as_tensor(bits.view(np.int32), device="cuda")
+            pt = probe.build_probe_table(digests, little_endian(engine),
+                                         device="cuda")
+            ms_sets = m_time(smoke, cuda_mask.mask_multi_kernel,
+                             (engine, *head, rows_t, words_t, 64, BATCH))
+            ms_probe = m_time(smoke, cuda_mask.mask_probe_kernel,
+                              (engine, *head, bits_t, block_bits, k,
+                               words_t, 64, BATCH))
+            ms_bulk = m_time(smoke, cuda_mask.mask_bulk_kernel,
+                             (engine, *head,
+                              *cuda_mask.probe_tensors(pt, "cuda"), 64,
+                              BATCH))
+            flat[engine][f"cross_{n}"] = {"multi_ms": ms_sets,
+                                          "probe_ms": ms_probe,
+                                          "bulk_ms": ms_bulk}
+            say(f"  {engine} x {n}: _multi {ms_sets:.4f} ms | _probe "
+                f"{ms_probe:.4f} ms | _bulk {ms_bulk:.4f} ms (bulk/multi "
+                f"{ms_bulk / ms_sets:.3f})")
+    say(json.dumps({"slice_m_flat": flat, "n_bulk": cuda_mask.N_BULK,
+                    "card": card}))
+    say(f"  phase 39: {time.perf_counter() - t_phase:.1f} s")
+    return flat
+
+
+def m_cli(smoke, cli, card, g6, g7, ctx) -> None:
+    """Phases 40-43: slice M's main paths through crack --device cuda."""
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    from dprf_tpu_torch.runtime.potfile import encode_plain
+    from dprf_tpu_torch.targets import probe
+    rng = smoke.rng
+    words, best64 = ctx["words"], ctx["best64"]
+    # 40-43: the main paths through the CLI
+    t_phase = time.perf_counter()
+    say(f"== 40. the host-verify layout through crack --device cuda: ntlm "
+        f"x {M_CHECK_TARGETS} over {OTHER_WINDOW} of ?a^7, the byte budget "
+        f"forced to 512 KiB; card: {card}")
+    saved = probe.byte_budget
+    probe.byte_budget = lambda device=None: 512 * 1024
+    try:
+        skip = int(rng.integers(0, g7.keyspace - OTHER_WINDOW))
+        summary, err, _ = m_path(smoke, cli, "ntlm", g7, M_CHECK_TARGETS,
+                                 "ntlm_mask_bulk", None, OTHER_WINDOW, skip)
+    finally:
+        probe.byte_budget = saved
+    check("mode=host-verify" in err and "host_rejected=" in summary,
+          f"host-verify path: {summary}")
+    host = {"host_rejected": int(re.search(r"host_rejected=(\d+)",
+                                           summary).group(1)),
+            "maybes": int(re.search(r"maybes=(\d+)", summary).group(1))}
+    say(f"  every hit confirmed by the oracle: {json.dumps(host)}")
+
+    say(f"== 41. config 2 at bulk size: crack --device cuda --engine ntlm "
+        f"?a^7 --targets-file of {M_CONFIG2_TARGETS} lines over "
+        f"{CONFIG2_WINDOW} candidates; card: {card}")
+    skip = int(rng.integers(0, g7.keyspace - CONFIG2_WINDOW))
+    summary, err, wall = m_path(
+        smoke, cli, "ntlm", g7, M_CONFIG2_TARGETS, "ntlm_mask_bulk",
+        unit_batches(cli, CONFIG2_WINDOW), CONFIG2_WINDOW, skip, plants=8)
+    config2 = {"targets": M_CONFIG2_TARGETS, "wall_s": wall,
+               "parse_s": m_log(err, "target set", "parse_s"),
+               "table_bitmap_s": m_log(err, "probe table", "build_s"),
+               "setup_s": m_log(err, "worker", "setup_s"),
+               "loop_s": float(re.search(r"elapsed=([\d.]+)s",
+                                         summary).group(1)),
+               "maybes": int(re.search(r"maybes=(\d+)", summary).group(1)),
+               "rate": loop_rate(summary)}
+    say(f"  config 2 at bulk size: {json.dumps(config2)}")
+    smoke.path_launches["ntlm_mask_bulk"] = unit_batches(cli,
+                                                         CONFIG2_WINDOW)
+    say(f"  the other bulk instantiations: {M_CHECK_TARGETS} targets over "
+        f"{OTHER_WINDOW} of ?a^7 (mysql323: the whole ?l^6)")
+    for engine in M_MASK_CORES:
+        if engine == "ntlm":
+            continue
+        if engine == "mysql323":
+            m_path(smoke, cli, engine, g6, M_CHECK_TARGETS,
+                   kname(engine, 3), unit_batches(cli, g6.keyspace))
+            continue
+        skip = int(rng.integers(0, g7.keyspace - OTHER_WINDOW))
+        m_path(smoke, cli, engine, g7, M_CHECK_TARGETS, kname(engine, 3),
+               unit_batches(cli, OTHER_WINDOW), OTHER_WINDOW, skip)
+
+    say(f"== 42. config 3 against lists: crack --device cuda -a wordlist "
+        f"--rules best64 --targets-file; card: {card}")
+    wordlists = {}
+    cli_rules = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for n_words in (CONFIG3_WORDS, OTHER_WORDS):
+            path = os.path.join(tmp, f"words{n_words}.txt")
+            with open(path, "wb") as fh:
+                fh.write(b"\n".join(words[:n_words]) + b"\n")
+            wordlists[n_words] = path
+        for engine, n_words, n, mode in M_RULE_PATHS:
+            max_len = 27 if engine == "ntlm" else 55
+            gen = WordlistRulesGenerator(words[:n_words], best64,
+                                         max_len=max_len)
+            summary, err, wall = m_path(
+                smoke, cli, engine, gen, n, rname(engine, mode), None,
+                argv=["-a", "wordlist", "--rules", "best64",
+                      wordlists[n_words]])
+            cli_rules[f"{engine}_{n_words}x{n}"] = {
+                "wall_s": wall, "rate": loop_rate(summary),
+                "parse_s": m_log(err, "target set", "parse_s"),
+                "setup_s": m_log(err, "worker", "setup_s")}
+    say(json.dumps({"slice_m_rules_cli": cli_rules, "card": card}))
+
+    say(f"== 43. dense hits: crack --device cuda --engine md5 ?l^6, "
+        f"{M_DENSE_PLANTS} plants in one loop window among "
+        f"{M_CHECK_TARGETS} targets, --hit-cap 8; card: {card}")
+    idx = sorted(int(x) for x in rng.choice(1 << 28, M_DENSE_PLANTS,
+                                             replace=False))
+    cands = [g6.candidate(i) for i in idx]
+    rows, _ = m_list(smoke, "md5", M_CHECK_TARGETS, cands)
+    want = [f"{d.hex()}:{encode_plain(c)}" for d, c in
+            zip(smoke.get_engine("md5").hash_batch(cands), cands)]
+    summary, err, wall, launches = m_crack(
+        smoke, cli, "md5", ["--hit-cap", "8", "--limit", str(1 << 28),
+                            g6.mask], rows, want, 1 << 28)
+    relaunches = int(re.search(r"relaunches=(\d+)", summary).group(1))
+    check(relaunches >= 1 and launches["md5_mask_bulk"]
+          == sum(launches.values()) == 16 * (1 + relaunches),
+          f"dense hits: {summary}, launches {launches}")
+    say(f"  dense hits: relaunches={relaunches} rescans=0 (on the card, "
+        f"not the oracle); {wall:.3f} s wall; "
+        f"{summary.split('job finished', 1)[1].strip()}")
+    say(f"  phases 40-43: {time.perf_counter() - t_phase:.1f} s")
+    smoke.m_cli = {"host_verify": host, "config2_bulk": config2,
+                   "rules": cli_rules}
+
+
+def m_timing(smoke, card, rate_ops, g6, lut6, g7, lut7, ctx) -> dict:
+    """Phase 44: every new instantiation timed at its main path's list,
+    beside its bound, its plain version and the SM clock."""
+    import numpy as np
+
+    from dprf_tpu_torch.ops import cuda_mask, cuda_rules, opcount
+    from dprf_tpu_torch.targets import probe
+    rng = smoke.rng
+    rule_gens, rule_tables = ctx["gens"], ctx["tables"]
+    best64 = ctx["best64"]
+    # 44. timing of every new instantiation at its main path's list
+    t_phase = time.perf_counter()
+    say(f"== 44. slice M timing at 2^24 a launch (CUDA events, "
+        f"{TIMED_LAUNCHES} launches, the SM clock sampled over the phase); "
+        f"card: {card}")
+    timing = {}
+    with SmClock() as clock:
+        for engine in M_MASK_CORES:
+            gen, lut = (g6, lut6) if engine == "mysql323" else (g7, lut7)
+            n = M_CONFIG2_TARGETS if engine == "ntlm" else M_CHECK_TARGETS
+            s = int(rng.integers(0, gen.keyspace // BATCH - 1)) * BATCH
+            rows = m_random_digests(rng, engine, n)
+            pt = probe.build_probe_rows(m_rows(engine, rows), device="cuda")
+            args = (engine, lut, gen.radices, gen.digits(s), BATCH,
+                    *cuda_mask.probe_tensors(pt, "cuda"), 64, BATCH)
+            maybes = int(cuda_mask.mask_bulk_kernel(*args)[3].item()) / BATCH
+            ms = m_time(smoke, cuda_mask.mask_bulk_kernel, args)
+            plain = smoke.time_once(cuda_mask.mask_bulk_plain, args)
+            fill = opcount.probe_fill(pt.bits)
+            run = cuda_mask.lanes_a_run(engine, gen.radices)
+            work = opcount.mysql323_ops(gen, (fill, pt.k), maybes, n) \
+                if engine == "mysql323" else opcount.bulk_ops(
+                    engine, gen.length, fill, pt.k, maybes, n, run=run)
+            ops_ms = BATCH * work.slots / rate_ops * 1e3
+            moved = opcount.bulk_bytes(
+                n, smoke.get_engine(engine, "cuda").digest_words,
+                pt.block_bits)
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            bound = max(ops_ms, bytes_ms)
+            bitmap = 64 << pt.block_bits
+            timing[kname(engine, 3)] = (
+                ms, plain, bound,
+                "operations" if ops_ms >= bytes_ms else "bytes",
+                {"targets": n, "bitmap_bytes": bitmap,
+                 "bitmap_share_of_l2": bitmap / opcount.L2_BYTES,
+                 "fill": fill, "k": pt.k})
+            say(f"  {kname(engine, 3)} {gen.mask}, {n} targets: {ms:.4f} ms "
+                f"= {BATCH / ms / 1e6:.3f} G cand/s; bound {bound:.4f} ms "
+                f"(operations {ops_ms:.4f}: {work.slots:.1f} slots; bytes "
+                f"{bytes_ms:.4f}: {moved:,} B; {bound / ms:.1%}); bitmap "
+                f"{bitmap:,} B = {bitmap / opcount.L2_BYTES:.2%} of the "
+                f"50 MB L2, fill {fill:.3f}, k {pt.k}; plain {plain:.2f} ms")
+        for engine in RULE_CORES:
+            max_len = 27 if engine == "ntlm" else 55
+            gen = rule_gens[max_len]
+            padded, plain_t, *rest = rule_tables[max_len]
+            counts = opcount.rule_lengths(
+                *(a[:OTHER_WORDS] for a in gen.packed_words()), best64,
+                max_len)
+            counts = {k: c * RULE_BATCH // OTHER_WORDS
+                      for k, c in counts.items()}
+            for mode in (2, 3):
+                n = N_TARGETS if mode == 2 else (
+                    M_CONFIG2_TARGETS if engine == "ntlm"
+                    else M_CHECK_TARGETS)
+                state, _, _ = m_rules_state(smoke, engine, mode, [], n)
+                tail = (0, RULE_BATCH, *state, 64, RULE_BATCH)
+                maybes = int(cuda_rules.rules_list_kernel(
+                    engine, mode, padded, *rest, *tail,
+                    max_len=max_len)[3].item())
+                ms = m_time(smoke, cuda_rules.rules_list_kernel,
+                            (engine, mode, padded, *rest, *tail),
+                            {"max_len": max_len})
+                plain = smoke.time_once(cuda_rules.rules_list_plain,
+                                        (engine, mode, plain_t, *rest,
+                                         *tail))
+                bits = state[0].cpu().numpy().view(np.uint32)
+                fill = opcount.probe_fill(bits)
+                cands = RULE_BATCH * N_RULES
+                work = opcount.rules_list_ops(engine, counts, fill, state[2],
+                                              maybes / cands, n)
+                ops_ms = work.slots / rate_ops * 1e3
+                moved = RULE_BATCH * (max_len + 4) + opcount.bulk_bytes(
+                    n, smoke.get_engine(engine, "cuda").digest_words,
+                    state[1])
+                bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+                bound = max(ops_ms, bytes_ms)
+                key = rname(engine, mode)
+                timing[key] = (ms, plain, bound,
+                               "operations" if ops_ms >= bytes_ms
+                               else "bytes",
+                               {"targets": n, "bitmap_bytes": bits.nbytes,
+                                "fill": fill, "k": state[2]})
+                say(f"  {key}, {n} targets: {ms:.4f} ms = "
+                    f"{cands / ms / 1e6:.3f} G cand/s; bound {bound:.4f} "
+                    f"ms ({work.slots / cands:.1f} slots a candidate; "
+                    f"{bound / ms:.1%}); bitmap {bits.nbytes:,} B, fill "
+                    f"{fill:.3f}; plain {plain:.2f} ms")
+    say(f"  the SM clock over the phase: {clock.mhz} MHz (nvidia-smi, "
+        f"{len(clock.samples)} samples); card: {card}")
+    for key, (ms, _, bound, _, more) in timing.items():
+        more.update(clock_keys(bound, clock.mhz, smoke.clock_mhz))
+    say(json.dumps({"slice_m_timing": {k: {"ms": v[0], "plain_ms": v[1],
+                                           "bound_ms": v[2], **v[4]}
+                                       for k, v in timing.items()},
+                    "card": card}))
+    say(f"  phase 44: {time.perf_counter() - t_phase:.1f} s")
+    return timing
+
 
 if __name__ == "__main__":
     main()

@@ -14,12 +14,17 @@ Subcommands: crack (a local mask or wordlist+rules job), bench
 ``--device cuda`` without a card is an error, never a quiet move to
 the CPU.  ``crack --devices N`` shards a mask job of a kernel core over
 N cards (N CPU shards on ``torch-cpu``), one process over the list.
+``crack --targets-file FILE`` takes a bulk target list in place of the
+hashfile positional (targets/store.TargetStore: deduplicated, malformed
+lines reported, a fingerprint of the set); a list past
+``cuda_mask.N_BULK`` targets runs the kernels' bulk probe on one card.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 from typing import Optional
 
 from dprf_tpu_torch import engine_names, get_engine
@@ -53,7 +58,12 @@ def _build_parser() -> argparse.ArgumentParser:
     c = sub.add_parser("crack", help="run a recovery job locally")
     c.add_argument("attack_arg", help="mask string, or the wordlist file "
                    "(-a wordlist)")
-    c.add_argument("hashfile", help="file of target hashes")
+    c.add_argument("hashfile", nargs="?", default=None,
+                   help="file of target hashes (or use --targets-file)")
+    c.add_argument("--targets-file", default=None, metavar="FILE",
+                   help="bulk target list (hashcat-style hash[:salt] lines; "
+                   "deduplicated, malformed lines reported; a list past "
+                   "2,048 targets runs the bulk probe on one card)")
     c.add_argument("--engine", "-m", required=True,
                    help="hash algorithm (see `engines`)")
     c.add_argument("--device", default="cuda", choices=DEVICES,
@@ -232,37 +242,77 @@ def _make_dispatcher(args, keyspace: int, unit_size: int, log: Log):
     return Dispatcher(keyspace, unit_size)
 
 
+def _load_job_targets(args, engine, log: Log):
+    """The job's targets from the hashfile positional or the bulk
+    ``--targets-file`` (a ``TargetStore``, its ingest report logged):
+    (an object with ``targets`` and ``line_numbers``, the file's path),
+    or None on an error already logged (the reference's either-or
+    rules)."""
+    from dprf_tpu_torch.targets import TargetStore
+    from dprf_tpu_torch.utils.hashlist import load_hashlist
+    t0 = time.perf_counter()
+    if args.targets_file is not None:
+        if args.hashfile is not None:
+            log.error("pass a hashfile positional OR --targets-file, "
+                      "not both")
+            return None
+        store = TargetStore.from_file(engine, args.targets_file, log=log)
+        if not store.targets:
+            log.error("no valid targets in targets file",
+                      path=args.targets_file)
+            return None
+        report = store.report()
+        log.info("target set", targets=report["targets"],
+                 duplicates=report["duplicates"],
+                 malformed=len(report["malformed"]),
+                 fingerprint=report["fingerprint"],
+                 parse_s=f"{time.perf_counter() - t0:.3f}")
+        return store, args.targets_file
+    if args.hashfile is None:
+        log.error("no target hashes: pass a hashfile or --targets-file")
+        return None
+    hl = load_hashlist(engine, args.hashfile)
+    for no, _, err in hl.skipped:
+        log.warn("skipping hashlist line", line=no, error=err)
+    if not hl.targets:
+        log.error("no valid targets in hashlist")
+        return None
+    log.info("loaded targets", count=len(hl.targets),
+             duplicates=hl.duplicates, engine=engine.name,
+             parse_s=f"{time.perf_counter() - t0:.3f}")
+    return hl, args.hashfile
+
+
 def cmd_crack(args, log: Log) -> int:
     from dprf_tpu_torch.engines.base import TargetRefused
     from dprf_tpu_torch.runtime.coordinator import Coordinator, JobSpec
     from dprf_tpu_torch.runtime.potfile import Potfile, encode_plain
-    from dprf_tpu_torch.utils.hashlist import load_hashlist
 
     device = args.device
     # resolved first: --device cuda without a card fails before set-up
     tdev = None if device == "cpu" else _torch_device(device)
     oracle = get_engine(args.engine, device="cpu")
-    hl = load_hashlist(oracle, args.hashfile)
-    for no, _, err in hl.skipped:
-        log.warn("skipping hashlist line", line=no, error=err)
-    if not hl.targets:
-        log.error("no valid targets in hashlist")
+    loaded = _load_job_targets(args, oracle, log)
+    if loaded is None:
         return 2
-    log.info("loaded targets", count=len(hl.targets),
-             duplicates=hl.duplicates, engine=oracle.name)
+    hl, path = loaded
     gen = _build_gen(args.attack, args.attack_arg, args,
                      _wordlist_max_len(oracle), log)
     batch = args.batch or DEFAULT_BATCH[device]
+    t0 = time.perf_counter()
     try:
         worker = _make_worker(args, tdev, gen, hl.targets, oracle, batch,
                               log)
     except TargetRefused as e:
-        raise ValueError(f"{args.hashfile} line "
+        raise ValueError(f"{path} line "
                          f"{hl.line_numbers[e.target_index]}: {e}") from None
+    setup = time.perf_counter() - t0
     unit_size = _unit_size(args, worker, gen, batch)
     dispatcher = _make_dispatcher(args, gen.keyspace, unit_size, log)
+    _log_table(worker, log)
     log.info("worker", kind=type(worker).__name__, device=device,
-             batch=getattr(worker, "batch", batch), unit_size=unit_size)
+             batch=getattr(worker, "batch", batch), unit_size=unit_size,
+             setup_s=f"{setup:.3f}")
     potfile = None if args.no_potfile else Potfile(args.potfile)
 
     def progress(done, total, nfound, rate):
@@ -291,8 +341,31 @@ def cmd_crack(args, log: Log) -> int:
              rate=f"{result.rate:,.0f}/s", exhausted=result.exhausted,
              rejected=result.rejected,
              batches=getattr(worker, "dispatched", 0),
-             **_windows(worker), **_maybes(worker))
+             **_relaunches(worker), **_windows(worker), **_maybes(worker))
     return 0 if result.found else 1
+
+
+def _log_table(worker, log: Log) -> None:
+    """A bulk list's probe table: its layout, size and build seconds."""
+    pt = getattr(worker, "probe_table", None)
+    if pt is not None:
+        log.info("probe table", targets=pt.num_targets, mode=pt.mode,
+                 bits=16 * 32 << pt.block_bits, k=pt.k,
+                 fp=f"{pt.fp_est:.3e}", mbytes=f"{pt.nbytes / 1e6:.3f}",
+                 build_s=f"{worker.table_seconds:.3f}")
+
+
+def _relaunches(worker) -> dict:
+    """A kernel worker's overflowing dispatches relaunched on the card,
+    the oracle rescans their relaunches could not spare, and the
+    host-verify survivors the oracle rejected, for the summary."""
+    if not hasattr(worker, "relaunches"):
+        return {}
+    out = {"relaunches": worker.relaunches, "rescans": worker.rescans}
+    if worker.probe_table is not None and \
+            worker.probe_table.table is None:
+        out["host_rejected"] = worker.rejected_survivors
+    return out
 
 
 def _windows(worker) -> dict:
@@ -307,8 +380,9 @@ def _windows(worker) -> dict:
 
 
 def _maybes(worker) -> dict:
-    """A multi-target kernel worker's Bloom survivors, or a prefilter
-    worker's maybes the oracle rejected (Kerberos), for the summary."""
+    """A multi-target kernel worker's prefilter survivors (the mask
+    and the rules kernel's lists), or a prefilter worker's maybes the
+    oracle rejected (Kerberos), for the summary."""
     n = worker.n_maybe() if hasattr(worker, "n_maybe") else None
     return {} if n is None else {"maybes": n}
 

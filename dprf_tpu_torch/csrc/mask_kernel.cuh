@@ -10,23 +10,23 @@
 // (hit_lane + 1) output and its one-lane-per-tile rule exist only for
 // Mosaic and are not carried over: every hit appends its lane.
 //
-// Multi-target compare, one of two prefilters (the Compare mode), then an
-// exact verify of each survivor on the card:
+// Multi-target compare (csrc/compare.cuh), one of three prefilters (the
+// Compare mode), then an exact verify of each survivor on the card:
 // - kSets: the reference's per-set Bloom prefilter, bit for bit
 //   (bloom_tables / bloom_found: 8 probes of 12 digest bits per set of
 //   1024 targets);
 // - kProbe: the reference's blocked probe (targets/probe.bloom_fill /
-//   probe_block_found): each target set k bits of one 512-bit block,
-//   picked by dg[0] * 0x9E3779B1 >> (32 - block_bits); a candidate
-//   tests the k double-hashed bits of its own block, alternating the
-//   (dg[0], dg[1] | 1) and (dg[2], dg[3] | 1) pairs, and stops at the
-//   first miss -- O(1) a candidate whatever the list length.
-// The reference leaves every maybe to a host oracle hash (the probe's
-// survivors sentinel-tagged); at 1,000 targets and a batch of 2^24 the
-// sets give ~81 false maybes a launch, so here each maybe binary-searches
-// digest word 0 in the sorted target table (ops/compare.make_target_table's
-// layout, in device memory, small enough to stay in L2), walks the run
-// of equal word-0 entries and compares whole digests.  Only real hits
+//   probe_block_found), its bitmap staged in shared memory (at most
+//   64 KiB);
+// - kBulk: the same probe over a bulk list's bitmap in global memory,
+//   any size (the reference's probe table, targets/probe.py
+//   build_probe_table / probe_hits), with the host-verify layout's
+//   survivors reported at position -1 when the table did not fit.
+// The reference leaves every maybe of the sets and the probe to a host
+// oracle hash (the probe's survivors sentinel-tagged); at 1,000 targets
+// and a batch of 2^24 the sets give ~81 false maybes a launch, so here
+// each maybe binary-searches digest word 0 in the sorted target table
+// and compares whole digests (compare.cuh find_target).  Only real hits
 // are appended, with their table position; n_maybe counts the
 // prefilter's survivors.
 //
@@ -42,7 +42,9 @@
 // What bounds it: the INT32 issue rate, not memory.  A candidate reads
 // no device memory (charset table and Bloom rows or probe bitmap sit in
 // shared memory; base digits, radices, the fixed message words and the
-// target are kernel parameters) and writes ~0 bytes.  ops/opcount.py
+// target are kernel parameters) and writes ~0 bytes; kBulk reads one
+// 32-byte sector of its bitmap block, from L2 for a bitmap of up to
+// 50 MB (10^7 targets).  ops/opcount.py
 // counts the least instructions per candidate in Hopper's forms, by pipe.
 //
 // What the design does about it: everything in registers, and a thread
@@ -112,6 +114,7 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "compare.cuh"
 #include "cores.cuh"
 #include "decode.cuh"
 
@@ -120,17 +123,8 @@
 #define DPRF_K_PROBES 8
 // the most lanes of a thread's run (ops/cuda_mask.RUN)
 #define DPRF_RUN 32
-// the blocked probe (targets/probe.py): 16-word blocks, the most bits a
-// candidate tests, the block hash's multiplier
-#define DPRF_PROBE_BLOCK_WORDS 16
-#define DPRF_PROBE_MAX_K 8
-#define DPRF_PROBE_GOLDEN 0x9E3779B1u
 // dynamic shared memory a launch gets without the opt-in
 #define DPRF_DEFAULT_SHARED (48 * 1024)
-
-// The compare of an instantiation: one target, the per-set Bloom
-// prefilter, or the blocked probe (the last two verify on the card).
-enum Compare : int { kSingle = 0, kSets = 1, kProbe = 2 };
 
 // Kernel parameters of one job (mirrored by ops/cuda_mask.MaskArgs).
 struct MaskArgs {
@@ -160,18 +154,6 @@ struct WideMaskArgs {
     uint32_t block[36];
     uint32_t target[16];
     uint32_t offset;
-};
-
-// The multi-target state (mirrored by ops/cuda_mask.MultiArgs).
-struct MultiArgs {
-    // the prefilter's words: kSets uint32[n_sets * 8][128]
-    // (bloom_tables), kProbe uint32[16 << block_bits] (bloom_fill)
-    const uint32_t* bloom;
-    const uint32_t* table;    // uint32[n_targets][words], sorted
-    int32_t n_sets;           // kSets: the Bloom sets
-    int32_t n_targets;
-    int32_t block_bits;       // kProbe: log2 of the bitmap's blocks
-    int32_t k;                // kProbe: bits a candidate tests, 1..8
 };
 
 // A core's message words: kBlockWords, or the 64-byte block's 16.
@@ -231,30 +213,6 @@ __device__ __forceinline__ bool bloom_maybe(const uint32_t* dg,
     return false;
 }
 
-// The reference's probe_block_found for one lane: all k bits of the
-// lane's block, tested in bloom_fill's order, stopping at the first
-// miss.  A core of fewer than 4 words reuses its first pair.
-template <int W>
-__device__ __forceinline__ bool probe_maybe(const uint32_t* dg,
-                                            const uint32_t* s_probe,
-                                            int block_bits, int k)
-{
-    const uint32_t h1 = dg[0], h2 = dg[1] | 1u;
-    const uint32_t h3 = dg[W > 3 ? 2 : 0], h4 = dg[W > 3 ? 3 : 1] | 1u;
-    const uint32_t block =
-        block_bits ? (h1 * DPRF_PROBE_GOLDEN) >> (32 - block_bits) : 0u;
-    const uint32_t* words = s_probe + block * DPRF_PROBE_BLOCK_WORDS;
-#pragma unroll
-    for (int j = 0; j < DPRF_PROBE_MAX_K; ++j) {
-        if (j >= k) break;
-        const uint32_t g = (j & 1 ? h3 : h1)
-                           + (uint32_t)(2 * (j >> 1) + 1) * (j & 1 ? h4 : h2);
-        const uint32_t bit = g & (DPRF_PROBE_BLOCK_WORDS * 32 - 1);
-        if (!((words[bit >> 5] >> (bit & 31)) & 1u)) return false;
-    }
-    return true;
-}
-
 // The prefilter of a multi-target mode.
 template <Compare kMode, int W>
 __device__ __forceinline__ bool prefilter(const uint32_t* dg,
@@ -263,30 +221,11 @@ __device__ __forceinline__ bool prefilter(const uint32_t* dg,
 {
     if constexpr (kMode == kProbe)
         return probe_maybe<W>(dg, s_filter, multi.block_bits, multi.k);
+    else if constexpr (kMode == kBulk)
+        return probe_maybe<W, true>(dg, multi.bloom, multi.block_bits,
+                                    multi.k);
     else
         return bloom_maybe(dg, s_filter, multi.n_sets);
-}
-
-// Position of the digest in the sorted table, or -1: the lower bound of
-// word 0, then the run of equal word-0 entries compared in full.
-template <int W>
-__device__ __forceinline__ int find_target(const uint32_t* dg,
-                                           const uint32_t* __restrict__ table,
-                                           int n)
-{
-    int lo = 0, hi = n;
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (table[mid * W] < dg[0]) lo = mid + 1;
-        else hi = mid;
-    }
-    for (int i = lo; i < n && table[i * W] == dg[0]; ++i) {
-        bool eq = true;
-#pragma unroll
-        for (int k = 1; k < W; ++k) eq &= table[i * W + k] == dg[k];
-        if (eq) return i;
-    }
-    return -1;
 }
 
 // ---- the kernel --------------------------------------------------------
@@ -309,7 +248,7 @@ mask_kernel(const uint8_t* __restrict__ lut, const ArgsOf<Core> args,
     for (int i = threadIdx.x; i < L * 256; i += blockDim.x)
         s_lut[i] = lut[i];
     uint32_t* s_bloom = reinterpret_cast<uint32_t*>(smem + L * 256);
-    if constexpr (kMode != kSingle) {
+    if constexpr (kMode == kSets || kMode == kProbe) {
         const int n = kMode == kSets
                           ? multi.n_sets * DPRF_K_PROBES * 128
                           : DPRF_PROBE_BLOCK_WORDS << multi.block_bits;
@@ -333,13 +272,24 @@ mask_kernel(const uint8_t* __restrict__ lut, const ArgsOf<Core> args,
             }
         } else if (prefilter<kMode, Core::kWords>(dg, s_bloom, multi)) {
             atomicAdd(n_maybe, 1);
-            const int pos = find_target<Core::kWords>(dg, multi.table,
-                                                      multi.n_targets);
-            if (pos >= 0) {
-                const int32_t slot = atomicAdd(count, 1);
-                if (slot < cap) {
-                    lanes[slot] = (int32_t)gidx;
-                    tpos[slot] = pos;
+            if constexpr (kMode == kBulk) {
+                int pos;
+                if (bulk_verify<Core::kWords>(dg, multi, &pos)) {
+                    const int32_t slot = atomicAdd(count, 1);
+                    if (slot < cap) {
+                        lanes[slot] = (int32_t)gidx;
+                        tpos[slot] = pos;
+                    }
+                }
+            } else {
+                const int pos = find_target<Core::kWords>(dg, multi.table,
+                                                          multi.n_targets);
+                if (pos >= 0) {
+                    const int32_t slot = atomicAdd(count, 1);
+                    if (slot < cap) {
+                        lanes[slot] = (int32_t)gidx;
+                        tpos[slot] = pos;
+                    }
                 }
             }
         }
@@ -405,7 +355,8 @@ mask_kernel(const uint8_t* __restrict__ lut, const ArgsOf<Core> args,
 // ---- launching one instantiation ----------------------------------------
 
 // Dynamic shared memory of one block: the charset table, then the
-// prefilter's words.
+// prefilter's words (none for kBulk, whose bitmap stays in global
+// memory).
 static size_t shared_bytes(int length, const MultiArgs* multi, Compare mode)
 {
     const size_t filter =

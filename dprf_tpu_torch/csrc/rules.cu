@@ -1,5 +1,5 @@
 // rules.cu -- the fused wordlist+rules kernel for Hopper (sm_90a): rule
-// interpreter -> pack -> hash -> compare, one target.
+// interpreter -> pack -> hash -> compare, one target or a list.
 //
 // Replaces: the TPU kernel of dprf_tpu/ops/pallas_rules.py
 // (make_rules_pallas_fn, its rule VM _interp_step and
@@ -13,6 +13,17 @@
 // the target.  A rejected lane, or one past the window's valid words, is
 // never compared.
 //
+// A list of targets (the Compare mode, csrc/compare.cuh): the blocked
+// probe over the list's bitmap, in shared memory after the block's slots
+// (kProbe: at most 64 KiB, the mask kernel's PROBE sizing) or read from
+// global memory (kBulk: a bulk list's bitmap of any size), then each
+// survivor's exact verify against the sorted table on the card (or, in
+// the bulk table's host-verify layout, every survivor reported at
+// position -1 for the oracle); hits append (lane, table position) and
+// n_maybe counts the survivors.  The reference sends lists to its XLA
+// pipeline (ops/rules_pipeline.py: compare_multi, probe_hits); its Pallas
+// kernel takes one target.
+//
 // The TPU kernel's artefacts of Mosaic are not carried over: its
 // (word_tile, rule) grid over structure-of-arrays byte registers, the
 // L^2 select "gather" that moves bytes, the bucketing of rules by op
@@ -24,7 +35,9 @@
 //
 // What bounds it: issue slots -- the core's rounds (~126 slots per md5
 // candidate, ~950 per sha256 one, ops/opcount.py) plus the rule's ops
-// and the pack, which the bound counts as zero.
+// and the pack, which the bound counts as zero; a list adds the probe's
+// few bits a candidate (and the digest's last rounds, which one target's
+// word-0 compare skips).
 //
 // What the design does about it.  The candidate is kept as 32-bit words
 // in the md5/md4 message layout (byte p in word p >> 2 at bits
@@ -59,6 +72,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "compare.cuh"
 #include "cores.cuh"
 
 #define DPRF_RULE_STEPS 8
@@ -545,6 +559,16 @@ __device__ __forceinline__ void pack(Slots W, int n, uint32_t* m)
     m[Core::kLenWord] = (uint32_t)n * Core::kBitsPerChar;
 }
 
+// The digest of a candidate of n bytes whose words past the first L are
+// zero (a list's compare needs every word).
+template <class Core, int L>
+__device__ __forceinline__ void digest_of(Slots W, int n, uint32_t* dg)
+{
+    uint32_t m[16];
+    pack<Core, L>(W, n, m);
+    Core::digest(m, dg);
+}
+
 template <class Core, int L>
 __device__ __forceinline__ bool matches(Slots W, int n, const uint32_t* want)
 {
@@ -562,7 +586,7 @@ __device__ __forceinline__ bool matches(Slots W, int n, const uint32_t* want)
 
 // Dynamic shared memory of one block: each thread's working and
 // original words, then the run's op counts and ops (opcode, p1, p2 as
-// bytes).
+// bytes); kProbe adds the list's bitmap after them.
 template <class Core>
 __host__ __device__ constexpr int shared_bytes()
 {
@@ -570,14 +594,17 @@ __host__ __device__ constexpr int shared_bytes()
            + 3 * kMaxRun * DPRF_RULE_STEPS;
 }
 
-template <class Core>
+// A list's parameters come after the one-target kernel's, which a
+// kSingle instantiation leaves unread.
+template <class Core, Compare kMode = kSingle>
 __global__ void __launch_bounds__(kThreads)
 rules_kernel(const uint8_t* __restrict__ words,
              const int32_t* __restrict__ lens,
              const int32_t* __restrict__ bytecode,
              const int32_t* __restrict__ n_ops, const RulesArgs args,
              int32_t* __restrict__ count, int32_t* __restrict__ lanes,
-             int32_t cap)
+             int32_t cap, const MultiArgs multi, int32_t* __restrict__ tpos,
+             int32_t* __restrict__ n_maybe)
 {
     // the candidate's bytes 0..kMaxLen (the marker's last place)
     constexpr int NW = (Core::kMaxLen + 4) / 4;
@@ -588,6 +615,7 @@ rules_kernel(const uint8_t* __restrict__ words,
     int32_t* const steps = reinterpret_cast<int32_t*>(smem
                                                       + 2 * NW * kThreads);
     uint8_t* const code = reinterpret_cast<uint8_t*>(steps + kMaxRun);
+    uint32_t* const s_probe = reinterpret_cast<uint32_t*>(code + 3 * kOps);
 
     // the block: word block x of the window under rule run j
     const int blocks_x = (args.n_valid + kThreads - 1) / kThreads;
@@ -602,6 +630,11 @@ rules_kernel(const uint8_t* __restrict__ words,
         code[i % 3 * kOps + i / 3] =
             (uint8_t)bytecode[(size_t)r0 * (DPRF_RULE_STEPS * 3) + i];
     for (int i = threadIdx.x; i < nr; i += kThreads) steps[i] = n_ops[r0 + i];
+    if constexpr (kMode == kProbe) {
+        const int n_probe = DPRF_PROBE_BLOCK_WORDS << multi.block_bits;
+        for (int i = threadIdx.x; i < n_probe; i += kThreads)
+            s_probe[i] = multi.bloom[i];
+    }
     __syncthreads();
     if ((b & ~31) >= args.n_valid) return;      // a warp past the window
     const bool live = b < args.n_valid;
@@ -664,15 +697,42 @@ rules_kernel(const uint8_t* __restrict__ words,
         if (!valid) continue;
 
         W.byte(n) = 0x80;
-        // a warp whose candidates all fit in kShortWords words hashes
-        // them with the other words constant zero
-        const bool hit = __all_sync(__activemask(), n < 4 * kShortWords)
-                             ? matches<Core, kShortWords>(W, n, args.target)
-                             : matches<Core, NW>(W, n, args.target);
-        if (hit) {
-            const int32_t slot = atomicAdd(count, 1);
-            if (slot < cap)
-                lanes[slot] = (int32_t)((r0 + rr) * args.word_batch + b);
+        if constexpr (kMode == kSingle) {
+            // a warp whose candidates all fit in kShortWords words hashes
+            // them with the other words constant zero
+            const bool hit = __all_sync(__activemask(), n < 4 * kShortWords)
+                                 ? matches<Core, kShortWords>(W, n, args.target)
+                                 : matches<Core, NW>(W, n, args.target);
+            if (hit) {
+                const int32_t slot = atomicAdd(count, 1);
+                if (slot < cap)
+                    lanes[slot] = (int32_t)((r0 + rr) * args.word_batch + b);
+            }
+        } else {
+            uint32_t dg[Core::kWords];
+            if (__all_sync(__activemask(), n < 4 * kShortWords))
+                digest_of<Core, kShortWords>(W, n, dg);
+            else
+                digest_of<Core, NW>(W, n, dg);
+            const bool maybe =
+                kMode == kProbe
+                    ? probe_maybe<Core::kWords>(dg, s_probe, multi.block_bits,
+                                                multi.k)
+                    : probe_maybe<Core::kWords, true>(dg, multi.bloom,
+                                                      multi.block_bits,
+                                                      multi.k);
+            if (maybe) {
+                atomicAdd(n_maybe, 1);
+                int pos;
+                if (bulk_verify<Core::kWords>(dg, multi, &pos)) {
+                    const int32_t slot = atomicAdd(count, 1);
+                    if (slot < cap) {
+                        lanes[slot] =
+                            (int32_t)((r0 + rr) * args.word_batch + b);
+                        tpos[slot] = pos;
+                    }
+                }
+            }
         }
     }
 }
@@ -683,32 +743,66 @@ rules_kernel(const uint8_t* __restrict__ words,
 // (ops/cuda_rules.KERNEL_CORES)
 #define DPRF_DISPATCH(CALL)                                               \
     switch (core) {                                                       \
-    case 0: return CALL(Md5Core);                                         \
-    case 1: return CALL(Md4Core);                                         \
-    case 2: return CALL(Sha1Core);                                        \
-    case 3: return CALL(Sha256Core);                                      \
+    case 0: return CALL(Md5Core, kSingle);                                \
+    case 1: return CALL(Md4Core, kSingle);                                \
+    case 2: return CALL(Sha1Core, kSingle);                               \
+    case 3: return CALL(Sha256Core, kSingle);                             \
     default: return (int)cudaErrorInvalidValue;                           \
     }
 
-template <class Core>
+// a list's modes: 2 the shared-memory probe, 3 the bulk probe
+// (ops/cuda_rules.LIST_MODES)
+#define DPRF_LIST_DISPATCH(CALL)                                          \
+    switch (core * 4 + mode) {                                            \
+    case 2: return CALL(Md5Core, kProbe);                                 \
+    case 3: return CALL(Md5Core, kBulk);                                  \
+    case 6: return CALL(Md4Core, kProbe);                                 \
+    case 7: return CALL(Md4Core, kBulk);                                  \
+    case 10: return CALL(Sha1Core, kProbe);                               \
+    case 11: return CALL(Sha1Core, kBulk);                                \
+    case 14: return CALL(Sha256Core, kProbe);                             \
+    case 15: return CALL(Sha256Core, kBulk);                              \
+    default: return (int)cudaErrorInvalidValue;                           \
+    }
+
+// The instantiation's dynamic shared memory limit, raised to smem past
+// the 48 KB a launch gets without asking (a kProbe bitmap of 64 KiB).
+template <class Core, Compare kMode>
+static cudaError_t allow_shared(size_t smem)
+{
+    if (smem > 48 * 1024)
+        return cudaFuncSetAttribute(
+            rules_kernel<Core, kMode>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    return cudaSuccess;
+}
+
+template <class Core, Compare kMode>
 static int launch(const uint8_t* words, const int32_t* lens,
                   const int32_t* bytecode, const int32_t* n_ops,
-                  const RulesArgs* args, int32_t* count, int32_t* lanes,
-                  int32_t cap, int grid, cudaStream_t stream)
+                  const RulesArgs* args, const MultiArgs* multi,
+                  int32_t* count, int32_t* lanes, int32_t* tpos,
+                  int32_t* n_maybe, int32_t cap, int grid, size_t smem,
+                  cudaStream_t stream)
 {
-    rules_kernel<Core><<<grid, kThreads, shared_bytes<Core>(), stream>>>(
-        words, lens, bytecode, n_ops, *args, count, lanes, cap);
+    const cudaError_t err = allow_shared<Core, kMode>(smem);
+    if (err != cudaSuccess) return (int)err;
+    rules_kernel<Core, kMode><<<grid, kThreads, smem, stream>>>(
+        words, lens, bytecode, n_ops, *args, count, lanes, cap, *multi, tpos,
+        n_maybe);
     return (int)cudaGetLastError();
 }
 
-template <class Core>
-static int occupancy(int* blocks)
+template <class Core, Compare kMode>
+static int occupancy(size_t smem, int* blocks)
 {
+    const cudaError_t err = allow_shared<Core, kMode>(smem);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, rules_kernel<Core>, kThreads, shared_bytes<Core>());
+        blocks, rules_kernel<Core, kMode>, kThreads, smem);
 }
 
-template <class Core>
+template <class Core, Compare>
 static int smem_of(int* bytes)
 {
     *bytes = shared_bytes<Core>();
@@ -733,9 +827,40 @@ extern "C" int dprf_rules_launch(int core, int device, const uint8_t* words,
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     const cudaStream_t st = (cudaStream_t)stream;
-#define DPRF_LAUNCH(C)                                                    \
-    launch<C>(words, lens, bytecode, n_ops, args, count, lanes, cap, grid, st)
+    const MultiArgs none{};
+#define DPRF_LAUNCH(C, M)                                                 \
+    launch<C, M>(words, lens, bytecode, n_ops, args, &none, count, lanes,   \
+                 nullptr, nullptr, cap, grid, shared_bytes<C>(), st)
     DPRF_DISPATCH(DPRF_LAUNCH)
+#undef DPRF_LAUNCH
+}
+
+// A list's launch in mode 2 or 3 (DPRF_LIST_DISPATCH): as
+// dprf_rules_launch, with the list's state (multi: the bitmap, the
+// sorted table or null), tpos and n_maybe, which hold -1 and 0 on
+// entry, and `smem`, the block's dynamic shared memory: the slots
+// (dprf_rules_shared_bytes), and for mode 2 the bitmap.
+extern "C" int dprf_rules_list_launch(int core, int mode, int device,
+                                      const uint8_t* words,
+                                      const int32_t* lens,
+                                      const int32_t* bytecode,
+                                      const int32_t* n_ops,
+                                      const RulesArgs* args,
+                                      const MultiArgs* multi, int32_t* count,
+                                      int32_t* lanes, int32_t* tpos,
+                                      int32_t* n_maybe, int32_t cap,
+                                      int grid, int threads, int smem,
+                                      void* stream)
+{
+    if (threads != kThreads || args->run < 1 || args->run > kMaxRun)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const cudaStream_t st = (cudaStream_t)stream;
+#define DPRF_LAUNCH(C, M)                                                 \
+    launch<C, M>(words, lens, bytecode, n_ops, args, multi, count, lanes,   \
+                 tpos, n_maybe, cap, grid, (size_t)smem, st)
+    DPRF_LIST_DISPATCH(DPRF_LAUNCH)
 #undef DPRF_LAUNCH
 }
 
@@ -743,15 +868,26 @@ extern "C" int dprf_rules_launch(int core, int device, const uint8_t* words,
 // wave the host partitions a launch for).
 extern "C" int dprf_rules_blocks_per_sm(int core, int* blocks)
 {
-#define DPRF_OCCUPANCY(C) occupancy<C>(blocks)
+#define DPRF_OCCUPANCY(C, M) occupancy<C, M>(shared_bytes<C>(), blocks)
     DPRF_DISPATCH(DPRF_OCCUPANCY)
 #undef DPRF_OCCUPANCY
 }
 
-// Dynamic shared memory of one block of an instantiation.
+// The same for a list's instantiation at `smem` bytes of dynamic shared
+// memory.
+extern "C" int dprf_rules_list_blocks_per_sm(int core, int mode, int smem,
+                                             int* blocks)
+{
+#define DPRF_OCCUPANCY(C, M) occupancy<C, M>((size_t)smem, blocks)
+    DPRF_LIST_DISPATCH(DPRF_OCCUPANCY)
+#undef DPRF_OCCUPANCY
+}
+
+// Dynamic shared memory of one block of an instantiation, its slots and
+// ops (a kProbe list adds its bitmap).
 extern "C" int dprf_rules_shared_bytes(int core, int* bytes)
 {
-#define DPRF_SMEM(C) smem_of<C>(bytes)
+#define DPRF_SMEM(C, M) smem_of<C, M>(bytes)
     DPRF_DISPATCH(DPRF_SMEM)
 #undef DPRF_SMEM
 }

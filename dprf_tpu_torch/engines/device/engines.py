@@ -87,16 +87,15 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
 
     def _refuse_unless_eligible(self, gen, targets) -> None:
         """A mask job the kernel does not take is refused, never moved to
-        another path."""
-        from dprf_tpu_torch.ops.bloom import MAX_TARGETS
+        another path.  A list of any length runs on one card (past
+        ``cuda_mask.N_BULK`` targets the bulk probe)."""
         from dprf_tpu_torch.ops.cuda_mask import kernel_eligible
         if not kernel_eligible(self.name, gen, len(targets)):
             raise ValueError(
                 f"{self.name}: no mask kernel for this job (it takes "
-                f"1..{MAX_TARGETS} targets and masks of "
-                f"1..{self.max_candidate_len} positions, got "
-                f"{len(targets)} targets and {gen.length} positions); "
-                "use --device cpu")
+                f"masks of 1..{self.max_candidate_len} positions of 1..256 "
+                f"characters, got {gen.length} positions); use --device "
+                "cpu")
 
     def make_mask_worker(self, gen, targets, batch: int, hit_capacity: int,
                          oracle=None):
@@ -119,7 +118,9 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
         A job the kernel does not take, or an engine without a sharded
         path yet, is refused, never run on fewer devices.  Unlike the
         reference, which sends lists of 4,096 or more to its XLA probe
-        table, 2..8,192 targets run the kernel's blocked probe."""
+        table, 2..8,192 targets run the kernel's blocked probe; a bulk
+        list past 8,192 runs on one card (``--devices 1``) only."""
+        from dprf_tpu_torch.ops.bloom import MAX_TARGETS
         from dprf_tpu_torch.ops.cuda_mask import KERNEL_CORES
         from dprf_tpu_torch.parallel.worker import ShardedMaskWorker
         if self.core not in KERNEL_CORES:
@@ -127,6 +128,11 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
                 f"{self.name}: no sharded mask worker on several devices "
                 f"yet (cores: {', '.join(KERNEL_CORES)}); run it with "
                 "--devices 1")
+        if len(targets) > MAX_TARGETS:
+            raise ValueError(
+                f"{self.name}: {len(targets)} targets on several devices: "
+                f"the sharded mask worker takes 1..{MAX_TARGETS} targets "
+                "(a bulk list runs on one card); run it with --devices 1")
         self._refuse_unless_eligible(gen, targets)
         return ShardedMaskWorker(self, gen, targets, mesh,
                                  batch_per_device=batch_per_device,
@@ -136,8 +142,9 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
                              hit_capacity: int, oracle=None):
         """The wordlist+rules worker for this engine: the rule kernel's
         worker, which runs the kernel on a card and its plain version
-        on CPU tensors.  A job the kernel does not take is refused,
-        never moved to another path."""
+        on CPU tensors, for one target or a list of any length.  A job
+        the kernel does not take is refused, never moved to another
+        path."""
         from dprf_tpu_torch.ops.cuda_rules import (KERNEL_CORES, MAX_STEPS,
                                                    kernel_rules_eligible)
         from dprf_tpu_torch.runtime.worker import CudaWordlistWorker
@@ -148,11 +155,10 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
                 "a wordlist")
         if not kernel_rules_eligible(self.name, gen, len(targets)):
             raise ValueError(
-                f"{self.name}: no rules kernel for this job (it takes one "
-                f"target, words of at most {self.max_candidate_len} bytes "
-                f"and rules of at most {MAX_STEPS} ops without @, E or e; "
-                f"got {len(targets)} targets and max_len {gen.max_len}); "
-                "use --device cpu")
+                f"{self.name}: no rules kernel for this job (it takes words "
+                f"of at most {self.max_candidate_len} bytes and rules of at "
+                f"most {MAX_STEPS} ops without @, E or e; got max_len "
+                f"{gen.max_len}); use --device cpu")
         return CudaWordlistWorker(self, gen, targets, batch=batch,
                                   hit_capacity=hit_capacity, oracle=oracle,
                                   device=self.torch_device)

@@ -1,8 +1,8 @@
 """The fused mask -> hash -> compare kernel: the counterpart of the JAX
 package's ops/pallas_mask.py for the md5, ntlm (md4), sha1, sha256,
-sha512 and sha384 cores, with one target or a list of up to
-MAX_TARGETS, and the window offset; and the sha224 and mysql323 cores,
-which the reference runs on XLA only.
+sha512 and sha384 cores, with one target or a list of any length, and
+the window offset; and the sha224 and mysql323 cores, which the
+reference runs on XLA only.
 
 Per candidate the kernel (csrc/mask.cu) decodes the mixed-radix
 keyspace index into charset bytes, packs one padded block, runs the
@@ -24,6 +24,13 @@ steps the last one a lane (``RUN``, ``run_count``, ``run_lanes``).
   A core of fewer than 3 digest words (mysql323) has no Bloom sets
   (their 8 probes read words 0-2): its lists run the probe on one card
   too.
+- Bulk list (more than ``N_BULK`` targets, any number; one card): the
+  blocked probe over a bitmap in global memory sized for the reference's
+  false-positive budget (targets/probe.build_probe_table; mode BULK),
+  then the same exact verify.  In the probe table's host-verify layout
+  (the sorted table did not fit the card's byte budget) every survivor
+  is reported with table position -1 and the worker confirms it with
+  the oracle (the reference's ``probe_hits`` contract).
 
 The window offset: a launch covers the window lanes [offset, n_valid)
 of a ``batch``-lane step (n_valid <= offset + batch), decodes each from
@@ -36,12 +43,13 @@ one count and one set of lanes on the device (ops/superstep.py).
 rescan, the reference's contract.
 
 For each mode three functions carry it: the kernel's wrapper
-(``mask_kernel`` / ``mask_multi_kernel`` / ``mask_probe_kernel``: CUDA
-tensors only, launches on the current stream without synchronising,
-counts its launches in ``launches``), the same function in plain
-PyTorch (``mask_plain`` / ``mask_multi_plain`` / ``mask_probe_plain``,
-hit lanes in ascending order), and the dispatcher (``mask_crack`` /
-``mask_crack_multi`` / ``mask_crack_probe``: the kernel for CUDA
+(``mask_kernel`` / ``mask_multi_kernel`` / ``mask_probe_kernel`` /
+``mask_bulk_kernel``: CUDA tensors only, launches on the current stream
+without synchronising, counts its launches in ``launches``), the same
+function in plain PyTorch (``mask_plain`` / ``mask_multi_plain`` /
+``mask_probe_plain`` / ``mask_bulk_plain``, hit lanes in ascending
+order), and the dispatcher (``mask_crack`` / ``mask_crack_multi`` /
+``mask_crack_probe`` / ``mask_crack_bulk``: the kernel for CUDA
 tensors, the plain version for CPU tensors).
 ``make_cuda_mask_crack_step``, ``make_cuda_multi_crack_step`` and
 ``make_shard_mask_compute`` build the workers' steps on the
@@ -81,18 +89,31 @@ SOURCE = "dprf_tpu_torch/csrc/mask.cu"
 KERNEL_CORES = {"md5": 0, "ntlm": 1, "sha1": 2, "sha256": 3, "sha512": 4,
                 "sha384": 5, "sha224": 6, "mysql323": 7}
 
-#: the compare modes of csrc/mask.cu's C interface: one target, the
-#: per-set Bloom prefilter, the blocked probe; and each one's suffix of
-#: the instantiation's name
-SINGLE, SETS, PROBE = 0, 1, 2
-MODES = {SINGLE: "", SETS: "_multi", PROBE: "_probe"}
+#: the compare modes of csrc/mask.cu's C interface (csrc/compare.cuh
+#: ``Compare``): one target, the per-set Bloom prefilter, the blocked
+#: probe in shared memory, the bulk probe in global memory; and each
+#: one's suffix of the instantiation's name
+SINGLE, SETS, PROBE, BULK = 0, 1, 2, 3
+MODES = {SINGLE: "", SETS: "_multi", PROBE: "_probe", BULK: "_bulk"}
+
+#: lists of more than N_BULK targets run the bulk probe (one card); 2..
+#: N_BULK keep the Bloom sets (one card; mysql323 the probe) or the
+#: probe (a mesh).  The crossover of the sets and the bulk probe of the
+#: md5 and ntlm cores on an H100, where the compare weighs most (PERF.md,
+#: slice M: even at 2,048 targets, the sets 7-20 % slower at 3,072 and
+#: faster below; sha1 and sha256 cross near 1,024); the hit set does not
+#: depend on it
+N_BULK = 2048
+#: the bulk bitmap's most blocks, 2^27 of 64 bytes (8 GiB): block * 16
+#: + 15 stays in the kernel's 32-bit word index
+BULK_MAX_BLOCK_BITS = 27
 
 
 def core_modes(core: str) -> tuple:
-    """The compare modes a core is instantiated in: all three, but no
+    """The compare modes a core is instantiated in: all four, but no
     Bloom sets for mysql323, whose 2 digest words the sets' 8 probes of
     12 bits (words 0-2) would read past."""
-    return (SINGLE, PROBE) if core == "mysql323" else tuple(MODES)
+    return (SINGLE, PROBE, BULK) if core == "mysql323" else tuple(MODES)
 
 #: the blocked probe's false-positive budget a candidate and its cap in
 #: groups of 128 blocks (the reference's DPRF_PALLAS_PROBE_FP default
@@ -117,9 +138,9 @@ def device_engine(engine_name: str, device="cpu"):
 
 
 def kernel_name(core: str, mode: int) -> str:
-    """The instantiation's name: ``<core>_mask``, ``<core>_mask_multi``
-    or ``<core>_mask_probe`` for mode SINGLE, SETS or PROBE (False and
-    True name the first two)."""
+    """The instantiation's name: ``<core>_mask``, ``<core>_mask_multi``,
+    ``<core>_mask_probe`` or ``<core>_mask_bulk`` for mode SINGLE, SETS,
+    PROBE or BULK (False and True name the first two)."""
     return f"{core}_mask" + MODES[int(mode)]
 
 
@@ -135,16 +156,16 @@ def reset_launches() -> None:
 
 
 def kernel_eligible(engine_name: str, gen, n_targets: int) -> bool:
-    """Whether the kernel takes this job: a core engine, 1..MAX_TARGETS
-    targets, a mask of 1..max_candidate_len positions, the core's one
-    block less its padding (27 for ntlm, 55 for the other 64-byte
-    cores, 111 for sha512 and sha384), with 1..256 bytes each."""
+    """Whether the kernel takes this job: a core engine, one target or a
+    list of any length (past N_BULK the bulk probe), a mask of
+    1..max_candidate_len positions, the core's one block less its
+    padding (27 for ntlm, 55 for the other 64-byte cores, 111 for sha512
+    and sha384), with 1..256 bytes each."""
     try:
         eng = device_engine(engine_name)
     except ValueError:
         return False
-    return (1 <= n_targets <= bloom.MAX_TARGETS
-            and mask_fits(gen, eng.max_candidate_len))
+    return n_targets >= 1 and mask_fits(gen, eng.max_candidate_len)
 
 
 def mask_fits(gen, longest: int) -> bool:
@@ -338,25 +359,27 @@ def check_tables(eng, bloom_rows: torch.Tensor,
                          f"{n} targets")
 
 
-def check_table(eng, table: torch.Tensor, device) -> None:
-    """The sorted target table of a list: int32[1..MAX_TARGETS, W]."""
+def check_table(eng, table: torch.Tensor, device, bulk: bool = False) -> None:
+    """The sorted target table of a list: int32[1..MAX_TARGETS, W], or
+    of a bulk list any number of rows whose words index in int32."""
     _check_tensor("target table", table, 2, device)
-    n = table.shape[0]
-    if not 1 <= n <= bloom.MAX_TARGETS or table.shape[1] != eng.digest_words:
-        raise ValueError(f"target table must be int32[1..{bloom.MAX_TARGETS},"
-                         f" {eng.digest_words}], got {list(table.shape)}")
+    n, w = table.shape
+    most = ((1 << 31) - 1) // max(1, w) if bulk else bloom.MAX_TARGETS
+    if not 1 <= n <= most or w != eng.digest_words:
+        raise ValueError(f"target table must be int32[1..{most}, "
+                         f"{eng.digest_words}], got {list(table.shape)}")
 
 
 def check_probe(words: torch.Tensor, block_bits: int, k: int,
-                device) -> None:
-    """The probe bitmap: int32[16 << block_bits] for 0..10 block bits,
-    and 1..8 bits a candidate."""
+                device, most: int = PROBE_MAX_BLOCK_BITS) -> None:
+    """The probe bitmap: int32[16 << block_bits] for 0..``most`` block
+    bits (10 for the shared-memory probe, BULK_MAX_BLOCK_BITS for the
+    bulk one), and 1..8 bits a candidate."""
     _check_tensor("probe bitmap", words, 1, device)
-    if not 0 <= block_bits <= PROBE_MAX_BLOCK_BITS or \
+    if not 0 <= block_bits <= most or \
             words.shape[0] != probe.BLOCK_WORDS << block_bits:
         raise ValueError(f"probe bitmap of {words.shape[0]} words does not "
-                         f"fit {block_bits} block bits "
-                         f"(0..{PROBE_MAX_BLOCK_BITS})")
+                         f"fit {block_bits} block bits (0..{most})")
     if not 1 <= k <= probe.MAX_K:
         raise ValueError(f"probe k {k} outside 1..{probe.MAX_K}")
 
@@ -415,8 +438,9 @@ def args_layout(block_words: int):
 
 
 class MultiArgs(ctypes.Structure):
-    """``struct MultiArgs`` of csrc/mask_kernel.cuh: ``bloom`` points to
-    the Bloom rows (mode SETS) or the probe bitmap (mode PROBE)."""
+    """``struct MultiArgs`` of csrc/compare.cuh: ``bloom`` points to the
+    Bloom rows (mode SETS) or the probe bitmap (modes PROBE and BULK);
+    ``table`` is null for a bulk list in the host-verify layout."""
     _fields_ = [("bloom", ctypes.c_void_p), ("table", ctypes.c_void_p),
                 ("n_sets", ctypes.c_int32), ("n_targets", ctypes.c_int32),
                 ("block_bits", ctypes.c_int32), ("k", ctypes.c_int32)]
@@ -660,6 +684,30 @@ def mask_probe_kernel(engine: str, lut: torch.Tensor,
                    hit_capacity, offset, out)
 
 
+def mask_bulk_kernel(engine: str, lut: torch.Tensor,
+                     radices: Sequence[int], base_digits: Sequence[int],
+                     n_valid: int, probe_words: torch.Tensor,
+                     block_bits: int, k: int, table, hit_capacity: int,
+                     batch: int, *, offset: int = 0, out=None):
+    """Launch the multi-target kernel with the bulk probe: probe_words
+    int32[16 << block_bits] (a ``ProbeTable``'s bitmap) read from global
+    memory, k bits a candidate, and table int32[T, W] (the sorted
+    ``TargetTable``) on the card, or None for the host-verify layout,
+    where every survivor is reported with tpos -1.  Returns (count,
+    lanes, tpos, n_maybe) as ``mask_multi_kernel``."""
+    eng = device_engine(engine, lut.device)
+    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch,
+              offset)
+    check_probe(probe_words, block_bits, k, lut.device, BULK_MAX_BLOCK_BITS)
+    if table is not None:
+        check_table(eng, table, lut.device, bulk=True)
+    margs = MultiArgs(probe_words.data_ptr(),
+                      None if table is None else table.data_ptr(), 0,
+                      0 if table is None else table.shape[0], block_bits, k)
+    return _launch(eng, BULK, lut, radices, base_digits, n_valid, [], margs,
+                   shared_bytes(lut.shape[0]), hit_capacity, offset, out)
+
+
 def _digest_plain(eng, lut, radices, base_digits, batch, offset):
     cand = decode_lut(lut, radices, base_digits, batch, lane_offset=offset)
     return eng.digest_packed(eng.pack(cand, lut.shape[0]))
@@ -797,6 +845,35 @@ def probe_plain(eng, lut: torch.Tensor, radices: Sequence[int],
                        out)
 
 
+def bulk_plain(eng, lut: torch.Tensor, radices: Sequence[int],
+               base_digits: Sequence[int], n_valid: int,
+               probe_words: torch.Tensor, block_bits: int, k: int, table,
+               hit_capacity: int, batch: int, *, offset: int = 0,
+               out=None):
+    """The bulk kernel's function in plain PyTorch for the device engine
+    ``eng``: ``probe_found`` (the reference's ``bloom_maybe``), then
+    ``compare_multi`` on the survivors, or, with no table (host-verify),
+    every survivor reported with tpos -1 (the reference's
+    ``probe_hits``); hit lanes come back in ascending order."""
+    check_job(eng, lut, radices, base_digits, n_valid, hit_capacity, batch,
+              offset)
+    check_probe(probe_words, block_bits, k, lut.device, BULK_MAX_BLOCK_BITS)
+    _, valid = _window_lanes(lut, n_valid, batch, offset)
+    digest = _digest_plain(eng, lut, radices, base_digits, batch, offset)
+    maybe = probe_found(digest, probe_words, block_bits, k, valid)
+    if table is not None:
+        check_table(eng, table, lut.device, bulk=True)
+        return _multi_hits(eng, lut, digest, maybe, table, hit_capacity,
+                           offset, out)
+    count, lanes, tpos = _compact(maybe, torch.full_like(
+        maybe, -1, dtype=torch.int32), hit_capacity, offset)
+    n_maybe = maybe.sum(dtype=torch.int32).reshape(1)
+    if out is not None:
+        check_out(out, True, hit_capacity, lut.device)
+        return append_plain(out, count, lanes, tpos, n_maybe)
+    return count, lanes, tpos, n_maybe
+
+
 def mask_plain(engine: str, lut: torch.Tensor, *args, **window):
     """``mask_kernel``'s function in plain PyTorch on the lut's device;
     hit lanes come back in ascending order."""
@@ -816,6 +893,13 @@ def mask_probe_plain(engine: str, lut: torch.Tensor, *args, **window):
     device (arguments as ``mask_probe_kernel``)."""
     return probe_plain(device_engine(engine, lut.device), lut, *args,
                        **window)
+
+
+def mask_bulk_plain(engine: str, lut: torch.Tensor, *args, **window):
+    """``mask_bulk_kernel``'s function in plain PyTorch on the lut's
+    device (arguments as ``mask_bulk_kernel``)."""
+    return bulk_plain(device_engine(engine, lut.device), lut, *args,
+                      **window)
 
 
 def dispatch(kernel, plain, lut, args, window=None):
@@ -850,13 +934,20 @@ def mask_crack_probe(engine: str, lut: torch.Tensor, *args, **window):
                     (engine, lut, *args), window)
 
 
+def mask_crack_bulk(engine: str, lut: torch.Tensor, *args, **window):
+    """The bulk kernel on CUDA tensors, its plain version on CPU tensors
+    (arguments as ``mask_bulk_kernel``)."""
+    return dispatch(mask_bulk_kernel, mask_bulk_plain, lut,
+                    (engine, lut, *args), window)
+
+
 def _check_step(engine: str, gen, n_targets: int, batch: int) -> None:
     if not kernel_eligible(engine, gen, n_targets):
         limit = device_engine(engine).max_candidate_len
         raise ValueError(
             f"mask job not eligible for the mask kernel: engine {engine!r}, "
-            f"{n_targets} targets (1..{bloom.MAX_TARGETS}), length "
-            f"{gen.length} (1..{limit}); use --device cpu")
+            f"{n_targets} targets, length {gen.length} (1..{limit}); use "
+            "--device cpu")
     check_batch(batch)
 
 
@@ -866,22 +957,26 @@ def single_step(crack, engine: str, gen, target_words: np.ndarray,
     ``mask_crack``): step(base_digits, n_valid) -> (count, lanes, tpos
     all 0); the lut goes to ``device`` once, here.  A core's step also
     takes a window, step(base_digits, n_valid, offset=, out=), and then
-    appends to ``out`` (``hit_buffers``, its capacity) and returns it."""
+    appends to ``out`` (``hit_buffers``, its capacity) and returns it;
+    ``cap=`` sets the hit capacity of one call (a relaunch)."""
     device = torch.device(device)
     lut = gen.charset_lut(device)
     radices = gen.radices
     target = [int(w) for w in np.asarray(target_words, np.uint32).ravel()]
     tpos = torch.zeros((hit_capacity,), dtype=torch.int32, device=device)
 
-    def step(base_digits: Sequence[int], n_valid: int, **window):
+    def step(base_digits: Sequence[int], n_valid: int, cap: int = None,
+             **window):
         out = window.get("out")
         if out is not None:
             crack(engine, lut, radices, base_digits, n_valid, target,
                   out[1].shape[0], batch, **window)
             return out
+        n = hit_capacity if cap is None else cap
         count, lanes = crack(engine, lut, radices, base_digits, n_valid,
-                             target, hit_capacity, batch, **window)
-        return count, lanes, tpos
+                             target, n, batch, **window)
+        return count, lanes, tpos if n == hit_capacity else \
+            torch.zeros_like(lanes)
 
     return step
 
@@ -890,13 +985,18 @@ def _list_step(crack_multi, engine: str, gen, state: tuple, batch: int,
                hit_capacity: int, device):
     """A list's step over the dispatcher ``crack_multi``, whose
     arguments after n_valid are ``state`` (the prefilter's tensors and
-    the sorted table), then the capacity and the batch."""
+    the sorted table), then the capacity and the batch; ``cap=`` sets
+    the hit capacity of one call (a relaunch)."""
     lut = gen.charset_lut(device)
     radices = gen.radices
 
-    def step(base_digits: Sequence[int], n_valid: int, **window):
+    def step(base_digits: Sequence[int], n_valid: int, cap: int = None,
+             **window):
         out = window.get("out")
-        cap = hit_capacity if out is None else out[1].shape[0]
+        if out is not None:
+            cap = out[1].shape[0]
+        elif cap is None:
+            cap = hit_capacity
         return crack_multi(engine, lut, radices, base_digits, n_valid,
                            *state, cap, batch, **window)
 
@@ -934,19 +1034,43 @@ def make_cuda_mask_crack_step(engine: str, gen, target_words: np.ndarray,
                        hit_capacity, device)
 
 
-def make_cuda_multi_crack_step(engine: str, gen,
-                               table: cmp_ops.TargetTable, batch: int,
+def make_cuda_multi_crack_step(engine: str, gen, table, batch: int,
                                hit_capacity: int = 64, device="cuda"):
     """The worker's multi-target step: step(base_digits, n_valid) ->
     (count int32[1], lanes int32[cap], tpos int32[cap], n_maybe
-    int32[1]); tpos indexes the sorted table (map it through
-    ``table.order``).  A window as ``make_cuda_mask_crack_step``'s.  The
-    Bloom sets, or the blocked probe for a core without them."""
+    int32[1]); tpos indexes the sorted table (map it through the
+    table's ``order``), -1 for a host-verify survivor.  A window as
+    ``make_cuda_mask_crack_step``'s.  ``table``: a bulk list's
+    ``probe.ProbeTable`` (the bulk probe), or the sorted ``TargetTable``
+    of 2..N_BULK targets (the Bloom sets, or the blocked probe for a
+    core without them)."""
     _check_step(engine, gen, table.num_targets, batch)
+    if isinstance(table, probe.ProbeTable):
+        return bulk_step(engine, gen, table, batch, hit_capacity, device)
     if SETS not in core_modes(device_engine(engine).core):
         return probe_step(engine, gen, table, batch, hit_capacity, device)
     return multi_step(mask_crack_multi, engine, gen, table, batch,
                       hit_capacity, device)
+
+
+def probe_tensors(ptable, device) -> tuple:
+    """A ``ProbeTable`` on ``device``: (bitmap int32[16 << block_bits],
+    block_bits, k, sorted table int32[T, W] or None)."""
+    words = torch.as_tensor(np.ascontiguousarray(ptable.bits).view(np.int32),
+                            device=device)
+    table = None if ptable.table is None else ptable.table.tensor(device)
+    return words, ptable.block_bits, ptable.k, table
+
+
+def bulk_step(engine: str, gen, ptable, batch: int, hit_capacity: int,
+              device):
+    """A bulk list's step over the bulk probe (arguments as
+    ``mask_crack_bulk``): the ``ProbeTable``'s bitmap and sorted table go
+    to ``device`` once, here.  A window as ``single_step``'s."""
+    device = torch.device(device)
+    return _list_step(mask_crack_bulk, engine, gen,
+                      probe_tensors(ptable, device), batch, hit_capacity,
+                      device)
 
 
 def probe_step(engine: str, gen, table: cmp_ops.TargetTable, batch: int,

@@ -1,6 +1,6 @@
 """The fused wordlist+rules kernel: the counterpart of the JAX package's
 ops/pallas_rules.py for the md5, ntlm (md4), sha1 and sha256 cores, one
-target.
+target or a list.
 
 Per candidate the kernel (csrc/rules.cu) takes word b of the step's
 word window and rule r, interprets the rule's bytecode (``encode_rules``)
@@ -17,7 +17,18 @@ over it, the block's threads the same rules, so that a launch of
 Outputs: ``count int32[1]``, the exact number of hits, and ``lanes
 int32[hit_capacity]``, the lanes of the first ``hit_capacity`` hits in
 no fixed order, -1 where unused; ``count > hit_capacity`` sends the word
-window to the worker's exact oracle rescan.
+window to the worker's relaunch with a buffer of its count.
+
+A list of targets (the reference sends it to its XLA pipeline,
+ops/rules_pipeline.py; its Pallas kernel takes one target): the
+blocked probe over the list's bitmap -- in shared memory for 2..N_BULK
+targets (mode PROBE, ``cuda_mask.probe_rows``' bitmap), in global memory
+past N_BULK (mode BULK, a ``targets/probe.ProbeTable``) -- and each
+survivor's exact verify against the sorted table on the card; the
+outputs add ``tpos int32[hit_capacity]`` (each hit's table position, -1
+for a survivor of the host-verify layout, which the worker confirms with
+the oracle) and ``n_maybe int32[1]``, the probe's survivors
+(``rules_list_kernel``, ``rules_list_plain``, ``rules_crack_list``).
 
 Three functions carry it: the kernel's wrapper ``rules_kernel`` (CUDA
 tensors only, launches on the current stream without synchronising,
@@ -40,7 +51,8 @@ import numpy as np
 import torch
 
 from dprf_tpu_torch.ops import compare as cmp_ops
-from dprf_tpu_torch.ops.cuda_mask import device_engine
+from dprf_tpu_torch.ops import cuda_mask
+from dprf_tpu_torch.ops.cuda_mask import BULK, PROBE, device_engine
 from dprf_tpu_torch.ops.pack import pack_varlen
 from dprf_tpu_torch.rules import device as rules_device
 from dprf_tpu_torch.rules.parser import Op, Opcode
@@ -82,14 +94,21 @@ SUPPORTED = frozenset(Opcode) - {Opcode.PURGE, Opcode.TITLE,
                                  Opcode.TITLE_SEP}
 
 
-def kernel_name(core: str) -> str:
-    """The instantiation's name: ``<core>_rules``."""
-    return f"{core}_rules"
+#: a list's compare modes (csrc/compare.cuh ``Compare``): the blocked
+#: probe in shared memory, the bulk probe in global memory
+LIST_MODES = {PROBE: "_probe", BULK: "_bulk"}
+
+
+def kernel_name(core: str, mode: int = 0) -> str:
+    """The instantiation's name: ``<core>_rules`` for one target,
+    ``<core>_rules_probe`` or ``<core>_rules_bulk`` for a list."""
+    return f"{core}_rules" + LIST_MODES.get(mode, "")
 
 
 #: launches of each kernel instantiation in this process, by
 #: ``kernel_name`` (tests and chip_smoke.py reset them and read them)
-launches = {kernel_name(n): 0 for n in KERNEL_CORES}
+launches = {kernel_name(n, m): 0 for n in KERNEL_CORES
+            for m in (0, *LIST_MODES)}
 
 
 def reset_launches() -> None:
@@ -148,15 +167,16 @@ def rules_engine(engine_name: str, device="cpu"):
 
 
 def kernel_rules_eligible(engine_name: str, gen, n_targets: int) -> bool:
-    """Whether the kernel takes this job: a core engine, one target, a
-    wordlist generator whose max_len fits one block (27 for ntlm, 55 for
-    the others), rules of at most MAX_STEPS supported ops."""
+    """Whether the kernel takes this job: a core engine, one target or a
+    list of any length, a wordlist generator whose max_len fits one
+    block (27 for ntlm, 55 for the others), rules of at most MAX_STEPS
+    supported ops."""
     try:
         eng = rules_engine(engine_name)
     except ValueError:
         return False
-    if n_targets != 1 or not (hasattr(gen, "rules")
-                              and hasattr(gen, "packed_words")):
+    if n_targets < 1 or not (hasattr(gen, "rules")
+                             and hasattr(gen, "packed_words")):
         return False
     return (1 <= gen.max_len <= eng.max_candidate_len
             and rules_supported(gen.rules))
@@ -167,7 +187,8 @@ def _check_job(eng, words: torch.Tensor, lens: torch.Tensor,
                n_valid: int, target: Sequence[int], hit_capacity: int,
                word_batch: int, max_len: int = None) -> None:
     """Raise on a job the kernel does not take.  The table's rows are
-    max_len bytes (default: its width), or that padded (``row_bytes``)."""
+    max_len bytes (default: its width), or that padded (``row_bytes``).
+    ``target``: one target's digest words, or None for a list."""
     device = words.device
     if words.dtype != torch.uint8 or words.dim() != 2:
         raise ValueError(f"words must be uint8[n_words, max_len], got "
@@ -208,7 +229,7 @@ def _check_job(eng, words: torch.Tensor, lens: torch.Tensor,
         raise ValueError(f"window of {n_valid} words at {ws} outside the "
                          f"{n_words}-word table or the {word_batch}-word "
                          "batch")
-    if len(target) != eng.digest_words:
+    if target is not None and len(target) != eng.digest_words:
         raise ValueError(f"{eng.name} needs {eng.digest_words} target "
                          f"words, got {len(target)}")
     if hit_capacity < 0:
@@ -233,9 +254,17 @@ def _library():
         i32, i32, ptr, ptr, ptr, ptr, ctypes.POINTER(_RulesArgs), ptr, ptr,
         i32, i32, i32, ptr]
     lib.dprf_rules_launch.restype = i32
+    lib.dprf_rules_list_launch.argtypes = [
+        i32, i32, i32, ptr, ptr, ptr, ptr, ctypes.POINTER(_RulesArgs),
+        ctypes.POINTER(cuda_mask.MultiArgs), ptr, ptr, ptr, ptr, i32, i32,
+        i32, i32, ptr]
+    lib.dprf_rules_list_launch.restype = i32
     for fn in (lib.dprf_rules_blocks_per_sm, lib.dprf_rules_shared_bytes):
         fn.argtypes = [i32, ctypes.POINTER(i32)]
         fn.restype = i32
+    lib.dprf_rules_list_blocks_per_sm.argtypes = [i32, i32, i32,
+                                                  ctypes.POINTER(i32)]
+    lib.dprf_rules_list_blocks_per_sm.restype = i32
     return lib
 
 
@@ -274,14 +303,30 @@ def shared_bytes(core: str) -> int:
 
 
 @functools.cache
-def blocks_per_sm(core: str) -> int:
-    """Resident blocks per SM for one instantiation, from the CUDA
-    occupancy calculator."""
-    blocks = _query(_library().dprf_rules_blocks_per_sm, core,
-                    "occupancy")
+def blocks_per_sm(core: str, mode: int = 0, smem: int = 0) -> int:
+    """Resident blocks per SM for one instantiation (a list's at its
+    ``smem`` bytes of dynamic shared memory), from the CUDA occupancy
+    calculator."""
+    if mode:
+        value = ctypes.c_int(0)
+        rc = _library().dprf_rules_list_blocks_per_sm(
+            KERNEL_CORES[core], int(mode), smem, ctypes.byref(value))
+        if rc != 0:
+            raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+        blocks = value.value
+    else:
+        blocks = _query(_library().dprf_rules_blocks_per_sm, core,
+                        "occupancy")
     if blocks < 1:
         raise RuntimeError(f"occupancy query: {blocks} blocks per SM")
     return blocks
+
+
+def list_shared_bytes(core: str, mode: int, block_bits: int) -> int:
+    """Dynamic shared memory of one block of a list's instantiation: the
+    slots, and for PROBE the bitmap of 16 << block_bits words."""
+    extra = 64 << block_bits if mode == PROBE else 0
+    return shared_bytes(core) + extra
 
 
 def word_blocks(n_valid: int) -> int:
@@ -336,6 +381,34 @@ def rules_kernel(engine: str, words: torch.Tensor, lens: torch.Tensor,
     (chip_smoke.py sets it to run a whole rule set as one run).
     Returns (count int32[1], lanes int32[hit_capacity]) on the card,
     still being computed."""
+    eng, words, max_len = _kernel_job(engine, words, lens, bytecode, n_ops,
+                                      ws, n_valid, target, hit_capacity,
+                                      word_batch, max_len)
+    device = words.device
+    count = torch.zeros((1,), dtype=torch.int32, device=device)
+    lanes = torch.full((hit_capacity,), -1, dtype=torch.int32,
+                       device=device)
+    if n_valid == 0:
+        return count, lanes
+    args = _launch_args(bytecode, ws, n_valid, target, word_batch, max_len,
+                        run, blocks_per_sm(eng.core), device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _library().dprf_rules_launch(
+        KERNEL_CORES[eng.core], device.index, words.data_ptr(),
+        lens.data_ptr(), bytecode.data_ptr(), n_ops.data_ptr(),
+        ctypes.byref(args), count.data_ptr(), lanes.data_ptr(),
+        hit_capacity, launch_grid(n_valid, bytecode.shape[0], args.run),
+        THREADS, stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel_name(eng.core)} kernel launch failed: "
+                           f"CUDA error {rc}")
+    launches[kernel_name(eng.core)] += 1
+    return count, lanes
+
+
+def _kernel_job(engine, words, lens, bytecode, n_ops, ws, n_valid, target,
+                hit_capacity, word_batch, max_len):
+    """A kernel launch's checks: (engine, the padded table, max_len)."""
     if words.device.type != "cuda":
         raise ValueError(f"the CUDA rules kernel takes CUDA tensors, got "
                          f"words on {words.device}")
@@ -345,33 +418,81 @@ def rules_kernel(engine: str, words: torch.Tensor, lens: torch.Tensor,
                hit_capacity, word_batch, max_len)
     if words.shape[1] != row_bytes(max_len):
         words = pad_rows(words)
-    device = words.device
-    count = torch.zeros((1,), dtype=torch.int32, device=device)
-    lanes = torch.full((hit_capacity,), -1, dtype=torch.int32,
-                       device=device)
-    if n_valid == 0:
-        return count, lanes
+    return eng, words, max_len
+
+
+def _launch_args(bytecode, ws, n_valid, target, word_batch, max_len, run,
+                 blocks, device) -> _RulesArgs:
+    """The launch's RulesArgs, its run from ``rule_runs`` at ``blocks``
+    resident blocks an SM unless ``run`` is given."""
     n_rules = bytecode.shape[0]
     if run is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        run = rule_runs(n_valid, n_rules, sms * blocks_per_sm(eng.core))
+        run = rule_runs(n_valid, n_rules, sms * blocks)
     if not 1 <= run <= min(n_rules, MAX_RUN):
         raise ValueError(f"run {run} outside 1..{min(n_rules, MAX_RUN)}")
-    target = list(target) + [0] * (8 - len(target))
-    args = _RulesArgs(max_len, n_rules, word_batch, ws, n_valid,
+    target = list(target or ()) + [0] * (8 - len(target or ()))
+    return _RulesArgs(max_len, n_rules, word_batch, ws, n_valid,
                       (ctypes.c_uint32 * 8)(*(int(w) & 0xFFFFFFFF
                                               for w in target)), run)
+
+
+def _check_list(eng, mode, probe_words, block_bits, k, table, device):
+    if mode not in LIST_MODES:
+        raise ValueError(f"list mode {mode} not in {sorted(LIST_MODES)}")
+    cuda_mask.check_probe(
+        probe_words, block_bits, k, device,
+        cuda_mask.PROBE_MAX_BLOCK_BITS if mode == PROBE
+        else cuda_mask.BULK_MAX_BLOCK_BITS)
+    if table is None:
+        if mode == PROBE:
+            raise ValueError("the shared-memory probe needs the sorted table")
+    else:
+        cuda_mask.check_table(eng, table, device, bulk=mode == BULK)
+
+
+def rules_list_kernel(engine: str, mode: int, words: torch.Tensor,
+                      lens: torch.Tensor, bytecode: torch.Tensor,
+                      n_ops: torch.Tensor, ws: int, n_valid: int,
+                      probe_words: torch.Tensor, block_bits: int, k: int,
+                      table, hit_capacity: int, word_batch: int,
+                      max_len: int = None, run: int = None):
+    """Launch a list's instantiation (mode PROBE or BULK) over words [ws,
+    ws + n_valid) under every rule (the table, rules and run as
+    ``rules_kernel``): probe_words int32[16 << block_bits] (PROBE:
+    ``cuda_mask.probe_rows``, at most 10 block bits; BULK: a
+    ``ProbeTable``'s), k bits a candidate, table int32[T, W] the sorted
+    ``TargetTable`` on the card, or None for a bulk host-verify list.
+    Returns (count int32[1], lanes int32[cap], tpos int32[cap], n_maybe
+    int32[1]) on the card, still being computed."""
+    eng, words, max_len = _kernel_job(engine, words, lens, bytecode, n_ops,
+                                      ws, n_valid, None, hit_capacity,
+                                      word_batch, max_len)
+    device = words.device
+    _check_list(eng, mode, probe_words, block_bits, k, table, device)
+    count, lanes, tpos, n_maybe = cuda_mask.hit_buffers(True, hit_capacity,
+                                                        device)
+    if n_valid == 0:
+        return count, lanes, tpos, n_maybe
+    smem = list_shared_bytes(eng.core, mode, block_bits)
+    args = _launch_args(bytecode, ws, n_valid, None, word_batch, max_len, run,
+                        blocks_per_sm(eng.core, mode, smem), device)
+    margs = cuda_mask.MultiArgs(
+        probe_words.data_ptr(), None if table is None else table.data_ptr(),
+        0, 0 if table is None else table.shape[0], block_bits, k)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = _library().dprf_rules_launch(
-        KERNEL_CORES[eng.core], device.index, words.data_ptr(),
+    rc = _library().dprf_rules_list_launch(
+        KERNEL_CORES[eng.core], int(mode), device.index, words.data_ptr(),
         lens.data_ptr(), bytecode.data_ptr(), n_ops.data_ptr(),
-        ctypes.byref(args), count.data_ptr(), lanes.data_ptr(),
-        hit_capacity, launch_grid(n_valid, n_rules, run), THREADS, stream)
+        ctypes.byref(args), ctypes.byref(margs), count.data_ptr(),
+        lanes.data_ptr(), tpos.data_ptr(), n_maybe.data_ptr(), hit_capacity,
+        launch_grid(n_valid, bytecode.shape[0], args.run), THREADS, smem,
+        stream)
+    name = kernel_name(eng.core, mode)
     if rc != 0:
-        raise RuntimeError(f"{kernel_name(eng.core)} kernel launch failed: "
-                           f"CUDA error {rc}")
-    launches[kernel_name(eng.core)] += 1
-    return count, lanes
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launches[name] += 1
+    return count, lanes, tpos, n_maybe
 
 
 def rules_plain(engine: str, words: torch.Tensor, lens: torch.Tensor,
@@ -383,9 +504,47 @@ def rules_plain(engine: str, words: torch.Tensor, lens: torch.Tensor,
     eng = rules_engine(engine, words.device)
     _check_job(eng, words, lens, bytecode, n_ops, ws, n_valid, target,
                hit_capacity, word_batch)
-    device, max_len = words.device, words.shape[1]
+    digest, valid = _digest_plain(eng, words, lens, bytecode, n_ops, ws,
+                                  n_valid, word_batch)
     want = cmp_ops.target_words_from_numpy(np.asarray(target, np.uint32),
-                                           device)
+                                           words.device)
+    found = cmp_ops.compare_single(digest, want) & valid
+    count, lanes, _ = cmp_ops.compact_hits(found, torch.zeros_like(
+        found, dtype=torch.int32), hit_capacity)
+    return count, lanes
+
+
+def rules_list_plain(engine: str, mode: int, words: torch.Tensor,
+                     lens: torch.Tensor, bytecode: torch.Tensor,
+                     n_ops: torch.Tensor, ws: int, n_valid: int,
+                     probe_words: torch.Tensor, block_bits: int, k: int,
+                     table, hit_capacity: int, word_batch: int):
+    """``rules_list_kernel``'s function in plain PyTorch on the words'
+    device (an unpadded table): every (word, rule) digest, the probe
+    (``cuda_mask.probe_found``), then ``compare_multi`` on the
+    survivors, or every survivor at tpos -1 without a table; hit lanes
+    come back in ascending order."""
+    eng = rules_engine(engine, words.device)
+    _check_job(eng, words, lens, bytecode, n_ops, ws, n_valid, None,
+               hit_capacity, word_batch)
+    _check_list(eng, mode, probe_words, block_bits, k, table, words.device)
+    digest, valid = _digest_plain(eng, words, lens, bytecode, n_ops, ws,
+                                  n_valid, word_batch)
+    maybe = cuda_mask.probe_found(digest, probe_words, block_bits, k, valid)
+    if table is None:
+        found, tpos = maybe, torch.full_like(maybe, -1, dtype=torch.int32)
+    else:
+        found, tpos = cmp_ops.compare_multi(digest, table)
+        found = found & maybe
+    count, lanes, tpos = cmp_ops.compact_hits(found, tpos, hit_capacity)
+    return count, lanes, tpos, maybe.sum(dtype=torch.int32).reshape(1)
+
+
+def _digest_plain(eng, words, lens, bytecode, n_ops, ws, n_valid,
+                  word_batch):
+    """Every rule over the window's words, rule-major: (digest int32[R *
+    word_batch, W], valid bool[R * word_batch])."""
+    device, max_len = words.device, words.shape[1]
     # the window's words, padded to word_batch with empty words that
     # the lane mask drops
     w = torch.zeros((word_batch, max_len), dtype=torch.uint8, device=device)
@@ -399,10 +558,7 @@ def rules_plain(engine: str, words: torch.Tensor, lens: torch.Tensor,
         for ops in decode_rules(bytecode, n_ops))))
     digest = eng.digest_packed(pack_varlen(
         cand, clen, big_endian=not eng.little_endian, widen=eng.widen_utf16))
-    found = cmp_ops.compare_single(digest, want) & valid
-    count, lanes, _ = cmp_ops.compact_hits(found, torch.zeros_like(
-        found, dtype=torch.int32), hit_capacity)
-    return count, lanes
+    return digest, valid
 
 
 def rules_crack(engine: str, words: torch.Tensor, *args,
@@ -417,16 +573,33 @@ def rules_crack(engine: str, words: torch.Tensor, *args,
     raise ValueError(f"no rules kernel for device {words.device}")
 
 
-def make_cuda_rules_crack_step(engine: str, gen, target_words: np.ndarray,
+def rules_crack_list(engine: str, mode: int, words: torch.Tensor, *args,
+                     max_len: int = None):
+    """A list's kernel on CUDA tensors, its plain version on CPU tensors
+    (arguments as ``rules_list_plain``)."""
+    if words.device.type == "cuda":
+        return rules_list_kernel(engine, mode, words, *args, max_len=max_len)
+    if words.device.type == "cpu":
+        return rules_list_plain(engine, mode, words, *args)
+    raise ValueError(f"no rules kernel for device {words.device}")
+
+
+def make_cuda_rules_crack_step(engine: str, gen, target,
                                word_batch: int, hit_capacity: int = 64,
                                device="cuda"):
     """The worker's step: step(ws, n_valid_words) -> (count int32[1],
     lanes int32[hit_capacity], tpos int32[hit_capacity]) over words
     [ws, ws + n_valid_words) and every rule, lanes rule-major (lane =
-    r * word_batch + b), tpos all 0.  The packed word table and the rule
+    r * word_batch + b), tpos all 0; step(ws, n, cap=N) sets one call's
+    hit capacity (a relaunch).  The packed word table and the rule
     tables go to ``device`` once, here, the table's rows padded to
-    ``row_bytes`` on a card.  target_words: the core's uint32 digest
-    words."""
+    ``row_bytes`` on a card.  ``target``: the core's uint32 digest
+    words; or a list -- the sorted ``TargetTable`` of 2..N_BULK targets
+    (the shared-memory probe at ``cuda_mask.probe_rows``' bitmap) or a
+    bulk list's ``probe.ProbeTable`` (the bulk probe) -- whose step
+    returns (count, lanes, tpos, n_maybe) with tpos the sorted table's
+    positions (-1 for a host-verify survivor)."""
+    from dprf_tpu_torch.targets.probe import ProbeTable
     if not kernel_rules_eligible(engine, gen, 1):
         limit = rules_engine(engine).max_candidate_len
         raise ValueError(
@@ -440,14 +613,33 @@ def make_cuda_rules_crack_step(engine: str, gen, target_words: np.ndarray,
         words = pad_rows(words)
     lens = torch.as_tensor(lens, device=device)
     bytecode, n_ops = rule_tables(gen.rules, device)
-    target = [int(w) for w in np.asarray(target_words, np.uint32).ravel()]
+    if isinstance(target, (cmp_ops.TargetTable, ProbeTable)):
+        if isinstance(target, ProbeTable):
+            mode, state = BULK, cuda_mask.probe_tensors(target, device)
+        else:
+            bits, block_bits, k = cuda_mask.probe_rows(target.words)
+            mode, state = PROBE, (
+                torch.as_tensor(bits.view(np.int32), device=device),
+                block_bits, k, target.tensor(device))
+
+        def list_step(ws: int, n_valid: int, cap: int = None):
+            return rules_crack_list(
+                engine, mode, words, lens, bytecode, n_ops, ws, n_valid,
+                *state, hit_capacity if cap is None else cap, word_batch,
+                max_len=gen.max_len)
+
+        list_step.word_batch = word_batch
+        return list_step
+    target = [int(w) for w in np.asarray(target, np.uint32).ravel()]
     tpos = torch.zeros((hit_capacity,), dtype=torch.int32, device=device)
 
-    def step(ws: int, n_valid: int):
+    def step(ws: int, n_valid: int, cap: int = None):
+        n = hit_capacity if cap is None else cap
         count, lanes = rules_crack(engine, words, lens, bytecode, n_ops, ws,
-                                   n_valid, target, hit_capacity, word_batch,
+                                   n_valid, target, n, word_batch,
                                    max_len=gen.max_len)
-        return count, lanes, tpos
+        return count, lanes, tpos if n == hit_capacity else \
+            torch.zeros_like(lanes)
 
     step.word_batch = word_batch
     return step

@@ -555,6 +555,59 @@ def probe_ops(engine_name: str, length: int, fill: float, k: int,
                 words("fma") + dec.fma + 1 + sum(reach[2:]))
 
 
+def rules_list_ops(engine_name: str, length_counts: dict, fill: float,
+                   k: int, maybes: float = 0.0, n_targets: int = 1) -> Work:
+    """The least work of the rule kernel's candidates under a list's
+    probe, summed over ``length_counts`` (``rule_lengths``): each
+    candidate's core up to digest words 0-1 at its length, and words 2-3
+    for the share ``fill`` whose first bit passes, their feed-forward
+    adds, the block and the bits it tests as ``probe_ops`` counts them,
+    and each survivor's search (``maybes`` a candidate); nothing for the
+    rule interpretation."""
+    eng = _engine(engine_name)
+    reach = [fill ** j for j in range(k)]
+    search = int(np.ceil(np.log2(n_targets + 1)))
+    feed = 0 if no_feed_forward(eng) else 2 + 2 * fill
+    per = Work(3 + 4 * sum(reach) + maybes * (4 * search + eng.digest_words),
+               feed + sum(reach[:2]), 1 + sum(reach[2:]))
+    alu = add_ = fma = 0.0
+    for length, n in length_counts.items():
+        w2 = core_work(engine_name, length, 2)
+        w4 = core_work(engine_name, length, 4)
+        alu += n * (w2["alu"] + fill * (w4["alu"] - w2["alu"]) + per.alu)
+        add_ += n * (w2["add"] + fill * (w4["add"] - w2["add"]) + per.add)
+        fma += n * (w2["fma"] + fill * (w4["fma"] - w2["fma"]) + per.fma)
+    return Work(alu, add_, fma)
+
+
+#: the L2 cache of an H100 (NVIDIA's data sheet): a bulk bitmap up to
+#: this size stays resident while a launch probes it
+L2_BYTES = 50 * 1024 * 1024
+
+
+def bulk_ops(engine_name: str, length: int, fill: float, k: int,
+             maybes: float = 0.0, n_targets: int = 1,
+             run: float = 1) -> Work:
+    """The least work of one candidate under the bulk probe
+    (csrc/compare.cuh ``probe_maybe<W, true>``, the bitmap in global
+    memory), counted as ``probe_ops``: the same bits tested, the block's
+    address one 64-bit IMAD where the shared-memory probe takes one
+    32-bit IMAD, and each survivor's search over the list's
+    ``n_targets``."""
+    return probe_ops(engine_name, length, fill, k, maybes, n_targets, run)
+
+
+def bulk_bytes(n_targets: int, digest_words: int, block_bits: int,
+               host_verify: bool = False) -> int:
+    """The bytes a bulk launch must move, each input read once: the
+    bitmap (16 << block_bits words) and, but in the host-verify layout,
+    the sorted table (n_targets x digest_words words); the hit buffers
+    it writes are a few bytes.  Set beside ``L2_BYTES``: a bitmap of up
+    to 50 MB is read from L2 after its first touch."""
+    table = 0 if host_verify else n_targets * digest_words * 4
+    return 64 * (1 << block_bits) + table
+
+
 def rule_lengths(words: np.ndarray, lens: np.ndarray, rules,
                  max_len: int) -> dict:
     """{length: candidates} over words (uint8[N, max_len], int32[N]) x

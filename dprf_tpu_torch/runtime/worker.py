@@ -1,24 +1,33 @@
 """Workers: WorkUnit -> generate candidates -> hash -> report hits.
 
 CudaMaskWorker is the card's mask path: one hand-written kernel launch
-per batch (ops/cuda_mask.py), for one target or a list, queued
-asynchronously on the current stream so the card never drains between
-batches; a core's unit goes out as loop-superstep windows
-(ops/superstep.py), whose launches share one set of hit buffers.  A
-unit's hits are resolved after the whole unit is queued, and only hit
-buffers cross back to the host.
+per batch (ops/cuda_mask.py), for one target or a list of any length
+(past ``cuda_mask.N_BULK`` targets the bulk probe over a probe table,
+targets/probe.py), queued asynchronously on the current stream so the
+card never drains between batches; a core's unit goes out as
+loop-superstep windows (ops/superstep.py), whose launches share one set
+of hit buffers.  A unit's hits are resolved after the whole unit is
+queued, and only hit buffers cross back to the host.
 CudaWordlistWorker is the wordlist+rules path, one rule-kernel launch
-per word window (ops/cuda_rules.py).  On CPU tensors (``--device
-torch-cpu``) both run their kernel's plain PyTorch version.
+per word window (ops/cuda_rules.py), for one target or a list.  On CPU
+tensors (``--device torch-cpu``) both run their kernel's plain PyTorch
+version.
+
+A dispatch whose hits overflow its hit buffer is relaunched once on the
+card with a buffer of exactly its count; only a relaunch that cannot
+hold them either goes to the exact oracle rescan.  A survivor of a bulk
+list's host-verify layout (table position -1) is confirmed by one
+oracle hash, and a false one is dropped here (``rejected_survivors``).
 
 CpuWorker is the reference path (``--device cpu``): the oracle engine
 over host-materialized candidates.  It also rescans a batch exactly
-when a device hit buffer overflows.
+when a relaunch cannot hold its hits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence
 
 import torch
@@ -141,9 +150,9 @@ class MaskWorkerBase:
     out as windows of up to that many batches through ``_window``, each
     with one set of hit buffers, its last batch partial; the others one
     step per batch.  A dispatch is queued as ((first index, span),
-    result).  A window that overflows its hit buffers is redriven batch
-    by batch through the device step.  A window that fails to launch
-    raises: there is no fallback to per-batch dispatch.
+    result).  A dispatch that overflows its hit buffers is relaunched
+    with a buffer of its count (``_relaunch``).  A window that fails to
+    launch raises: there is no fallback to per-batch dispatch.
     """
 
     #: most batches of one window (the int32 lane budget applies on top)
@@ -152,10 +161,15 @@ class MaskWorkerBase:
     window_batches = 1
 
     def _setup_targets(self, engine, gen, targets: Sequence[Target],
-                       hit_capacity: int, oracle: Optional[HashEngine]):
+                       hit_capacity: int, oracle: Optional[HashEngine],
+                       device=None, bulk: bool = False):
         """One target: returns its uint32 digest words.  A list:
         returns the sorted ``TargetTable``; hits' table positions map
-        back to the job's target index through its ``order``."""
+        back to the job's target index through its ``order``.  With
+        ``bulk`` (a one-card kernel worker), a list of more than
+        ``cuda_mask.N_BULK`` targets returns its ``probe.ProbeTable``,
+        sized for ``device``'s free memory; its host-verify layout needs
+        the oracle."""
         from dprf_tpu_torch.ops.compare import digest_rows, make_target_table
 
         self.engine = engine
@@ -167,15 +181,54 @@ class MaskWorkerBase:
         #: window's launches included), and its windows
         self.dispatched = 0
         self.windows = 0
-        #: Bloom survivors summed on the device (multi-target steps)
+        #: overflowing dispatches relaunched on the card, and batches
+        #: the oracle rescanned because a relaunch could not hold them
+        self.relaunches = 0
+        self.rescans = 0
+        #: host-verify survivors the oracle rejected
+        self.rejected_survivors = 0
+        #: a bulk list's probe table (else None) and its build seconds
+        self.probe_table = None
+        self.table_seconds = 0.0
+        #: prefilter survivors summed on the device (multi-target steps)
         self._maybes = None
         self.multi = len(self.targets) > 1
         digests = [t.digest for t in self.targets]
+        if self.multi and bulk and self._bulk_list():
+            from dprf_tpu_torch.targets import probe
+            t0 = time.perf_counter()
+            pt = probe.build_probe_table(digests, engine.little_endian,
+                                         device=device)
+            self.table_seconds = time.perf_counter() - t0
+            if pt.mode == probe.MODE_HOST_VERIFY:
+                if oracle is None:
+                    raise ValueError(
+                        f"{len(digests)} targets: the probe table's "
+                        "host-verify layout needs an oracle engine")
+                self._digest_map = {t.digest: i
+                                    for i, t in enumerate(self.targets)}
+            self.probe_table = pt
+            self._order = pt.order
+            return pt
         if self.multi:
             self.table = make_target_table(digests, engine.little_endian)
             self._order = self.table.order
             return self.table
         return digest_rows(digests, engine.little_endian)[0]
+
+    def _bulk_list(self) -> bool:
+        """A list past ``cuda_mask.N_BULK`` targets: the bulk probe,
+        which needs unsalted digests of at least two whole words."""
+        from dprf_tpu_torch.ops.cuda_mask import N_BULK
+        from dprf_tpu_torch.targets import probe
+        if len(self.targets) <= N_BULK:
+            return False
+        if not probe.probe_eligible(self.targets, self.engine):
+            raise ValueError(
+                f"{self.engine.name}: {len(self.targets)} targets need the "
+                "bulk probe, which takes unsalted digests of at least 8 "
+                "bytes")
+        return True
 
     def _window(self, base_digits, n_valid: int):
         """One dispatch over the lanes [0, n_valid) from
@@ -220,44 +273,76 @@ class MaskWorkerBase:
         so far (a multi-target job), else None.  Reads the device."""
         return None if self._maybes is None else int(self._maybes.item())
 
+    def _hit(self, gidx: int, tp: int) -> list[Hit]:
+        """The Hit of a reported lane at keyspace index ``gidx`` and table
+        position ``tp``: a list's position maps to the job's target
+        index through the table's order; -1, a survivor of the
+        host-verify layout, is confirmed by one oracle hash, and a false
+        one dropped (counted in ``rejected_survivors``)."""
+        plain = self.gen.candidate(gidx)
+        if not self.multi:
+            return [Hit(0, gidx, plain)]
+        if tp >= 0:
+            return [Hit(int(self._order[tp]), gidx, plain)]
+        ti = self._digest_map.get(self.oracle.hash_batch([plain])[0])
+        if ti is None:
+            self.rejected_survivors += 1
+            return []
+        return [Hit(ti, gidx, plain)]
+
     def _decode_lanes(self, bstart: int, lanes_np, tpos_np) -> list[Hit]:
-        """Hit-buffer lanes -> Hit records (lane -1 = unused slot); a
-        multi-target hit's table position maps to the job's target
-        index through the table's order.  The kernel appends hits in no
-        fixed order, so they are sorted by lane."""
+        """Hit-buffer lanes -> Hit records (lane -1 = unused slot),
+        through ``_hit``.  The kernel appends hits in no fixed order, so
+        they are sorted by lane."""
         hits = []
         for lane, tp in sorted(zip(lanes_np.tolist(), tpos_np.tolist())):
-            if lane < 0:
-                continue
-            gidx = bstart + lane
-            ti = int(self._order[tp]) if self.multi else 0
-            hits.append(Hit(ti, gidx, self.gen.candidate(gidx)))
+            if lane >= 0:
+                hits.extend(self._hit(bstart + lane, tp))
         return hits
 
-    def _rescan(self, bstart: int, unit: WorkUnit) -> list[Hit]:
-        """Exact host rescan of one overflowed batch (more hits than the
-        device hit buffer holds)."""
+    def _rescan(self, bstart: int, unit: WorkUnit,
+                span: Optional[int] = None) -> list[Hit]:
+        """Exact host rescan of one overflowed dispatch (a batch, or
+        ``span`` indices) whose relaunch could not hold its hits."""
         if self.oracle is None:
             raise RuntimeError(
                 f"hit buffer overflow (> {self.hit_capacity}) and no "
                 "oracle engine to rescan with; raise hit_capacity")
-        end = min(bstart + self.stride, unit.end)
+        self.rescans += 1
+        end = min(bstart + (span or self.stride), unit.end)
         sub = WorkUnit(-1, bstart, end - bstart)
         return CpuWorker(self.oracle, self.gen, self.targets).process(sub)
 
+    def _relaunch(self, bstart: int, span: int, capacity: int):
+        """The dispatch over [bstart, bstart + span) once more on the
+        card, into fresh hit buffers of ``capacity`` hits: through the
+        loop superstep for a worker with a window, else one step call
+        with that capacity.  Returns its result, still being computed."""
+        self.relaunches += 1
+        self.dispatched += -(-span // self.stride)
+        digits = self.gen.digits(bstart)
+        if self.window_batches == 1:
+            return self.step(digits, span, cap=capacity)
+        from dprf_tpu_torch.ops.cuda_mask import hit_buffers
+        from dprf_tpu_torch.ops.superstep import loop_super_step
+        return loop_super_step(self.step, self.batch, digits, span,
+                               hit_buffers(self.multi, capacity,
+                                           self.device))
+
     def _batch_hits(self, window, result, unit: WorkUnit) -> list[Hit]:
         """One dispatch over ``window`` = (first index, span) -> Hit
-        records; an overflowed window is redriven, an overflowed batch
-        rescanned."""
+        records; an overflowed dispatch is relaunched with a buffer of
+        its count, and rescanned by the oracle only if that relaunch
+        overflows too."""
         bstart, span = window
         count, lanes, tpos = result[:3]
         count = int(count.item())
         if count == 0:
             return []
         if count > lanes.shape[0]:
-            if span > self.stride:
-                return self._redrive(bstart, span, unit)
-            return self._rescan(bstart, unit)
+            count, lanes, tpos = self._relaunch(bstart, span, count)[:3]
+            if int(count.item()) > lanes.shape[0]:
+                return self._rescan(bstart, unit, span)
         return self._decode_lanes(bstart, lanes.cpu().numpy(),
                                   tpos.cpu().numpy())
 
@@ -293,12 +378,13 @@ class CudaMaskWorker(MaskWorkerBase):
                  oracle: Optional[HashEngine] = None, device="cuda"):
         from dprf_tpu_torch.ops import cuda_ext, cuda_keccak, cuda_mask
 
-        tgt = self._setup_targets(engine, gen, targets, hit_capacity,
-                                  oracle)
+        device = torch.device(device)
         kernels = cuda_ext if engine.name in cuda_ext.NESTED_NAMES \
             else cuda_keccak if engine.name in cuda_keccak.NAMES \
             else cuda_mask
-        device = torch.device(device)
+        tgt = self._setup_targets(engine, gen, targets, hit_capacity,
+                                  oracle, device,
+                                  bulk=kernels is cuda_mask)
         if device.type == "cuda":
             kernels.load_kernel()
         self.batch = self.stride = batch
@@ -483,18 +569,20 @@ class WordlistWorkerBase(MaskWorkerBase):
     ``self.word_batch`` (words per step, the lanes' stride between
     rules) and queue ``((ws, n_words), result)`` per step."""
 
-    def _collect_word_hits(self, lanes_np, ws: int,
+    def _collect_word_hits(self, lanes_np, tpos_np, ws: int,
                            unit: WorkUnit) -> list[Hit]:
-        """Rule-major step lanes -> the unit's Hit records, by keyspace
-        index; a hit outside the unit (a word window covers whole words,
-        a unit need not) is dropped."""
+        """Rule-major step lanes (and a list's table positions) -> the
+        unit's Hit records, by keyspace index, through ``_hit``; a hit
+        outside the unit (a word window covers whole words, a unit need
+        not) is dropped."""
         R = self.gen.n_rules
         hits: list[Hit] = []
-        for gidx in sorted(wordlist_lane_to_gidx(int(lane), ws,
-                                                 self.word_batch, R)
-                           for lane in lanes_np if lane >= 0):
+        for gidx, tp in sorted(
+                (wordlist_lane_to_gidx(int(lane), ws, self.word_batch, R),
+                 int(tp)) for lane, tp in zip(lanes_np, tpos_np)
+                if lane >= 0):
             if unit.start <= gidx < unit.end:
-                hits.append(Hit(0, gidx, self.gen.candidate(gidx)))
+                hits.extend(self._hit(gidx, tp))
         return hits
 
     def _rescan_words(self, ws: int, nw: int, unit: WorkUnit) -> list[Hit]:
@@ -504,6 +592,7 @@ class WordlistWorkerBase(MaskWorkerBase):
             raise RuntimeError(
                 f"hit buffer overflow (> {self.hit_capacity}) and no "
                 "oracle engine to rescan with; raise hit_capacity")
+        self.rescans += 1
         R = self.gen.n_rules
         start = max(unit.start, ws * R)
         end = min(unit.end, (ws + nw) * R)
@@ -511,21 +600,31 @@ class WordlistWorkerBase(MaskWorkerBase):
         return CpuWorker(self.oracle, self.gen, self.targets).process(sub)
 
     def _batch_hits(self, window, result, unit: WorkUnit) -> list[Hit]:
+        """One word window's hits; an overflowed window is relaunched
+        on the card with a buffer of its count, and rescanned by the
+        oracle only if that relaunch overflows too."""
         ws, nw = window
-        count, lanes, _ = result
+        count, lanes, tpos = result[:3]
         count = int(count.item())
         if count == 0:
             return []
         if count > lanes.shape[0]:
-            return self._rescan_words(ws, nw, unit)
-        return self._collect_word_hits(lanes.cpu().numpy(), ws, unit)
+            self.relaunches += 1
+            self.dispatched += 1
+            count, lanes, tpos = self.step(ws, nw, cap=count)[:3]
+            if int(count.item()) > lanes.shape[0]:
+                return self._rescan_words(ws, nw, unit)
+        return self._collect_word_hits(lanes.cpu().numpy(),
+                                       tpos.cpu().numpy(), ws, unit)
 
 
 class CudaWordlistWorker(WordlistWorkerBase):
     """Wordlist+rules worker over the hand-written rule kernel
     (ops/cuda_rules.py), the counterpart of the reference's
-    PallasWordlistWorker: one target, rule interpretation, hash and
-    exact compare in one launch per word window.  The packed word table
+    PallasWordlistWorker (one target) and DeviceWordlistWorker (a list):
+    rule interpretation, hash and compare -- exact for one target, the
+    probe and the verify on the card for a list -- in one launch per
+    word window.  The packed word table
     goes to the device once, at construction; a step takes a window
     (ws, n_valid_words) of at most ``word_batch`` words under every rule.
     Units need not be rule-aligned: a unit runs over the words it
@@ -538,11 +637,9 @@ class CudaWordlistWorker(WordlistWorkerBase):
                  oracle: Optional[HashEngine] = None, device="cuda"):
         from dprf_tpu_torch.ops import cuda_rules
 
-        tgt = self._setup_targets(engine, gen, targets, hit_capacity,
-                                  oracle)
-        if self.multi:
-            raise ValueError("the rules kernel takes one target")
         device = torch.device(device)
+        tgt = self._setup_targets(engine, gen, targets, hit_capacity,
+                                  oracle, device, bulk=True)
         if device.type == "cuda":
             cuda_rules.load_kernel()
         #: words per step: batch candidates over the rules, a multiple

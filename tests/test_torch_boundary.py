@@ -47,6 +47,8 @@ slices = {"dprf_tpu_torch.ops.hmac_sha1", "dprf_tpu_torch.ops.blowfish",
           "dprf_tpu_torch.engines.device.sevenzip",
           "dprf_tpu_torch.engines.device.pdf",
           "dprf_tpu_torch.targets.probe", "dprf_tpu_torch.ops.superstep",
+          "dprf_tpu_torch.targets.store",
+          "dprf_tpu_torch.tools.bench_ingest",
           "dprf_tpu_torch.parallel", "dprf_tpu_torch.parallel.mesh",
           "dprf_tpu_torch.parallel.sharded",
           "dprf_tpu_torch.parallel.worker"}

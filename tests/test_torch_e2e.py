@@ -211,9 +211,9 @@ def test_config3_miniature_matches_reference(tmp_path, capsys, device, which,
 
 
 def test_config3_target_list(tmp_path, capsys, config3_list):
-    """Two targets: --device cpu finds both, as the reference does; the
-    rule kernel takes one target, so torch-cpu refuses the job and
-    names --device cpu."""
+    """Two targets: --device cpu finds both, as the reference does, and
+    so does torch-cpu, whose rule kernel takes a list (the probe and the
+    verify of its plain version): the same found set and potfile."""
     words, planted = config3_list
     hashfile = tmp_path / "h.txt"
     hashfile.write_text("".join(hashlib.sha256(p).hexdigest() + "\n"
@@ -221,13 +221,12 @@ def test_config3_target_list(tmp_path, capsys, config3_list):
     want = _crack_words(ref_main, words, hashfile, tmp_path / "ref.pot",
                         "cpu", capsys)
     assert want[0] == 0 and len(want[1]) == 2
-    assert _crack_words(port_main, words, hashfile, tmp_path / "port.pot",
-                        "cpu", capsys) == want
-    rc = port_main(["crack", "--engine", "sha256", "-a", "wordlist",
-                    str(words), str(hashfile), "--rules", "best64",
-                    "--device", "torch-cpu", "--no-potfile", "-q"])
-    err = capsys.readouterr().err
-    assert rc == 2 and "no rules kernel" in err and "--device cpu" in err
+    for device in ("cpu", "torch-cpu"):
+        rc, out, pot = _crack_words(port_main, words, hashfile,
+                                    tmp_path / f"port-{device}.pot", device,
+                                    capsys)
+        assert (rc, out, sorted(pot.splitlines())) == \
+            (want[0], want[1], sorted(want[2].splitlines())), device
 
 
 def test_config3_keyspace_matches_reference(capsys, config3_list):

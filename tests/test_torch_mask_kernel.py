@@ -96,7 +96,10 @@ def test_kernel_eligible():
     gen = MaskGenerator(MASK)
     assert cuda_mask.kernel_eligible("md5", gen, 1)
     assert cuda_mask.kernel_eligible("md5", gen, 8192)
-    assert not cuda_mask.kernel_eligible("md5", gen, 8193)
+    # past N_BULK the bulk probe: a list of any length
+    assert cuda_mask.kernel_eligible("md5", gen, 8193)
+    assert cuda_mask.kernel_eligible("md5", gen, 10 ** 7)
+    assert not cuda_mask.kernel_eligible("md5", gen, 0)
     assert not cuda_mask.kernel_eligible("md5crypt", gen, 1)
     assert cuda_mask.kernel_eligible("sha512", gen, 1)
     assert cuda_mask.kernel_eligible("sha-384", MaskGenerator("?d" * 111), 1)
@@ -144,9 +147,19 @@ def test_worker_overflow_rescans_exactly(make_worker, hit_cap):
 
 
 def test_worker_overflow_without_oracle_raises():
+    """An overflowing dispatch is relaunched on the device with a buffer
+    of its count, which needs no oracle; only a relaunch that cannot hold
+    the hits either goes to the oracle rescan, and without an oracle
+    that raises."""
     gen = MaskGenerator(MASK)
     d = hashlib.md5(gen.candidate(5)).digest()
     w = CudaMaskWorker(TorchMd5Engine("cpu"), gen, [Target(d.hex(), d)],
                        batch=64, hit_capacity=0, device="cpu")
+    hits = w.process(WorkUnit(0, 0, 64))
+    assert [(h.cand_index, h.plaintext) for h in hits] == \
+        [(5, gen.candidate(5))]
+    assert (w.relaunches, w.rescans) == (1, 0)
+    w._relaunch = lambda bstart, span, capacity: w.step(
+        gen.digits(bstart), span, cap=0)
     with pytest.raises(RuntimeError):
-        w.process(WorkUnit(0, 0, 64))
+        w.process(WorkUnit(1, 0, 64))

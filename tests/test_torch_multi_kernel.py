@@ -109,7 +109,8 @@ def test_kernel_eligible_limits():
     assert cuda_mask.kernel_eligible("ntlm", MaskGenerator("?d" * 27), 1)
     assert not cuda_mask.kernel_eligible("ntlm", MaskGenerator("?d" * 28), 1)
     assert cuda_mask.kernel_eligible("sha256", MaskGenerator("?d" * 55), 8192)
-    assert not cuda_mask.kernel_eligible("sha-1", MaskGenerator("?d"), 8193)
+    assert cuda_mask.kernel_eligible("sha-1", MaskGenerator("?d"), 8193)
+    assert not cuda_mask.kernel_eligible("sha-1", MaskGenerator("?d"), 0)
     gen = MaskGenerator("?d" * 28)
     eng = get_engine("ntlm", device="cuda", torch_device="cpu")
     with pytest.raises(ValueError, match="no mask kernel"):

@@ -80,6 +80,9 @@ inline cudaError_t cudaSetDevice(int) { return 0; }
 template <class F>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
     int* b, F, int, size_t) { *b = 1; return 0; }
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 struct Dim { unsigned x; };
 static Dim threadIdx, blockIdx;
 struct uint4 { uint32_t x, y, z, w; };
@@ -138,12 +141,17 @@ extern "C" void emu_take(int32_t* out)
 
 def host_source(src: str) -> str:
     """csrc/rules.cu for g++: SHIM for the CUDA headers, the launch as a
-    loop over blocks and threads, the run's staging done by each thread,
-    no barrier, and a record of each candidate at its marker."""
+    loop over blocks and threads, the run's staging (and a list's bitmap)
+    done by each thread, no barrier, and a record of each candidate at
+    its marker."""
     edits = [
         ("#include <cuda_runtime.h>", SHIM),
         ('#include "cores.cuh"',
          f'#include "{os.path.abspath(os.path.join(CSRC, "cores.cuh"))}"'),
+        ('#include "compare.cuh"',
+         f'#include "{os.path.abspath(os.path.join(CSRC, "compare.cuh"))}"'),
+        ("for (int i = threadIdx.x; i < n_probe; i += kThreads)",
+         "for (int i = 0; i < n_probe; ++i)"),
         ("for (int i = threadIdx.x; i < 3 * nr * DPRF_RULE_STEPS; "
          "i += kThreads)",
          "for (int i = 0; i < 3 * nr * DPRF_RULE_STEPS; ++i)"),
@@ -159,13 +167,13 @@ def host_source(src: str) -> str:
     for old, new in edits:
         assert src.count(old) == 1, f"csrc/rules.cu changed: {old!r}"
         src = src.replace(old, new)
-    launch = re.compile(r"rules_kernel<Core><<<grid, kThreads, "
-                        r"shared_bytes<Core>\(\), stream>>>\(")
+    launch = re.compile(r"rules_kernel<Core, kMode><<<grid, kThreads, "
+                        r"smem, stream>>>\(")
     assert len(launch.findall(src)) == 1, "csrc/rules.cu changed: launch"
     return launch.sub(
         "for (blockIdx.x = 0; blockIdx.x < (unsigned)grid; ++blockIdx.x) "
         "for (threadIdx.x = 0; threadIdx.x < kThreads; ++threadIdx.x) "
-        "rules_kernel<Core>(", src)
+        "rules_kernel<Core, kMode>(", src)
 
 
 @pytest.fixture(scope="module")

@@ -251,12 +251,13 @@ def test_mysql323_bound_counts_the_skip_where_a_charset_holds_one():
     ["sha512-ps", "-a", "wordlist", "W", "HPS"],
     ["mssql2005", "?l" * 26, "HMS"],
     ["sha512-ps", "?l" * 108, "HPS"],
-    ["sha224", "?l", "HMANY"]])
+    ["sha3-224", "?l", "HMANY"]])
 def test_device_cuda_refuses_what_the_kernels_do_not_take(
         tmp_path, capsys, monkeypatch, argv):
     """On --device cuda (torch made to report a card: the refusals come
     before any launch): a sha224 or mysql323 wordlist, a salted wordlist,
-    a mask past a variant's block and more than 8,192 targets exit 2
+    a mask past a variant's block and more than 8,192 targets of a
+    Keccak engine (a sha224 list of any length runs on the card) exit 2
     naming --device cpu."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     files = {

@@ -20,6 +20,7 @@ from dprf_tpu.runtime.workunit import WorkUnit as RefWorkUnit
 from dprf_tpu_torch.engines import get_engine
 from dprf_tpu_torch.engines.base import Target
 from dprf_tpu_torch.generators import wordlist
+from dprf_tpu_torch.ops import cuda_rules
 from dprf_tpu_torch.ops.pack import pack_varlen
 from dprf_tpu_torch.rules import load_rules
 from dprf_tpu_torch.runtime import worker as port_worker
@@ -160,8 +161,11 @@ def test_worker_matches_reference(engine, gens):
 
 @pytest.mark.parametrize("engine", ["md5", "sha256"])
 def test_hit_overflow_rescans_exactly(engine, gens, monkeypatch):
-    """Two hits past a capacity of 1: the word window goes to the exact
-    oracle rescan, which returns the same hits."""
+    """Two hits past a capacity of 1: the word window is relaunched on
+    the device with a buffer of its count and returns the oracle's hits
+    with no rescan; a relaunch that cannot hold them either (its
+    capacity forced to 1) sends the window to the exact oracle rescan,
+    which returns the same hits."""
     rescans = []
     real = port_worker.WordlistWorkerBase._rescan_words
 
@@ -170,16 +174,50 @@ def test_hit_overflow_rescans_exactly(engine, gens, monkeypatch):
         return real(self, ws, nw, unit)
 
     monkeypatch.setattr(port_worker.WordlistWorkerBase, "_rescan_words", spy)
-    got, _ = _run(engine, gens, 40 * 64 + DEL_LAST, 32 * 64, 38 * 64,
+    want = [40 * 64 + TRUNC7, 40 * 64 + DEL_LAST]
+    got, w = _run(engine, gens, 40 * 64 + DEL_LAST, 32 * 64, 38 * 64,
                   hit_capacity=1)
-    assert [h[1] for h in got] == [40 * 64 + TRUNC7, 40 * 64 + DEL_LAST]
-    assert rescans == [(32, 32)]
+    assert [h[1] for h in got] == want
+    assert rescans == [] and (w.relaunches, w.rescans) == (1, 0)
+    make = cuda_rules.make_cuda_rules_crack_step
+
+    def capped(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def one(ws, n, cap=None):
+            return step(ws, n, cap=None if cap is None else 1)
+
+        one.word_batch = step.word_batch
+        return one
+
+    monkeypatch.setattr(cuda_rules, "make_cuda_rules_crack_step", capped)
+    got, w = _run(engine, gens, 40 * 64 + DEL_LAST, 32 * 64, 38 * 64,
+                  hit_capacity=1)
+    assert [h[1] for h in got] == want
+    assert rescans == [(32, 32)] and (w.relaunches, w.rescans) == (1, 1)
 
 
-def test_worker_refuses_a_target_list(gens):
+def test_worker_refuses_a_target_list(gens, monkeypatch):
+    """The worker takes a list (the probe and the verify of the rules
+    kernel's plain version): two targets both hit.  It refuses a bulk
+    list whose probe table degrades to the host-verify layout (the byte
+    budget forced small) when there is no oracle to confirm its
+    survivors."""
+    from dprf_tpu_torch.ops.cuda_mask import N_BULK
+    from dprf_tpu_torch.targets import probe
     port, _ = gens
-    targets = [Target(d.hex(), d) for d in (hashlib.md5(b"a").digest(),
-                                            hashlib.md5(b"b").digest())]
-    with pytest.raises(ValueError, match="one target"):
+    gen = port[55]
+    plants = [gen.candidate(3), gen.candidate(64 * 7 + 5)]
+    targets = [Target(d.hex(), d)
+               for d in get_engine("md5").hash_batch(plants)]
+    w = CudaWordlistWorker(get_engine("md5", "cuda", torch_device="cpu"),
+                           gen, targets, batch=BATCH, device="cpu")
+    got = w.process(WorkUnit(0, 0, 64 * 8))
+    assert {(h.target_index, h.plaintext) for h in got} >= \
+        {(0, plants[0]), (1, plants[1])}
+    many = targets + [Target(f"{i:032x}", i.to_bytes(16, "big"))
+                      for i in range(N_BULK)]
+    monkeypatch.setattr(probe, "byte_budget", lambda device=None: 9000)
+    with pytest.raises(ValueError, match="host-verify layout needs"):
         CudaWordlistWorker(get_engine("md5", "cuda", torch_device="cpu"),
-                           port[55], targets, batch=BATCH, device="cpu")
+                           gen, many, batch=BATCH, device="cpu")
