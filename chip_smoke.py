@@ -8,7 +8,8 @@ card, and holds every kernel against its plain PyTorch version:
 
 1. the card: name, device count, power limit, SM count and clock;
 2. builds the mask kernel (csrc/mask.cu, every core x compare mode), the
-   rule kernel (csrc/rules.cu, every core), the PMKID and KDF kernels
+   rule kernel (csrc/rules.cu, csrc/rules_nested.cu, csrc/rules_group.cu:
+   every core and tail), the PMKID and KDF kernels
    (csrc/pbkdf2.cu), the bcrypt kernels (csrc/bcrypt.cu), the ext,
    Keccak, Kerberos, 7-Zip and PDF kernels (csrc/ext.cu, csrc/keccak.cu,
    csrc/krb5.cu, csrc/sevenzip.cu, csrc/pdf.cu) from the checkout's
@@ -317,7 +318,39 @@ card, and holds every kernel against its plain PyTorch version:
 44. times each new instantiation at its main path's list beside its
     bound (``opcount.bulk_ops`` / ``rules_list_ops`` and
     ``bulk_bytes``), its plain version and the SM clock;
-45. prints the kernels line (a kernel timed with the SM clock sampled
+45. slice N, wordlist+rules for the salted, nested, Kerberos etype-23,
+    sha224 and mysql323 engines (csrc/rules.cu's two new cores,
+    csrc/rules_nested.cu's seven chains, csrc/rules_group.cu's tails;
+    their pins in ``CENSUS_N``): each new core against its plain version
+    at 2^24 candidates (RULE_BATCH words x best64) with one target
+    (planted at the window's first word under rule 0 and at its last
+    valid word under the last rule), 1,000 targets (the shared-memory
+    probe) and N_BULK_TARGETS (the bulk probe); each group tail at its
+    main path's group (md5-ps 256 salts of 0-32 bytes, MSSQL 256 logins,
+    the Kerberoast's 100 tickets, the others one target; md5-ps and MSSQL
+    2000's uppercase at one target) against the plants at 2^24, and
+    against its plain version on the same launch of 2^24 candidates, a
+    larger group's first N_CHECK_TARGETS targets (count, (lane, target)
+    pairs, per-target counts equal);
+46. the slice through ``crack --device cuda -a wordlist --rules best64``:
+    md5-ps x 1,000 salts, mssql2005 x 256 logins, md5(md5) x 1,000
+    targets, the Kerberoast (krb5tgs x 100 tickets), sha224 and mysql323
+    over config 3's 2^20 words; every other new instantiation over 2^16
+    words (one target, 1,000, N_BULK_TARGETS; one target of each salted
+    variant, mssql2000, an AS-REP roast; md5-ps x 4 salts at ``--hit-cap
+    1`` with a plant several rules keep as it is, whose window is
+    relaunched on the card, ``relaunches=1 rescans=0``); each with every
+    launch count set to 0 just before it and read just after: only its
+    instantiation, once per (group and) word window and relaunch;
+    ``rejected=0``, every plant found;
+47. times each new instantiation with CUDA events at its path's launch
+    beside its bound (``opcount.rules_ops``, ``rules_list_ops``,
+    ``rules_salted_ops`` with each target's own salt, ``rules_krb5_bound``)
+    and its plain version (a larger
+    group's over N_CHECK_TARGETS targets, beside the kernel's time
+    there), and the four K3 rule kernels
+    beside ``PERF.md``'s row 4 (``PERF_ROW4_MS``);
+48. prints the kernels line (a kernel timed with the SM clock sampled
     also carries the clock, ``sm_mhz``, and its bound at that clock)
     and, last, the device line.
 
@@ -659,6 +692,81 @@ CENSUS_M = {
     "sha1_rules_probe": (32, 5416), "sha1_rules_bulk": (32, 5304),
     "sha256_rules_probe": (40, 7056), "sha256_rules_bulk": (40, 6944)}
 
+#: slice N, wordlist+rules of the salted, nested and Kerberos engines and
+#: of sha224 and mysql323: the rules kernel's new cores (csrc/rules.cu's
+#: sha224 and mysql323, csrc/rules_nested.cu's chains) and its group
+#: tails (csrc/rules_group.cu: the salted variants, Kerberos etype 23)
+N_CORES = ("sha224", "mysql323", "md5(md5)", "sha1(sha1)", "md5(sha1)",
+           "sha1(md5)", "sha256(md5)", "sha256(sha1)", "mysql41")
+N_TAILS = ("md5-ps", "md5-sp", "sha1-ps", "sha1-sp", "sha256-ps",
+           "sha256-sp", "sha1-ps-utf16", "krb5")
+N_KERNELS = [f"{e}_rules{m}" for e in N_CORES
+             for m in ("", "_probe", "_bulk")] + [f"{t}_rules" for t in N_TAILS]
+#: a bulk list of the rules kernel (past cuda_mask.N_BULK)
+N_BULK_TARGETS = 4096
+#: targets of a group tail's check against its plain version at the
+#: main path's launch: a larger group's first ones, its plants included
+N_CHECK_TARGETS = 8
+#: the shortest planted candidate of slice N's paths
+N_PLANT_LEN = 6
+#: the group tails' checks and timing: (tail, max_len, targets, salt
+#: length or None for salts of 0-32 bytes, MSSQL 2000's uppercase) -- the
+#: groups of the main paths of phase 46: md5-ps's first group of its
+#: 1,000 salts, mssql2005's 256 logins, the Kerberoast's 100 tickets, the
+#: other variants' one target; and md5-ps and MSSQL 2000 at one target.
+#: A tail's first case is its row of the kernels line.
+N_GROUP_CASES = [
+    ("md5-ps", 23, 256, None, False), ("md5-ps", 23, 1, None, False),
+    ("md5-sp", 23, 1, 11, False),
+    ("sha1-ps", 23, 1, None, False), ("sha1-sp", 23, 1, 11, False),
+    ("sha256-ps", 23, 1, None, False), ("sha256-sp", 23, 1, 11, False),
+    ("sha1-ps-utf16", 25, 256, 4, False), ("sha1-ps-utf16", 25, 1, 4, True),
+    ("krb5", 27, KERBEROAST_TICKETS, None, False)]
+#: the core paths over config 3's whole list (the others over OTHER_WORDS):
+#: (engine, compare mode)
+N_FULL_CORES = {("sha224", 0), ("mysql323", 0), ("md5(md5)", 2)}
+#: the salted paths: (engine, tail, targets, words, salt length or None
+#: for slice D's 2-32 bytes)
+N_SALTED_PATHS = [
+    ("md5-ps", "md5-ps", N_SALTED, CONFIG3_WORDS, None),
+    ("mssql2005", "sha1-ps-utf16", 256, CONFIG3_WORDS, 4),
+    ("mssql2000", "sha1-ps-utf16", 1, OTHER_WORDS, 4),
+    ("md5-sp", "md5-sp", 1, OTHER_WORDS, 11),
+    ("sha1-ps", "sha1-ps", 1, OTHER_WORDS, None),
+    ("sha1-sp", "sha1-sp", 1, OTHER_WORDS, 11),
+    ("sha256-ps", "sha256-ps", 1, OTHER_WORDS, None),
+    ("sha256-sp", "sha256-sp", 1, OTHER_WORDS, 11)]
+#: PERF.md's row 4: the K3 rule instantiations' ms a launch of 2^24, in
+#: turns with their parent when slice K3 redesigned them (an NVIDIA H100
+#: 80GB HBM3 at 700 W)
+PERF_ROW4_MS = {"md5_rules": 0.3362, "ntlm_rules": 0.2740,
+                "sha1_rules": 0.6278, "sha256_rules": 1.3530}
+#: the nvcc registers and SASS instruction count of slice N's
+#: instantiations (sm_90a, CUDA 12.8), pinned from their first build; none
+#: has a stack frame.  A nested or sha224 core holds its chain's registers
+#: (32, or 40 with a sha256 stage); the salted tails hold 40-58, the
+#: Kerberos tail 40 (krb5_group 32)
+CENSUS_N = {
+    "sha224_rules": (40, 6776), "sha224_rules_probe": (40, 7056),
+    "sha224_rules_bulk": (40, 6936), "mysql323_rules": (40, 5648),
+    "mysql323_rules_probe": (40, 5880), "mysql323_rules_bulk": (40, 5768),
+    "md5(md5)_rules": (32, 5400), "md5(md5)_rules_probe": (32, 5672),
+    "md5(md5)_rules_bulk": (32, 5560), "sha1(sha1)_rules": (32, 6792),
+    "sha1(sha1)_rules_probe": (32, 7064),
+    "sha1(sha1)_rules_bulk": (32, 6944), "md5(sha1)_rules": (32, 6192),
+    "md5(sha1)_rules_probe": (32, 6464), "md5(sha1)_rules_bulk": (32, 6352),
+    "sha1(md5)_rules": (32, 6064), "sha1(md5)_rules_probe": (32, 6336),
+    "sha1(md5)_rules_bulk": (32, 6216), "sha256(md5)_rules": (40, 7656),
+    "sha256(md5)_rules_probe": (40, 7920),
+    "sha256(md5)_rules_bulk": (40, 7800), "sha256(sha1)_rules": (40, 8392),
+    "sha256(sha1)_rules_probe": (40, 8656),
+    "sha256(sha1)_rules_bulk": (40, 8544), "mysql41_rules": (32, 6296),
+    "mysql41_rules_probe": (32, 6568), "mysql41_rules_bulk": (32, 6448),
+    "md5-ps_rules": (48, 4488), "md5-sp_rules": (40, 4576),
+    "sha1-ps_rules": (48, 4800), "sha1-sp_rules": (48, 4880),
+    "sha256-ps_rules": (58, 5616), "sha256-sp_rules": (58, 5728),
+    "sha1-ps-utf16_rules": (40, 4840), "krb5_rules": (40, 9432)}
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -789,9 +897,16 @@ def instance_of(mangled: str) -> str:
     if m:
         return f"{CPP_CORE[m.group(1)]}-{'sp' if m.group(2) == '1' else 'ps'}"\
             f"{'-utf16' if m.group(3) else ''}_group"
-    m = re.search(r"mask_kernelI(\w+?)L7Compare([0123])E", mangled)
+    m = re.search(r"rules_group_kernelI\d+(\w+?Core)\d+(\w+?)Ev", mangled)
     if m:
-        args, multi = m.group(1), int(m.group(2))
+        if m.group(2) == "Krb5Tail":
+            return "krb5_rules"
+        sp, utf16 = re.search(r"Lb([01])ELb([01])E", m.group(2)).groups()
+        return f"{CPP_CORE[m.group(1)]}-{'sp' if sp == '1' else 'ps'}" \
+            f"{'-utf16' if utf16 == '1' else ''}_rules"
+    m = re.search(r"(mask|rules)_kernelI(\w+?)L7Compare([0123])E", mangled)
+    if m:
+        args, multi = m.group(2), int(m.group(3))
         cores = [CPP_CORE[c] for c in re.findall(
             r"\d+(Md5Core|Md4Core|Sha1Core|Sha256Core|Sha512Core|Sha384Core"
             r"|Sha224Core|Mysql323Core)",
@@ -805,9 +920,8 @@ def instance_of(mangled: str) -> str:
             chain = f"{cores[0]}({cores[-1]})"
         else:
             chain = cores[0]
-        return kname(chain, multi)
-    m = re.search(r"rules_kernelI\d+(\w+?Core)L7Compare([023])E", mangled)
-    return rname(CPP_CORE[m.group(1)], int(m.group(2))) if m else mangled
+        return (kname if m.group(1) == "mask" else rname)(chain, multi)
+    return mangled
 
 
 def synthetic_words(n: int, length: int = 8) -> list:
@@ -885,6 +999,7 @@ class Smoke:
         self.err.update({kname(e, PROBE): 0 for e in PROBE_CORES})
         self.err.update({k: 0 for k in L_KERNELS})
         self.err.update({k: 0 for k in M_KERNELS})
+        self.err.update({k: 0 for k in N_KERNELS})
         #: per instantiation: launches of the main path that runs it
         self.path_launches = {}
         #: configs 1 and 2 through the loop superstep: (wall s, windows,
@@ -1470,8 +1585,8 @@ def run(smoke, oracle4, words4) -> None:
 
     # 2. the kernel builds: one nvcc per source, all at once
     from concurrent.futures import ThreadPoolExecutor
-    sources = ("mask", "rules", "pbkdf2", "bcrypt", "ext", "keccak", "krb5",
-               "sevenzip", "pdf")
+    sources = ("mask", "rules", "rules_nested", "rules_group", "pbkdf2",
+               "bcrypt", "ext", "keccak", "krb5", "sevenzip", "pdf")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = {src: pool.submit(_build.build, src) for src in sources}
@@ -1501,7 +1616,7 @@ def run(smoke, oracle4, words4) -> None:
                       | {rname(e) for e in RULE_CORES}
                       | {"krb5_group", "pbkdf2_kdf", "sevenzip_kdf",
                          "pdf_r2_40", "pdf_r3_40", "pdf_r3_128"}
-                      | set(L_KERNELS) | set(M_KERNELS),
+                      | set(L_KERNELS) | set(M_KERNELS) | set(N_KERNELS),
                       f"{kernel}: {line.strip()} (local memory)")
         census = _build.sass_census(src)
         for func, c in sorted(census.items(),
@@ -1539,6 +1654,11 @@ def run(smoke, oracle4, words4) -> None:
             if inst in M_KERNELS:
                 pin = CENSUS_M.get(inst)
                 same = "; the slice M pin: " + (
+                    "same" if pin == now else f"DIFFER, pinned {pin}")
+                check(same.endswith("same"), f"{inst}{same}")
+            if inst in N_KERNELS:
+                pin = CENSUS_N.get(inst)
+                same = "; the slice N pin: " + (
                     "same" if pin == now else f"DIFFER, pinned {pin}")
                 check(same.endswith("same"), f"{inst}{same}")
             if inst == "pmkid":
@@ -2356,8 +2476,9 @@ def run(smoke, oracle4, words4) -> None:
     g_timing = slice_g(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
     l_timing = slice_l(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
     m_timing_rows = slice_m(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
+    n_timing_rows = slice_n(smoke, cli, card, rate_ops, sms)
 
-    # 45. the kernels line, then the device line
+    # 48. the kernels line, then the device line
     kernels = []
     for engine, multi in INSTANCES:
         key = kname(engine, multi)
@@ -2463,6 +2584,17 @@ def run(smoke, oracle4, words4) -> None:
         kernels.append({
             "name": key, "route": "cuda", "source": mod.SOURCE,
             "replaces": mod.REPLACES, "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            **more})
+    for key in N_KERNELS:
+        ms, plain_ms, bound, bound_by, more = n_timing_rows[key]
+        core = key.split("_rules")[0]
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": cuda_rules.SOURCE_FILES[cuda_rules.source_of(core)],
+            "replaces": cuda_rules.replaces(core),
+            "launches": smoke.path_launches[key],
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             **more})
@@ -4566,7 +4698,9 @@ def m_random_digests(rng, engine: str, n: int):
     """n random digests of ``engine``'s size as uint8[n, size] (mysql323:
     two 31-bit big-endian words, as its oracle gives)."""
     import numpy as np
-    size = M_DIGEST_BYTES.get(engine, 16)
+
+    from dprf_tpu_torch import get_engine
+    size = M_DIGEST_BYTES.get(engine) or get_engine(engine).digest_size
     rows = rng.integers(0, 256, (n, size), dtype=np.uint8)
     if engine == "mysql323":
         rows[:, 0] &= 0x7F
@@ -5176,6 +5310,573 @@ def m_timing(smoke, card, rate_ops, g6, lut6, g7, lut7, ctx) -> dict:
                     "card": card}))
     say(f"  phase 44: {time.perf_counter() - t_phase:.1f} s")
     return timing
+
+
+# ---- slice N: wordlist+rules of the salted, nested and Kerberos engines ----
+
+def n_words_file(tmp: str, words: list, name: str) -> str:
+    """``words`` written one a line to ``tmp``/``name``; returns the path."""
+    path = os.path.join(tmp, name)
+    with open(path, "wb") as fh:
+        fh.write(b"\n".join(words) + b"\n")
+    return path
+
+
+def n_plants(rng, gen, n: int) -> list:
+    """n keyspace indices of ``gen`` whose rule keeps its candidate, of at
+    least N_PLANT_LEN bytes, in this order: the first word under rule 0,
+    the last word under the last rule, random ones; each candidate once.
+    (A short candidate -- a truncation of a word -- comes from hundreds of
+    (word, rule) lanes, past a launch's hit buffer.)"""
+    idx = [gen.index_of(0, 0), gen.keyspace - 1]
+    while len(idx) < 4 * n:
+        idx.append(int(rng.integers(1, gen.keyspace - 1)))
+    out, seen = [], set()
+    for i in idx:
+        c = gen.candidate(i)
+        if c is not None and len(c) >= N_PLANT_LEN and c not in seen:
+            seen.add(c)
+            out.append(i)
+    return out[:n]
+
+
+def n_dense_plant(gen, n_words: int = 256) -> tuple:
+    """(keyspace index, lanes): the first of ``gen``'s first n_words
+    words under rule 0 that the most rules keep as it is, and the number
+    of those rules (at least 2)."""
+    best = (0, 0)
+    for w in range(n_words):
+        word = gen.candidate(gen.index_of(w, 0))
+        same = sum(gen.candidate(gen.index_of(w, r)) == word
+                   for r in range(gen.n_rules))
+        best = max(best, (same, -w))
+    check(best[0] >= 2, f"no word of the first {n_words} that two rules "
+          "keep as it is")
+    return gen.index_of(-best[1], 0), best[0]
+
+
+def n_crack(smoke, cli, engine, words_path, lines, want, extra=()):
+    """crack --device cuda -a wordlist --rules best64 of ``engine`` over
+    the hashfile of ``lines``, every launch count set to 0 just before it:
+    the printed lines and the potfile are ``want``, the summary has
+    rejected=0 (and rescans=0 where the worker counts them: the rules
+    worker).  Returns (summary, launches, wall s)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        hashes = os.path.join(tmp, "hashes.txt")
+        pot = os.path.join(tmp, "job.potfile")
+        with open(hashes, "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+        args = ["crack", "--device", "cuda", "--engine", engine, "-a",
+                "wordlist", words_path, hashes, "--rules", "best64",
+                "--potfile", pot, *extra]
+        for mod in kernel_modules():
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(args)
+        wall = time.perf_counter() - t0
+        launches = {k: v for mod in kernel_modules()
+                    for k, v in mod.launches.items() if v}
+        pot_lines = open(pot).read().splitlines() \
+            if os.path.exists(pot) else []
+    out, err = out.getvalue(), err.getvalue()
+    check(rc == 0, f"crack {engine} exited {rc}: {err[-2000:]}")
+    check(sorted(out.splitlines()) == sorted(want),
+          f"crack {engine} printed {out.splitlines()}, expected {want}")
+    check(sorted(pot_lines) == sorted(want), f"potfile {pot_lines}")
+    finished = [ln for ln in err.splitlines() if "job finished" in ln]
+    check(len(finished) == 1 and "rejected=0" in finished[0]
+          and ("rescans=" not in finished[0] or "rescans=0" in finished[0])
+          and f"found={len(want)}/{len(lines)}" in finished[0],
+          f"{engine}: job summary {finished}")
+    return finished[0], launches, wall
+
+
+def n_path(smoke, cli, engine, words_path, gen, lines, want, key, n_windows,
+           what, extra=()):
+    """One CLI path of slice N: only ``key`` launches, ``n_windows`` times
+    (a group's or the list's launches a word window) and once more per
+    relaunch of an overflowing window (the rules worker's); prints and
+    records its launches."""
+    summary, launches, wall = n_crack(smoke, cli, engine, words_path, lines,
+                                      want, extra)
+    batches = int(re.search(r" batches=(\d+)", summary).group(1))
+    relaunched = re.search(r" relaunches=(\d+)", summary)
+    relaunched = int(relaunched.group(1)) if relaunched else 0
+    check(launches == {key: batches} and batches == n_windows + relaunched,
+          f"{engine}: launches {launches}, {batches} batches, expected "
+          f"{n_windows} of {key} and {relaunched} relaunches")
+    smoke.path_launches.setdefault(key, launches[key])
+    say(f"    {engine} {what} ({key}): {wall:.3f} s wall, "
+        f"{summary.split('job finished', 1)[1].strip()}")
+    return summary, wall
+
+
+def n_ctx() -> dict:
+    """Slice N's inputs: config 3's word list (the reference bench's 2^20
+    synthetic words), best64, and per max_len (23: the salted cores' with
+    room for a 32-byte salt; 25 MSSQL's; 27 Kerberos'; 55 the other cores')
+    the generator of the first RULE_BATCH words, their tables on the
+    card (padded, plain, lens, bytecode, n_ops) and their rule outputs'
+    lengths ({length: candidates}, ``opcount.rule_lengths`` over the
+    first OTHER_WORDS, scaled to RULE_BATCH), for the bounds."""
+    import torch
+
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    from dprf_tpu_torch.ops import cuda_rules, opcount
+    from dprf_tpu_torch.rules import load_rules
+    best64 = load_rules("best64")
+    words = synthetic_words(CONFIG3_WORDS)
+    ctx = {"best64": best64, "words": words, "gens": {}, "tables": {},
+           "lengths": {}}
+    for max_len in (23, 25, 27, 55):
+        gen = WordlistRulesGenerator(words[:RULE_BATCH], best64,
+                                     max_len=max_len)
+        buf, lens = gen.packed_words()
+        ctx["lengths"][max_len] = {
+            n: c * RULE_BATCH // OTHER_WORDS
+            for n, c in opcount.rule_lengths(
+                buf[:OTHER_WORDS], lens[:OTHER_WORDS], best64,
+                max_len).items()}
+        plain = torch.as_tensor(buf, device="cuda")
+        ctx["gens"][max_len] = gen
+        ctx["tables"][max_len] = (
+            cuda_rules.pad_rows(plain), plain,
+            torch.as_tensor(lens, device="cuda"),
+            *cuda_rules.rule_tables(best64, "cuda"))
+    return ctx
+
+
+def n_group(smoke, tail, gen, plants, n_targets, salt_len=None,
+            upper=False):
+    """A group of ``tail`` whose targets ``plants`` (keyspace indices of
+    ``gen``, one a target from its first) are planted, the rest filled
+    with digests (tickets) no candidate reaches: (rows int32 on the card,
+    the launch's parameters, each target's planted candidate or None).
+    Salts: alphanumeric, 0..32 bytes for ``ps`` (salt_len None), else
+    ``salt_len`` each; MSSQL's 4 bytes."""
+    import numpy as np
+
+    from dprf_tpu_torch.ops import cuda_ext, cuda_krb5, cuda_rules
+    rng, torch = smoke.rng, smoke.torch
+    cands = [gen.candidate(i) for i in plants] + \
+        [None] * (n_targets - len(plants))
+    if tail == cuda_rules.KRB5:
+        oracle = smoke.get_engine("krb5tgs")
+        lines = [krb5_line(rng, c if c is not None
+                           else b"not-a-word-" + b"%d" % i, False,
+                           int(rng.integers(60, 200)))
+                 for i, c in enumerate(cands)]
+        tgts = [cuda_krb5.target_kernel_args(oracle.parse_target(ln))
+                for ln in lines]
+        rows = cuda_krb5.ticket_rows(tgts)
+        return (torch.as_tensor(rows.view(np.int32), device="cuda"),
+                {"msg_type": tgts[0].msg_type}, cands, lines)
+    algo, order = tail.split("-")[:2]
+    group = []
+    for i, c in enumerate(cands):
+        n = 4 if tail.endswith("-utf16") else salt_len if salt_len \
+            is not None else int(rng.integers(0, 33))
+        salt = bytes(rng.choice(np.frombuffer(ALNUM, np.uint8), n))
+        msg = (c if c is not None else b"\xff" * 60)
+        if upper:
+            msg = bytes(x - 32 if 97 <= x <= 122 else x for x in msg)
+        if tail.endswith("-utf16"):
+            msg = bytes(b for x in msg for b in (x, 0))
+        digest = hashlib.new(algo, msg + salt if order == "ps"
+                             else salt + msg).digest()
+        group.append((salt, digest_words(algo, digest)))
+    rows = cuda_ext.salted_rule_rows(tail, group, gen.max_len)
+    params = {"shift": salt_len or 0} if order == "sp" else {}
+    if upper:
+        params["upper"] = True
+    return (torch.as_tensor(rows.view(np.int32), device="cuda"), params,
+            cands, None)
+
+
+def n_group_case(smoke, tail, ctx, max_len, plants, n_targets, name,
+                 salt_len=None, upper=False):
+    """One group tail against the plants at the main path's launch
+    (RULE_BATCH words x best64, ``n_targets`` targets): every planted
+    (index, target) among the hits, every hit a plant's candidate; then
+    against its plain version on the same launch (a larger group's first
+    N_CHECK_TARGETS targets, its plants among them), count, (lane,
+    target) pairs and per-target counts equal.  Returns (rows, params,
+    the plain version's ms there) for the timing."""
+    from dprf_tpu_torch.ops import cuda_rules
+    torch = smoke.torch
+    gen, (padded, plain, *rest) = ctx["gens"][max_len], \
+        ctx["tables"][max_len]
+    rows, params, cands, rows_lines = n_group(smoke, tail, gen, plants,
+                                              n_targets, salt_len, upper)
+    key = f"{tail}_rules"
+    cap = 64 * n_targets
+    kc, kl, kt, ktc = cuda_rules.rules_group_kernel(
+        tail, padded, *rest, 0, RULE_BATCH, rows, cap, RULE_BATCH,
+        max_len=max_len, **params)
+    torch.cuda.synchronize()
+    pairs = sorted((int(a), int(b)) for a, b in zip(kl.tolist(), kt.tolist())
+                   if a >= 0)
+    hits = {((lane % RULE_BATCH) * gen.n_rules + lane // RULE_BATCH, t)
+            for lane, t in pairs}
+    check(int(kc.item()) == len(pairs) <= cap, f"{key} {name}: count "
+          f"{int(kc.item())}, {len(pairs)} pairs")
+    check(all((p, t) in hits for t, p in enumerate(plants)),
+          f"{key} {name}: a plant missed: {sorted(hits)[:8]}")
+    # a hit is its target's plant (MSSQL 2000: up to ASCII case); a
+    # Kerberos survivor that is not is a maybe the oracle must reject
+    same = (lambda a, b: a.upper() == b.upper()) if upper else \
+        (lambda a, b: a == b)
+    other = [(g, t) for g, t in hits
+             if cands[t] is None or not same(gen.candidate(g), cands[t])]
+    if tail == cuda_rules.KRB5:
+        oracle = smoke.get_engine("krb5tgs")
+        check(not any(oracle.verify(gen.candidate(g), oracle.parse_target(
+            rows_lines[t])) for g, t in other), f"{key} {name}: a maybe "
+            "that is not its ticket's plant opens it")
+    else:
+        check(not other, f"{key} {name}: a hit is not its target's plant")
+    check(ktc.tolist() == [sum(1 for _, t in hits if t == j)
+                           for j in range(n_targets)],
+          f"{key} {name}: tcount {ktc.tolist()}")
+    k = min(n_targets, N_CHECK_TARGETS)
+    check_rows, ccap = rows[:k], 64 * k
+    got = (kc, kl, kt, ktc) if k == n_targets else \
+        cuda_rules.rules_group_kernel(
+            tail, padded, *rest, 0, RULE_BATCH, check_rows, ccap,
+            RULE_BATCH, max_len=max_len, **params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = cuda_rules.rules_group_plain(
+        tail, plain, *rest, 0, RULE_BATCH, check_rows, ccap, RULE_BATCH,
+        **params)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    def flat(out):
+        return (int(out[0].item()), sorted(
+            (int(a), int(b)) for a, b in zip(out[1].tolist(), out[2].tolist())
+            if a >= 0), out[3].tolist())
+
+    (gc, gp, gt), (pc, pp, pt) = flat(got), flat(want)
+    err = max([abs(gc - pc)] + [abs(a - b) for x, y in zip(gp, pp)
+                                for a, b in zip(x, y)]
+              + [abs(a - b) for a, b in zip(gt, pt)])
+    check((gc, gp, gt) == (pc, pp, pt), f"{key} {name}: kernel and plain "
+          f"differ at 2^24 candidates, {k} targets: {gc} {gp[:4]} | {pc} "
+          f"{pp[:4]}")
+    check(gc >= min(len(plants), k), f"{key} {name}: {gc} hits over {k} "
+          "targets, fewer than its plants")
+    smoke.err[key] = max(smoke.err.get(key, 0), err)
+    say(f"  {key} {name}: {n_targets} targets, 2^24 candidates: "
+        f"{len(pairs)} hits, every plant found | the plain version on the "
+        f"same launch, {k} of its targets: {gc} hits, equal, "
+        f"{plain_ms:.0f} ms")
+    return rows, params, plain_ms
+
+
+def n_kernels(smoke, card, ctx) -> dict:
+    """Phase 45: every new instantiation of the rules kernel against its
+    plain version on the card at the main path's launch (2^24 candidates
+    = RULE_BATCH words x best64): each new core with one target (its
+    plants at word 0 under rule 0 and at the last valid word of a
+    partial window under the last rule), 1,000 targets (the shared-memory
+    probe) and N_BULK_TARGETS (the bulk probe); each group tail at its
+    main path's group.  Returns the group inputs for the timing."""
+    rng = smoke.rng
+    t_phase = time.perf_counter()
+    say(f"== 45. slice N kernels vs plain at 2^24 candidates (exact "
+        f"equality); card: {card}")
+    gen, tables = ctx["gens"][55], ctx["tables"][55]
+    ws, nvw = 3, RULE_BATCH - 5
+    for engine in N_CORES:
+        plants = [gen.index_of(ws, 0), gen.index_of(ws + nvw - 1,
+                                                     N_RULES - 1)]
+        for p in plants:
+            smoke.rules_case(engine, gen, tables, ws, nvw, [p],
+                             f"words [{ws}, {ws + nvw}) x best64, plant {p}")
+        plants += [gen.index_of(int(rng.integers(ws, ws + nvw)),
+                                int(rng.integers(0, N_RULES)))]
+        for mode, n in ((2, N_TARGETS), (3, N_BULK_TARGETS)):
+            m_rules_case(smoke, engine, mode, tables, gen, ws, nvw, plants,
+                         n, f"words [{ws}, {ws + nvw}) x best64")
+    groups = {}
+    for tail, max_len, n, salt_len, upper in N_GROUP_CASES:
+        g = ctx["gens"][max_len]
+        plants = n_plants(rng, g, min(4, n))
+        groups[tail, n, upper] = n_group_case(
+            smoke, tail, ctx, max_len, plants, n,
+            f"max_len {max_len}" + (", uppercase" if upper else "")
+            + (f", {salt_len}-byte salts" if salt_len else ""),
+            salt_len, upper)
+    say(f"  phase 45: {time.perf_counter() - t_phase:.1f} s")
+    return groups
+
+
+def n_cli(smoke, cli, card, ctx) -> None:
+    """Phase 46: the slice's main paths through ``crack --device cuda -a
+    wordlist --rules best64``, each with every launch count set to 0 just
+    before it and read just after: only its instantiation, once per
+    (group and) word window; rejected=0 and every plant found."""
+    import numpy as np
+
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    from dprf_tpu_torch.ops import cuda_mask, cuda_rules
+    from dprf_tpu_torch.runtime.potfile import encode_plain
+    rng = smoke.rng
+    t_phase = time.perf_counter()
+    say(f"== 46. slice N through crack --device cuda -a wordlist --rules "
+        f"best64; card: {card}")
+    words, best64 = ctx["words"], ctx["best64"]
+    windows = -(-CONFIG3_WORDS // RULE_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        full = n_words_file(tmp, words, "config3.txt")
+        other = n_words_file(tmp, words[:OTHER_WORDS], "other.txt")
+
+        def gen_of(engine, n_words):
+            return WordlistRulesGenerator(
+                words[:n_words], best64,
+                max_len=smoke.get_engine(engine).max_candidate_len)
+
+        def hex_line(engine, d):
+            return "*" + d.hex().upper() if engine == "mysql41" else d.hex()
+
+        # the cores: one target, 1,000 (probe), N_BULK_TARGETS (bulk)
+        for engine in N_CORES:
+            oracle = smoke.get_engine(engine)
+            for mode, n in ((0, 1), (2, N_TARGETS), (3, N_BULK_TARGETS)):
+                n_words = CONFIG3_WORDS if (engine, mode) in N_FULL_CORES \
+                    else OTHER_WORDS
+                gen = gen_of(engine, n_words)
+                plants = n_plants(rng, gen, 1 if n == 1 else 3)
+                cands = [gen.candidate(i) for i in plants]
+                digests = oracle.hash_batch(cands)
+                fill = [bytes(r) for r in m_random_digests(
+                    rng, engine, n - len(cands))]
+                fill = [d for d in fill if d not in digests]
+                lines = [hex_line(engine, d) for d in digests + fill]
+                want = [f"{hex_line(engine, d)}:{encode_plain(c)}"
+                        for d, c in zip(digests, cands)]
+                n_path(smoke, cli, engine, full if n_words == CONFIG3_WORDS
+                       else other, gen, lines, want, rname(engine, mode),
+                       -(-n_words // RULE_BATCH),
+                       f"x {n} target(s) over {n_words} words")
+        def salted_job(engine, gen, plants, n, salt_len):
+            """n targets of ``engine``, the first planted: (lines, want)."""
+            oracle = smoke.get_engine(engine)
+            lines, want = [], []
+            for i in range(n):
+                nb = 4 if engine.startswith("mssql") else salt_len \
+                    if salt_len is not None else int(rng.integers(2, 33))
+                salt = bytes(rng.choice(np.frombuffer(ALNUM, np.uint8), nb))
+                c = gen.candidate(plants[i]) if i < len(plants) \
+                    else b"#miss%d" % i
+                d = oracle.hash_batch([c], params={"salt": salt})[0]
+                line = n_salted_line(engine, d, salt)
+                lines.append(line)
+                if i < len(plants):
+                    want.append(f"{line}:{encode_plain(c)}")
+            return lines, want
+
+        # the salted tails
+        for engine, tail, n, n_words, salt_len in N_SALTED_PATHS:
+            gen = gen_of(engine, n_words)
+            plants = n_plants(rng, gen, min(n, 8))
+            lines, want = salted_job(engine, gen, plants, n, salt_len)
+            groups = -(-n // cuda_rules.tail_geometry(tail)[0]) \
+                if tail.endswith("ps") or tail.endswith("utf16") else 1
+            n_path(smoke, cli, engine, full if n_words == CONFIG3_WORDS
+                   else other, gen, lines, want, f"{tail}_rules",
+                   groups * -(-n_words // RULE_BATCH),
+                   f"x {n} targets over {n_words} words")
+        # dense hits: md5-ps x 4 salts at --hit-cap 1, one plant a word
+        # that several rules keep as it is: the (group, window) overflows
+        # its buffer of 4 and is relaunched on the card, nothing rescanned
+        gen = gen_of("md5-ps", OTHER_WORDS)
+        dense, lanes = n_dense_plant(gen)
+        plants = [dense] + [p for p in n_plants(rng, gen, 4) if
+                            gen.candidate(p) != gen.candidate(dense)][:3]
+        lines, want = salted_job("md5-ps", gen, plants, 4, None)
+        summary, _ = n_path(
+            smoke, cli, "md5-ps", other, gen, lines, want, "md5-ps_rules",
+            1, f"x 4 targets over {OTHER_WORDS} words, --hit-cap 1, "
+            f"{gen.candidate(dense)!r} at {lanes} (word, rule) lanes",
+            ("--hit-cap", "1"))
+        check(" relaunches=1 " in summary and " rescans=0" in summary,
+              f"dense hits: {summary}")
+        # Kerberos: the Kerberoast and an AS-REP roast
+        for engine, n, n_words in (("krb5tgs", KERBEROAST_TICKETS,
+                                    CONFIG3_WORDS), ("krb5asrep", 1,
+                                                     OTHER_WORDS)):
+            gen = gen_of(engine, n_words)
+            plants = n_plants(rng, gen, min(n, 4))
+            lines, want = [], []
+            for i in range(n):
+                c = gen.candidate(plants[i]) if i < len(plants) \
+                    else b"#miss%d" % i
+                line = krb5_line(rng, c, engine == "krb5asrep",
+                                 int(rng.integers(1000, 1500)))
+                lines.append(line)
+                if i < len(plants):
+                    want.append(f"{line}:{encode_plain(c)}")
+            n_path(smoke, cli, engine, full if n_words == CONFIG3_WORDS
+                   else other, gen, lines, want, "krb5_rules",
+                   -(-n_words // RULE_BATCH),
+                   f"x {n} tickets over {n_words} words")
+    check(windows == 4, "config 3's windows")
+    say(f"  N_BULK = {cuda_mask.N_BULK}; phase 46: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def n_salted_line(engine: str, digest: bytes, salt: bytes) -> str:
+    """A salted target line of ``engine`` in its own format."""
+    if engine.startswith("mssql"):
+        case = digest.hex() if engine == "mssql2000" else ""
+        return f"0x0100{salt.hex()}{case}{digest.hex()}".upper()
+    return f"{digest.hex()}:$HEX[{salt.hex()}]"
+
+
+def n_timing(smoke, card, rate_ops, sms, ctx, groups) -> dict:
+    """Phase 47: each new instantiation per launch with CUDA events at
+    the main path's launch (2^24 candidates; a list of the path's size, a
+    group of its size) beside its bound (``rules_ops``,
+    ``rules_list_ops``, ``rules_salted_ops``, ``rules_krb5_bound``) and
+    its plain version (timed in phase 45; a larger group's over its first
+    N_CHECK_TARGETS targets, the kernel timed there too); then the K3
+    instantiations beside PERF.md's row 4.  Returns the kernels line's
+    rows by name, (ms, plain ms, bound ms, bound_by, more), and the other
+    group cases' (md5-ps and MSSQL 2000 at one target)."""
+    import numpy as np
+
+    from dprf_tpu_torch.ops import cuda_ext, cuda_rules, opcount
+    torch = smoke.torch
+    t_phase = time.perf_counter()
+    say(f"== 47. slice N timing, CUDA events, {TIMED_LAUNCHES} launches "
+        f"each; card: {card}")
+    timing = {}
+    with SmClock() as clock:
+        counts55 = ctx["lengths"][55]
+        padded, plain, *rest = ctx["tables"][55]
+        for engine in N_CORES:
+            key = rname(engine)
+            miss = digest_words(engine, smoke.get_engine(engine).hash_batch(
+                [b"\0" * 9])[0])
+            args = (engine, padded, *rest, 0, RULE_BATCH, miss, 64,
+                    RULE_BATCH)
+            ms = smoke.time_launches(
+                lambda: cuda_rules.rules_kernel(*args, max_len=55), ())
+            pms = n_plain_ms(smoke, cuda_rules.rules_plain,
+                             (engine, plain, *args[2:]))
+            bound = opcount.rules_ops(engine, counts55).slots / rate_ops * 1e3
+            timing[key] = (ms, pms, bound, "operations", {})
+            for mode, n in ((2, N_TARGETS), (3, N_BULK_TARGETS)):
+                key = rname(engine, mode)
+                state, _, rows = m_rules_state(smoke, engine, mode, [], n)
+                largs = (engine, mode, padded, *rest, 0, RULE_BATCH, *state,
+                         64, RULE_BATCH)
+                ms = smoke.time_launches(
+                    lambda: cuda_rules.rules_list_kernel(*largs, max_len=55),
+                    ())
+                pms = n_plain_ms(smoke, cuda_rules.rules_list_plain,
+                                 (engine, mode, plain, *largs[3:]))
+                words = state[0].cpu().numpy().view(np.uint32)
+                work = opcount.rules_list_ops(
+                    engine, counts55, opcount.probe_fill(words), state[2],
+                    0.0, n)
+                bound = work.slots / rate_ops * 1e3
+                timing[key] = (ms, pms, bound, "operations",
+                               {"targets": n})
+        for tail, max_len, n, salt_len, upper in N_GROUP_CASES:
+            # a tail's first case is its row of the kernels line, the
+            # others are named by their group
+            key = f"{tail}_rules"
+            if key in timing:
+                key += f" x{n}" + (" uppercase" if upper else "")
+            rows, params, pms = groups[tail, n, upper]
+            padded, _, *rest = ctx["tables"][max_len]
+            counts = ctx["lengths"][max_len]
+
+            def launch(r):
+                return cuda_rules.rules_group_kernel(
+                    tail, padded, *rest, 0, RULE_BATCH, r, 64 * r.shape[0],
+                    RULE_BATCH, max_len=max_len, **params)
+
+            ms = smoke.time_launches(launch, (rows,),
+                                     n=max(3, TIMED_LAUNCHES // n), warm=1)
+            k = min(n, N_CHECK_TARGETS)
+            more = {"targets": n, "plain_input": f"{RULE_BATCH} words x "
+                    "best64, " + (f"{n} targets" if k == n else
+                                  f"the first {k} of the {n} targets")}
+            if k < n:
+                more["ms_at_plain_input"] = smoke.time_launches(
+                    launch, (rows[:k],), n=max(3, TIMED_LAUNCHES // k),
+                    warm=1)
+            if tail == cuda_rules.KRB5:
+                lim = opcount.rules_krb5_bound(counts, n, sms,
+                                               smoke.clock_mhz * 1e6)
+                bound = max(lim.values()) * 1e3
+                more["bound_limit"] = max(lim, key=lim.get)
+            else:
+                work = opcount.rules_salted_ops(
+                    tail, counts, cuda_ext.rule_row_salts(tail, rows))
+                bound = work.slots / rate_ops * 1e3
+            timing[key] = (ms, pms, bound, "operations", more)
+        for engine in RULE_CORES:
+            key = rname(engine)
+            tab = ctx["tables"][27 if engine == "ntlm" else 55]
+            args = (engine, tab[0], *tab[2:], 0, RULE_BATCH, digest_words(
+                engine, smoke.get_engine(engine).hash_batch([b"\0" * 9])[0]),
+                64, RULE_BATCH)
+            ms = smoke.time_launches(
+                lambda: cuda_rules.rules_kernel(
+                    *args, max_len=27 if engine == "ntlm" else 55), ())
+            say(f"  {key} (slice K3, unchanged): {ms:.4f} ms per 2^24; "
+                f"PERF.md row 4 (slice K3, in turns): {PERF_ROW4_MS[key]:.4f} "
+                f"ms ({ms / PERF_ROW4_MS[key]:.3f}x)")
+    for key, (ms, pms, bound, _, more) in timing.items():
+        more.update(clock_keys(bound, clock.mhz, smoke.clock_mhz))
+        per = f" ({ms / more['targets']:.4f} ms per 2^24 hashes)" \
+            if key.split("_")[0] in N_TAILS and more.get("targets", 1) > 1 \
+            else ""
+        at = f", the kernel there {more['ms_at_plain_input']:.4f} ms" \
+            if "ms_at_plain_input" in more else ""
+        say(f"  {key}: {ms:.4f} ms per launch of 2^24 candidates{per}; "
+            f"bound {bound:.4f} ms ({bound / ms:.1%}); plain version "
+            f"{pms:.1f} ms" + (f" ({more['plain_input']}{at})"
+                               if "plain_input" in more else ""))
+    say(f"  the SM clock over the phase: {clock.mhz} MHz (nvidia-smi, "
+        f"{len(clock.samples)} samples); card: {card}")
+    say(json.dumps({"slice_n_timing": {k: {"ms": v[0], "plain_ms": v[1],
+                                           "bound_ms": v[2], **v[4]}
+                                       for k, v in timing.items()},
+                    "card": card}))
+    say(f"  phase 47: {time.perf_counter() - t_phase:.1f} s")
+    return timing
+
+
+def n_plain_ms(smoke, fn, args) -> float:
+    """ms of one call of a plain version, synchronised."""
+    torch = smoke.torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def slice_n(smoke, cli, card, rate_ops, sms) -> dict:
+    """Phases 45-47: slice N -- wordlist+rules on the card for the
+    salted, nested and Kerberos etype-23 engines and for sha224 and
+    mysql323 (csrc/rules.cu's two new cores, csrc/rules_nested.cu,
+    csrc/rules_group.cu).  Returns the timing rows of the new
+    instantiations; their main paths' launches go to
+    smoke.path_launches."""
+    ctx = n_ctx()
+    groups = n_kernels(smoke, card, ctx)
+    n_cli(smoke, cli, card, ctx)
+    return n_timing(smoke, card, rate_ops, sms, ctx, groups)
 
 
 if __name__ == "__main__":

@@ -362,8 +362,8 @@ def _relaunches(worker) -> dict:
     if not hasattr(worker, "relaunches"):
         return {}
     out = {"relaunches": worker.relaunches, "rescans": worker.rescans}
-    if worker.probe_table is not None and \
-            worker.probe_table.table is None:
+    table = getattr(worker, "probe_table", None)
+    if table is not None and table.table is None:
         out["host_rejected"] = worker.rejected_survivors
     return out
 

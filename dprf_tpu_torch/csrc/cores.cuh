@@ -1,9 +1,10 @@
 // cores.cuh -- the hash cores the port's kernels share (csrc/mask.cu,
 // csrc/rules.cu, csrc/pbkdf2.cu): md5, md4 (ntlm, over UTF-16LE), sha1,
 // sha256 and sha224, one 64-byte block each, fully unrolled, with everything
-// in registers; md5_compress, sha1_compress and sha256_compress, MD5,
-// SHA-1 and SHA-256 from any chaining state (HMAC, the 7-Zip KDF); and
-// sha512 / sha384 over one 128-byte block of 64-bit words.
+// in registers, and mysql323's byte scan over such a block; md5_compress,
+// sha1_compress and sha256_compress, MD5, SHA-1 and SHA-256 from any
+// chaining state (HMAC, the 7-Zip KDF); and sha512 / sha384 over one
+// 128-byte block of 64-bit words.
 //
 // Each core is a struct: kWords digest words; kMaxLen, the longest
 // candidate one block holds; word(q) / shift(q), where candidate byte q
@@ -355,6 +356,62 @@ struct Sha224Core : Sha256Core {
         out[4] = e + H[4];
         out[5] = f + H[5];
         out[6] = g + H[6];
+    }
+};
+
+// MySQL pre-4.1 OLD_PASSWORD(): an add/xor/shift scan over the
+// candidate's bytes, which sit big-endian in the message words as for
+// SHA (the reference's digest_packed reads them back from that packing),
+// to the length the bit length of word 15 gives: a launch parameter of
+// a mask job, so the lanes of a warp take the same branches (the rules
+// kernel's lanes, each of its own length, may not).  Spaces and tabs
+// leave the state as it was; both 31-bit words come out.  The
+// reference runs it on XLA only (no Pallas core); this core replaces no
+// TPU kernel.  Its 2 digest words have no Bloom sets (their 8 probes
+// read words 0-2): a list runs the blocked probe, which reuses its first
+// pair of words for a core of fewer than 4 (probe_maybe).
+//
+// The scan walks the message words in a fully unrolled loop, each word
+// and each byte behind a test of the length rather than a break out of
+// the loop, so every word index is a compile-time constant: with a
+// break, the probe instantiation kept the loop rolled, indexed the words
+// at run time and took a stack frame.
+struct Mysql323Core {
+    static constexpr int kWords = 2;
+    static constexpr int kMaxLen = 55;
+    static constexpr int kLenWord = 15;
+    static constexpr int kBitsPerChar = 8;
+    __host__ __device__ static constexpr int word(int q) { return q >> 2; }
+    __host__ __device__ static constexpr int shift(int q)
+    {
+        return 8 * (3 - (q & 3));
+    }
+
+    __device__ __forceinline__ static void digest(uint32_t* m,
+                                                  uint32_t* out)
+    {
+        const int len = (int)(m[kLenWord] >> 3);
+        uint32_t nr = 1345345333u, nr2 = 0x12345671u, add = 7u;
+#pragma unroll
+        for (int w = 0; w <= word(kMaxLen - 1); ++w) {
+            if (4 * w < len) {
+                const uint32_t x = m[w];
+#pragma unroll
+                for (int q = 4 * w; q < 4 * w + 4 && q < kMaxLen; ++q) {
+                    if (q < len) {
+                        const uint32_t c = (x >> shift(q)) & 0xffu;
+                        const uint32_t nr_n =
+                            nr ^ ((((nr & 63u) + add) * c) + (nr << 8));
+                        const bool skip = c == 0x20u || c == 0x09u;
+                        nr2 = skip ? nr2 : nr2 + ((nr2 << 8) ^ nr_n);
+                        nr = skip ? nr : nr_n;
+                        add = skip ? add : add + c;
+                    }
+                }
+            }
+        }
+        out[0] = nr & 0x7fffffffu;
+        out[1] = nr2 & 0x7fffffffu;
     }
 };
 

@@ -6,7 +6,7 @@
 // multi-target per-set Bloom compare, the blocked probe or the bulk probe
 // (compare.cuh; the reference runs bulk lists on its XLA probe table,
 // dprf_tpu/targets/probe.py), each with the window offset.  Two more cores, which the reference runs on XLA only,
-// take the same body: sha224 (cores.cuh) and mysql323 (below).  The
+// take the same body: sha224 and mysql323 (cores.cuh).  The
 // kernel body, its compares and its design notes are in mask_kernel.cuh,
 // shared with csrc/ext.cu (the nested, mysql41 and salted chains) and
 // csrc/keccak.cu (the sponges); this source instantiates it over the
@@ -16,63 +16,6 @@
 // the wide parameter layout).
 
 #include "mask_kernel.cuh"
-
-// ---- mysql323 --------------------------------------------------------------
-
-// MySQL pre-4.1 OLD_PASSWORD(): an add/xor/shift scan over the
-// candidate's bytes, which sit big-endian in the message words as for
-// SHA (the reference's digest_packed reads them back from that packing),
-// to the length the bit length of word 15 gives: a launch parameter of
-// a mask job, so the lanes of a warp take the same branches.  Spaces
-// and tabs leave the state as it was; both 31-bit words come out.  The
-// reference runs it on XLA only (no Pallas core); this core replaces no
-// TPU kernel.  Its 2 digest words have no Bloom sets (their 8 probes
-// read words 0-2): a list runs the blocked probe, which reuses its first
-// pair of words for a core of fewer than 4 (probe_maybe).
-//
-// The scan walks the message words in a fully unrolled loop, each word
-// and each byte behind a test of the length rather than a break out of
-// the loop, so every word index is a compile-time constant: with a
-// break, the probe instantiation kept the loop rolled, indexed the words
-// at run time and took a stack frame.
-struct Mysql323Core {
-    static constexpr int kWords = 2;
-    static constexpr int kMaxLen = 55;
-    static constexpr int kLenWord = 15;
-    static constexpr int kBitsPerChar = 8;
-    __host__ __device__ static constexpr int word(int q) { return q >> 2; }
-    __host__ __device__ static constexpr int shift(int q)
-    {
-        return 8 * (3 - (q & 3));
-    }
-
-    __device__ __forceinline__ static void digest(uint32_t* m,
-                                                  uint32_t* out)
-    {
-        const int len = (int)(m[kLenWord] >> 3);
-        uint32_t nr = 1345345333u, nr2 = 0x12345671u, add = 7u;
-#pragma unroll
-        for (int w = 0; w <= word(kMaxLen - 1); ++w) {
-            if (4 * w < len) {
-                const uint32_t x = m[w];
-#pragma unroll
-                for (int q = 4 * w; q < 4 * w + 4 && q < kMaxLen; ++q) {
-                    if (q < len) {
-                        const uint32_t c = (x >> shift(q)) & 0xffu;
-                        const uint32_t nr_n =
-                            nr ^ ((((nr & 63u) + add) * c) + (nr << 8));
-                        const bool skip = c == 0x20u || c == 0x09u;
-                        nr2 = skip ? nr2 : nr2 + ((nr2 << 8) ^ nr_n);
-                        nr = skip ? nr : nr_n;
-                        add = skip ? add : add + c;
-                    }
-                }
-            }
-        }
-        out[0] = nr & 0x7fffffffu;
-        out[1] = nr2 & 0x7fffffffu;
-    }
-};
 
 // ---- the C interface ---------------------------------------------------
 

@@ -22,7 +22,7 @@ from dprf_tpu_torch.engines.base import DeviceHashEngine, HashEngine, Target
 from dprf_tpu_torch.ops.md4 import md4_digest_words
 from dprf_tpu_torch.ops.md5 import md5_digest_words
 from dprf_tpu_torch.ops.mysql323 import mysql323_digest_words
-from dprf_tpu_torch.ops.pack import pack_fixed, pack_fixed_wide
+from dprf_tpu_torch.ops.pack import pack_fixed, pack_fixed_wide, pack_varlen
 from dprf_tpu_torch.ops.sha1 import sha1_digest_words
 from dprf_tpu_torch.ops.sha256 import (sha224_digest_words,
                                        sha256_digest_words)
@@ -57,6 +57,13 @@ class TorchEngineBase(DeviceHashEngine, HashEngine):
         """uint8[B, length] candidates -> int32[B, 16] message words."""
         return pack_fixed(cand, length, big_endian=not self.little_endian,
                           widen=self.widen_utf16)
+
+    def pack_varlen(self, cand: torch.Tensor,
+                    lens: torch.Tensor) -> torch.Tensor:
+        """uint8[B, L] candidates of int32[B] lengths (rule outputs) ->
+        int32[B, 16] message words."""
+        return pack_varlen(cand, lens, big_endian=not self.little_endian,
+                           widen=self.widen_utf16)
 
     def hash_batch(self, candidates: Sequence[bytes],
                    params: Optional[dict] = None) -> list[bytes]:

@@ -21,18 +21,24 @@ launch computes a candidate's NT hash and K1 once for the whole group;
 one build serves both engines and every ticket.  A non-DER (BER
 long-form) encoder would defeat the header prediction: MIT krb5 and
 Windows KDCs emit DER, and ``--device cpu`` runs the full check for
-anything else.  Wordlist jobs are refused, naming ``--device cpu``.
+anything else.  A wordlist+rules job runs the rules kernel's Kerberos
+tail (ops/cuda_rules.py, csrc/rules_group.cu) over the same groups, one
+launch per (group, word window), each rule output's NT hash and K1 once
+for the group (``CudaKrb5WordlistWorker``); its words cap at 27
+characters, as the reference's.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dprf_tpu_torch.engines import register
 from dprf_tpu_torch.engines.cpu.krb5 import (TGS_MSG_TYPE, Krb5AsRepEngine,
                                              Krb5TgsEngine)
 from dprf_tpu_torch.ops.cuda_krb5 import CONF
-from dprf_tpu_torch.runtime.worker import GroupedSweepWorker
+from dprf_tpu_torch.runtime.worker import (GroupedSweepWorker,
+                                           GroupedWordlistWorker)
 
 
 def der_header(blob_len: int, tag: int, tag_mask: int, inner: int,
@@ -116,6 +122,36 @@ class CudaKrb5MaskWorker(GroupedSweepWorker):
             for idx in cuda_krb5.krb5_groups(tgts)]
 
 
+class CudaKrb5WordlistWorker(GroupedWordlistWorker):
+    """Wordlist+rules worker over the rules kernel's Kerberos tail, the
+    counterpart of the reference's Krb5WordlistWorker: the job's words
+    and rules go to the device once; one launch per (group of tickets of
+    one msg_type, word window) (runtime/worker.GroupedWordlistWorker),
+    every survivor confirmed by the oracle, its hit buffer
+    ``hit_capacity`` a ticket of the group."""
+
+    confirm = True
+
+    def __init__(self, engine, gen, targets, batch: int = 1 << 24,
+                 hit_capacity: int = 64, oracle=None, device="cuda"):
+        from dprf_tpu_torch.ops import cuda_krb5, cuda_rules
+        super().__init__(engine, gen, targets, batch, hit_capacity,
+                         oracle or engine)
+        device = torch.device(device)
+        if device.type == "cuda":
+            cuda_rules.load_kernel("rules_group")
+        tables = cuda_rules.job_tables(gen, device)
+        tgts = [cuda_krb5.target_kernel_args(t) for t in self.targets]
+        self.groups = []
+        for idx in cuda_krb5.krb5_groups(tgts):
+            group = [tgts[i] for i in idx]
+            rows = torch.as_tensor(cuda_krb5.ticket_rows(group).view(np.int32),
+                                   device=device)
+            self.groups.append((idx, cuda_rules.make_rules_group_step(
+                cuda_rules.KRB5, tables, gen.max_len, rows, self.word_batch,
+                hit_capacity * len(idx), msg_type=group[0].msg_type)))
+
+
 class _TorchKrb5Mixin:
     """The device engine: the oracle's parsing and ``hash_batch`` (one
     definition, so the oracle and the card cannot diverge), plus the
@@ -129,7 +165,6 @@ class _TorchKrb5Mixin:
                          oracle=None):
         """The krb5 kernel's worker; a job the kernel does not take is
         refused, never moved to another path."""
-        from dprf_tpu_torch.engines.base import TargetRefused
         from dprf_tpu_torch.ops import cuda_krb5
         from dprf_tpu_torch.ops.cuda_mask import mask_fits
         if not mask_fits(gen, cuda_krb5.MAX_LENGTH):
@@ -137,19 +172,38 @@ class _TorchKrb5Mixin:
                 f"{self.name}: no krb5 kernel for this job (it takes masks "
                 f"of 1..{cuda_krb5.MAX_LENGTH} positions, got "
                 f"{getattr(gen, 'length', None)}); use --device cpu")
-        for i, t in enumerate(targets):
-            try:
-                der_filter_words(len(t.params["edata"]), t.params["msg_type"])
-            except ValueError as e:
-                raise TargetRefused(i, f"{self.name}: {e}") from None
+        self._check_tickets(targets)
         return CudaKrb5MaskWorker(self, gen, targets, batch=batch,
                                   hit_capacity=hit_capacity, oracle=oracle,
                                   device=self.torch_device)
 
     def make_wordlist_worker(self, gen, targets, batch: int,
                              hit_capacity: int, oracle=None):
-        raise ValueError(f"{self.name}: the krb5 kernel takes mask jobs "
-                         "only; use --device cpu for a wordlist")
+        """The rules kernel's Kerberos worker; a job it does not take is
+        refused, never moved to another path."""
+        from dprf_tpu_torch.ops import cuda_krb5, cuda_rules
+        if gen.max_len > cuda_krb5.MAX_LENGTH:
+            raise ValueError("krb5 etype-23 passwords cap at 27 chars; use "
+                             "--device cpu")
+        if not cuda_rules.rules_supported(gen.rules):
+            raise ValueError(
+                f"{self.name}: no rules kernel for this job (it takes rules "
+                f"of at most {cuda_rules.MAX_STEPS} ops without @, E or e); "
+                "use --device cpu")
+        self._check_tickets(targets)
+        return CudaKrb5WordlistWorker(self, gen, targets, batch=batch,
+                                      hit_capacity=hit_capacity,
+                                      oracle=oracle, device=self.torch_device)
+
+    def _check_tickets(self, targets) -> None:
+        """A ticket whose DER header the filter cannot predict is refused
+        with its position."""
+        from dprf_tpu_torch.engines.base import TargetRefused
+        for i, t in enumerate(targets):
+            try:
+                der_filter_words(len(t.params["edata"]), t.params["msg_type"])
+            except ValueError as e:
+                raise TargetRefused(i, f"{self.name}: {e}") from None
 
 
 @register("krb5tgs", device="cuda")

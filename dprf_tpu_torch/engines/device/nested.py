@@ -12,7 +12,10 @@ byte order; ``little_endian`` and ``digest_words`` are the OUTER
 digest's, because the target table and the Bloom rows compare outer
 words.  ``digest_packed`` is the plain chain the kernel (csrc/ext.cu)
 is held against.  A mask job runs the nested kernel through the mask
-worker (``runtime.worker.CudaMaskWorker``); a wordlist job is refused.
+worker (``runtime.worker.CudaMaskWorker``); a wordlist job runs the
+rules kernel's nested instantiations (csrc/rules_nested.cu) through the
+rules worker (``runtime.worker.CudaWordlistWorker``), the engine's
+``pack_varlen`` and ``digest_packed`` its plain version.
 
 The inner hex must fit one outer block: md5 (32 hex bytes) and sha1
 (40) do; sha256's 64 would need two blocks, so sha256 is an outer stage
@@ -29,7 +32,7 @@ from dprf_tpu_torch.engines.cpu.engines import (NESTED_COMBOS,
                                                 parse_mysql41)
 from dprf_tpu_torch.engines.device.engines import TorchEngineBase
 from dprf_tpu_torch.ops.md5 import md5_digest_words
-from dprf_tpu_torch.ops.pack import pack_fixed
+from dprf_tpu_torch.ops.pack import pack_fixed, pack_varlen
 from dprf_tpu_torch.ops.sha1 import sha1_digest_words
 from dprf_tpu_torch.ops.sha256 import sha256_digest_words
 
@@ -56,8 +59,8 @@ _STAGES = {
 
 
 class _NestedDeviceBase(TorchEngineBase):
-    """A chain of the nested kernel: the kernel's mask worker, no
-    wordlist worker."""
+    """A chain of the nested kernel: the kernel's mask worker, and the
+    rules kernel's wordlist worker (``TorchEngineBase``'s)."""
 
     def make_mask_worker(self, gen, targets, batch: int, hit_capacity: int,
                          oracle=None):
@@ -77,11 +80,6 @@ class _NestedDeviceBase(TorchEngineBase):
                               hit_capacity=hit_capacity, oracle=oracle,
                               device=self.torch_device)
 
-    def make_wordlist_worker(self, gen, targets, batch: int,
-                             hit_capacity: int, oracle=None):
-        raise ValueError(f"{self.name}: the nested kernel takes mask jobs "
-                         "only; use --device cpu for a wordlist")
-
 
 class _NestedDeviceMixin(_NestedDeviceBase):
     _outer: str
@@ -90,6 +88,10 @@ class _NestedDeviceMixin(_NestedDeviceBase):
     def pack(self, cand: torch.Tensor, length: int) -> torch.Tensor:
         return pack_fixed(cand, length,
                           big_endian=not _STAGES[self._inner][2])
+
+    def pack_varlen(self, cand: torch.Tensor,
+                    lens: torch.Tensor) -> torch.Tensor:
+        return pack_varlen(cand, lens, big_endian=not _STAGES[self._inner][2])
 
     def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
         inner_fn, _, inner_le = _STAGES[self._inner]

@@ -15,14 +15,20 @@ launch of the salted kernel (ops/cuda_ext.py, csrc/salted.cuh) per
 (group, batch), which decodes each candidate once and hashes it with
 each target's salt.  The sha512 engines run its wide variants and the
 MSSQL engines its UTF-16LE ones, which the reference runs on XLA only.
-A job the kernel does not take raises, naming ``--device cpu``;
-wordlist jobs are refused the same way.
+
+A wordlist+rules job runs the rules kernel's salted tail
+(ops/cuda_rules.py, csrc/rules_group.cu) over the same groups: one
+launch per (group, word window), each rule output hashed once per target
+of the group (``CudaSaltedWordlistWorker``), for the 64-byte cores and
+MSSQL 2000/2005; the sha512 engines' wordlists are refused.  A job the
+kernels do not take raises, naming ``--device cpu``.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from dprf_tpu_torch.engines import register
@@ -40,9 +46,18 @@ from dprf_tpu_torch.engines.device.engines import (TorchMd5Engine,
                                                    TorchSha1Engine,
                                                    TorchSha256Engine,
                                                    TorchSha512Engine)
-from dprf_tpu_torch.ops import cuda_ext
+from dprf_tpu_torch.ops import cuda_ext, cuda_rules
 from dprf_tpu_torch.ops.compare import digest_rows
-from dprf_tpu_torch.runtime.worker import GroupedSweepWorker
+from dprf_tpu_torch.runtime.worker import (GroupedSweepWorker,
+                                           GroupedWordlistWorker)
+
+
+def _target_args(engine, targets) -> list:
+    """Each target's (salt bytes, digest uint32 words)."""
+    return [(t.params["salt"],
+             [int(w) for w in digest_rows([t.digest],
+                                          engine.little_endian)[0]])
+            for t in targets]
 
 
 class CudaSaltedMaskWorker(GroupedSweepWorker):
@@ -63,10 +78,7 @@ class CudaSaltedMaskWorker(GroupedSweepWorker):
         if device.type == "cuda":
             cuda_ext.load_kernel()
         self.variant = engine.variant
-        targs = [(t.params["salt"],
-                  [int(w) for w in digest_rows([t.digest],
-                                               engine.little_endian)[0]])
-                 for t in self.targets]
+        targs = _target_args(engine, self.targets)
         self.groups = [
             (idx, cuda_ext.make_salted_crack_step(
                 self.variant, gen, [targs[i] for i in idx], batch,
@@ -74,6 +86,41 @@ class CudaSaltedMaskWorker(GroupedSweepWorker):
                 byte_map=engine.byte_map))
             for idx in cuda_ext.salted_groups(self.variant,
                                               [s for s, _ in targs])]
+
+
+class CudaSaltedWordlistWorker(GroupedWordlistWorker):
+    """Salted wordlist+rules worker over the rules kernel's salted tail,
+    the counterpart of the reference's SaltedWordlistWorker: the job's
+    words and rules go to the device once, each group its rows
+    (``cuda_ext.salted_rule_rows``); one launch per (group, word window)
+    (runtime/worker.GroupedWordlistWorker), its hit buffer
+    ``hit_capacity`` a target of the group.  MSSQL 2000's rule outputs
+    are uppercased on the card before they are widened; its hits'
+    plaintexts are the rule outputs.  On a card the kernel builds at
+    construction; with ``device="cpu"`` each launch runs the kernel's
+    plain version."""
+
+    def __init__(self, engine, gen, targets: Sequence[Target],
+                 batch: int = 1 << 24, hit_capacity: int = 64,
+                 oracle=None, device="cuda"):
+        super().__init__(engine, gen, targets, batch, hit_capacity, oracle)
+        device = torch.device(device)
+        if device.type == "cuda":
+            cuda_rules.load_kernel("rules_group")
+        variant = engine.variant
+        sp = engine.order == "sp"
+        tables = cuda_rules.job_tables(gen, device)
+        targs = _target_args(engine, self.targets)
+        self.groups = []
+        for idx in cuda_ext.salted_groups(variant, [s for s, _ in targs]):
+            group = [targs[i] for i in idx]
+            rows = cuda_ext.salted_rule_rows(variant, group, gen.max_len)
+            self.groups.append((idx, cuda_rules.make_rules_group_step(
+                variant, tables, gen.max_len,
+                torch.as_tensor(rows.view(np.int32), device=device),
+                self.word_batch, hit_capacity * len(idx),
+                shift=len(group[0][0]) if sp else 0,
+                upper=engine.byte_map is not None)))
 
 
 class _SaltedDeviceMixin:
@@ -139,8 +186,22 @@ class _SaltedDeviceMixin:
 
     def make_wordlist_worker(self, gen, targets, batch: int,
                              hit_capacity: int, oracle=None):
-        raise ValueError(f"{self.name}: the salted kernel takes mask jobs "
-                         "only; use --device cpu for a wordlist")
+        """The rules kernel's salted worker (its 64-byte variants); a job
+        it does not take is refused, never moved to another path."""
+        if self.variant not in cuda_rules.GROUP_TAILS:
+            raise ValueError(f"{self.name}: the rules kernel has no "
+                             f"{self.variant} tail; use --device cpu for a "
+                             "wordlist")
+        self._check_lengths(gen.max_len, targets)
+        if not cuda_rules.rules_supported(gen.rules):
+            raise ValueError(
+                f"{self.name}: no rules kernel for this job (it takes rules "
+                f"of at most {cuda_rules.MAX_STEPS} ops without @, E or e); "
+                "use --device cpu")
+        return CudaSaltedWordlistWorker(self, gen, targets, batch=batch,
+                                        hit_capacity=hit_capacity,
+                                        oracle=oracle,
+                                        device=self.torch_device)
 
     def _check_lengths(self, cand_len: int, targets) -> None:
         worst = cand_len * (2 if self.widen else 1) + \

@@ -49,7 +49,7 @@ from dprf_tpu_torch.generators.mask import decode_lut
 from dprf_tpu_torch.ops import bloom
 from dprf_tpu_torch.ops import compare as cmp_ops
 from dprf_tpu_torch.ops import cuda_mask
-from dprf_tpu_torch.ops.pack import pad_const, utf16le_widen
+from dprf_tpu_torch.ops.pack import pack_varlen, pad_const, utf16le_widen
 
 #: the nested chains (outer, inner), in the kernel's variant order; the
 #: inner hex (32 or 40 bytes) fits one outer block
@@ -91,6 +91,12 @@ SALTED_IDS = {name: i for i, name in enumerate(SALTED_VARIANTS)}
 SALTED_GROUP = 256
 SALTED_ROW = 24
 SALTED_WIDE_ROW = 48
+#: a target's row for the rules kernel's salted tail (csrc/rules_group.cu,
+#: ``salted_rule_rows``): 14 zero words, the salt as message words from
+#: byte 0 in 9 (``ps``: with its 0x80 marker), 5 zero words, the digest
+#: in 8, the salt's bit length, 3 words of padding
+SALTED_RULE_ROW = 40
+RULE_SALT_AT, RULE_SALT_WORDS, RULE_DIGEST_AT, RULE_SALT_BITS = 14, 9, 28, 36
 #: ASCII a-z to A-Z, every other byte kept: MSSQL 2000's uppercase,
 #: applied to a job's charset tables on the host
 UPPER = np.array([c - 32 if 97 <= c <= 122 else c for c in range(256)],
@@ -294,6 +300,104 @@ def salted_rows(variant: str, length: int, group) -> np.ndarray:
         if algo == "md5":
             row[20] = (int(words[0]) - MD5_A0) & 0xFFFFFFFF
     return rows
+
+
+def salted_rule_rows(variant: str, group, max_len: int) -> np.ndarray:
+    """A group's rows for the rules kernel's salted tail (its 64-byte
+    variants), uint32[T, SALTED_RULE_ROW]: per target (salt bytes,
+    digest uint32 words) its salt as message words at RULE_SALT_AT (a
+    ``ps`` salt with its 0x80 marker: the candidate's length, and so the
+    salt's place, varies per lane, and the kernel moves these words
+    there), its digest words at RULE_DIGEST_AT and the salt's bit length
+    at RULE_SALT_BITS.  Each salt must fit the block beside a rule output
+    of ``max_len`` bytes; an ``sp`` group's salts are of one length."""
+    algo, order = split_salted(variant)
+    if variant not in SALTED_NAMES + ("sha1-ps-utf16",):
+        raise ValueError(f"no rules salted tail for {variant!r}")
+    big = not cuda_mask.device_engine(algo).little_endian
+    n_words = cuda_mask.device_engine(algo).digest_words
+    if not 1 <= len(group) <= SALTED_GROUP:
+        raise ValueError(f"a salted group takes 1..{SALTED_GROUP} targets, "
+                         f"got {len(group)}")
+    if order == "sp" and len({len(salt) for salt, _ in group}) != 1:
+        raise ValueError("an sp group's salts must be of one length")
+    rows = np.zeros((len(group), SALTED_RULE_ROW), np.uint32)
+    for row, (salt, words) in zip(rows, group):
+        check_salt(variant, max_len, bytes(salt))
+        if len(words) != n_words:
+            raise ValueError(f"{variant} needs {n_words} target words, got "
+                             f"{len(words)}")
+        msg = np.zeros(4 * RULE_SALT_WORDS, np.uint8)
+        msg[:len(salt)] = np.frombuffer(bytes(salt), np.uint8)
+        if order == "ps":
+            msg[len(salt)] = 0x80
+        at = RULE_SALT_AT
+        row[at:at + RULE_SALT_WORDS] = msg.view(">u4" if big else "<u4")
+        row[RULE_DIGEST_AT:RULE_DIGEST_AT + n_words] = [
+            int(w) & 0xFFFFFFFF for w in words]
+        row[RULE_SALT_BITS] = 8 * len(salt)
+    return rows
+
+
+def salted_rule_digests(variant: str, cand: torch.Tensor,
+                        lens: torch.Tensor, rows: torch.Tensor,
+                        upper: bool = False) -> torch.Tensor:
+    """The rules kernel's salted tail in plain PyTorch, the reference's
+    make_salted_wordlist_step: rule outputs uint8[B, L] of lengths
+    int32[B] (ASCII-uppercased first with ``upper``, widened to UTF-16LE
+    for a UTF-16LE variant) with each target's salt of ``rows``
+    (``salted_rule_rows``) after them (``ps``) or before them (``sp``),
+    the core over the single block: digest words int32[B, T, W]."""
+    algo, order = split_salted(variant)
+    device = cand.device
+    eng = cuda_mask.device_engine(algo, device)
+    big = not eng.little_endian
+    pos = torch.arange(cand.shape[1], device=device)[None, :]
+    cand = torch.where(pos < lens[:, None], cand, 0).to(torch.uint8)
+    if upper:
+        cand = torch.where((cand >= 97) & (cand <= 122), cand - 32,
+                           cand).to(torch.uint8)
+    if widened(variant):
+        cand, lens = utf16le_widen(cand), 2 * lens
+    batch, length = cand.shape
+    digests = []
+    for salt in rule_row_salts(variant, rows):
+        n = len(salt)
+        salt = torch.as_tensor(np.frombuffer(salt, np.uint8).copy(),
+                               device=device)
+        msg = torch.zeros((batch, length + n), dtype=torch.uint8,
+                          device=device)
+        if order == "ps":
+            msg[:, :length] = cand
+            at = lens[:, None] + torch.arange(n, device=device)[None, :]
+            msg.scatter_(1, at.long(), salt.expand(batch, n))
+        else:
+            msg[:, :n] = salt
+            msg[:, n:] = cand
+        digests.append(eng.digest_packed(pack_varlen(msg, lens + n,
+                                                     big_endian=big)))
+    return torch.stack(digests, dim=1)
+
+
+def rule_row_salts(variant: str, rows) -> list:
+    """The salts (bytes) of a group's rows (``salted_rule_rows``, int32
+    or uint32, on any device), in row order."""
+    big = not cuda_mask.device_engine(split_salted(variant)[0]).little_endian
+    rows = rows.cpu().numpy() if isinstance(rows, torch.Tensor) else rows
+    return [row[RULE_SALT_AT:RULE_SALT_AT + RULE_SALT_WORDS]
+            .astype(">u4" if big else "<u4").tobytes()
+            [:int(row[RULE_SALT_BITS]) // 8]
+            for row in np.asarray(rows).view(np.uint32)]
+
+
+def salted_rule_found(variant: str, cand: torch.Tensor, lens: torch.Tensor,
+                      rows: torch.Tensor, upper: bool = False):
+    """``salted_rule_digests`` compared with each target's digest words:
+    found bool[B, T]."""
+    words = cuda_mask.device_engine(split_salted(variant)[0]).digest_words
+    want = rows[:, RULE_DIGEST_AT:RULE_DIGEST_AT + words].to(cand.device)
+    return (salted_rule_digests(variant, cand, lens, rows, upper)
+            == want[None]).all(dim=-1)
 
 
 def salted_table(variant: str, length: int, group, device) -> tuple:

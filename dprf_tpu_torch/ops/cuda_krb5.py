@@ -285,17 +285,27 @@ def krb5_plain(lut: torch.Tensor, radices: Sequence[int],
     cand = decode_lut(lut, radices, base_digits, batch)
     lens = torch.full((batch,), lut.shape[0], dtype=torch.int32,
                       device=device)
+    lane = torch.arange(batch, device=device)
+    found = tickets_found(cand, lens, msg_type, rows)
+    return compact_group_hits(found & (lane < n_valid)[:, None],
+                              hit_capacity)
+
+
+def tickets_found(cand: torch.Tensor, lens: torch.Tensor, msg_type: int,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """Candidates uint8[B, L] of lengths int32[B] against each ticket of
+    ``rows`` (``ticket_rows``, one msg_type) in plain PyTorch: the NT
+    hash and K1 once, then per ticket ``krb5_ticket_word`` and the masked
+    compare; found bool[B, T]."""
     k1 = krb5_key1(cand, lens, *hmac_msg_blocks(msg_type.to_bytes(4, "little"),
                                                 1, "msg_type"))
-    lane = torch.arange(batch, device=device)
     found = []
     for row in rows.cpu().numpy().view(np.uint32):
         chk, chk_n = hmac_msg_blocks(row[:4].astype("<u4").tobytes(), 1,
                                      "checksum")
         word = krb5_ticket_word(k1, chk, chk_n, int(row[4]), int(row[5]))
-        expected = int(row[6:7].view(np.int32)[0])
-        found.append((word == expected) & (lane < n_valid))
-    return compact_group_hits(torch.stack(found, dim=1), hit_capacity)
+        found.append(word == int(row[6:7].view(np.int32)[0]))
+    return torch.stack(found, dim=1)
 
 
 def krb5_crack(lut: torch.Tensor, *args):

@@ -1,11 +1,16 @@
 """The fused wordlist+rules kernel: the counterpart of the JAX package's
 ops/pallas_rules.py for the md5, ntlm (md4), sha1 and sha256 cores, one
-target or a list.
+target or a list; of its XLA wordlist pipeline (ops/rules_pipeline.py)
+for sha224, mysql323 and the nested chains; and of its salted and
+Kerberos etype-23 wordlist steps (engines/device/salted.py,
+engines/device/krb5.py) for a group of targets a launch.
 
-Per candidate the kernel (csrc/rules.cu) takes word b of the step's
-word window and rule r, interprets the rule's bytecode (``encode_rules``)
-with the semantics of rules/cpu.py, packs the variable-length message,
-runs the core and compares exactly with the target.  Hit lanes are
+Per candidate the kernel (csrc/rules_kernel.cuh, instantiated by
+csrc/rules.cu, csrc/rules_nested.cu and csrc/rules_group.cu) takes word
+b of the step's word window and rule r, interprets the rule's bytecode
+(``encode_rules``) with the semantics of rules/cpu.py, packs the
+variable-length message, runs the core and compares exactly with the
+target.  Hit lanes are
 rule-major, lane = r * word_batch + b, as in the reference's step.
 
 The kernel reads the word table with rows padded with zeros to a
@@ -53,7 +58,6 @@ import torch
 from dprf_tpu_torch.ops import compare as cmp_ops
 from dprf_tpu_torch.ops import cuda_mask
 from dprf_tpu_torch.ops.cuda_mask import BULK, PROBE, device_engine
-from dprf_tpu_torch.ops.pack import pack_varlen
 from dprf_tpu_torch.rules import device as rules_device
 from dprf_tpu_torch.rules.parser import Op, Opcode
 
@@ -80,12 +84,34 @@ MIN_WAVES = 8
 REPLACES = "dprf_tpu/ops/pallas_rules.py:442"
 SOURCE = "dprf_tpu_torch/csrc/rules.cu"
 
-#: the core id of csrc/rules.cu's C interface, by the device engine's
-#: ``core`` (``ldap-sha`` runs on sha1's): the 64-byte cores only.  The
-#: mask kernel's wider cores (sha512, sha384) have no rules
-#: instantiation, as the reference's rules kernel has none it can run,
-#: nor have sha224 and mysql323, so their wordlist jobs are refused.
-KERNEL_CORES = {"md5": 0, "ntlm": 1, "sha1": 2, "sha256": 3}
+#: the rules kernel's cores by the source that instantiates them, in the
+#: order of their ids: by the device engine's ``core`` (``ldap-sha`` runs
+#: on sha1's), the 64-byte cores (sha224 and mysql323 included), then the
+#: nested chains.  The mask kernel's wider cores (sha512, sha384) have no
+#: rules instantiation, as the reference's rules kernel has none it can
+#: run, so their wordlist jobs are refused.
+CORE_SOURCES = {
+    "rules": ("md5", "ntlm", "sha1", "sha256", "sha224", "mysql323"),
+    "rules_nested": ("md5(md5)", "sha1(sha1)", "md5(sha1)", "sha1(md5)",
+                     "sha256(md5)", "sha256(sha1)", "mysql41")}
+#: the core id of the rules kernel's C interface (each source's
+#: DPRF_DISPATCH switch takes its own cores' ids)
+KERNEL_CORES = {core: i for i, core in enumerate(
+    c for cores in CORE_SOURCES.values() for c in cores)}
+#: the rules kernel's group tails (csrc/rules_group.cu's ids): the
+#: salted variants of the 64-byte cores (``cuda_ext.SALTED_NAMES`` and
+#: MSSQL's UTF-16LE sha1) and Kerberos etype 23
+GROUP_TAILS = {"md5-ps": 0, "md5-sp": 1, "sha1-ps": 2, "sha1-sp": 3,
+               "sha256-ps": 4, "sha256-sp": 5, "sha1-ps-utf16": 6,
+               "krb5": 7}
+KRB5 = "krb5"
+#: the core whose slots a tail's candidate sits in: the salted
+#: algorithm's, or md4's (ntlm) for Kerberos
+TAIL_CORES = {t: ("ntlm" if t == KRB5 else t.split("-")[0])
+              for t in GROUP_TAILS}
+#: the sources of the kernel's instantiations
+SOURCES = ("rules", "rules_nested", "rules_group")
+SOURCE_FILES = {src: f"dprf_tpu_torch/csrc/{src}.cu" for src in SOURCES}
 
 #: opcodes the kernel interprets: all but PURGE (a compaction) and
 #: TITLE / TITLE_SEP (a separator scan), as in the reference's kernel;
@@ -101,14 +127,39 @@ LIST_MODES = {PROBE: "_probe", BULK: "_bulk"}
 
 def kernel_name(core: str, mode: int = 0) -> str:
     """The instantiation's name: ``<core>_rules`` for one target,
-    ``<core>_rules_probe`` or ``<core>_rules_bulk`` for a list."""
+    ``<core>_rules_probe`` or ``<core>_rules_bulk`` for a list, and
+    ``<tail>_rules`` for a group tail (``GROUP_TAILS``)."""
     return f"{core}_rules" + LIST_MODES.get(mode, "")
+
+
+def replaces(core: str) -> str:
+    """The TPU kernel row an instantiation (a core or a group tail)
+    stands under: the rules kernel's, which the first four cores replace
+    and whose template sha224, mysql323 and the salted tails share; the
+    nested chains' (pallas_ext.py's nested kernel) and Kerberos'
+    (pallas_krb5.py's), whose chains and filter they run.  The reference
+    runs the wordlists of all but the first four on XLA."""
+    from dprf_tpu_torch.ops import cuda_ext, cuda_krb5
+    if core == KRB5:
+        return cuda_krb5.REPLACES
+    if core in cuda_ext.NESTED_NAMES:
+        return cuda_ext.REPLACES_NESTED
+    return REPLACES
+
+
+def source_of(core: str) -> str:
+    """The source that instantiates a core (``KERNEL_CORES``) or a group
+    tail (``GROUP_TAILS``)."""
+    if core in GROUP_TAILS:
+        return "rules_group"
+    return next(src for src, cores in CORE_SOURCES.items() if core in cores)
 
 
 #: launches of each kernel instantiation in this process, by
 #: ``kernel_name`` (tests and chip_smoke.py reset them and read them)
 launches = {kernel_name(n, m): 0 for n in KERNEL_CORES
             for m in (0, *LIST_MODES)}
+launches.update({kernel_name(t): 0 for t in GROUP_TAILS})
 
 
 def reset_launches() -> None:
@@ -159,11 +210,13 @@ def decode_rules(bytecode: torch.Tensor, n_ops: torch.Tensor) -> list:
 def rules_engine(engine_name: str, device="cpu"):
     """The device engine of ``engine_name`` if the rules kernel has its
     core; its tensors on ``device``."""
-    eng = device_engine(engine_name, device)
-    if eng.core not in KERNEL_CORES:
-        raise ValueError(f"no rules kernel core for engine {engine_name!r} "
-                         f"(cores: {', '.join(KERNEL_CORES)})")
-    return eng
+    from dprf_tpu_torch.engines import engine_names, get_engine
+    if engine_name.lower() in engine_names("cuda"):
+        eng = get_engine(engine_name, "cuda", torch_device=device)
+        if getattr(eng, "core", None) in KERNEL_CORES:
+            return eng
+    raise ValueError(f"no rules kernel core for engine {engine_name!r} "
+                     f"(cores: {', '.join(KERNEL_CORES)})")
 
 
 def kernel_rules_eligible(engine_name: str, gen, n_targets: int) -> bool:
@@ -244,12 +297,34 @@ class _RulesArgs(ctypes.Structure):
                 ("target", ctypes.c_uint32 * 8), ("run", ctypes.c_int32)]
 
 
+class _GroupArgs(ctypes.Structure):
+    """``struct GroupArgs`` of csrc/rules_group.cu."""
+    _fields_ = [("rows", ctypes.c_void_p), ("count", ctypes.c_void_p),
+                ("lanes", ctypes.c_void_p), ("tpos", ctypes.c_void_p),
+                ("tcount", ctypes.c_void_p), ("n_targets", ctypes.c_int32),
+                ("shift", ctypes.c_int32), ("msg_type", ctypes.c_uint32),
+                ("upper", ctypes.c_int32), ("cap", ctypes.c_int32)]
+
+
 @functools.cache
-def _library():
-    """The C entry points, built from csrc/rules.cu at first use."""
+def _library(src: str = "rules"):
+    """The C entry points of one source (``SOURCES``), built at first
+    use."""
     from dprf_tpu_torch.ops import _build
-    lib = _build.load("rules")
+    lib = _build.load(src)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if src == "rules_group":
+        lib.dprf_rules_group_launch.argtypes = [
+            i32, i32, ptr, ptr, ptr, ptr, ctypes.POINTER(_RulesArgs),
+            ctypes.POINTER(_GroupArgs), i32, i32, i32, ptr]
+        lib.dprf_rules_group_launch.restype = i32
+        lib.dprf_rules_group_shared_bytes.argtypes = [i32, i32,
+                                                      ctypes.POINTER(i32)]
+        lib.dprf_rules_group_shared_bytes.restype = i32
+        lib.dprf_rules_group_blocks_per_sm.argtypes = [i32, i32,
+                                                       ctypes.POINTER(i32)]
+        lib.dprf_rules_group_blocks_per_sm.restype = i32
+        return lib
     lib.dprf_rules_launch.argtypes = [
         i32, i32, ptr, ptr, ptr, ptr, ctypes.POINTER(_RulesArgs), ptr, ptr,
         i32, i32, i32, ptr]
@@ -268,10 +343,12 @@ def _library():
     return lib
 
 
-def load_kernel() -> None:
-    """Build and load the kernel now, so a build failure surfaces at
-    worker construction rather than at the first batch."""
-    _library()
+def load_kernel(src: str = None) -> None:
+    """Build and load the kernel now (one source, or all of them), so a
+    build failure surfaces at worker construction rather than at the
+    first batch."""
+    for name in (src,) if src else SOURCES:
+        _library(name)
 
 
 def row_bytes(max_len: int) -> int:
@@ -286,11 +363,12 @@ def pad_rows(words: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(words, (0, row_bytes(max_len) - max_len))
 
 
-def _query(fn, core: str, what: str) -> int:
+def _query(name: str, core: str, *args) -> int:
+    """A C query of the core's source: its int result."""
     value = ctypes.c_int(0)
-    rc = fn(KERNEL_CORES[core], ctypes.byref(value))
+    rc = getattr(_library(source_of(core)), name)(*args, ctypes.byref(value))
     if rc != 0:
-        raise RuntimeError(f"{what} query failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
     return value.value
 
 
@@ -298,8 +376,7 @@ def _query(fn, core: str, what: str) -> int:
 def shared_bytes(core: str) -> int:
     """Dynamic shared memory of one block of an instantiation: its
     threads' word slots and its run's ops."""
-    return _query(_library().dprf_rules_shared_bytes, core,
-                  "shared memory")
+    return _query("dprf_rules_shared_bytes", core, KERNEL_CORES[core])
 
 
 @functools.cache
@@ -308,15 +385,10 @@ def blocks_per_sm(core: str, mode: int = 0, smem: int = 0) -> int:
     ``smem`` bytes of dynamic shared memory), from the CUDA occupancy
     calculator."""
     if mode:
-        value = ctypes.c_int(0)
-        rc = _library().dprf_rules_list_blocks_per_sm(
-            KERNEL_CORES[core], int(mode), smem, ctypes.byref(value))
-        if rc != 0:
-            raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
-        blocks = value.value
+        blocks = _query("dprf_rules_list_blocks_per_sm", core,
+                        KERNEL_CORES[core], int(mode), smem)
     else:
-        blocks = _query(_library().dprf_rules_blocks_per_sm, core,
-                        "occupancy")
+        blocks = _query("dprf_rules_blocks_per_sm", core, KERNEL_CORES[core])
     if blocks < 1:
         raise RuntimeError(f"occupancy query: {blocks} blocks per SM")
     return blocks
@@ -393,7 +465,7 @@ def rules_kernel(engine: str, words: torch.Tensor, lens: torch.Tensor,
     args = _launch_args(bytecode, ws, n_valid, target, word_batch, max_len,
                         run, blocks_per_sm(eng.core), device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = _library().dprf_rules_launch(
+    rc = _library(source_of(eng.core)).dprf_rules_launch(
         KERNEL_CORES[eng.core], device.index, words.data_ptr(),
         lens.data_ptr(), bytecode.data_ptr(), n_ops.data_ptr(),
         ctypes.byref(args), count.data_ptr(), lanes.data_ptr(),
@@ -481,7 +553,7 @@ def rules_list_kernel(engine: str, mode: int, words: torch.Tensor,
         probe_words.data_ptr(), None if table is None else table.data_ptr(),
         0, 0 if table is None else table.shape[0], block_bits, k)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = _library().dprf_rules_list_launch(
+    rc = _library(source_of(eng.core)).dprf_rules_list_launch(
         KERNEL_CORES[eng.core], int(mode), device.index, words.data_ptr(),
         lens.data_ptr(), bytecode.data_ptr(), n_ops.data_ptr(),
         ctypes.byref(args), ctypes.byref(margs), count.data_ptr(),
@@ -544,6 +616,16 @@ def _digest_plain(eng, words, lens, bytecode, n_ops, ws, n_valid,
                   word_batch):
     """Every rule over the window's words, rule-major: (digest int32[R *
     word_batch, W], valid bool[R * word_batch])."""
+    cand, clen, valid = _expand_plain(words, lens, bytecode, n_ops, ws,
+                                      n_valid, word_batch)
+    return eng.digest_packed(eng.pack_varlen(cand, clen)), valid
+
+
+def _expand_plain(words, lens, bytecode, n_ops, ws, n_valid, word_batch):
+    """Every rule over the window's words, rule-major, in plain PyTorch
+    (rules/device.py): (candidates uint8[R * word_batch, max_len],
+    lengths int32[R * word_batch], kept bool[R * word_batch]); a lane past
+    the window's words is not kept."""
     device, max_len = words.device, words.shape[1]
     # the window's words, padded to word_batch with empty words that
     # the lane mask drops
@@ -552,13 +634,9 @@ def _digest_plain(eng, words, lens, bytecode, n_ops, ws, n_valid,
     w[:n_valid] = words[ws:ws + n_valid]
     ln[:n_valid] = lens[ws:ws + n_valid]
     in_window = torch.arange(word_batch, device=device) < n_valid
-    # every rule over the window, rule-major, then one digest
-    cand, clen, valid = (torch.cat(x) for x in zip(*(
+    return tuple(torch.cat(x) for x in zip(*(
         rules_device.apply_rule(w, ln, in_window, ops, max_len)
         for ops in decode_rules(bytecode, n_ops))))
-    digest = eng.digest_packed(pack_varlen(
-        cand, clen, big_endian=not eng.little_endian, widen=eng.widen_utf16))
-    return digest, valid
 
 
 def rules_crack(engine: str, words: torch.Tensor, *args,
@@ -607,12 +685,7 @@ def make_cuda_rules_crack_step(engine: str, gen, target,
             f"{engine!r}, max_len {gen.max_len} (1..{limit}), rules of at "
             f"most {MAX_STEPS} ops without PURGE/TITLE/TITLE_SEP")
     device = torch.device(device)
-    buf, lens = gen.packed_words()
-    words = torch.as_tensor(buf, device=device)
-    if device.type == "cuda":
-        words = pad_rows(words)
-    lens = torch.as_tensor(lens, device=device)
-    bytecode, n_ops = rule_tables(gen.rules, device)
+    words, lens, bytecode, n_ops = job_tables(gen, device)
     if isinstance(target, (cmp_ops.TargetTable, ProbeTable)):
         if isinstance(target, ProbeTable):
             mode, state = BULK, cuda_mask.probe_tensors(target, device)
@@ -640,6 +713,181 @@ def make_cuda_rules_crack_step(engine: str, gen, target,
                                    max_len=gen.max_len)
         return count, lanes, tpos if n == hit_capacity else \
             torch.zeros_like(lanes)
+
+    step.word_batch = word_batch
+    return step
+
+
+# ---- a group of targets: the salted and Kerberos tails ----------------------
+
+def job_tables(gen, device) -> tuple:
+    """A wordlist job's tables on ``device``, once a job: (words uint8[N,
+    row], lens int32[N], bytecode, n_ops) -- the packed words (their rows
+    padded to ``row_bytes`` on a card) and ``rule_tables``."""
+    device = torch.device(device)
+    buf, lens = gen.packed_words()
+    words = torch.as_tensor(buf, device=device)
+    if device.type == "cuda":
+        words = pad_rows(words)
+    return (words, torch.as_tensor(lens, device=device),
+            *rule_tables(gen.rules, device))
+
+
+def tail_geometry(tail: str) -> tuple:
+    """(most targets a group, a row's words, bytes a candidate character
+    takes) of a group tail."""
+    from dprf_tpu_torch.ops import cuda_ext, cuda_krb5
+    if tail not in GROUP_TAILS:
+        raise ValueError(f"no rules group tail {tail!r} (tails: "
+                         f"{', '.join(GROUP_TAILS)})")
+    if tail == KRB5:
+        return cuda_krb5.GROUP, cuda_krb5.ROW, 2
+    return (cuda_ext.SALTED_GROUP, cuda_ext.SALTED_RULE_ROW,
+            2 if cuda_ext.widened(tail) else 1)
+
+
+def _check_group(tail, words, lens, bytecode, n_ops, ws, n_valid, rows,
+                 hit_capacity, word_batch, shift, max_len=None):
+    """Raise on a group launch the kernel does not take; returns max_len.
+    A salted group's salts were checked against max_len where its rows
+    were made (``cuda_ext.salted_rule_rows``); an ``sp`` group's salt
+    length ``shift`` is checked here."""
+    from dprf_tpu_torch.ops import cuda_ext
+    group, row, width = tail_geometry(tail)
+    eng = device_engine(TAIL_CORES[tail], words.device)
+    max_len = words.shape[1] if max_len is None else max_len
+    _check_job(eng, words, lens, bytecode, n_ops, ws, n_valid, None,
+               hit_capacity, word_batch, max_len)
+    cuda_mask._check_tensor("group rows", rows, 2, words.device)
+    if not 1 <= rows.shape[0] <= group or rows.shape[1] != row:
+        raise ValueError(f"group rows must be int32[1..{group}, {row}], "
+                         f"got {list(rows.shape)}")
+    sp = tail != KRB5 and cuda_ext.split_salted(tail)[1] == "sp"
+    if not (0 <= shift <= cuda_ext.SALT_MAX and (shift == 0 or sp)
+            and width * max_len + shift <= cuda_ext.BLOCK_LIMIT):
+        raise ValueError(f"salt shift {shift} outside 0..{cuda_ext.SALT_MAX},"
+                         f" past the {cuda_ext.BLOCK_LIMIT}-byte block at "
+                         f"max_len {max_len} or on a ps or krb5 tail")
+    return max_len
+
+
+@functools.cache
+def group_shared_bytes(tail: str, n_targets: int) -> int:
+    """Dynamic shared memory of one block of a group tail over
+    ``n_targets``: the slots and ops, the RC4 states (Kerberos), the
+    rows."""
+    return _query("dprf_rules_group_shared_bytes", tail, GROUP_TAILS[tail],
+                  n_targets)
+
+
+@functools.cache
+def group_blocks_per_sm(tail: str, smem: int) -> int:
+    """Resident blocks per SM of a group tail at ``smem`` bytes."""
+    blocks = _query("dprf_rules_group_blocks_per_sm", tail,
+                    GROUP_TAILS[tail], smem)
+    if blocks < 1:
+        raise RuntimeError(f"occupancy query: {blocks} blocks per SM")
+    return blocks
+
+
+def rules_group_kernel(tail: str, words: torch.Tensor, lens: torch.Tensor,
+                       bytecode: torch.Tensor, n_ops: torch.Tensor, ws: int,
+                       n_valid: int, rows: torch.Tensor, hit_capacity: int,
+                       word_batch: int, *, shift: int = 0,
+                       msg_type: int = 0, upper: bool = False,
+                       max_len: int = None, run: int = None):
+    """Launch the group tail ``tail`` (``GROUP_TAILS``) over words [ws, ws
+    + n_valid) of the table under every rule (the table, rules and run as
+    ``rules_kernel``) for a group of targets: rows int32[T, row] on the
+    card (``cuda_ext.salted_rule_rows``, ``cuda_krb5.ticket_rows``);
+    ``shift`` an ``sp`` group's salt length, ``msg_type`` a Kerberos
+    group's, ``upper`` MSSQL 2000's uppercase of the candidate.  Returns
+    (count int32[1], lanes int32[cap], tpos int32[cap], tcount int32[T])
+    on the card, still being computed: the (lane, target position) hits,
+    -1 in unused slots, and each target's own count."""
+    if words.device.type != "cuda":
+        raise ValueError(f"the CUDA rules kernel takes CUDA tensors, got "
+                         f"words on {words.device}")
+    max_len = _check_group(tail, words, lens, bytecode, n_ops, ws, n_valid,
+                           rows, hit_capacity, word_batch, shift, max_len)
+    if words.shape[1] != row_bytes(max_len):
+        words = pad_rows(words)
+    device = words.device
+    n_targets = rows.shape[0]
+    count, lanes, tpos = cuda_mask.hit_buffers(False, hit_capacity, device)
+    tpos.fill_(-1)
+    tcount = torch.zeros((n_targets,), dtype=torch.int32, device=device)
+    if n_valid == 0:
+        return count, lanes, tpos, tcount
+    smem = group_shared_bytes(tail, n_targets)
+    args = _launch_args(bytecode, ws, n_valid, None, word_batch, max_len, run,
+                        group_blocks_per_sm(tail, smem), device)
+    group = _GroupArgs(rows.data_ptr(), count.data_ptr(), lanes.data_ptr(),
+                       tpos.data_ptr(), tcount.data_ptr(), n_targets, shift,
+                       msg_type, int(upper), hit_capacity)
+    rc = _library("rules_group").dprf_rules_group_launch(
+        GROUP_TAILS[tail], device.index, words.data_ptr(), lens.data_ptr(),
+        bytecode.data_ptr(), n_ops.data_ptr(), ctypes.byref(args),
+        ctypes.byref(group), launch_grid(n_valid, bytecode.shape[0], args.run),
+        THREADS, smem, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel_name(tail)} kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches[kernel_name(tail)] += 1
+    return count, lanes, tpos, tcount
+
+
+def rules_group_plain(tail: str, words: torch.Tensor, lens: torch.Tensor,
+                      bytecode: torch.Tensor, n_ops: torch.Tensor, ws: int,
+                      n_valid: int, rows: torch.Tensor, hit_capacity: int,
+                      word_batch: int, *, shift: int = 0, msg_type: int = 0,
+                      upper: bool = False):
+    """``rules_group_kernel``'s function in plain PyTorch on the words'
+    device (an unpadded table): every rule over the window's words
+    (rules/device.py), then each kept candidate against each target --
+    the salted message and the core (``cuda_ext.salted_rule_found``) or
+    the Kerberos filter (``cuda_krb5.tickets_found``); the (lane, target)
+    hits in lane then target order."""
+    from dprf_tpu_torch.ops import cuda_ext, cuda_krb5
+    _check_group(tail, words, lens, bytecode, n_ops, ws, n_valid, rows,
+                  hit_capacity, word_batch, shift)
+    cand, clen, kept = _expand_plain(words, lens, bytecode, n_ops, ws,
+                                     n_valid, word_batch)
+    if tail == KRB5:
+        found = cuda_krb5.tickets_found(cand, clen, msg_type, rows)
+    else:
+        found = cuda_ext.salted_rule_found(tail, cand, clen, rows, upper)
+    return cmp_ops.compact_group_hits(found & kept[:, None], hit_capacity)
+
+
+def rules_group_crack(tail: str, words: torch.Tensor, *args,
+                      max_len: int = None, **params):
+    """A group tail's kernel on CUDA tensors, its plain version on CPU
+    tensors (arguments as ``rules_group_plain``)."""
+    if words.device.type == "cuda":
+        return rules_group_kernel(tail, words, *args, max_len=max_len,
+                                  **params)
+    if words.device.type == "cpu":
+        return rules_group_plain(tail, words, *args, **params)
+    raise ValueError(f"no rules kernel for device {words.device}")
+
+
+def make_rules_group_step(tail: str, tables: tuple, max_len: int,
+                          rows: torch.Tensor, word_batch: int,
+                          hit_capacity: int, **params):
+    """A group's step over a job's ``tables`` (``job_tables``, shared by
+    its groups): step(ws, n_valid_words) -> (count int32[1], lanes
+    int32[cap], tpos int32[cap], tcount int32[T]) over words [ws, ws +
+    n_valid_words) and every rule, lanes rule-major; step(ws, n, cap=N)
+    sets one call's hit capacity (a relaunch); ``params`` as
+    ``rules_group_kernel``'s (shift, msg_type, upper)."""
+    words, lens, bytecode, n_ops = tables
+
+    def step(ws: int, n_valid: int, cap: int = None):
+        return rules_group_crack(
+            tail, words, lens, bytecode, n_ops, ws, n_valid, rows,
+            hit_capacity if cap is None else cap, word_batch,
+            max_len=max_len, **params)
 
     step.word_batch = word_batch
     return step

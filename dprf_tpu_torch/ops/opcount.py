@@ -564,16 +564,22 @@ def rules_list_ops(engine_name: str, length_counts: dict, fill: float,
     adds, the block and the bits it tests as ``probe_ops`` counts them,
     and each survivor's search (``maybes`` a candidate); nothing for the
     rule interpretation."""
-    eng = _engine(engine_name)
+    from dprf_tpu_torch.ops import cuda_ext
+    digest_words = 5 if engine_name == "mysql41" else \
+        _engine(cuda_ext.NESTED_COMBOS[engine_name][0]
+                if engine_name in cuda_ext.NESTED_COMBOS
+                else engine_name).digest_words
+    no_feed = engine_name not in cuda_ext.NESTED_NAMES and \
+        no_feed_forward(_engine(engine_name))
     reach = [fill ** j for j in range(k)]
     search = int(np.ceil(np.log2(n_targets + 1)))
-    feed = 0 if no_feed_forward(eng) else 2 + 2 * fill
-    per = Work(3 + 4 * sum(reach) + maybes * (4 * search + eng.digest_words),
+    feed = 0 if no_feed else 2 + 2 * fill
+    per = Work(3 + 4 * sum(reach) + maybes * (4 * search + digest_words),
                feed + sum(reach[:2]), 1 + sum(reach[2:]))
     alu = add_ = fma = 0.0
     for length, n in length_counts.items():
-        w2 = core_work(engine_name, length, 2)
-        w4 = core_work(engine_name, length, 4)
+        w2 = rule_core_work(engine_name, length, 2)
+        w4 = rule_core_work(engine_name, length, 4)
         alu += n * (w2["alu"] + fill * (w4["alu"] - w2["alu"]) + per.alu)
         add_ += n * (w2["add"] + fill * (w4["add"] - w2["add"]) + per.add)
         fma += n * (w2["fma"] + fill * (w4["fma"] - w2["fma"]) + per.fma)
@@ -626,15 +632,25 @@ def rule_lengths(words: np.ndarray, lens: np.ndarray, rules,
 def rules_ops(engine_name: str, length_counts: dict) -> Work:
     """The least work of the rule kernel's candidates, summed: for each
     candidate of ``length_counts`` ({length: candidates}, from
-    ``rule_lengths``), the core up to digest word 0 at its length and
-    one compare; nothing for the rule interpretation."""
+    ``rule_lengths``), the core up to digest word 0 at its length (a
+    nested chain's inner core, hex map and outer core, ``nested_work``)
+    and one compare; nothing for the rule interpretation."""
     alu = add_ = fma = 0
     for length, n in length_counts.items():
-        core = core_work(engine_name, length, 1)
+        core = rule_core_work(engine_name, length, 1)
         alu += n * (core["alu"] + 1)
         add_ += n * core["add"]
         fma += n * core["fma"]
     return Work(alu, add_, fma)
+
+
+def rule_core_work(engine_name: str, length: int, words_needed: int) -> dict:
+    """``core_work`` of a rules kernel core at a candidate's length: a
+    nested chain's (``nested_work``) or a plain core's."""
+    from dprf_tpu_torch.ops import cuda_ext
+    if engine_name in cuda_ext.NESTED_NAMES:
+        return nested_work(engine_name, length, words_needed)
+    return core_work(engine_name, length, words_needed)
 
 
 # ---- the nested and salted chains (csrc/ext.cu) ---------------------------
@@ -681,12 +697,26 @@ def nested_ops(name: str, length: int, multi: bool = False,
                n_targets: int = 1, run: float = 1) -> Work:
     """The least work of one candidate of a nested chain
     (``cuda_ext.NESTED_NAMES``) over a ``length``-position mask: the
-    decode; the inner core over the job's block (fixed words folded),
+    decode; the chain (``nested_work``) up to the compared words (word 0
+    for one target, 0-2 for the Bloom probes); the compare as
+    ``ops_per_candidate``."""
+    from dprf_tpu_torch.ops import cuda_ext
+    outer = "sha1" if name == "mysql41" else cuda_ext.NESTED_COMBOS[name][0]
+    return _decode_and_compare(length, multi,
+                               device_engine(outer).digest_words, probes,
+                               maybes, n_targets,
+                               nested_work(name, length, 3 if multi else 1),
+                               run)
+
+
+@functools.lru_cache(maxsize=None)
+def nested_work(name: str, length: int, words_needed: int) -> dict:
+    """The instructions of a nested chain over a candidate of ``length``
+    bytes, by pipe: the inner core over its block (fixed words folded),
     every digest word and its feed-forward add; the hex map of every
     inner digest word (``HEX_WORD``; mysql41 takes the raw words); the
     outer core over the 8 or 10 hex words (5 for mysql41) with its
-    padding folded, up to the compared words (word 0 for one target,
-    0-2 for the Bloom probes); the compare as ``ops_per_candidate``."""
+    padding folded, up to digest words 0..words_needed-1."""
     from dprf_tpu_torch.ops import cuda_ext
     outer, inner = ("sha1", "sha1") if name == "mysql41" \
         else cuda_ext.NESTED_COMBOS[name]
@@ -707,11 +737,8 @@ def nested_ops(name: str, length: int, multi: bool = False,
         work["add"] += iw * HEX_WORD.add
         work["fma"] += iw * HEX_WORD.fma
     outer_work = _core_work(outer, [int(w) for w in block2], var2,
-                            3 if multi else 1)
-    core = {k: work[k] + outer_work[k] for k in work}
-    return _decode_and_compare(length, multi,
-                               device_engine(outer).digest_words, probes,
-                               maybes, n_targets, core, run)
+                            words_needed)
+    return {k: work[k] + outer_work[k] for k in work}
 
 
 def salted_ops(variant: str, length: int, salt: bytes,
@@ -720,22 +747,46 @@ def salted_ops(variant: str, length: int, salt: bytes,
     (``cuda_ext.SALTED_VARIANTS``), one (candidate, target) pair of a
     ``length``-position mask and a target's ``salt``, in a launch whose
     ``group`` targets share each candidate's decode (csrc/salted.cuh):
-    the core up to digest word 0 with the target's salt, padding and bit
-    length folded as constants and the candidate's words -- [0, L) for
-    ``ps``, [S, S + L) for ``sp``, [0, 2L) for a UTF-16LE variant --
-    variable, and one compare per pair; the decode once per candidate,
-    1 / ``group`` of it a pair.  The kernel's move of an ``sp``
-    candidate by S bytes is not counted: it is not needed work."""
+    the pair's core and compare (``salted_pair_work``); the decode once
+    per candidate, 1 / ``group`` of it a pair.  The kernel's move of an
+    ``sp`` candidate by S bytes is not counted: it is not needed work."""
+    core = salted_pair_work(variant, length, bytes(salt))
+    share = length / group
+    return Work(core.alu + share, core.add + share, core.fma + 2 * share)
+
+
+@functools.lru_cache(maxsize=None)
+def salted_pair_work(variant: str, length: int, salt: bytes) -> Work:
+    """One (candidate, target) pair of a salted variant: the core up to
+    digest word 0 with the target's ``salt``, padding and bit length
+    folded as constants and the candidate's ``length`` bytes variable --
+    at [0, L) for ``ps``, [S, S + L) for ``sp``, [0, 2L) for a UTF-16LE
+    variant -- and one compare."""
     from dprf_tpu_torch.ops import cuda_ext
     algo, order = cuda_ext.split_salted(variant)
     width = cuda_ext.salted_geometry(variant)[3]
     first = 0 if order == "ps" else len(salt)
-    block = cuda_ext.salted_block(variant, length, bytes(salt))
+    block = cuda_ext.salted_block(variant, length, salt)
     core = _core_work(algo, block, range(
         first // 4, (first + width * length - 1) // 4 + 1), 1)
-    share = length / group
-    return Work(core["alu"] + 1 + share, core["add"] + share,
-                core["fma"] + 2 * share)
+    return Work(core["alu"] + 1, core["add"], core["fma"])
+
+
+def rules_salted_ops(variant: str, length_counts: dict, salts) -> Work:
+    """The least work of the rules kernel's salted tail
+    (csrc/rules_group.cu) over a group of targets with ``salts``, summed
+    over the candidates of ``length_counts`` (``rule_lengths``): each
+    (candidate, target) pair's ``salted_pair_work`` with the target's own
+    salt; nothing for the rule interpretation or the salt's move to the
+    candidate's length, which a fixed length would not need."""
+    alu = add_ = fma = 0.0
+    for length, n in length_counts.items():
+        for salt in salts:
+            w = salted_pair_work(variant, length, bytes(salt))
+            alu += n * w.alu
+            add_ += n * w.add
+            fma += n * w.fma
+    return Work(alu, add_, fma)
 
 
 # ---- the PMKID kernel ------------------------------------------------------
@@ -853,7 +904,7 @@ def krb5_compressions(per_ticket: bool = False) -> dict:
     return {"key": 4, "inner": 1, "outer": 1}
 
 
-def krb5_ops(length: int, n_tickets: int = 1) -> Work:
+def krb5_ops(length: int, n_tickets: int = 1, decode: bool = True) -> Work:
     """The least issue work of one (candidate, ticket) pair of the krb5
     kernel, in a launch whose ``n_tickets`` tickets share each
     candidate's work (csrc/krb5.cu).  Per ticket: K3's two MD5
@@ -861,7 +912,8 @@ def krb5_ops(length: int, n_tickets: int = 1) -> Work:
     kept bytes, and the masked compare (LOP3, ISETP).  Per candidate,
     1 / ``n_tickets`` of it a pair: the decode, the MD4 block over the
     widened candidate with its feed-forward and six MD5 compressions (K1
-    and its key states)."""
+    and its key states); the decode only with ``decode`` (the rules
+    kernel has none)."""
     md4_block = list(message_block("ntlm", length))
     for w in range(-(-2 * length // 4)):
         md4_block[w] = Var("alu", 0, [])
@@ -880,11 +932,12 @@ def krb5_ops(length: int, n_tickets: int = 1) -> Work:
                 work[pipe] += n * per[kind][pipe]
     steps = 256 + 12
     share = 1 / n_tickets
+    dec = length if decode else 0
     return Work(ticket["alu"] + 16 + steps * RC4_STEP.alu
-                + 4 * RC4_OUT_BYTE.alu + 2 + share * (cand["alu"] + length),
+                + 4 * RC4_OUT_BYTE.alu + 2 + share * (cand["alu"] + dec),
                 ticket["add"] + steps * RC4_STEP.add + 4 * RC4_OUT_BYTE.add
-                + share * (cand["add"] + length),
-                ticket["fma"] + share * (cand["fma"] + 2 * length))
+                + share * (cand["add"] + dec),
+                ticket["fma"] + share * (cand["fma"] + 2 * dec))
 
 
 def krb5_bound(batch: int, length: int, sms: int, clock_hz: float,
@@ -899,6 +952,21 @@ def krb5_bound(batch: int, length: int, sms: int, clock_hz: float,
     shared = (pairs * RC4_SHARED + batch * length) / (
         sms * SHARED_READS_PER_SM_CLOCK * clock_hz)
     return {"issue": issue, "shared": shared}
+
+
+def rules_krb5_bound(length_counts: dict, n_tickets: int, sms: int,
+                     clock_hz: float) -> dict:
+    """``krb5_bound``'s two limits on a launch of the rules kernel's
+    Kerberos tail over the candidates of ``length_counts``
+    (``rule_lengths``) and a group of ``n_tickets``: ``issue``, each
+    pair's ``krb5_ops`` without a decode; ``shared``, RC4's accesses a
+    pair."""
+    pairs = sum(length_counts.values()) * n_tickets
+    issue = sum(n * n_tickets * krb5_ops(length, n_tickets, False).slots
+                for length, n in length_counts.items())
+    return {"issue": issue / (sms * 64 * clock_hz),
+            "shared": pairs * RC4_SHARED / (
+                sms * SHARED_READS_PER_SM_CLOCK * clock_hz)}
 
 
 # ---- the bcrypt kernels ----------------------------------------------------

@@ -9,8 +9,11 @@ loop-superstep windows (ops/superstep.py), whose launches share one set
 of hit buffers.  A unit's hits are resolved after the whole unit is
 queued, and only hit buffers cross back to the host.
 CudaWordlistWorker is the wordlist+rules path, one rule-kernel launch
-per word window (ops/cuda_rules.py), for one target or a list.  On CPU
-tensors (``--device torch-cpu``) both run their kernel's plain PyTorch
+per word window (ops/cuda_rules.py), for one target or a list.
+GroupedSweepWorker sweeps a mask once per group of targets that each
+reshape the work (salts, tickets, ESSIDs), GroupedWordlistWorker a
+wordlist the same way through the rules kernel's group tails.  On CPU
+tensors (``--device torch-cpu``) they run their kernel's plain PyTorch
 version.
 
 A dispatch whose hits overflow its hit buffer is relaunched once on the
@@ -439,8 +442,7 @@ class PendingSweep:
             return []
         hits: list[Hit] = []
         for gi in torch.nonzero(flags).flatten().tolist():
-            for (bstart, _, _), result in zip(self.batches,
-                                              self.results[gi]):
+            for (bstart, _), result in zip(self.batches, self.results[gi]):
                 hits.extend(self.worker._batch_hits(gi, bstart, result,
                                                     self.unit))
         return sorted(hits, key=lambda h: (h.cand_index, h.target_index))
@@ -490,15 +492,32 @@ class GroupedSweepWorker:
         self.dispatched = 0
         #: reported lanes the oracle rejected
         self.rejected_maybes = 0
+        #: overflowing dispatches relaunched on the card (a wordlist
+        #: sweep's), and the oracle rescans of what a buffer missed
+        self.relaunches = 0
+        self.rescans = 0
         if self.confirm and oracle is None:
             raise ValueError("a prefilter's maybes need an oracle engine")
 
+    def _windows(self, unit: WorkUnit) -> list:
+        """A unit's dispatches, each (its first index, its step's
+        arguments): the mask's batches, (base digits, n_valid)."""
+        return [(b, (self.gen.digits(b), min(self.stride, unit.end - b)))
+                for b in range(unit.start, unit.end, self.stride)]
+
+    def _index(self, start: int, lane: int) -> int:
+        """The keyspace index of a dispatch's hit lane."""
+        return start + lane
+
+    def _span(self, start: int, unit: WorkUnit) -> tuple:
+        """The keyspace indices [a, b) of a dispatch within its unit."""
+        return start, min(start + self.stride, unit.end)
+
     def submit(self, unit: WorkUnit) -> PendingSweep:
-        batches = [(b, min(self.stride, unit.end - b), self.gen.digits(b))
-                   for b in range(unit.start, unit.end, self.stride)]
+        batches = self._windows(unit)
         results, flags = [], []
         for _, step in self.groups:
-            out = [step(digits, n_valid) for _, n_valid, digits in batches]
+            out = [step(*args) for _, args in batches]
             self.dispatched += len(out)
             results.append(out)
             if out:
@@ -535,33 +554,98 @@ class GroupedSweepWorker:
                 overflow = {t for t, k in enumerate(result[3].tolist())
                             if k > recorded[t]}
         hits = []
+        verdicts = {}   # the oracle's, once per (candidate, target)
         for lane, t in pairs:
-            if t in overflow:
+            gidx = self._index(bstart, lane)
+            if t in overflow or not unit.start <= gidx < unit.end:
                 continue
-            plain = self.gen.candidate(bstart + lane)
-            if self.confirm and not self.oracle.verify(
-                    plain, self.targets[tidx[t]]):
-                self.rejected_maybes += 1
-                continue
-            hits.append(Hit(tidx[t], bstart + lane, plain))
+            plain = self.gen.candidate(gidx)
+            if self.confirm:
+                if (plain, t) not in verdicts:
+                    verdicts[plain, t] = self.oracle.verify(
+                        plain, self.targets[tidx[t]])
+                if not verdicts[plain, t]:
+                    self.rejected_maybes += 1
+                    continue
+            hits.append(Hit(tidx[t], gidx, plain))
         if overflow:
             hits.extend(self._rescan([tidx[t] for t in sorted(overflow)],
                                      bstart, unit))
         return hits
 
     def _rescan(self, tis: list, bstart: int, unit: WorkUnit) -> list[Hit]:
-        """Exact oracle rescan of one overflowed batch for the job's
+        """Exact oracle rescan of one overflowed dispatch for the job's
         targets ``tis``, and no other."""
         if self.oracle is None:
             raise RuntimeError(
                 f"hit buffer overflow (> {self.hit_capacity}) and no "
                 "oracle engine to rescan with; raise hit_capacity")
-        end = min(bstart + self.stride, unit.end)
+        self.rescans += 1
+        start, end = self._span(bstart, unit)
         hits = CpuWorker(self.oracle, self.gen,
                          [self.targets[i] for i in tis]).process(
-            WorkUnit(-1, bstart, end - bstart))
+            WorkUnit(-1, start, end - start))
         return [Hit(tis[h.target_index], h.cand_index, h.plaintext)
                 for h in hits]
+
+
+class GroupedWordlistWorker(GroupedSweepWorker):
+    """The grouped sweep over a wordlist under its rules: the
+    counterpart of the reference's per-target wordlist sweep
+    (SaltedWordlistWorker, PhpassWordlistWorker.process).  A unit runs
+    as windows of ``word_batch`` words of its covering word range
+    (``word_cover_range``), one launch of the rules kernel's group tail
+    per (group, window), its lanes rule-major (r * word_batch + b,
+    ``wordlist_lane_to_gidx``); a hit outside the unit is dropped.  An
+    overflowing (group, window) is relaunched once on the card with a
+    buffer of its count (``relaunch_cap`` hits at most); only what that
+    cannot hold is rescanned by the oracle, over the unit's part of the
+    window, for the targets whose own count its recorded hits miss.
+
+    Subclasses set ``self.groups`` as GroupedSweepWorker's, each step
+    taking (ws, n_valid_words) and ``cap=`` a call's hit capacity."""
+
+    #: most hits a relaunch's buffers take (8 bytes a hit); a window
+    #: with more goes to the oracle rescan as it is
+    relaunch_cap = 1 << 24
+
+    def __init__(self, engine, gen, targets: Sequence[Target], batch: int,
+                 hit_capacity: int, oracle: Optional[HashEngine]):
+        from dprf_tpu_torch.ops.cuda_rules import WARP
+        super().__init__(engine, gen, targets, batch, hit_capacity, oracle)
+        #: words per launch: batch candidates over the rules, a multiple
+        #: of a warp so each warp of a launch shares one rule
+        self.word_batch = max(WARP, batch // gen.n_rules // WARP * WARP)
+        self.stride = self.word_batch * gen.n_rules
+
+    def _windows(self, unit: WorkUnit) -> list:
+        w_start, w_end = word_cover_range(unit, self.gen.n_rules)
+        w_end = min(w_end, self.gen.n_words)
+        return [(ws, (ws, min(self.word_batch, w_end - ws)))
+                for ws in range(w_start, w_end, self.word_batch)]
+
+    def _index(self, ws: int, lane: int) -> int:
+        return wordlist_lane_to_gidx(lane, ws, self.word_batch,
+                                     self.gen.n_rules)
+
+    def _span(self, ws: int, unit: WorkUnit) -> tuple:
+        R = self.gen.n_rules
+        return (max(unit.start, ws * R),
+                min(unit.end, (ws + self.word_batch) * R))
+
+    def _batch_hits(self, gi: int, ws: int, result,
+                    unit: WorkUnit) -> list[Hit]:
+        """A (group, window)'s hits; an overflowing one is first
+        relaunched on the card into buffers of its count."""
+        count = int(result[0].item())
+        if result[1].shape[0] < count <= self.relaunch_cap:
+            self.relaunches += 1
+            self.dispatched += 1
+            w_end = min(word_cover_range(unit, self.gen.n_rules)[1],
+                        self.gen.n_words)
+            result = self.groups[gi][1](
+                ws, min(self.word_batch, w_end - ws), cap=count)
+        return super()._batch_hits(gi, ws, result, unit)
 
 
 class WordlistWorkerBase(MaskWorkerBase):
@@ -641,7 +725,7 @@ class CudaWordlistWorker(WordlistWorkerBase):
         tgt = self._setup_targets(engine, gen, targets, hit_capacity,
                                   oracle, device, bulk=True)
         if device.type == "cuda":
-            cuda_rules.load_kernel()
+            cuda_rules.load_kernel(cuda_rules.source_of(engine.core))
         #: words per step: batch candidates over the rules, a multiple
         #: of a warp so each warp of a launch shares one rule
         self.word_batch = max(cuda_rules.WARP,

@@ -298,18 +298,22 @@ def test_cli_matches_reference_cli(engine, tmp_path, capsys):
 
 
 def test_refusals_name_device_cpu(tmp_path, capsys):
-    """A mask past 27 positions and a wordlist job exit 2 naming
-    --device cpu; the kernel's wrapper refuses CPU tensors."""
+    """A mask past 27 positions exits 2 naming --device cpu; a wordlist
+    job runs (the rules kernel's Kerberos tail, its plain version on CPU
+    tensors) and finds its plant; the kernel's wrapper refuses CPU
+    tensors."""
     line = _tgs(b"x")
     rc, _, _, err = _crack(port_main, "torch-cpu", tmp_path, capsys,
                            "krb5tgs", [line], mask="?d" * 28)
     assert rc == 2 and "--device cpu" in err
     words = tmp_path / "w.txt"
     words.write_text("x\n")
-    rc, _, _, err = _crack(port_main, "torch-cpu", tmp_path, capsys,
-                           "krb5asrep", [_asrep(b"x")], mask=str(words),
-                           extra=["-a", "wordlist"])
-    assert rc == 2 and "--device cpu" in err
+    asrep = _asrep(b"x")
+    rc, out, pots, err = _crack(port_main, "torch-cpu", tmp_path, capsys,
+                                "krb5asrep", [asrep], mask=str(words),
+                                extra=["-a", "wordlist"])
+    assert (rc, out, pots) == (0, [f"{asrep}:x"], [f"{asrep}:x"])
+    assert "rejected=0" in err and "maybes=0" in err
     gen = MaskGenerator("?l")
     tgt = cuda_krb5.target_kernel_args(get_engine("krb5tgs")
                                        .parse_target(line))

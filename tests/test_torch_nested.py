@@ -23,8 +23,10 @@ from dprf_tpu_torch.engines import get_engine
 from dprf_tpu_torch.engines.base import Target
 from dprf_tpu_torch.engines.device.nested import words_to_hex_bytes
 from dprf_tpu_torch.generators.mask import MaskGenerator
+from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
 from dprf_tpu_torch.ops import cuda_ext
 from dprf_tpu_torch.ops.compare import digest_rows, make_target_table
+from dprf_tpu_torch.rules.parser import parse_rule
 from dprf_tpu_torch.runtime.workunit import WorkUnit
 
 pytestmark = pytest.mark.smoke
@@ -196,8 +198,9 @@ def test_worker_matches_cpu_worker(name):
 def test_eligibility_and_refusals():
     """The port's nested eligibility and final digest layouts are the
     reference's, except that it takes sha256 stages off a TPU; 8,193
-    targets, a 56-position mask and a wordlist job are refused naming
-    --device cpu."""
+    targets and a 56-position mask are refused naming --device cpu; a
+    wordlist job runs (the rules kernel's plain version on CPU tensors)
+    and finds its plant."""
     gen = MaskGenerator(MASK)
     ref = RefMaskGenerator(MASK)
     for name in NAMES + ["md5", "sha1-ps"]:
@@ -220,8 +223,13 @@ def test_eligibility_and_refusals():
     for gen_, targets in ((gen, one * 8193), (long_gen, one)):
         with pytest.raises(ValueError, match="--device cpu"):
             dev.make_mask_worker(gen_, targets, 1024, 8)
-    with pytest.raises(ValueError, match="--device cpu"):
-        dev.make_wordlist_worker(gen, one, 1024, 8)
+    words = WordlistRulesGenerator([b"alpha", b"bravo", b"echo"],
+                                   [parse_rule(":"), parse_rule("c $1")], 55)
+    plant = [Target("x", get_engine("md5(md5)").hash_batch([b"Bravo1"])[0])]
+    hits = dev.make_wordlist_worker(words, plant, 1024, 8).process(
+        WorkUnit(0, 0, words.keyspace))
+    assert [(h.target_index, h.cand_index, h.plaintext) for h in hits] == \
+        [(0, 3, b"Bravo1")]
 
 
 def _cli(main, hashfile, pot, engine, device, capsys):
@@ -256,17 +264,23 @@ def test_cli_matches_reference(tmp_path, capsys, name):
 
 def test_device_cuda_refuses_what_the_kernel_does_not_take(tmp_path, capsys,
                                                           monkeypatch):
-    """On --device cuda (torch made to report a card: the refusals come
-    before any launch) a list of 8,193 nested targets and a nested
-    wordlist job exit 2 naming --device cpu."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    """On --device cuda (torch made to report a card: the refusal comes
+    before any launch) a list of 8,193 nested targets exits 2 naming
+    --device cpu; a nested wordlist job over the same list runs on
+    --device torch-cpu and finds its plant."""
+    plant = get_engine("md5(md5)").hash_batch([b"alpha"])[0].hex()
     hashfile = tmp_path / "h.txt"
-    hashfile.write_text("".join(f"{i:032x}\n" for i in range(8193)))
+    hashfile.write_text("".join(f"{i:032x}\n" for i in range(8192))
+                        + plant + "\n")
     words = tmp_path / "w.txt"
     words.write_text("alpha\n")
-    for argv in (["?l?l", str(hashfile)],
-                 ["-a", "wordlist", str(words), str(hashfile)]):
-        assert port_main(["crack", *argv, "--engine", "md5(md5)",
-                          "--no-potfile"]) == 2
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        assert port_main(["crack", "?l?l", str(hashfile), "--engine",
+                          "md5(md5)", "--no-potfile"]) == 2
         err = capsys.readouterr().err
         assert "--device cpu" in err and "needs an NVIDIA card" not in err
+    assert port_main(["crack", "-a", "wordlist", str(words), str(hashfile),
+                      "--engine", "md5(md5)", "--device", "torch-cpu",
+                      "--no-potfile", "-q"]) == 0
+    assert capsys.readouterr().out == f"{plant}:alpha\n"

@@ -153,9 +153,11 @@ def test_encode_rules_matches_reference_on_best64():
 
 
 def test_kernel_opcodes_match_the_parser():
-    """csrc/rules.cu's opcode numbers are rules/parser.Opcode's, and it
-    names every op the kernel takes."""
-    with open(os.path.join(REPO, cuda_rules.SOURCE)) as fh:
+    """csrc/rules_kernel.cuh's opcode numbers (the kernel of
+    csrc/rules.cu and its other sources) are rules/parser.Opcode's, and
+    it names every op the kernel takes."""
+    with open(os.path.join(REPO, "dprf_tpu_torch", "csrc",
+                           "rules_kernel.cuh")) as fh:
         src = fh.read()
     enum = {m.group(1): int(m.group(2))
             for m in re.finditer(r"\bOP_(\w+) = (\d+),", src)}

@@ -18,6 +18,7 @@ chip_smoke.py phase 8's.  Skips where there is no g++.
 
 import ctypes
 import functools
+import hashlib
 import os
 import re
 import shutil
@@ -55,8 +56,13 @@ EDGE_RULES = [
     "]]]] $a"]
 ALL_RULES = [r for r in RULES if r not in ("@l", "E", "e-")] + EDGE_RULES
 #: the engines' growth limits: max_len 55 only where the core has it
-CASES = [(e, m) for e in cuda_rules.KERNEL_CORES for m in (16, 27, 55)
-         if m <= (27 if e == "ntlm" else 55)]
+CASES = [(e, m) for e in ("md5", "ntlm", "sha1", "sha256")
+         for m in (16, 27, 55) if m <= (27 if e == "ntlm" else 55)]
+#: and the cores the kernel took since: sha224, mysql323, the nested
+#: chains (csrc/rules_nested.cu)
+CORE_CASES = CASES + [(e, m) for e in cuda_rules.KERNEL_CORES
+                      if e not in ("md5", "ntlm", "sha1", "sha256")
+                      for m in (16, 27, 55)]
 
 SHIM = r"""
 #include <cstdint>
@@ -139,17 +145,23 @@ extern "C" void emu_take(int32_t* out)
 """
 
 
-def host_source(src: str) -> str:
-    """csrc/rules.cu for g++: SHIM for the CUDA headers, the launch as a
-    loop over blocks and threads, the run's staging (and a list's bitmap)
-    done by each thread, no barrier, and a record of each candidate at
-    its marker."""
+def host_source(name: str = "rules") -> str:
+    """csrc/<name>.cu for g++: csrc/rules_kernel.cuh inlined and the other
+    headers included by path, SHIM for the CUDA headers, the launch as a
+    loop over blocks and threads, the run's staging (and a list's bitmap,
+    a group's rows) done by each thread, no barrier, and a record of each
+    candidate at its marker."""
+    with open(os.path.join(CSRC, name + ".cu")) as fh:
+        src = fh.read()
+    with open(os.path.join(CSRC, "rules_kernel.cuh")) as fh:
+        kernel = fh.read()
+    inc = '#include "rules_kernel.cuh"'
+    assert src.count(inc) == 1, f"csrc/{name}.cu changed: {inc}"
+    src = SHIM + re.sub(r'#include "(\w+\.cuh)"', lambda m: '#include "%s"' % (
+        os.path.abspath(os.path.join(CSRC, m.group(1)))),
+        src.replace(inc, kernel.replace("#pragma once\n", "")))
     edits = [
-        ("#include <cuda_runtime.h>", SHIM),
-        ('#include "cores.cuh"',
-         f'#include "{os.path.abspath(os.path.join(CSRC, "cores.cuh"))}"'),
-        ('#include "compare.cuh"',
-         f'#include "{os.path.abspath(os.path.join(CSRC, "compare.cuh"))}"'),
+        ("#include <cuda_runtime.h>", ""),
         ("for (int i = threadIdx.x; i < n_probe; i += kThreads)",
          "for (int i = 0; i < n_probe; ++i)"),
         ("for (int i = threadIdx.x; i < 3 * nr * DPRF_RULE_STEPS; "
@@ -165,40 +177,74 @@ def host_source(src: str) -> str:
          "\n"),
     ]
     for old, new in edits:
-        assert src.count(old) == 1, f"csrc/rules.cu changed: {old!r}"
+        assert src.count(old) == 1, f"csrc/rules_kernel.cuh changed: {old!r}"
         src = src.replace(old, new)
-    launch = re.compile(r"rules_kernel<Core, kMode><<<grid, kThreads, "
-                        r"smem, stream>>>\(")
-    assert len(launch.findall(src)) == 1, "csrc/rules.cu changed: launch"
+    # a group's rows, staged by each thread
+    src = src.replace("for (int i = threadIdx.x; i < g.n_targets * kRow;\n"
+                      "             i += kThreads)",
+                      "for (int i = 0; i < g.n_targets * kRow; ++i)")
+    assert "threadIdx.x; i <" not in src, f"csrc/{name}.cu: a staging loop"
+    launch = re.compile(r"(\w+<Core, \w+>)<<<grid, kThreads, smem, "
+                        r"stream>>>\(")
+    assert launch.findall(src), f"csrc/{name}.cu changed: launch"
     return launch.sub(
         "for (blockIdx.x = 0; blockIdx.x < (unsigned)grid; ++blockIdx.x) "
         "for (threadIdx.x = 0; threadIdx.x < kThreads; ++threadIdx.x) "
-        "rules_kernel<Core, kMode>(", src)
+        r"\1(", src)
+
+
+def build_host(out, name: str) -> ctypes.CDLL:
+    """csrc/<name>.cu built with g++ into ``out``, loaded."""
+    (out / f"{name}_host.cpp").write_text(host_source(name))
+    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC",
+                    "-Wno-unknown-pragmas", "-o", str(out / f"{name}_host.so"),
+                    str(out / f"{name}_host.cpp")], check=True)
+    return ctypes.CDLL(str(out / f"{name}_host.so"))
+
+
+def _launch_types(so) -> ctypes.CDLL:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if hasattr(so, "dprf_rules_group_launch"):
+        so.dprf_rules_group_launch.argtypes = [
+            i32, i32, ptr, ptr, ptr, ptr,
+            ctypes.POINTER(cuda_rules._RulesArgs),
+            ctypes.POINTER(cuda_rules._GroupArgs), i32, i32, i32, ptr]
+        so.dprf_rules_group_shared_bytes.argtypes = [i32, i32,
+                                                     ctypes.POINTER(i32)]
+    else:
+        so.dprf_rules_launch.argtypes = [
+            i32, i32, ptr, ptr, ptr, ptr,
+            ctypes.POINTER(cuda_rules._RulesArgs), ptr, ptr, i32, i32, i32,
+            ptr]
+        so.dprf_rules_shared_bytes.argtypes = [i32, ctypes.POINTER(i32)]
+    so.emu_take.argtypes = [ptr]
+    so.emu_set_long.argtypes = [i32]
+    return so
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
+    """csrc/rules.cu built for the CPU."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build csrc/rules.cu for the CPU")
-    out = tmp_path_factory.mktemp("rules_host")
-    with open(os.path.join(CSRC, "rules.cu")) as fh:
-        (out / "rules_host.cpp").write_text(host_source(fh.read()))
-    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC",
-                    "-Wno-unknown-pragmas", "-o", str(out / "rules_host.so"),
-                    str(out / "rules_host.cpp")], check=True)
-    so = ctypes.CDLL(str(out / "rules_host.so"))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    so.dprf_rules_launch.argtypes = [
-        i32, i32, ptr, ptr, ptr, ptr, ctypes.POINTER(cuda_rules._RulesArgs),
-        ptr, ptr, i32, i32, i32, ptr]
-    so.dprf_rules_shared_bytes.argtypes = [i32, ctypes.POINTER(i32)]
-    so.emu_take.argtypes = [ptr]
-    so.emu_set_long.argtypes = [i32]
-    for core in cuda_rules.KERNEL_CORES.values():
+    return _launch_types(build_host(tmp_path_factory.mktemp("rules_host"),
+                                    "rules"))
+
+
+@pytest.fixture(scope="module")
+def libs(lib, tmp_path_factory):
+    """Every source of the rules kernel built for the CPU, by name; each
+    core's slots fit the emulation's shared memory."""
+    out = tmp_path_factory.mktemp("rules_host_more")
+    libs = {"rules": lib,
+            "rules_nested": _launch_types(build_host(out, "rules_nested")),
+            "rules_group": _launch_types(build_host(out, "rules_group"))}
+    for core, i in cuda_rules.KERNEL_CORES.items():
         smem = ctypes.c_int(0)
-        assert so.dprf_rules_shared_bytes(core, ctypes.byref(smem)) == 0
-        assert smem.value <= so.emu_smem_bytes()
-    return so
+        assert libs[cuda_rules.source_of(core)].dprf_rules_shared_bytes(
+            i, ctypes.byref(smem)) == 0
+        assert smem.value <= lib.emu_smem_bytes()
+    return libs
 
 
 class Job:
@@ -285,10 +331,11 @@ def test_the_rules_hold_every_op():
 
 
 @pytest.mark.parametrize("run", [1, 3, cuda_rules.MAX_RUN])
-@pytest.mark.parametrize("engine,max_len", CASES)
-def test_every_candidate_matches_the_reference(lib, engine, max_len, run):
+@pytest.mark.parametrize("engine,max_len", CORE_CASES)
+def test_every_candidate_matches_the_reference(libs, engine, max_len, run):
     job = _all_ops_job(max_len)
-    count, lanes, recs = job.launch(lib, engine, run)
+    count, lanes, recs = job.launch(libs[cuda_rules.source_of(engine)],
+                                    engine, run)
     assert (count, lanes) == (0, [])
     job.check_records(recs, engine)
 
@@ -345,15 +392,24 @@ def test_random_rules_match_the_reference(lib, engine, max_len):
     job.check_records(job.launch(lib, engine, run)[2], engine)
 
 
+@functools.cache
+def _mysql323_digests(max_len):
+    """The all-ops job's candidates by their mysql323 digest."""
+    cands = sorted(set(_all_ops_job(max_len).want.values()))
+    return dict(zip(cands, get_engine("mysql323").hash_batch(cands)))
+
+
 @pytest.mark.parametrize("long_path", [False, True])
-@pytest.mark.parametrize("engine,max_len", CASES)
-def test_planted_digests_hit_their_lanes(lib, engine, max_len, long_path):
+@pytest.mark.parametrize("engine,max_len", CORE_CASES)
+def test_planted_digests_hit_their_lanes(libs, engine, max_len, long_path):
     """The digests of candidates of every length class (0, 1, 3-5,
     15-17, max_len - 1, max_len) as targets: the count and the lanes are
-    every lane with that candidate; an unreachable digest hits none."""
+    every lane with that candidate (mysql323: with that digest, since its
+    scan skips spaces and tabs); an unreachable digest hits none."""
     job = _all_ops_job(max_len)
     eng = get_engine(engine)
-    le = engine in ("md5", "ntlm")
+    le = get_engine(engine, "cuda", torch_device="cpu").little_endian
+    lib = libs[cuda_rules.source_of(engine)]
     rng = np.random.default_rng(len(CASES) * max_len + long_path)
     classes = [(0, 0), (1, 1), (3, 5), (15, 17), (max_len - 1, max_len - 1),
                (max_len, max_len)]
@@ -367,7 +423,128 @@ def test_planted_digests_hit_their_lanes(lib, engine, max_len, long_path):
             target = [int(w) for w in digest_rows(eng.hash_batch([c]),
                                                   le)[0]]
             count, lanes, _ = job.launch(lib, engine, 7, target, cap=4096)
-            want = sorted(lane for lane, cc in job.want.items() if cc == c)
+            if engine == "mysql323":
+                d = eng.hash_batch([c])[0]
+                same = {cc for cc, dd in _mysql323_digests(max_len).items()
+                        if dd == d}
+            else:
+                same = {c}
+            want = sorted(lane for lane, cc in job.want.items() if cc in same)
             assert (count, lanes) == (len(want), want), c
     finally:
         lib.emu_set_long(0)
+
+
+# ---- the group tails (csrc/rules_group.cu) ------------------------------
+
+def _salted_digest(tail: str, cand: bytes, salt: bytes, upper: bool):
+    """hashlib's digest of a salted tail's message."""
+    algo, order = tail.split("-")[:2]
+    if upper:
+        cand = cand.upper() if cand.isascii() else bytes(
+            c - 32 if 97 <= c <= 122 else c for c in cand)
+    if tail.endswith("-utf16"):
+        cand = bytes(b for c in cand for b in (c, 0))
+    msg = cand + salt if order == "ps" else salt + cand
+    return hashlib.new(algo, msg).digest()
+
+
+#: (tail, max_len, salt lengths of the group's targets, MSSQL 2000's
+#: uppercase): every tail at max_len 16 and at the longest its salts
+#: leave (27 for Kerberos, whose rows hold tickets)
+GROUP_CASES = [
+    ("md5-ps", 16, (0, 1, 3, 7, 32), False), ("md5-ps", 51, (0, 4), False),
+    ("md5-sp", 16, (5, 5, 5), False), ("md5-sp", 55, (0, 0), False),
+    ("sha1-ps", 16, (0, 2, 31), False), ("sha1-ps", 45, (10, 10), False),
+    ("sha1-sp", 16, (32, 32), False), ("sha1-sp", 51, (4, 4), False),
+    ("sha256-ps", 16, (1, 8, 32), False), ("sha256-ps", 55, (0,), False),
+    ("sha256-sp", 16, (3, 3), False), ("sha256-sp", 52, (3, 3), False),
+    ("sha1-ps-utf16", 16, (4, 4, 4), False),
+    ("sha1-ps-utf16", 25, (4, 4), True), ("krb5", 16, (), False),
+    ("krb5", 27, (), False)]
+
+
+def _group_rows(tail, job, salt_lens, upper, rng):
+    """A group's rows (numpy int32) and its targets' planted candidates
+    (one a target, the last target a random digest or a ticket of a
+    password past max_len), and the launch's msg_type and shift."""
+    from dprf_tpu_torch.engines.cpu.krb5 import TGS_MSG_TYPE, der, encrypt
+    from dprf_tpu_torch.ops import cuda_ext, cuda_krb5
+    pool = sorted(set(job.want.values()))
+    plants = [pool[int(i)] for i in rng.choice(len(pool), 3, replace=False)]
+    if tail == cuda_rules.KRB5:
+        tgts = []
+        for i, c in enumerate(plants + [b"\xff" * 40]):
+            plain = bytes(8) + der(0x63, der(0x30, bytes(range(i, 60 + i))))
+            chk, edata = encrypt(c, TGS_MSG_TYPE, plain)
+            t = get_engine("krb5tgs").parse_target(
+                f"$krb5tgs$23$*u$R$s*${chk.hex()}${edata.hex()}")
+            tgts.append(cuda_krb5.target_kernel_args(t))
+        rows = cuda_krb5.ticket_rows(tgts)
+        return rows.view(np.int32), plants, TGS_MSG_TYPE, 0
+    algo = tail.split("-")[0]
+    group = []
+    for i, n in enumerate(salt_lens):
+        salt = bytes(rng.integers(0, 256, n, dtype=np.uint8))
+        d = _salted_digest(tail, plants[i % len(plants)], salt, upper) \
+            if i < len(salt_lens) - 1 else rng.bytes(hashlib.new(algo).digest_size)
+        group.append((salt, [int(w) for w in digest_rows([d],
+                                                         algo == "md5")[0]]))
+    rows = cuda_ext.salted_rule_rows(tail, group, job.max_len)
+    shift = salt_lens[0] if tail.endswith("-sp") else 0
+    return rows.view(np.int32), plants, 0, shift
+
+
+@pytest.mark.parametrize("tail,max_len,salt_lens,upper", GROUP_CASES)
+def test_group_tail_matches_plain(libs, tail, max_len, salt_lens, upper):
+    """Every (word, rule) candidate of the all-ops job against a group:
+    the host-built tail's count, (lane, target) pairs and per-target
+    counts equal its plain version's (``rules_group_plain``), and each
+    planted candidate's lanes are among its target's hits."""
+    so = libs["rules_group"]
+    job = _all_ops_job(max_len)
+    rng = np.random.default_rng(max_len + len(salt_lens))
+    rows, plants, msg_type, shift = _group_rows(tail, job, salt_lens, upper,
+                                                rng)
+    T = rows.shape[0]
+    cap = 4096
+    count = np.zeros(1, np.int32)
+    lanes = np.full(cap, -1, np.int32)
+    tpos = np.full(cap, -1, np.int32)
+    tcount = np.zeros(T, np.int32)
+    run = 7
+    args = cuda_rules._RulesArgs(job.max_len, len(job.rules), job.wb, job.ws,
+                                 job.nv, (ctypes.c_uint32 * 8)(), run)
+    group = cuda_rules._GroupArgs(
+        rows.ctypes.data, count.ctypes.data, lanes.ctypes.data,
+        tpos.ctypes.data, tcount.ctypes.data, T, shift, msg_type,
+        int(upper), cap)
+    smem = ctypes.c_int(0)
+    tid = cuda_rules.GROUP_TAILS[tail]
+    assert so.dprf_rules_group_shared_bytes(tid, T, ctypes.byref(smem)) == 0
+    assert smem.value <= so.emu_smem_bytes()
+    assert so.dprf_rules_group_launch(
+        tid, 0, job.table.ctypes.data, job.lens.ctypes.data,
+        job.bc.ctypes.data, job.n_ops.ctypes.data, ctypes.byref(args),
+        ctypes.byref(group), cuda_rules.launch_grid(job.nv, len(job.rules),
+                                                    run),
+        cuda_rules.THREADS, smem.value, None) == 0
+    recs = np.zeros((so.emu_records(), 16), np.int32)
+    so.emu_take(recs.ctypes.data)          # each candidate, at its marker
+    assert len(recs) == len(job.want)
+    gen = WordlistRulesGenerator(job.words, job.rules, max_len)
+    buf, lens = gen.packed_words()
+    bc, n_ops = cuda_rules.rule_tables(job.rules)
+    pc, pl, pt, ptc = cuda_rules.rules_group_plain(
+        tail, torch.as_tensor(buf), torch.as_tensor(lens), bc, n_ops, job.ws,
+        job.nv, torch.as_tensor(rows), cap, job.wb, shift=shift,
+        msg_type=msg_type, upper=upper)
+    got = sorted((int(a), int(b)) for a, b in zip(lanes, tpos) if a >= 0)
+    want = sorted((int(a), int(b)) for a, b in zip(pl, pt) if a >= 0)
+    assert (int(count[0]), got, tcount.tolist()) == \
+        (int(pc), want, ptc.tolist())
+    for t in range(T - 1):
+        c = plants[t % len(plants)]
+        assert {(lane, t) for lane, cc in job.want.items() if cc == c} <= \
+            set(got), (tail, t, c)
+    assert tcount[T - 1] == 0

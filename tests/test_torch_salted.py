@@ -24,8 +24,10 @@ from dprf_tpu.runtime.workunit import WorkUnit as RefWorkUnit
 from dprf_tpu_torch.cli import main as port_main
 from dprf_tpu_torch.engines import get_engine
 from dprf_tpu_torch.generators.mask import MaskGenerator
+from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
 from dprf_tpu_torch.ops import cuda_ext
 from dprf_tpu_torch.ops.compare import digest_rows
+from dprf_tpu_torch.rules.parser import parse_rule
 from dprf_tpu_torch.runtime.workunit import WorkUnit
 
 pytestmark = pytest.mark.smoke
@@ -199,8 +201,10 @@ def test_eligibility_and_length_checks():
     """salted_eligible is the reference's but for the two stated
     differences (sha256 off a TPU; any number of distinct salt
     lengths); L + S = 55 passes (23 + 32), 56 raises with the
-    reference's text and names --device cpu; a wordlist job is refused
-    naming --device cpu."""
+    reference's text and names --device cpu; a wordlist job runs (the
+    rules kernel's salted tail, its plain version on CPU tensors) and
+    finds its plant, and one whose words plus salt pass the block raises
+    with the reference's text."""
     gen, ref = MaskGenerator("?d" * 23), RefMaskGenerator("?d" * 23)
     for algo in ("md5", "sha1", "sha256", "sha512", "ntlm"):
         for order in ("ps", "sp", "xx"):
@@ -229,8 +233,21 @@ def test_eligibility_and_length_checks():
         with pytest.raises(ValueError, match="--device cpu") as got:
             dev.make_mask_worker(g, targets, 1024, 8, oracle)
         assert str(got.value).startswith(str(want.value))
-    with pytest.raises(ValueError, match="--device cpu"):
-        dev.make_wordlist_worker(gen, targets, 1024, 8, oracle)
+    words = WordlistRulesGenerator([b"alpha", b"bravo"],
+                                   [parse_rule(":"), parse_rule("u")], 23)
+    plant = [oracle.parse_target(
+        f"{oracle.hash_batch([b'BRAVO'], params={'salt': b's' * 32})[0].hex()}"
+        f":{'s' * 32}")]
+    hits = dev.make_wordlist_worker(words, plant, 1024, 8, oracle).process(
+        WorkUnit(0, 0, words.keyspace))
+    assert [(h.target_index, h.cand_index, h.plaintext) for h in hits] == \
+        [(0, 3, b"BRAVO")]
+    long_words = WordlistRulesGenerator([b"alpha"], [parse_rule(":")], 24)
+    with pytest.raises(ValueError) as want:
+        ref_dev._check_lengths(long_words.max_len, ref_t)
+    with pytest.raises(ValueError, match="--device cpu") as got:
+        dev.make_wordlist_worker(long_words, targets, 1024, 8, oracle)
+    assert str(got.value).startswith(str(want.value))
 
 
 def _cli(main, hashfile, pot, engine, device, capsys):
@@ -265,18 +282,24 @@ def test_cli_matches_reference(tmp_path, capsys, variant):
 
 def test_device_cuda_refuses_what_the_kernel_does_not_take(tmp_path, capsys,
                                                           monkeypatch):
-    """On --device cuda (torch made to report a card: the refusals come
+    """On --device cuda (torch made to report a card: the refusal comes
     before any launch) a salted job whose mask plus salt passes 55 bytes
-    and a salted wordlist job exit 2 naming --device cpu."""
+    exits 2 naming --device cpu; a salted wordlist job over the same line
+    runs on --device torch-cpu and finds its plant."""
     import torch
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    digest = get_engine("md5-ps").hash_batch([b"alpha"],
+                                             params={"salt": b"s" * 32})[0]
     hashfile = tmp_path / "h.txt"
-    hashfile.write_text(f"{'00' * 16}:{'s' * 32}\n")
+    hashfile.write_text(f"{digest.hex()}:{'s' * 32}\n")
     words = tmp_path / "w.txt"
     words.write_text("alpha\n")
-    for argv in (["?d" * 24, str(hashfile)],
-                 ["-a", "wordlist", str(words), str(hashfile)]):
-        assert port_main(["crack", *argv, "--engine", "md5-ps",
-                          "--no-potfile"]) == 2
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        assert port_main(["crack", "?d" * 24, str(hashfile), "--engine",
+                          "md5-ps", "--no-potfile"]) == 2
         err = capsys.readouterr().err
         assert "--device cpu" in err and "needs an NVIDIA card" not in err
+    assert port_main(["crack", "-a", "wordlist", str(words), str(hashfile),
+                      "--engine", "md5-ps", "--device", "torch-cpu",
+                      "--no-potfile", "-q"]) == 0
+    assert capsys.readouterr().out == f"{digest.hex()}:{'s' * 32}:alpha\n"

@@ -255,13 +255,18 @@ def test_mysql323_bound_counts_the_skip_where_a_charset_holds_one():
 def test_device_cuda_refuses_what_the_kernels_do_not_take(
         tmp_path, capsys, monkeypatch, argv):
     """On --device cuda (torch made to report a card: the refusals come
-    before any launch): a sha224 or mysql323 wordlist, a salted wordlist,
-    a mask past a variant's block and more than 8,192 targets of a
-    Keccak engine (a sha224 list of any length runs on the card) exit 2
-    naming --device cpu."""
+    before any launch): a sha512 salted wordlist, a mask past a
+    variant's block and more than 8,192 targets of a Keccak engine (a
+    sha224 list of any length runs on the card) exit 2 naming --device
+    cpu.  A sha224 or mysql323 wordlist, refused before the rules kernel
+    took their cores, runs (on --device torch-cpu, the kernel's plain
+    version) and finds its plant."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    runs = argv[0] in ("sha224", "mysql323")
+    plant = get_engine(argv[0]).hash_batch([b"alpha"])[0].hex() \
+        if runs else None
     files = {
-        "W": "alpha\n", "H224": "00" * 28 + "\n", "H323": "00" * 8 + "\n",
+        "W": "alpha\n", "H224": f"{plant}\n", "H323": f"{plant}\n",
         "HPS": "00" * 64 + ":salt\n", "HMS": "0x0100" + "00" * 24 + "\n",
         "HMANY": "".join(f"{i:056x}\n" for i in range(8193))}
     args = []
@@ -270,6 +275,11 @@ def test_device_cuda_refuses_what_the_kernels_do_not_take(
             (tmp_path / a).write_text(files[a])
             a = str(tmp_path / a)
         args.append(a)
+    if runs:
+        assert port_main(["crack", *args, "--engine", argv[0], "--device",
+                          "torch-cpu", "--no-potfile", "-q"]) == 0
+        assert capsys.readouterr().out == f"{plant}:alpha\n"
+        return
     assert port_main(["crack", *args, "--engine", argv[0],
                       "--no-potfile"]) == 2
     err = capsys.readouterr().err
