@@ -8,8 +8,8 @@ card, and holds every kernel against its plain PyTorch version:
 
 1. the card: name, device count, power limit, SM count and clock;
 2. builds the mask kernel (csrc/mask.cu, every core x compare mode), the
-   rule kernel (csrc/rules.cu, csrc/rules_nested.cu, csrc/rules_group.cu:
-   every core and tail), the PMKID and KDF kernels
+   rule kernel (csrc/rules.cu, csrc/rules_nested.cu, csrc/rules_group.cu,
+   csrc/rules_wide.cu: every core and tail), the PMKID and KDF kernels
    (csrc/pbkdf2.cu), the bcrypt kernels (csrc/bcrypt.cu), the ext,
    Keccak, Kerberos, 7-Zip and PDF kernels (csrc/ext.cu, csrc/keccak.cu,
    csrc/krb5.cu, csrc/sevenzip.cu, csrc/pdf.cu) from the checkout's
@@ -59,7 +59,7 @@ card, and holds every kernel against its plain PyTorch version:
    window under the 8-op rule, at a window that starts at an odd word,
    both lanes of the "'7" / "]" pair, and a candidate that rejects
    (growth past max_len) never hits.  Then every opcode the kernel
-   takes (``RULES_ALL_OPS``) for each core at max_len 16, 27 and 55 (ntlm
+   takes (``RULES_ALL_OPS``) for each core at max_len 16 and 55 (ntlm
    16 and 27) over ``RULE_WORDS`` and a random word of every length up to
    max_len, a window cut mid-warp, exact equality of the count and the
    lanes: each rule alone with a target of each length class of its
@@ -122,7 +122,8 @@ card, and holds every kernel against its plain PyTorch version:
     equal; md5-ps at phase 18's group of 256 targets (salts of 0..32
     bytes, plants at target positions 0 and past 200: the first lane,
     the last valid lane, two targets on one random lane, one past the
-    valid lanes); a worker's group of two whose hits fill its buffer of
+    valid lanes), its hits the plants, and against its plain version on
+    N_CHECK_TARGETS of them, the planted ones; a worker's group of two whose hits fill its buffer of
     a slot a target (no rescan), and whose one-slot buffer overflows
     (the unrecorded target rescanned alone).  The build phase fails on any
     instantiation with a stack frame (local memory) and prints, beside
@@ -148,10 +149,11 @@ card, and holds every kernel against its plain PyTorch version:
     salted core), no other;
 20. times every ext instantiation per launch with CUDA events beside its
     bound (ops/opcount.nested_ops, salted_ops), its plain version on
-    the same inputs and, for a nested chain, its parent time and the SM
-    clock sampled over the phase; a salted core at the group its main
-    path launches (md5-ps: 256 targets; the others: one), then per 2^24
-    hashes at groups of 1 and 256;
+    the same inputs (a group of 256 on N_CHECK_TARGETS of its targets,
+    the kernel timed there too) and, for a nested chain, its parent time
+    and the SM clock sampled over the phase; a salted core at the group
+    its main path launches (md5-ps: 256 targets; the others: one), then
+    per 2^24 hashes at groups of 1 and 256;
 21. builds the 64-bit cores with the others -- sha512 and sha384 in
     csrc/mask.cu (4 instantiations), the Keccak kernel csrc/keccak.cu (8:
     rates 144, 136, 104, 72 x one target / multi; sha3-N and keccak-N
@@ -350,9 +352,42 @@ card, and holds every kernel against its plain PyTorch version:
     group's over N_CHECK_TARGETS targets, beside the kernel's time
     there), and the four K3 rule kernels
     beside ``PERF.md``'s row 4 (``PERF_ROW4_MS``);
-48. prints the kernels line (a kernel timed with the SM clock sampled
+48. slice O, wordlist+rules for the wide cores (csrc/rules_wide.cu:
+    sha512 and sha384 over SHA-512's 128-byte block, the Keccak sponge at
+    rates 144, 136, 104 and 72 with the pad byte a launch parameter, one
+    target or a list; sha512's salted tails; their pins in
+    ``CENSUS_O``): each new core against its plain version at 2^24
+    candidates (RULE_BATCH words x best64) at its path's max_len with one
+    target (planted at the last valid word of a partial window under the
+    last rule), over words of up to its widest (111 or rate - 1 bytes: a
+    word of that length kept as it is planted, through the sha3 name for
+    the sponge, so the pad byte and 0x80 share one byte), 1,000 targets
+    (the shared-memory probe) and N_BULK_TARGETS (the bulk probe); each
+    sha512 tail at its main path's group (sha512-ps 256 salts of 0-32
+    bytes, MSSQL 2012 256 logins, sha512-sp one target) against the
+    plants at 2^24 and against its plain version on the same launch (a
+    larger group's first N_CHECK_TARGETS targets), and sha512-ps over
+    words of up to 79 bytes beside salts of up to 32;
+49. the slice through ``crack --device cuda -a wordlist --rules best64``:
+    sha512 with one target and 1,000, sha3-256 and keccak-224 with one,
+    over config 3's 2^20 words; every other new instantiation over 2^16
+    words (the sponge's one-target paths through the sha3 names, its
+    lists through the keccak names); sha512-ps x slice D's 1,000 salts,
+    mssql2012 x 256 logins, sha512-sp x 1; plants at the job's first,
+    last and random indices; each with every launch count set to 0 just
+    before it and read just after: only its instantiation, once per
+    (group and) word window; ``rejected=0``, every plant found;
+50. times each new instantiation with CUDA events at its path's launch
+    beside its bound (``opcount.rules_ops``, ``rules_list_ops``,
+    ``rules_salted_ops`` with each target's own salt, counted by a pool
+    of processes while phase 49 runs), its plain version (timed in phase
+    48), its registers, shared memory and resident blocks an SM;
+51. prints the kernels line (a kernel timed with the SM clock sampled
     also carries the clock, ``sm_mhz``, and its bound at that clock)
     and, last, the device line.
+
+Phases 1-34 print their own seconds (``phase``), and phase 35 all of
+them as one JSON object.
 
 Any failure exits non-zero before the last line.  Without a card it
 exits 1 and prints no result.
@@ -480,6 +515,10 @@ RULE_WORDS = ([b"alpha", b"bravo", b"s3cret", b"Delta", b"echo99",
                b"FOXtrot", b"g0lf!", b"hotellll", b"in", b"j", b"",
                b"aAzZ09!~", b"xxxxxxxxxxxxxxxx"]
               + [b"w%02d" % i for i in range(19)])
+#: the max_len of the every-opcode check, by core: the shortest and the
+#: longest a core takes (it ran at 27 too, until slice O cut phase 8 in
+#: depth: 66.8 s, the deepest phase)
+RULES_ALL_OPS_MAX_LEN = {"ntlm": (16, 27)}
 RULES_ALL_OPS = [
     ":", "l", "u", "c", "C", "t", "T2", "r", "d", "p2", "f", "{", "}", "[",
     "]", "D2", "x12", "O12", "i2X", "o2Y", "'3", "se3", "z2", "Z2", "q", "k",
@@ -767,6 +806,79 @@ CENSUS_N = {
     "sha256-ps_rules": (58, 5616), "sha256-sp_rules": (58, 5728),
     "sha1-ps-utf16_rules": (40, 4840), "krb5_rules": (40, 9432)}
 
+#: slice O, wordlist+rules for the wide cores (csrc/rules_wide.cu): sha512
+#: and sha384 over SHA-512's 128-byte block, the sponge at its four rates
+#: (driven through the keccak-N names, pad 0x01; the sha3-N names, pad
+#: 0x06, share each instantiation: ``O_SHA3``), one target or a list, and
+#: sha512's salted tails
+O_CORES = ("sha512", "sha384", "keccak224", "keccak256", "keccak384",
+           "keccak512")
+O_SHA3 = {"keccak224": "sha3-224", "keccak256": "sha3-256",
+          "keccak384": "sha3-384", "keccak512": "sha3-512"}
+O_TAILS = ("sha512-ps", "sha512-sp", "sha512-ps-utf16")
+O_KERNELS = [f"{e}_rules{m}" for e in O_CORES
+             for m in ("", "_probe", "_bulk")] + [f"{t}_rules" for t in O_TAILS]
+#: each core's and tail's max_len on its main path: the CPU oracle's limit,
+#: which both CLIs take (sha3-256 and keccak-256: 55, not the sponge's 135)
+O_MAX_LEN = {"sha512": 111, "sha384": 111, "keccak224": 143,
+             "keccak256": 55, "keccak384": 103, "keccak512": 71,
+             "sha512-ps": 79, "sha512-sp": 79, "sha512-ps-utf16": 53}
+#: the widest rule outputs of a core (its kMaxLen: 111, or rate - 1): the
+#: long-word checks run there, over words of O_LONG_SPAN bytes up to it
+O_WIDEST = {"sha512": 111, "sha384": 111, "keccak224": 143,
+            "keccak256": 135, "keccak384": 103, "keccak512": 71}
+O_LONG_SPAN = 44
+#: the group tails' checks and timing, as ``N_GROUP_CASES``: (tail, max_len,
+#: targets, salt length or None for salts of 0-32 bytes) -- the groups of
+#: the main paths of phase 49: sha512-ps's first group of slice D's 1,000
+#: salts, mssql2012's 256 logins, sha512-sp's one target
+O_GROUP_CASES = [("sha512-ps", 79, 256, None), ("sha512-sp", 79, 1, 11),
+                 ("sha512-ps-utf16", 53, 256, 4)]
+#: the engine of a sponge core's one-target path (its lists run the
+#: keccak-N names: both pad bytes run on a path)
+O_ONE_TARGET = {"keccak224": "keccak-224", "keccak256": "sha3-256",
+                "keccak384": "sha3-384", "keccak512": "sha3-512"}
+#: the core paths over config 3's whole list (the others over
+#: OTHER_WORDS): (engine, targets)
+O_FULL_PATHS = {("sha512", 1), ("sha512", N_TARGETS), ("sha3-256", 1),
+                ("keccak-224", 1)}
+#: the nvcc registers and SASS instruction count of slice O's
+#: instantiations (sm_90a, CUDA 12.8), pinned from their first build (the
+#: sponge's from its build with the pad byte in the slot and three blocks
+#: an SM asked for: before, its message block went to local memory, then
+#: two of its one-target instantiations spilled at 64 registers); none
+#: has a stack frame.  The sha512-sp tail holds 126 registers
+CENSUS_O = {
+    "sha512_rules": (63, 11152), "sha512_rules_probe": (64, 11392),
+    "sha512_rules_bulk": (64, 11280), "sha384_rules": (64, 11128),
+    "sha384_rules_probe": (64, 11376), "sha384_rules_bulk": (64, 11264),
+    "keccak224_rules": (79, 13088), "keccak224_rules_probe": (78, 13336),
+    "keccak224_rules_bulk": (78, 13232), "keccak256_rules": (79, 13072),
+    "keccak256_rules_probe": (79, 13328),
+    "keccak256_rules_bulk": (79, 13216), "keccak384_rules": (79, 13072),
+    "keccak384_rules_probe": (79, 13320),
+    "keccak384_rules_bulk": (79, 13200), "keccak512_rules": (79, 13160),
+    "keccak512_rules_probe": (80, 13408),
+    "keccak512_rules_bulk": (80, 13280),
+    "sha512-ps_rules": (97, 8144), "sha512-sp_rules": (126, 8080),
+    "sha512-ps-utf16_rules": (97, 8088)}
+
+
+#: the seconds of each phase that prints no time of its own (1-34), by
+#: phase: ``phase`` ends one and starts the next
+PHASE_S = {}
+_PHASE = {"n": None, "t": 0.0}
+
+
+def phase(n) -> None:
+    """Print the time of the phase that ends here and start phase ``n``
+    (None: no phase)."""
+    now = time.perf_counter()
+    if _PHASE["n"] is not None:
+        PHASE_S[_PHASE["n"]] = now - _PHASE["t"]
+        say(f"  phase {_PHASE['n']}: {PHASE_S[_PHASE['n']]:.1f} s")
+    _PHASE.update(n=n, t=now)
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -904,7 +1016,8 @@ def instance_of(mangled: str) -> str:
         sp, utf16 = re.search(r"Lb([01])ELb([01])E", m.group(2)).groups()
         return f"{CPP_CORE[m.group(1)]}-{'sp' if sp == '1' else 'ps'}" \
             f"{'-utf16' if utf16 == '1' else ''}_rules"
-    m = re.search(r"(mask|rules)_kernelI(\w+?)L7Compare([0123])E", mangled)
+    m = re.search(r"(mask|rules|rules_wide)_kernelI(\w+?)L7Compare([0123])E",
+                  mangled)
     if m:
         args, multi = m.group(2), int(m.group(3))
         cores = [CPP_CORE[c] for c in re.findall(
@@ -1000,6 +1113,7 @@ class Smoke:
         self.err.update({k: 0 for k in L_KERNELS})
         self.err.update({k: 0 for k in M_KERNELS})
         self.err.update({k: 0 for k in N_KERNELS})
+        self.err.update({k: 0 for k in O_KERNELS})
         #: per instantiation: launches of the main path that runs it
         self.path_launches = {}
         #: configs 1 and 2 through the loop superstep: (wall s, windows,
@@ -1200,20 +1314,29 @@ class Smoke:
     # -- phase 8: the rule kernel vs plain ----------------------------------
 
     def rules_case(self, engine, gen, tables, ws, n_valid, plants, name,
-                   rejected=()):
+                   rejected=(), core=None) -> float:
         """One rule-kernel case over words [ws, ws + n_valid) x every
         rule: kernel and plain on the same inputs (``tables``: the
         kernel's padded word table, the plain version's, lens, bytecode,
         n_ops), with the digest of the candidate at keyspace index
         plants[0] as target.  Every index of ``plants`` must come back
         as a hit lane; every word index (a rule's candidate that
-        rejects) of ``rejected`` must not."""
+        rejects) of ``rejected`` must not.  ``core``: the instantiation
+        the engine runs, when it is not the engine's name (a sha3 name
+        runs its rate's keccak core).  Returns the plain version's ms."""
+        from dprf_tpu_torch.ops import cuda_rules
         plain = gen.candidate(plants[0])
         target = digest_words(engine,
                               self.get_engine(engine).hash_batch([plain])[0])
-        (kc, kl), (pc, pl) = self.rules_pair(
-            engine, tables, gen.max_len, ws, n_valid, target, RULE_BATCH)
+        padded, plain_t, *rest = tables
+        tail = (ws, n_valid, target, 64, RULE_BATCH)
+        kc, kl = cuda_rules.rules_kernel(engine, padded, *rest, *tail,
+                                         max_len=gen.max_len)
         self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pc, pl = cuda_rules.rules_plain(engine, plain_t, *rest, *tail)
+        self.torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
         kc, pc = int(kc.item()), int(pc.item())
         kl = sorted(int(x) for x in kl.cpu().tolist())
         pl = sorted(int(x) for x in pl.cpu().tolist())
@@ -1221,8 +1344,10 @@ class Smoke:
         hits = [x for x in kl if x >= 0]
         gidx = [(ws + x % RULE_BATCH) * gen.n_rules + x // RULE_BATCH
                 for x in hits]
-        say(f"  {rname(engine)} {name}: kernel count={kc} lanes={hits[:8]}"
-            f" | plain count={pc}; target {plain!r}")
+        key = rname(core or engine)
+        say(f"  {key} ({engine}) {name}: kernel count={kc} lanes="
+            f"{hits[:8]} | plain count={pc}; target {plain[:24]!r}, "
+            f"{len(plain)} bytes")
         check(kc == pc and kl == pl, f"{name}: kernel and plain differ")
         check(0 < kc <= 64, f"{name}: count {kc}")
         check(all(p in gidx for p in plants),
@@ -1231,7 +1356,8 @@ class Smoke:
               f"{name}: a hit lane decodes to another candidate")
         check(not any(r in gidx for r in rejected),
               f"{name}: a rejected candidate hit")
-        self.err[rname(engine)] = max(self.err[rname(engine)], err)
+        self.err[key] = max(self.err[key], err)
+        return plain_ms
 
     @staticmethod
     def rules_pair(engine, tables, max_len, ws, n_valid, target, word_batch,
@@ -1573,6 +1699,7 @@ def run(smoke, oracle4, words4) -> None:
     rng = smoke.rng
 
     # 1. the card
+    phase(1)
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = nvidia_smi("name,power.limit")
@@ -1584,153 +1711,12 @@ def run(smoke, oracle4, words4) -> None:
     say(f"  SMs={sms}  max SM clock={clock_mhz:.0f} MHz")
 
     # 2. the kernel builds: one nvcc per source, all at once
-    from concurrent.futures import ThreadPoolExecutor
-    sources = ("mask", "rules", "rules_nested", "rules_group", "pbkdf2",
-               "bcrypt", "ext", "keccak", "krb5", "sevenzip", "pdf")
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
-        builds = {src: pool.submit(_build.build, src) for src in sources}
-        builds = {src: f.result() for src, f in builds.items()}
-    for mod in kernel_modules():
-        mod.load_kernel()
-    say(f"== build: {len(sources)} sources in "
-        f"{time.perf_counter() - t0:.2f} s wall")
-    registers = {}
-    for src, built in builds.items():
-        say(f"  {built.path}: {built.seconds:.2f} s of nvcc")
-        kernel = None
-        for line in built.log.splitlines():
-            if "Compiling entry function" in line:
-                kernel = instance_of(line)
-                say(f"  {kernel}:")
-            elif "ptxas info    : Used" in line or "spill" in line:
-                say("    " + line.strip())
-                used = re.search(r"Used (\d+) registers", line)
-                if used and kernel:
-                    registers[kernel] = int(used.group(1))
-                frame = re.search(r"(\d+) bytes stack frame", line)
-                check(not frame or frame.group(1) == "0" or kernel not in
-                      {ename(n, m) for n, m in EXT_INSTANCES}
-                      | {k for k, _, _ in F1_INSTANCES}
-                      | {kname(e, PROBE) for e in PROBE_CORES}
-                      | {rname(e) for e in RULE_CORES}
-                      | {"krb5_group", "pbkdf2_kdf", "sevenzip_kdf",
-                         "pdf_r2_40", "pdf_r3_40", "pdf_r3_128"}
-                      | set(L_KERNELS) | set(M_KERNELS) | set(N_KERNELS),
-                      f"{kernel}: {line.strip()} (local memory)")
-        census = _build.sass_census(src)
-        for func, c in sorted(census.items(),
-                              key=lambda kv: instance_of(kv[0])):
-            top = ", ".join(f"{op} {n}" for op, n in c["by_opcode"].items())
-            inst = instance_of(func)
-            was = CENSUS_K3.get(inst)
-            now = (registers.get(inst), c["total"])
-            same = "" if was is None else (
-                "; the slice K3 pin: "
-                + ("same" if was == now else f"DIFFER, pinned {was}"))
-            check(was is None or same.endswith("same"), f"{inst}{same}")
-            if src in ("mask", "ext", "keccak", "bcrypt") and \
-                    inst not in GROUPED_KERNELS and inst not in L_KERNELS \
-                    and inst not in M_KERNELS:
-                pin = CENSUS_K2.get(inst)
-                same = "; the slice K2 pin: " + (
-                    "same" if pin == now else f"DIFFER, pinned {pin}")
-                check(same.endswith("same"), f"{inst}{same}")
-            if inst in PDF_BEFORE:
-                same = "; registers and census before the grouped krb5: " + (
-                    "same" if PDF_BEFORE[inst] == now
-                    else f"DIFFER, it had {PDF_BEFORE[inst]}")
-                check(same.endswith("same"), f"{inst}{same}")
-            if inst in GROUPED_KERNELS:
-                pin = CENSUS_GROUPED[inst]
-                same = "; the grouped kernel's pin: " + (
-                    "same" if pin == now else f"DIFFER, pinned {pin}")
-                check(same.endswith("same"), f"{inst}{same}")
-            if inst in L_KERNELS:
-                pin = CENSUS_L.get(inst)
-                same = "; the slice L pin: " + (
-                    "same" if pin == now else f"DIFFER, pinned {pin}")
-                check(same.endswith("same"), f"{inst}{same}")
-            if inst in M_KERNELS:
-                pin = CENSUS_M.get(inst)
-                same = "; the slice M pin: " + (
-                    "same" if pin == now else f"DIFFER, pinned {pin}")
-                check(same.endswith("same"), f"{inst}{same}")
-            if inst in N_KERNELS:
-                pin = CENSUS_N.get(inst)
-                same = "; the slice N pin: " + (
-                    "same" if pin == now else f"DIFFER, pinned {pin}")
-                check(same.endswith("same"), f"{inst}{same}")
-            if inst == "pmkid":
-                same = "; registers and census before the KDF kernel: " + (
-                    "same" if PMKID_BEFORE == (registers.get(inst),
-                                               c["total"])
-                    else f"DIFFER, it had {PMKID_BEFORE}")
-                check(same.endswith("same"), f"pmkid{same}")
-            say(f"  SASS {inst}: {c['total']} static instructions, "
-                f"{registers.get(inst)} registers{same} ({top})")
-    for engine, multi in INSTANCES:
-        length = 6 if engine == "md5" and not multi else 7
-        n_sets = bloom.n_sets(N_TARGETS) if multi else 0
-        smem = cuda_mask.shared_bytes(length, n_sets)
-        say(f"  {kname(engine, multi)}: {smem} B shared at {length} "
-            f"positions{' and 1,000 targets' if multi else ''}, "
-            f"{cuda_mask.blocks_per_sm(engine, multi, smem)} resident "
-            f"blocks of {cuda_mask.THREADS} per SM (the grid's wave)")
-    smem = cuda_mask.shared_bytes(55, bloom.n_sets(bloom.MAX_TARGETS))
-    say(f"  md5_mask_multi at its largest, 55 positions and "
-        f"{bloom.MAX_TARGETS} targets: {smem} B shared, "
-        f"{cuda_mask.blocks_per_sm('md5', True, smem)} resident blocks per "
-        "SM")
-    for engine in RULE_CORES:
-        blocks = cuda_rules.blocks_per_sm(engine)
-        say(f"  {rname(engine)}: {cuda_rules.shared_bytes(engine)} B shared, "
-            f"{blocks} resident blocks of {cuda_rules.THREADS} per SM; "
-            f"2^24 candidates a launch in runs of "
-            f"{cuda_rules.rule_runs(RULE_BATCH, N_RULES, sms * blocks)} "
-            "rules")
-
-    for variant, _ in L_SALTED:
-        smem = cuda_ext.salted_shared_bytes(variant, 6,
-                                            cuda_ext.SALTED_GROUP)
-        say(f"  {variant}_group: {smem} B shared at 6 positions and "
-            f"{cuda_ext.SALTED_GROUP} targets, "
-            f"{cuda_ext.salted_blocks_per_sm(variant, smem)} resident blocks "
-            f"of {cuda_mask.THREADS} per SM (the grid's wave)")
-    for chain, multi in EXT_INSTANCES:
-        if chain in cuda_ext.SALTED_NAMES:
-            smem = cuda_ext.salted_shared_bytes(chain, 6,
-                                                cuda_ext.SALTED_GROUP)
-            say(f"  {ename(chain, multi)}: {smem} B shared at 6 positions "
-                f"and {cuda_ext.SALTED_GROUP} targets, "
-                f"{cuda_ext.salted_blocks_per_sm(chain, smem)} resident "
-                f"blocks of {cuda_mask.THREADS} per SM (the grid's wave)")
-            continue
-        n_sets = bloom.n_sets(N_TARGETS) if multi else 0
-        smem = cuda_mask.shared_bytes(7, n_sets)
-        say(f"  {kname(chain, multi)}: {smem} B shared at 7 "
-            f"positions{' and 1,000 targets' if multi else ''}, "
-            f"{cuda_ext.blocks_per_sm(chain, multi, smem)} resident blocks "
-            f"of {cuda_mask.THREADS} per SM (the grid's wave)")
-    smem = cuda_pbkdf2.shared_bytes(8)
-    for k in (cuda_pbkdf2.KERNEL, cuda_pbkdf2.KDF_KERNEL):
-        say(f"  {k}: {smem} B shared at 8 positions, "
-            f"{cuda_pbkdf2.blocks_per_sm(smem, k)} resident blocks of "
-            f"{cuda_pbkdf2.THREADS} per SM (the grid's wave)")
-    smem = cuda_krb5.shared_bytes(8, cuda_krb5.GROUP)
-    say(f"  krb5_group: {smem} B shared at 8 positions and "
-        f"{cuda_krb5.GROUP} tickets (the RC4 states, the rows and the "
-        f"tables; the opt-in above 48 KB), {cuda_krb5.blocks_per_sm(smem)} "
-        f"resident blocks of {cuda_krb5.THREADS} per SM (the grid's wave)")
-    for k in cuda_bcrypt.KERNELS:
-        blocks, smem = cuda_bcrypt.occupancy(0, k)
-        say(f"  {k}: {smem} B shared (the opt-in above 48 KB took), "
-            f"{blocks} resident blocks of {cuda_bcrypt.BLOCK} candidates "
-            f"({'/'.join(map(str, cuda_bcrypt.WARPS))} a warp) per SM")
+    phase(2)
+    build_all(smoke, sms)
     wave = cuda_bcrypt.resident_batch("cuda")
-    say(f"  bcrypt: {wave} candidates a wave ({sms} SMs)")
 
     # 3. kernel vs plain on the card
+    phase(3)
     say(f"== kernel vs plain at batch {BATCH} (exact equality)")
     g6 = MaskGenerator(MASK_CONFIG1)
     lut6 = g6.charset_lut("cuda")
@@ -1826,12 +1812,14 @@ def run(smoke, oracle4, words4) -> None:
                      key="md5(md5)_mask_multi")
 
     # 4. config 1: the whole ?l^6 keyspace
+    phase(4)
     say("== config 1: crack --device cuda --engine md5 -a mask ?l^6")
     plain = g6.candidate(g6.keyspace - 1)
     smoke.crack(cli, "md5", MASK_CONFIG1, [hashlib.md5(plain).digest()],
                 [plain])
 
     # 5. config 2 at full width
+    phase(5)
     say("== config 2: crack --device cuda --engine ntlm -a mask ?a^7, "
         f"{N_TARGETS} targets, a window of {CONFIG2_WINDOW} candidates")
     skip = int(rng.integers(0, g7.keyspace - CONFIG2_WINDOW))
@@ -1867,6 +1855,7 @@ def run(smoke, oracle4, words4) -> None:
         "p_false": p_false, "skip": skip, "window": CONFIG2_WINDOW}}))
 
     # 6. the other instantiations end to end, each over 16 batches
+    phase(6)
     say("== the other instantiations: crack --device cuda over "
         f"{OTHER_WINDOW} candidates of ?a^7")
     for engine, multi in INSTANCES:
@@ -1881,6 +1870,7 @@ def run(smoke, oracle4, words4) -> None:
                     limit=OTHER_WINDOW)
 
     # 7. timing at batch 2^24
+    phase(7)
     say(f"== timing at batch 2^24 (CUDA events over 0.4 s of launches, the "
         f"SM clock sampled meanwhile); card: {card}")
     rate_ops = sms * LANES_PER_SM * clock_mhz * 1e6
@@ -1949,6 +1939,7 @@ def run(smoke, oracle4, words4) -> None:
         check(res["hits"] == 0, "bench found a hit on an unreachable target")
 
     # 8. the rule kernel vs its plain version at 2^24 candidates a launch
+    phase(8)
     say(f"== rule kernel vs plain at {RULE_BATCH} words x {N_RULES} rules "
         f"= {RULE_BATCH * N_RULES} candidates a launch (exact equality)")
     t0 = time.perf_counter()
@@ -2020,9 +2011,7 @@ def run(smoke, oracle4, words4) -> None:
               f"{rname(engine)}: a rejected candidate hit")
         say(f"  {rname(engine)} max_len 16, target {plant!r} whose rule "
             f"rejects there: kernel count={k[0]} | plain count={p[0]}")
-        for ml in (16, 27, 55):
-            if ml > (27 if engine == "ntlm" else 55):
-                continue
+        for ml in RULES_ALL_OPS_MAX_LEN.get(engine, (16, 55)):
             t0 = time.perf_counter()
             n_r, n_l, n_hits = smoke.rules_all_ops(engine, ml)
             say(f"  {rname(engine)} every opcode at max_len {ml}: {n_r} "
@@ -2031,6 +2020,7 @@ def run(smoke, oracle4, words4) -> None:
                 f"({time.perf_counter() - t0:.1f} s)")
 
     # 9. config 3 at full width, then the other rule cores
+    phase(9)
     say(f"== config 3: crack --device cuda --engine sha256 -a wordlist "
         f"--rules best64, {CONFIG3_WORDS} words; card: {card}")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2080,6 +2070,7 @@ def run(smoke, oracle4, words4) -> None:
                 smoke.get_engine(engine).hash_batch([plant])[0], plant)
 
     # 10. the rule kernel's time at 2^24 candidates a launch
+    phase(10)
     say(f"== rule kernel timing at {RULE_BATCH} words x {N_RULES} rules "
         f"(CUDA events, {TIMED_LAUNCHES} launches); card: {card}")
     lengths = {ml: opcount.rule_lengths(
@@ -2118,6 +2109,7 @@ def run(smoke, oracle4, words4) -> None:
             f"at {bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
 
     # 11. the PMKID kernel vs its plain version
+    phase(11)
     say(f"== PMKID kernel vs plain at {PMKID_CHECK_ITERS} iterations over "
         f"{PMKID_CHECK_BATCH} lanes (exact equality of the hit set)")
     g5 = MaskGenerator(MASK_CONFIG5)
@@ -2179,6 +2171,7 @@ def run(smoke, oracle4, words4) -> None:
         iters=4096, batch=B20, plain=False)
 
     # 12. config 5 at full width through the CLI
+    phase(12)
     say(f"== config 5: crack --device cuda --engine wpa2-pmkid "
         f"{MASK_CONFIG5} at 4096 iterations, a window of {CONFIG5_WINDOW} "
         f"candidates; card: {card}")
@@ -2204,6 +2197,7 @@ def run(smoke, oracle4, words4) -> None:
         f"{want_batches} launches of {PMKID_BATCH}; card: {card}")
 
     # 13. the bcrypt kernels vs their plain version, then vs the oracle
+    phase(13)
     B4 = wave
     say(f"== bcrypt kernels vs plain on one wave of {B4} candidates "
         "(exact equality of P, S, digest words and hits)")
@@ -2298,6 +2292,7 @@ def run(smoke, oracle4, words4) -> None:
         "(lengths 0, 1, 8, 71, 72) and on the OpenBSD $2a$05 vectors")
 
     # 14. config 4 at full width through the CLI
+    phase(14)
     say(f"== config 4: crack --device cuda --engine bcrypt -a wordlist, "
         f"{CONFIG4_WORDS} words at cost {CONFIG4_COST}; card: {card}")
     config4 = {}
@@ -2356,6 +2351,7 @@ def run(smoke, oracle4, words4) -> None:
     say(json.dumps({"config4": config4}))
 
     # 15. timing of the PMKID and bcrypt kernels
+    phase(15)
     say(f"== PMKID and bcrypt kernel timing (CUDA events); card: {card}")
     from dprf_tpu_torch.ops.cuda_pbkdf2 import target_table
     t5 = target_table(smoke.pmkid_targets(ESSID5, [(b"-", AP5, STA5)],
@@ -2477,8 +2473,9 @@ def run(smoke, oracle4, words4) -> None:
     l_timing = slice_l(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
     m_timing_rows = slice_m(smoke, cli, card, rate_ops, g6, lut6, g7, lut7)
     n_timing_rows = slice_n(smoke, cli, card, rate_ops, sms)
+    o_timing_rows = slice_o(smoke, cli, card, rate_ops)
 
-    # 48. the kernels line, then the device line
+    # 51. the kernels line, then the device line
     kernels = []
     for engine, multi in INSTANCES:
         key = kname(engine, multi)
@@ -2598,6 +2595,17 @@ def run(smoke, oracle4, words4) -> None:
             "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             **more})
+    for key in O_KERNELS:
+        ms, plain_ms, bound, bound_by, more = o_timing_rows[key]
+        core = key.split("_rules")[0]
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": cuda_rules.SOURCE_FILES[cuda_rules.source_of(core)],
+            "replaces": cuda_rules.replaces(core),
+            "launches": smoke.path_launches[key],
+            "max_abs_err": smoke.err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            **more})
     check(all(k["launches"] > 0 for k in kernels)
           and all(r["launches"] > 0 for r in
                   f3_timing["pdf"][4]["instantiations"].values()),
@@ -2607,6 +2615,168 @@ def run(smoke, oracle4, words4) -> None:
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
+
+
+def build_all(smoke, sms) -> None:
+    """Phase 2: every source built with its own nvcc, all at once; each
+    instantiation's registers, spills and SASS census printed and held
+    to its pin; the occupancy of the main instantiations.  The registers
+    go to smoke.registers."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dprf_tpu_torch.ops import (_build, bloom, cuda_bcrypt, cuda_ext,
+                                    cuda_krb5, cuda_mask, cuda_pbkdf2,
+                                    cuda_rules)
+    sources = ("mask", "rules", "rules_nested", "rules_group", "rules_wide",
+               "pbkdf2", "bcrypt", "ext", "keccak", "krb5", "sevenzip", "pdf")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = {src: pool.submit(_build.build, src) for src in sources}
+        builds = {src: f.result() for src, f in builds.items()}
+    for mod in kernel_modules():
+        mod.load_kernel()
+    say(f"== build: {len(sources)} sources in "
+        f"{time.perf_counter() - t0:.2f} s wall")
+    registers = smoke.registers = {}
+    for src, built in builds.items():
+        say(f"  {built.path}: {built.seconds:.2f} s of nvcc")
+        kernel = None
+        for line in built.log.splitlines():
+            if "Compiling entry function" in line:
+                kernel = instance_of(line)
+                say(f"  {kernel}:")
+            elif "ptxas info    : Used" in line or "spill" in line:
+                say("    " + line.strip())
+                used = re.search(r"Used (\d+) registers", line)
+                if used and kernel:
+                    registers[kernel] = int(used.group(1))
+                frame = re.search(r"(\d+) bytes stack frame", line)
+                check(not frame or frame.group(1) == "0" or kernel not in
+                      {ename(n, m) for n, m in EXT_INSTANCES}
+                      | {k for k, _, _ in F1_INSTANCES}
+                      | {kname(e, PROBE) for e in PROBE_CORES}
+                      | {rname(e) for e in RULE_CORES}
+                      | {"krb5_group", "pbkdf2_kdf", "sevenzip_kdf",
+                         "pdf_r2_40", "pdf_r3_40", "pdf_r3_128"}
+                      | set(L_KERNELS) | set(M_KERNELS) | set(N_KERNELS)
+                      | set(O_KERNELS),
+                      f"{kernel}: {line.strip()} (local memory)")
+        census = _build.sass_census(src)
+        for func, c in sorted(census.items(),
+                              key=lambda kv: instance_of(kv[0])):
+            top = ", ".join(f"{op} {n}" for op, n in c["by_opcode"].items())
+            inst = instance_of(func)
+            was = CENSUS_K3.get(inst)
+            now = (registers.get(inst), c["total"])
+            same = "" if was is None else (
+                "; the slice K3 pin: "
+                + ("same" if was == now else f"DIFFER, pinned {was}"))
+            check(was is None or same.endswith("same"), f"{inst}{same}")
+            if src in ("mask", "ext", "keccak", "bcrypt") and \
+                    inst not in GROUPED_KERNELS and inst not in L_KERNELS \
+                    and inst not in M_KERNELS:
+                pin = CENSUS_K2.get(inst)
+                same = "; the slice K2 pin: " + (
+                    "same" if pin == now else f"DIFFER, pinned {pin}")
+                check(same.endswith("same"), f"{inst}{same}")
+            if inst in PDF_BEFORE:
+                same = "; registers and census before the grouped krb5: " + (
+                    "same" if PDF_BEFORE[inst] == now
+                    else f"DIFFER, it had {PDF_BEFORE[inst]}")
+                check(same.endswith("same"), f"{inst}{same}")
+            if inst in GROUPED_KERNELS:
+                pin = CENSUS_GROUPED[inst]
+                same = "; the grouped kernel's pin: " + (
+                    "same" if pin == now else f"DIFFER, pinned {pin}")
+                check(same.endswith("same"), f"{inst}{same}")
+            if inst in L_KERNELS:
+                pin = CENSUS_L.get(inst)
+                same = "; the slice L pin: " + (
+                    "same" if pin == now else f"DIFFER, pinned {pin}")
+                check(same.endswith("same"), f"{inst}{same}")
+            if inst in M_KERNELS:
+                pin = CENSUS_M.get(inst)
+                same = "; the slice M pin: " + (
+                    "same" if pin == now else f"DIFFER, pinned {pin}")
+                check(same.endswith("same"), f"{inst}{same}")
+            if inst in N_KERNELS:
+                pin = CENSUS_N.get(inst)
+                same = "; the slice N pin: " + (
+                    "same" if pin == now else f"DIFFER, pinned {pin}")
+                check(same.endswith("same"), f"{inst}{same}")
+            if inst in O_KERNELS:
+                pin = CENSUS_O.get(inst)
+                same = "; the slice O pin: " + (
+                    "same" if pin == now else f"DIFFER, pinned {pin}")
+                check(same.endswith("same"), f"{inst}{same}")
+            if inst == "pmkid":
+                same = "; registers and census before the KDF kernel: " + (
+                    "same" if PMKID_BEFORE == (registers.get(inst),
+                                               c["total"])
+                    else f"DIFFER, it had {PMKID_BEFORE}")
+                check(same.endswith("same"), f"pmkid{same}")
+            say(f"  SASS {inst}: {c['total']} static instructions, "
+                f"{registers.get(inst)} registers{same} ({top})")
+    for engine, multi in INSTANCES:
+        length = 6 if engine == "md5" and not multi else 7
+        n_sets = bloom.n_sets(N_TARGETS) if multi else 0
+        smem = cuda_mask.shared_bytes(length, n_sets)
+        say(f"  {kname(engine, multi)}: {smem} B shared at {length} "
+            f"positions{' and 1,000 targets' if multi else ''}, "
+            f"{cuda_mask.blocks_per_sm(engine, multi, smem)} resident "
+            f"blocks of {cuda_mask.THREADS} per SM (the grid's wave)")
+    smem = cuda_mask.shared_bytes(55, bloom.n_sets(bloom.MAX_TARGETS))
+    say(f"  md5_mask_multi at its largest, 55 positions and "
+        f"{bloom.MAX_TARGETS} targets: {smem} B shared, "
+        f"{cuda_mask.blocks_per_sm('md5', True, smem)} resident blocks per "
+        "SM")
+    for engine in RULE_CORES:
+        blocks = cuda_rules.blocks_per_sm(engine)
+        say(f"  {rname(engine)}: {cuda_rules.shared_bytes(engine)} B shared, "
+            f"{blocks} resident blocks of {cuda_rules.THREADS} per SM; "
+            f"2^24 candidates a launch in runs of "
+            f"{cuda_rules.rule_runs(RULE_BATCH, N_RULES, sms * blocks)} "
+            "rules")
+
+    for variant, _ in L_SALTED:
+        smem = cuda_ext.salted_shared_bytes(variant, 6,
+                                            cuda_ext.SALTED_GROUP)
+        say(f"  {variant}_group: {smem} B shared at 6 positions and "
+            f"{cuda_ext.SALTED_GROUP} targets, "
+            f"{cuda_ext.salted_blocks_per_sm(variant, smem)} resident blocks "
+            f"of {cuda_mask.THREADS} per SM (the grid's wave)")
+    for chain, multi in EXT_INSTANCES:
+        if chain in cuda_ext.SALTED_NAMES:
+            smem = cuda_ext.salted_shared_bytes(chain, 6,
+                                                cuda_ext.SALTED_GROUP)
+            say(f"  {ename(chain, multi)}: {smem} B shared at 6 positions "
+                f"and {cuda_ext.SALTED_GROUP} targets, "
+                f"{cuda_ext.salted_blocks_per_sm(chain, smem)} resident "
+                f"blocks of {cuda_mask.THREADS} per SM (the grid's wave)")
+            continue
+        n_sets = bloom.n_sets(N_TARGETS) if multi else 0
+        smem = cuda_mask.shared_bytes(7, n_sets)
+        say(f"  {kname(chain, multi)}: {smem} B shared at 7 "
+            f"positions{' and 1,000 targets' if multi else ''}, "
+            f"{cuda_ext.blocks_per_sm(chain, multi, smem)} resident blocks "
+            f"of {cuda_mask.THREADS} per SM (the grid's wave)")
+    smem = cuda_pbkdf2.shared_bytes(8)
+    for k in (cuda_pbkdf2.KERNEL, cuda_pbkdf2.KDF_KERNEL):
+        say(f"  {k}: {smem} B shared at 8 positions, "
+            f"{cuda_pbkdf2.blocks_per_sm(smem, k)} resident blocks of "
+            f"{cuda_pbkdf2.THREADS} per SM (the grid's wave)")
+    smem = cuda_krb5.shared_bytes(8, cuda_krb5.GROUP)
+    say(f"  krb5_group: {smem} B shared at 8 positions and "
+        f"{cuda_krb5.GROUP} tickets (the RC4 states, the rows and the "
+        f"tables; the opt-in above 48 KB), {cuda_krb5.blocks_per_sm(smem)} "
+        f"resident blocks of {cuda_krb5.THREADS} per SM (the grid's wave)")
+    for k in cuda_bcrypt.KERNELS:
+        blocks, smem = cuda_bcrypt.occupancy(0, k)
+        say(f"  {k}: {smem} B shared (the opt-in above 48 KB took), "
+            f"{blocks} resident blocks of {cuda_bcrypt.BLOCK} candidates "
+            f"({'/'.join(map(str, cuda_bcrypt.WARPS))} a warp) per SM")
+    wave = cuda_bcrypt.resident_batch("cuda")
+    say(f"  bcrypt: {wave} candidates a wave ({sms} SMs)")
 
 
 def carry_start(rng, gen, lane: int) -> int:
@@ -2699,6 +2869,7 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
         return run_path(smoke, cli, *args, **kwargs)
 
     # 16. the ext kernel vs its plain version
+    phase(16)
     say(f"== 16. ext kernel (csrc/ext.cu) vs plain at batch {BATCH} (exact "
         "equality)")
     base = int(rng.integers(0, g7.keyspace // BATCH - 2)) * BATCH
@@ -2772,12 +2943,26 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
             want.append((lane, i))
         targets.append((salt, digest_words("md5-ps", d)))
     rows, shift = cuda_ext.salted_table("md5-ps", g6.length, targets, "cuda")
+    count, lanes, tpos, _ = cuda_ext.salted_kernel(
+        "md5-ps", lut6, g6.radices, g6.digits(s16), nv, shift, rows,
+        64 * n_group, BATCH)
+    pairs = sorted((int(a), int(b)) for a, b in zip(lanes.tolist(),
+                                                    tpos.tolist()) if a >= 0)
+    check(int(count.item()) == len(pairs) and pairs == sorted(want),
+          f"md5-ps_group at {n_group} targets: hits {pairs}, expected "
+          f"{sorted(want)}")
+    # kernel == plain on the same launch over N_CHECK_TARGETS of the
+    # group's targets, its planted ones among them (the plain version
+    # runs the core a target at a time: 17.6 s for all 256)
+    idx = sorted(set(lanes_of) | {1})[:N_CHECK_TARGETS]
     smoke.group_case(
         cuda_ext.salted_kernel, cuda_ext.salted_plain,
-        ("md5-ps", lut6, g6.radices, g6.digits(s16), nv, shift, rows,
-         64 * n_group, BATCH), list(range(n_group)), want, "md5-ps_group",
-        f"?l^6, a group of {n_group} targets (phase 18's), salts of 0-32 "
-        f"bytes, plants at target positions {sorted(lanes_of)}")
+        ("md5-ps", lut6, g6.radices, g6.digits(s16), nv, shift, rows[idx],
+         64 * len(idx), BATCH), idx, [w for w in want if w[1] in idx],
+        "md5-ps_group", f"?l^6, a group of {n_group} targets (phase 18's), "
+        f"salts of 0-32 bytes, plants at target positions "
+        f"{sorted(lanes_of)}: the kernel's {len(pairs)} hits at "
+        f"{n_group} targets the plants; kernel == plain over targets {idx}")
     # the worker's hit buffer: hit_capacity a target of the group.  Two
     # targets hit in one batch at a capacity of one: the group's buffer
     # holds both and nothing is rescanned; with a buffer of one slot the
@@ -2815,6 +3000,7 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
             f"{rescans}")
 
     # 17. nested at full width: config 2's shape for hashcat 2600
+    phase(17)
     say(f"== 17. crack --device cuda --engine md5(md5) {MASK_CONFIG2}, "
         f"{N_TARGETS} targets, a window of {CONFIG2_WINDOW}; card: {card}")
     skip = int(rng.integers(0, g7.keyspace - CONFIG2_WINDOW))
@@ -2842,6 +3028,7 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
          g6.keyspace, "mysql41_mask", unit_batches(cli, g6.keyspace))
 
     # 18. salted at full width: 1,000 targets, each its own salt
+    phase(18)
     say(f"== 18. crack --device cuda --engine md5-ps {MASK_CONFIG1}, "
         f"{N_SALTED} targets with salts of 2-32 bytes, every target swept "
         f"in full; card: {card}")
@@ -2921,6 +3108,7 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
              g6.keyspace, f"{variant}_group", unit_batches(cli, g6.keyspace))
 
     # 19. the other nested instantiations, each over 16 batches
+    phase(19)
     say(f"== 19. the other nested instantiations: crack --device cuda over "
         f"{OTHER_WINDOW} candidates of {MASK_CONFIG2}")
     for name, multi_ in EXT_INSTANCES:
@@ -2940,6 +3128,7 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
              unit_batches(cli, OTHER_WINDOW), skip)
 
     # 20. timing at batch 2^24
+    phase(20)
     say(f"== 20. ext kernel timing at batch 2^24 (CUDA events, "
         f"{TIMED_LAUNCHES} launches, the SM clock sampled over the phase); "
         f"card: {card}")
@@ -2995,17 +3184,27 @@ def slice_d(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
                 hashes = BATCH
                 what = gen.mask
             ms = smoke.time_launches(fn, args)
-            # the plain version at a whole group (~17 s for md5-ps) skips its
-            # warm-up: phase 16 ran the same torch ops at that group
-            plain_ms = smoke.time_once(plain_fn, args,
-                                       warm=more.get("group", 1) == 1)
+            if more.get("group", 1) > N_CHECK_TARGETS:
+                # the plain version runs the core a target at a time (17.6
+                # s for md5-ps at 256): timed on N_CHECK_TARGETS targets of
+                # the group, the kernel there too; phase 16 warmed it up
+                sub = group_args(N_CHECK_TARGETS)
+                plain_ms = smoke.time_once(plain_fn, sub, warm=False)
+                more["plain_input"] = f"{N_CHECK_TARGETS} of the {group} " \
+                    "targets"
+                more["ms_at_plain_input"] = smoke.time_launches(fn, sub)
+            else:
+                plain_ms = smoke.time_once(plain_fn, args)
             bound = hashes * work.slots / rate_ops * 1e3
             timing[key] = (ms, plain_ms, bound, more)
             say(f"  {key} {what}: {ms:.4f} ms/launch = "
                 f"{hashes / ms / 1e6:.3f} G hashes/s; bound {bound:.4f} ms "
                 f"(per hash {work.alu:.1f} ALU, {work.add:.1f} IADD3, "
                 f"{work.fma:.1f} IMAD = {work.slots:.1f} slots; kernel at "
-                f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms")
+                f"{bound / ms:.1%} of it); plain version {plain_ms:.3f} ms"
+                + (f" ({more['plain_input']}, the kernel there "
+                   f"{more['ms_at_plain_input']:.4f} ms)"
+                   if "plain_input" in more else ""))
             if "-" in name:
                 per_hash[name] = {}
                 for t in sorted({1, cuda_ext.SALTED_GROUP, group}):
@@ -3071,6 +3270,7 @@ def slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
         return cuda_mask.blocks_per_sm(key.split("_")[0], multi, smem)
 
     # 21. the kernels vs their plain versions
+    phase(21)
     say(f"== 21. sha512/384 (csrc/mask.cu) and Keccak (csrc/keccak.cu) vs "
         f"plain at batch {BATCH} (exact equality)")
     base = int(rng.integers(0, g7.keyspace // BATCH - 2)) * BATCH
@@ -3123,6 +3323,7 @@ def slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
                          fns=pair, key=key)
 
     # 22. the slice end to end through the CLI
+    phase(22)
     say(f"== 22. crack --device cuda: sha512, sha384, sha3-256, keccak-256 "
         f"over {MASK_CONFIG1} (one target) and a {CONFIG2_WINDOW} window of "
         f"{MASK_CONFIG2} ({N_TARGETS} targets); the other Keccak names over "
@@ -3172,6 +3373,7 @@ def slice_f1(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
         e2e[f"{engine} 2^28"] = {"wall_s": wall, "rate": loop_rate(summary)}
 
     # 23. timing at batch 2^24
+    phase(23)
     say(f"== 23. slice F1 timing at batch 2^24 (CUDA events, "
         f"{TIMED_LAUNCHES} launches, the SM clock sampled over the phase); "
         f"card: {card}")
@@ -3280,6 +3482,7 @@ def slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms) -> dict:
         return eng, eng.parse_target(krb5_line(rng, plain, asrep, body, tag))
 
     # 24. the krb5 kernel vs its plain version
+    phase(24)
     say(f"== 24. krb5 kernel (csrc/krb5.cu) vs plain at batch {BATCH}, "
         "tickets grouped by msg_type (exact equality of the count, the "
         "(lane, ticket) pairs and the per-ticket counts)")
@@ -3370,6 +3573,7 @@ def slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms) -> dict:
 
     # 25. the KDF kernel vs its plain version at the main path's batch,
     # then hashlib
+    phase(25)
     b19 = dev_aes.BATCH
     nv19 = b19 - 3
     say(f"== 25. pbkdf2_kdf (csrc/pbkdf2.cu) vs plain at {KDF_CHECK_ITERS} "
@@ -3416,6 +3620,7 @@ def slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms) -> dict:
         f"{lanes} equal hashlib.pbkdf2_hmac at 16 and 32 bytes")
 
     # 26. the slice end to end through the CLI
+    phase(26)
     window = KRB5_WINDOW
     say(f"== 26. crack --device cuda: the Kerberoast (krb5tgs, "
         f"{KERBEROAST_TICKETS} tickets of 1,000-1,500 bytes, 4 planted) and "
@@ -3504,6 +3709,7 @@ def slice_f2(smoke, cli, card, rate_ops, clock_mhz, sms) -> dict:
     say(json.dumps({"slice_f2": e2e}))
 
     # 27. timing
+    phase(27)
     say(f"== 27. slice F2 timing (CUDA events); card: {card}")
     timing = {}
     start = int(rng.integers(0, g8.keyspace // BATCH)) * BATCH
@@ -3659,6 +3865,7 @@ def slice_f3(smoke, cli, card, clock_mhz, sms) -> dict:
 
     # 28. the 7z KDF kernel vs its plain version at the main path's batch,
     # then hashlib at cycles 19
+    phase(28)
     say(f"== 28. sevenzip_kdf (csrc/sevenzip.cu) vs plain over {nv7} valid "
         f"lanes of a batch of {b7}, the main path's (whole resident waves; "
         f"exact equality of every word), then hashlib at cycles "
@@ -3709,6 +3916,7 @@ def slice_f3(smoke, cli, card, clock_mhz, sms) -> dict:
         f"equal hashlib; {ms19:.1f} ms for the launch")
 
     # 29. the PDF kernel vs its plain version
+    phase(29)
     g6 = MaskGenerator(MASK_PDF)
     lut6 = g6.charset_lut("cuda")
     say(f"== 29. pdf (csrc/pdf.cu) vs plain of {MASK_PDF}, the last 5 lanes "
@@ -3762,6 +3970,7 @@ def slice_f3(smoke, cli, card, clock_mhz, sms) -> dict:
               f"pdf R{rev}/{bits}: kernel {kf}, plain {pf}, planted {plant}")
 
     # 30. the slice end to end through the CLI
+    phase(30)
     say(f"== 30. crack --device cuda: 7z (two stored entries at cycles "
         f"{SEVENZIP_CYCLES}: no salt and a 100-byte payload; a 16-byte salt "
         f"and a {dev7z.DATA_CAP}-byte payload) over {SEVENZIP_WINDOW} of "
@@ -3844,6 +4053,7 @@ def slice_f3(smoke, cli, card, clock_mhz, sms) -> dict:
     say(json.dumps({"slice_f3": e2e}))
 
     # 31. timing
+    phase(31)
     say(f"== 31. slice F3 timing (CUDA events); card: {card}")
     clock = clock_mhz * 1e6
     timing = {}
@@ -4103,6 +4313,7 @@ def slice_g(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
 
     rng = smoke.rng
     # 32. kernel vs plain at a window offset
+    phase(32)
     offset, nv = 2 * BATCH, 3 * BATCH - 3
     say(f"== 32. slice G: the probe and the window offset vs plain, "
         f"?a^7, window lanes [{offset}, {nv}) of a batch of {BATCH} "
@@ -4177,6 +4388,7 @@ def slice_g(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
     say(json.dumps({"loop_ab": ab}))
 
     # 33. the sharded path: a mesh of the card, and SHARDS shards of it
+    phase(33)
     say(f"== 33. the sharded path: make_sharded_mask_worker over a mesh of "
         f"the card and over {SHARDS} shards of it, {BATCH} lanes a shard "
         f"and launch; card: {card}")
@@ -4211,6 +4423,7 @@ def slice_g(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
     say(json.dumps({"sharded_wall_s": sharded}))
 
     # 34. the probe against the Bloom sets at 2^24 a launch
+    phase(34)
     say(f"== 34. the probe vs the Bloom sets at batch 2^24, ?a^7 (CUDA "
         f"events, {TIMED_LAUNCHES} launches, the SM clock sampled over the "
         f"phase); card: {card}")
@@ -4418,6 +4631,8 @@ def slice_l(smoke, cli, card, rate_ops, g6, lut6, g7, lut7) -> dict:
     from dprf_tpu_torch.runtime.potfile import encode_plain
 
     rng = smoke.rng
+    phase(None)
+    say(f"  phases 1-34: {json.dumps(PHASE_S)} s")
     t_phase = time.perf_counter()
 
     def alnum(n: int) -> bytes:
@@ -4801,13 +5016,14 @@ def m_rules_state(smoke, engine, mode, plants, n, max_bytes=None):
 
 
 def m_rules_case(smoke, engine, mode, tables, gen, ws, nv, plant_idx, n,
-                 name, max_bytes=None):
+                 name, max_bytes=None) -> float:
     """One list case of the rules kernel (mode 2 or 3) against its plain
     version over words [ws, ws + nv) x every rule (``tables``: the padded
     table, the plain one, lens, bytecode, n_ops; ``gen`` their
     generator), a list of n targets with the candidates at keyspace
     indices ``plant_idx`` planted.  Count, (lane, table position) pairs
-    and n_maybe equal; every lane of a planted candidate reported."""
+    and n_maybe equal; every lane of a planted candidate reported.
+    Returns the plain version's ms."""
     from dprf_tpu_torch.ops import cuda_rules
     torch = smoke.torch
     plants = [gen.candidate(i) for i in plant_idx]
@@ -4816,8 +5032,11 @@ def m_rules_case(smoke, engine, mode, tables, gen, ws, nv, plant_idx, n,
     tail = (ws, nv, *state, 1 << 16, RULE_BATCH)
     got = cuda_rules.rules_list_kernel(engine, mode, padded, *rest, *tail,
                                        max_len=gen.max_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     want = cuda_rules.rules_list_plain(engine, mode, plain, *rest, *tail)
     torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
 
     def flat(out):
         pairs = sorted((int(a), int(b)) for a, b in
@@ -4843,6 +5062,7 @@ def m_rules_case(smoke, engine, mode, tables, gen, ws, nv, plant_idx, n,
           state[3] is None, f"{key} {name}: a hit decodes to another "
           "candidate")
     smoke.err[key] = max(smoke.err.get(key, 0), err)
+    return plain_ms
 
 
 def m_crack(smoke, cli, engine, argv, rows, want, window):
@@ -5877,6 +6097,355 @@ def slice_n(smoke, cli, card, rate_ops, sms) -> dict:
     groups = n_kernels(smoke, card, ctx)
     n_cli(smoke, cli, card, ctx)
     return n_timing(smoke, card, rate_ops, sms, ctx, groups)
+
+
+# ---- slice O: wordlist+rules for the wide cores ---------------------------
+
+def o_packed(words) -> tuple:
+    """A list of equal-length words as packed arrays (uint8[N, L], their
+    lengths int32[N])."""
+    import numpy as np
+    buf = np.frombuffer(b"".join(words), np.uint8).reshape(len(words), -1)
+    return buf, np.full(len(words), buf.shape[1], np.int32)
+
+
+def o_long_words(rng, n: int, max_len: int) -> tuple:
+    """n random printable words of max_len - O_LONG_SPAN + 1 .. max_len
+    bytes, as packed arrays (uint8[n, max_len], int32[n]), the first of
+    them max_len bytes long."""
+    import numpy as np
+    lens = rng.integers(max(1, max_len - O_LONG_SPAN + 1), max_len + 1, n)
+    lens[0] = max_len
+    buf = rng.integers(33, 127, (n, max_len), dtype=np.uint8)
+    buf[np.arange(max_len)[None, :] >= lens[:, None]] = 0
+    return buf, lens.astype(np.int32)
+
+
+def o_ctx(smoke) -> dict:
+    """Slice O's inputs: best64 and, by key, a generator of RULE_BATCH
+    words and its tables on the card (padded, plain, lens, bytecode,
+    n_ops): each path's max_len (``O_MAX_LEN``) over config 3's words,
+    and ("long", w) over ``o_long_words`` at a core's widest w (and the
+    sha512 salts' 79); the rule outputs' lengths ({length: candidates},
+    ``opcount.rule_lengths`` over the first OTHER_WORDS words, scaled to
+    RULE_BATCH), by key, for the bounds -- config 3's 8-letter words
+    grow to the same lengths at every max_len of the slice, so one count
+    serves them."""
+    import numpy as np
+    import torch
+
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    from dprf_tpu_torch.ops import cuda_rules, opcount
+    from dprf_tpu_torch.rules import load_rules
+    best64 = load_rules("best64")
+    words = synthetic_words(CONFIG3_WORDS)
+    ctx = {"best64": best64, "words": words, "gens": {}, "tables": {},
+           "lengths": {}}
+    short_buf, short_lens = o_packed(words[:RULE_BATCH])
+    counts = None
+    keys = sorted(set(O_MAX_LEN.values())) + [
+        ("long", w) for w in sorted(set(O_WIDEST.values()) | {79})]
+    for key in keys:
+        if isinstance(key, tuple):
+            max_len = key[1]
+            buf, lens = o_long_words(smoke.rng, RULE_BATCH, max_len)
+        else:
+            max_len = key
+            buf = np.zeros((RULE_BATCH, max_len), np.uint8)
+            buf[:, :short_buf.shape[1]] = short_buf
+            lens = short_lens
+        gen = WordlistRulesGenerator(rules=best64, max_len=max_len,
+                                     packed=(buf, lens))
+        if not isinstance(key, tuple):
+            if counts is None:
+                counts = {n: c * RULE_BATCH // OTHER_WORDS
+                          for n, c in opcount.rule_lengths(
+                              buf[:OTHER_WORDS], lens[:OTHER_WORDS], best64,
+                              max_len).items()}
+            ctx["lengths"][key] = counts
+        plain = torch.as_tensor(buf, device="cuda")
+        ctx["gens"][key] = gen
+        ctx["tables"][key] = (
+            cuda_rules.pad_rows(plain), plain,
+            torch.as_tensor(lens, device="cuda"),
+            *cuda_rules.rule_tables(best64, "cuda"))
+    return ctx
+
+
+def o_kernels(smoke, card, ctx) -> dict:
+    """Phase 48: every new instantiation against its plain version on the
+    card at the main path's launch (2^24 candidates = RULE_BATCH words x
+    best64): each core at its path's max_len with one target (planted at
+    the last valid word of a partial window under the last rule), over
+    words of up to its widest (a word of 111 or rate - 1 bytes kept as it
+    is planted, through the sha3 name for the sponge: the pad byte 0x06
+    and 0x80 in one byte), and with 1,000 targets (the shared-memory
+    probe) and N_BULK_TARGETS (the bulk probe); each sha512 tail at its
+    main path's group (checked on its first N_CHECK_TARGETS targets), and
+    sha512-ps over words of up to 79 bytes beside salts of 0-32.  Returns
+    the plain versions' ms and the group inputs for the timing."""
+    rng = smoke.rng
+    t_phase = time.perf_counter()
+    say(f"== 48. slice O kernels vs plain at 2^24 candidates (exact "
+        f"equality); card: {card}")
+    ws, nvw = 3, RULE_BATCH - 5
+    plain_ms = {}
+    for core in O_CORES:
+        gen, tables = ctx["gens"][O_MAX_LEN[core]], \
+            ctx["tables"][O_MAX_LEN[core]]
+        last = gen.index_of(ws + nvw - 1, N_RULES - 1)
+        plain_ms[rname(core)] = smoke.rules_case(
+            core, gen, tables, ws, nvw, [last],
+            f"max_len {gen.max_len}, words [{ws}, {ws + nvw}) x best64, "
+            "the last valid word under the last rule")
+        widest = O_WIDEST[core]
+        lgen, ltab = ctx["gens"]["long", widest], \
+            ctx["tables"]["long", widest]
+        word = next(w for w in range(ws, ws + nvw)
+                    if len(lgen.candidate(lgen.index_of(w, 0))) == widest)
+        smoke.rules_case(O_SHA3.get(core, core), lgen, ltab, ws, nvw,
+                         [lgen.index_of(word, 0)],
+                         f"words of {widest - O_LONG_SPAN + 1}-{widest} "
+                         f"bytes, word {word} of {widest} bytes under ':'",
+                         core=core)
+        plants = [gen.index_of(ws, 0), last,
+                  gen.index_of(int(rng.integers(ws, ws + nvw)),
+                               int(rng.integers(0, N_RULES)))]
+        for mode, n in ((2, N_TARGETS), (3, N_BULK_TARGETS)):
+            plain_ms[rname(core, mode)] = m_rules_case(
+                smoke, core, mode, tables, gen, ws, nvw, plants, n,
+                f"max_len {gen.max_len}, words [{ws}, {ws + nvw}) x best64")
+    groups = {}
+    for tail, max_len, n, salt_len in O_GROUP_CASES:
+        plants = n_plants(rng, ctx["gens"][max_len], min(4, n))
+        groups[tail] = n_group_case(
+            smoke, tail, ctx, max_len, plants, n, f"max_len {max_len}"
+            + (f", {salt_len}-byte salts" if salt_len else ""), salt_len)
+    long79 = {k: {79: ctx[k]["long", 79]} for k in ("gens", "tables")}
+    n_group_case(smoke, "sha512-ps", long79, 79,
+                 n_plants(rng, long79["gens"][79], 4), 64,
+                 f"words of {79 - O_LONG_SPAN + 1}-79 bytes, salts of 0-32")
+    say(f"  phase 48: {time.perf_counter() - t_phase:.1f} s")
+    return plain_ms, groups
+
+
+def o_salted_line(engine: str, digest: bytes, salt: bytes) -> str:
+    """A sha512 salted target line of ``engine`` in its own format."""
+    if engine.startswith("mssql"):
+        return f"0x0200{salt.hex()}{digest.hex()}".upper()
+    return f"{digest.hex()}:$HEX[{salt.hex()}]"
+
+
+def o_cli(smoke, cli, card, ctx) -> None:
+    """Phase 49: the slice's main paths through ``crack --device cuda -a
+    wordlist --rules best64``, each with every launch count set to 0
+    just before it and read just after: only its instantiation, once per
+    (group and) word window; plants at the job's first index, its last
+    and random ones (one target: its last), rejected=0 and every plant
+    found.  sha512 with one target and 1,000, sha3-256 and keccak-224
+    with one, over config 3's 2^20 words; every other instantiation over
+    OTHER_WORDS (the sponge's one-target paths through the sha3 names,
+    its lists through the keccak names); sha512-ps x slice D's 1,000
+    salts (2-32 bytes), mssql2012 x 256 logins, sha512-sp x one."""
+    import numpy as np
+
+    from dprf_tpu_torch.generators.wordlist import WordlistRulesGenerator
+    from dprf_tpu_torch.ops import cuda_rules
+    from dprf_tpu_torch.runtime.potfile import encode_plain
+    rng = smoke.rng
+    t_phase = time.perf_counter()
+    say(f"== 49. slice O through crack --device cuda -a wordlist --rules "
+        f"best64; card: {card}")
+    words, best64 = ctx["words"], ctx["best64"]
+    with tempfile.TemporaryDirectory() as tmp:
+        full = n_words_file(tmp, words, "config3.txt")
+        other = n_words_file(tmp, words[:OTHER_WORDS], "other.txt")
+
+        def gen_of(engine, n_words):
+            return WordlistRulesGenerator(
+                words[:n_words], best64,
+                max_len=smoke.get_engine(engine).max_candidate_len)
+
+        for core in O_CORES:
+            for mode, n in ((0, 1), (2, N_TARGETS), (3, N_BULK_TARGETS)):
+                engine = O_ONE_TARGET.get(core, core) if mode == 0 \
+                    else core.replace("keccak", "keccak-")
+                n_words = CONFIG3_WORDS if (engine, n) in O_FULL_PATHS \
+                    else OTHER_WORDS
+                gen = gen_of(engine, n_words)
+                plants = n_plants(rng, gen, 3)
+                if n == 1:
+                    plants = plants[1:2]
+                cands = [gen.candidate(i) for i in plants]
+                oracle = smoke.get_engine(engine)
+                digests = oracle.hash_batch(cands)
+                fill = [bytes(r) for r in m_random_digests(
+                    rng, engine, n - len(cands))]
+                fill = [d for d in fill if d not in digests]
+                lines = [d.hex() for d in digests + fill]
+                want = [f"{d.hex()}:{encode_plain(c)}"
+                        for d, c in zip(digests, cands)]
+                n_path(smoke, cli, engine, full if n_words == CONFIG3_WORDS
+                       else other, gen, lines, want, rname(core, mode),
+                       -(-n_words // RULE_BATCH),
+                       f"x {n} target(s) over {n_words} words")
+        for engine, tail, n, salt_len in (
+                ("sha512-ps", "sha512-ps", N_SALTED, None),
+                ("mssql2012", "sha512-ps-utf16", 256, 4),
+                ("sha512-sp", "sha512-sp", 1, 11)):
+            gen = gen_of(engine, OTHER_WORDS)
+            plants = n_plants(rng, gen, min(n, 8))
+            oracle = smoke.get_engine(engine)
+            lines, want = [], []
+            for i in range(n):
+                nb = salt_len if salt_len is not None else \
+                    int(rng.integers(2, 33))
+                salt = bytes(rng.choice(np.frombuffer(ALNUM, np.uint8), nb))
+                c = gen.candidate(plants[i]) if i < len(plants) \
+                    else b"#miss%d" % i
+                d = oracle.hash_batch([c], params={"salt": salt})[0]
+                line = o_salted_line(engine, d, salt)
+                lines.append(line)
+                if i < len(plants):
+                    want.append(f"{line}:{encode_plain(c)}")
+            groups = -(-n // cuda_rules.tail_geometry(tail)[0]) \
+                if not tail.endswith("-sp") else 1
+            n_path(smoke, cli, engine, other, gen, lines, want,
+                   f"{tail}_rules", groups * -(-OTHER_WORDS // RULE_BATCH),
+                   f"x {n} targets over {OTHER_WORDS} words")
+    say(f"  phase 49: {time.perf_counter() - t_phase:.1f} s")
+
+
+def o_timing(smoke, card, rate_ops, ctx, plain_ms, groups, bounds) -> dict:
+    """Phase 50: each new instantiation per launch with CUDA events at
+    the main path's launch (2^24 candidates at its path's max_len; a list
+    of the path's size, a group of its size) beside its bound
+    (``rules_ops``, ``rules_list_ops``, ``rules_salted_ops`` with each
+    target's own salt), its plain version (timed in phase 48; a group's
+    over its first N_CHECK_TARGETS targets, the kernel timed there too),
+    its registers, shared memory and resident blocks.  ``bounds``: each
+    tail's ``rules_salted_ops`` a target, futures.  Returns the kernels
+    line's rows by name, (ms, plain ms, bound ms, bound_by, more)."""
+    import numpy as np
+
+    from dprf_tpu_torch.ops import cuda_rules, opcount
+    t_phase = time.perf_counter()
+    say(f"== 50. slice O timing, CUDA events, {TIMED_LAUNCHES} launches "
+        f"each; card: {card}")
+    timing = {}
+    with SmClock() as clock:
+        for core in O_CORES:
+            max_len = O_MAX_LEN[core]
+            counts = ctx["lengths"][max_len]
+            padded, _, *rest = ctx["tables"][max_len]
+            miss = digest_words(core, smoke.get_engine(core).hash_batch(
+                [b"\0" * 9])[0])
+            args = (core, padded, *rest, 0, RULE_BATCH, miss, 64, RULE_BATCH)
+            ms = smoke.time_launches(
+                lambda: cuda_rules.rules_kernel(*args, max_len=max_len), ())
+            bound = opcount.rules_ops(core, counts).slots / rate_ops * 1e3
+            smem = cuda_rules.shared_bytes(core)
+            timing[rname(core)] = (ms, plain_ms[rname(core)], bound,
+                                   "operations", {
+                                       "shared_bytes": smem,
+                                       "blocks_per_sm":
+                                           cuda_rules.blocks_per_sm(core)})
+            for mode, n in ((2, N_TARGETS), (3, N_BULK_TARGETS)):
+                key = rname(core, mode)
+                state, _, _ = m_rules_state(smoke, core, mode, [], n)
+                largs = (core, mode, padded, *rest, 0, RULE_BATCH, *state,
+                         64, RULE_BATCH)
+                ms = smoke.time_launches(
+                    lambda: cuda_rules.rules_list_kernel(*largs,
+                                                         max_len=max_len), ())
+                words = state[0].cpu().numpy().view(np.uint32)
+                work = opcount.rules_list_ops(
+                    core, counts, opcount.probe_fill(words), state[2], 0.0, n)
+                smem = cuda_rules.list_shared_bytes(core, mode, state[1])
+                timing[key] = (ms, plain_ms[key], work.slots / rate_ops * 1e3,
+                               "operations", {
+                                   "targets": n, "shared_bytes": smem,
+                                   "blocks_per_sm": cuda_rules.blocks_per_sm(
+                                       core, mode, smem)})
+        for tail, max_len, n, _ in O_GROUP_CASES:
+            key = f"{tail}_rules"
+            rows, params, pms = groups[tail]
+            padded, _, *rest = ctx["tables"][max_len]
+
+            def launch(r):
+                return cuda_rules.rules_group_kernel(
+                    tail, padded, *rest, 0, RULE_BATCH, r, 64 * r.shape[0],
+                    RULE_BATCH, max_len=max_len, **params)
+
+            ms = smoke.time_launches(launch, (rows,),
+                                     n=max(3, TIMED_LAUNCHES // n), warm=1)
+            k = min(n, N_CHECK_TARGETS)
+            smem = cuda_rules.group_shared_bytes(tail, n)
+            more = {"targets": n, "plain_input": f"{RULE_BATCH} words x "
+                    "best64, " + (f"{n} targets" if k == n else
+                                  f"the first {k} of the {n} targets"),
+                    "shared_bytes": smem,
+                    "blocks_per_sm": cuda_rules.group_blocks_per_sm(tail,
+                                                                    smem)}
+            if k < n:
+                more["ms_at_plain_input"] = smoke.time_launches(
+                    launch, (rows[:k],), n=max(3, TIMED_LAUNCHES // k),
+                    warm=1)
+            works = [f.result() for f in bounds[tail]]
+            work = opcount.Work(sum(w.alu for w in works),
+                                sum(w.add for w in works),
+                                sum(w.fma for w in works))
+            timing[key] = (ms, pms, work.slots / rate_ops * 1e3,
+                           "operations", more)
+    for key, (ms, pms, bound, _, more) in timing.items():
+        more.update(clock_keys(bound, clock.mhz, smoke.clock_mhz))
+        more["registers"] = smoke.registers.get(key)
+        per = f" ({ms / more['targets']:.4f} ms per 2^24 hashes)" \
+            if key.split("_rules")[0] in O_TAILS and more["targets"] > 1 \
+            else ""
+        at = f", the kernel there {more['ms_at_plain_input']:.4f} ms" \
+            if "ms_at_plain_input" in more else ""
+        say(f"  {key}: {ms:.4f} ms per launch of 2^24 candidates{per}; "
+            f"bound {bound:.4f} ms ({bound / ms:.1%}); plain version "
+            f"{pms:.1f} ms" + (f" ({more['plain_input']}{at})"
+                               if "plain_input" in more else "")
+            + f"; {more['registers']} registers, {more['shared_bytes']} B "
+            f"shared, {more['blocks_per_sm']} blocks of "
+            f"{cuda_rules.THREADS} an SM")
+    say(f"  the SM clock over the phase: {clock.mhz} MHz (nvidia-smi, "
+        f"{len(clock.samples)} samples); card: {card}")
+    say(json.dumps({"slice_o_timing": {k: {"ms": v[0], "plain_ms": v[1],
+                                           "bound_ms": v[2], **v[4]}
+                                       for k, v in timing.items()},
+                    "card": card}))
+    say(f"  phase 50: {time.perf_counter() - t_phase:.1f} s")
+    return timing
+
+
+def slice_o(smoke, cli, card, rate_ops) -> dict:
+    """Phases 48-50: slice O -- wordlist+rules on the card for sha512,
+    sha384 and their salted names and the 13 sha3/keccak names
+    (csrc/rules_wide.cu).  Returns the timing rows of the new
+    instantiations; their main paths' launches go to
+    smoke.path_launches.  The salted tails' bounds, each target's own
+    salt at each rule output's length (~13 ms of the host a pair for
+    sha512), are counted by a pool of processes while phase 49 runs."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from dprf_tpu_torch.ops import cuda_ext, opcount
+    ctx = o_ctx(smoke)
+    plain_ms, groups = o_kernels(smoke, card, ctx)
+    with ProcessPoolExecutor(max(1, min(8, (os.cpu_count() or 2) - 1)),
+                             multiprocessing.get_context("spawn")) as pool:
+        bounds = {tail: [pool.submit(opcount.rules_salted_ops, tail,
+                                     ctx["lengths"][max_len], [salt])
+                         for salt in cuda_ext.rule_row_salts(
+                             tail, groups[tail][0])]
+                  for tail, max_len, _, _ in O_GROUP_CASES}
+        o_cli(smoke, cli, card, ctx)
+        return o_timing(smoke, card, rate_ops, ctx, plain_ms, groups,
+                        bounds)
 
 
 if __name__ == "__main__":

@@ -13,11 +13,14 @@
 // goes and how many bits a candidate byte adds to it; digest(m, out),
 // the rounds and the feed-forward over the 16 message words (the SHA
 // cores overwrite m as their schedule).  A core whose message is not
-// the 16 words of a 64-byte block says so in kBlockWords.
+// the 16 words of a 64-byte block says so in kBlockWords; a sponge
+// (csrc/keccak.cuh), which absorbs a rate block with a pad byte and no
+// bit length, says so in kSponge.
 
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int n)
 {
@@ -70,6 +73,28 @@ __constant__ uint32_t K_SHA256[64] = {
     0x748f82eeu, 0x78a5636fu, 0x84c87814u, 0x8cc70208u,
     0x90befffau, 0xa4506cebu, 0xbef9a3f7u, 0xc67178f2u,
 };
+
+// A core's message words: kBlockWords, or the 64-byte block's 16.
+template <class C, class = void>
+struct BlockWords : std::integral_constant<int, 16> {};
+template <class C>
+struct BlockWords<C, std::void_t<decltype(C::kBlockWords)>>
+    : std::integral_constant<int, C::kBlockWords> {};
+
+// The resident blocks per SM a core asks ptxas to fit (the second
+// argument of __launch_bounds__): kMinBlocks, or 0, no request.
+template <class C, class = void>
+struct MinBlocks : std::integral_constant<int, 0> {};
+template <class C>
+struct MinBlocks<C, std::void_t<decltype(C::kMinBlocks)>>
+    : std::integral_constant<int, C::kMinBlocks> {};
+
+// Whether a core is a sponge (kSponge).
+template <class C, class = void>
+struct Sponge : std::false_type {};
+template <class C>
+struct Sponge<C, std::void_t<decltype(C::kSponge)>>
+    : std::integral_constant<bool, C::kSponge> {};
 
 // ---- the cores: byte placement, digest words, rounds -----------------
 //

@@ -156,13 +156,8 @@ struct WideMaskArgs {
     uint32_t offset;
 };
 
-// A core's message words: kBlockWords, or the 64-byte block's 16.
-template <class C, class = void>
-struct BlockWords : std::integral_constant<int, 16> {};
-template <class C>
-struct BlockWords<C, std::void_t<decltype(C::kBlockWords)>>
-    : std::integral_constant<int, C::kBlockWords> {};
-
+// A core past the 64-byte block's 16 message words (BlockWords,
+// cores.cuh).
 template <class C>
 constexpr bool kWideCore = BlockWords<C>::value > 16;
 
@@ -170,14 +165,6 @@ constexpr bool kWideCore = BlockWords<C>::value > 16;
 // core's last position.
 template <class C>
 constexpr int kByteWords = C::word(C::kMaxLen - 1) + 1;
-
-// The resident blocks per SM a core asks ptxas to fit (the second
-// argument of __launch_bounds__): kMinBlocks, or 0, no request.
-template <class C, class = void>
-struct MinBlocks : std::integral_constant<int, 0> {};
-template <class C>
-struct MinBlocks<C, std::void_t<decltype(C::kMinBlocks)>>
-    : std::integral_constant<int, C::kMinBlocks> {};
 
 // A core's kernel parameter layout.
 template <class C>

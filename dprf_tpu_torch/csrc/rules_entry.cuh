@@ -3,9 +3,17 @@
 // defines DPRF_DISPATCH(CALL) (one target: a switch over `core` returning
 // CALL(CoreType, kSingle)) and DPRF_LIST_DISPATCH(CALL) (a list: a
 // switch over core * 4 + mode), then includes this after
-// rules_kernel.cuh.
+// rules_kernel.cuh.  A source whose cores take other kernel parameters
+// (csrc/rules_wide.cu) defines DPRF_RULES_ARGS, their type, and
+// DPRF_RULES_KERNEL, its kernel template, with a launch<Core, kMode>
+// overload for them.
 
 #pragma once
+
+#ifndef DPRF_RULES_ARGS
+#define DPRF_RULES_ARGS RulesArgs
+#define DPRF_RULES_KERNEL rules_kernel
+#endif
 
 // Launch on the caller's stream without synchronising; returns the
 // launch's cudaError_t (0 = launched).  count must hold 0 and lanes -1
@@ -15,7 +23,8 @@
 extern "C" int dprf_rules_launch(int core, int device, const uint8_t* words,
                                  const int32_t* lens,
                                  const int32_t* bytecode,
-                                 const int32_t* n_ops, const RulesArgs* args,
+                                 const int32_t* n_ops,
+                                 const DPRF_RULES_ARGS* args,
                                  int32_t* count, int32_t* lanes,
                                  int32_t cap, int grid, int threads,
                                  void* stream)
@@ -43,7 +52,7 @@ extern "C" int dprf_rules_list_launch(int core, int mode, int device,
                                       const int32_t* lens,
                                       const int32_t* bytecode,
                                       const int32_t* n_ops,
-                                      const RulesArgs* args,
+                                      const DPRF_RULES_ARGS* args,
                                       const MultiArgs* multi, int32_t* count,
                                       int32_t* lanes, int32_t* tpos,
                                       int32_t* n_maybe, int32_t cap,
@@ -66,7 +75,8 @@ extern "C" int dprf_rules_list_launch(int core, int mode, int device,
 // wave the host partitions a launch for).
 extern "C" int dprf_rules_blocks_per_sm(int core, int* blocks)
 {
-#define DPRF_OCCUPANCY(C, M) occupancy(rules_kernel<C, M>, shared_bytes<C>(), blocks)
+#define DPRF_OCCUPANCY(C, M)                                              \
+    occupancy(DPRF_RULES_KERNEL<C, M>, shared_bytes<C>(), blocks)
     DPRF_DISPATCH(DPRF_OCCUPANCY)
 #undef DPRF_OCCUPANCY
 }
@@ -76,7 +86,8 @@ extern "C" int dprf_rules_blocks_per_sm(int core, int* blocks)
 extern "C" int dprf_rules_list_blocks_per_sm(int core, int mode, int smem,
                                              int* blocks)
 {
-#define DPRF_OCCUPANCY(C, M) occupancy(rules_kernel<C, M>, (size_t)smem, blocks)
+#define DPRF_OCCUPANCY(C, M)                                              \
+    occupancy(DPRF_RULES_KERNEL<C, M>, (size_t)smem, blocks)
     DPRF_LIST_DISPATCH(DPRF_OCCUPANCY)
 #undef DPRF_OCCUPANCY
 }

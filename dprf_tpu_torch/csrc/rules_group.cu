@@ -64,31 +64,6 @@ constexpr int kSaltedWords = 14;
 // bytes of RC4 state a block keeps in shared memory
 constexpr int kRc4Bytes = 256 * kThreads;
 
-// A group launch's parameters (mirrored by ops/cuda_rules._GroupArgs).
-struct GroupArgs {
-    const uint32_t* rows;     // n_targets rows in device memory
-    int32_t* count;           // hits, the first `cap` of them in
-    int32_t* lanes;           // (lanes, tpos); tcount per target
-    int32_t* tpos;
-    int32_t* tcount;
-    int32_t n_targets;
-    int32_t shift;            // "sp": the group's salt length
-    uint32_t msg_type;        // Kerberos: the group's msg_type
-    int32_t upper;            // MSSQL 2000: uppercase the candidate
-    int32_t cap;
-};
-
-__device__ __forceinline__ void append_hit(const GroupArgs& g, int t,
-                                           int32_t lane)
-{
-    atomicAdd(g.tcount + t, 1);
-    const int32_t slot = atomicAdd(g.count, 1);
-    if (slot < g.cap) {
-        g.lanes[slot] = lane;
-        g.tpos[slot] = t;
-    }
-}
-
 // ---- the salted tail -------------------------------------------------------
 
 template <class Core, bool kSp, bool kUtf16>
@@ -215,20 +190,6 @@ struct Krb5Tail {
     }
 };
 
-// ---- the kernel and its C interface ---------------------------------------
-
-template <class Core, class Tail>
-__global__ void __launch_bounds__(kThreads)
-rules_group_kernel(const uint8_t* __restrict__ words,
-                   const int32_t* __restrict__ lens,
-                   const int32_t* __restrict__ bytecode,
-                   const int32_t* __restrict__ n_ops, const RulesArgs args,
-                   const GroupArgs group)
-{
-    Tail tail{group};
-    rules_body<Core>(words, lens, bytecode, n_ops, args, tail);
-}
-
 using Md5Ps = SaltedTail<Md5Core, false, false>;
 using Md5Sp = SaltedTail<Md5Core, true, false>;
 using Sha1Ps = SaltedTail<Sha1Core, false, false>;
@@ -253,76 +214,4 @@ using Sha1PsUtf16 = SaltedTail<Sha1Core, false, true>;
     default: return (int)cudaErrorInvalidValue;                           \
     }
 
-template <class Core, class Tail>
-static int group_launch(const uint8_t* words, const int32_t* lens,
-                        const int32_t* bytecode, const int32_t* n_ops,
-                        const RulesArgs* args, const GroupArgs* group,
-                        int grid, size_t smem, cudaStream_t stream)
-{
-    if (group->n_targets > Tail::kGroup) return (int)cudaErrorInvalidValue;
-    const cudaError_t err = allow_shared(rules_group_kernel<Core, Tail>,
-                                         smem);
-    if (err != cudaSuccess) return (int)err;
-    rules_group_kernel<Core, Tail><<<grid, kThreads, smem, stream>>>(
-        words, lens, bytecode, n_ops, *args, *group);
-    return (int)cudaGetLastError();
-}
-
-// Dynamic shared memory of one block: the slots and ops, then the
-// tail's own -- the RC4 states (Kerberos) and the group's rows.
-template <class Core, class Tail>
-static int group_smem_of(int n_targets, int* bytes)
-{
-    *bytes = shared_bytes<Core>() + Tail::kFixedBytes
-             + 4 * Tail::kRow * n_targets;
-    return 0;
-}
-
-// Dynamic shared memory of one block of tail `tail` over n_targets
-// targets.
-extern "C" int dprf_rules_group_shared_bytes(int tail, int n_targets,
-                                             int* bytes)
-{
-#define DPRF_SMEM(C, T) group_smem_of<C, T>(n_targets, bytes)
-    DPRF_GROUP_DISPATCH(DPRF_SMEM)
-#undef DPRF_SMEM
-}
-
-// Launch tail `tail` over group->n_targets targets on the caller's
-// stream without synchronising; returns the launch's cudaError_t (0 =
-// launched).  count and tcount hold 0 and lanes and tpos -1 on entry
-// (the wrapper allocates them so); `smem` is
-// dprf_rules_group_shared_bytes' for the group.  `threads` must be
-// kThreads; `grid` is ceil(n_valid / kThreads) word blocks x
-// ceil(n_rules / run) runs.
-extern "C" int dprf_rules_group_launch(int tail, int device,
-                                       const uint8_t* words,
-                                       const int32_t* lens,
-                                       const int32_t* bytecode,
-                                       const int32_t* n_ops,
-                                       const RulesArgs* args,
-                                       const GroupArgs* group, int grid,
-                                       int threads, int smem, void* stream)
-{
-    if (threads != kThreads || args->run < 1 || args->run > kMaxRun
-        || group->n_targets < 1)
-        return (int)cudaErrorInvalidValue;
-    const cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-#define DPRF_LAUNCH(C, T)                                                 \
-    group_launch<C, T>(words, lens, bytecode, n_ops, args, group, grid,    \
-                       (size_t)smem, (cudaStream_t)stream)
-    DPRF_GROUP_DISPATCH(DPRF_LAUNCH)
-#undef DPRF_LAUNCH
-}
-
-// Resident blocks of kThreads threads per SM of tail `tail` at `smem`
-// bytes of dynamic shared memory.
-extern "C" int dprf_rules_group_blocks_per_sm(int tail, int smem,
-                                              int* blocks)
-{
-#define DPRF_OCCUPANCY(C, T)                                              \
-    occupancy(rules_group_kernel<C, T>, (size_t)smem, blocks)
-    DPRF_GROUP_DISPATCH(DPRF_OCCUPANCY)
-#undef DPRF_OCCUPANCY
-}
+#include "rules_group_entry.cuh"

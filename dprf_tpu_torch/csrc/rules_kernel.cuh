@@ -1,7 +1,8 @@
 // rules_kernel.cuh -- the fused wordlist+rules kernel for Hopper (sm_90a):
 // rule interpreter -> pack -> hash -> compare, one target, a list, or a
 // group of salted targets or Kerberos tickets.  csrc/rules.cu,
-// csrc/rules_nested.cu and csrc/rules_group.cu instantiate it.
+// csrc/rules_nested.cu, csrc/rules_group.cu and csrc/rules_wide.cu
+// instantiate it.
 //
 // Per candidate (word b of the window, rule r): apply the rule's ops to
 // the word with the semantics of rules/cpu.py (growth past max_len and
@@ -544,12 +545,21 @@ constexpr int kShortWords = 4;
 
 // The message block of a candidate of n bytes whose words past the first
 // L are zero (every byte past n zero, the 0x80 marker at n): with L a
-// constant, the core folds the zero words away.
+// constant, the core folds the zero words away.  BlockWords<Core> words
+// (16, SHA-512's 32, a sponge's rate / 4), the bit length in the core's
+// kLenWord.  A sponge's (Sponge<Core>) marker is the pad byte `pad` while
+// its slot is read (written there and put back, so that no message word
+// is chosen at run time: a register array indexed by n would go to local
+// memory), and 0x80 goes into the rate's last byte (one byte, 0x86 or
+// 0x81, at n = rate - 1).
 template <class Core, int L>
-__device__ __forceinline__ void pack(Slots W, int n, uint32_t* m)
+__device__ __forceinline__ void pack(Slots W, int n, uint32_t* m,
+                                     uint32_t pad = 0)
 {
+    constexpr int kBlock = BlockWords<Core>::value;
+    if constexpr (Sponge<Core>::value) W.byte(n) = (uint8_t)pad;
 #pragma unroll
-    for (int k = 0; k < 16; ++k) m[k] = 0;
+    for (int k = 0; k < kBlock; ++k) m[k] = 0;
 #pragma unroll
     for (int k = 0; k < L; ++k) {
         const uint32_t x = W.at(k);
@@ -563,24 +573,31 @@ __device__ __forceinline__ void pack(Slots W, int n, uint32_t* m)
             m[k] = __byte_perm(x, 0, 0x0123);
         }
     }
-    m[Core::kLenWord] = (uint32_t)n * Core::kBitsPerChar;
+    if constexpr (Sponge<Core>::value) {
+        W.byte(n) = (uint8_t)0x80u;     // the marker back
+        m[kBlock - 1] |= 0x80000000u;
+    } else {
+        m[Core::kLenWord] = (uint32_t)n * Core::kBitsPerChar;
+    }
 }
 
 // The digest of a candidate of n bytes whose words past the first L are
 // zero (a list's compare needs every word).
 template <class Core, int L>
-__device__ __forceinline__ void digest_of(Slots W, int n, uint32_t* dg)
+__device__ __forceinline__ void digest_of(Slots W, int n, uint32_t* dg,
+                                          uint32_t pad = 0)
 {
-    uint32_t m[16];
-    pack<Core, L>(W, n, m);
+    uint32_t m[BlockWords<Core>::value];
+    pack<Core, L>(W, n, m, pad);
     Core::digest(m, dg);
 }
 
 template <class Core, int L>
-__device__ __forceinline__ bool matches(Slots W, int n, const uint32_t* want)
+__device__ __forceinline__ bool matches(Slots W, int n, const uint32_t* want,
+                                        uint32_t pad = 0)
 {
-    uint32_t m[16], dg[Core::kWords];
-    pack<Core, L>(W, n, m);
+    uint32_t m[BlockWords<Core>::value], dg[Core::kWords];
+    pack<Core, L>(W, n, m, pad);
     Core::digest(m, dg);
     // word 0 first: the rounds that only the other words need (md5's
     // and md4's last three) sink into the rare branch
@@ -722,10 +739,20 @@ __device__ __forceinline__ void rules_body(const uint8_t* __restrict__ words,
 
 // ---- one target or a list -----------------------------------------------
 
-template <class Core, Compare kMode>
+// The target's digest words and a sponge's pad byte of a launch's
+// parameters: RulesArgs holds 8 target words and no pad; a wider core's
+// parameters (csrc/rules_wide.cu) overload these.
+__device__ __forceinline__ const uint32_t* target_of(const RulesArgs& a)
+{
+    return a.target;
+}
+
+__device__ __forceinline__ uint32_t pad_of(const RulesArgs&) { return 0u; }
+
+template <class Core, Compare kMode, class Args = RulesArgs>
 struct CompareTail {
     static constexpr int NW = slot_words<Core>();
-    const RulesArgs& args;
+    const Args& args;
     const MultiArgs& multi;
     int32_t* const count;
     int32_t* const lanes;
@@ -749,9 +776,11 @@ struct CompareTail {
         if constexpr (kMode == kSingle) {
             // a warp whose candidates all fit in kShortWords words hashes
             // them with the other words constant zero
-            const bool hit = __all_sync(__activemask(), n < 4 * kShortWords)
-                                 ? matches<Core, kShortWords>(W, n, args.target)
-                                 : matches<Core, NW>(W, n, args.target);
+            const bool hit =
+                __all_sync(__activemask(), n < 4 * kShortWords)
+                    ? matches<Core, kShortWords>(W, n, target_of(args),
+                                                 pad_of(args))
+                    : matches<Core, NW>(W, n, target_of(args), pad_of(args));
             if (hit) {
                 const int32_t slot = atomicAdd(count, 1);
                 if (slot < cap) lanes[slot] = lane;
@@ -759,9 +788,9 @@ struct CompareTail {
         } else {
             uint32_t dg[Core::kWords];
             if (__all_sync(__activemask(), n < 4 * kShortWords))
-                digest_of<Core, kShortWords>(W, n, dg);
+                digest_of<Core, kShortWords>(W, n, dg, pad_of(args));
             else
-                digest_of<Core, NW>(W, n, dg);
+                digest_of<Core, NW>(W, n, dg, pad_of(args));
             const bool maybe =
                 kMode == kProbe
                     ? probe_maybe<Core::kWords>(dg, s_probe, multi.block_bits,
@@ -844,5 +873,73 @@ template <class Core, Compare>
 static int smem_of(int* bytes)
 {
     *bytes = shared_bytes<Core>();
+    return 0;
+}
+
+// ---- a group of targets ---------------------------------------------------
+//
+// The kernel over a tail that hashes each kept candidate with every target
+// of a group (csrc/rules_group.cu, csrc/rules_wide.cu); its C interface is
+// csrc/rules_group_entry.cuh.
+
+// A group launch's parameters (mirrored by ops/cuda_rules._GroupArgs).
+struct GroupArgs {
+    const uint32_t* rows;     // n_targets rows in device memory
+    int32_t* count;           // hits, the first `cap` of them in
+    int32_t* lanes;           // (lanes, tpos); tcount per target
+    int32_t* tpos;
+    int32_t* tcount;
+    int32_t n_targets;
+    int32_t shift;            // "sp": the group's salt length
+    uint32_t msg_type;        // Kerberos: the group's msg_type
+    int32_t upper;            // MSSQL 2000: uppercase the candidate
+    int32_t cap;
+};
+
+__device__ __forceinline__ void append_hit(const GroupArgs& g, int t,
+                                           int32_t lane)
+{
+    atomicAdd(g.tcount + t, 1);
+    const int32_t slot = atomicAdd(g.count, 1);
+    if (slot < g.cap) {
+        g.lanes[slot] = lane;
+        g.tpos[slot] = t;
+    }
+}
+
+template <class Core, class Tail>
+__global__ void __launch_bounds__(kThreads)
+rules_group_kernel(const uint8_t* __restrict__ words,
+                   const int32_t* __restrict__ lens,
+                   const int32_t* __restrict__ bytecode,
+                   const int32_t* __restrict__ n_ops, const RulesArgs args,
+                   const GroupArgs group)
+{
+    Tail tail{group};
+    rules_body<Core>(words, lens, bytecode, n_ops, args, tail);
+}
+
+template <class Core, class Tail>
+static int group_launch(const uint8_t* words, const int32_t* lens,
+                        const int32_t* bytecode, const int32_t* n_ops,
+                        const RulesArgs* args, const GroupArgs* group,
+                        int grid, size_t smem, cudaStream_t stream)
+{
+    if (group->n_targets > Tail::kGroup) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = allow_shared(rules_group_kernel<Core, Tail>,
+                                         smem);
+    if (err != cudaSuccess) return (int)err;
+    rules_group_kernel<Core, Tail><<<grid, kThreads, smem, stream>>>(
+        words, lens, bytecode, n_ops, *args, *group);
+    return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of one block: the slots and ops, then the
+// tail's own -- the RC4 states (Kerberos) and the group's rows.
+template <class Core, class Tail>
+static int group_smem_of(int n_targets, int* bytes)
+{
+    *bytes = shared_bytes<Core>() + Tail::kFixedBytes
+             + 4 * Tail::kRow * n_targets;
     return 0;
 }

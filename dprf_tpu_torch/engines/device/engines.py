@@ -22,7 +22,8 @@ from dprf_tpu_torch.engines.base import DeviceHashEngine, HashEngine, Target
 from dprf_tpu_torch.ops.md4 import md4_digest_words
 from dprf_tpu_torch.ops.md5 import md5_digest_words
 from dprf_tpu_torch.ops.mysql323 import mysql323_digest_words
-from dprf_tpu_torch.ops.pack import pack_fixed, pack_fixed_wide, pack_varlen
+from dprf_tpu_torch.ops.pack import (pack_fixed, pack_fixed_wide, pack_varlen,
+                                     pack_varlen_wide)
 from dprf_tpu_torch.ops.sha1 import sha1_digest_words
 from dprf_tpu_torch.ops.sha256 import (sha224_digest_words,
                                        sha256_digest_words)
@@ -251,6 +252,12 @@ class TorchSha512Engine(TorchEngineBase):
     def pack(self, cand: torch.Tensor, length: int) -> torch.Tensor:
         """uint8[B, length] candidates -> int32[B, 32] message words."""
         return pack_fixed_wide(cand, length)
+
+    def pack_varlen(self, cand: torch.Tensor,
+                    lens: torch.Tensor) -> torch.Tensor:
+        """uint8[B, L] rule outputs of int32[B] lengths -> int32[B, 32]
+        message words."""
+        return pack_varlen_wide(cand, lens)
 
     def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
         return sha512_digest_words(blocks)

@@ -17,11 +17,11 @@ each target's salt.  The sha512 engines run its wide variants and the
 MSSQL engines its UTF-16LE ones, which the reference runs on XLA only.
 
 A wordlist+rules job runs the rules kernel's salted tail
-(ops/cuda_rules.py, csrc/rules_group.cu) over the same groups: one
-launch per (group, word window), each rule output hashed once per target
-of the group (``CudaSaltedWordlistWorker``), for the 64-byte cores and
-MSSQL 2000/2005; the sha512 engines' wordlists are refused.  A job the
-kernels do not take raises, naming ``--device cpu``.
+(ops/cuda_rules.py; csrc/rules_group.cu for the 64-byte cores and MSSQL
+2000/2005, csrc/rules_wide.cu for sha512 and MSSQL 2012/2014) over the
+same groups: one launch per (group, word window), each rule output
+hashed once per target of the group (``CudaSaltedWordlistWorker``).  A
+job the kernels do not take raises, naming ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -105,9 +105,9 @@ class CudaSaltedWordlistWorker(GroupedWordlistWorker):
                  oracle=None, device="cuda"):
         super().__init__(engine, gen, targets, batch, hit_capacity, oracle)
         device = torch.device(device)
-        if device.type == "cuda":
-            cuda_rules.load_kernel("rules_group")
         variant = engine.variant
+        if device.type == "cuda":
+            cuda_rules.load_kernel(cuda_rules.source_of(variant))
         sp = engine.order == "sp"
         tables = cuda_rules.job_tables(gen, device)
         targs = _target_args(engine, self.targets)
@@ -186,8 +186,8 @@ class _SaltedDeviceMixin:
 
     def make_wordlist_worker(self, gen, targets, batch: int,
                              hit_capacity: int, oracle=None):
-        """The rules kernel's salted worker (its 64-byte variants); a job
-        it does not take is refused, never moved to another path."""
+        """The rules kernel's salted worker; a job it does not take is
+        refused, never moved to another path."""
         if self.variant not in cuda_rules.GROUP_TAILS:
             raise ValueError(f"{self.name}: the rules kernel has no "
                              f"{self.variant} tail; use --device cpu for a "

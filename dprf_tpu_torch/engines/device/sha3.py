@@ -12,7 +12,12 @@ words are the big-endian reading of the digest bytes (``little_endian``
 False), as the targets are read.
 
 A mask job runs the Keccak kernel through the mask worker, for one
-target or a list (ops/cuda_keccak.py); a wordlist job is refused.
+target or a list (ops/cuda_keccak.py); a wordlist job runs the rules
+kernel's sponge (ops/cuda_rules.py, csrc/rules_wide.cu: ``core``
+``keccak<bits>``, one instantiation a rate, the pad byte a launch
+parameter) through the wordlist worker, at the generator's max_len
+(the CPU oracle's limit: 55 bytes for sha3-256 and keccak-256, rate - 1
+for the others).
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch
 from dprf_tpu_torch.engines import engine_class, register
 from dprf_tpu_torch.engines.cpu.engines import KECCAK_SIZES
 from dprf_tpu_torch.engines.device.engines import TorchEngineBase
-from dprf_tpu_torch.ops.keccak import keccak_block_digest, pack_rate_block
+from dprf_tpu_torch.ops.keccak import (keccak_block_digest, pack_rate_block,
+                                       pack_rate_varlen)
 
 
 class TorchKeccakEngine(TorchEngineBase):
@@ -30,13 +36,26 @@ class TorchKeccakEngine(TorchEngineBase):
     to rate - 1 bytes, one absorbed block."""
 
     little_endian = False
-    _pad_byte: int
+    #: 0x06 SHA3, 0x01 Keccak: the rules kernel's launch parameter
+    pad_byte: int
     _rate: int
+
+    @property
+    def core(self) -> str:
+        """The rules kernel's core: ``keccak<bits>``, shared by sha3-<bits>
+        and keccak-<bits>."""
+        return f"keccak{8 * self.digest_size}"
 
     def pack(self, cand: torch.Tensor, length: int) -> torch.Tensor:
         """uint8[B, length] candidates -> the absorbed rate block,
         int32[B, rate/4] little-endian words."""
-        return pack_rate_block(cand, length, self._pad_byte, self._rate)
+        return pack_rate_block(cand, length, self.pad_byte, self._rate)
+
+    def pack_varlen(self, cand: torch.Tensor,
+                    lens: torch.Tensor) -> torch.Tensor:
+        """uint8[B, L] rule outputs of int32[B] lengths -> the absorbed
+        rate block, int32[B, rate/4] little-endian words."""
+        return pack_rate_varlen(cand, lens, self.pad_byte, self._rate)
 
     def digest_packed(self, blocks: torch.Tensor) -> torch.Tensor:
         return keccak_block_digest(blocks, self.digest_size)
@@ -60,11 +79,6 @@ class TorchKeccakEngine(TorchEngineBase):
                               hit_capacity=hit_capacity, oracle=oracle,
                               device=self.torch_device)
 
-    def make_wordlist_worker(self, gen, targets, batch: int,
-                             hit_capacity: int, oracle=None):
-        raise ValueError(f"{self.name}: the Keccak kernel takes mask jobs "
-                         "only; use --device cpu for a wordlist")
-
 
 def _register_keccak_device_family():
     """The 13 names of the CPU oracles' family on ``cuda``: each (bits,
@@ -81,7 +95,7 @@ def _register_keccak_device_family():
                         "name": name, "digest_size": bits // 8,
                         "digest_words": -(-bits // 32),
                         "max_candidate_len": rate - 1,
-                        "_pad_byte": pad, "_rate": rate})
+                        "pad_byte": pad, "_rate": rate})
             aliases = {"sha3-256": ["sha3"], f"keccak-{bits}":
                        [f"keccak{bits}"]}.get(name, [])
             for n in (name, *aliases):

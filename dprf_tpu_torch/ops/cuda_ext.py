@@ -49,7 +49,7 @@ from dprf_tpu_torch.generators.mask import decode_lut
 from dprf_tpu_torch.ops import bloom
 from dprf_tpu_torch.ops import compare as cmp_ops
 from dprf_tpu_torch.ops import cuda_mask
-from dprf_tpu_torch.ops.pack import pack_varlen, pad_const, utf16le_widen
+from dprf_tpu_torch.ops.pack import pad_const, utf16le_widen
 
 #: the nested chains (outer, inner), in the kernel's variant order; the
 #: inner hex (32 or 40 bytes) fits one outer block
@@ -97,6 +97,13 @@ SALTED_WIDE_ROW = 48
 #: in 8, the salt's bit length, 3 words of padding
 SALTED_RULE_ROW = 40
 RULE_SALT_AT, RULE_SALT_WORDS, RULE_DIGEST_AT, RULE_SALT_BITS = 14, 9, 28, 36
+#: the same for sha512's 128-byte block (csrc/rules_wide.cu): a compact
+#: row, the salt as message words from byte 0 in 9 (``ps``: with its
+#: marker), the digest in 16, the salt's bit length, 2 words of padding;
+#: the kernel moves the salt words with clamped reads, so no zero words
+#: surround them
+WIDE_SALTED_RULE_ROW = 28
+WIDE_RULE_SALT_AT, WIDE_RULE_DIGEST_AT, WIDE_RULE_SALT_BITS = 0, 9, 25
 #: ASCII a-z to A-Z, every other byte kept: MSSQL 2000's uppercase,
 #: applied to a job's charset tables on the host
 UPPER = np.array([c - 32 if 97 <= c <= 122 else c for c in range(256)],
@@ -302,18 +309,28 @@ def salted_rows(variant: str, length: int, group) -> np.ndarray:
     return rows
 
 
+def rule_row_layout(variant: str) -> tuple:
+    """(row words, salt at, digest at, salt bits at) of a salted
+    variant's rows for the rules kernel: the 64-byte layout
+    (SALTED_RULE_ROW, RULE_SALT_AT, ...) or sha512's (WIDE_...); the
+    salt takes RULE_SALT_WORDS words in both."""
+    if salted_geometry(variant)[0] == 128:
+        return (WIDE_SALTED_RULE_ROW, WIDE_RULE_SALT_AT, WIDE_RULE_DIGEST_AT,
+                WIDE_RULE_SALT_BITS)
+    return SALTED_RULE_ROW, RULE_SALT_AT, RULE_DIGEST_AT, RULE_SALT_BITS
+
+
 def salted_rule_rows(variant: str, group, max_len: int) -> np.ndarray:
-    """A group's rows for the rules kernel's salted tail (its 64-byte
-    variants), uint32[T, SALTED_RULE_ROW]: per target (salt bytes,
-    digest uint32 words) its salt as message words at RULE_SALT_AT (a
-    ``ps`` salt with its 0x80 marker: the candidate's length, and so the
-    salt's place, varies per lane, and the kernel moves these words
-    there), its digest words at RULE_DIGEST_AT and the salt's bit length
-    at RULE_SALT_BITS.  Each salt must fit the block beside a rule output
-    of ``max_len`` bytes; an ``sp`` group's salts are of one length."""
+    """A group's rows for the rules kernel's salted tail, uint32[T, row
+    words] (``rule_row_layout``): per target (salt bytes, digest uint32
+    words) its salt as message words (a ``ps`` salt with its 0x80
+    marker: the candidate's length, and so the salt's place, varies per
+    lane, and the kernel moves these words there), its digest words and
+    the salt's bit length.  Each salt must fit the block beside a rule
+    output of ``max_len`` bytes; an ``sp`` group's salts are of one
+    length."""
     algo, order = split_salted(variant)
-    if variant not in SALTED_NAMES + ("sha1-ps-utf16",):
-        raise ValueError(f"no rules salted tail for {variant!r}")
+    width, salt_at, digest_at, bits_at = rule_row_layout(variant)
     big = not cuda_mask.device_engine(algo).little_endian
     n_words = cuda_mask.device_engine(algo).digest_words
     if not 1 <= len(group) <= SALTED_GROUP:
@@ -321,7 +338,7 @@ def salted_rule_rows(variant: str, group, max_len: int) -> np.ndarray:
                          f"got {len(group)}")
     if order == "sp" and len({len(salt) for salt, _ in group}) != 1:
         raise ValueError("an sp group's salts must be of one length")
-    rows = np.zeros((len(group), SALTED_RULE_ROW), np.uint32)
+    rows = np.zeros((len(group), width), np.uint32)
     for row, (salt, words) in zip(rows, group):
         check_salt(variant, max_len, bytes(salt))
         if len(words) != n_words:
@@ -331,11 +348,11 @@ def salted_rule_rows(variant: str, group, max_len: int) -> np.ndarray:
         msg[:len(salt)] = np.frombuffer(bytes(salt), np.uint8)
         if order == "ps":
             msg[len(salt)] = 0x80
-        at = RULE_SALT_AT
-        row[at:at + RULE_SALT_WORDS] = msg.view(">u4" if big else "<u4")
-        row[RULE_DIGEST_AT:RULE_DIGEST_AT + n_words] = [
-            int(w) & 0xFFFFFFFF for w in words]
-        row[RULE_SALT_BITS] = 8 * len(salt)
+        row[salt_at:salt_at + RULE_SALT_WORDS] = msg.view(
+            ">u4" if big else "<u4")
+        row[digest_at:digest_at + n_words] = [int(w) & 0xFFFFFFFF
+                                              for w in words]
+        row[bits_at] = 8 * len(salt)
     return rows
 
 
@@ -347,11 +364,11 @@ def salted_rule_digests(variant: str, cand: torch.Tensor,
     int32[B] (ASCII-uppercased first with ``upper``, widened to UTF-16LE
     for a UTF-16LE variant) with each target's salt of ``rows``
     (``salted_rule_rows``) after them (``ps``) or before them (``sp``),
-    the core over the single block: digest words int32[B, T, W]."""
+    the engine's ``pack_varlen`` and core over the single block (64 or,
+    for sha512, 128 bytes): digest words int32[B, T, W]."""
     algo, order = split_salted(variant)
     device = cand.device
     eng = cuda_mask.device_engine(algo, device)
-    big = not eng.little_endian
     pos = torch.arange(cand.shape[1], device=device)[None, :]
     cand = torch.where(pos < lens[:, None], cand, 0).to(torch.uint8)
     if upper:
@@ -374,8 +391,7 @@ def salted_rule_digests(variant: str, cand: torch.Tensor,
         else:
             msg[:, :n] = salt
             msg[:, n:] = cand
-        digests.append(eng.digest_packed(pack_varlen(msg, lens + n,
-                                                     big_endian=big)))
+        digests.append(eng.digest_packed(eng.pack_varlen(msg, lens + n)))
     return torch.stack(digests, dim=1)
 
 
@@ -383,10 +399,11 @@ def rule_row_salts(variant: str, rows) -> list:
     """The salts (bytes) of a group's rows (``salted_rule_rows``, int32
     or uint32, on any device), in row order."""
     big = not cuda_mask.device_engine(split_salted(variant)[0]).little_endian
+    _, salt_at, _, bits_at = rule_row_layout(variant)
     rows = rows.cpu().numpy() if isinstance(rows, torch.Tensor) else rows
-    return [row[RULE_SALT_AT:RULE_SALT_AT + RULE_SALT_WORDS]
+    return [row[salt_at:salt_at + RULE_SALT_WORDS]
             .astype(">u4" if big else "<u4").tobytes()
-            [:int(row[RULE_SALT_BITS]) // 8]
+            [:int(row[bits_at]) // 8]
             for row in np.asarray(rows).view(np.uint32)]
 
 
@@ -395,7 +412,8 @@ def salted_rule_found(variant: str, cand: torch.Tensor, lens: torch.Tensor,
     """``salted_rule_digests`` compared with each target's digest words:
     found bool[B, T]."""
     words = cuda_mask.device_engine(split_salted(variant)[0]).digest_words
-    want = rows[:, RULE_DIGEST_AT:RULE_DIGEST_AT + words].to(cand.device)
+    at = rule_row_layout(variant)[2]
+    want = rows[:, at:at + words].to(cand.device)
     return (salted_rule_digests(variant, cand, lens, rows, upper)
             == want[None]).all(dim=-1)
 

@@ -1,12 +1,16 @@
 """The fused wordlist+rules kernel: the counterpart of the JAX package's
 ops/pallas_rules.py for the md5, ntlm (md4), sha1 and sha256 cores, one
 target or a list; of its XLA wordlist pipeline (ops/rules_pipeline.py)
-for sha224, mysql323 and the nested chains; and of its salted and
-Kerberos etype-23 wordlist steps (engines/device/salted.py,
-engines/device/krb5.py) for a group of targets a launch.
+for sha224, mysql323, the nested chains, sha512 and sha384; of its
+Keccak wordlist step (engines/device/sha3.py) for the 13 sha3/keccak
+names; and of its salted and Kerberos etype-23 wordlist steps
+(engines/device/salted.py, engines/device/krb5.py) for a group of
+targets a launch.
 
 Per candidate the kernel (csrc/rules_kernel.cuh, instantiated by
-csrc/rules.cu, csrc/rules_nested.cu and csrc/rules_group.cu) takes word
+csrc/rules.cu, csrc/rules_nested.cu, csrc/rules_group.cu and, for the
+wide cores -- SHA-512's 128-byte block, the Keccak rate block -- and the
+sha512 salted tails, csrc/rules_wide.cu) takes word
 b of the step's word window and rule r, interprets the rule's bytecode
 (``encode_rules``) with the semantics of rules/cpu.py, packs the
 variable-length message, runs the core and compares exactly with the
@@ -86,31 +90,39 @@ SOURCE = "dprf_tpu_torch/csrc/rules.cu"
 
 #: the rules kernel's cores by the source that instantiates them, in the
 #: order of their ids: by the device engine's ``core`` (``ldap-sha`` runs
-#: on sha1's), the 64-byte cores (sha224 and mysql323 included), then the
-#: nested chains.  The mask kernel's wider cores (sha512, sha384) have no
-#: rules instantiation, as the reference's rules kernel has none it can
-#: run, so their wordlist jobs are refused.
+#: on sha1's, sha3-N and keccak-N on ``keccakN``'s, the pad byte a launch
+#: parameter), the 64-byte cores (sha224 and mysql323 included), the
+#: nested chains, then the wide cores: sha512 and sha384 over SHA-512's
+#: 128-byte block, and the sponge at rates 144, 136, 104 and 72.
 CORE_SOURCES = {
     "rules": ("md5", "ntlm", "sha1", "sha256", "sha224", "mysql323"),
     "rules_nested": ("md5(md5)", "sha1(sha1)", "md5(sha1)", "sha1(md5)",
-                     "sha256(md5)", "sha256(sha1)", "mysql41")}
+                     "sha256(md5)", "sha256(sha1)", "mysql41"),
+    "rules_wide": ("sha512", "sha384", "keccak224", "keccak256",
+                   "keccak384", "keccak512")}
 #: the core id of the rules kernel's C interface (each source's
 #: DPRF_DISPATCH switch takes its own cores' ids)
 KERNEL_CORES = {core: i for i, core in enumerate(
     c for cores in CORE_SOURCES.values() for c in cores)}
-#: the rules kernel's group tails (csrc/rules_group.cu's ids): the
-#: salted variants of the 64-byte cores (``cuda_ext.SALTED_NAMES`` and
-#: MSSQL's UTF-16LE sha1) and Kerberos etype 23
-GROUP_TAILS = {"md5-ps": 0, "md5-sp": 1, "sha1-ps": 2, "sha1-sp": 3,
-               "sha256-ps": 4, "sha256-sp": 5, "sha1-ps-utf16": 6,
-               "krb5": 7}
+#: the rules kernel's group tails by the source that instantiates them
+#: (csrc/rules_group.cu: the salted variants of the 64-byte cores,
+#: ``cuda_ext.SALTED_NAMES`` and MSSQL's UTF-16LE sha1, and Kerberos
+#: etype 23; csrc/rules_wide.cu: sha512's, ``cuda_ext.WIDE_SALTED`` and
+#: MSSQL 2012's UTF-16LE), and their ids, which each source's
+#: DPRF_GROUP_DISPATCH switch takes
+TAIL_SOURCES = {
+    "rules_group": ("md5-ps", "md5-sp", "sha1-ps", "sha1-sp", "sha256-ps",
+                    "sha256-sp", "sha1-ps-utf16", "krb5"),
+    "rules_wide": ("sha512-ps", "sha512-sp", "sha512-ps-utf16")}
+GROUP_TAILS = {tail: i for i, tail in enumerate(
+    t for tails in TAIL_SOURCES.values() for t in tails)}
 KRB5 = "krb5"
 #: the core whose slots a tail's candidate sits in: the salted
 #: algorithm's, or md4's (ntlm) for Kerberos
 TAIL_CORES = {t: ("ntlm" if t == KRB5 else t.split("-")[0])
               for t in GROUP_TAILS}
 #: the sources of the kernel's instantiations
-SOURCES = ("rules", "rules_nested", "rules_group")
+SOURCES = ("rules", "rules_nested", "rules_group", "rules_wide")
 SOURCE_FILES = {src: f"dprf_tpu_torch/csrc/{src}.cu" for src in SOURCES}
 
 #: opcodes the kernel interprets: all but PURGE (a compaction) and
@@ -135,10 +147,10 @@ def kernel_name(core: str, mode: int = 0) -> str:
 def replaces(core: str) -> str:
     """The TPU kernel row an instantiation (a core or a group tail)
     stands under: the rules kernel's, which the first four cores replace
-    and whose template sha224, mysql323 and the salted tails share; the
-    nested chains' (pallas_ext.py's nested kernel) and Kerberos'
-    (pallas_krb5.py's), whose chains and filter they run.  The reference
-    runs the wordlists of all but the first four on XLA."""
+    and whose template sha224, mysql323, the wide cores and the salted
+    tails share; the nested chains' (pallas_ext.py's nested kernel) and
+    Kerberos' (pallas_krb5.py's), whose chains and filter they run.  The
+    reference runs the wordlists of all but the first four on XLA."""
     from dprf_tpu_torch.ops import cuda_ext, cuda_krb5
     if core == KRB5:
         return cuda_krb5.REPLACES
@@ -150,9 +162,8 @@ def replaces(core: str) -> str:
 def source_of(core: str) -> str:
     """The source that instantiates a core (``KERNEL_CORES``) or a group
     tail (``GROUP_TAILS``)."""
-    if core in GROUP_TAILS:
-        return "rules_group"
-    return next(src for src, cores in CORE_SOURCES.items() if core in cores)
+    sources = TAIL_SOURCES if core in GROUP_TAILS else CORE_SOURCES
+    return next(src for src, cores in sources.items() if core in cores)
 
 
 #: launches of each kernel instantiation in this process, by
@@ -222,8 +233,8 @@ def rules_engine(engine_name: str, device="cpu"):
 def kernel_rules_eligible(engine_name: str, gen, n_targets: int) -> bool:
     """Whether the kernel takes this job: a core engine, one target or a
     list of any length, a wordlist generator whose max_len fits one
-    block (27 for ntlm, 55 for the others), rules of at most MAX_STEPS
-    supported ops."""
+    block (27 for ntlm, 111 for sha512 and sha384, rate - 1 for a sponge,
+    55 for the others), rules of at most MAX_STEPS supported ops."""
     try:
         eng = rules_engine(engine_name)
     except ValueError:
@@ -297,6 +308,13 @@ class _RulesArgs(ctypes.Structure):
                 ("target", ctypes.c_uint32 * 8), ("run", ctypes.c_int32)]
 
 
+class _WideRulesArgs(_RulesArgs):
+    """``struct WideRulesArgs`` of csrc/rules_wide.cu: RulesArgs, a wide
+    core's 16 target words and a sponge's pad byte."""
+    _fields_ = [("wide_target", ctypes.c_uint32 * 16),
+                ("pad", ctypes.c_uint32)]
+
+
 class _GroupArgs(ctypes.Structure):
     """``struct GroupArgs`` of csrc/rules_group.cu."""
     _fields_ = [("rows", ctypes.c_void_p), ("count", ctypes.c_void_p),
@@ -309,11 +327,12 @@ class _GroupArgs(ctypes.Structure):
 @functools.cache
 def _library(src: str = "rules"):
     """The C entry points of one source (``SOURCES``), built at first
-    use."""
+    use: a core's (``CORE_SOURCES``), a group tail's (``TAIL_SOURCES``),
+    or both."""
     from dprf_tpu_torch.ops import _build
     lib = _build.load(src)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if src == "rules_group":
+    if src in TAIL_SOURCES:
         lib.dprf_rules_group_launch.argtypes = [
             i32, i32, ptr, ptr, ptr, ptr, ctypes.POINTER(_RulesArgs),
             ctypes.POINTER(_GroupArgs), i32, i32, i32, ptr]
@@ -324,13 +343,15 @@ def _library(src: str = "rules"):
         lib.dprf_rules_group_blocks_per_sm.argtypes = [i32, i32,
                                                        ctypes.POINTER(i32)]
         lib.dprf_rules_group_blocks_per_sm.restype = i32
+    if src not in CORE_SOURCES:
         return lib
+    args = ctypes.POINTER(_WideRulesArgs if src == "rules_wide"
+                          else _RulesArgs)
     lib.dprf_rules_launch.argtypes = [
-        i32, i32, ptr, ptr, ptr, ptr, ctypes.POINTER(_RulesArgs), ptr, ptr,
-        i32, i32, i32, ptr]
+        i32, i32, ptr, ptr, ptr, ptr, args, ptr, ptr, i32, i32, i32, ptr]
     lib.dprf_rules_launch.restype = i32
     lib.dprf_rules_list_launch.argtypes = [
-        i32, i32, i32, ptr, ptr, ptr, ptr, ctypes.POINTER(_RulesArgs),
+        i32, i32, i32, ptr, ptr, ptr, ptr, args,
         ctypes.POINTER(cuda_mask.MultiArgs), ptr, ptr, ptr, ptr, i32, i32,
         i32, i32, ptr]
     lib.dprf_rules_list_launch.restype = i32
@@ -463,7 +484,7 @@ def rules_kernel(engine: str, words: torch.Tensor, lens: torch.Tensor,
     if n_valid == 0:
         return count, lanes
     args = _launch_args(bytecode, ws, n_valid, target, word_batch, max_len,
-                        run, blocks_per_sm(eng.core), device)
+                        run, blocks_per_sm(eng.core), device, eng)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _library(source_of(eng.core)).dprf_rules_launch(
         KERNEL_CORES[eng.core], device.index, words.data_ptr(),
@@ -494,19 +515,25 @@ def _kernel_job(engine, words, lens, bytecode, n_ops, ws, n_valid, target,
 
 
 def _launch_args(bytecode, ws, n_valid, target, word_batch, max_len, run,
-                 blocks, device) -> _RulesArgs:
-    """The launch's RulesArgs, its run from ``rule_runs`` at ``blocks``
-    resident blocks an SM unless ``run`` is given."""
+                 blocks, device, eng=None) -> _RulesArgs:
+    """The launch's RulesArgs -- a wide core's (``eng``) WideRulesArgs,
+    with its target words and its sponge's pad byte -- its run from
+    ``rule_runs`` at ``blocks`` resident blocks an SM unless ``run`` is
+    given."""
     n_rules = bytecode.shape[0]
     if run is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         run = rule_runs(n_valid, n_rules, sms * blocks)
     if not 1 <= run <= min(n_rules, MAX_RUN):
         raise ValueError(f"run {run} outside 1..{min(n_rules, MAX_RUN)}")
-    target = list(target or ()) + [0] * (8 - len(target or ()))
+    words = [int(w) & 0xFFFFFFFF for w in (target or ())]
+    if eng is not None and source_of(eng.core) == "rules_wide":
+        return _WideRulesArgs(
+            max_len, n_rules, word_batch, ws, n_valid,
+            (ctypes.c_uint32 * 8)(), run,
+            (ctypes.c_uint32 * 16)(*words), getattr(eng, "pad_byte", 0))
     return _RulesArgs(max_len, n_rules, word_batch, ws, n_valid,
-                      (ctypes.c_uint32 * 8)(*(int(w) & 0xFFFFFFFF
-                                              for w in target)), run)
+                      (ctypes.c_uint32 * 8)(*words), run)
 
 
 def _check_list(eng, mode, probe_words, block_bits, k, table, device):
@@ -548,7 +575,7 @@ def rules_list_kernel(engine: str, mode: int, words: torch.Tensor,
         return count, lanes, tpos, n_maybe
     smem = list_shared_bytes(eng.core, mode, block_bits)
     args = _launch_args(bytecode, ws, n_valid, None, word_batch, max_len, run,
-                        blocks_per_sm(eng.core, mode, smem), device)
+                        blocks_per_sm(eng.core, mode, smem), device, eng)
     margs = cuda_mask.MultiArgs(
         probe_words.data_ptr(), None if table is None else table.data_ptr(),
         0, 0 if table is None else table.shape[0], block_bits, k)
@@ -735,15 +762,16 @@ def job_tables(gen, device) -> tuple:
 
 def tail_geometry(tail: str) -> tuple:
     """(most targets a group, a row's words, bytes a candidate character
-    takes) of a group tail."""
+    takes, the block's message limit) of a group tail."""
     from dprf_tpu_torch.ops import cuda_ext, cuda_krb5
     if tail not in GROUP_TAILS:
         raise ValueError(f"no rules group tail {tail!r} (tails: "
                          f"{', '.join(GROUP_TAILS)})")
     if tail == KRB5:
-        return cuda_krb5.GROUP, cuda_krb5.ROW, 2
-    return (cuda_ext.SALTED_GROUP, cuda_ext.SALTED_RULE_ROW,
-            2 if cuda_ext.widened(tail) else 1)
+        return cuda_krb5.GROUP, cuda_krb5.ROW, 2, cuda_ext.BLOCK_LIMIT
+    _, _, limit, width = cuda_ext.salted_geometry(tail)
+    return (cuda_ext.SALTED_GROUP, cuda_ext.rule_row_layout(tail)[0], width,
+            limit)
 
 
 def _check_group(tail, words, lens, bytecode, n_ops, ws, n_valid, rows,
@@ -753,7 +781,7 @@ def _check_group(tail, words, lens, bytecode, n_ops, ws, n_valid, rows,
     were made (``cuda_ext.salted_rule_rows``); an ``sp`` group's salt
     length ``shift`` is checked here."""
     from dprf_tpu_torch.ops import cuda_ext
-    group, row, width = tail_geometry(tail)
+    group, row, width, limit = tail_geometry(tail)
     eng = device_engine(TAIL_CORES[tail], words.device)
     max_len = words.shape[1] if max_len is None else max_len
     _check_job(eng, words, lens, bytecode, n_ops, ws, n_valid, None,
@@ -764,10 +792,10 @@ def _check_group(tail, words, lens, bytecode, n_ops, ws, n_valid, rows,
                          f"got {list(rows.shape)}")
     sp = tail != KRB5 and cuda_ext.split_salted(tail)[1] == "sp"
     if not (0 <= shift <= cuda_ext.SALT_MAX and (shift == 0 or sp)
-            and width * max_len + shift <= cuda_ext.BLOCK_LIMIT):
+            and width * max_len + shift <= limit):
         raise ValueError(f"salt shift {shift} outside 0..{cuda_ext.SALT_MAX},"
-                         f" past the {cuda_ext.BLOCK_LIMIT}-byte block at "
-                         f"max_len {max_len} or on a ps or krb5 tail")
+                         f" past the {limit}-byte block at max_len "
+                         f"{max_len} or on a ps or krb5 tail")
     return max_len
 
 
@@ -825,7 +853,7 @@ def rules_group_kernel(tail: str, words: torch.Tensor, lens: torch.Tensor,
     group = _GroupArgs(rows.data_ptr(), count.data_ptr(), lanes.data_ptr(),
                        tpos.data_ptr(), tcount.data_ptr(), n_targets, shift,
                        msg_type, int(upper), hit_capacity)
-    rc = _library("rules_group").dprf_rules_group_launch(
+    rc = _library(source_of(tail)).dprf_rules_group_launch(
         GROUP_TAILS[tail], device.index, words.data_ptr(), lens.data_ptr(),
         bytecode.data_ptr(), n_ops.data_ptr(), ctypes.byref(args),
         ctypes.byref(group), launch_grid(n_valid, bytecode.shape[0], args.run),

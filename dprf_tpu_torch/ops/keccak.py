@@ -122,7 +122,33 @@ def pack_rate_block(cand: torch.Tensor, length: int, pad_byte: int,
     const[rate - 1] |= 0x80
     msg = torch.as_tensor(const, device=cand.device).repeat(cand.shape[0], 1)
     msg[:, :length] = cand
-    grouped = msg.reshape(cand.shape[0], rate // 4, 4).to(torch.int32)
+    return _rate_words(msg)
+
+
+def pack_rate_varlen(cand: torch.Tensor, lens: torch.Tensor, pad_byte: int,
+                     rate: int) -> torch.Tensor:
+    """Variable-length candidates uint8[B, L <= rate - 1] of int32[B]
+    lengths (rule outputs) -> the absorbed rate block int32[B, rate/4]:
+    each lane's bytes below its length, the pad byte at its length and
+    0x80 ORed into byte rate - 1 (one byte 0x80 | pad at length rate - 1)."""
+    batch, length = cand.shape
+    if length > rate - 1:
+        raise ValueError(f"single-block keccak at rate {rate} needs <= "
+                         f"{rate - 1} bytes, got {length}")
+    pos = torch.arange(rate, dtype=torch.int32, device=cand.device)[None, :]
+    lc = lens.to(torch.int32)[:, None]
+    msg = torch.zeros((batch, rate), dtype=torch.uint8, device=cand.device)
+    msg[:, :length] = cand
+    msg = torch.where(pos < lc, msg, 0)
+    msg = torch.where(pos == lc, pad_byte, msg).to(torch.uint8)
+    msg[:, rate - 1] |= 0x80
+    return _rate_words(msg)
+
+
+def _rate_words(msg: torch.Tensor) -> torch.Tensor:
+    """A rate block's bytes uint8[B, rate] -> int32[B, rate/4]
+    little-endian words."""
+    grouped = msg.reshape(msg.shape[0], -1, 4).to(torch.int32)
     return (grouped[..., 0] | (grouped[..., 1] << 8)
             | (grouped[..., 2] << 16) | (grouped[..., 3] << 24))
 

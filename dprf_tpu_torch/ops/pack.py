@@ -3,8 +3,9 @@
 Single block only: candidates up to 55 bytes (27 characters for NTLM's
 UTF-16LE widening) in a 64-byte block, which covers the mask and
 wordlist paths of every benchmark config, and up to 111 bytes in
-SHA-512's 128-byte block (``pack_fixed_wide``).  Words come out as
-int32 tensors with the bit pattern of the reference's uint32 words.
+SHA-512's 128-byte block (``pack_fixed_wide``, ``pack_varlen_wide``).
+Words come out as int32 tensors with the bit pattern of the reference's
+uint32 words.
 """
 
 from __future__ import annotations
@@ -73,19 +74,38 @@ def pack_varlen(cand: torch.Tensor, lens: torch.Tensor,
     goes to message byte 2q and the bit length is 16 per character."""
     if widen:
         cand, lens = utf16le_widen(cand), 2 * lens
+    words = _varlen_words(cand, lens, 64, big_endian)
+    words[:, 15 if big_endian else 14] = lens.to(torch.int32) * 8
+    return words
+
+
+def pack_varlen_wide(cand: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Variable-length candidates uint8[B, L <= 111] with int32[B]
+    lengths -> one 128-byte SHA-512 block as int32[B, 32]: big-endian
+    words, 0x80 at each lane's length, its bit length in word 31 (the
+    low word of the 128-bit length; the words above it stay 0)."""
+    words = _varlen_words(cand, lens, 128, True)
+    words[:, 31] = lens.to(torch.int32) * 8
+    return words
+
+
+def _varlen_words(cand: torch.Tensor, lens: torch.Tensor, block: int,
+                  big_endian: bool) -> torch.Tensor:
+    """Each lane's bytes below its length and 0x80 at it in a zeroed
+    block of ``block`` bytes (64 or 128), as int32[B, block / 4]
+    words."""
     batch, length = cand.shape
-    if length > 55:
-        raise ValueError(
-            f"single-block packing needs length <= 55, got {length}")
-    pos = torch.arange(64, dtype=torch.int32, device=cand.device)[None, :]
+    limit = block - 1 - (8 if block == 64 else 16)
+    if length > limit:
+        raise ValueError(f"single-block packing needs length <= {limit}, "
+                         f"got {length}")
+    pos = torch.arange(block, dtype=torch.int32, device=cand.device)[None, :]
     lc = lens.to(torch.int32)[:, None]
-    msg = torch.zeros((batch, 64), dtype=torch.uint8, device=cand.device)
+    msg = torch.zeros((batch, block), dtype=torch.uint8, device=cand.device)
     msg[:, :length] = cand
     msg = torch.where(pos < lc, msg, 0)
     msg = torch.where(pos == lc, 0x80, msg).to(torch.uint8)
-    words = _words_from_bytes(msg, big_endian)
-    words[:, 15 if big_endian else 14] = lens.to(torch.int32) * 8
-    return words
+    return _words_from_bytes(msg, big_endian)
 
 
 def pack_raw(cand: torch.Tensor, big_endian: bool = True) -> torch.Tensor:

@@ -47,7 +47,7 @@ SLICE_NAMES = {"sha512", "sha-512", "sha384", "sha-384", "sha3",
 MASK = "?l?d?l"
 TILE = 128
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "dprf_tpu_torch", "csrc", "keccak.cu")
+    os.path.abspath(__file__))), "dprf_tpu_torch", "csrc", "keccak.cuh")
 
 
 def test_keccak_f_matches_reference_on_seeded_states():
@@ -202,21 +202,22 @@ def test_mask_lengths_at_the_rate_limit(tmp_path, capsys):
 
 @pytest.mark.parametrize("name", sorted(SLICE_NAMES))
 def test_wordlist_jobs_are_refused(name, tmp_path, capsys):
-    """No rules core for the slice's names (the reference's rules kernel
-    has none it can run): kernel_rules_eligible is False and a wordlist
-    job on torch-cpu exits 2 naming --device cpu."""
+    """The slice's names were refused a wordlist (no rules core) until
+    the rules kernel took the wide cores (csrc/rules_wide.cu): now
+    kernel_rules_eligible is True and a wordlist job on torch-cpu (the
+    kernel's plain version) exits 0 with its plant found."""
     gen = WordlistRulesGenerator([b"word"], [parser.parse_rule(":")],
                                  max_len=55)
-    assert not cuda_rules.kernel_rules_eligible(name, gen, 1)
+    assert cuda_rules.kernel_rules_eligible(name, gen, 1)
     words = tmp_path / "w.txt"
     words.write_text("word\n")
     hashfile = tmp_path / "h.txt"
-    hashfile.write_text(get_engine(name).hash_batch([b"word"])[0].hex()
-                        + "\n")
+    digest = get_engine(name).hash_batch([b"word"])[0].hex()
+    hashfile.write_text(digest + "\n")
     assert port_main(["crack", "-a", "wordlist", str(words), str(hashfile),
                       "--engine", name, "--device", "torch-cpu",
-                      "--no-potfile", "-q"]) == 2
-    assert "--device cpu" in capsys.readouterr().err
+                      "--no-potfile", "-q"]) == 0
+    assert capsys.readouterr().out == f"{digest}:word\n"
 
 
 def test_engine_names_grow_by_the_slice():

@@ -178,11 +178,19 @@ def test_kernel_opcodes_match_the_parser():
     ("md5", 1, ["E"], 55, False),            # TITLE
     ("md5", 1, ["es"], 55, False),           # TITLE_SEP
     ("md5", 1, ["$1 $2 $3 $4 $5 $6 $7 $8 $9"], 55, False),   # 9 ops
-    ("sha512", 1, ["$1"], 55, False),        # no rules core (R1)
-    ("sha384", 1, ["$1"], 55, False),
-    ("sha3-256", 1, ["$1"], 55, False),      # the Keccak family: none
-    ("keccak-256", 1, ["$1"], 55, False),
-    ("keccak224", 1, ["$1"], 55, False),
+    # the wide cores (csrc/rules_wide.cu) take these since the port's
+    # 64-bit and sponge rules cores; the ids are the cases' from when
+    # the port refused them
+    pytest.param("sha512", 1, ["$1"], 55, True,
+                 id="sha512-1-rules10-55-False"),
+    pytest.param("sha384", 1, ["$1"], 55, True,
+                 id="sha384-1-rules11-55-False"),
+    pytest.param("sha3-256", 1, ["$1"], 55, True,
+                 id="sha3-256-1-rules12-55-False"),
+    pytest.param("keccak-256", 1, ["$1"], 55, True,
+                 id="keccak-256-1-rules13-55-False"),
+    pytest.param("keccak224", 1, ["$1"], 55, True,
+                 id="keccak224-1-rules14-55-False"),
     ("md5crypt", 1, ["$1"], 55, False),      # no such engine
 ])
 def test_kernel_rules_eligible(engine, targets, rules, max_len, ok):

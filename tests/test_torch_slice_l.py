@@ -248,26 +248,30 @@ def test_mysql323_bound_counts_the_skip_where_a_charset_holds_one():
 @pytest.mark.parametrize("argv", [
     ["sha224", "-a", "wordlist", "W", "H224"],
     ["mysql323", "-a", "wordlist", "W", "H323"],
-    ["sha512-ps", "-a", "wordlist", "W", "HPS"],
+    ["sha512-ps", "-a", "wordlist", "W", "HPSW"],
     ["mssql2005", "?l" * 26, "HMS"],
     ["sha512-ps", "?l" * 108, "HPS"],
     ["sha3-224", "?l", "HMANY"]])
 def test_device_cuda_refuses_what_the_kernels_do_not_take(
         tmp_path, capsys, monkeypatch, argv):
     """On --device cuda (torch made to report a card: the refusals come
-    before any launch): a sha512 salted wordlist, a mask past a
-    variant's block and more than 8,192 targets of a Keccak engine (a
-    sha224 list of any length runs on the card) exit 2 naming --device
-    cpu.  A sha224 or mysql323 wordlist, refused before the rules kernel
-    took their cores, runs (on --device torch-cpu, the kernel's plain
-    version) and finds its plant."""
+    before any launch): a mask past a variant's block and more than
+    8,192 targets of a Keccak engine (a sha224 list of any length runs on
+    the card) exit 2 naming --device cpu.  A sha224, mysql323 or sha512
+    salted wordlist, refused before the rules kernel took their cores
+    (sha512-ps's since csrc/rules_wide.cu), runs (on --device torch-cpu,
+    the kernel's plain version) and finds its plant."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    runs = argv[0] in ("sha224", "mysql323")
-    plant = get_engine(argv[0]).hash_batch([b"alpha"])[0].hex() \
-        if runs else None
+    runs = argv[-1] in ("H224", "H323", "HPSW")
+    plant = None
+    if runs:
+        params = {"salt": b"salt"} if argv[0] == "sha512-ps" else None
+        plant = get_engine(argv[0]).hash_batch([b"alpha"], params)[0].hex()
+        plant += ":salt" if params else ""
     files = {
         "W": "alpha\n", "H224": f"{plant}\n", "H323": f"{plant}\n",
-        "HPS": "00" * 64 + ":salt\n", "HMS": "0x0100" + "00" * 24 + "\n",
+        "HPS": "00" * 64 + ":salt\n", "HPSW": f"{plant}\n",
+        "HMS": "0x0100" + "00" * 24 + "\n",
         "HMANY": "".join(f"{i:056x}\n" for i in range(8193))}
     args = []
     for a in argv[1:]:

@@ -208,8 +208,10 @@ def test_group_rows_and_refusals():
     """The salted rows hold each salt (ps with its marker) where the
     kernel reads it; a salt past the block beside max_len and a mixed sp
     group raise; the tails' launch counts exist; a sha512 salted
-    wordlist is refused naming --device cpu; the kernel's wrapper refuses
-    CPU tensors and the plain version a tail it has not."""
+    wordlist whose candidate and salt pass the 128-byte block is refused
+    naming --device cpu (one that fits has a worker, csrc/rules_wide.cu's
+    tail); the kernel's wrapper refuses CPU tensors and the plain version
+    a tail it has not."""
     rows = cuda_ext.salted_rule_rows("md5-ps", [(b"ab", [1, 2, 3, 4])], 23)
     at = cuda_ext.RULE_SALT_AT
     assert rows[0, at:at + 2].tolist() == [0x00806261, 0]
@@ -226,16 +228,18 @@ def test_group_rows_and_refusals():
     assert {f"{t}_rules" for t in cuda_rules.GROUP_TAILS} <= \
         set(cuda_rules.launches)
     dev = get_engine("sha512-ps", "cuda", torch_device="cpu")
-    gen, _ = _gens(23)
+    target = get_engine("sha512-ps").parse_target("00" * 64 + ":salt")
     with pytest.raises(ValueError, match="--device cpu"):
-        dev.make_wordlist_worker(gen, [], 256, 8)
+        dev.make_wordlist_worker(_gens(108)[0], [target], 256, 8)
+    gen, _ = _gens(23)
+    assert dev.make_wordlist_worker(gen, [target], 256, 8).groups
     words, lens, bc, n_ops = cuda_rules.job_tables(gen, "cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_rules.rules_group_kernel("md5-ps", words, lens, bc, n_ops, 0, 1,
                                       torch.as_tensor(rows.view(np.int32)),
                                       8, 32)
     with pytest.raises(ValueError, match="no rules group tail"):
-        cuda_rules.rules_group_plain("sha512-ps", words, lens, bc, n_ops, 0,
+        cuda_rules.rules_group_plain("sha224-ps", words, lens, bc, n_ops, 0,
                                      1, torch.as_tensor(rows.view(np.int32)),
                                      8, 32)
 
@@ -250,7 +254,11 @@ C_TYPES = {"Md5Core": "md5", "Md4Core": "ntlm", "Sha1Core": "sha1",
            "Md5Ps": "md5-ps", "Md5Sp": "md5-sp", "Sha1Ps": "sha1-ps",
            "Sha1Sp": "sha1-sp", "Sha256Ps": "sha256-ps",
            "Sha256Sp": "sha256-sp", "Sha1PsUtf16": "sha1-ps-utf16",
-           "Krb5Tail": "krb5"}
+           "Krb5Tail": "krb5", "Sha512Core": "sha512", "Sha384Core": "sha384",
+           "Keccak224": "keccak224", "Keccak256": "keccak256",
+           "Keccak384": "keccak384", "Keccak512": "keccak512",
+           "Sha512Ps": "sha512-ps", "Sha512Sp": "sha512-sp",
+           "Sha512PsUtf16": "sha512-ps-utf16"}
 
 
 def _switch(src: str, macro: str) -> dict:
@@ -286,13 +294,16 @@ def test_each_source_dispatches_its_table_cores(src):
 
 
 def test_group_source_dispatches_the_tail_table():
-    """csrc/rules_group.cu's switch: each tail's id of ``GROUP_TAILS``,
-    with the core of ``TAIL_CORES`` holding its candidate."""
-    cases = _switch("rules_group", "DPRF_GROUP_DISPATCH")
-    assert {i: (C_TYPES[core], C_TYPES[tail])
-            for i, (core, tail) in cases.items()} == \
-        {i: (cuda_rules.TAIL_CORES[t], t)
-         for t, i in cuda_rules.GROUP_TAILS.items()}
+    """Each tail source's switch (csrc/rules_group.cu, csrc/rules_wide.cu):
+    each of its tails' ids of ``GROUP_TAILS``, with the core of
+    ``TAIL_CORES`` holding its candidate."""
+    for src, tails in cuda_rules.TAIL_SOURCES.items():
+        cases = _switch(src, "DPRF_GROUP_DISPATCH")
+        assert {i: (C_TYPES[core], C_TYPES[tail])
+                for i, (core, tail) in cases.items()} == \
+            {cuda_rules.GROUP_TAILS[t]: (cuda_rules.TAIL_CORES[t], t)
+             for t in tails}
+        assert all(cuda_rules.source_of(t) == src for t in tails)
 
 
 @pytest.mark.parametrize("variant", ["md5-ps", "sha1-sp", "sha1-ps-utf16"])
